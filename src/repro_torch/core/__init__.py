@@ -1,0 +1,20 @@
+"""repro_torch.core — SPIN inversion and the LU baseline on PyTorch.
+
+As in the JAX package, ``from repro_torch.core import multiply`` gives the
+multiply FUNCTION; ``import repro_torch.core.multiply as m`` gives the
+module.
+"""
+
+from .blockmatrix import BlockMatrix, OpCounts, count_ops
+from .multiply import multiply, multiply_engine, current_engine, validate_engine
+from .spin import spin_inverse, spin_inverse_dense, leaf_inverse, LEAF_SOLVERS
+from .lu_inverse import lu_inverse, lu_inverse_dense, block_lu
+from . import testing, verify
+
+__all__ = [
+    "BlockMatrix", "OpCounts", "count_ops",
+    "multiply", "multiply_engine", "current_engine", "validate_engine",
+    "spin_inverse", "spin_inverse_dense", "leaf_inverse", "LEAF_SOLVERS",
+    "lu_inverse", "lu_inverse_dense", "block_lu",
+    "testing", "verify",
+]

@@ -1,0 +1,158 @@
+"""SPIN conformance for inversion: residuals and the paper's op-count oracle.
+
+  * `inverse_residual` computes ‖AX − I‖∞ in f32, and `residual_tolerance`
+    maps a storage dtype to the bound a correct implementation meets.
+  * `expected_spin_counts(grid)` is the closed form of Algorithm 2's costs
+    (6 multiplies, 2 subtract-class ops, 1 scalarMul per internal node; one
+    leaf inversion per leaf), checked by `assert_paper_op_counts`.
+  * `run_conformance` sweeps `spin_inverse` over the matrix zoo × grids.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from ..device import DEFAULT_DEVICE, resolve_device
+from .blockmatrix import BlockMatrix, OpCounts, count_ops
+from .spin import spin_inverse
+from .testing import MATRIX_FAMILIES
+
+__all__ = ["residual_tolerance", "inverse_residual", "expected_spin_counts",
+           "assert_paper_op_counts", "ConformanceReport", "run_conformance"]
+
+# Storage dtype -> max allowed ∞-norm residual on the zoo's well-posed
+# families.
+_RESIDUAL_TOL = {
+    torch.float64: 1e-9,
+    torch.float32: 1e-3,
+    torch.bfloat16: 2e-2,
+    torch.float16: 1e-2,
+}
+
+
+def residual_tolerance(dtype: torch.dtype) -> float:
+    """The residual bound a conformant implementation meets for `dtype`."""
+    try:
+        return _RESIDUAL_TOL[dtype]
+    except KeyError:
+        raise ValueError(f"no conformance tolerance for dtype {dtype}") from None
+
+
+def inverse_residual(a: torch.Tensor, x: torch.Tensor) -> float:
+    """‖AX − I‖∞ (max-abs) for a claimed inverse X, in full f32 (no TF32)."""
+    n = a.shape[-1]
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        prod = a.float() @ x.float()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    prod.diagonal().sub_(1.0)
+    return float(prod.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# Op-count oracle (paper Algorithm 2)
+# ---------------------------------------------------------------------------
+
+
+def expected_spin_counts(grid: int) -> OpCounts:
+    """Closed-form op counts for SPIN on a b×b grid (b a power of two).
+
+    The tree has b − 1 internal nodes and b leaves. Each internal node does
+    6 multiplies, 2 subtract-class ops, 1 scalarMul, 1 split and 1 arrange;
+    each multiply at a node of half-grid h is h³ block GEMMs.
+    """
+    if grid < 1 or grid & (grid - 1):
+        raise ValueError(f"grid must be a power of two ≥ 1, got {grid}")
+    internal = grid - 1
+    gemms = 0
+    level_nodes, h = 1, grid // 2
+    while h >= 1:
+        gemms += level_nodes * 6 * h ** 3
+        level_nodes, h = level_nodes * 2, h // 2
+    return OpCounts(multiplies=6 * internal, block_gemms=gemms,
+                    subtracts=2 * internal, scalar_muls=internal,
+                    leaf_inversions=grid, splits=internal, arranges=internal)
+
+
+def assert_paper_op_counts(grid: int, counts: OpCounts) -> None:
+    """Assert `counts` (from count_ops over spin_inverse) match the paper."""
+    want = expected_spin_counts(grid).as_dict()
+    got = counts.as_dict()
+    mismatches = {k: (got[k], v) for k, v in want.items() if got[k] != v}
+    if mismatches:
+        raise AssertionError(
+            f"op counts diverge from paper Algorithm 2 at grid {grid} "
+            f"(got, want): {mismatches}")
+
+
+# ---------------------------------------------------------------------------
+# Conformance sweep
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class ConformanceReport:
+    family: str
+    grid: int
+    block_size: int
+    dtype: str
+    inverse_residual: float
+    tolerance: float
+    op_counts_ok: bool
+
+    @property
+    def ok(self) -> bool:
+        return self.op_counts_ok and self.inverse_residual < self.tolerance
+
+    def as_dict(self) -> dict:
+        d = dataclasses.asdict(self)
+        d["ok"] = self.ok
+        return d
+
+
+def run_conformance(grids: Sequence[int] = (2, 4, 8), block_size: int = 32,
+                    dtype: torch.dtype = torch.float32,
+                    families: Sequence[str] = ("spd", "diag_dominant",
+                                               "ill_conditioned_spd",
+                                               "block_banded_spd"),
+                    seed: int = 0, leaf_solver: str = "linalg",
+                    device: str | torch.device = DEFAULT_DEVICE
+                    ) -> list[ConformanceReport]:
+    """Sweep SPIN inversion over the zoo with the ambient engine; a
+    conformant build has every report's `.ok`."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    reports = []
+    for family in families:
+        gen = MATRIX_FAMILIES[family]
+        for grid in grids:
+            n = grid * block_size
+            kwargs = {}
+            if family == "ill_conditioned_spd":
+                kwargs["cond"] = 1e4      # stress, but within f32 reach
+            if family == "block_banded_spd":
+                kwargs["band"] = block_size
+            a = gen(n, rng, dtype=dtype, device=dev, **kwargs)
+            with count_ops() as counts:
+                inv = spin_inverse(BlockMatrix.from_dense(a, block_size),
+                                   leaf_solver=leaf_solver).to_dense()
+            try:
+                assert_paper_op_counts(grid, counts)
+                counts_ok = True
+            except AssertionError:
+                counts_ok = False
+            tol = residual_tolerance(dtype)
+            if family == "ill_conditioned_spd":
+                tol = tol * 1e2   # residual scales with κ·ε
+            reports.append(ConformanceReport(
+                family=family, grid=grid, block_size=block_size,
+                dtype=str(dtype).removeprefix("torch."),
+                inverse_residual=inverse_residual(a, inv), tolerance=tol,
+                op_counts_ok=counts_ok))
+    return reports

@@ -1,0 +1,5 @@
+from . import ops, ref
+from .kernel import blocked_leaf_inverse_cuda, default_panel, leaf_inverse_cuda
+
+__all__ = ["ops", "ref", "leaf_inverse_cuda", "blocked_leaf_inverse_cuda",
+           "default_panel"]

@@ -1,0 +1,89 @@
+"""Wrappers of the Gauss-Jordan leaf kernels (csrc/leaf_inverse.cu).
+
+`leaf_inverse_cuda` replaces `leaf_inverse_pallas` and
+`blocked_leaf_inverse_cuda` replaces `blocked_leaf_inverse_pallas`
+(src/repro/kernels/leaf_inverse/kernel.py). Both invert a contiguous
+(batch, bs, bs) stack by pivot-free Gauss-Jordan swept in f32 and write
+``out_dtype`` (default: the blocks' dtype). The wrappers allocate the f32
+scratch the kernels sweep in.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import DTYPE_CODES, LAUNCHES, check_operand, stream_of
+from ..build import check, load
+from .ref import blocked_gauss_jordan_ref, gauss_jordan_ref
+
+__all__ = ["leaf_inverse_cuda", "blocked_leaf_inverse_cuda", "default_panel",
+           "MAX_PANEL"]
+
+MAX_PANEL = 64  # kPanelMax in csrc/leaf_inverse.cu
+
+
+def default_panel(bs: int, cap: int = MAX_PANEL) -> int:
+    """Largest panel width ≤ cap dividing bs (power-of-two bs -> cap)."""
+    t = min(bs, cap)
+    while bs % t:
+        t -= 1
+    return t
+
+
+def _check(blocks: torch.Tensor, out_dtype) -> torch.dtype:
+    check_operand(blocks, "blocks", 3)
+    if blocks.shape[1] != blocks.shape[2]:
+        raise ValueError(f"expected (batch, bs, bs), got {tuple(blocks.shape)}")
+    out_dtype = out_dtype or blocks.dtype
+    if out_dtype not in DTYPE_CODES:
+        raise ValueError(f"unsupported out_dtype {out_dtype}")
+    if blocks.device.type == "cuda" and not blocks.is_contiguous():
+        raise ValueError("the leaf kernels need contiguous blocks")
+    return out_dtype
+
+
+def leaf_inverse_cuda(blocks: torch.Tensor, out_dtype=None) -> torch.Tensor:
+    """Invert (batch, bs, bs) blocks by scalar Gauss-Jordan."""
+    out_dtype = _check(blocks, out_dtype)
+    if blocks.device.type == "cpu":
+        return gauss_jordan_ref(blocks, out_dtype)
+    batch, bs, _ = blocks.shape
+    scratch = torch.empty((batch, bs, 2 * bs), dtype=torch.float32,
+                          device=blocks.device)
+    out = torch.empty(blocks.shape, dtype=out_dtype, device=blocks.device)
+    with torch.cuda.device(blocks.device):
+        err = load("leaf_inverse").repro_gauss_jordan(
+            blocks.data_ptr(), out.data_ptr(), scratch.data_ptr(), batch, bs,
+            DTYPE_CODES[blocks.dtype], DTYPE_CODES[out_dtype],
+            stream_of(blocks))
+    check(err, "gauss_jordan kernel")
+    LAUNCHES["gauss_jordan"] += 1
+    return out
+
+
+def blocked_leaf_inverse_cuda(blocks: torch.Tensor, panel: int | None = None,
+                              out_dtype=None) -> torch.Tensor:
+    """Invert (batch, bs, bs) blocks by blocked Gauss-Jordan, panel width
+    `panel` (default `default_panel(bs)`; at most 64 on the card)."""
+    out_dtype = _check(blocks, out_dtype)
+    batch, bs, _ = blocks.shape
+    t = panel or default_panel(bs)
+    if bs % t:
+        raise ValueError(f"panel={t} must divide block size {bs}")
+    if blocks.device.type == "cpu":
+        return blocked_gauss_jordan_ref(blocks, t, out_dtype)
+    if t > MAX_PANEL:
+        raise ValueError(f"panel={t} exceeds the kernel's {MAX_PANEL}")
+    dev = blocks.device
+    m = torch.empty((batch, bs, 2 * bs), dtype=torch.float32, device=dev)
+    pan = torch.empty((batch, t, 2 * bs), dtype=torch.float32, device=dev)
+    fac = torch.empty((batch, bs, t), dtype=torch.float32, device=dev)
+    out = torch.empty(blocks.shape, dtype=out_dtype, device=dev)
+    with torch.cuda.device(dev):
+        err = load("leaf_inverse").repro_blocked_gauss_jordan(
+            blocks.data_ptr(), out.data_ptr(), m.data_ptr(), pan.data_ptr(),
+            fac.data_ptr(), batch, bs, t, DTYPE_CODES[blocks.dtype],
+            DTYPE_CODES[out_dtype], stream_of(blocks))
+    check(err, "blocked_gauss_jordan kernel")
+    LAUNCHES["blocked_gauss_jordan"] += 1
+    return out

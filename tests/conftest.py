@@ -95,3 +95,8 @@ import tempfile
 if "SPIN_PLAN_CACHE" not in os.environ:
     os.environ["SPIN_PLAN_CACHE"] = os.path.join(
         tempfile.mkdtemp(prefix="spin_plan_cache_"), "plans.json")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips where there is none")
