@@ -16,9 +16,11 @@
 // are widened to f32 as they are staged into shared memory.
 //
 // Design for that bound: 128 x 128 output tiles, 16-deep k slices staged
-// through shared memory (A stored transposed so that a thread reads its 8
-// A values and 8 B values as float4s), and an 8 x 8 register tile a
-// thread, which gives 64 FMAs for every 16 shared-memory floats read.
+// through two shared-memory buffers (A stored transposed so that a thread
+// reads its 8 A values and 8 B values as float4s), the next slice's loads
+// from device memory in flight while the current slice is multiplied, and
+// an 8 x 8 register tile a thread, which gives 64 FMAs for every 16
+// shared-memory floats read.
 // alpha is folded into the A tile as it is staged, and beta * C seeds the
 // accumulator before the k loop, so the update costs no extra pass over
 // the output. Every load and store is masked, so any (m, n, k) works and
@@ -62,8 +64,13 @@ struct GemmArgs {
 
 template <typename TIn, typename TOut>
 __global__ void __launch_bounds__(kThreads) gemm_kernel(GemmArgs p) {
-  __shared__ __align__(16) float As[kBK][kBM + 4];
-  __shared__ __align__(16) float Bs[kBK][kBN];
+  // Two shared-memory stages: while the block multiplies one k slice, each
+  // thread holds its share of the next slice in registers, loaded from
+  // device memory before the multiply, and stores it after.
+  __shared__ __align__(16) float As[2][kBK][kBM + 4];
+  __shared__ __align__(16) float Bs[2][kBK][kBN];
+  constexpr int kLoads = kBM * kBK / kThreads;  // = kBK * kBN / kThreads
+  static_assert(kLoads * kThreads == kBK * kBN, "tile shapes");
 
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
@@ -100,25 +107,39 @@ __global__ void __launch_bounds__(kThreads) gemm_kernel(GemmArgs p) {
       for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
   }
 
+  float ra[kLoads], rb[kLoads];
+  auto fetch = [&](int k0) {
+#pragma unroll
+    for (int l = 0; l < kLoads; ++l) {
+      const int e = tid + l * kThreads;
+      const int ar = row0 + e / kBK, ak = k0 + e % kBK;
+      ra[l] = (ar < p.m && ak < p.k) ? to_f32(A[ar * p.lda + ak]) : 0.f;
+      const int bk = k0 + e / kBN, bc = col0 + e % kBN;
+      rb[l] = (bk < p.k && bc < p.n) ? to_f32(B[bk * p.ldb + bc]) : 0.f;
+    }
+  };
+  auto stage = [&](int buf) {
+#pragma unroll
+    for (int l = 0; l < kLoads; ++l) {
+      const int e = tid + l * kThreads;
+      As[buf][e % kBK][e / kBK] = p.alpha * ra[l];
+      Bs[buf][e / kBN][e % kBN] = rb[l];
+    }
+  };
+
+  fetch(0);
+  stage(0);
+  __syncthreads();
+  int buf = 0;
   for (int k0 = 0; k0 < p.k; k0 += kBK) {
-    for (int e = tid; e < kBM * kBK; e += kThreads) {
-      const int r = e / kBK, kk = e % kBK;
-      const int gr = row0 + r, gk = k0 + kk;
-      const float v = (gr < p.m && gk < p.k) ? to_f32(A[gr * p.lda + gk]) : 0.f;
-      As[kk][r] = p.alpha * v;
-    }
-    for (int e = tid; e < kBK * kBN; e += kThreads) {
-      const int kk = e / kBN, c = e % kBN;
-      const int gk = k0 + kk, gc = col0 + c;
-      Bs[kk][c] = (gk < p.k && gc < p.n) ? to_f32(B[gk * p.ldb + gc]) : 0.f;
-    }
-    __syncthreads();
+    const bool more = k0 + kBK < p.k;
+    if (more) fetch(k0 + kBK);
 #pragma unroll
     for (int kk = 0; kk < kBK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[kk][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[kk][64 + tx * 4]);
+      const float4 a0 = *reinterpret_cast<const float4*>(&As[buf][kk][ty * 4]);
+      const float4 a1 = *reinterpret_cast<const float4*>(&As[buf][kk][64 + ty * 4]);
+      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[buf][kk][tx * 4]);
+      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[buf][kk][64 + tx * 4]);
       const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
       const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
@@ -126,7 +147,11 @@ __global__ void __launch_bounds__(kThreads) gemm_kernel(GemmArgs p) {
 #pragma unroll
         for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
     }
+    // The other stage was last read before the previous barrier, so it
+    // can be overwritten now; one barrier a slice covers both hazards.
+    if (more) stage(buf ^ 1);
     __syncthreads();
+    buf ^= 1;
   }
 
   TOut* O = static_cast<TOut*>(p.out) + bz * p.so;
