@@ -41,6 +41,9 @@ PEAK_F32_FLOPS = 67e12        # f32 outside the tensor cores
 PEAK_BYTES = 3.35e12          # HBM3
 
 RESIDUAL_BOUND = 1e-3         # f32 residual bound of the conformance table
+SEED = 0
+REPS = 2                      # timed runs of each inversion path
+GJ_N, GJ_BLOCK_SIZE = 2048, 128   # the scalar Gauss-Jordan leaf's path
 
 
 class SmokeFailure(RuntimeError):
@@ -227,13 +230,9 @@ def run_path(torch, name, fn, a, grid, *, expect_launches, op_oracle, reps):
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--n", type=int, default=16384)
+    parser.add_argument("--n", type=int, default=16384,
+                        help="order of the main path's matrix")
     parser.add_argument("--block-size", type=int, default=1024)
-    parser.add_argument("--gj-n", type=int, default=2048)
-    parser.add_argument("--gj-block-size", type=int, default=128)
-    parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--reps", type=int, default=2,
-                        help="timed runs of each inversion path")
     args = parser.parse_args(argv)
 
     import numpy as np
@@ -266,19 +265,19 @@ def main(argv=None) -> int:
         build.load(name)
     print(f"build: {time.perf_counter() - t0:.1f} s for {list(build.SOURCES)}", flush=True)
 
-    rng = np.random.default_rng(args.seed)
+    rng = np.random.default_rng(SEED)
     n, bs = args.n, args.block_size
     grid = n // bs
 
     # 3. kernels against their plain versions, at the main path's shapes:
     # the top-level products are (n/2)³, the leaves bs.
-    report = check_kernels(torch, rng, n // 2, bs, args.gj_block_size)
+    report = check_kernels(torch, rng, n // 2, bs, GJ_BLOCK_SIZE)
 
     # 4. SPIN at full width
     a = testing.make_spd(n, rng, device="cuda")
     spin = run_path(
         torch, "spin", lambda: spin_inverse_dense(a, bs, "cuda", engine="cuda"),
-        a, grid, op_oracle=True, reps=args.reps,
+        a, grid, op_oracle=True, reps=REPS,
         expect_launches={"schur_update": 2 * (grid - 1), "matmul": 4 * (grid - 1),
                          "blocked_gauss_jordan": grid, "gauss_jordan": 0})
     require(spin["op_counts"] == verify.expected_spin_counts(grid).as_dict(),
@@ -286,7 +285,7 @@ def main(argv=None) -> int:
 
     # 5. LU baseline at the same size (multiplies through the matmul kernel)
     lu = run_path(torch, "lu", lambda: lu_inverse_dense(a, bs, engine="cuda"),
-                  a, grid, op_oracle=False, reps=args.reps,
+                  a, grid, op_oracle=False, reps=REPS,
                   expect_launches={"schur_update": 0, "blocked_gauss_jordan": 0,
                                    "gauss_jordan": 0})
     require(lu["launches"]["matmul"] > 0, "lu: the matmul kernel never ran")
@@ -294,13 +293,13 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # 6. the scalar Gauss-Jordan leaf's path
-    gn, gbs = args.gj_n, args.gj_block_size
+    gn, gbs = GJ_N, GJ_BLOCK_SIZE
     ggrid = gn // gbs
     a_gj = testing.make_spd(gn, rng, device="cuda")
     gjp = run_path(
         torch, "spin_gauss_jordan",
         lambda: spin_inverse_dense(a_gj, gbs, "gauss_jordan", engine="cuda"),
-        a_gj, ggrid, op_oracle=True, reps=args.reps,
+        a_gj, ggrid, op_oracle=True, reps=REPS,
         expect_launches={"schur_update": 2 * (ggrid - 1), "matmul": 4 * (ggrid - 1),
                          "gauss_jordan": ggrid, "blocked_gauss_jordan": 0})
 

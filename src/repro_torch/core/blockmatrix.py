@@ -17,7 +17,7 @@ from typing import Iterator
 
 import torch
 
-__all__ = ["BlockMatrix", "OpCounts", "count_ops", "current_counts"]
+__all__ = ["BlockMatrix", "OpCounts", "count_ops"]
 
 
 # ---------------------------------------------------------------------------
@@ -62,10 +62,6 @@ def count_ops() -> Iterator[OpCounts]:
         yield counts
     finally:
         _COUNTS.reset(token)
-
-
-def current_counts() -> OpCounts | None:
-    return _COUNTS.get()
 
 
 def _bump(field: str, by: int = 1) -> None:
@@ -164,9 +160,6 @@ class BlockMatrix:
 
     def neg(self) -> "BlockMatrix":
         return self.scalar_mul(-1.0)
-
-    def transpose(self) -> "BlockMatrix":
-        return BlockMatrix(self.blocks.permute(1, 0, 3, 2))
 
     @classmethod
     def identity(cls, grid: int, block_size: int, dtype=torch.float32,

@@ -8,9 +8,8 @@ library with a plain C interface:
 
 The library's name carries a hash of the sources it is built from, so an
 edit to a source (or to a header under ``csrc/``) rebuilds it. The build
-directory is ``build/repro_torch_kernels`` at the root of the checkout
-(``REPRO_TORCH_BUILD_DIR`` moves it). Importing this module compiles
-nothing and needs no CUDA toolkit.
+directory is ``build/repro_torch_kernels`` at the root of the checkout.
+Importing this module compiles nothing and needs no CUDA toolkit.
 """
 
 from __future__ import annotations
@@ -23,9 +22,10 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["CSRC", "SOURCES", "build_dir", "build_all", "load", "check"]
+__all__ = ["CSRC", "BUILD_DIR", "SOURCES", "build_all", "load", "check"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 SOURCES = ("matmul", "leaf_inverse")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -53,13 +53,6 @@ _SIGNATURES = {
 }
 
 
-def build_dir() -> Path:
-    override = os.environ.get("REPRO_TORCH_BUILD_DIR")
-    if override:
-        return Path(override)
-    return Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-
-
 def _nvcc() -> str:
     found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not Path(found).exists():
@@ -74,7 +67,7 @@ def _library_path(name: str) -> Path:
         digest.update(path.name.encode())
         digest.update(path.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    return build_dir() / f"{name}-{digest.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
 def _compile_command(name: str, out: Path) -> list[str]:
@@ -83,7 +76,7 @@ def _compile_command(name: str, out: Path) -> list[str]:
 
 def build_all(names=SOURCES) -> None:
     """Compile every library not built yet, one nvcc each, all at once."""
-    build_dir().mkdir(parents=True, exist_ok=True)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     pending = []
     for name in names:
         out = _library_path(name)

@@ -38,6 +38,7 @@ using repro::to_f32;
 
 constexpr int kPanelMax = 64;  // largest panel width t
 constexpr int kSlice = 64;     // columns of the panel a block sweeps
+constexpr int kPanelThreads = 512;
 
 __host__ __device__ inline long long cdiv(long long a, long long b) { return (a + b - 1) / b; }
 
@@ -101,46 +102,45 @@ __global__ void __launch_bounds__(1024) gj_scalar(float* mg, int bs, int use_sme
 // Panel mini-sweep: rows [base, base + t) of m[b], columns
 // [blockIdx.x * kSlice, +kSlice), result into p[b] (t x 2bs). The t x t
 // pivot block rides along in every block, so each block has the pivots
-// and factors of every step without exchanging them.
-__global__ void __launch_bounds__(256) gj_panel(const float* mg, float* pg, int bs, int t,
-                                                int base) {
+// and factors of every step without exchanging them. Element e of a
+// t x 64 tile is row e / 64, column e % 64.
+__global__ void __launch_bounds__(kPanelThreads) gj_panel(const float* mg, float* pg, int bs,
+                                                         int t, int base) {
+  static_assert(kPanelMax == 64 && kSlice == 64, "tiles index rows by e >> 6");
   __shared__ float D[kPanelMax][kPanelMax + 1];
   __shared__ float S[kPanelMax][kSlice + 1];
   __shared__ float rd[kPanelMax], rs[kSlice], fac[kPanelMax];
-  const int w = 2 * bs, tid = threadIdx.x, nt = blockDim.x;
+  const int w = 2 * bs, tid = threadIdx.x;
   const int c0 = blockIdx.x * kSlice;
   const int cw = min(kSlice, w - c0);
   const float* M = mg + blockIdx.y * (long long)bs * w;
   float* P = pg + blockIdx.y * (long long)t * w;
+  const int tile = t * 64;
 
-  for (int e = tid; e < t * t; e += nt) {
-    const int i = e / t, q = e - i * t;
-    D[i][q] = M[(long long)(base + i) * w + base + q];
-  }
-  for (int e = tid; e < t * cw; e += nt) {
-    const int i = e / cw, c = e - i * cw;
-    S[i][c] = M[(long long)(base + i) * w + c0 + c];
+  for (int e = tid; e < tile; e += kPanelThreads) {
+    const int i = e >> 6, c = e & 63;
+    if (c < t) D[i][c] = M[(long long)(base + i) * w + base + c];
+    if (c < cw) S[i][c] = M[(long long)(base + i) * w + c0 + c];
   }
   __syncthreads();
   for (int j = 0; j < t; ++j) {
     const float piv = D[j][j];
-    for (int q = tid; q < t; q += nt) rd[q] = D[j][q] / piv;
-    for (int c = tid; c < cw; c += nt) rs[c] = S[j][c] / piv;
-    for (int i = tid; i < t; i += nt) fac[i] = (i == j) ? 0.f : D[i][j];
-    __syncthreads();
-    for (int e = tid; e < t * t; e += nt) {
-      const int i = e / t, q = e - i * t;
-      D[i][q] = (i == j) ? rd[q] : __fsub_rn(D[i][q], __fmul_rn(fac[i], rd[q]));
+    if (tid < t) {
+      rd[tid] = D[j][tid] / piv;
+      fac[tid] = (tid == j) ? 0.f : D[tid][j];
     }
-    for (int e = tid; e < t * cw; e += nt) {
-      const int i = e / cw, c = e - i * cw;
-      S[i][c] = (i == j) ? rs[c] : __fsub_rn(S[i][c], __fmul_rn(fac[i], rs[c]));
+    if (tid < cw) rs[tid] = S[j][tid] / piv;
+    __syncthreads();
+    for (int e = tid; e < tile; e += kPanelThreads) {
+      const int i = e >> 6, c = e & 63;
+      if (c < t) D[i][c] = (i == j) ? rd[c] : __fsub_rn(D[i][c], __fmul_rn(fac[i], rd[c]));
+      if (c < cw) S[i][c] = (i == j) ? rs[c] : __fsub_rn(S[i][c], __fmul_rn(fac[i], rs[c]));
     }
     __syncthreads();
   }
-  for (int e = tid; e < t * cw; e += nt) {
-    const int i = e / cw, c = e - i * cw;
-    P[(long long)i * w + c0 + c] = S[i][c];
+  for (int e = tid; e < tile; e += kPanelThreads) {
+    const int i = e >> 6, c = e & 63;
+    if (c < cw) P[(long long)i * w + c0 + c] = S[i][c];
   }
 }
 
@@ -235,7 +235,7 @@ extern "C" int repro_blocked_gauss_jordan(const void* a, void* out, float* m, fl
   const dim3 panel_grid(static_cast<unsigned>(cdiv(w, kSlice)), batch);
   const int gather_blocks = stride_blocks((long long)batch * (bs * t + t * w));
   for (int base = 0; base < bs; base += t) {
-    gj_panel<<<panel_grid, 256, 0, s>>>(m, p, bs, t, base);
+    gj_panel<<<panel_grid, kPanelThreads, 0, s>>>(m, p, bs, t, base);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
     gj_gather<<<gather_blocks, 256, 0, s>>>(m, p, f, batch, bs, t, base);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;

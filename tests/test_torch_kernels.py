@@ -4,8 +4,7 @@ On the CPU each wrapper of the port runs its kernel's plain PyTorch
 version; the JAX side runs the Pallas kernels in interpret mode, as the
 JAX package's own tests do. Inputs are drawn with numpy from a seed and
 handed to both packages bit for bit through `repro_torch.bridge`. The
-tests marked `cuda` hold the CUDA kernels against their plain versions on
-the card and skip where there is none.
+CUDA kernels themselves are tested on the card by `test_torch_cuda.py`.
 """
 
 import re
@@ -316,47 +315,3 @@ def test_port_sources_have_no_jax_reference_or_spin_names():
         text = path.read_text()
         for pat in forbidden:
             assert not pat.search(text), f"{path}: {pat.pattern}"
-
-
-# ---------------------------------------------------------------------------
-# On the card: each CUDA kernel against its plain version
-# ---------------------------------------------------------------------------
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU; the CUDA kernels have no CPU mode")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("m,k,n", [(1, 1, 1), (100, 37, 129), (256, 512, 384)])
-def test_cuda_gemm_kernels_match_plain(cuda_device, dtype, m, k, n):
-    g = torch.Generator(device="cpu").manual_seed(m * k + n)
-    a, b, c = (torch.randn(s, generator=g).to(cuda_device, dtype)
-               for s in ((m, k), (k, n), (m, n)))
-    kernels.reset_launch_counts()
-    pairs = [(mm.matmul_cuda(a, b), a.float().cpu() @ b.float().cpu()),
-             (mm.schur_update_cuda(c, a, b, alpha=-1.0, beta=1.0),
-              c.float().cpu() - a.float().cpu() @ b.float().cpu())]
-    assert kernels.launch_counts()["matmul"] == 1
-    assert kernels.launch_counts()["schur_update"] == 1
-    tol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
-    for got, want in pairs:
-        assert got.dtype == dtype
-        scale = float(want.abs().max()) + 1e-6
-        assert float((got.float().cpu() - want).abs().max()) <= tol * scale
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("batch,bs", [(1, 64), (3, 128), (1, 256)])
-def test_cuda_leaf_kernels_match_plain(cuda_device, batch, bs):
-    x = torch.from_numpy(_spd_blocks(batch, bs, 6)).to(cuda_device)
-    got = gj.leaf_inverse_cuda(x)
-    want = gj_ref.gauss_jordan_ref(x)
-    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
-    got = gj.blocked_leaf_inverse_cuda(x)
-    want = gj_ref.blocked_gauss_jordan_ref(x, gj.default_panel(bs))
-    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
