@@ -14,13 +14,15 @@ import numpy as np
 import torch
 
 from .core.blockmatrix import BlockMatrix, OpCounts
+from .device import DEFAULT_DEVICE, resolve_device
 
 __all__ = ["to_torch", "to_numpy", "blockmatrix_from_numpy",
            "op_counts_from_dict"]
 
 
-def to_torch(x, device: str | torch.device = "cpu") -> torch.Tensor:
+def to_torch(x, device: str | torch.device = DEFAULT_DEVICE) -> torch.Tensor:
     """numpy (or anything `np.asarray` takes) -> torch, same bits."""
+    device = resolve_device(device)
     arr = np.asarray(x)
     if arr.dtype.name == "bfloat16":
         bits = torch.from_numpy(np.ascontiguousarray(arr).view(np.uint16).copy())
@@ -38,7 +40,7 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def blockmatrix_from_numpy(blocks, device: str | torch.device = "cpu"
+def blockmatrix_from_numpy(blocks, device: str | torch.device = DEFAULT_DEVICE
                            ) -> BlockMatrix:
     """A (b, b, bs, bs) block array -> BlockMatrix."""
     t = to_torch(blocks, device)

@@ -17,6 +17,8 @@ from typing import Iterator
 
 import torch
 
+from ..device import DEFAULT_DEVICE, resolve_device
+
 __all__ = ["BlockMatrix", "OpCounts", "count_ops"]
 
 
@@ -162,13 +164,7 @@ class BlockMatrix:
         return self.scalar_mul(-1.0)
 
     @classmethod
-    def identity(cls, grid: int, block_size: int, dtype=torch.float32,
-                 device: str | torch.device = "cpu") -> "BlockMatrix":
-        eye = torch.eye(grid * block_size, dtype=dtype, device=device)
-        return cls.from_dense(eye, block_size)
-
-    @classmethod
     def zeros(cls, grid: int, block_size: int, dtype=torch.float32,
-              device: str | torch.device = "cpu") -> "BlockMatrix":
+              device: str | torch.device = DEFAULT_DEVICE) -> "BlockMatrix":
         return cls(torch.zeros((grid, grid, block_size, block_size),
-                               dtype=dtype, device=device))
+                               dtype=dtype, device=resolve_device(device)))

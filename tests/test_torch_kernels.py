@@ -40,7 +40,7 @@ BF16_ULP = 2.0 ** -7
 def _pair(x: np.ndarray, dtype: str):
     """The same bits as a JAX array and a torch tensor."""
     j = jnp.asarray(x, jnp.float32).astype(dtype)
-    return j, bridge.to_torch(np.asarray(j))
+    return j, bridge.to_torch(np.asarray(j), device="cpu")
 
 
 def _close(got: torch.Tensor, want, dtype: str, f32_rel: float) -> None:
@@ -250,7 +250,7 @@ def test_cpu_calls_launch_no_kernel():
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_bridge_round_trip_keeps_bits(dtype):
     j = jnp.asarray(_rng(5).standard_normal((8, 8)), jnp.float32).astype(dtype)
-    t = bridge.to_torch(np.asarray(j))
+    t = bridge.to_torch(np.asarray(j), device="cpu")
     assert t.dtype == getattr(torch, dtype)
     back = bridge.to_numpy(t)
     assert back.dtype == np.asarray(j).dtype
@@ -262,13 +262,13 @@ def test_bridge_blocks_and_op_counts():
     jbm = JBlockMatrix.from_dense(a, 16)
     with j_count_ops() as counts:
         j_spin_inverse(jbm)
-    bm = bridge.blockmatrix_from_numpy(np.asarray(jbm.blocks))
+    bm = bridge.blockmatrix_from_numpy(np.asarray(jbm.blocks), device="cpu")
     assert isinstance(bm, BlockMatrix) and bm.grid == 4 and bm.block_size == 16
     np.testing.assert_array_equal(bm.to_dense().numpy(), np.asarray(a))
     oc = bridge.op_counts_from_dict(counts.as_dict())
     assert oc.as_dict() == counts.as_dict()
     with pytest.raises(ValueError):
-        bridge.blockmatrix_from_numpy(np.zeros((2, 3, 4, 4), np.float32))
+        bridge.blockmatrix_from_numpy(np.zeros((2, 3, 4, 4), np.float32), device="cpu")
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
@@ -279,7 +279,10 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     for call in (lambda: spin_inverse_dense(a, 16),
                  lambda: lu_inverse_dense(a, 16),
                  lambda: testing.make_spd(32, np.random.default_rng(0)),
-                 lambda: verify.run_conformance(grids=(2,))):
+                 lambda: verify.run_conformance(grids=(2,)),
+                 lambda: BlockMatrix.zeros(2, 16),
+                 lambda: bridge.to_torch(np.eye(4, dtype=np.float32)),
+                 lambda: bridge.blockmatrix_from_numpy(np.zeros((2, 2, 4, 4), np.float32))):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert spin_inverse_dense(a, 16, device="cpu").device.type == "cpu"

