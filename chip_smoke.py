@@ -8,16 +8,24 @@ Phases, each of which fails the run (non-zero exit) on any fault:
   1. the card's name and power limit, from nvidia-smi;
   2. build every CUDA kernel of the port from src/repro_torch/kernels/csrc;
   3. hold each kernel against its plain PyTorch version on the card, at the
-     main path's shapes, in f32 and bf16, and time kernel, plain version
-     and the one PyTorch library call that computes the same function;
+     main paths' shapes, in f32 and bf16, and time kernel, plain version
+     and the one PyTorch library call that computes the same function
+     (the triangular solve at the solve's widest leaf: a 1024 x 1024
+     packed LU against 1024 x 15616 right-hand sides, both sweeps);
   4. SPIN inversion, `spin_inverse_dense(engine="cuda", leaf_solver="cuda")`,
      at n = 16384, block_size = 1024: residual ‖AX − I‖∞ ≤ 1e-3, op counts
      equal to the paper's oracle, and the kernels it launched;
   5. the paper's baseline, `lu_inverse_dense`, at the same size, timed
      beside SPIN;
-  6. a smaller inversion with `leaf_solver="gauss_jordan"`, the path of
+  6. the inverse-free solve, `spin_solve_dense(engine="cuda",
+     leaf_solver="cuda")`, of the same matrix against 256 right-hand
+     sides: residual ‖AX − B‖∞ / ‖B‖∞ ≤ 1e-3, the inverse-free op profile
+     (no multiply, arrange or leaf inversion), and the kernels it launched
+     (the GEMM and the triangular solve, nothing else);
+  7. a smaller inversion with `leaf_solver="gauss_jordan"`, the path of
      the scalar Gauss-Jordan kernel;
-  7. one JSON line with every kernel's launches, error and times.
+  8. one JSON line with every path's times and residual, and one with
+     every kernel's launches, error and times.
 
 The last line is {"ok": true, "device": {...}}. The script imports only
 the PyTorch port; it exits non-zero without a result when CUDA is missing
@@ -43,6 +51,7 @@ RESIDUAL_BOUND = 1e-3         # f32 residual bound of the conformance table
 SEED = 0
 REPS = 2                      # timed runs of each inversion path
 N, BLOCK_SIZE = 16384, 1024      # the main path: grid 16, four levels
+N_RHS = 256                       # right-hand sides of the solve path
 GJ_N, GJ_BLOCK_SIZE = 2048, 128   # the scalar Gauss-Jordan leaf's path
 
 
@@ -95,11 +104,21 @@ def gauss_jordan_bound_ms(batch: int, bs: int, itemsize: int) -> tuple[float, st
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
+def triangular_solve_bound_ms(batch: int, bs: int, k: int,
+                              itemsize: int) -> tuple[float, str]:
+    # bs²/2 multiply-adds a right-hand side, bs²·k operations; T read once,
+    # B read once and X written once.
+    flops = float(batch) * bs * bs * k
+    nbytes = itemsize * batch * (bs * bs + 2.0 * bs * k)
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
 def max_abs(x, y) -> float:
     return float((x.float() - y.float()).abs().max())
 
 
-def check_kernels(torch, rng, n_gemm: int, bs: int, gj_bs: int) -> dict:
+def check_kernels(torch, rng, n_gemm: int, bs: int, gj_bs: int, tri_k: int) -> dict:
     """Phase 3: every kernel against its plain version, and its times."""
     from repro_torch.kernels.leaf_inverse import kernel as gj, ref as gj_ref
     from repro_torch.kernels.matmul import kernel as mm, ref as mm_ref
@@ -186,6 +205,56 @@ def check_kernels(torch, rng, n_gemm: int, bs: int, gj_bs: int) -> dict:
                     "plain_ms": time_ms(lambda: plain(blocks), 2),
                     "library_ms": time_ms(lambda: torch.linalg.inv(blocks), 5),
                     "bound_ms": bound, "bound_by": by, "shape": f"1x{size}x{size} f32"}
+
+    # The triangular solve at the solve path's widest leaf: the packed LU
+    # of an SPD block as torch.linalg.lu_factor_ex leaves it (column-major),
+    # and the widest right-hand side the recursion hands a leaf.
+    t32 = torch.linalg.lu_factor_ex(make_spd(bs, rng, device=dev))[0][None]
+    b32 = normal(1, bs, tri_k)
+    panel = gj.default_panel(bs)
+    sweeps = {"lower_unit": (True, True), "upper": (False, False)}
+    f32_errs = []
+    for dtype in (torch.float32, torch.bfloat16):
+        t, b = t32.to(dtype), b32.to(dtype)
+        for sweep, (lower, unit) in sweeps.items():
+            got = gj.triangular_solve_cuda(t, b, lower=lower, unit_diagonal=unit)
+            want = gj_ref.blocked_triangular_solve_ref(t, b, panel, lower=lower,
+                                                       unit_diagonal=unit)
+            torch.cuda.synchronize()
+            err = max_abs(got, want)
+            scale = float(want.float().abs().max())
+            # f32: the kernel substitutes directly inside a panel and sums
+            # the panel updates left-looking, where the plain version runs
+            # Gauss-Jordan sweeps and rank-t updates: the same solution,
+            # rounded in another order. bf16: one ulp of the final cast.
+            tol = (1e-4 if dtype == torch.float32 else 2.0 ** -7) * scale
+            print(f"check triangular_solve {sweep} {str(dtype)[6:]} 1x{bs}x{bs} "
+                  f"k={tri_k}: max_abs_err={err!r} tol={tol!r}", flush=True)
+            require(got.dtype == want.dtype and got.shape == want.shape,
+                    f"triangular_solve {sweep} {dtype}: dtype/shape differ")
+            require(bool(torch.isfinite(got.float()).all()),
+                    f"triangular_solve {sweep} {dtype}: non-finite")
+            require(err <= tol, f"triangular_solve {sweep} {dtype}: "
+                                f"max_abs_err {err} > {tol}")
+            if dtype == torch.float32:
+                f32_errs.append(err)
+        del got, want
+    t, b = t32, b32
+    # (kernel, plain version, library) ms of each sweep; the row reports the
+    # unit-lower sweep, and the upper sweep's times ride along.
+    (ms, plain_ms, library_ms), upper = (
+        (time_ms(lambda: gj.triangular_solve_cuda(t, b, lower=lower, unit_diagonal=unit), 5),
+         time_ms(lambda: gj_ref.blocked_triangular_solve_ref(t, b, panel, lower=lower,
+                                                             unit_diagonal=unit), 1),
+         time_ms(lambda: torch.linalg.solve_triangular(t, b, upper=not lower,
+                                                       unitriangular=unit), 5))
+        for lower, unit in sweeps.values())
+    bound, by = triangular_solve_bound_ms(1, bs, tri_k, 4)
+    report["triangular_solve"] = {
+        "max_abs_err": max(f32_errs), "ms": ms, "plain_ms": plain_ms,
+        "library_ms": library_ms, "upper_ms": upper[0], "upper_plain_ms": upper[1],
+        "upper_library_ms": upper[2], "bound_ms": bound, "bound_by": by,
+        "shape": f"1x{bs}x{bs} k={tri_k} f32"}
     return report
 
 
@@ -200,9 +269,10 @@ def timed(torch, fn):
     return out, start.elapsed_time(end)
 
 
-def run_path(torch, name, fn, a, grid, *, expect_launches, op_oracle, reps):
+def run_path(torch, name, fn, a, grid, *, expect_launches, op_oracle, reps, b=None):
     """Drive one path: one warm-up run, then one counted and timed run and
-    `reps - 1` more timed runs."""
+    `reps - 1` more timed runs. With `b` the path solves A X = B and is
+    held to the solve residual, else it inverts A."""
     from repro_torch import kernels
     from repro_torch.core import count_ops, verify
 
@@ -213,10 +283,11 @@ def run_path(torch, name, fn, a, grid, *, expect_launches, op_oracle, reps):
         x, ms = timed(torch, fn)
     launches = kernels.launch_counts()
     times = [ms] + [timed(torch, fn)[1] for _ in range(reps - 1)]
-    res = verify.inverse_residual(a, x)
+    res = verify.inverse_residual(a, x) if b is None else verify.solve_residual(a, x, b)
+    want = a if b is None else b
     print(f"path {name}: n={a.shape[0]} grid={grid} ms={times!r} residual={res!r} "
           f"launches={launches}", flush=True)
-    require(tuple(x.shape) == tuple(a.shape) and x.dtype == a.dtype,
+    require(tuple(x.shape) == tuple(want.shape) and x.dtype == want.dtype,
             f"{name}: result shape/dtype {tuple(x.shape)} {x.dtype}")
     require(bool(torch.isfinite(x).all()), f"{name}: non-finite entries")
     require(res <= RESIDUAL_BOUND, f"{name}: residual {res} > {RESIDUAL_BOUND}")
@@ -244,7 +315,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from repro_torch import kernels
-    from repro_torch.core import lu_inverse_dense, spin_inverse_dense, testing, verify
+    from repro_torch.core import (lu_inverse_dense, spin_inverse_dense,
+                                  spin_solve_dense, testing, verify)
     from repro_torch.kernels import build
 
     # 1. card
@@ -264,9 +336,11 @@ def main() -> int:
     n, bs = N, BLOCK_SIZE
     grid = n // bs
 
-    # 3. kernels against their plain versions, at the main path's shapes:
-    # the top-level products are (n/2)³, the leaves bs.
-    report = check_kernels(torch, rng, n // 2, bs, GJ_BLOCK_SIZE)
+    # 3. kernels against their plain versions, at the main paths' shapes:
+    # the top-level products are (n/2)³, the leaves bs; the solve's widest
+    # leaf sees k = N_RHS + n - bs right-hand sides (the A12 columns of
+    # every level ride along).
+    report = check_kernels(torch, rng, n // 2, bs, GJ_BLOCK_SIZE, N_RHS + n - bs)
 
     # 4. SPIN at full width
     a = testing.make_spd(n, rng, device="cuda")
@@ -284,10 +358,25 @@ def main() -> int:
                   expect_launches={"schur_update": 0, "blocked_gauss_jordan": 0,
                                    "gauss_jordan": 0})
     require(lu["launches"]["matmul"] > 0, "lu: the matmul kernel never ran")
-    del a
+
+    # 6. the inverse-free solve of the same matrix, 256 right-hand sides
+    rhs = torch.from_numpy(rng.standard_normal((n, N_RHS), dtype=np.float32)).cuda()
+    solve = run_path(
+        torch, "spin_solve", lambda: spin_solve_dense(a, rhs, bs, "cuda", engine="cuda"),
+        a, grid, op_oracle=False, reps=REPS, b=rhs,
+        expect_launches={"triangular_solve": 2 * grid, "matmul": 2 * (grid - 1),
+                         "schur_update": 0, "blocked_gauss_jordan": 0,
+                         "gauss_jordan": 0})
+    oc = solve["op_counts"]
+    require(oc["multiplies"] == oc["arranges"] == oc["leaf_inversions"] == 0,
+            f"spin_solve: not inverse-free: {oc}")
+    require(oc["leaf_solves"] == grid and oc["splits"] == grid - 1
+            and oc["solve_applies"] == oc["subtracts"] == 3 * (grid - 1),
+            f"spin_solve: op profile {oc}")
+    del a, rhs
     torch.cuda.empty_cache()
 
-    # 6. the scalar Gauss-Jordan leaf's path
+    # 7. the scalar Gauss-Jordan leaf's path
     gn, gbs = GJ_N, GJ_BLOCK_SIZE
     ggrid = gn // gbs
     a_gj = testing.make_spd(gn, rng, device="cuda")
@@ -301,11 +390,13 @@ def main() -> int:
     print(json.dumps({"paths": {
         "spin": {"n": n, "block_size": bs, "ms": spin["ms"], "residual": spin["residual"]},
         "lu": {"n": n, "block_size": bs, "ms": lu["ms"], "residual": lu["residual"]},
+        "spin_solve": {"n": n, "block_size": bs, "n_rhs": N_RHS, "ms": solve["ms"],
+                       "residual": solve["residual"]},
         "spin_gauss_jordan": {"n": gn, "block_size": gbs, "ms": gjp["ms"],
                               "residual": gjp["residual"]}},
         "card": card}), flush=True)
 
-    # 7. the kernels line
+    # 8. the kernels line
     rows = []
     for name, source, replaces, path in (
             ("schur_update", "src/repro_torch/kernels/csrc/matmul.cu",
@@ -315,15 +406,13 @@ def main() -> int:
             ("blocked_gauss_jordan", "src/repro_torch/kernels/csrc/leaf_inverse.cu",
              "src/repro/kernels/leaf_inverse/kernel.py:171", spin),
             ("gauss_jordan", "src/repro_torch/kernels/csrc/leaf_inverse.cu",
-             "src/repro/kernels/leaf_inverse/kernel.py:77", gjp)):
+             "src/repro/kernels/leaf_inverse/kernel.py:77", gjp),
+            ("triangular_solve", "src/repro_torch/kernels/csrc/leaf_inverse.cu",
+             "src/repro/kernels/leaf_inverse/kernel.py:270", solve)):
         r = report[name]
         require(path["launches"][name] > 0, f"{name}: no launch on its path")
         rows.append({"name": name, "route": "cuda", "source": source,
-                     "replaces": replaces, "launches": path["launches"][name],
-                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                     "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-                     "shape": r["shape"]})
+                     "replaces": replaces, "launches": path["launches"][name], **r})
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,17 +1,19 @@
 """repro_torch — SPIN block-recursive matrix inversion on PyTorch and CUDA.
 
 The PyTorch port of the JAX package `repro`, built for an NVIDIA H100
-(sm_90a). This slice carries inversion: `spin_inverse_dense` (paper
-Algorithm 2) and the LU baseline, with the multiplies, Schur updates and
-leaf inversions in hand-written CUDA kernels (`repro_torch.kernels`).
+(sm_90a). It carries inversion, `spin_inverse_dense` (paper Algorithm 2),
+the LU baseline, and the inverse-free multi-RHS solve `spin_solve_dense`,
+with the multiplies, Schur updates, leaf inversions and triangular solves
+in hand-written CUDA kernels (`repro_torch.kernels`).
 Entry points run on the card by default and raise when it is missing;
 pass ``device="cpu"`` to run the kernels' plain PyTorch versions instead.
 """
 
 from .device import resolve_device
 from .core import (BlockMatrix, OpCounts, count_ops, lu_inverse_dense,
-                   multiply_engine, spin_inverse, spin_inverse_dense)
+                   multiply_engine, spin_inverse, spin_inverse_dense,
+                   spin_solve, spin_solve_dense)
 
 __all__ = ["resolve_device", "BlockMatrix", "OpCounts", "count_ops",
            "multiply_engine", "spin_inverse", "spin_inverse_dense",
-           "lu_inverse_dense"]
+           "lu_inverse_dense", "spin_solve", "spin_solve_dense"]

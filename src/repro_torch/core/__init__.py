@@ -1,4 +1,5 @@
-"""repro_torch.core — SPIN inversion and the LU baseline on PyTorch.
+"""repro_torch.core — SPIN inversion, the inverse-free solve and the LU
+baseline on PyTorch.
 
 As in the JAX package, ``from repro_torch.core import multiply`` gives the
 multiply FUNCTION; ``import repro_torch.core.multiply as m`` gives the
@@ -9,6 +10,9 @@ from .blockmatrix import BlockMatrix, OpCounts, count_ops
 from .multiply import multiply, multiply_engine, current_engine, validate_engine
 from .spin import spin_inverse, spin_inverse_dense, leaf_inverse, LEAF_SOLVERS
 from .lu_inverse import lu_inverse, lu_inverse_dense, block_lu
+from .solve import (spin_solve, spin_solve_dense, spin_inverse_batched,
+                    solve_grid_for)
+from .verify import solve_residual
 from . import testing, verify
 
 __all__ = [
@@ -16,5 +20,7 @@ __all__ = [
     "multiply", "multiply_engine", "current_engine", "validate_engine",
     "spin_inverse", "spin_inverse_dense", "leaf_inverse", "LEAF_SOLVERS",
     "lu_inverse", "lu_inverse_dense", "block_lu",
+    "spin_solve", "spin_solve_dense", "spin_inverse_batched",
+    "solve_grid_for", "solve_residual",
     "testing", "verify",
 ]

@@ -1,0 +1,180 @@
+"""Multi-RHS solve on the SPIN recursion, without forming A⁻¹.
+
+`spin_solve` answers what users of ridge regression and the normal
+equations call: given SPD `A` and a block of right-hand sides `B`, produce
+`X = A⁻¹B` without materializing `A⁻¹`. It reuses the recursion's quadrant
+products (paper Algorithm 2's I/III/V names) in their inverse-free Schur
+form:
+
+    [A11 A12] [X1]   [B1]      III = A11⁻¹ A12   (recursive solve)
+    [A21 A22] [X2] = [B2]      Y1  = A11⁻¹ B1    (same recursive call:
+                                                  the B1 columns ride along)
+    V  = A21·III − A22         (= −Schur complement, the paper's V)
+    X2 = V⁻¹ (A21·Y1 − B2)     (recursive solve on V)
+    X1 = Y1 − III·X2
+
+Per level: 2 recursive solves and 3 block-times-panel products, no
+multiply of two block matrices and no arrange. Under the ``cuda`` engine
+the A21 products run in the GEMM kernel; under ``leaf_solver="cuda"`` each
+leaf factorizes with LU and runs both substitution sweeps in the
+triangular-solve kernel.
+
+`spin_inverse_batched` inverts a (batch, n, n) stack, one
+`spin_inverse_dense` call a matrix.
+"""
+
+from __future__ import annotations
+
+import contextlib
+
+import torch
+
+from ..device import DEFAULT_DEVICE, resolve_device
+from ..kernels.leaf_inverse import ops as tri_ops
+from ..kernels.matmul import ops as mm_ops
+from .blockmatrix import BlockMatrix, _bump
+from .multiply import current_engine, multiply_engine, validate_engine
+from .spin import LEAF_SOLVERS, spin_inverse_dense
+
+__all__ = ["spin_solve", "spin_solve_dense", "spin_inverse_batched",
+           "solve_grid_for"]
+
+def solve_grid_for(n: int, max_grid: int = 8, min_block: int = 64) -> int:
+    """Largest power-of-two grid ≤ max_grid dividing n with blocks ≥ min_block."""
+    g = 1
+    while (g * 2 <= max_grid and n % (g * 2) == 0
+           and n // (g * 2) >= min_block):
+        g *= 2
+    return g
+
+
+def _apply_blocks(a: BlockMatrix, x: torch.Tensor) -> torch.Tensor:
+    """A·X for a BlockMatrix A and a dense (n, k) panel X, summed in f32 and
+    returned in x's dtype. Under the ``cuda`` engine it is one launch of
+    the GEMM kernel over A's dense view."""
+    _bump("solve_applies")
+    if current_engine() == "cuda":
+        dense = mm_ops.blocks_to_dense(a.blocks)
+        common = torch.promote_types(dense.dtype, x.dtype)
+        out = mm_ops.matmul(dense.to(common), x.to(common),
+                            out_dtype=torch.float32)
+        return out.to(x.dtype)
+    b, _, bs, _ = a.blocks.shape
+    xb = x.reshape(b, bs, x.shape[-1])
+    out = torch.einsum("ijab,jbk->iak", a.blocks.float(), xb.float())
+    return out.reshape(b * bs, x.shape[-1]).to(x.dtype)
+
+
+def _lu_permutation(lu: torch.Tensor, pivots: torch.Tensor) -> torch.Tensor:
+    # LAPACK's pivots are sequential 1-based row swaps; P from lu_unpack has
+    # one 1 a column, in the row that row i of L·U came from. Computed on
+    # the device: no host loop over the pivots.
+    p = torch.lu_unpack(lu, pivots, unpack_data=False)[0]
+    return p.argmax(dim=0)
+
+
+def _leaf_solve(block: torch.Tensor, rhs: torch.Tensor, solver: str) -> torch.Tensor:
+    """Solve the grid == 1 system. The leaf solvers are those of the
+    inversion, by name: `linalg` and `cuda` (LU, then the triangular-solve
+    kernel twice) solve without an inverse; the others apply their leaf
+    inverse to the right-hand side."""
+    _bump("leaf_solves")
+    f32 = block.float()
+    r32 = rhs.float()
+    if solver == "linalg":
+        return torch.linalg.solve(f32, r32).to(rhs.dtype)
+    if solver == "cuda":
+        lu, pivots, _ = torch.linalg.lu_factor_ex(f32)
+        y = tri_ops.triangular_solve(lu, r32[_lu_permutation(lu, pivots)],
+                                     lower=True, unit_diagonal=True)
+        return tri_ops.triangular_solve(lu, y, lower=False).to(rhs.dtype)
+    inv = LEAF_SOLVERS[solver](block)
+    return (inv.float() @ r32).to(rhs.dtype)
+
+
+def _solve(a: BlockMatrix, b: torch.Tensor, leaf_solver: str) -> torch.Tensor:
+    if a.grid == 1:
+        return _leaf_solve(a.blocks[0, 0], b, leaf_solver)
+
+    bs = a.block_size
+    a11, a12, a21, a22 = a.split()
+    half = a11.n
+    b1, b2 = b[:half], b[half:]
+
+    # One recursive solve covers both III (= A11⁻¹A12) and Y1 (= A11⁻¹B1):
+    # the B1 columns ride along as extra right-hand sides.
+    z = _solve(a11, torch.cat([a12.to_dense(), b1], dim=1), leaf_solver)
+    iii, y1 = z[:, :half], z[:, half:]
+
+    v = _apply_blocks(a21, iii) - a22.to_dense()          # −Schur complement
+    _bump("subtracts")
+    rhs2 = _apply_blocks(a21, y1) - b2
+    _bump("subtracts")
+    x2 = _solve(BlockMatrix.from_dense(v, bs), rhs2, leaf_solver)
+
+    _bump("solve_applies")                                # III·X2 panel GEMM
+    x1 = y1 - torch.matmul(iii.float(), x2.float()).to(y1.dtype)
+    _bump("subtracts")
+    return torch.cat([x1, x2], dim=0)
+
+
+def spin_solve(a: BlockMatrix, b: torch.Tensor, *,
+               leaf_solver: str = "linalg") -> torch.Tensor:
+    """Solve A X = B via the inverse-free SPIN recursion, on the device A's
+    blocks lie on, with the ambient multiply engine.
+
+    a: BlockMatrix with a power-of-two grid (SPD or with invertible
+    leading blocks, the paper's class). b: (n, k) or (n,). Returns X with
+    b's shape and dtype.
+    """
+    grid = a.grid
+    if grid & (grid - 1):
+        raise ValueError(f"grid must be a power of two, got {grid}")
+    if b.shape[0] != a.n:
+        raise ValueError(f"rhs rows {b.shape[0]} != matrix dim {a.n}")
+    if b.device != a.device:
+        raise ValueError(f"rhs lies on {b.device}, the matrix on {a.device}")
+    if leaf_solver not in LEAF_SOLVERS:
+        raise ValueError(f"unknown leaf solver {leaf_solver!r}; this package "
+                         f"has {tuple(LEAF_SOLVERS)}")
+    vector = b.ndim == 1
+    x = _solve(a, b[:, None] if vector else b, leaf_solver)
+    return x[:, 0] if vector else x
+
+
+def spin_solve_dense(a, b, block_size: int, leaf_solver: str = "linalg", *,
+                     engine: str | None = None,
+                     device: str | torch.device = DEFAULT_DEVICE
+                     ) -> torch.Tensor:
+    """Dense (n, n) A and (n, k) or (n,) B -> X, computed on `device`.
+
+    `a` and `b` are tensors or anything `torch.as_tensor` takes; both are
+    moved to `device` first. engine=None inherits the ambient
+    `multiply_engine`.
+    """
+    validate_engine(engine)
+    dev = resolve_device(device)
+    a = torch.as_tensor(a).to(dev)
+    b = torch.as_tensor(b).to(dev)
+    ctx = multiply_engine(engine) if engine else contextlib.nullcontext()
+    with ctx:
+        return spin_solve(BlockMatrix.from_dense(a, block_size), b,
+                          leaf_solver=leaf_solver)
+
+
+def spin_inverse_batched(batch, block_size: int, leaf_solver: str = "linalg",
+                         *, engine: str | None = None,
+                         device: str | torch.device = DEFAULT_DEVICE
+                         ) -> torch.Tensor:
+    """SPIN-invert a (batch, n, n) stack of SPD matrices on `device`.
+
+    Each slice goes through `spin_inverse_dense` with the same arguments,
+    so it is bitwise equal to the per-matrix call.
+    """
+    batch = torch.as_tensor(batch)
+    if batch.ndim != 3:
+        raise ValueError(f"expected (batch, n, n), got {tuple(batch.shape)}")
+    validate_engine(engine)
+    return torch.stack([spin_inverse_dense(m, block_size, leaf_solver,
+                                           engine=engine, device=device)
+                        for m in batch])

@@ -1,11 +1,13 @@
-"""SPIN conformance for inversion: residuals and the paper's op-count oracle.
+"""SPIN conformance: residuals and the paper's op-count oracle.
 
-  * `inverse_residual` computes ‖AX − I‖∞ in f32, and `residual_tolerance`
-    maps a storage dtype to the bound a correct implementation meets.
+  * `inverse_residual` computes ‖AX − I‖∞ and `solve_residual`
+    ‖AX − B‖∞ / ‖B‖∞, in f32; `residual_tolerance` maps a storage dtype
+    to the bound a correct implementation meets.
   * `expected_spin_counts(grid)` is the closed form of Algorithm 2's costs
     (6 multiplies, 2 subtract-class ops, 1 scalarMul per internal node; one
     leaf inversion per leaf), checked by `assert_paper_op_counts`.
-  * `run_conformance` sweeps `spin_inverse` over the matrix zoo × grids.
+  * `run_conformance` sweeps `spin_inverse` and `spin_solve` over the
+    matrix zoo × grids.
 """
 
 from __future__ import annotations
@@ -18,10 +20,12 @@ import torch
 
 from ..device import DEFAULT_DEVICE, resolve_device
 from .blockmatrix import BlockMatrix, OpCounts, count_ops
+from .solve import spin_solve
 from .spin import spin_inverse
 from .testing import MATRIX_FAMILIES
 
-__all__ = ["residual_tolerance", "inverse_residual", "expected_spin_counts",
+__all__ = ["residual_tolerance", "inverse_residual", "solve_residual",
+           "expected_spin_counts",
            "assert_paper_op_counts", "ConformanceReport", "run_conformance"]
 
 # Storage dtype -> max allowed ∞-norm residual on the zoo's well-posed
@@ -42,17 +46,29 @@ def residual_tolerance(dtype: torch.dtype) -> float:
         raise ValueError(f"no conformance tolerance for dtype {dtype}") from None
 
 
-def inverse_residual(a: torch.Tensor, x: torch.Tensor) -> float:
-    """‖AX − I‖∞ (max-abs) for a claimed inverse X, in full f32 (no TF32)."""
-    n = a.shape[-1]
+def _f32_product(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A·X in full f32: TF32 off for the call."""
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        prod = a.float() @ x.float()
+        return a.float() @ x.float()
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def inverse_residual(a: torch.Tensor, x: torch.Tensor) -> float:
+    """‖AX − I‖∞ (max-abs) for a claimed inverse X, in full f32 (no TF32)."""
+    prod = _f32_product(a, x)
     prod.diagonal().sub_(1.0)
     return float(prod.abs().max())
+
+
+def solve_residual(a: torch.Tensor, x: torch.Tensor, b: torch.Tensor) -> float:
+    """‖AX − B‖∞ / ‖B‖∞ (max-abs) for a claimed solution X of AX = B, in
+    full f32 (no TF32)."""
+    b32 = b.float()
+    resid = (_f32_product(a, x) - b32).abs().max()
+    return float(resid / (b32.abs().max() + 1e-30))
 
 
 # ---------------------------------------------------------------------------
@@ -81,10 +97,16 @@ def expected_spin_counts(grid: int) -> OpCounts:
 
 
 def assert_paper_op_counts(grid: int, counts: OpCounts) -> None:
-    """Assert `counts` (from count_ops over spin_inverse) match the paper."""
+    """Assert `counts` (from count_ops over spin_inverse) match the paper.
+
+    The solve path's counters (`leaf_lu`, `leaf_solves`, `solve_applies`)
+    are not the oracle's, so a record that counted a solve beside the
+    inversion still passes.
+    """
     want = expected_spin_counts(grid).as_dict()
     got = counts.as_dict()
-    mismatches = {k: (got[k], v) for k, v in want.items() if got[k] != v}
+    mismatches = {k: (got[k], v) for k, v in want.items() if got[k] != v
+                  and k not in ("leaf_lu", "leaf_solves", "solve_applies")}
     if mismatches:
         raise AssertionError(
             f"op counts diverge from paper Algorithm 2 at grid {grid} "
@@ -103,12 +125,14 @@ class ConformanceReport:
     block_size: int
     dtype: str
     inverse_residual: float
+    solve_residual: float
     tolerance: float
     op_counts_ok: bool
 
     @property
     def ok(self) -> bool:
-        return self.op_counts_ok and self.inverse_residual < self.tolerance
+        return (self.op_counts_ok and self.inverse_residual < self.tolerance
+                and self.solve_residual < self.tolerance)
 
     def as_dict(self) -> dict:
         d = dataclasses.asdict(self)
@@ -117,15 +141,16 @@ class ConformanceReport:
 
 
 def run_conformance(grids: Sequence[int] = (2, 4, 8), block_size: int = 32,
-                    dtype: torch.dtype = torch.float32,
+                    n_rhs: int = 4, dtype: torch.dtype = torch.float32,
                     families: Sequence[str] = ("spd", "diag_dominant",
                                                "ill_conditioned_spd",
                                                "block_banded_spd"),
                     seed: int = 0, leaf_solver: str = "linalg",
                     device: str | torch.device = DEFAULT_DEVICE
                     ) -> list[ConformanceReport]:
-    """Sweep SPIN inversion over the zoo with the ambient engine; a
-    conformant build has every report's `.ok`."""
+    """Sweep SPIN inversion and the `n_rhs`-column solve over the zoo with
+    the ambient engine and `leaf_solver`; a conformant build has every
+    report's `.ok`."""
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
     reports = []
@@ -139,9 +164,12 @@ def run_conformance(grids: Sequence[int] = (2, 4, 8), block_size: int = 32,
             if family == "block_banded_spd":
                 kwargs["band"] = block_size
             a = gen(n, rng, dtype=dtype, device=dev, **kwargs)
+            rhs = torch.from_numpy(rng.standard_normal(
+                (n, n_rhs), dtype=np.float32)).to(dev, dtype)
+            bm = BlockMatrix.from_dense(a, block_size)
             with count_ops() as counts:
-                inv = spin_inverse(BlockMatrix.from_dense(a, block_size),
-                                   leaf_solver=leaf_solver).to_dense()
+                inv = spin_inverse(bm, leaf_solver=leaf_solver).to_dense()
+            x = spin_solve(bm, rhs, leaf_solver=leaf_solver)
             try:
                 assert_paper_op_counts(grid, counts)
                 counts_ok = True
@@ -153,6 +181,7 @@ def run_conformance(grids: Sequence[int] = (2, 4, 8), block_size: int = 32,
             reports.append(ConformanceReport(
                 family=family, grid=grid, block_size=block_size,
                 dtype=str(dtype).removeprefix("torch."),
-                inverse_residual=inverse_residual(a, inv), tolerance=tol,
+                inverse_residual=inverse_residual(a, inv),
+                solve_residual=solve_residual(a, x, rhs), tolerance=tol,
                 op_counts_ok=counts_ok))
     return reports

@@ -49,6 +49,8 @@ _SIGNATURES = {
         "repro_gauss_jordan": (_P, _P, _P, _I, _I, _I, _I, _P),
         "repro_blocked_gauss_jordan": (_P, _P, _P, _P, _P, _I, _I, _I, _I,
                                        _I, _P),
+        "repro_triangular_solve": (_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L,
+                                   _I, _I, _I, _I, _P),
     },
 }
 

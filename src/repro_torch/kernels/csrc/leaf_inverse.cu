@@ -29,6 +29,45 @@
 //  * Products and differences in the sweeps are rounded separately
 //    (__fmul_rn, __fsub_rn), as the plain PyTorch versions round them, so
 //    the sweeps are step-exact against them.
+//
+// repro_triangular_solve replaces `triangular_solve_pallas`: T X = B for a
+// batch of triangular (or packed-LU) T, bs x bs, and B, bs x k, swept in
+// f32, reading only the targeted triangle of T.
+//
+// What bounds it on an H100: bs^2 k operations against 4 (bs^2 + 2 bs k)
+// bytes, so at SPIN's leaves (bs = 1024, k up to 15616) it is bound by the
+// f32 FMA rate. The TPU kernel keeps the whole (bs, k) right-hand side in
+// VMEM and one grid step sweeps every panel; at bs = 1024, k = 15616 that
+// is 64 MB, against 227 KB of shared memory a block.
+//
+// What the design does about it:
+//  * Columns of the right-hand side are independent, so each block owns a
+//    strip of kTriStrip columns (grid: strips x batch) and walks the
+//    panels of t rows in order, with no exchange between blocks.
+//  * Left-looking: for panel p the block first subtracts the already
+//    solved rows, acc = B_p - T[p, :base] X[:base], as a tiled product
+//    (4 x 4 register tile a thread, T and X staged through shared memory
+//    kTriDepth deep, the next chunk loaded while the current one is
+//    multiplied), then substitutes against the t x t diagonal block in
+//    shared memory, and writes X_p once. T (4 MB at bs = 1024) and the
+//    f32 solution stay in the 50 MB L2 for all the strips.
+//  * A block's walk is a chain of dependent steps, and SPIN's narrow
+//    leaves give few blocks, so the walk's latency, not the card's FMA
+//    rate, sets the time: the substitution's t steps a panel run in
+//    registers inside one warp each (each warp owns 8 columns), with no
+//    barrier and no shared-memory round trip on the chain. That takes
+//    about 200 registers a thread, so one block an SM: capping them at
+//    128 for two blocks spilled and slowed the narrow leaves more than it
+//    sped the wide ones, on an H100.
+//  * The upper sweep is the lower sweep on T flipped about both axes (row
+//    and column i read as bs - 1 - i), so one kernel does both.
+//  * T is read through its strides: the LU that torch.linalg.lu_factor
+//    returns is column-major, and the loads of T follow whichever of its
+//    strides is unit, so they stay coalesced.
+//  * The substitution inside a panel is direct (x_j = rhs_j / d_jj, then
+//    the rows below), not the TPU kernel's Gauss-Jordan sweep on
+//    [D | rhs_p], and the panel updates sum in another order than the
+//    plain version's rank-t updates; the two agree to rounding.
 #include "gemm_tile.cuh"
 
 namespace {
@@ -199,6 +238,186 @@ cudaError_t extract(const float* m, void* out, int batch, int bs, int out_dtype,
   return cudaErrorInvalidValue;
 }
 
+
+// ---------------------------------------------------------------------------
+// Blocked triangular solve
+// ---------------------------------------------------------------------------
+
+constexpr int kTriPanelMax = 64;  // largest panel t (rows solved together)
+constexpr int kTriStrip = 64;     // right-hand-side columns of one block
+constexpr int kTriDepth = 32;     // depth of one staged chunk of T's panel row
+constexpr int kTriThreads = 256;
+constexpr int kTriLoads = kTriPanelMax * kTriDepth / kTriThreads;  // per thread
+constexpr int kTriSPitch = kTriStrip + 8;  // row pitch of S: see the mapping
+
+struct TriArgs {
+  const void* t;
+  const void* b;
+  float* work;  // (batch, bs, k) f32: the solution as it is solved
+  void* out;    // (batch, bs, k) in b's type, or nullptr when work is the output
+  int bs, k, panel;
+  long long st_batch, st_row, st_col;  // strides of T, in elements
+  int lower, unit;
+};
+
+// Row or column of T (or row of B and X) that logical index i names: the
+// upper sweep reads everything flipped, which makes it a lower sweep.
+__device__ __forceinline__ int flip(int i, int bs, int lower) { return lower ? i : bs - 1 - i; }
+
+// One block: columns [blockIdx.x * kTriStrip, +kTriStrip) of system
+// blockIdx.y.
+//  * Panel product: thread (ty, tx) owns rows ty + 16 r and columns
+//    tx + 16 q of the t x 64 accumulator. The next chunk of T and X is
+//    loaded into registers while the current one is multiplied.
+//  * Substitution: warp w owns columns 8 w .. 8 w + 7, lane l column
+//    8 w + (l & 7) and rows (l >> 3) + 4 r, in registers, so the t
+//    dependent steps of a panel stay inside one warp and pass x_j by
+//    shuffle. S's pitch of 72 puts the 32 lanes' rows and columns on 32
+//    different banks as they load their rows.
+template <typename TT, typename TB>
+__global__ void __launch_bounds__(kTriThreads) tri_solve(TriArgs a) {
+  static_assert(kTriThreads == 256 && kTriStrip == 64 && kTriPanelMax == 64,
+                "the thread mappings assume a 64 x 64 panel tile on 256 threads");
+  // The staged chunks and the panel's right-hand sides are never live at
+  // once, so they share their shared memory.
+  __shared__ union {
+    struct {
+      float Ts[kTriPanelMax][kTriDepth + 1];
+      float Xs[kTriDepth][kTriStrip];
+    } chunk;
+    float S[kTriPanelMax][kTriSPitch];
+  } sm;
+  __shared__ float D[kTriPanelMax][kTriPanelMax + 1];
+  const int tid = threadIdx.x, bs = a.bs, k = a.k, t = a.panel, lower = a.lower;
+  const int c0 = blockIdx.x * kTriStrip;
+  const long long sys = blockIdx.y, rk = (long long)bs * k;
+  const TT* T = static_cast<const TT*>(a.t) + sys * a.st_batch;
+  const TB* B = static_cast<const TB*>(a.b) + sys * rk;
+  float* X = a.work + sys * rk;
+  TB* O = a.out ? static_cast<TB*>(a.out) + sys * rk : nullptr;
+  // Consecutive threads walk T's unit-stride axis.
+  const bool col_major = a.st_row == 1 && a.st_col != 1;
+  const int tx = tid & 15, ty = tid >> 4;
+  const int lane = tid & 31, sc = (tid >> 5) * 8 + (lane & 7), g = lane >> 3;
+  auto tval = [&](int i, int j) {  // logical T[i][j], in f32
+    return to_f32(T[flip(i, bs, lower) * a.st_row + flip(j, bs, lower) * a.st_col]);
+  };
+  // Element n of this thread's share of a chunk: (i, j) of T's t x 32 part,
+  // (jx, c) of X's 32 x 64 part.
+  auto t_at = [&](int n, int& i, int& j) {
+    const int e = tid + n * kTriThreads;
+    i = col_major ? e % kTriPanelMax : e / kTriDepth;
+    j = col_major ? e / kTriPanelMax : e % kTriDepth;
+  };
+  float tr[kTriLoads], xr[kTriLoads];
+  auto fetch = [&](int base, int kk) {
+#pragma unroll
+    for (int n = 0; n < kTriLoads; ++n) {
+      int i, j;
+      t_at(n, i, j);
+      tr[n] = (i < t && kk + j < base) ? tval(base + i, kk + j) : 0.f;
+      const int e = tid + n * kTriThreads, jx = e / kTriStrip, c = e % kTriStrip;
+      xr[n] = (kk + jx < base && c0 + c < k)
+                  ? X[(long long)flip(kk + jx, bs, lower) * k + c0 + c] : 0.f;
+    }
+  };
+
+  for (int base = 0; base < bs; base += t) {
+    float acc[4][4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int i = ty + 16 * r, c = c0 + tx + 16 * q;
+        acc[r][q] = (i < t && c < k) ? to_f32(B[(long long)flip(base + i, bs, lower) * k + c]) : 0.f;
+      }
+    // acc -= T[base:base+t, :base] @ X[:base], over the solved rows only.
+    if (base > 0) fetch(base, 0);
+    for (int kk = 0; kk < base; kk += kTriDepth) {
+#pragma unroll
+      for (int n = 0; n < kTriLoads; ++n) {
+        int i, j;
+        t_at(n, i, j);
+        sm.chunk.Ts[i][j] = tr[n];
+        const int e = tid + n * kTriThreads;
+        sm.chunk.Xs[e / kTriStrip][e % kTriStrip] = xr[n];
+      }
+      __syncthreads();
+      if (kk + kTriDepth < base) fetch(base, kk + kTriDepth);
+#pragma unroll
+      for (int j = 0; j < kTriDepth; ++j) {
+        float tv[4], xv[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) tv[r] = sm.chunk.Ts[ty + 16 * r][j];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) xv[q] = sm.chunk.Xs[j][tx + 16 * q];
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc[r][q] = fmaf(-tv[r], xv[q], acc[r][q]);
+      }
+      __syncthreads();
+    }
+    // The diagonal block, from the targeted triangle only, and the panel's
+    // right-hand sides.
+    for (int e = tid; e < kTriPanelMax * kTriPanelMax; e += kTriThreads) {
+      const int i = col_major ? e % kTriPanelMax : e / kTriPanelMax;
+      const int j = col_major ? e / kTriPanelMax : e % kTriPanelMax;
+      if (i < t && j < i) D[i][j] = tval(base + i, base + j);
+      if (i < t && j == i) D[i][i] = a.unit ? 1.f : tval(base + i, base + i);
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) sm.S[ty + 16 * r][tx + 16 * q] = acc[r][q];
+    __syncthreads();
+    // Forward substitution in registers: a lane holds rows g + 4 r of its
+    // column, and step j takes x_j from the lane that holds row j (final
+    // after steps 0 .. j-1) by a shuffle, then updates the rows below it.
+    // The steps are unrolled so that every register index is a constant.
+    float sr[kTriPanelMax / 4];
+#pragma unroll
+    for (int r = 0; r < kTriPanelMax / 4; ++r) sr[r] = sm.S[g + 4 * r][sc];
+    const bool live = c0 + sc < k;
+#pragma unroll
+    for (int j = 0; j < kTriPanelMax; ++j) {
+      if (j == t) break;
+      float x = __shfl_sync(0xffffffffu, sr[j >> 2], (lane & 7) + 8 * (j & 3));
+      if (!a.unit) x = __fdiv_rn(x, D[j][j]);
+#pragma unroll
+      for (int r = 0; r < kTriPanelMax / 4; ++r) {
+        const int i = g + 4 * r;
+        if (i > j && i < t) sr[r] = __fsub_rn(sr[r], __fmul_rn(D[i][j], x));
+      }
+      if (live && g == (j & 3)) {
+        const long long off = (long long)flip(base + j, bs, lower) * k + c0 + sc;
+        X[off] = x;
+        if (O) O[off] = from_f32<TB>(x);
+      }
+    }
+    // Every warp is done with S and D (and its stores of X are visible)
+    // before the next panel stages its chunks over S.
+    __syncthreads();
+  }
+}
+
+template <typename TT, typename TB>
+cudaError_t tri_solve_t(const TriArgs& args, int batch, cudaStream_t s) {
+  const dim3 grid(static_cast<unsigned>(cdiv(args.k, kTriStrip)), batch);
+  tri_solve<TT, TB><<<grid, kTriThreads, 0, s>>>(args);
+  return cudaGetLastError();
+}
+
+template <typename TT>
+cudaError_t tri_solve_b(const TriArgs& args, int batch, int b_dtype, cudaStream_t s) {
+  switch (b_dtype) {
+    case repro::kF32: return tri_solve_t<TT, float>(args, batch, s);
+    case repro::kBF16: return tri_solve_t<TT, __nv_bfloat16>(args, batch, s);
+    case repro::kF16: return tri_solve_t<TT, __half>(args, batch, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // Scalar Gauss-Jordan. m: (batch, bs, 2bs) f32 scratch.
@@ -248,4 +467,24 @@ extern "C" int repro_blocked_gauss_jordan(const void* a, void* out, float* m, fl
     if (err != cudaSuccess) return err;
   }
   return extract(m, out, batch, bs, out_dtype, s);
+}
+
+// Blocked triangular solve T X = B, panel width t (t <= 64, t divides bs).
+// t: (batch, bs, bs) at strides (st_batch, st_row, st_col); b, out:
+// (batch, bs, k) contiguous; work: (batch, bs, k) f32 scratch, which is
+// the output itself when out is nullptr (b in f32).
+extern "C" int repro_triangular_solve(const void* t, const void* b, float* work, void* out,
+                                      int batch, int bs, int k, int panel, long long st_batch,
+                                      long long st_row, long long st_col, int lower, int unit,
+                                      int t_dtype, int b_dtype, void* stream) {
+  if (batch == 0 || bs == 0 || k == 0) return 0;
+  if (panel < 1 || panel > kTriPanelMax || bs % panel) return cudaErrorInvalidValue;
+  const TriArgs args{t, b, work, out, bs, k, panel, st_batch, st_row, st_col, lower, unit};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (t_dtype) {
+    case repro::kF32: return tri_solve_b<float>(args, batch, b_dtype, s);
+    case repro::kBF16: return tri_solve_b<__nv_bfloat16>(args, batch, b_dtype, s);
+    case repro::kF16: return tri_solve_b<__half>(args, batch, b_dtype, s);
+  }
+  return cudaErrorInvalidValue;
 }

@@ -1,11 +1,13 @@
-"""Wrappers of the Gauss-Jordan leaf kernels (csrc/leaf_inverse.cu).
+"""Wrappers of the leaf kernels (csrc/leaf_inverse.cu).
 
 `leaf_inverse_cuda` replaces `leaf_inverse_pallas` and
 `blocked_leaf_inverse_cuda` replaces `blocked_leaf_inverse_pallas`
 (src/repro/kernels/leaf_inverse/kernel.py). Both invert a contiguous
 (batch, bs, bs) stack by pivot-free Gauss-Jordan swept in f32 and write
-``out_dtype`` (default: the blocks' dtype). The wrappers allocate the f32
-scratch the kernels sweep in.
+``out_dtype`` (default: the blocks' dtype). `triangular_solve_cuda`
+replaces `triangular_solve_pallas`: T X = B for triangular or packed-LU T,
+swept in f32, X in b's dtype. The wrappers allocate the f32 scratch the
+kernels sweep in.
 """
 
 from __future__ import annotations
@@ -14,12 +16,13 @@ import torch
 
 from .. import DTYPE_CODES, LAUNCHES, check_operand, stream_of
 from ..build import check, load
-from .ref import blocked_gauss_jordan_ref, gauss_jordan_ref
+from .ref import (blocked_gauss_jordan_ref, blocked_triangular_solve_ref,
+                  gauss_jordan_ref)
 
-__all__ = ["leaf_inverse_cuda", "blocked_leaf_inverse_cuda", "default_panel",
-           "MAX_PANEL"]
+__all__ = ["leaf_inverse_cuda", "blocked_leaf_inverse_cuda",
+           "triangular_solve_cuda", "default_panel", "MAX_PANEL"]
 
-MAX_PANEL = 64  # kPanelMax in csrc/leaf_inverse.cu
+MAX_PANEL = 64  # kPanelMax and kTriPanelMax in csrc/leaf_inverse.cu
 
 
 def default_panel(bs: int, cap: int = MAX_PANEL) -> int:
@@ -86,4 +89,50 @@ def blocked_leaf_inverse_cuda(blocks: torch.Tensor, panel: int | None = None,
             DTYPE_CODES[out_dtype], stream_of(blocks))
     check(err, "blocked_gauss_jordan kernel")
     LAUNCHES["blocked_gauss_jordan"] += 1
+    return out
+
+
+def triangular_solve_cuda(t: torch.Tensor, b: torch.Tensor,
+                          panel: int | None = None, *, lower: bool = True,
+                          unit_diagonal: bool = False) -> torch.Tensor:
+    """Solve T X = B for (batch, bs, bs) T and (batch, bs, k) B, panel
+    width `panel` (default `default_panel(bs)`; at most 64 on the card).
+
+    Only the targeted triangle of T is read, and under `unit_diagonal` not
+    its diagonal, so a packed LU serves both sweeps. T may have any
+    strides (torch.linalg.lu_factor returns it column-major); B must be
+    contiguous on the card. X has b's dtype.
+    """
+    check_operand(t, "t", 3)
+    check_operand(b, "b", 3)
+    if t.shape[1] != t.shape[2]:
+        raise ValueError(f"expected (batch, bs, bs), got {tuple(t.shape)}")
+    if b.shape[:2] != t.shape[:2]:
+        raise ValueError(f"rhs {tuple(b.shape)} incompatible with {tuple(t.shape)}")
+    if t.device != b.device:
+        raise ValueError("t and b lie on different devices")
+    batch, bs, _ = t.shape
+    k = b.shape[2]
+    tp = panel or default_panel(bs)
+    if bs % tp:
+        raise ValueError(f"panel={tp} must divide block size {bs}")
+    if b.device.type == "cpu":
+        return blocked_triangular_solve_ref(t, b, tp, lower=lower,
+                                            unit_diagonal=unit_diagonal)
+    if tp > MAX_PANEL:
+        raise ValueError(f"panel={tp} exceeds the kernel's {MAX_PANEL}")
+    if not b.is_contiguous():
+        raise ValueError("the triangular-solve kernel needs a contiguous b")
+    out = torch.empty(b.shape, dtype=b.dtype, device=b.device)
+    f32 = b.dtype == torch.float32
+    work = out if f32 else torch.empty(b.shape, dtype=torch.float32,
+                                       device=b.device)
+    with torch.cuda.device(b.device):
+        err = load("leaf_inverse").repro_triangular_solve(
+            t.data_ptr(), b.data_ptr(), work.data_ptr(),
+            None if f32 else out.data_ptr(), batch, bs, k, tp, t.stride(0),
+            t.stride(1), t.stride(2), int(lower), int(unit_diagonal),
+            DTYPE_CODES[t.dtype], DTYPE_CODES[b.dtype], stream_of(b))
+    check(err, "triangular_solve kernel")
+    LAUNCHES["triangular_solve"] += 1
     return out

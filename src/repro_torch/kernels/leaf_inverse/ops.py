@@ -1,13 +1,15 @@
-"""Public entry points of the Gauss-Jordan leaf-inverse family."""
+"""Public entry points of the leaf kernels: Gauss-Jordan inverses and the
+blocked triangular solve."""
 
 from __future__ import annotations
 
 import torch
 
-from .kernel import blocked_leaf_inverse_cuda, leaf_inverse_cuda
+from .kernel import (blocked_leaf_inverse_cuda, leaf_inverse_cuda,
+                     triangular_solve_cuda)
 
 __all__ = ["leaf_inverse", "batched_leaf_inverse", "blocked_leaf_inverse",
-           "batched_blocked_leaf_inverse"]
+           "batched_blocked_leaf_inverse", "triangular_solve"]
 
 
 def leaf_inverse(block: torch.Tensor, out_dtype=None) -> torch.Tensor:
@@ -36,3 +38,11 @@ def batched_blocked_leaf_inverse(blocks: torch.Tensor, panel: int | None = None,
     """Blocked-GJ inverse of (batch, bs, bs) blocks."""
     return blocked_leaf_inverse_cuda(blocks.contiguous(), panel=panel,
                                      out_dtype=out_dtype)
+
+
+def triangular_solve(t: torch.Tensor, b: torch.Tensor, *, lower: bool = True,
+                     unit_diagonal: bool = False,
+                     panel: int | None = None) -> torch.Tensor:
+    """Solve T X = B for one (bs, bs) triangular T and (bs, k) B."""
+    return triangular_solve_cuda(t[None], b.contiguous()[None], panel,
+                                 lower=lower, unit_diagonal=unit_diagonal)[0]

@@ -1,17 +1,21 @@
-"""Plain PyTorch versions of the Gauss-Jordan leaf-inverse kernels.
+"""Plain PyTorch versions of the leaf kernels: Gauss-Jordan inverses and
+the blocked triangular solve.
 
 `gauss_jordan_ref` and `blocked_gauss_jordan_ref` are step-exact: the same
 pivot-free sweeps in the same order of operations as the kernels, so a
 difference between a kernel and its plain version is a kernel fault, and
 a difference from `leaf_inverse_ref` is the error of unpivoted
-Gauss-Jordan itself.
+Gauss-Jordan itself. `blocked_triangular_solve_ref` takes the steps of the
+JAX package's `triangular_solve_pallas` in its order; `triangular_solve_ref`
+is the LAPACK-semantics oracle beside it.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["leaf_inverse_ref", "gauss_jordan_ref", "blocked_gauss_jordan_ref"]
+__all__ = ["leaf_inverse_ref", "gauss_jordan_ref", "blocked_gauss_jordan_ref",
+           "triangular_solve_ref", "blocked_triangular_solve_ref"]
 
 
 def leaf_inverse_ref(blocks: torch.Tensor) -> torch.Tensor:
@@ -60,3 +64,42 @@ def blocked_gauss_jordan_ref(blocks: torch.Tensor, panel: int,
         m = m - factors @ pan
         m[:, base:base + t, :] = pan
     return m[:, :, bs:].to(out_dtype or blocks.dtype)
+
+
+def triangular_solve_ref(t: torch.Tensor, b: torch.Tensor, *, lower: bool = True,
+                         unit_diagonal: bool = False) -> torch.Tensor:
+    """LAPACK-semantics oracle: batched solve_triangular in f32, reading only
+    the targeted triangle of `t`."""
+    x = torch.linalg.solve_triangular(t.float(), b.float(), upper=not lower,
+                                      unitriangular=unit_diagonal)
+    return x.to(b.dtype)
+
+
+def blocked_triangular_solve_ref(t: torch.Tensor, b: torch.Tensor, panel: int, *,
+                                 lower: bool = True,
+                                 unit_diagonal: bool = False) -> torch.Tensor:
+    """Solve T X = B for (batch, bs, bs) T and (batch, bs, k) B, panel by
+    panel (bottom-up when not `lower`): a t-step Gauss-Jordan sweep on
+    [D | rhs_p] for the t x t diagonal block D, built from the targeted
+    triangle only (1 on its diagonal under `unit_diagonal`), then one
+    rank-t update of the rows still pending. X has b's dtype."""
+    bs = t.shape[1]
+    npan = bs // panel
+    tm = t.float()
+    w = b.float().clone()
+    eye = torch.eye(panel, dtype=torch.float32, device=t.device)
+    for pi in range(npan):
+        base = (pi if lower else npan - 1 - pi) * panel
+        d = tm[:, base:base + panel, base:base + panel]
+        if unit_diagonal:
+            d = (torch.tril(d, -1) if lower else torch.triu(d, 1)) + eye
+        else:
+            d = torch.tril(d) if lower else torch.triu(d)
+        aug = torch.cat([d, w[:, base:base + panel, :]], dim=2)
+        for j in range(panel):
+            aug = _sweep(aug, j, j)
+        x_p = aug[:, :, panel:]
+        rows = slice(base + panel, bs) if lower else slice(0, base)
+        w[:, rows] -= tm[:, rows, base:base + panel] @ x_p
+        w[:, base:base + panel] = x_p
+    return w.to(b.dtype)

@@ -1,10 +1,13 @@
-"""Trace one SPIN inversion on the card and break its device time down.
+"""Trace one SPIN inversion or solve on the card and break its device time down.
 
-    PYTHONPATH=src python -m repro_torch.profile_spin
+    PYTHONPATH=src python -m repro_torch.profile_spin            # inversion
+    PYTHONPATH=src python -m repro_torch.profile_spin --solve    # solve
 
 Runs `spin_inverse_dense(engine="cuda", leaf_solver="cuda")` at n = 16384,
-block size 1024, f32, on a `make_spd` matrix (seed 0): one warm-up call,
-one call timed by CUDA events, then one call under `torch.profiler`. From
+block size 1024, f32, on a `make_spd` matrix (seed 0), or with `--solve`
+`spin_solve_dense(engine="cuda", leaf_solver="cuda")` of that matrix
+against 256 standard-normal right-hand sides: one warm-up call, one call
+timed by CUDA events, then one call under `torch.profiler`. From
 the trace's device events it prints, as one JSON line, each kernel's
 device time and count, grouped by kernel name and launch grid, and the
 device's idle share: the part of the traced call, from its start on the
@@ -14,6 +17,7 @@ fill ran. The Chrome trace is kept under ``build/profile_spin/``.
 
 from __future__ import annotations
 
+import argparse
 import json
 from pathlib import Path
 
@@ -22,7 +26,7 @@ import torch
 
 __all__ = ["device_breakdown", "main"]
 
-N, BLOCK_SIZE, SEED = 16384, 1024, 0
+N, BLOCK_SIZE, N_RHS, SEED = 16384, 1024, 256, 0
 TRACE_DIR = Path(__file__).resolve().parents[2] / "build" / "profile_spin"
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 CALL = "spin_inverse_dense"
@@ -63,18 +67,29 @@ def device_breakdown(trace: dict, call: str = CALL) -> dict:
             "idle_share": 1.0 - busy / span, "groups": rows}
 
 
-def main() -> int:
-    from .core import spin_inverse_dense, testing
+def main(argv=None) -> int:
+    from .core import spin_inverse_dense, spin_solve_dense, testing
     from .kernels import build
 
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--solve", action="store_true",
+                        help=f"trace the solve against {N_RHS} right-hand sides")
+    solve = parser.parse_args(argv).solve
     if not torch.cuda.is_available():
         raise SystemExit("profile_spin: CUDA is not available")
     torch.backends.cuda.matmul.allow_tf32 = False
     build.build_all()
-    a = testing.make_spd(N, np.random.default_rng(SEED), device="cuda")
+    rng = np.random.default_rng(SEED)
+    a = testing.make_spd(N, rng, device="cuda")
+    call = "spin_solve_dense" if solve else CALL
+    if solve:
+        b = torch.from_numpy(rng.standard_normal((N, N_RHS), dtype=np.float32)).cuda()
 
-    def run():
-        return spin_inverse_dense(a, BLOCK_SIZE, "cuda", engine="cuda")
+        def run():
+            return spin_solve_dense(a, b, BLOCK_SIZE, "cuda", engine="cuda")
+    else:
+        def run():
+            return spin_inverse_dense(a, BLOCK_SIZE, "cuda", engine="cuda")
 
     run()
     torch.cuda.synchronize()
@@ -87,14 +102,15 @@ def main() -> int:
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        with torch.profiler.record_function(CALL):
+        with torch.profiler.record_function(call):
             run()
             torch.cuda.synchronize()
     TRACE_DIR.mkdir(parents=True, exist_ok=True)
-    path = TRACE_DIR / "trace.json"
+    path = TRACE_DIR / f"{call}.json"
     prof.export_chrome_trace(str(path))
-    report = device_breakdown(json.loads(path.read_text()))
-    report.update(n=N, block_size=BLOCK_SIZE, untraced_wall_ms=wall_ms,
+    report = device_breakdown(json.loads(path.read_text()), call)
+    report.update(call=call, n=N, block_size=BLOCK_SIZE,
+                  n_rhs=N_RHS if solve else None, untraced_wall_ms=wall_ms,
                   device=torch.cuda.get_device_name(0), trace=str(path))
     for r in report["groups"]:
         print(f"{r['device_ms']:10.3f} ms {r['count']:5d}x  {r['category']:10s} "

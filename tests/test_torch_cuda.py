@@ -15,7 +15,8 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.core import (count_ops, lu_inverse_dense, multiply_engine,
-                              spin_inverse_dense, testing, verify)
+                              spin_inverse_dense, spin_solve_dense, testing,
+                              verify)
 from repro_torch.kernels.leaf_inverse import kernel as gj, ref as gj_ref
 from repro_torch.kernels.matmul import kernel as mm, ref as mm_ref
 
@@ -119,3 +120,71 @@ def test_lu_and_conformance_on_the_card(cuda_device):
         reports = verify.run_conformance(grids=(1, 2, 4), block_size=32,
                                          leaf_solver="cuda")
     assert all(r.ok for r in reports), [r.as_dict() for r in reports]
+
+
+def _packed_lu(batch: int, bs: int, seed: int, device) -> torch.Tensor:
+    """Contiguous packed LU factors of SPD blocks: what the solve's leaf
+    hands the triangular-solve kernel."""
+    lu, _, _ = torch.linalg.lu_factor_ex(_spd_blocks(batch, bs, seed, device))
+    return lu.contiguous()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [1, 37, 300])
+@pytest.mark.parametrize("bs", [64, 128, 1024])
+@pytest.mark.parametrize("batch", [1, 2])
+def test_triangular_solve_kernel_matches_plain(cuda_device, batch, bs, k, dtype):
+    t = _packed_lu(batch, bs, 7, cuda_device).to(dtype)
+    g = torch.Generator(device="cpu").manual_seed(bs * k + batch)
+    b = torch.randn(batch, bs, k, generator=g).to(cuda_device, dtype)
+    panel = gj.default_panel(bs)
+    for lower, unit in ((True, True), (False, False)):
+        kernels.reset_launch_counts()
+        got = gj.triangular_solve_cuda(t, b, lower=lower, unit_diagonal=unit)
+        assert kernels.launch_counts()["triangular_solve"] == 1
+        want = gj_ref.blocked_triangular_solve_ref(t, b, panel, lower=lower,
+                                                   unit_diagonal=unit)
+        assert got.dtype == b.dtype and got.shape == b.shape
+        assert bool(torch.isfinite(got.float()).all())
+        # f32: direct substitution inside a panel and left-looking panel
+        # updates round in another order than the plain version's
+        # Gauss-Jordan sweeps and rank-t updates. bf16: both round the f32
+        # solution once, so one bf16 ulp (2^-7) of the largest entry.
+        tol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
+        scale = float(want.float().abs().max())
+        assert float((got.float() - want.float()).abs().max()) <= tol * scale
+
+
+def test_triangular_solve_takes_column_major_t(cuda_device):
+    a = _spd_blocks(2, 128, 8, cuda_device)
+    lu, _, _ = torch.linalg.lu_factor_ex(a)
+    col = lu.transpose(1, 2).contiguous().transpose(1, 2)   # column-major
+    assert col.stride(1) == 1
+    b = torch.randn(2, 128, 50, device=cuda_device)
+    for lower, unit in ((True, True), (False, False)):
+        got = gj.triangular_solve_cuda(col, b, lower=lower, unit_diagonal=unit)
+        want = gj.triangular_solve_cuda(col.contiguous(), b, lower=lower,
+                                        unit_diagonal=unit)
+        assert torch.equal(got, want)                       # same reads, same order
+    with pytest.raises(ValueError, match="contiguous"):
+        gj.triangular_solve_cuda(col, b.transpose(1, 2).contiguous().transpose(1, 2))
+
+
+def test_spin_solve_on_the_card_matches_cpu(cuda_device):
+    rng = np.random.default_rng(3)
+    a = testing.make_spd(512, rng, device="cpu")
+    b = torch.from_numpy(rng.standard_normal((512, 8), dtype=np.float32))
+    kernels.reset_launch_counts()
+    with count_ops() as counts:
+        x = spin_solve_dense(a, b, 64, "cuda", engine="cuda")
+    launches = kernels.launch_counts()
+    assert x.device.type == "cuda"
+    assert launches["triangular_solve"] == 2 * 8 and launches["matmul"] == 2 * 7
+    assert launches["schur_update"] == launches["blocked_gauss_jordan"] == 0
+    assert counts.multiplies == counts.arranges == counts.leaf_inversions == 0
+    assert counts.leaf_solves == 8 and counts.solve_applies == 3 * 7
+    assert verify.solve_residual(a.to(cuda_device), x, b.to(cuda_device)) < 1e-3
+    # LAPACK on the CPU and cuSOLVER on the card may pivot differently, so
+    # the solutions are compared, not the factors.
+    x_cpu = spin_solve_dense(a, b, 64, "cuda", engine="cuda", device="cpu")
+    assert float((x.cpu() - x_cpu).abs().max()) <= 1e-4 * float(x_cpu.abs().max())

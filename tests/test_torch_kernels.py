@@ -12,6 +12,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,7 +21,7 @@ import torch
 from repro.core import BlockMatrix as JBlockMatrix, count_ops as j_count_ops
 from repro.core import spin_inverse as j_spin_inverse
 from repro.core.testing import make_spd as j_make_spd
-from repro.kernels.leaf_inverse import ref as jgj_ref
+from repro.kernels.leaf_inverse import ops as jgj_ops, ref as jgj_ref
 from repro.kernels.leaf_inverse.kernel import (blocked_leaf_inverse_pallas,
                                                leaf_inverse_pallas)
 from repro.kernels.matmul import ops as jmm_ops
@@ -233,12 +234,91 @@ def test_leaf_wrappers_reject_what_the_kernel_does_not_take():
         gj.leaf_inverse_cuda(x, out_dtype=torch.int32)
 
 
+# ---------------------------------------------------------------------------
+# B5 blocked triangular solve
+# ---------------------------------------------------------------------------
+
+
+def _triangular_system(bs: int, k: int, seed: int) -> tuple[np.ndarray, np.ndarray]:
+    """A FULL matrix (the solve must ignore its untargeted triangle) and
+    right-hand sides. Off-diagonals are scaled down: a unit-diagonal
+    substitution amplifies N(0, 1) off-diagonals exponentially, which
+    tests overflow, not the solve."""
+    rng = _rng(seed, bs, k)
+    full = rng.standard_normal((bs, bs)) / 8 + 5 * np.eye(bs)
+    return full.astype(np.float32), rng.standard_normal((bs, k)).astype(np.float32)
+
+
+@pytest.mark.parametrize("k", [1, 5, 33])
+@pytest.mark.parametrize("bs,panel", [(16, 8), (16, None), (64, 8), (64, None)])
+@pytest.mark.parametrize("unit", [True, False], ids=["unit", "diag"])
+@pytest.mark.parametrize("lower", [True, False], ids=["lower", "upper"])
+def test_blocked_triangular_solve_plain_matches_pallas(lower, unit, bs, panel, k):
+    full, rhs = _triangular_system(bs, k, int(lower) + 2 * int(unit))
+    (tj, tt), (bj, bt) = _pair(full, "float32"), _pair(rhs, "float32")
+    want = jgj_ops.triangular_solve(tj, bj, lower=lower, unit_diagonal=unit,
+                                    panel=panel)
+    got = gj_ops.triangular_solve(tt, bt, lower=lower, unit_diagonal=unit,
+                                  panel=panel)
+    assert got.dtype == bt.dtype and tuple(got.shape) == (bs, k)
+    # The same steps in the same order; the rank-t updates sum their t
+    # products in another order than the MXU emulation.
+    _close(got, want, "float32", f32_rel=1e-5)
+    oracle = gj_ref.triangular_solve_ref(tt[None], bt[None], lower=lower,
+                                         unit_diagonal=unit)[0]
+    _close(got, jgj_ref.triangular_solve_ref(tj[None], bj[None], lower=lower,
+                                              unit_diagonal=unit)[0],
+           "float32", f32_rel=1e-5)
+    assert float((got - oracle).abs().max()) <= 1e-5 * float(oracle.abs().max())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_triangular_solve_lu_round_trip(dtype):
+    """Packed LU: the unit-lower sweep, then the upper sweep, solve the
+    original system, as the reference's round trip does."""
+    a = _spd_blocks(1, 64, 12)[0]
+    rhs = _rng(13).standard_normal((64, 4)).astype(np.float32)
+    lu, pivots = torch.linalg.lu_factor(torch.from_numpy(a))
+    perm = torch.lu_unpack(lu, pivots, unpack_data=False)[0].argmax(dim=0)
+    bt = torch.from_numpy(rhs)[perm].to(getattr(torch, dtype))
+    y = gj_ops.triangular_solve(lu, bt, lower=True, unit_diagonal=True)
+    x = gj_ops.triangular_solve(lu, y, lower=False)
+    assert x.dtype == bt.dtype
+    want = np.linalg.solve(a.astype(np.float64), rhs)
+    atol = 1e-4 if dtype == "float32" else 3e-2
+    np.testing.assert_allclose(x.float().numpy(), want, atol=atol)
+    jlu, _, jperm = jax.lax.linalg.lu(jnp.asarray(a))
+    jy = jgj_ops.triangular_solve(jlu, jnp.asarray(rhs)[jperm], lower=True,
+                                  unit_diagonal=True)
+    jx = jgj_ops.triangular_solve(jlu, jy, lower=False)
+    if dtype == "float32":
+        _close(x, jx, "float32", f32_rel=1e-5)
+
+
+def test_triangular_solve_wrapper_rejects_what_the_kernel_does_not_take():
+    t, b = torch.eye(16)[None], torch.ones(1, 16, 3)
+    with pytest.raises(ValueError):
+        gj.triangular_solve_cuda(torch.zeros(1, 16, 8), b)           # not square
+    with pytest.raises(ValueError):
+        gj.triangular_solve_cuda(t, torch.ones(1, 8, 3))             # rows
+    with pytest.raises(ValueError):
+        gj.triangular_solve_cuda(t, torch.ones(2, 16, 3))            # batch
+    with pytest.raises(ValueError):
+        gj.triangular_solve_cuda(t, b, panel=5)                      # 5 ∤ 16
+    with pytest.raises(ValueError):
+        gj.triangular_solve_cuda(t.double(), b)                      # f64
+    with pytest.raises(ValueError):
+        gj.triangular_solve_cuda(t[0], b[0])                         # rank 2
+    assert torch.equal(gj.triangular_solve_cuda(t, b), b)
+
+
 def test_cpu_calls_launch_no_kernel():
     kernels.reset_launch_counts()
     mm.matmul_cuda(torch.ones(4, 4), torch.ones(4, 4))
     mm.schur_update_cuda(torch.ones(4, 4), torch.ones(4, 4), torch.ones(4, 4))
     gj.leaf_inverse_cuda(torch.eye(4)[None])
     gj.blocked_leaf_inverse_cuda(torch.eye(4)[None])
+    gj.triangular_solve_cuda(torch.eye(4)[None], torch.ones(1, 4, 2))
     assert kernels.launch_counts() == {k: 0 for k in kernels.LAUNCHES}
 
 
@@ -258,7 +338,7 @@ def test_bridge_round_trip_keeps_bits(dtype):
 
 
 def test_bridge_blocks_and_op_counts():
-    a = j_make_spd(64, __import__("jax").random.PRNGKey(0))
+    a = j_make_spd(64, jax.random.PRNGKey(0))
     jbm = JBlockMatrix.from_dense(a, 16)
     with j_count_ops() as counts:
         j_spin_inverse(jbm)
