@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one NVIDIA GPU: build, check and time it.
 
-    python3 chip_smoke.py            # full width: n = 16384, bs = 1024, f32
+    python3 chip_smoke.py            # full width: n = 16384, bs = 1024, f32;
+                                     # granite-8b at B = 4, S = 2048
 
 Phases, each of which fails the run (non-zero exit) on any fault:
 
@@ -11,7 +12,9 @@ Phases, each of which fails the run (non-zero exit) on any fault:
      main paths' shapes, in f32 and bf16, and time kernel, plain version
      and the one PyTorch library call that computes the same function
      (the triangular solve at the solve's widest leaf: a 1024 x 1024
-     packed LU against 1024 x 15616 right-hand sides, both sweeps);
+     packed LU against 1024 x 15616 right-hand sides, both sweeps; flash
+     attention at the granite-8b layer, B = 4, H = 32, KV = 8, S = 2048,
+     hd = 128, causal, plus a ragged S = 2000 and a non-causal case);
   4. SPIN inversion, `spin_inverse_dense(engine="cuda", leaf_solver="cuda")`,
      at n = 16384, block_size = 1024: residual ‖AX − I‖∞ ≤ 1e-3, op counts
      equal to the paper's oracle, and the kernels it launched;
@@ -24,7 +27,14 @@ Phases, each of which fails the run (non-zero exit) on any fault:
      (the GEMM and the triangular solve, nothing else);
   7. a smaller inversion with `leaf_solver="gauss_jordan"`, the path of
      the scalar Gauss-Jordan kernel;
-  8. one JSON line with every path's times and residual, and one with
+  8. the dense LM serving path at full width and depth: granite-8b with
+     random weights from SEED, `prefill` of 4 prompts of 2048 tokens (36
+     flash attention launches and no other kernel of the port), 32 greedy
+     `decode_step`s from the padded cache, the decode logits of the first
+     8 steps against `forward` over prompt plus those tokens, and a
+     `ServingEngine` (4 slots, max_len 256) answering 8 requests, one of
+     which must equal the same request served alone;
+  9. one JSON line with every path's times and residual, and one with
      every kernel's launches, error and times.
 
 The last line is {"ok": true, "device": {...}}. The script imports only
@@ -34,6 +44,7 @@ or when it is not run from a checkout of the repository.
 
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -45,6 +56,7 @@ SRC = ROOT / "src"
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet; dense, 700 W).
 PEAK_F32_FLOPS = 67e12        # f32 outside the tensor cores
+PEAK_BF16_FLOPS = 989e12      # bf16 and f16 on the tensor cores
 PEAK_BYTES = 3.35e12          # HBM3
 
 RESIDUAL_BOUND = 1e-3         # f32 residual bound of the conformance table
@@ -53,6 +65,27 @@ REPS = 2                      # timed runs of each inversion path
 N, BLOCK_SIZE = 16384, 1024      # the main path: grid 16, four levels
 N_RHS = 256                       # right-hand sides of the solve path
 GJ_N, GJ_BLOCK_SIZE = 2048, 128   # the scalar Gauss-Jordan leaf's path
+
+LM_ARCH = "granite-8b"            # the LM serving path, full width and depth
+LM_BATCH, LM_SEQ = 4, 2048        # prefill: 4 prompts of 2048 tokens
+LM_DECODE_STEPS = 32              # greedy decode steps after the prefill
+LM_CHECK_STEPS = 8                # decode steps held against `forward`
+# Largest |decode logit - forward logit| allowed at those steps (PERF.md
+# §6, PR 13). The two paths round the same bf16 activations at different
+# places (one-token GEMMs against full-sequence ones, plain attention
+# against the kernel): about one bf16 ulp (2^-8 relative) of each
+# activation a layer, ≈ 0.004 rms a logit through the f32 head (‖h‖ = 64,
+# weights of scale 0.02). `python -m repro_torch.profile_lm --consistency`
+# measures that drift growing as depth^0.72 to ≈ 0.05 rms at 36 layers,
+# and the largest of the 1.6M logits compared sits ≈ 5.5 rms out: ≈ 0.3.
+# The bound keeps a margin of about 1.7 over that.
+LM_CONSISTENCY_BOUND = 0.5
+SERVE_SLOTS, SERVE_MAX_LEN = 4, 256
+SERVE_REQUESTS, SERVE_NEW_TOKENS = 8, 16
+SERVE_PROMPT_LENS = (16, 64)      # prompt lengths drawn from this range
+# Flash attention tolerances of the reference's own test
+# (tests/test_flash_attention.py): bf16 keeps 8 mantissa bits, f16 11.
+FLASH_TOL = {"float32": 2e-3, "bfloat16": 2e-2, "float16": 1e-2}
 
 
 class SmokeFailure(RuntimeError):
@@ -111,6 +144,18 @@ def triangular_solve_bound_ms(batch: int, bs: int, k: int,
     flops = float(batch) * bs * bs * k
     nbytes = itemsize * batch * (bs * bs + 2.0 * bs * k)
     t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def flash_bound_ms(b: int, h: int, kv: int, sq: int, skv: int, hd: int,
+                   causal: bool, itemsize: int, peak_flops: float) -> tuple[float, str]:
+    # 4·hd operations a live (q, k) pair (the score and the weighted sum);
+    # causal rows see kv positions 0..q only. q and o, k and v once each.
+    n = min(sq, skv)
+    pairs = n * (n + 1) // 2 + (sq - n) * skv if causal else sq * skv
+    flops = 4.0 * hd * b * h * pairs
+    nbytes = itemsize * hd * (2.0 * b * h * sq + 2.0 * b * kv * skv)
+    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -258,6 +303,63 @@ def check_kernels(torch, rng, n_gemm: int, bs: int, gj_bs: int, tri_k: int) -> d
     return report
 
 
+def check_flash(torch, rng, b: int, h: int, kv: int, s: int, hd: int) -> dict:
+    """Phase 3, flash attention: the kernel against its plain version at the
+    LM layer's shape, made in the model's (B, S, H, hd) layout and passed
+    as (B, H, S, hd) views as attn_apply passes them."""
+    from repro_torch.kernels.flash_attention import kernel as fa, ref as fa_ref
+    import numpy as np
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+
+    def qkv(sq, dtype):
+        def one(heads):
+            x = rng.standard_normal((b, sq, heads, hd), dtype=np.float32)
+            return torch.from_numpy(x).to(dev, dtype).transpose(1, 2)
+        return one(h), one(kv), one(kv)
+
+    row = {}
+    for dtype, peak in ((torch.bfloat16, PEAK_BF16_FLOPS), (torch.float32, PEAK_F32_FLOPS)):
+        name = str(dtype)[6:]
+        cases = [("causal", s, True)]
+        if dtype == torch.bfloat16:
+            cases += [("ragged", s - 48, True), ("full", s, False)]
+        for case, sq, causal in cases:
+            q, k, v = qkv(sq, dtype)
+            got = fa.flash_attention_cuda(q, k, v, causal=causal)
+            want = fa_ref.attention_ref(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            err = max_abs(got, want)
+            tol = FLASH_TOL[name]
+            print(f"check flash_attention {case} {name} B={b} H={h} KV={kv} S={sq} "
+                  f"hd={hd}: max_abs_err={err!r} tol={tol!r}", flush=True)
+            require(got.dtype == dtype and got.shape == q.shape,
+                    f"flash_attention {case} {name}: dtype/shape differ")
+            require(bool(torch.isfinite(got.float()).all()),
+                    f"flash_attention {case} {name}: non-finite")
+            require(err <= tol, f"flash_attention {case} {name}: max_abs_err {err} > {tol}")
+            del got, want
+            if case != "causal":
+                continue
+            bound, by = flash_bound_ms(b, h, kv, sq, sq, hd, True, q.element_size(), peak)
+            times = {
+                "ms": time_ms(lambda: fa.flash_attention_cuda(q, k, v, causal=True), 5),
+                "plain_ms": time_ms(lambda: fa_ref.attention_ref(q, k, v, causal=True), 2),
+                # the yardstick; the port never calls it
+                "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, enable_gqa=True), 5),
+                "bound_ms": bound, "bound_by": by, "max_abs_err": err}
+            print(f"time flash_attention {name}: {times}", flush=True)
+            if dtype == torch.bfloat16:
+                row.update(times, shape=f"B={b} H={h} KV={kv} S={sq} hd={hd} causal bf16")
+            else:
+                row.update({f"f32_{key}": val for key, val in times.items()})
+        del q, k, v
+        torch.cuda.empty_cache()
+    return row
+
+
 def timed(torch, fn):
     """(result, device ms) of one call of `fn`."""
     start = torch.cuda.Event(enable_timing=True)
@@ -300,6 +402,137 @@ def run_path(torch, name, fn, a, grid, *, expect_launches, op_oracle, reps, b=No
             "op_counts": counts.as_dict()}
 
 
+def run_lm(torch, rng, cfg, dev) -> dict:
+    """Phase 8: the dense LM serving path, `cfg` on `dev`."""
+    import numpy as np
+    import torch.nn.functional as F
+    from repro_torch import kernels
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import Request, ServingEngine
+
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"lm: {cfg.name} {n_params} parameters on the card in "
+          f"{time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated", flush=True)
+
+    # prefill: one warm-up, then a counted and timed run and one more timed run
+    prompts = torch.from_numpy(
+        rng.integers(0, cfg.vocab, (LM_BATCH, LM_SEQ), dtype=np.int64)).to(dev)
+    batch = {"tokens": prompts}
+    T.prefill(params, batch, cfg)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    (logits, _, _, cache), ms = timed(torch, lambda: T.prefill(params, batch, cfg))
+    launches = kernels.launch_counts()
+    prefill_ms = [ms, timed(torch, lambda: T.prefill(params, batch, cfg))[1]]
+    tokens_per_s = LM_BATCH * LM_SEQ / (min(prefill_ms) / 1e3)
+    print(f"path lm_prefill: {cfg.name} B={LM_BATCH} S={LM_SEQ} ms={prefill_ms!r} "
+          f"tokens_per_s={tokens_per_s!r} launches={launches}", flush=True)
+    require(tuple(logits.shape) == (LM_BATCH, LM_SEQ, cfg.vocab)
+            and logits.dtype == torch.float32, f"lm_prefill: logits {tuple(logits.shape)}")
+    require(bool(torch.isfinite(logits).all()), "lm_prefill: non-finite logits")
+    require(tuple(cache["k"].shape) == (cfg.n_layers, LM_BATCH, LM_SEQ, cfg.n_kv_heads,
+                                         cfg.head_dim), f"lm_prefill: cache {cache['k'].shape}")
+    for kern, n in launches.items():
+        want = cfg.n_layers if kern == "flash_attention" else 0
+        require(n == want, f"lm_prefill: {kern} launched {n} times, want {want}")
+
+    # greedy decode from the prefill cache, padded to the decode length
+    pad = (0, 0, 0, 0, 0, LM_DECODE_STEPS)
+    cache = {"k": F.pad(cache["k"], pad), "v": F.pad(cache["v"], pad), "pos": cache["pos"]}
+    tok = torch.argmax(logits[:, -1], dim=-1)
+    del logits
+    fed, step_logits, step_ms = [], [], []
+    for i in range(LM_DECODE_STEPS):
+        fed.append(tok)
+        (lg, cache), ms = timed(torch, lambda: T.decode_step(params, cache, tok, cfg))
+        step_ms.append(ms)
+        if i < LM_CHECK_STEPS:
+            step_logits.append(lg)
+        require(bool(torch.isfinite(lg).all()), f"lm_decode: non-finite logits at step {i}")
+        tok = torch.argmax(lg, dim=-1)
+    require(torch.equal(cache["pos"].cpu(), torch.full((LM_BATCH,), LM_SEQ + LM_DECODE_STEPS,
+                                                       dtype=torch.int32)),
+            f"lm_decode: pos {cache['pos'].tolist()}")
+    del cache
+    decode_ms = sum(step_ms) / len(step_ms)
+
+    # the decode logits against forward over prompt + the tokens decode was fed
+    seq = torch.cat([prompts, torch.stack(fed[:LM_CHECK_STEPS], 1)], 1)
+    full = T.forward(params, {"tokens": seq}, cfg)[0][:, LM_SEQ:]
+    got = torch.stack(step_logits, 1)
+    err = max_abs(got, full)
+    rms = float((got - full).square().mean().sqrt())
+    top2 = torch.topk(full, 2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > LM_CONSISTENCY_BOUND
+    agree = torch.argmax(got, -1) == torch.argmax(full, -1)
+    print(f"path lm_decode: steps={LM_DECODE_STEPS} ms_per_step={decode_ms!r} "
+          f"ms={step_ms!r} consistency_err={err!r} rms={rms!r} bound={LM_CONSISTENCY_BOUND!r} "
+          f"tokens_agree={int(agree.sum())}/{agree.numel()} "
+          f"margin_above_bound={int(clear.sum())}", flush=True)
+    require(err <= LM_CONSISTENCY_BOUND,
+            f"lm_decode: decode vs forward logits differ by {err} > {LM_CONSISTENCY_BOUND}")
+    require(bool(agree[clear].all()), "lm_decode: a token differs where the top-2 "
+                                      f"margin exceeds {LM_CONSISTENCY_BOUND}")
+    del full, got, step_logits
+    torch.cuda.empty_cache()
+
+    # continuous batching: 8 requests through 4 slots
+    prng = np.random.default_rng([SEED, 1])
+    lens = prng.integers(SERVE_PROMPT_LENS[0], SERVE_PROMPT_LENS[1] + 1, SERVE_REQUESTS)
+    reqs = [Request(uid=i, prompt=prng.integers(0, cfg.vocab, n).tolist(),
+                    max_new_tokens=SERVE_NEW_TOKENS) for i, n in enumerate(lens)]
+    eng = ServingEngine(cfg, params, slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN)
+    for r in reqs:
+        eng.submit(r)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.run_until_done()
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    generated = sum(len(r.output) for r in reqs)
+    require(all(r.done and len(r.output) == SERVE_NEW_TOKENS for r in reqs),
+            "lm_serve: a request did not finish with all its tokens")
+    # The first request served alone, in an engine of the same width (the
+    # same GEMM shapes, so the same rounding), must get the same tokens;
+    # alone at batch 1 it is reported, since other GEMM shapes round apart.
+    solo = {}
+    for width in (SERVE_SLOTS, 1):
+        alone = Request(uid=0, prompt=list(reqs[0].prompt), max_new_tokens=SERVE_NEW_TOKENS)
+        one = ServingEngine(cfg, params, slots=width, max_len=SERVE_MAX_LEN)
+        one.submit(alone)
+        one.run_until_done()
+        solo[width] = sum(a == b for a, b in zip(alone.output, reqs[0].output))
+    print(f"path lm_serve: requests={SERVE_REQUESTS} slots={SERVE_SLOTS} ticks={eng.ticks} "
+          f"generated={generated} s={serve_s!r} tokens_per_s={generated / serve_s!r} "
+          f"solo_match_same_width={solo[SERVE_SLOTS]}/{SERVE_NEW_TOKENS} "
+          f"solo_match_batch1={solo[1]}/{SERVE_NEW_TOKENS}", flush=True)
+    require(solo[SERVE_SLOTS] == SERVE_NEW_TOKENS,
+            "lm_serve: the first request differs from the same request served alone")
+    ticks = eng.ticks
+    del params, eng, one
+    return {
+        "launches": launches,
+        "lm_prefill": {"arch": cfg.name, "batch": LM_BATCH, "seq": LM_SEQ, "ms": prefill_ms,
+                       "tokens_per_s": tokens_per_s},
+        "lm_decode": {"steps": LM_DECODE_STEPS, "ms_per_step": decode_ms,
+                      "tokens_per_s": LM_BATCH / (decode_ms / 1e3),
+                      "consistency_err": err, "consistency_rms": rms,
+                      "consistency_bound": LM_CONSISTENCY_BOUND},
+        "lm_serve": {"requests": SERVE_REQUESTS, "slots": SERVE_SLOTS,
+                     "max_len": SERVE_MAX_LEN, "ticks": ticks, "generated": generated,
+                     "s": serve_s, "tokens_per_s": generated / serve_s,
+                     "solo_match_batch1": solo[1]}}
+
+
+def _leaves(tree: dict):
+    for v in tree.values():
+        yield from (_leaves(v) if isinstance(v, dict) else (v,))
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -314,7 +547,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from repro_torch import kernels
+    from repro_torch.configs import get_arch
     from repro_torch.core import (lu_inverse_dense, spin_inverse_dense,
                                   spin_solve_dense, testing, verify)
     from repro_torch.kernels import build
@@ -341,6 +574,9 @@ def main() -> int:
     # leaf sees k = N_RHS + n - bs right-hand sides (the A12 columns of
     # every level ride along).
     report = check_kernels(torch, rng, n // 2, bs, GJ_BLOCK_SIZE, N_RHS + n - bs)
+    lm_cfg = get_arch(LM_ARCH)
+    report["flash_attention"] = check_flash(
+        torch, rng, LM_BATCH, lm_cfg.n_heads, lm_cfg.n_kv_heads, LM_SEQ, lm_cfg.head_dim)
 
     # 4. SPIN at full width
     a = testing.make_spd(n, rng, device="cuda")
@@ -387,16 +623,27 @@ def main() -> int:
         expect_launches={"schur_update": 2 * (ggrid - 1), "matmul": 4 * (ggrid - 1),
                          "gauss_jordan": ggrid, "blocked_gauss_jordan": 0})
 
+    del a_gj
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 8. the dense LM serving path
+    lm = run_lm(torch, rng, lm_cfg, torch.device("cuda"))
+    gc.collect()
+    torch.cuda.empty_cache()
+
     print(json.dumps({"paths": {
         "spin": {"n": n, "block_size": bs, "ms": spin["ms"], "residual": spin["residual"]},
         "lu": {"n": n, "block_size": bs, "ms": lu["ms"], "residual": lu["residual"]},
         "spin_solve": {"n": n, "block_size": bs, "n_rhs": N_RHS, "ms": solve["ms"],
                        "residual": solve["residual"]},
         "spin_gauss_jordan": {"n": gn, "block_size": gbs, "ms": gjp["ms"],
-                              "residual": gjp["residual"]}},
+                              "residual": gjp["residual"]},
+        "lm_prefill": lm["lm_prefill"], "lm_decode": lm["lm_decode"],
+        "lm_serve": lm["lm_serve"]},
         "card": card}), flush=True)
 
-    # 8. the kernels line
+    # 9. the kernels line
     rows = []
     for name, source, replaces, path in (
             ("schur_update", "src/repro_torch/kernels/csrc/matmul.cu",
@@ -408,7 +655,9 @@ def main() -> int:
             ("gauss_jordan", "src/repro_torch/kernels/csrc/leaf_inverse.cu",
              "src/repro/kernels/leaf_inverse/kernel.py:77", gjp),
             ("triangular_solve", "src/repro_torch/kernels/csrc/leaf_inverse.cu",
-             "src/repro/kernels/leaf_inverse/kernel.py:270", solve)):
+             "src/repro/kernels/leaf_inverse/kernel.py:270", solve),
+            ("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention/kernel.py:74", lm)):
         r = report[name]
         require(path["launches"][name] > 0, f"{name}: no launch on its path")
         rows.append({"name": name, "route": "cuda", "source": source,

@@ -4,7 +4,11 @@ The PyTorch port of the JAX package `repro`, built for an NVIDIA H100
 (sm_90a). It carries inversion, `spin_inverse_dense` (paper Algorithm 2),
 the LU baseline, and the inverse-free multi-RHS solve `spin_solve_dense`,
 with the multiplies, Schur updates, leaf inversions and triangular solves
-in hand-written CUDA kernels (`repro_torch.kernels`).
+in hand-written CUDA kernels (`repro_torch.kernels`). On the language-model
+side it serves the dense family: `configs` (`get_arch`), `models`
+(`transformer.init_params`, `forward`, `prefill`, `init_cache`,
+`decode_step`), `serving.ServingEngine` and `launch.serve`, with the
+prefill's attention in a hand-written flash attention kernel.
 Entry points run on the card by default and raise when it is missing;
 pass ``device="cpu"`` to run the kernels' plain PyTorch versions instead.
 """

@@ -17,7 +17,7 @@ from .core.blockmatrix import BlockMatrix, OpCounts
 from .device import DEFAULT_DEVICE, resolve_device
 
 __all__ = ["to_torch", "to_numpy", "blockmatrix_from_numpy",
-           "op_counts_from_dict"]
+           "op_counts_from_dict", "lm_params_from_numpy", "lm_params_to_numpy"]
 
 
 def to_torch(x, device: str | torch.device = DEFAULT_DEVICE) -> torch.Tensor:
@@ -52,3 +52,18 @@ def blockmatrix_from_numpy(blocks, device: str | torch.device = DEFAULT_DEVICE
 def op_counts_from_dict(d: Mapping[str, int]) -> OpCounts:
     """An `OpCounts.as_dict()` record (from either package) -> OpCounts."""
     return OpCounts(**dict(d))
+
+
+def lm_params_from_numpy(tree: Mapping, device: str | torch.device = DEFAULT_DEVICE
+                         ) -> dict:
+    """The JAX package's LM parameter pytree, as nested dicts of numpy
+    arrays (`jax.tree.map(np.asarray, params)`), -> the port's, same bits."""
+    device = resolve_device(device)
+    return {k: lm_params_from_numpy(v, device) if isinstance(v, Mapping)
+            else to_torch(v, device) for k, v in tree.items()}
+
+
+def lm_params_to_numpy(params: Mapping) -> dict:
+    """The port's LM parameters -> nested dicts of numpy arrays, same bits."""
+    return {k: lm_params_to_numpy(v) if isinstance(v, Mapping) else to_numpy(v)
+            for k, v in params.items()}

@@ -17,7 +17,7 @@ __all__ = ["LAUNCHES", "launch_counts", "reset_launch_counts", "DTYPE_CODES",
 # Launches of each kernel since the last reset, by wrapper.
 LAUNCHES: dict[str, int] = {"matmul": 0, "schur_update": 0,
                             "gauss_jordan": 0, "blocked_gauss_jordan": 0,
-                            "triangular_solve": 0}
+                            "triangular_solve": 0, "flash_attention": 0}
 
 # Element types the kernels take, by their code in csrc/gemm_tile.cuh.
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}

@@ -26,7 +26,7 @@ __all__ = ["CSRC", "BUILD_DIR", "SOURCES", "build_all", "load", "check"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("matmul", "leaf_inverse")
+SOURCES = ("matmul", "leaf_inverse", "flash_attention")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
@@ -51,6 +51,10 @@ _SIGNATURES = {
                                        _I, _P),
         "repro_triangular_solve": (_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L,
                                    _I, _I, _I, _I, _P),
+    },
+    "flash_attention": {
+        "repro_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                  *(_L,) * 12, _I, _F, _I, _P),
     },
 }
 

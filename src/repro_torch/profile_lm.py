@@ -1,0 +1,191 @@
+"""Trace the dense LM serving path on the card, or sweep its decode drift.
+
+    PYTHONPATH=src python -m repro_torch.profile_lm                 # trace
+    PYTHONPATH=src python -m repro_torch.profile_lm --consistency   # drift
+
+granite-8b at full width, random weights from seed 0, 4 prompts of 2048
+tokens (numpy seed 0), as `chip_smoke.py` drives it.
+
+Trace: one `prefill`, then 4 greedy `decode_step`s from the padded
+cache, each after a warm-up, each under `torch.profiler`. For both it
+prints the device time by kernel class (the B6 flash attention kernel,
+cuBLAS GEMMs, the rest) and by kernel, and the idle share of the traced
+range (`profile_spin.device_breakdown`), with the untraced wall time;
+the Chrome traces are kept under ``build/profile_lm/``.
+
+Consistency: the largest and the root-mean-square difference between
+the logits of 8 decode steps and those of `forward` over the prompt plus
+the tokens decode was fed, and how many greedy tokens agree, for the
+model cut to its first 1, 2, 4, 9, 18 and 36 layers. Everything is bf16
+with f32 sums, so the difference is rounding: it shows how rounding
+differences between the two paths grow with depth.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .profile_spin import device_breakdown
+
+__all__ = ["main"]
+
+ARCH, BATCH, SEQ, SEED = "granite-8b", 4, 2048, 0
+DECODE_STEPS = 4          # traced decode steps
+CHECK_STEPS = 8           # decode steps held against forward
+DEPTHS = (1, 2, 4, 9, 18, 36)
+TRACE_DIR = Path(__file__).resolve().parents[2] / "build" / "profile_lm"
+
+
+def kernel_class(name: str) -> str:
+    if "flash_fwd" in name:
+        return "flash_attention (B6)"
+    if any(key in name.lower() for key in ("gemm", "nvjet", "cutlass", "xmma")):
+        return "cuBLAS GEMM"
+    return "other"
+
+
+def _sync_ms(fn) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0)
+
+
+def _traced(name: str, fn) -> dict:
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        with torch.profiler.record_function(name):
+            fn()
+            torch.cuda.synchronize()
+    TRACE_DIR.mkdir(parents=True, exist_ok=True)
+    path = TRACE_DIR / f"{name}.json"
+    prof.export_chrome_trace(str(path))
+    report = device_breakdown(json.loads(path.read_text()), name)
+    classes: dict[str, float] = {}
+    for r in report["groups"]:
+        key = kernel_class(r["name"])
+        classes[key] = classes.get(key, 0.0) + r["device_ms"]
+    report.update(call=name, classes=classes, trace=str(path))
+    return report
+
+
+def _print(report: dict, wall_ms: float) -> None:
+    for key, ms in sorted(report["classes"].items(), key=lambda kv: -kv[1]):
+        print(f"{report['call']}: {ms:10.3f} ms  {key}")
+    for r in report["groups"][:25]:
+        print(f"{r['device_ms']:10.3f} ms {r['count']:5d}x  grid {r['grid'] or '-':>12s}  "
+              f"{r['name'][:90]}")
+    print(f"{report['call']}: span {report['span_ms']:.3f} ms, busy {report['busy_ms']:.3f} ms, "
+          f"idle share {report['idle_share']:.4f}; untraced wall {wall_ms:.3f} ms", flush=True)
+
+
+def _prompts(cfg, device) -> torch.Tensor:
+    rng = np.random.default_rng(SEED)
+    return torch.from_numpy(rng.integers(0, cfg.vocab, (BATCH, SEQ), dtype=np.int64)).to(device)
+
+
+def _padded(cache: dict, extra: int) -> dict:
+    pad = (0, 0, 0, 0, 0, extra)
+    return {"k": F.pad(cache["k"], pad), "v": F.pad(cache["v"], pad), "pos": cache["pos"]}
+
+
+def trace(params, cfg, device) -> None:
+    from .models import transformer as T
+
+    batch = {"tokens": _prompts(cfg, device)}
+    T.prefill(params, batch, cfg)
+    wall = _sync_ms(lambda: T.prefill(params, batch, cfg))
+    report = _traced("prefill", lambda: T.prefill(params, batch, cfg))
+    _print(report, wall)
+    print(json.dumps({**report, "untraced_wall_ms": wall}))
+
+    logits, _, _, cache = T.prefill(params, batch, cfg)
+    cache = _padded(cache, 4 * DECODE_STEPS)
+    state = {"cache": cache, "tok": torch.argmax(logits[:, -1], -1)}
+    del logits
+
+    def steps():
+        for _ in range(DECODE_STEPS):
+            lg, state["cache"] = T.decode_step(params, state["cache"], state["tok"], cfg)
+            state["tok"] = torch.argmax(lg, -1)
+
+    steps()
+    wall = _sync_ms(steps) / DECODE_STEPS
+    report = _traced("decode", steps)
+    _print(report, wall)
+    print(json.dumps({**report, "untraced_wall_ms_per_step": wall,
+                      "steps": DECODE_STEPS}))
+
+
+def consistency(params, cfg, device) -> None:
+    from .models import transformer as T
+
+    prompts = _prompts(cfg, device)
+    rows = []
+    for depth in DEPTHS:
+        cut = dataclasses.replace(cfg, n_layers=depth)
+        p = {**params, "layers": {k: {n: w[:depth] for n, w in v.items()}
+                                  for k, v in params["layers"].items()}}
+        logits, _, _, cache = T.prefill(p, {"tokens": prompts}, cut)
+        cache = _padded(cache, CHECK_STEPS)
+        tok = torch.argmax(logits[:, -1], -1)
+        del logits
+        fed, got = [], []
+        for _ in range(CHECK_STEPS):
+            fed.append(tok)
+            lg, cache = T.decode_step(p, cache, tok, cut)
+            got.append(lg)
+            tok = torch.argmax(lg, -1)
+        del cache
+        seq = torch.cat([prompts, torch.stack(fed, 1)], 1)
+        full = T.forward(p, {"tokens": seq}, cut)[0][:, SEQ:]
+        got = torch.stack(got, 1)
+        diff = (got - full).abs()
+        top2 = torch.topk(full, 2, dim=-1).values
+        row = {"depth": depth, "max_abs_diff": float(diff.max()),
+               "rms_diff": float(diff.square().mean().sqrt()),
+               "logit_rms": float(full.square().mean().sqrt()),
+               "logit_max": float(full.abs().max()),
+               "tokens_agree": int((got.argmax(-1) == full.argmax(-1)).sum()),
+               "tokens": got.shape[0] * got.shape[1],
+               "min_top2_margin": float((top2[..., 0] - top2[..., 1]).min())}
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+        del full, got, diff
+        torch.cuda.empty_cache()
+    print(json.dumps({"consistency": rows, "arch": cfg.name, "batch": BATCH, "seq": SEQ,
+                      "steps": CHECK_STEPS}))
+
+
+def main(argv=None) -> int:
+    from .configs import get_arch
+    from .kernels import build
+    from .models import transformer as T
+
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--consistency", action="store_true",
+                        help="sweep decode-vs-forward differences over depth")
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_lm: CUDA is not available")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    build.build_all()
+    device = torch.device("cuda")
+    cfg = get_arch(ARCH)
+    params = T.init_params(cfg, torch.Generator(device=device).manual_seed(SEED), device)
+    print(f"{cfg.name} on {torch.cuda.get_device_name(0)}", flush=True)
+    (consistency if args.consistency else trace)(params, cfg, device)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -17,8 +17,12 @@ from repro_torch import kernels
 from repro_torch.core import (count_ops, lu_inverse_dense, multiply_engine,
                               spin_inverse_dense, spin_solve_dense, testing,
                               verify)
+from repro_torch.configs import get_arch
+from repro_torch.kernels.flash_attention import kernel as fa, ref as fa_ref
 from repro_torch.kernels.leaf_inverse import kernel as gj, ref as gj_ref
 from repro_torch.kernels.matmul import kernel as mm, ref as mm_ref
+from repro_torch.models import attention, transformer as T
+from repro_torch.serving import Request, ServingEngine
 
 pytestmark = pytest.mark.cuda
 
@@ -188,3 +192,124 @@ def test_spin_solve_on_the_card_matches_cpu(cuda_device):
     # the solutions are compared, not the factors.
     x_cpu = spin_solve_dense(a, b, 64, "cuda", engine="cuda", device="cpu")
     assert float((x.cpu() - x_cpu).abs().max()) <= 1e-4 * float(x_cpu.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# Flash attention (B6) and the dense LM serving path
+# ---------------------------------------------------------------------------
+
+# The reference's bounds (tests/test_flash_attention.py): bf16 keeps 8
+# mantissa bits and f16 11, and both versions round the f32 result once;
+# in f32 the two differ in summation order only.
+_FA_TOL = {torch.float32: 2e-3, torch.bfloat16: 2e-2, torch.float16: 1e-2}
+
+
+def _qkv(b, h, kv, sq, skv, hd, dtype, seed, device):
+    """q, k, v made in the model's (B, S, H, hd) layout and handed over as
+    (B, H, S, hd) views, as attn_apply hands them."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q = torch.randn(b, sq, h, hd, generator=g).to(device, dtype)
+    k = torch.randn(b, skv, kv, hd, generator=g).to(device, dtype)
+    v = torch.randn(b, skv, kv, hd, generator=g).to(device, dtype)
+    return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+
+def _fa_err(got, want) -> float:
+    return float((got.float() - want.float()).abs().max())
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("h,kv", [(4, 4), (8, 2), (48, 1)])     # groups 1, 4, 48
+@pytest.mark.parametrize("hd", [64, 96, 128, 160])
+def test_flash_attention_kernel_matches_plain(cuda_device, hd, h, kv, dtype, causal):
+    q, k, v = _qkv(2, h, kv, 200, 200, hd, dtype, hd * h + kv, cuda_device)  # ragged S
+    kernels.reset_launch_counts()
+    got = fa.flash_attention_cuda(q, k, v, causal=causal)
+    assert kernels.launch_counts()["flash_attention"] == 1
+    want = fa_ref.attention_ref(q, k, v, causal=causal)
+    assert got.dtype == dtype and got.shape == q.shape
+    assert got.stride() == q.stride()          # the output keeps q's layout
+    assert bool(torch.isfinite(got.float()).all())
+    assert _fa_err(got, want) < _FA_TOL[dtype]
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("sq,skv,hd", [(1, 1, 16), (1, 130, 32), (77, 130, 128),
+                                       (130, 77, 64), (64, 64, 16), (1000, 1000, 128)])
+def test_flash_attention_kernel_ragged_and_contiguous(cuda_device, sq, skv, hd, causal):
+    g = torch.Generator(device="cpu").manual_seed(sq * skv + hd)
+    q = torch.randn(1, 8, sq, hd, generator=g).to(cuda_device, torch.bfloat16)
+    k = torch.randn(1, 2, skv, hd, generator=g).to(cuda_device, torch.bfloat16)
+    v = torch.randn(1, 2, skv, hd, generator=g).to(cuda_device, torch.bfloat16)
+    got = fa.flash_attention_cuda(q, k, v, causal=causal)
+    want = fa_ref.attention_ref(q, k, v, causal=causal)
+    assert got.is_contiguous()
+    assert _fa_err(got, want) < _FA_TOL[torch.bfloat16]
+
+
+def test_flash_attention_rejects_what_the_kernel_does_not_take(cuda_device):
+    q, k, v = _qkv(1, 4, 2, 64, 64, 48, torch.bfloat16, 0, cuda_device)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention_cuda(q, k, v)                      # hd 48
+    q, k, v = _qkv(1, 4, 2, 64, 64, 64, torch.bfloat16, 0, cuda_device)
+    with pytest.raises(ValueError, match="unit stride"):
+        fa.flash_attention_cuda(q.transpose(2, 3), k, v)
+    with pytest.raises(ValueError):
+        fa.flash_attention_cuda(q, k[:, :1].expand(1, 3, 64, 64), v)   # 4 % 3
+    with pytest.raises(ValueError):
+        fa.flash_attention_cuda(q, k.float(), v)              # mixed dtypes
+
+
+@pytest.mark.parametrize("arch", ["granite-8b", "olmo-1b"])
+def test_attn_apply_on_the_card_matches_cpu(cuda_device, arch):
+    cfg = get_arch(arch).reduced()
+    lp = T.init_params(cfg, torch.Generator().manual_seed(1), "cpu")["layers"]["attn"]
+    lp = {name: w[0] for name, w in lp.items()}
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn(2, 100, cfg.d_model, generator=g).to(torch.bfloat16)
+    want = attention.attn_apply(lp, x, cfg)
+    kernels.reset_launch_counts()
+    got = attention.attn_apply({n: w.to(cuda_device) for n, w in lp.items()},
+                               x.to(cuda_device), cfg)
+    assert kernels.launch_counts()["flash_attention"] == 1
+    scale = float(want.float().abs().max())
+    # bf16 output: two roundings (attention output, projection) apart.
+    assert float((got.cpu().float() - want.float()).abs().max()) <= 2e-2 * scale
+
+
+def _tree_to(tree: dict, device) -> dict:
+    return {k: _tree_to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
+def test_lm_serving_path_on_the_card(cuda_device):
+    cfg = get_arch("granite-8b").reduced()
+    params = T.init_params(cfg, torch.Generator(device=cuda_device).manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab, (2, 40), generator=torch.Generator().manual_seed(3))
+    kernels.reset_launch_counts()
+    logits, _, _, cache = T.prefill(params, {"tokens": tokens.to(cuda_device)}, cfg)
+    launches = kernels.launch_counts()
+    assert launches["flash_attention"] == cfg.n_layers
+    assert sum(launches.values()) == cfg.n_layers
+    want, *_ = T.forward(_tree_to(params, "cpu"), {"tokens": tokens}, cfg)
+    assert float((logits.cpu() - want).abs().max()) < 2e-2
+    # decode on from the padded prefill cache, against the forward logits
+    pad = {k: torch.nn.functional.pad(cache[k], (0, 0, 0, 0, 0, 8)) for k in ("k", "v")}
+    cache = {**pad, "pos": cache["pos"]}
+    nxt = torch.argmax(logits[:, -1], -1)
+    step, _ = T.decode_step(params, cache, nxt, cfg)
+    full, *_ = T.forward(params, {"tokens": torch.cat([tokens.to(cuda_device), nxt[:, None]], 1)}, cfg)
+    assert float((step - full[:, -1]).abs().max()) < 2e-2
+    # the engine against the same request alone in an engine of the same
+    # width: the same GEMM shapes, so the same bits, so the same tokens
+    reqs = [Request(uid=i, prompt=[5 + i, 9, 2, i], max_new_tokens=6) for i in range(3)]
+    eng = ServingEngine(cfg, params, slots=2, max_len=32)
+    for r in reqs:
+        eng.submit(r)
+    eng.run_until_done()
+    solo = Request(uid=9, prompt=list(reqs[0].prompt), max_new_tokens=6)
+    alone = ServingEngine(cfg, params, slots=2, max_len=32)
+    alone.submit(solo)
+    alone.run_until_done()
+    assert all(r.done for r in reqs) and reqs[0].output == solo.output

@@ -21,6 +21,7 @@ import torch
 from repro.core import BlockMatrix as JBlockMatrix, count_ops as j_count_ops
 from repro.core import spin_inverse as j_spin_inverse
 from repro.core.testing import make_spd as j_make_spd
+from repro.kernels.flash_attention import ops as jfa_ops, ref as jfa_ref
 from repro.kernels.leaf_inverse import ops as jgj_ops, ref as jgj_ref
 from repro.kernels.leaf_inverse.kernel import (blocked_leaf_inverse_pallas,
                                                leaf_inverse_pallas)
@@ -28,6 +29,7 @@ from repro.kernels.matmul import ops as jmm_ops
 from repro.kernels.matmul.kernel import matmul_pallas, schur_update_pallas
 from repro_torch import bridge, kernels
 from repro_torch.core import BlockMatrix
+from repro_torch.kernels.flash_attention import kernel as fa, ops as fa_ops
 from repro_torch.kernels.leaf_inverse import kernel as gj, ops as gj_ops, ref as gj_ref
 from repro_torch.kernels.matmul import kernel as mm, ops as mm_ops
 
@@ -319,7 +321,89 @@ def test_cpu_calls_launch_no_kernel():
     gj.leaf_inverse_cuda(torch.eye(4)[None])
     gj.blocked_leaf_inverse_cuda(torch.eye(4)[None])
     gj.triangular_solve_cuda(torch.eye(4)[None], torch.ones(1, 4, 2))
+    fa.flash_attention_cuda(torch.ones(1, 2, 4, 16), torch.ones(1, 1, 4, 16),
+                            torch.ones(1, 1, 4, 16))
     assert kernels.launch_counts() == {k: 0 for k in kernels.LAUNCHES}
+
+
+# ---------------------------------------------------------------------------
+# B6 flash attention
+# ---------------------------------------------------------------------------
+
+# The reference's own bounds (tests/test_flash_attention.py): bf16 keeps 8
+# mantissa bits; in f32 the versions differ in summation order only.
+FLASH_TOL = {"float32": 2e-3, "bfloat16": 2e-2}
+
+
+def _qkv(b, h, kv, sq, skv, hd, dtype, *key):
+    rng = _rng(*key)
+    return (_pair(rng.standard_normal((b, h, sq, hd)), dtype),
+            _pair(rng.standard_normal((b, kv, skv, hd)), dtype),
+            _pair(rng.standard_normal((b, kv, skv, hd)), dtype))
+
+
+def _flash_err(got: torch.Tensor, want) -> float:
+    want = torch.from_numpy(np.array(jnp.asarray(want, jnp.float32)))
+    return float((got.float() - want).abs().max())
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("h,kv", [(4, 4), (4, 1), (8, 2)], ids=["mha", "mqa", "gqa"])
+def test_flash_attention_plain_matches_pallas(h, kv, causal, dtype, hd):
+    (qj, qt), (kj, kt), (vj, vt) = _qkv(2, h, kv, 64, 64, hd, dtype, h, kv, hd)
+    got = fa_ops.flash_attention(qt, kt, vt, causal=causal)
+    assert got.dtype == qt.dtype and got.shape == qt.shape
+    pallas = jfa_ops.flash_attention(qj, kj, vj, causal=causal, bq=32, bk=32)
+    oracle = jfa_ref.attention_ref(qj, kj, vj, causal=causal)
+    assert _flash_err(got, pallas) < FLASH_TOL[dtype]
+    assert _flash_err(got, oracle) < FLASH_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("sq,skv", [(50, 50), (37, 50), (50, 37)])
+def test_flash_attention_plain_takes_a_ragged_sequence(sq, skv, causal, dtype):
+    """The Pallas kernel wants S divisible by its blocks; the port's kernel
+    masks the last tile. Ragged shapes are held to the JAX oracle, and the
+    square one to the model's chunked scan as well."""
+    from repro.models.attention import _attend_chunked
+
+    (qj, qt), (kj, kt), (vj, vt) = _qkv(1, 8, 2, sq, skv, 32, dtype, sq, skv)
+    got = fa_ops.flash_attention(qt, kt, vt, causal=causal)
+    assert _flash_err(got, jfa_ref.attention_ref(qj, kj, vj, causal=causal)) \
+        < FLASH_TOL[dtype]
+    if sq == skv:
+        scan = _attend_chunked(*(x.transpose(0, 2, 1, 3) for x in (qj, kj, vj)),
+                               causal=causal, window=0, q_chunk=sq, kv_chunk=skv)
+        assert _flash_err(got, scan.transpose(0, 2, 1, 3)) < FLASH_TOL[dtype]
+
+
+def test_flash_attention_plain_takes_strided_views():
+    (_, qt), (_, kt), (_, vt) = _qkv(2, 4, 2, 40, 40, 16, "float32", 3)
+    want = fa.flash_attention_cuda(qt, kt, vt)
+    views = [x.transpose(1, 2).contiguous().transpose(1, 2) for x in (qt, kt, vt)]
+    assert torch.equal(fa.flash_attention_cuda(*views), want)
+
+
+def test_flash_attention_wrapper_rejects_what_the_kernel_does_not_take():
+    q, k = torch.zeros(1, 3, 8, 16), torch.zeros(1, 2, 8, 16)
+    with pytest.raises(ValueError, match="multiple"):
+        fa.flash_attention_cuda(q, k, k)                                    # 3 % 2
+    q = torch.zeros(1, 4, 8, 16)
+    with pytest.raises(ValueError):
+        fa.flash_attention_cuda(q, k, k.bfloat16())                        # dtypes
+    with pytest.raises(ValueError):
+        fa.flash_attention_cuda(q, k, torch.zeros(1, 2, 9, 16))            # v shape
+    with pytest.raises(ValueError):
+        fa.flash_attention_cuda(q, torch.zeros(1, 2, 8, 8), torch.zeros(1, 2, 8, 8))
+    with pytest.raises(ValueError):
+        fa.flash_attention_cuda(q.double(), k.double(), k.double())        # f64
+    with pytest.raises(ValueError):
+        fa.flash_attention_cuda(q[0], k[0], k[0])                          # rank 3
+    with pytest.raises(ValueError, match="empty"):
+        fa.flash_attention_cuda(q, k[:, :, :0], k[:, :, :0])
 
 
 # ---------------------------------------------------------------------------
@@ -376,6 +460,17 @@ def test_port_imports_neither_jax_nor_the_reference():
         "a = testing.make_spd(64, np.random.default_rng(0), device='cpu')\n"
         "x = spin_inverse_dense(a, 16, 'cuda', engine='cuda', device='cpu')\n"
         "assert verify.inverse_residual(a, x) < 1e-3\n"
+        "import torch\n"
+        "from repro_torch.configs import get_arch\n"
+        "from repro_torch.models import transformer as T\n"
+        "from repro_torch.serving import Request, ServingEngine\n"
+        "import repro_torch.launch.serve, repro_torch.profile_lm\n"
+        "cfg = get_arch('granite-8b').reduced()\n"
+        "p = T.init_params(cfg, torch.Generator().manual_seed(0), 'cpu')\n"
+        "T.prefill(p, {'tokens': torch.zeros(1, 8, dtype=torch.int64)}, cfg)\n"
+        "eng = ServingEngine(cfg, p, slots=1, max_len=16)\n"
+        "eng.submit(Request(uid=0, prompt=[1, 2], max_new_tokens=2))\n"
+        "eng.run_until_done()\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
