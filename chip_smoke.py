@@ -7,14 +7,19 @@
 Phases, each of which fails the run (non-zero exit) on any fault:
 
   1. the card's name and power limit, from nvidia-smi;
-  2. build every CUDA kernel of the port from src/repro_torch/kernels/csrc;
+  2. build every CUDA kernel of the port from src/repro_torch/kernels/csrc,
+     and print the registers and shared memory a block of the tensor-core
+     flash attention kernel (every head dim) and of the in-place
+     Gauss-Jordan kernel;
   3. hold each kernel against its plain PyTorch version on the card, at the
      main paths' shapes, in f32 and bf16, and time kernel, plain version
      and the one PyTorch library call that computes the same function
-     (the triangular solve at the solve's widest leaf: a 1024 x 1024
+     (the scalar Gauss-Jordan at 1 x 128² and 16 x 128²; the triangular
+     solve at the solve's widest leaf: a 1024 x 1024
      packed LU against 1024 x 15616 right-hand sides, both sweeps; flash
      attention at the granite-8b layer, B = 4, H = 32, KV = 8, S = 2048,
-     hd = 128, causal, plus a ragged S = 2000 and a non-causal case);
+     hd = 128, causal, in bf16, f16 and f32, plus a ragged S = 2000 and a
+     non-causal case);
   4. SPIN inversion, `spin_inverse_dense(engine="cuda", leaf_solver="cuda")`,
      at n = 16384, block_size = 1024: residual ‖AX − I‖∞ ≤ 1e-3, op counts
      equal to the paper's oracle, and the kernels it launched;
@@ -251,6 +256,25 @@ def check_kernels(torch, rng, n_gemm: int, bs: int, gj_bs: int, tri_k: int) -> d
                     "library_ms": time_ms(lambda: torch.linalg.inv(blocks), 5),
                     "bound_ms": bound, "bound_by": by, "shape": f"1x{size}x{size} f32"}
 
+    # The scalar Gauss-Jordan at batch 16 (16 blocks, one SM each), held
+    # step-exact: the kernel rounds every step as the plain version does.
+    brng = np.random.default_rng([SEED, 2])
+    blocks = torch.stack([make_spd(gj_bs, brng, device=dev) for _ in range(16)])
+    got, want = gj.leaf_inverse_cuda(blocks), gj_ref.gauss_jordan_ref(blocks)
+    torch.cuda.synchronize()
+    err = max_abs(got, want)
+    tol = 1e-5 * float(want.abs().max())
+    print(f"check gauss_jordan float32 16x{gj_bs}x{gj_bs}: max_abs_err={err!r} tol={tol!r}",
+          flush=True)
+    require(got.shape == want.shape and bool(torch.isfinite(got).all()),
+            "gauss_jordan batch 16: shape or non-finite")
+    require(err <= tol, f"gauss_jordan batch 16: max_abs_err {err} > {tol}")
+    report["gauss_jordan"].update(
+        batch16_ms=time_ms(lambda: gj.leaf_inverse_cuda(blocks), 5),
+        batch16_library_ms=time_ms(lambda: torch.linalg.inv(blocks), 5),
+        batch16_max_abs_err=err)
+    del blocks, got, want
+
     # The triangular solve at the solve path's widest leaf: the packed LU
     # of an SPD block as torch.linalg.lu_factor_ex leaves it (column-major),
     # and the widest right-hand side the recursion hands a leaf.
@@ -320,8 +344,11 @@ def check_flash(torch, rng, b: int, h: int, kv: int, s: int, hd: int) -> dict:
         return one(h), one(kv), one(kv)
 
     row = {}
-    for dtype, peak in ((torch.bfloat16, PEAK_BF16_FLOPS), (torch.float32, PEAK_F32_FLOPS)):
+    for dtype, peak in ((torch.bfloat16, PEAK_BF16_FLOPS), (torch.float32, PEAK_F32_FLOPS),
+                        (torch.float16, PEAK_BF16_FLOPS)):
         name = str(dtype)[6:]
+        if dtype == torch.float16:  # its own inputs: the later phases' draws stay as they were
+            rng = np.random.default_rng([SEED, 3])
         cases = [("causal", s, True)]
         if dtype == torch.bfloat16:
             cases += [("ragged", s - 48, True), ("full", s, False)]
@@ -354,10 +381,26 @@ def check_flash(torch, rng, b: int, h: int, kv: int, s: int, hd: int) -> dict:
             if dtype == torch.bfloat16:
                 row.update(times, shape=f"B={b} H={h} KV={kv} S={sq} hd={hd} causal bf16")
             else:
-                row.update({f"f32_{key}": val for key, val in times.items()})
+                prefix = "f32" if dtype == torch.float32 else "f16"
+                row.update({f"{prefix}_{key}": val for key, val in times.items()})
         del q, k, v
         torch.cuda.empty_cache()
     return row
+
+
+def print_kernel_resources(torch) -> None:
+    """Phase 2: registers and shared memory a block of the tensor-core flash
+    attention kernel at every head dim and of the in-place Gauss-Jordan
+    kernel, as the CUDA runtime reports them."""
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.leaf_inverse import kernel as gj
+
+    for dtype in (torch.bfloat16, torch.float16):
+        for hd in fa.SUPPORTED_HEAD_DIMS:
+            attrs = fa.flash_attention_attributes(dtype, hd)
+            print(f"resources flash_attention {str(dtype)[6:]} hd={hd}: {attrs}", flush=True)
+    for bs in (128, gj.GJ_INPLACE_MAX_BS):
+        print(f"resources gauss_jordan bs={bs}: {gj.gauss_jordan_attributes(bs)}", flush=True)
 
 
 def timed(torch, fn):
@@ -564,6 +607,7 @@ def main() -> int:
     for name in build.SOURCES:
         build.load(name)
     print(f"build: {time.perf_counter() - t0:.1f} s for {list(build.SOURCES)}", flush=True)
+    print_kernel_resources(torch)
 
     rng = np.random.default_rng(SEED)
     n, bs = N, BLOCK_SIZE

@@ -47,6 +47,7 @@ _SIGNATURES = {
     },
     "leaf_inverse": {
         "repro_gauss_jordan": (_P, _P, _P, _I, _I, _I, _I, _P),
+        "repro_gauss_jordan_attributes": (_I, _P),
         "repro_blocked_gauss_jordan": (_P, _P, _P, _P, _P, _I, _I, _I, _I,
                                        _I, _P),
         "repro_triangular_solve": (_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L,
@@ -55,6 +56,7 @@ _SIGNATURES = {
     "flash_attention": {
         "repro_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                   *(_L,) * 12, _I, _F, _I, _P),
+        "repro_flash_attention_attributes": (_I, _I, _P),
     },
 }
 

@@ -14,9 +14,22 @@
 // VMEM and one program walks it.
 //
 // What the design does about it:
-//  * The scratch lives in device memory (it fits in the 50 MB L2). The
-//    scalar kernel copies it into shared memory when it fits (bs <= 128)
-//    and runs one block a matrix, with the bs steps inside the block.
+//  * The scalar sweep is a chain of bs dependent steps, each cheap, so its
+//    time is bs x (one barrier + one shared-memory round trip), not its
+//    2 bs^3 operations. For bs <= kGjRegMaxBs (the main path's leaf is
+//    bs = 128) one launch runs one block a matrix: it reads A in its
+//    dtype, sweeps in place on bs x bs (column k of the inverse takes
+//    the place of pivot column k, the classic in-place Gauss-Jordan, so a
+//    step touches bs live columns, not the 2 bs of [A | I]), and writes
+//    out_dtype. Each thread keeps fixed (row, column) cells in registers
+//    (no index is divided a step); the raw pivot row and factor column of
+//    the next step go through shared memory, double-buffered, so a step
+//    needs one __syncthreads. The new column k is 0 - fac_i * (1 / piv),
+//    exactly what the full sweep writes into column bs + k, and the full
+//    sweep's dead columns are exact 0 / 1, so the two are bitwise equal.
+//  * Larger scalar leaves keep [A | I] in device memory (it fits in the
+//    50 MB L2): gj_init, gj_scalar with the bs steps inside one block a
+//    matrix, gj_extract.
 //  * The blocked sweep is a host loop over panels, three launches each:
 //    a panel kernel that runs the t-step mini-sweep on column slices of
 //    the panel in parallel (each block carries its own copy of the t x t
@@ -109,9 +122,9 @@ __global__ void gj_extract(const float* m, TOut* out, int batch, int bs) {
   }
 }
 
-// Scalar sweep: one block a matrix, bs steps. Shared memory holds the
-// normalized pivot row and the factor column, and the whole [A | I] when
-// use_smem is set.
+// Scalar sweep on [A | I] in device memory, for bs > kGjRegMaxBs: one
+// block a matrix, bs steps. Shared memory holds the normalized pivot row
+// and the factor column, and the whole [A | I] when use_smem is set.
 __global__ void __launch_bounds__(1024) gj_scalar(float* mg, int bs, int use_smem) {
   extern __shared__ float smem[];
   const int w = 2 * bs, tid = threadIdx.x, nt = blockDim.x;
@@ -203,6 +216,120 @@ __global__ void gj_gather(float* mg, const float* pg, float* fg, int batch, int 
       mg[b * bs * w + (base + i) * w + c] = pg[ep];
     }
   }
+}
+
+// In-place scalar sweep, one launch: one block of TR x 32 threads a
+// matrix. Thread (tr, lane) owns rows tr + TR a (a < R) and columns
+// lane + 32 b (b < N) of the bs x bs matrix, in registers; cells past bs
+// hold 0 and are never stored. Step k reads the normalized pivot row and
+// the factor column k, as they were after step k - 1, from one half of
+// rowbuf / facbuf, and the owners of row and column k + 1 write theirs
+// into the other half after their update, so one barrier a step is
+// enough: a half is rewritten only two steps after it was read, with a
+// barrier between.
+constexpr int kGjRegMaxBs = 208;  // 13 x 16 rows, 7 x 32 columns
+
+__device__ __forceinline__ float load_f32(const void* p, long long i, int dtype) {
+  switch (dtype) {
+    case repro::kBF16: return to_f32(static_cast<const __nv_bfloat16*>(p)[i]);
+    case repro::kF16: return to_f32(static_cast<const __half*>(p)[i]);
+  }
+  return static_cast<const float*>(p)[i];
+}
+
+__device__ __forceinline__ void store_f32(void* p, long long i, float x, int dtype) {
+  switch (dtype) {
+    case repro::kBF16: static_cast<__nv_bfloat16*>(p)[i] = from_f32<__nv_bfloat16>(x); return;
+    case repro::kF16: static_cast<__half*>(p)[i] = from_f32<__half>(x); return;
+  }
+  static_cast<float*>(p)[i] = x;
+}
+
+template <int R, int N, int TR>
+__global__ void __launch_bounds__(TR * 32, 1)
+    gj_inplace(const void* a, void* out, int bs, int in_dtype, int out_dtype) {
+  __shared__ float rowbuf[2][32 * N];
+  __shared__ float facbuf[2][TR * R];
+  const int lane = threadIdx.x & 31, tr = threadIdx.x >> 5;
+  const long long base = blockIdx.x * (long long)bs * bs;
+  float c[R][N];
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int q = 0; q < N; ++q) {
+      const int i = tr + TR * r, j = lane + 32 * q;
+      c[r][q] = (i < bs && j < bs) ? load_f32(a, base + (long long)i * bs + j, in_dtype) : 0.f;
+    }
+  // Row k of the current matrix, divided by its pivot, and column k into
+  // half h of the buffers. The owners of row k are one warp, and the
+  // pivot sits in its lane k % 32, so the warp divides the row once for
+  // every thread.
+  auto publish = [&](int k, int h) {
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      if (tr + TR * r == k) {
+        float own = 0.f;
+#pragma unroll
+        for (int q = 0; q < N; ++q)
+          if (q == k / 32) own = c[r][q];
+        const float piv = __shfl_sync(0xffffffffu, own, k % 32);
+#pragma unroll
+        for (int q = 0; q < N; ++q) {
+          const int j = lane + 32 * q;
+          rowbuf[h][j] = __fdiv_rn(j == k ? 1.f : c[r][q], piv);
+        }
+      }
+#pragma unroll
+    for (int q = 0; q < N; ++q)
+      if (lane + 32 * q == k)
+#pragma unroll
+        for (int r = 0; r < R; ++r) facbuf[h][tr + TR * r] = c[r][q];
+  };
+  publish(0, 0);
+  __syncthreads();
+  for (int k = 0; k < bs; ++k) {
+    const int h = k & 1;
+    float row[N], fac[R];
+#pragma unroll
+    for (int q = 0; q < N; ++q) row[q] = rowbuf[h][lane + 32 * q];
+#pragma unroll
+    for (int r = 0; r < R; ++r) fac[r] = tr + TR * r == k ? 0.f : facbuf[h][tr + TR * r];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const bool pivot_row = tr + TR * r == k;
+#pragma unroll
+      for (int q = 0; q < N; ++q) {
+        const float m = lane + 32 * q == k ? 0.f : c[r][q];
+        c[r][q] = pivot_row ? row[q] : __fsub_rn(m, __fmul_rn(fac[r], row[q]));
+      }
+    }
+    if (k + 1 < bs) publish(k + 1, h ^ 1);
+    __syncthreads();
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int q = 0; q < N; ++q) {
+      const int i = tr + TR * r, j = lane + 32 * q;
+      if (i < bs && j < bs) store_f32(out, base + (long long)i * bs + j, c[r][q], out_dtype);
+    }
+}
+
+// The in-place kernel for bs, its block size: up to bs = 128 a 32 x 32
+// block (at most 16 cells a thread under the 64-register cap of 1024
+// threads), above it 16 x 32 threads (at most 91 cells under 128).
+template <typename F>
+cudaError_t with_gj_inplace(int bs, F&& f) {
+  switch ((bs + 31) / 32) {
+    case 1: return f(gj_inplace<1, 1, 32>, 1024);
+    case 2: return f(gj_inplace<2, 2, 32>, 1024);
+    case 3: return f(gj_inplace<3, 3, 32>, 1024);
+    case 4: return f(gj_inplace<4, 4, 32>, 1024);
+    case 5: return f(gj_inplace<10, 5, 16>, 512);
+    case 6: return f(gj_inplace<12, 6, 16>, 512);
+    case 7: return f(gj_inplace<13, 7, 16>, 512);
+  }
+  return cudaErrorInvalidValue;
 }
 
 template <typename TIn>
@@ -420,11 +547,18 @@ cudaError_t tri_solve_b(const TriArgs& args, int batch, int b_dtype, cudaStream_
 
 }  // namespace
 
-// Scalar Gauss-Jordan. m: (batch, bs, 2bs) f32 scratch.
+// Scalar Gauss-Jordan. For bs <= kGjRegMaxBs one in-place launch and no
+// scratch (m may be null); above it m: (batch, bs, 2bs) f32 scratch.
 extern "C" int repro_gauss_jordan(const void* a, void* out, float* m, int batch, int bs,
                                   int in_dtype, int out_dtype, void* stream) {
   if (batch == 0 || bs == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bs <= kGjRegMaxBs)
+    return with_gj_inplace(bs, [&](auto kernel, int threads) {
+      kernel<<<batch, threads, 0, s>>>(a, out, bs, in_dtype, out_dtype);
+      return cudaGetLastError();
+    });
+  if (m == nullptr) return cudaErrorInvalidValue;
   cudaError_t err = init(a, m, batch, bs, in_dtype, s);
   if (err != cudaSuccess) return err;
   const size_t rows = (size_t)3 * bs * sizeof(float);  // pivot row + factor column
@@ -438,6 +572,24 @@ extern "C" int repro_gauss_jordan(const void* a, void* out, float* m, int batch,
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return extract(m, out, batch, bs, out_dtype, s);
+}
+
+// Registers a thread, static shared memory and local (spill) bytes of the
+// kernel the scalar route launches for bs: out[0..2].
+extern "C" int repro_gauss_jordan_attributes(int bs, int* out) {
+  cudaFuncAttributes fa;
+  cudaError_t err;
+  if (bs <= kGjRegMaxBs)
+    err = with_gj_inplace(bs, [&](auto kernel, int) {
+      return cudaFuncGetAttributes(&fa, kernel);
+    });
+  else
+    err = cudaFuncGetAttributes(&fa, gj_scalar);
+  if (err != cudaSuccess) return err;
+  out[0] = fa.numRegs;
+  out[1] = static_cast<int>(fa.sharedSizeBytes);
+  out[2] = static_cast<int>(fa.localSizeBytes);
+  return 0;
 }
 
 // Blocked Gauss-Jordan with panel width t (t <= 64, t divides bs).

@@ -12,6 +12,8 @@ kernels sweep in.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from .. import DTYPE_CODES, LAUNCHES, check_operand, stream_of
@@ -20,9 +22,13 @@ from .ref import (blocked_gauss_jordan_ref, blocked_triangular_solve_ref,
                   gauss_jordan_ref)
 
 __all__ = ["leaf_inverse_cuda", "blocked_leaf_inverse_cuda",
-           "triangular_solve_cuda", "default_panel", "MAX_PANEL"]
+           "triangular_solve_cuda", "default_panel", "MAX_PANEL",
+           "GJ_INPLACE_MAX_BS", "gauss_jordan_attributes"]
 
 MAX_PANEL = 64  # kPanelMax and kTriPanelMax in csrc/leaf_inverse.cu
+# kGjRegMaxBs in csrc/leaf_inverse.cu: up to this bs the scalar sweep is one
+# in-place launch with no scratch; above it [A | I] sweeps in device memory.
+GJ_INPLACE_MAX_BS = 208
 
 
 def default_panel(bs: int, cap: int = MAX_PANEL) -> int:
@@ -46,22 +52,34 @@ def _check(blocks: torch.Tensor, out_dtype) -> torch.dtype:
 
 
 def leaf_inverse_cuda(blocks: torch.Tensor, out_dtype=None) -> torch.Tensor:
-    """Invert (batch, bs, bs) blocks by scalar Gauss-Jordan."""
+    """Invert (batch, bs, bs) blocks by scalar Gauss-Jordan: one in-place
+    launch up to bs = GJ_INPLACE_MAX_BS, an f32 [A | I] scratch above."""
     out_dtype = _check(blocks, out_dtype)
     if blocks.device.type == "cpu":
         return gauss_jordan_ref(blocks, out_dtype)
     batch, bs, _ = blocks.shape
-    scratch = torch.empty((batch, bs, 2 * bs), dtype=torch.float32,
-                          device=blocks.device)
+    scratch = None if bs <= GJ_INPLACE_MAX_BS else torch.empty(
+        (batch, bs, 2 * bs), dtype=torch.float32, device=blocks.device)
     out = torch.empty(blocks.shape, dtype=out_dtype, device=blocks.device)
     with torch.cuda.device(blocks.device):
         err = load("leaf_inverse").repro_gauss_jordan(
-            blocks.data_ptr(), out.data_ptr(), scratch.data_ptr(), batch, bs,
+            blocks.data_ptr(), out.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), batch, bs,
             DTYPE_CODES[blocks.dtype], DTYPE_CODES[out_dtype],
             stream_of(blocks))
     check(err, "gauss_jordan kernel")
     LAUNCHES["gauss_jordan"] += 1
     return out
+
+
+def gauss_jordan_attributes(bs: int) -> dict:
+    """Registers a thread, static shared memory a block and spilled bytes of
+    the kernel the scalar sweep launches for `bs`, as the CUDA runtime
+    reports them. Needs the card's toolkit: it builds the kernels."""
+    out = (ctypes.c_int * 3)()
+    check(load("leaf_inverse").repro_gauss_jordan_attributes(bs, out),
+          "gauss_jordan attributes")
+    return {"registers": out[0], "static_smem": out[1], "local_bytes": out[2]}
 
 
 def blocked_leaf_inverse_cuda(blocks: torch.Tensor, panel: int | None = None,

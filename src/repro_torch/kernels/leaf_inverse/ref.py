@@ -40,12 +40,28 @@ def _sweep(m: torch.Tensor, j: int, col: int) -> torch.Tensor:
 
 
 def gauss_jordan_ref(blocks: torch.Tensor, out_dtype=None) -> torch.Tensor:
-    """Scalar pivot-free Gauss-Jordan on [A | I], one column a step."""
+    """Scalar pivot-free Gauss-Jordan, one column a step, in place on bs x bs.
+
+    Step k of the sweep on [A | I] turns column k of A into e_k and fills
+    column bs + k of the right half, which was e_k until then. The in-place
+    sweep stores that new column where column k of A was, so each step
+    touches bs live columns: the pivot row is m[k] / piv with m[k, k] read
+    as 1 (giving 1 / piv), and the new column k of the other rows is
+    0 - fac_i * (1 / piv). The dead columns of the full sweep are exact
+    0 / 1, so the result equals the full sweep's bit for bit.
+    """
     bs = blocks.shape[1]
-    m = _augmented(blocks)
+    m = blocks.float().clone()
     for k in range(bs):
-        m = _sweep(m, k, k)
-    return m[:, :, bs:].to(out_dtype or blocks.dtype)
+        piv = m[:, k, k:k + 1]
+        row = m[:, k, :] / piv
+        row[:, k] = torch.ones_like(piv[:, 0]) / piv[:, 0]
+        fac = m[:, :, k].clone()
+        fac[:, k] = 0.0
+        m[:, :, k] = 0.0
+        m = m - fac[:, :, None] * row[:, None, :]
+        m[:, k, :] = row
+    return m.to(out_dtype or blocks.dtype)
 
 
 def blocked_gauss_jordan_ref(blocks: torch.Tensor, panel: int,

@@ -97,6 +97,26 @@ def test_leaf_kernels_match_plain(cuda_device, batch, bs):
         gj.leaf_inverse_cuda(x.transpose(1, 2))      # not contiguous
 
 
+@pytest.mark.parametrize("in_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch", [1, 133])                  # 133: more blocks than SMs
+@pytest.mark.parametrize("bs", [1, 17, 128, 200, 256])       # 256: the device-memory route
+def test_scalar_gauss_jordan_step_exact(cuda_device, bs, batch, in_dtype):
+    x = _spd_blocks(min(batch, 3), bs, 9, cuda_device)
+    x = x.repeat((batch + 2) // 3, 1, 1)[:batch].contiguous().to(in_dtype)
+    kernels.reset_launch_counts()
+    got = gj.leaf_inverse_cuda(x, out_dtype=torch.float32)
+    assert kernels.launch_counts()["gauss_jordan"] == 1
+    want = gj_ref.gauss_jordan_ref(x, out_dtype=torch.float32)
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    # The same rounding step for step: equal up to ~1 ulp.
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+def test_gauss_jordan_kernel_keeps_its_registers(cuda_device):
+    # bs = 128, the main path's leaf: 16 cells a thread, no spill.
+    assert gj.gauss_jordan_attributes(128)["local_bytes"] == 0
+
+
 @pytest.mark.parametrize("leaf", ["cuda", "gauss_jordan"])
 def test_spin_on_the_card_matches_cpu(cuda_device, leaf):
     rng = np.random.default_rng(1)
@@ -232,6 +252,62 @@ def test_flash_attention_kernel_matches_plain(cuda_device, hd, h, kv, dtype, cau
     assert got.stride() == q.stride()          # the output keeps q's layout
     assert bool(torch.isfinite(got.float()).all())
     assert _fa_err(got, want) < _FA_TOL[dtype]
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("h,kv", [(32, 8), (8, 8)])
+@pytest.mark.parametrize("s", [64, 128, 129, 2048])
+@pytest.mark.parametrize("hd", [16, 32, 64, 96, 128, 160])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_attention_tensor_core_kernel(cuda_device, dtype, hd, s, h, kv, causal):
+    q, k, v = _qkv(1, h, kv, s, s, hd, dtype, s * hd + h, cuda_device)
+    kernels.reset_launch_counts()
+    got = fa.flash_attention_cuda(q, k, v, causal=causal)
+    assert kernels.launch_counts()["flash_attention"] == 1
+    want = fa_ref.attention_ref(q, k, v, causal=causal)
+    assert got.dtype == dtype and got.shape == q.shape
+    assert bool(torch.isfinite(got.float()).all())
+    assert _fa_err(got, want) < _FA_TOL[dtype]
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_attention_tensor_core_kernel_keeps_its_registers(cuda_device, dtype, hd):
+    # The consumers grow to 240 registers by setmaxnreg; a kernel that
+    # spills at these head dims has lost that (PERF.md §6).
+    attrs = fa.flash_attention_attributes(dtype, hd)
+    assert attrs["local_bytes"] == 0, attrs
+    assert attrs["dynamic_smem"] <= 232448, attrs
+
+
+def _kernel_names(fn) -> list[str]:
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def test_flash_attention_f32_keeps_the_ffma_kernel(cuda_device):
+    q, k, v = _qkv(2, 8, 2, 300, 300, 128, torch.float32, 5, cuda_device)
+    names = _kernel_names(lambda: fa.flash_attention_cuda(q, k, v, causal=True))
+    assert any("flash_fwd<" in n for n in names), names
+    assert not any("flash_fwd_tc" in n for n in names), names
+    got = fa.flash_attention_cuda(q, k, v, causal=True)
+    assert _fa_err(got, fa_ref.attention_ref(q, k, v, causal=True)) < 2e-3
+    bf = [t.to(torch.bfloat16) for t in (q, k, v)]
+    names = _kernel_names(lambda: fa.flash_attention_cuda(*bf, causal=True))
+    assert any("flash_fwd_tc" in n for n in names), names
+
+
+def test_flash_attention_rejects_unaligned_tma_operands(cuda_device):
+    q, k, v = _qkv(1, 4, 2, 64, 64, 64, torch.bfloat16, 0, cuda_device)
+    flat = torch.empty(q.numel() + 1, dtype=torch.bfloat16, device=cuda_device)
+    shifted = flat[1:].view(q.shape)                       # 2-byte offset base
+    with pytest.raises(ValueError, match="TMA"):
+        fa.flash_attention_cuda(shifted, k, v)
 
 
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])

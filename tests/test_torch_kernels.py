@@ -203,6 +203,30 @@ def test_plain_versions_step_exact_against_jax_refs(bs, panel):
            "float32", f32_rel=1e-4)
 
 
+def _full_sweep_gauss_jordan(blocks: torch.Tensor) -> torch.Tensor:
+    """The scalar sweep on the whole [A | I], as the kernel ran it before it
+    went in place: every step over all 2·bs columns."""
+    batch, bs, _ = blocks.shape
+    eye = torch.eye(bs, dtype=torch.float32).expand(batch, bs, bs)
+    m = torch.cat([blocks.float(), eye], dim=2)
+    for k in range(bs):
+        row = m[:, k, :] / m[:, k, k:k + 1]
+        fac = m[:, :, k].clone()
+        fac[:, k] = 0.0
+        m = m - fac[:, :, None] * row[:, None, :]
+        m[:, k, :] = row
+    return m[:, :, bs:]
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bs", [1, 2, 7, 32, 64, 128])
+def test_in_place_gauss_jordan_equals_full_sweep_bitwise(bs, dtype, seed):
+    _, xt = _pair(_spd_blocks(2, bs, 10 + seed), dtype)
+    got = gj_ref.gauss_jordan_ref(xt, out_dtype=torch.float32)
+    assert torch.equal(got, _full_sweep_gauss_jordan(xt))
+
+
 def test_leaf_ops_single_and_batched():
     x = torch.from_numpy(_spd_blocks(3, 32, 4))
     assert torch.equal(gj_ops.batched_leaf_inverse(x), gj_ref.gauss_jordan_ref(x))
