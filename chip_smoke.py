@@ -8,13 +8,17 @@ Phases, each of which fails the run (non-zero exit) on any fault:
 
   1. the card's name and power limit, from nvidia-smi;
   2. build every CUDA kernel of the port from src/repro_torch/kernels/csrc,
-     and print the registers and shared memory a block of the tensor-core
+     and print the registers, shared memory and spills of the tensor-core
+     GEMM body (f32, bf16, f16; 64- and 128-row tiles), of the tensor-core
      flash attention kernel (every head dim) and of the in-place
      Gauss-Jordan kernel;
   3. hold each kernel against its plain PyTorch version on the card, at the
      main paths' shapes, in f32 and bf16, and time kernel, plain version
      and the one PyTorch library call that computes the same function
-     (the scalar Gauss-Jordan at 1 x 128² and 16 x 128²; the triangular
+     (the GEMM at 8192³, the inversion's top-level product, and at 4096³,
+     2048³ and 1024³, its deeper levels, with the pack pre-pass of its
+     tensor-core body timed apart; the scalar Gauss-Jordan at 1 x 128² and
+     16 x 128²; the triangular
      solve at the solve's widest leaf: a 1024 x 1024
      packed LU against 1024 x 15616 right-hand sides, both sweeps; flash
      attention at the granite-8b layer, B = 4, H = 32, KV = 8, S = 2048,
@@ -22,7 +26,9 @@ Phases, each of which fails the run (non-zero exit) on any fault:
      non-causal case);
   4. SPIN inversion, `spin_inverse_dense(engine="cuda", leaf_solver="cuda")`,
      at n = 16384, block_size = 1024: residual ‖AX − I‖∞ ≤ 1e-3, op counts
-     equal to the paper's oracle, and the kernels it launched;
+     equal to the paper's oracle, and the kernels it launched; in this
+     phase and the next three every matmul and schur_update launch must
+     have taken the GEMM's tensor-core body;
   5. the paper's baseline, `lu_inverse_dense`, at the same size, timed
      beside SPIN;
   6. the inverse-free solve, `spin_solve_dense(engine="cuda",
@@ -61,6 +67,7 @@ SRC = ROOT / "src"
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet; dense, 700 W).
 PEAK_F32_FLOPS = 67e12        # f32 outside the tensor cores
+PEAK_TF32_FLOPS = 495e12      # TF32 on the tensor cores
 PEAK_BF16_FLOPS = 989e12      # bf16 and f16 on the tensor cores
 PEAK_BYTES = 3.35e12          # HBM3
 
@@ -68,6 +75,7 @@ RESIDUAL_BOUND = 1e-3         # f32 residual bound of the conformance table
 SEED = 0
 REPS = 2                      # timed runs of each inversion path
 N, BLOCK_SIZE = 16384, 1024      # the main path: grid 16, four levels
+GEMM_SIZES = (8192, 4096, 2048, 1024)   # the inversion's products, level by level
 N_RHS = 256                       # right-hand sides of the solve path
 GJ_N, GJ_BLOCK_SIZE = 2048, 128   # the scalar Gauss-Jordan leaf's path
 
@@ -126,9 +134,21 @@ def time_ms(fn, reps: int) -> float:
 
 
 def gemm_bound_ms(m: int, n: int, k: int, with_c: bool, itemsize: int) -> tuple[float, str]:
+    """The f32 product on the FFMA units: 2mnk operations at 67 TFLOP/s."""
     flops = 2.0 * m * n * k + (2.0 * m * n if with_c else 0.0)
     nbytes = itemsize * (m * k + k * n + m * n * (2 if with_c else 1))
     t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def gemm_tc_bound_ms(m: int, n: int, k: int, with_c: bool, itemsize: int) -> tuple[float, str]:
+    """The product as the tensor-core body does it: f32 as three TF32
+    products (3·2mnk operations at 495 TFLOP/s), bf16 and f16 as one (at
+    989). Bytes: each input read once, the output written once."""
+    products, peak = (3, PEAK_TF32_FLOPS) if itemsize == 4 else (1, PEAK_BF16_FLOPS)
+    flops = products * 2.0 * m * n * k
+    nbytes = itemsize * (m * k + k * n + m * n * (2 if with_c else 1))
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -212,18 +232,40 @@ def check_kernels(torch, rng, n_gemm: int, bs: int, gj_bs: int, tri_k: int) -> d
             if dtype == torch.float32 and name in ("matmul", "schur_update"):
                 report[name] = {"max_abs_err": err}
         del got, want
-    a, b, c = a32, b32, c32
-    for name, with_c, kern, plain, lib in (
-            ("matmul", False, lambda: mm.matmul_cuda(a, b),
-             lambda: mm_ref.matmul_ref(a, b), lambda: torch.matmul(a, b)),
-            ("schur_update", True, lambda: mm.schur_update_cuda(c, a, b),
-             lambda: mm_ref.schur_update_ref(c, a, b),
-             lambda: torch.addmm(c, a, b, beta=-1.0, alpha=1.0))):
-        bound, by = gemm_bound_ms(m, n, k, with_c, 4)
-        report[name].update(ms=time_ms(kern, 5), plain_ms=time_ms(plain, 5),
-                            library_ms=time_ms(lib, 5), bound_ms=bound, bound_by=by,
-                            shape=f"{m}x{k}x{n} f32")
-    del a32, b32, c32, a, b, c
+    # f32 times at each level's product size, the first on the inputs above:
+    # kernel (pack pre-pass included), its pack pre-pass alone, the plain
+    # version and the library call; bound_ms is the tensor-core body's
+    # (3 TF32 products), ffma_bound_ms the f32 FFMA one.
+    for size in GEMM_SIZES:
+        if size == n_gemm:
+            a, b, c = a32, b32, c32
+        else:
+            a, b, c = normal(size, size), normal(size, size), normal(size, size)
+        for name, with_c, kern, plain, lib in (
+                ("matmul", False, lambda: mm.matmul_cuda(a, b),
+                 lambda: mm_ref.matmul_ref(a, b), lambda: torch.matmul(a, b)),
+                ("schur_update", True, lambda: mm.schur_update_cuda(c, a, b),
+                 lambda: mm_ref.schur_update_ref(c, a, b),
+                 lambda: torch.addmm(c, a, b, beta=-1.0, alpha=1.0))):
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            err = max_abs(got, want)
+            tol = 1e-5 * float(want.abs().max())
+            print(f"check {name} float32 {size}^3: max_abs_err={err!r} tol={tol!r}", flush=True)
+            require(err <= tol, f"{name} {size}^3: max_abs_err {err} > {tol}")
+            del got, want
+            bound, by = gemm_tc_bound_ms(size, size, size, with_c, 4)
+            times = {"ms": time_ms(kern, 5), "pack_ms": time_ms(lambda: mm.gemm_pack_cuda(a, b), 5),
+                     "plain_ms": time_ms(plain, 5), "library_ms": time_ms(lib, 5),
+                     "bound_ms": bound, "bound_by": by,
+                     "ffma_bound_ms": gemm_bound_ms(size, size, size, with_c, 4)[0],
+                     "max_abs_err": err}
+            print(f"time {name} float32 {size}^3: {times}", flush=True)
+            if size == n_gemm:
+                report[name].update(times, shape=f"{size}x{size}x{size} f32")
+            report[name].setdefault("by_size", {})[str(size)] = times
+        del a, b, c
+    del a32, b32, c32
     torch.cuda.empty_cache()
 
     # Leaf kernels on SPD blocks, the matrices SPIN's leaves see.
@@ -389,11 +431,18 @@ def check_flash(torch, rng, b: int, h: int, kv: int, s: int, hd: int) -> dict:
 
 
 def print_kernel_resources(torch) -> None:
-    """Phase 2: registers and shared memory a block of the tensor-core flash
-    attention kernel at every head dim and of the in-place Gauss-Jordan
-    kernel, as the CUDA runtime reports them."""
+    """Phase 2: registers, shared memory and spills of the tensor-core GEMM
+    body, of the tensor-core flash attention kernel at every head dim and
+    of the in-place Gauss-Jordan kernel, as the CUDA runtime reports them."""
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.leaf_inverse import kernel as gj
+    from repro_torch.kernels.matmul import kernel as mm
+
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        for block_m in (64, 128):
+            attrs = mm.gemm_tc_attributes(dtype, block_m)
+            print(f"resources gemm_tc {str(dtype)[6:]} block_m={block_m}: {attrs}", flush=True)
+            require(attrs["local_bytes"] == 0, f"gemm_tc {dtype} block_m={block_m} spills")
 
     for dtype in (torch.bfloat16, torch.float16):
         for hd in fa.SUPPORTED_HEAD_DIMS:
@@ -441,6 +490,10 @@ def run_path(torch, name, fn, a, grid, *, expect_launches, op_oracle, reps, b=No
     for kern, want in expect_launches.items():
         require(launches[kern] == want,
                 f"{name}: {kern} launched {launches[kern]} times, want {want}")
+    products = launches["matmul"] + launches["schur_update"]
+    require(launches["gemm_tensor_core"] == products and launches["gemm_ffma"] == 0,
+            f"{name}: {products} GEMM launches, {launches['gemm_tensor_core']} of them "
+            f"on the tensor-core body and {launches['gemm_ffma']} on the FFMA one")
     return {"ms": times, "residual": res, "launches": launches,
             "op_counts": counts.as_dict()}
 
@@ -689,6 +742,8 @@ def main() -> int:
 
     # 9. the kernels line
     rows = []
+    gemm_body = "gemm_tc: pack pre-pass, then 3xTF32 wgmma on a TMA ring (f32)"
+    report["schur_update"]["body"] = report["matmul"]["body"] = gemm_body
     for name, source, replaces, path in (
             ("schur_update", "src/repro_torch/kernels/csrc/matmul.cu",
              "src/repro/kernels/matmul/kernel.py:131", spin),

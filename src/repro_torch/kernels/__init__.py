@@ -15,7 +15,10 @@ __all__ = ["LAUNCHES", "launch_counts", "reset_launch_counts", "DTYPE_CODES",
            "check_operand", "stream_of"]
 
 # Launches of each kernel since the last reset, by wrapper.
+# `gemm_tensor_core` and `gemm_ffma` count the launches of `matmul` and
+# `schur_update` again, by the GEMM body that ran them.
 LAUNCHES: dict[str, int] = {"matmul": 0, "schur_update": 0,
+                            "gemm_tensor_core": 0, "gemm_ffma": 0,
                             "gauss_jordan": 0, "blocked_gauss_jordan": 0,
                             "triangular_solve": 0, "flash_attention": 0}
 

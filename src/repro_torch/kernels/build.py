@@ -44,6 +44,10 @@ _SIGNATURES = {
     "matmul": {
         "repro_gemm": (_P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _L,
                        _L, _L, _L, _L, _I, _F, _F, _I, _I, _P),
+        "repro_gemm_pack": (_P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _I, _P),
+        "repro_gemm_tc": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _L,
+                          _L, _F, _F, _I, _I, _I, _P),
+        "repro_gemm_tc_attributes": (_I, _I, _P),
     },
     "leaf_inverse": {
         "repro_gauss_jordan": (_P, _P, _P, _I, _I, _I, _I, _P),

@@ -541,31 +541,6 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   }
 }
 
-// cuTensorMapEncodeTiled, from the driver through the runtime, so the
-// library needs no -lcuda.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(ptr)
-               : nullptr;
-  }();
-  return fn;
-}
-
 // The tensor map of a (batch, heads, s, hd) operand at strides (sb, sh, ss)
 // in elements, unit stride on hd, as a 4-D tensor (hd, s, heads, batch)
 // cut into boxes of kSw bytes of hd by `rows` rows. An axis of extent 1
@@ -574,7 +549,7 @@ template <typename T, int HD>
 cudaError_t make_map(CUtensorMap* map, const void* ptr, int s, int heads, int batch,
                      long long sb, long long sh, long long ss, int rows) {
   using Sh = TcShape<HD>;
-  const EncodeTiled encode = encode_tiled();
+  const repro::EncodeTiled encode = repro::encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   if (s == 1) ss = HD;
   if (heads == 1) sh = ss * s;

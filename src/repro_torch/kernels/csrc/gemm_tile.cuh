@@ -1,19 +1,21 @@
-// Tiled f32-accumulating GEMM body shared by the matmul and Gauss-Jordan
-// kernels: out = beta * C + alpha * (A @ B), batched over blockIdx.z.
+// Tiled f32-accumulating FFMA GEMM body: out = beta * C + alpha * (A @ B),
+// batched over blockIdx.z. It carries the blocked Gauss-Jordan's rank-t
+// updates (leaf_inverse.cu, k = t <= 64) and the matmul and schur_update
+// products with k == 0; every other product of those two takes the
+// tensor-core body of matmul.cu.
 //
-// Replaces the Pallas kernels `matmul_pallas` and `schur_update_pallas`
+// Written for the Pallas kernels `matmul_pallas` and `schur_update_pallas`
 // (src/repro/kernels/matmul/kernel.py). On the TPU the k axis is a
 // sequential grid dimension that carries an f32 VMEM accumulator from step
 // to step; here blocks run in parallel and carry nothing, so each block
 // owns one BM x BN output tile and walks the whole k range itself, with
 // the accumulator in registers (TM x TN = 64 floats a thread).
 //
-// Bound on an H100: the SPIN products are square and large (k >= 1024 on
-// the main path), so the arithmetic intensity is far above the card's
-// f32 ridge; the bound is the f32 FMA rate outside the tensor cores.
-// f32 operands are multiplied in IEEE f32 with FFMA, never TF32, so that
-// the inversion keeps its 1e-3 residual at large n. bf16 and f16 operands
-// are widened to f32 as they are staged into shared memory.
+// Bound on an H100: for a large product, the f32 FMA rate outside the
+// tensor cores. f32 operands are multiplied in IEEE f32 with FFMA, never as
+// one TF32 product, which would not hold the inversion's 1e-3 residual at
+// large n. bf16 and f16 operands are widened to f32 as they are staged
+// into shared memory.
 //
 // Design for that bound: 128 x 128 output tiles, 16-deep k slices staged
 // through two shared-memory buffers (A stored transposed so that a thread
@@ -24,8 +26,7 @@
 // alpha is folded into the A tile as it is staged, and beta * C seeds the
 // accumulator before the k loop, so the update costs no extra pass over
 // the output. Every load and store is masked, so any (m, n, k) works and
-// no tile rule of the TPU carries over. Tensor-core (wgmma) tiles and
-// pipelined TMA loads are later work.
+// no tile rule of the TPU carries over.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -1,18 +1,22 @@
-"""Trace one SPIN inversion or solve on the card and break its device time down.
+"""Trace SPIN inversions or solves on the card and break their device time down.
 
-    PYTHONPATH=src python -m repro_torch.profile_spin            # inversion
-    PYTHONPATH=src python -m repro_torch.profile_spin --solve    # solve
+    PYTHONPATH=src python -m repro_torch.profile_spin                  # inversion
+    PYTHONPATH=src python -m repro_torch.profile_spin --solve          # solve
+    PYTHONPATH=src python -m repro_torch.profile_spin --gauss-jordan --calls 4
 
 Runs `spin_inverse_dense(engine="cuda", leaf_solver="cuda")` at n = 16384,
-block size 1024, f32, on a `make_spd` matrix (seed 0), or with `--solve`
+block size 1024, f32, on a `make_spd` matrix (seed 0); with `--solve`
 `spin_solve_dense(engine="cuda", leaf_solver="cuda")` of that matrix
-against 256 standard-normal right-hand sides: one warm-up call, one call
-timed by CUDA events, then one call under `torch.profiler`. From
-the trace's device events it prints, as one JSON line, each kernel's
-device time and count, grouped by kernel name and launch grid, and the
-device's idle share: the part of the traced call, from its start on the
-host to the end of its last device event, in which no kernel, copy or
-fill ran. The Chrome trace is kept under ``build/profile_spin/``.
+against 256 standard-normal right-hand sides; with `--gauss-jordan`
+`spin_inverse_dense(leaf_solver="gauss_jordan", engine="cuda")` at
+n = 2048, block size 128 (the scalar Gauss-Jordan leaf's path). One
+warm-up call, `--calls` calls timed by CUDA events one by one, then
+`--calls` calls under `torch.profiler`, each in a range of its own. From
+the trace's device events it prints, for each traced call, one JSON line:
+each kernel's device time and count, grouped by kernel name and launch
+grid, and the device's idle share: the part of the call, from its start
+on the host to the end of its last device event, in which no kernel, copy
+or fill ran. The Chrome trace is kept under ``build/profile_spin/``.
 """
 
 from __future__ import annotations
@@ -27,8 +31,10 @@ import torch
 __all__ = ["device_breakdown", "main"]
 
 N, BLOCK_SIZE, N_RHS, SEED = 16384, 1024, 256, 0
+GJ_N, GJ_BLOCK_SIZE = 2048, 128
 TRACE_DIR = Path(__file__).resolve().parents[2] / "build" / "profile_spin"
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+HOST_LAUNCH_CATEGORIES = ("cuda_runtime", "cuda_driver")
 CALL = "spin_inverse_dense"
 
 
@@ -41,10 +47,19 @@ def device_breakdown(trace: dict, call: str = CALL) -> dict:
     if len(marks) != 1:
         raise ValueError(f"want one {call!r} range in the trace, got {len(marks)}")
     start = float(marks[0]["ts"])
+    # The call's device work: the device events whose launch on the host
+    # (matched by correlation id) lies in the range. The device's clock is
+    # mapped onto the host's, and the two can disagree by milliseconds, so
+    # the device events' own times cannot tell two calls apart.
+    stop = start + float(marks[0]["dur"])
+    launched = {e["args"]["correlation"] for e in events
+                if e.get("cat") in HOST_LAUNCH_CATEGORIES
+                and start <= float(e["ts"]) <= stop and "correlation" in e.get("args", {})}
     device = sorted((e for e in events if e.get("cat") in DEVICE_CATEGORIES
-                     and float(e["ts"]) >= start), key=lambda e: float(e["ts"]))
+                     and e.get("args", {}).get("correlation") in launched),
+                    key=lambda e: float(e["ts"]))
     if not device:
-        raise ValueError("the trace holds no device events after the call began")
+        raise ValueError("the trace holds no device events launched by the call")
     end = max(float(e["ts"]) + float(e["dur"]) for e in device)
 
     groups: dict[tuple[str, str, str], list[float]] = {}
@@ -72,52 +87,70 @@ def main(argv=None) -> int:
     from .kernels import build
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--solve", action="store_true",
-                        help=f"trace the solve against {N_RHS} right-hand sides")
-    solve = parser.parse_args(argv).solve
+    which = parser.add_mutually_exclusive_group()
+    which.add_argument("--solve", action="store_true",
+                       help=f"trace the solve against {N_RHS} right-hand sides")
+    which.add_argument("--gauss-jordan", action="store_true",
+                       help=f"trace the n = {GJ_N} inversion with the scalar "
+                            "Gauss-Jordan leaf")
+    parser.add_argument("--calls", type=int, default=1,
+                        help="calls timed, and calls traced, after the warm-up")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_spin: CUDA is not available")
     torch.backends.cuda.matmul.allow_tf32 = False
     build.build_all()
     rng = np.random.default_rng(SEED)
-    a = testing.make_spd(N, rng, device="cuda")
-    call = "spin_solve_dense" if solve else CALL
-    if solve:
-        b = torch.from_numpy(rng.standard_normal((N, N_RHS), dtype=np.float32)).cuda()
+    n, bs = (GJ_N, GJ_BLOCK_SIZE) if args.gauss_jordan else (N, BLOCK_SIZE)
+    a = testing.make_spd(n, rng, device="cuda")
+    call = "spin_solve_dense" if args.solve else CALL
+    if args.solve:
+        b = torch.from_numpy(rng.standard_normal((n, N_RHS), dtype=np.float32)).cuda()
 
         def run():
-            return spin_solve_dense(a, b, BLOCK_SIZE, "cuda", engine="cuda")
+            return spin_solve_dense(a, b, bs, "cuda", engine="cuda")
     else:
+        leaf = "gauss_jordan" if args.gauss_jordan else "cuda"
+
         def run():
-            return spin_inverse_dense(a, BLOCK_SIZE, "cuda", engine="cuda")
+            return spin_inverse_dense(a, bs, leaf, engine="cuda")
 
     run()
     torch.cuda.synchronize()
-    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    run()
-    stop.record()
-    stop.synchronize()
-    wall_ms = start.elapsed_time(stop)
+    wall_ms = []
+    for _ in range(args.calls):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        run()
+        stop.record()
+        stop.synchronize()
+        wall_ms.append(start.elapsed_time(stop))
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    names = [f"{call}#{i}" for i in range(args.calls)]
     with torch.profiler.profile(activities=acts) as prof:
-        with torch.profiler.record_function(call):
-            run()
-            torch.cuda.synchronize()
+        for name in names:
+            with torch.profiler.record_function(name):
+                run()
+                torch.cuda.synchronize()
     TRACE_DIR.mkdir(parents=True, exist_ok=True)
-    path = TRACE_DIR / f"{call}.json"
+    suffix = "_gauss_jordan" if args.gauss_jordan else ""
+    path = TRACE_DIR / f"{call}{suffix}.json"
     prof.export_chrome_trace(str(path))
-    report = device_breakdown(json.loads(path.read_text()), call)
-    report.update(call=call, n=N, block_size=BLOCK_SIZE,
-                  n_rhs=N_RHS if solve else None, untraced_wall_ms=wall_ms,
-                  device=torch.cuda.get_device_name(0), trace=str(path))
-    for r in report["groups"]:
-        print(f"{r['device_ms']:10.3f} ms {r['count']:5d}x  {r['category']:10s} "
-              f"grid {r['grid'] or '-':>10s}  {r['name'][:80]}")
-    print(f"span {report['span_ms']:.3f} ms, busy {report['busy_ms']:.3f} ms, "
-          f"idle share {report['idle_share']:.4f}; untraced wall {wall_ms:.3f} ms")
-    print(json.dumps(report))
+    trace = json.loads(path.read_text())
+    for i, name in enumerate(names):
+        report = device_breakdown(trace, name)
+        report.update(call=name, n=n, block_size=bs, n_rhs=N_RHS if args.solve else None,
+                      leaf_solver="gauss_jordan" if args.gauss_jordan else "cuda",
+                      untraced_wall_ms=wall_ms, device=torch.cuda.get_device_name(0),
+                      trace=str(path))
+        if i == 0:
+            for r in report["groups"]:
+                print(f"{r['device_ms']:10.3f} ms {r['count']:5d}x  {r['category']:10s} "
+                      f"grid {r['grid'] or '-':>10s}  {r['name'][:80]}")
+        print(f"{name}: span {report['span_ms']:.3f} ms, busy {report['busy_ms']:.3f} ms, "
+              f"idle share {report['idle_share']:.4f}; untraced wall {wall_ms[i]:.3f} ms")
+        print(json.dumps(report))
     return 0
 
 

@@ -77,6 +77,133 @@ def test_gemm_takes_row_strided_views(cuda_device):
         mm.matmul_cuda(a.T, b[:, :40].T)          # column-major operands
 
 
+# ---------------------------------------------------------------------------
+# The tensor-core GEMM body (3xTF32 for f32)
+# ---------------------------------------------------------------------------
+
+_GEMM_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("m,k,n", [(1, 1, 1), (100, 37, 129), (1024, 1024, 1024),
+                                   (4096, 4096, 4096)])
+def test_gemm_tensor_core_body_matches_plain(cuda_device, dtype, m, k, n):
+    g = torch.Generator(device="cpu").manual_seed(m + k + n)
+    a, b, c = (torch.randn(s, generator=g).to(cuda_device, dtype)
+               for s in ((m, k), (k, n), (m, n)))
+    kernels.reset_launch_counts()
+    pairs = [(mm.matmul_cuda(a, b), mm_ref.matmul_ref(a, b)),
+             (mm.schur_update_cuda(c, a, b), mm_ref.schur_update_ref(c, a, b)),
+             (mm.schur_update_cuda(c, a, b, alpha=-1.0, beta=1.0, out_dtype=torch.float32),
+              mm_ref.schur_update_ref(c, a, b, -1.0, 1.0, out_dtype=torch.float32))]
+    launches = kernels.launch_counts()
+    assert launches["gemm_tensor_core"] == 3 and launches["gemm_ffma"] == 0
+    for got, want in pairs:
+        assert got.dtype == want.dtype and got.shape == want.shape
+        assert bool(torch.isfinite(got.float()).all())
+        scale = float(want.float().abs().max()) + 1e-6
+        # f32: the split's 3·2^-22 a product and the summation order, far
+        # under 1e-5 of the largest entry; bf16/f16 out: one ulp of it.
+        err = float((got.float() - want.float()).abs().max())
+        assert err <= _GEMM_TOL[got.dtype] * scale, (err, scale)
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 1, 1), (100, 37, 129), (1024, 1024, 1024),
+                                   (4096, 4096, 4096)])
+def test_gemm_tensor_core_body_matches_the_split(cuda_device, m, k, n):
+    g = torch.Generator(device="cpu").manual_seed(7 * m + n)
+    a, b = (torch.randn(s, generator=g).to(cuda_device) for s in ((m, k), (k, n)))
+    got = mm.matmul_cuda(a, b).double()
+    # matmul_split_ref's three products, summed in f64: what the kernel sums
+    # in f32. They differ by the f32 summation error, about √k·2^-24 of the
+    # partial sums (≈ 2^-23 of Σ|a||b| at k = 1024). One dropped lo·hi term
+    # would move an entry by about √k·2^-12 of |a||b|: ≈ 2^-17 of Σ|a||b|.
+    (a_hi, a_lo), (b_hi, b_lo) = (tuple(p.double() for p in mm_ref.tf32_split_ref(x))
+                                  for x in (a, b))
+    want = (a_lo @ b_hi + a_hi @ b_lo) + a_hi @ b_hi
+    scale = a.double().abs() @ b.double().abs()
+    assert float(((got - want).abs() / scale).max()) <= 2.0 ** -18
+    # and matmul_split_ref itself, in f32, within the same bound
+    split = mm_ref.matmul_split_ref(a, b).double()
+    assert float(((split - want).abs() / scale).max()) <= 2.0 ** -18
+
+
+def test_gemm_pack_is_the_tf32_split_bitwise(cuda_device):
+    g = torch.Generator(device="cpu").manual_seed(3)
+    a = torch.randn(70, 45, generator=g)
+    a[0, :8] = torch.tensor([0.0, -0.0, 1e-40, -3e-39, 1.4e-45, 3e38, -1e38, 1.0 + 2 ** -11])
+    b = torch.randn(45, 33, generator=g) * 1e-3
+    a_packed, b_packed = mm.gemm_pack_cuda(a.to(cuda_device), b.to(cuda_device))
+    assert a_packed.shape == (2, 70, 48) and b_packed.shape == (2, 33, 48)
+    for packed, x in ((a_packed, a), (b_packed, b.T)):
+        hi, lo = mm_ref.tf32_split_ref(x.contiguous())
+        got = packed[:, :, :x.shape[1]].cpu()
+        assert torch.equal(got[0].view(torch.int32), hi.view(torch.int32))
+        assert torch.equal(got[1].view(torch.int32), lo.view(torch.int32))
+    a16, b16 = mm.gemm_pack_cuda(a.to(cuda_device, torch.bfloat16), b.to(cuda_device, torch.bfloat16))
+    assert a16.shape == (1, 70, 48)
+    assert torch.equal(a16[0, :, :45].cpu(), a.to(torch.bfloat16))
+    assert torch.equal(b16[0, :, :45].cpu(), b.T.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gemm_tensor_core_body_takes_row_strided_views(cuda_device, dtype):
+    # z[:, :half] as core/solve.py passes it, and an odd row stride that no
+    # TMA map could take directly: the pack pre-pass takes both.
+    g = torch.Generator(device="cpu").manual_seed(1)
+    z = torch.randn(600, 1000, generator=g).to(cuda_device, dtype)
+    odd = torch.randn(500, 301, generator=g).to(cuda_device, dtype)
+    a, b, c = z[:, :500], odd[:, :300], z[:, 600:900]
+    assert a.stride(0) == 1000 and b.stride(0) == 301
+    kernels.reset_launch_counts()
+    for got, want in ((mm.matmul_cuda(a, b), mm_ref.matmul_ref(a, b)),
+                      (mm.schur_update_cuda(c, a, b), mm_ref.schur_update_ref(c, a, b))):
+        scale = float(want.float().abs().max())
+        assert float((got.float() - want.float()).abs().max()) <= _GEMM_TOL[dtype] * scale
+    assert kernels.launch_counts()["gemm_tensor_core"] == 2
+
+
+@pytest.mark.parametrize("block_m", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_gemm_tensor_core_body_keeps_its_registers(cuda_device, dtype, block_m):
+    attrs = mm.gemm_tc_attributes(dtype, block_m)
+    assert attrs["local_bytes"] == 0, attrs
+    assert attrs["dynamic_smem"] <= 232448 and attrs["stages"] >= 3, attrs
+
+
+def test_gemm_route_on_the_card(cuda_device):
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    g = torch.Generator(device="cpu").manual_seed(2)
+    a, c = torch.randn(64, 0).to(cuda_device), torch.randn(64, 80, generator=g).to(cuda_device)
+    b = torch.randn(0, 80).to(cuda_device)
+    kernels.reset_launch_counts()
+    got = mm.schur_update_cuda(c, a, b, alpha=2.0, beta=-0.5)      # k = 0: β·C
+    assert torch.equal(got, -0.5 * c)
+    assert torch.equal(mm.matmul_cuda(a, b), torch.zeros(64, 80, device=cuda_device))
+    assert mm.matmul_cuda(torch.randn(0, 5).to(cuda_device),
+                          torch.randn(5, 7).to(cuda_device)).shape == (0, 7)
+    launches = kernels.launch_counts()
+    assert launches["gemm_ffma"] == 2 and launches["gemm_tensor_core"] == 0
+    assert launches["matmul"] + launches["schur_update"] == 2
+    assert mm.gemm_route(1024, 1024, 1024, torch.float32, sms) == ("tensor_core", 64)
+
+
+def test_spin_paths_take_the_tensor_core_body(cuda_device):
+    rng = np.random.default_rng(4)
+    a = testing.make_spd(512, rng, device="cpu")
+    b = torch.from_numpy(rng.standard_normal((512, 8), dtype=np.float32))
+    for run in (lambda: spin_inverse_dense(a, 64, "cuda", engine="cuda"),
+                lambda: spin_inverse_dense(a, 64, "gauss_jordan", engine="cuda"),
+                lambda: lu_inverse_dense(a, 64, engine="cuda"),
+                lambda: spin_solve_dense(a, b, 64, "cuda", engine="cuda")):
+        kernels.reset_launch_counts()
+        run()
+        launches = kernels.launch_counts()
+        products = launches["matmul"] + launches["schur_update"]
+        assert products > 0 and launches["gemm_tensor_core"] == products, launches
+        assert launches["gemm_ffma"] == 0
+
+
 @pytest.mark.parametrize("batch,bs", [(1, 64), (3, 128), (1, 256), (2, 48)])
 def test_leaf_kernels_match_plain(cuda_device, batch, bs):
     x = _spd_blocks(batch, bs, 6, cuda_device)

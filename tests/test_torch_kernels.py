@@ -31,7 +31,7 @@ from repro_torch import bridge, kernels
 from repro_torch.core import BlockMatrix
 from repro_torch.kernels.flash_attention import kernel as fa, ops as fa_ops
 from repro_torch.kernels.leaf_inverse import kernel as gj, ops as gj_ops, ref as gj_ref
-from repro_torch.kernels.matmul import kernel as mm, ops as mm_ops
+from repro_torch.kernels.matmul import kernel as mm, ops as mm_ops, ref as mm_ref
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -149,6 +149,111 @@ def test_gemm_wrappers_reject_what_the_kernel_does_not_take():
         mm.matmul_cuda(a.half(), b.half(), out_dtype=torch.bfloat16)
     with pytest.raises(ValueError):
         mm.schur_update_cuda(torch.zeros(8, 7), a, b)           # C shape
+
+
+# ---------------------------------------------------------------------------
+# The tensor-core body's f32 arithmetic: the 3xTF32 split, in plain PyTorch
+# ---------------------------------------------------------------------------
+
+_SPLIT_VALUES = {
+    "normal": lambda rng: rng.standard_normal(4096) * 10.0 ** rng.integers(-30, 30, 4096),
+    "zero": lambda rng: np.array([0.0, -0.0]),
+    # f32 subnormals, down to the smallest, 2^-149
+    "subnormal": lambda rng: np.concatenate([rng.uniform(-1, 1, 512) * 2.0 ** -126,
+                                             [2.0 ** -149, -(2.0 ** -140)]]),
+    # large, short of (2 - 2^-11)·2^127, where hi would round to inf
+    "large": lambda rng: np.concatenate([rng.uniform(-3.4, 3.4, 512) * 1e38,
+                                         [3.4e38, -3.4e38, 1e38]]),
+}
+
+
+@pytest.mark.parametrize("kind", sorted(_SPLIT_VALUES))
+def test_tf32_split_keeps_ten_bits_and_recovers_x(kind):
+    x = torch.from_numpy(_SPLIT_VALUES[kind](_rng(len(kind))).astype(np.float32))
+    hi, lo = mm_ref.tf32_split_ref(x)
+    for part in (hi, lo):
+        assert bool(((part.view(torch.int32) & 0x1FFF) == 0).all())   # 10 explicit bits
+        assert bool(torch.isfinite(part).all())
+    # hi is the nearest TF32 value: within half a TF32 ulp, 2^-11 of |x|.
+    # Below the normal range the TF32 step is fixed at 2^-136, so there
+    # the bounds below hold with a floor of half of it, 2^-137.
+    floor = 2.0 ** -137 if kind == "subnormal" else 0.0
+    x64 = x.double()
+    assert bool(((x64 - hi.double()).abs() <= (2.0 ** -11 * x64.abs()).clamp(min=floor)).all())
+    # x - hi is exact, so hi + lo misses x only by lo's rounding: 2^-22 of |x|.
+    err = (x64 - hi.double() - lo.double()).abs()
+    assert bool((err <= (2.0 ** -22 * x64.abs()).clamp(min=floor)).all())
+    # ties round away from zero, as cvt.rna does
+    ties = torch.tensor([1.0 + 2 ** -11, -(1.0 + 2 ** -11), 1.0 + 3 * 2 ** -11])
+    assert mm_ref.tf32_split_ref(ties)[0].tolist() == [1.0 + 2 ** -10, -(1.0 + 2 ** -10),
+                                                      1.0 + 2 ** -9]
+
+
+def _split_tolerance(a: np.ndarray, b: np.ndarray) -> torch.Tensor:
+    # Entrywise bound of |split − exact| plus both sides' f32 summation:
+    # each product of the parts misses a·b by at most 3·2^-22·|a||b| (lo's
+    # rounding on either side and the dropped lo·lo), and a k-term f32 sum
+    # is off by at most k·2^-24 of Σ|a||b| (twice: both sides sum in f32).
+    k = a.shape[1]
+    return torch.from_numpy((3 * 2.0 ** -22 + 2 * k * 2.0 ** -24) * (np.abs(a) @ np.abs(b)))
+
+
+SPLIT_SHAPES = GEMM_SHAPES + [(100, 37, 129), (1, 300, 1), (65, 1, 63)]
+
+
+@pytest.mark.parametrize("m,k,n", SPLIT_SHAPES)
+def test_matmul_split_matches_pallas(m, k, n):
+    rng = _rng(m, k, n, 5)
+    a, b = (rng.standard_normal(s).astype(np.float32) for s in ((m, k), (k, n)))
+    tiles = (64, 64, 64) if (m, k, n) in GEMM_SHAPES else (m, n, k)   # ragged: one block
+    want = matmul_pallas(jnp.asarray(a), jnp.asarray(b), tiles=tiles, interpret=True)
+    got = mm_ref.matmul_split_ref(torch.from_numpy(a), torch.from_numpy(b))
+    assert got.dtype == torch.float32 and tuple(got.shape) == (m, n)
+    err = (got.double() - torch.from_numpy(np.asarray(want, np.float64))).abs()
+    assert bool((err <= _split_tolerance(a, b)).all()), float(err.max())
+
+
+@pytest.mark.parametrize("alpha,beta", [(1.0, -1.0), (-1.0, 1.0)])
+@pytest.mark.parametrize("m,k,n", SPLIT_SHAPES)
+def test_schur_update_split_matches_pallas(alpha, beta, m, k, n):
+    rng = _rng(m, k, n, 6)
+    a, b, c = (rng.standard_normal(s).astype(np.float32) for s in ((m, k), (k, n), (m, n)))
+    tiles = (64, 64, 64) if (m, k, n) in GEMM_SHAPES else (m, n, k)   # ragged: one block
+    want = schur_update_pallas(jnp.asarray(c), jnp.asarray(a), jnp.asarray(b),
+                               alpha=alpha, beta=beta, tiles=tiles, interpret=True)
+    # the tensor-core body's epilogue: alpha·acc + beta·C in f32
+    got = alpha * mm_ref.matmul_split_ref(torch.from_numpy(a), torch.from_numpy(b)) \
+        + beta * torch.from_numpy(c)
+    err = (got.double() - torch.from_numpy(np.asarray(want, np.float64))).abs()
+    # plus one rounding of the f32 combination on each side
+    tol = _split_tolerance(a, b) + 2.0 ** -23 * torch.from_numpy(
+        np.abs(np.asarray(want, np.float64)))
+    assert bool((err <= tol).all()), float(err.max())
+
+
+@pytest.mark.parametrize("m,n,k,dtype,sms,want", [
+    (8192, 8192, 8192, torch.float32, 132, ("tensor_core", 128)),   # top level
+    (2048, 2048, 2048, torch.float32, 132, ("tensor_core", 128)),   # 256 tiles
+    (1024, 1024, 1024, torch.float32, 132, ("tensor_core", 64)),    # 64 tiles
+    (1408, 1536, 64, torch.float32, 132, ("tensor_core", 128)),     # 132 tiles
+    (1408, 1408, 64, torch.float32, 132, ("tensor_core", 64)),      # 121 tiles
+    (1024, 1024, 1024, torch.float32, 16, ("tensor_core", 128)),    # a small card
+    (15360, 1280, 1024, torch.float32, 132, ("tensor_core", 128)),  # a solve panel
+    (1, 1, 1, torch.float32, 132, ("tensor_core", 64)),
+    (100, 129, 37, torch.bfloat16, 132, ("tensor_core", 64)),
+    (4096, 4096, 4096, torch.float16, 132, ("tensor_core", 128)),
+    (64, 80, 0, torch.float32, 132, ("ffma", None)),                # beta·C only
+    (64, 80, 0, torch.bfloat16, 132, ("ffma", None)),
+    (0, 80, 16, torch.float32, 132, ("empty", None)),
+    (80, 0, 16, torch.float16, 132, ("empty", None)),
+])
+def test_gemm_route(m, n, k, dtype, sms, want):
+    assert mm.gemm_route(m, n, k, dtype, sms) == want
+
+
+def test_gemm_route_rejects_other_dtypes():
+    with pytest.raises(ValueError):
+        mm.gemm_route(8, 8, 8, torch.float64, 132)
 
 
 # ---------------------------------------------------------------------------

@@ -211,22 +211,27 @@ def test_generators_are_seeded_and_shaped():
     assert float(torch.linalg.eigvalsh(spd.double()).min()) > 0
 
 
+def _ev(cat, name, ts, dur, corr=None, grid=None):
+    """A Chrome-trace event; `corr` ties a device event to its launch."""
+    e = {"ph": "X", "cat": cat, "name": name, "ts": ts, "dur": dur, "args": {}}
+    if corr is not None:
+        e["args"]["correlation"] = corr
+    if grid:
+        e["args"]["grid"] = grid
+    return e
+
+
 def test_profile_breakdown_reads_device_time_and_idle_share():
     from repro_torch.profile_spin import CALL, device_breakdown
 
-    def ev(cat, name, ts, dur, grid=None):
-        e = {"ph": "X", "cat": cat, "name": name, "ts": ts, "dur": dur}
-        if grid:
-            e["args"] = {"grid": grid}
-        return e
-
     trace = {"traceEvents": [
-        ev("user_annotation", CALL, 100.0, 60.0),
-        ev("kernel", "gemm_kernel", 50.0, 10.0, [8, 8, 1]),     # before the call
-        ev("kernel", "gemm_kernel", 110.0, 10.0, [16, 8, 1]),
-        ev("kernel", "gemm_kernel", 115.0, 15.0, [16, 8, 1]),   # overlaps the last
-        ev("gpu_memcpy", "Memcpy DtoD", 140.0, 10.0),
-        ev("cuda_runtime", "cudaLaunchKernel", 105.0, 2.0),
+        _ev("user_annotation", CALL, 100.0, 60.0),
+        _ev("cuda_runtime", "cudaLaunchKernel", 40.0, 2.0, 1),   # before the call
+        _ev("kernel", "gemm_kernel", 50.0, 10.0, 1, [8, 8, 1]),
+        *(_ev("cuda_runtime", "cudaLaunchKernel", 101.0 + i, 1.0, i) for i in (2, 3, 4)),
+        _ev("kernel", "gemm_kernel", 110.0, 10.0, 2, [16, 8, 1]),
+        _ev("kernel", "gemm_kernel", 115.0, 15.0, 3, [16, 8, 1]),   # overlaps the last
+        _ev("gpu_memcpy", "Memcpy DtoD", 140.0, 10.0, 4),
         {"ph": "i", "name": "marker", "ts": 120.0}]}
     got = device_breakdown(trace)
     # Span 100..150 us; busy 110..130 and 140..150, 30 us: idle 20 of 50.
@@ -238,3 +243,24 @@ def test_profile_breakdown_reads_device_time_and_idle_share():
     assert got["groups"][0]["device_ms"] == pytest.approx(0.025)
     with pytest.raises(ValueError, match="one"):
         device_breakdown({"traceEvents": trace["traceEvents"][1:]})
+
+
+def test_profile_breakdown_assigns_device_work_by_its_launch():
+    from repro_torch.profile_spin import CALL, device_breakdown
+
+    # The second call's first kernel carries a device time before the
+    # second range starts (the two clocks disagree); its launch, matched by
+    # correlation id, lies in the second range.
+    trace = {"traceEvents": [
+        _ev("user_annotation", f"{CALL}#0", 100.0, 40.0),
+        _ev("cuda_runtime", "cudaLaunchKernel", 105.0, 2.0, corr=1),
+        _ev("kernel", "gemm_tc", 110.0, 10.0, corr=1),
+        _ev("user_annotation", f"{CALL}#1", 200.0, 70.0),
+        _ev("cuda_runtime", "cudaLaunchKernel", 202.0, 2.0, corr=2),
+        _ev("cuda_runtime", "cudaLaunchKernel", 204.0, 2.0, corr=3),
+        _ev("kernel", "gj_inplace", 190.0, 10.0, corr=2),
+        _ev("kernel", "gemm_tc", 230.0, 20.0, corr=3)]}
+    first, second = (device_breakdown(trace, f"{CALL}#{i}") for i in range(2))
+    assert [g["name"] for g in first["groups"]] == ["gemm_tc"]
+    assert sorted(g["name"] for g in second["groups"]) == ["gemm_tc", "gj_inplace"]
+    assert second["busy_ms"] == pytest.approx(0.03)
