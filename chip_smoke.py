@@ -10,27 +10,34 @@ Phases, each of which fails the run (non-zero exit) on any fault:
   2. build every CUDA kernel of the port from src/repro_torch/kernels/csrc,
      and print the registers, shared memory and spills of the tensor-core
      GEMM body (f32, bf16, f16; 64- and 128-row tiles), of the tensor-core
-     flash attention kernel (every head dim) and of the in-place
-     Gauss-Jordan kernel;
+     flash attention kernel (every head dim), of the in-place
+     Gauss-Jordan kernel, and of the blocked leaves' kernels: the
+     triangular solve's tensor-core sweep (every strip width), its
+     diagonal-block inverse and pack, and the blocked Gauss-Jordan's panel
+     and tensor-core update;
   3. hold each kernel against its plain PyTorch version on the card, at the
      main paths' shapes, in f32 and bf16, and time kernel, plain version
      and the one PyTorch library call that computes the same function
      (the GEMM at 8192³, the inversion's top-level product, and at 4096³,
      2048³ and 1024³, its deeper levels, with the pack pre-pass of its
-     tensor-core body timed apart; the scalar Gauss-Jordan at 1 x 128² and
-     16 x 128²; the triangular
-     solve at the solve's widest leaf: a 1024 x 1024
-     packed LU against 1024 x 15616 right-hand sides, both sweeps; flash
-     attention at the granite-8b layer, B = 4, H = 32, KV = 8, S = 2048,
-     hd = 128, causal, in bf16, f16 and f32, plus a ragged S = 2000 and a
-     non-causal case);
+     tensor-core body timed apart; the blocked Gauss-Jordan, in place with
+     one 3xTF32 wgmma update a panel, at 1 x 1024²; the scalar
+     Gauss-Jordan at 1 x 128² and 16 x 128²; the triangular solve, which
+     inverts the diagonal blocks first and then runs one 3xTF32 wgmma
+     product a panel, on a 1024 x 1024 packed LU against the 15616
+     right-hand sides of the solve's widest leaf, both sweeps, and timed
+     at k = 256, 4352 and 15616 beside torch.linalg.solve_triangular; the
+     LU baseline's leaf, torch.linalg.lu_factor_ex(pivot=False), against
+     its plain loop at 1024²; flash attention at the granite-8b layer,
+     B = 4, H = 32, KV = 8, S = 2048, hd = 128, causal, in bf16, f16 and
+     f32, plus a ragged S = 2000 and a non-causal case);
   4. SPIN inversion, `spin_inverse_dense(engine="cuda", leaf_solver="cuda")`,
      at n = 16384, block_size = 1024: residual ‖AX − I‖∞ ≤ 1e-3, op counts
      equal to the paper's oracle, and the kernels it launched; in this
      phase and the next three every matmul and schur_update launch must
      have taken the GEMM's tensor-core body;
   5. the paper's baseline, `lu_inverse_dense`, at the same size, timed
-     beside SPIN;
+     beside SPIN, and SPIN ÷ LU from this run;
   6. the inverse-free solve, `spin_solve_dense(engine="cuda",
      leaf_solver="cuda")`, of the same matrix against 256 right-hand
      sides: residual ‖AX − B‖∞ / ‖B‖∞ ≤ 1e-3, the inverse-free op profile
@@ -56,6 +63,7 @@ or when it is not run from a checkout of the repository.
 from __future__ import annotations
 
 import gc
+import importlib
 import json
 import subprocess
 import sys
@@ -77,6 +85,7 @@ REPS = 2                      # timed runs of each inversion path
 N, BLOCK_SIZE = 16384, 1024      # the main path: grid 16, four levels
 GEMM_SIZES = (8192, 4096, 2048, 1024)   # the inversion's products, level by level
 N_RHS = 256                       # right-hand sides of the solve path
+TRI_TIMED_K = (256, 4352, N_RHS + N - BLOCK_SIZE)  # B5 widths timed: narrowest leaf .. widest
 GJ_N, GJ_BLOCK_SIZE = 2048, 128   # the scalar Gauss-Jordan leaf's path
 
 LM_ARCH = "granite-8b"            # the LM serving path, full width and depth
@@ -152,23 +161,26 @@ def gemm_tc_bound_ms(m: int, n: int, k: int, with_c: bool, itemsize: int) -> tup
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def gauss_jordan_bound_ms(batch: int, bs: int, itemsize: int) -> tuple[float, str]:
+def gauss_jordan_bound_ms(batch: int, bs: int, itemsize: int,
+                          peak_flops: float = PEAK_F32_FLOPS) -> tuple[float, str]:
     # Inverting a bs x bs matrix takes bs³ multiply-adds, 2·bs³ operations,
     # once the sweep skips the columns of [A | I] that are still zero or
-    # identity.
-    flops = 2.0 * batch * bs ** 3
+    # identity; as 3xTF32 products (peak_flops the TF32 peak), three times
+    # as many.
+    flops = 2.0 * batch * bs ** 3 * (3 if peak_flops == PEAK_TF32_FLOPS else 1)
     nbytes = 2.0 * itemsize * batch * bs * bs
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def triangular_solve_bound_ms(batch: int, bs: int, k: int,
-                              itemsize: int) -> tuple[float, str]:
-    # bs²/2 multiply-adds a right-hand side, bs²·k operations; T read once,
-    # B read once and X written once.
-    flops = float(batch) * bs * bs * k
+def triangular_solve_bound_ms(batch: int, bs: int, k: int, itemsize: int,
+                              peak_flops: float = PEAK_F32_FLOPS) -> tuple[float, str]:
+    # bs²/2 multiply-adds a right-hand side, bs²·k operations, at
+    # `peak_flops` (the kernel's 3xTF32 products: 3·bs²·k at the TF32
+    # peak); T read once, B read once and X written once.
+    flops = float(batch) * bs * bs * k * (3 if peak_flops == PEAK_TF32_FLOPS else 1)
     nbytes = itemsize * batch * (bs * bs + 2.0 * bs * k)
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -291,12 +303,18 @@ def check_kernels(torch, rng, n_gemm: int, bs: int, gj_bs: int, tri_k: int) -> d
             require(bool(torch.isfinite(got.float()).all()), f"{name} {dtype}: non-finite")
             require(err <= tol, f"{name} {dtype}: max_abs_err {err} > {tol}")
             if dtype == torch.float32:
-                bound, by = gauss_jordan_bound_ms(1, size, 4)
+                # The blocked sweep's O(bs³) work is 3xTF32 products; the
+                # scalar sweep's is f32 FFMA.
+                tc = name == "blocked_gauss_jordan"
+                bound, by = gauss_jordan_bound_ms(
+                    1, size, 4, PEAK_TF32_FLOPS if tc else PEAK_F32_FLOPS)
                 report[name] = {
                     "max_abs_err": err, "ms": time_ms(lambda: kern(blocks), 5),
                     "plain_ms": time_ms(lambda: plain(blocks), 2),
                     "library_ms": time_ms(lambda: torch.linalg.inv(blocks), 5),
                     "bound_ms": bound, "bound_by": by, "shape": f"1x{size}x{size} f32"}
+                if tc:
+                    report[name]["ffma_bound_ms"] = gauss_jordan_bound_ms(1, size, 4)[0]
 
     # The scalar Gauss-Jordan at batch 16 (16 blocks, one SM each), held
     # step-exact: the kernel rounds every step as the plain version does.
@@ -320,7 +338,8 @@ def check_kernels(torch, rng, n_gemm: int, bs: int, gj_bs: int, tri_k: int) -> d
     # The triangular solve at the solve path's widest leaf: the packed LU
     # of an SPD block as torch.linalg.lu_factor_ex leaves it (column-major),
     # and the widest right-hand side the recursion hands a leaf.
-    t32 = torch.linalg.lu_factor_ex(make_spd(bs, rng, device=dev))[0][None]
+    spd = make_spd(bs, rng, device=dev)
+    t32 = torch.linalg.lu_factor_ex(spd)[0][None]
     b32 = normal(1, bs, tri_k)
     panel = gj.default_panel(bs)
     sweeps = {"lower_unit": (True, True), "upper": (False, False)}
@@ -334,10 +353,10 @@ def check_kernels(torch, rng, n_gemm: int, bs: int, gj_bs: int, tri_k: int) -> d
             torch.cuda.synchronize()
             err = max_abs(got, want)
             scale = float(want.float().abs().max())
-            # f32: the kernel substitutes directly inside a panel and sums
-            # the panel updates left-looking, where the plain version runs
-            # Gauss-Jordan sweeps and rank-t updates: the same solution,
-            # rounded in another order. bf16: one ulp of the final cast.
+            # f32: the kernel applies the inverted diagonal blocks as 3xTF32
+            # products, where the plain version runs Gauss-Jordan sweeps and
+            # rank-t updates: the same solution, rounded in another order.
+            # bf16: one ulp of the final cast.
             tol = (1e-4 if dtype == torch.float32 else 2.0 ** -7) * scale
             print(f"check triangular_solve {sweep} {str(dtype)[6:]} 1x{bs}x{bs} "
                   f"k={tri_k}: max_abs_err={err!r} tol={tol!r}", flush=True)
@@ -350,22 +369,71 @@ def check_kernels(torch, rng, n_gemm: int, bs: int, gj_bs: int, tri_k: int) -> d
             if dtype == torch.float32:
                 f32_errs.append(err)
         del got, want
-    t, b = t32, b32
-    # (kernel, plain version, library) ms of each sweep; the row reports the
-    # unit-lower sweep, and the upper sweep's times ride along.
-    (ms, plain_ms, library_ms), upper = (
-        (time_ms(lambda: gj.triangular_solve_cuda(t, b, lower=lower, unit_diagonal=unit), 5),
-         time_ms(lambda: gj_ref.blocked_triangular_solve_ref(t, b, panel, lower=lower,
-                                                             unit_diagonal=unit), 1),
-         time_ms(lambda: torch.linalg.solve_triangular(t, b, upper=not lower,
-                                                       unitriangular=unit), 5))
-        for lower, unit in sweeps.values())
-    bound, by = triangular_solve_bound_ms(1, bs, tri_k, 4)
+    # Times at the leaves' narrowest, a middle and the widest k (the solve's
+    # leaves see 256, 1280, ..., 15616): kernel, plain version (widest only,
+    # it is slow) and the library call, each sweep. The row reports the
+    # unit-lower sweep at the widest k; the rest rides along in by_k.
+    by_k = {}
+    for k in TRI_TIMED_K:
+        t, b = t32, (b32 if k == tri_k else normal(1, bs, k))
+        row = {"strip": gj.tri_strip(k, 1, torch.cuda.get_device_properties(0).multi_processor_count)}
+        for sweep, (lower, unit) in sweeps.items():
+            if k != tri_k:
+                got = gj.triangular_solve_cuda(t, b, lower=lower, unit_diagonal=unit)
+                want = gj_ref.blocked_triangular_solve_ref(t, b, panel, lower=lower,
+                                                           unit_diagonal=unit)
+                torch.cuda.synchronize()
+                err = max_abs(got, want)
+                tol = 1e-4 * float(want.abs().max())
+                print(f"check triangular_solve {sweep} float32 1x{bs}x{bs} k={k}: "
+                      f"max_abs_err={err!r} tol={tol!r}", flush=True)
+                require(err <= tol, f"triangular_solve {sweep} k={k}: max_abs_err {err} > {tol}")
+                f32_errs.append(err)
+                del got, want
+            row[sweep] = {
+                "ms": time_ms(lambda: gj.triangular_solve_cuda(
+                    t, b, lower=lower, unit_diagonal=unit), 5),
+                "library_ms": time_ms(lambda: torch.linalg.solve_triangular(
+                    t, b, upper=not lower, unitriangular=unit), 5)}
+            if k == tri_k:
+                row[sweep]["plain_ms"] = time_ms(
+                    lambda: gj_ref.blocked_triangular_solve_ref(
+                        t, b, panel, lower=lower, unit_diagonal=unit), 1)
+        row["bound_ms"], _ = triangular_solve_bound_ms(1, bs, k, 4, PEAK_TF32_FLOPS)
+        print(f"time triangular_solve float32 1x{bs}x{bs} k={k}: {row}", flush=True)
+        by_k[str(k)] = row
+    wide = by_k[str(tri_k)]
+    bound, by = triangular_solve_bound_ms(1, bs, tri_k, 4, PEAK_TF32_FLOPS)
     report["triangular_solve"] = {
-        "max_abs_err": max(f32_errs), "ms": ms, "plain_ms": plain_ms,
-        "library_ms": library_ms, "upper_ms": upper[0], "upper_plain_ms": upper[1],
-        "upper_library_ms": upper[2], "bound_ms": bound, "bound_by": by,
-        "shape": f"1x{bs}x{bs} k={tri_k} f32"}
+        "max_abs_err": max(f32_errs), "ms": wide["lower_unit"]["ms"],
+        "plain_ms": wide["lower_unit"]["plain_ms"],
+        "library_ms": wide["lower_unit"]["library_ms"], "upper_ms": wide["upper"]["ms"],
+        "upper_plain_ms": wide["upper"]["plain_ms"],
+        "upper_library_ms": wide["upper"]["library_ms"], "bound_ms": bound, "bound_by": by,
+        "ffma_bound_ms": triangular_solve_bound_ms(1, bs, tri_k, 4)[0],
+        "shape": f"1x{bs}x{bs} k={tri_k} f32", "by_k": by_k}
+    del t32, b32, t, b
+
+    # The LU baseline's leaf: one unpivoted LU on the card against the plain
+    # column-by-column loop, on the same SPD block.
+    lu_mod = importlib.import_module("repro_torch.core.lu_inverse")
+    got = torch.linalg.lu_factor_ex(spd, pivot=False)[0]
+    want = lu_mod._local_lu_plain(spd)
+    torch.cuda.synchronize()
+    err = max_abs(got, want)
+    # Both sweep unpivoted in f32, in another order: the rounding of bs
+    # steps at the block's condition (≈ 10).
+    tol = 1e-4 * float(want.abs().max())
+    print(f"check lu_leaf float32 {bs}x{bs}: max_abs_err={err!r} tol={tol!r}", flush=True)
+    require(bool(torch.isfinite(got).all()) and err <= tol,
+            f"lu_leaf: max_abs_err {err} > {tol}")
+    report["lu_leaf"] = {
+        "max_abs_err": err, "shape": f"{bs}x{bs} f32",
+        "ms": time_ms(lambda: lu_mod._local_lu(spd), 5),
+        "factor_ms": time_ms(lambda: torch.linalg.lu_factor_ex(spd, pivot=False), 5),
+        "plain_ms": time_ms(lambda: lu_mod._local_lu_plain(spd), 2)}
+    print(f"time lu_leaf float32 {bs}x{bs}: {report['lu_leaf']}", flush=True)
+    del spd, got, want
     return report
 
 
@@ -432,8 +500,9 @@ def check_flash(torch, rng, b: int, h: int, kv: int, s: int, hd: int) -> dict:
 
 def print_kernel_resources(torch) -> None:
     """Phase 2: registers, shared memory and spills of the tensor-core GEMM
-    body, of the tensor-core flash attention kernel at every head dim and
-    of the in-place Gauss-Jordan kernel, as the CUDA runtime reports them."""
+    body, of the tensor-core flash attention kernel at every head dim, of
+    the in-place Gauss-Jordan kernel and of the blocked leaves' kernels,
+    as the CUDA runtime reports them."""
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.leaf_inverse import kernel as gj
     from repro_torch.kernels.matmul import kernel as mm
@@ -450,6 +519,13 @@ def print_kernel_resources(torch) -> None:
             print(f"resources flash_attention {str(dtype)[6:]} hd={hd}: {attrs}", flush=True)
     for bs in (128, gj.GJ_INPLACE_MAX_BS):
         print(f"resources gauss_jordan bs={bs}: {gj.gauss_jordan_attributes(bs)}", flush=True)
+    # The blocked leaves' kernels: no spill allowed.
+    kernels = [("tri_tc", n) for n in gj.TRI_STRIPS] + [
+        (name, 0) for name in ("tri_dinv", "tri_pack", "bgj_panel", "bgj_update")]
+    for name, strip in kernels:
+        attrs = gj.blocked_attributes(name, strip or 64)
+        print(f"resources {name}{f' strip={strip}' if strip else ''}: {attrs}", flush=True)
+        require(attrs["local_bytes"] == 0, f"{name} strip={strip} spills")
 
 
 def timed(torch, fn):
@@ -691,6 +767,8 @@ def main() -> int:
                   expect_launches={"schur_update": 0, "blocked_gauss_jordan": 0,
                                    "gauss_jordan": 0})
     require(lu["launches"]["matmul"] > 0, "lu: the matmul kernel never ran")
+    spin_over_lu = min(spin["ms"]) / min(lu["ms"])
+    print(f"path lu: spin_over_lu={spin_over_lu!r}", flush=True)
 
     # 6. the inverse-free solve of the same matrix, 256 right-hand sides
     rhs = torch.from_numpy(rng.standard_normal((n, N_RHS), dtype=np.float32)).cuda()
@@ -731,7 +809,8 @@ def main() -> int:
 
     print(json.dumps({"paths": {
         "spin": {"n": n, "block_size": bs, "ms": spin["ms"], "residual": spin["residual"]},
-        "lu": {"n": n, "block_size": bs, "ms": lu["ms"], "residual": lu["residual"]},
+        "lu": {"n": n, "block_size": bs, "ms": lu["ms"], "residual": lu["residual"],
+               "spin_over_lu": spin_over_lu, "leaf": report["lu_leaf"]},
         "spin_solve": {"n": n, "block_size": bs, "n_rhs": N_RHS, "ms": solve["ms"],
                        "residual": solve["residual"]},
         "spin_gauss_jordan": {"n": gn, "block_size": gbs, "ms": gjp["ms"],
@@ -744,6 +823,12 @@ def main() -> int:
     rows = []
     gemm_body = "gemm_tc: pack pre-pass, then 3xTF32 wgmma on a TMA ring (f32)"
     report["schur_update"]["body"] = report["matmul"]["body"] = gemm_body
+    report["blocked_gauss_jordan"]["body"] = (
+        "in place on bs x bs: a panel launch inverts the pivot block and packs W and R^T "
+        "as TF32 hi/lo, then M += W R as 3xTF32 wgmma, panel rows and columns zeroed")
+    report["triangular_solve"]["body"] = (
+        "diagonal blocks inverted first, P = [-Dinv T | Dinv] and B^T packed as TF32 hi/lo, "
+        "then one 3xTF32 wgmma product a panel on a TMA ring, strip columns a block")
     for name, source, replaces, path in (
             ("schur_update", "src/repro_torch/kernels/csrc/matmul.cu",
              "src/repro/kernels/matmul/kernel.py:131", spin),

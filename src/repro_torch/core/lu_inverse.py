@@ -11,8 +11,10 @@ the GEMM kernel under engine="cuda"):
           Linv21 = −L22i · (L21 · L11i);  Uinv12 = −U11i · (U12 · U22i)
     top:  A^{-1} = Uinv · Linv, five half-size multiplies.
 
-The leaf LU is unpivoted (valid for SPD and diagonally dominant blocks)
-and plain PyTorch: the JAX package has no kernel there.
+The leaf LU is unpivoted (valid for SPD and diagonally dominant blocks),
+one `torch.linalg.lu_factor_ex(pivot=False)` call on the card and a plain
+loop on the CPU: the JAX package has no kernel there, and runs its leaf as
+one `fori_loop` inside its jitted program.
 """
 
 from __future__ import annotations
@@ -36,15 +38,27 @@ class _LU(NamedTuple):
     uinv: BlockMatrix
 
 
-def _local_lu(block: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Unpivoted dense LU of one block, multipliers stored below the
-    diagonal (compact LU), swept in f32."""
+def _local_lu_plain(block: torch.Tensor) -> torch.Tensor:
+    """Unpivoted dense LU of one block, swept in f32 one column a step:
+    the compact factor, multipliers below the diagonal. The plain version
+    of the leaf, and its CPU path."""
     n = block.shape[0]
     a = block.float().clone()
     for k in range(n - 1):
         a[k + 1:, k] /= a[k, k]
         a[k + 1:, k + 1:].addr_(a[k + 1:, k], a[k, k + 1:], alpha=-1.0)
-    eye = torch.eye(n, dtype=a.dtype, device=a.device)
+    return a
+
+
+def _local_lu(block: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Unpivoted dense LU of one block in f32, as (L, U) in the block's
+    dtype. On the card one `torch.linalg.lu_factor_ex(pivot=False)` call
+    (unpivoted LU exists on CUDA only); on the CPU the plain loop."""
+    if block.device.type == "cuda":
+        a = torch.linalg.lu_factor_ex(block.float(), pivot=False)[0]
+    else:
+        a = _local_lu_plain(block)
+    eye = torch.eye(block.shape[0], dtype=a.dtype, device=a.device)
     return (torch.tril(a, -1) + eye).to(block.dtype), torch.triu(a).to(block.dtype)
 
 

@@ -9,10 +9,12 @@ launch adds one to the wrapper's entry in `LAUNCHES`.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 __all__ = ["LAUNCHES", "launch_counts", "reset_launch_counts", "DTYPE_CODES",
-           "check_operand", "stream_of"]
+           "check_operand", "stream_of", "sm_count"]
 
 # Launches of each kernel since the last reset, by wrapper.
 # `gemm_tensor_core` and `gemm_ffma` count the launches of `matmul` and
@@ -51,3 +53,9 @@ def check_operand(t: torch.Tensor, name: str, ndim: int) -> None:
 def stream_of(t: torch.Tensor) -> int:
     """The handle of PyTorch's current stream on `t`'s device."""
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of card `index`."""
+    return torch.cuda.get_device_properties(index).multi_processor_count

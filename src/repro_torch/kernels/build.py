@@ -42,8 +42,8 @@ _F = ctypes.c_float
 # Argument types of each library's C entry points.
 _SIGNATURES = {
     "matmul": {
-        "repro_gemm": (_P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _L,
-                       _L, _L, _L, _L, _I, _F, _F, _I, _I, _P),
+        "repro_gemm": (_P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _L, _F, _F,
+                       _I, _I, _P),
         "repro_gemm_pack": (_P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _I, _P),
         "repro_gemm_tc": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _L,
                           _L, _F, _F, _I, _I, _I, _P),
@@ -52,10 +52,11 @@ _SIGNATURES = {
     "leaf_inverse": {
         "repro_gauss_jordan": (_P, _P, _P, _I, _I, _I, _I, _P),
         "repro_gauss_jordan_attributes": (_I, _P),
-        "repro_blocked_gauss_jordan": (_P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                       _I, _P),
+        "repro_blocked_gauss_jordan": (_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                       _P),
         "repro_triangular_solve": (_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L,
-                                   _I, _I, _I, _I, _P),
+                                   _I, _I, _I, _I, _I, _P),
+        "repro_blocked_attributes": (_I, _I, _P),
     },
     "flash_attention": {
         "repro_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

@@ -1,8 +1,7 @@
 // Tiled f32-accumulating FFMA GEMM body: out = beta * C + alpha * (A @ B),
-// batched over blockIdx.z. It carries the blocked Gauss-Jordan's rank-t
-// updates (leaf_inverse.cu, k = t <= 64) and the matmul and schur_update
-// products with k == 0; every other product of those two takes the
-// tensor-core body of matmul.cu.
+// one product a launch. It carries the matmul and schur_update products
+// with k == 0; every other product of those two takes the tensor-core body
+// of matmul.cu. The element-type helpers here serve every kernel file.
 //
 // Written for the Pallas kernels `matmul_pallas` and `schur_update_pallas`
 // (src/repro/kernels/matmul/kernel.py). On the TPU the k axis is a
@@ -59,7 +58,6 @@ struct GemmArgs {
   void* out;      // may alias c: each element is read and written by one thread
   int m, n, k;
   long long lda, ldb, ldc, ldo;  // row strides, in elements
-  long long sa, sb, sc, so;      // batch strides, in elements
   float alpha, beta;
 };
 
@@ -75,10 +73,9 @@ __global__ void __launch_bounds__(kThreads) gemm_kernel(GemmArgs p) {
 
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
-  const long long bz = blockIdx.z;
   const int row0 = blockIdx.y * kBM, col0 = blockIdx.x * kBN;
-  const TIn* A = static_cast<const TIn*>(p.a) + bz * p.sa;
-  const TIn* B = static_cast<const TIn*>(p.b) + bz * p.sb;
+  const TIn* A = static_cast<const TIn*>(p.a);
+  const TIn* B = static_cast<const TIn*>(p.b);
 
   // A thread's rows: row0 + ty*4 + {0..3} and row0 + 64 + ty*4 + {0..3};
   // its columns likewise from tx.
@@ -93,7 +90,7 @@ __global__ void __launch_bounds__(kThreads) gemm_kernel(GemmArgs p) {
 
   float acc[8][8];
   if (p.c != nullptr) {
-    const TIn* C = static_cast<const TIn*>(p.c) + bz * p.sc;
+    const TIn* C = static_cast<const TIn*>(p.c);
 #pragma unroll
     for (int i = 0; i < 8; ++i)
 #pragma unroll
@@ -155,7 +152,7 @@ __global__ void __launch_bounds__(kThreads) gemm_kernel(GemmArgs p) {
     buf ^= 1;
   }
 
-  TOut* O = static_cast<TOut*>(p.out) + bz * p.so;
+  TOut* O = static_cast<TOut*>(p.out);
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
@@ -165,26 +162,25 @@ __global__ void __launch_bounds__(kThreads) gemm_kernel(GemmArgs p) {
 }
 
 template <typename TIn, typename TOut>
-inline cudaError_t launch_gemm_t(const GemmArgs& p, int batch, cudaStream_t s) {
-  const dim3 grid((p.n + kBN - 1) / kBN, (p.m + kBM - 1) / kBM, batch);
+inline cudaError_t launch_gemm_t(const GemmArgs& p, cudaStream_t s) {
+  const dim3 grid((p.n + kBN - 1) / kBN, (p.m + kBM - 1) / kBM);
   gemm_kernel<TIn, TOut><<<grid, kThreads, 0, s>>>(p);
   return cudaGetLastError();
 }
 
 // Operands A, B (and C) share in_dtype; the output is in_dtype or f32.
-inline cudaError_t launch_gemm(const GemmArgs& p, int batch, int in_dtype,
-                               int out_dtype, cudaStream_t s) {
-  if (p.m == 0 || p.n == 0 || batch == 0) return cudaSuccess;
+inline cudaError_t launch_gemm(const GemmArgs& p, int in_dtype, int out_dtype, cudaStream_t s) {
+  if (p.m == 0 || p.n == 0) return cudaSuccess;
   if (out_dtype == kF32) {
     switch (in_dtype) {
-      case kF32: return launch_gemm_t<float, float>(p, batch, s);
-      case kBF16: return launch_gemm_t<__nv_bfloat16, float>(p, batch, s);
-      case kF16: return launch_gemm_t<__half, float>(p, batch, s);
+      case kF32: return launch_gemm_t<float, float>(p, s);
+      case kBF16: return launch_gemm_t<__nv_bfloat16, float>(p, s);
+      case kF16: return launch_gemm_t<__half, float>(p, s);
     }
   } else if (out_dtype == in_dtype) {
     switch (in_dtype) {
-      case kBF16: return launch_gemm_t<__nv_bfloat16, __nv_bfloat16>(p, batch, s);
-      case kF16: return launch_gemm_t<__half, __half>(p, batch, s);
+      case kBF16: return launch_gemm_t<__nv_bfloat16, __nv_bfloat16>(p, s);
+      case kF16: return launch_gemm_t<__half, __half>(p, s);
     }
   }
   return cudaErrorInvalidValue;

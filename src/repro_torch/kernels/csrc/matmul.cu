@@ -55,8 +55,7 @@
 //    consumer warpgroups, a TMA store of the output, and fusing the pack.
 //
 // gemm_kernel (gemm_tile.cuh), f32 FFMA: products with k == 0, whose
-// output is beta·C or zeros; it also carries the blocked Gauss-Jordan's
-// batched rank-t updates (leaf_inverse.cu).
+// output is beta·C or zeros.
 //
 // Every launch returns cudaGetLastError(), which the Python wrapper checks.
 #include <algorithm>
@@ -67,19 +66,12 @@
 namespace {
 
 using repro::from_f32;
+using repro::rna_tf32;
 using repro::to_f32;
 
 // ---------------------------------------------------------------------------
 // Pack pre-pass
 // ---------------------------------------------------------------------------
-
-// x rounded to TF32 (10 explicit mantissa bits), to nearest with ties away
-// from zero; the 13 low bits of the result are zero.
-__device__ __forceinline__ float rna_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return __uint_as_float(r);
-}
 
 constexpr int kPackTile = 32;  // 32 x 32 elements a block, 256 threads as 32 x 8
 
@@ -425,17 +417,13 @@ cudaError_t attributes_bm(int block_m, int* out) {
 
 }  // namespace
 
-// The FFMA body: out = beta * C + alpha * (A @ B), batched.
-extern "C" int repro_gemm(const void* a, const void* b, const void* c,
-                          void* out, int m, int n, int k, long long lda,
-                          long long ldb, long long ldc, long long ldo,
-                          long long sa, long long sb, long long sc,
-                          long long so, int batch, float alpha, float beta,
-                          int in_dtype, int out_dtype, void* stream) {
-  repro::GemmArgs p{a, b, c, out, m, n, k, lda, ldb, ldc, ldo,
-                    sa, sb, sc, so, alpha, beta};
-  return static_cast<int>(repro::launch_gemm(
-      p, batch, in_dtype, out_dtype, static_cast<cudaStream_t>(stream)));
+// The FFMA body: out = beta * C + alpha * (A @ B).
+extern "C" int repro_gemm(const void* a, const void* b, const void* c, void* out, int m, int n,
+                          int k, long long lda, long long ldb, long long ldc, long long ldo,
+                          float alpha, float beta, int in_dtype, int out_dtype, void* stream) {
+  repro::GemmArgs p{a, b, c, out, m, n, k, lda, ldb, ldc, ldo, alpha, beta};
+  return static_cast<int>(
+      repro::launch_gemm(p, in_dtype, out_dtype, static_cast<cudaStream_t>(stream)));
 }
 
 // The pack pre-pass alone: A (m x k, row stride lda) into a_packed

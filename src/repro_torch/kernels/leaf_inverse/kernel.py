@@ -4,10 +4,15 @@
 `blocked_leaf_inverse_cuda` replaces `blocked_leaf_inverse_pallas`
 (src/repro/kernels/leaf_inverse/kernel.py). Both invert a contiguous
 (batch, bs, bs) stack by pivot-free Gauss-Jordan swept in f32 and write
-``out_dtype`` (default: the blocks' dtype). `triangular_solve_cuda`
-replaces `triangular_solve_pallas`: T X = B for triangular or packed-LU T,
-swept in f32, X in b's dtype. The wrappers allocate the f32 scratch the
-kernels sweep in.
+``out_dtype`` (default: the blocks' dtype). The blocked one works in place
+on bs x bs: per panel a small launch inverts the pivot block and packs
+W and Rᵀ, then M += W·R runs on the tensor cores (3xTF32).
+`triangular_solve_cuda` replaces `triangular_solve_pallas`: T X = B for
+triangular or packed-LU T, in f32, X in b's dtype. It inverts the diagonal
+blocks first, packs P = [-D_p⁻¹·T[p, <p] | D_p⁻¹] and Bᵀ, and then each
+panel is one 3xTF32 product X_p = P[p, :base+t]·[X; B_p]; a block owns
+`tri_strip` right-hand-side columns. The wrappers allocate the scratch
+the kernels work in.
 """
 
 from __future__ import annotations
@@ -16,19 +21,24 @@ import ctypes
 
 import torch
 
-from .. import DTYPE_CODES, LAUNCHES, check_operand, stream_of
+from .. import DTYPE_CODES, LAUNCHES, check_operand, sm_count, stream_of
 from ..build import check, load
 from .ref import (blocked_gauss_jordan_ref, blocked_triangular_solve_ref,
                   gauss_jordan_ref)
 
 __all__ = ["leaf_inverse_cuda", "blocked_leaf_inverse_cuda",
            "triangular_solve_cuda", "default_panel", "MAX_PANEL",
-           "GJ_INPLACE_MAX_BS", "gauss_jordan_attributes"]
+           "GJ_INPLACE_MAX_BS", "gauss_jordan_attributes", "tri_strip",
+           "TRI_STRIPS", "blocked_attributes"]
 
-MAX_PANEL = 64  # kPanelMax and kTriPanelMax in csrc/leaf_inverse.cu
+MAX_PANEL = 64  # kPanelMax in csrc/leaf_inverse.cu
 # kGjRegMaxBs in csrc/leaf_inverse.cu: up to this bs the scalar sweep is one
 # in-place launch with no scratch; above it [A | I] sweeps in device memory.
 GJ_INPLACE_MAX_BS = 208
+# Right-hand-side columns a block of the triangular solve may own: the
+# widths of wgmma m64nNk8 the kernel is built for, widest first.
+TRI_STRIPS = (64, 32, 16, 8)
+_PLANE_ALIGN = 4  # f32 a 16-byte TMA granule: row stride of packed planes
 
 
 def default_panel(bs: int, cap: int = MAX_PANEL) -> int:
@@ -96,18 +106,51 @@ def blocked_leaf_inverse_cuda(blocks: torch.Tensor, panel: int | None = None,
     if t > MAX_PANEL:
         raise ValueError(f"panel={t} exceeds the kernel's {MAX_PANEL}")
     dev = blocks.device
-    m = torch.empty((batch, bs, 2 * bs), dtype=torch.float32, device=dev)
-    pan = torch.empty((batch, t, 2 * bs), dtype=torch.float32, device=dev)
-    fac = torch.empty((batch, bs, t), dtype=torch.float32, device=dev)
     out = torch.empty(blocks.shape, dtype=out_dtype, device=dev)
+    # The f32 working copy is the output itself when that is f32.
+    m = out if out_dtype == torch.float32 else torch.empty(
+        blocks.shape, dtype=torch.float32, device=dev)
+    # W and Rᵀ, each (batch, 2, bs, ld): TF32 hi and lo planes.
+    w = torch.empty(4 * batch * bs * _plane_ld(t), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = load("leaf_inverse").repro_blocked_gauss_jordan(
-            blocks.data_ptr(), out.data_ptr(), m.data_ptr(), pan.data_ptr(),
-            fac.data_ptr(), batch, bs, t, DTYPE_CODES[blocks.dtype],
-            DTYPE_CODES[out_dtype], stream_of(blocks))
+            blocks.data_ptr(), out.data_ptr(), m.data_ptr(), w.data_ptr(),
+            batch, bs, t, DTYPE_CODES[blocks.dtype], DTYPE_CODES[out_dtype],
+            stream_of(blocks))
     check(err, "blocked_gauss_jordan kernel")
     LAUNCHES["blocked_gauss_jordan"] += 1
     return out
+
+
+def _plane_ld(cols: int) -> int:
+    return -(-cols // _PLANE_ALIGN) * _PLANE_ALIGN
+
+
+def tri_strip(k: int, batch: int, sms: int) -> int:
+    """Right-hand-side columns a block of the triangular solve owns: the
+    widest of `TRI_STRIPS` that still gives at least half as many blocks as
+    the card has SMs (`sms`), else the narrowest. Wide strips read P fewer times;
+    narrow ones put a narrow k on more SMs. On an H100 (132 SMs): k = 15616
+    and 4352 take 64 (244 and 68 blocks), 1280 takes 16, 256 takes 8. A
+    strip of 128 (122 blocks, one wave at 15616) ran slower than two waves
+    of 64 there on an H100, so the kernel is not built for it."""
+    for n in TRI_STRIPS:
+        if -(-k // n) * batch >= sms // 2:
+            return n
+    return TRI_STRIPS[-1]
+
+
+def blocked_attributes(kernel: str, strip: int = 64) -> dict:
+    """Registers a thread, static and dynamic shared memory a block and
+    spilled bytes of a kernel of the blocked routes: "tri_tc" (f32 right-hand
+    sides, `strip` columns a block), "tri_dinv", "tri_pack", "bgj_panel" or
+    "bgj_update", as the CUDA runtime reports them. Needs the card's
+    toolkit: it builds the kernels."""
+    index = ("tri_tc", "tri_dinv", "tri_pack", "bgj_panel", "bgj_update").index(kernel)
+    out = (ctypes.c_int * 4)()
+    check(load("leaf_inverse").repro_blocked_attributes(index, strip, out),
+          f"{kernel} attributes")
+    return dict(zip(("registers", "static_smem", "dynamic_smem", "local_bytes"), out))
 
 
 def triangular_solve_cuda(t: torch.Tensor, b: torch.Tensor,
@@ -141,16 +184,18 @@ def triangular_solve_cuda(t: torch.Tensor, b: torch.Tensor,
         raise ValueError(f"panel={tp} exceeds the kernel's {MAX_PANEL}")
     if not b.is_contiguous():
         raise ValueError("the triangular-solve kernel needs a contiguous b")
+    strip = tri_strip(k, batch, sm_count(b.device.index or 0))
     out = torch.empty(b.shape, dtype=b.dtype, device=b.device)
-    f32 = b.dtype == torch.float32
-    work = out if f32 else torch.empty(b.shape, dtype=torch.float32,
-                                       device=b.device)
+    # P (batch, 2, bs, ld), Zᵀ (batch, 2, k, ld) and the D_p⁻¹ (batch, bs, t).
+    ld = _plane_ld(bs)
+    scratch = torch.empty(batch * (2 * (bs + k) * ld + bs * tp), dtype=torch.float32,
+                          device=b.device)
     with torch.cuda.device(b.device):
         err = load("leaf_inverse").repro_triangular_solve(
-            t.data_ptr(), b.data_ptr(), work.data_ptr(),
-            None if f32 else out.data_ptr(), batch, bs, k, tp, t.stride(0),
-            t.stride(1), t.stride(2), int(lower), int(unit_diagonal),
-            DTYPE_CODES[t.dtype], DTYPE_CODES[b.dtype], stream_of(b))
+            t.data_ptr(), b.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+            batch, bs, k, tp, t.stride(0), t.stride(1), t.stride(2), int(lower),
+            int(unit_diagonal), DTYPE_CODES[t.dtype], DTYPE_CODES[b.dtype], strip,
+            stream_of(b))
     check(err, "triangular_solve kernel")
     LAUNCHES["triangular_solve"] += 1
     return out

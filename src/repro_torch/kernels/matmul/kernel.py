@@ -24,11 +24,10 @@ its wrapper's count (``matmul`` or ``schur_update``) and one to its body's
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
-from .. import DTYPE_CODES, LAUNCHES, check_operand, stream_of
+from .. import DTYPE_CODES, LAUNCHES, check_operand, sm_count, stream_of
 from ..build import check, load
 from .ref import matmul_ref, schur_update_ref
 
@@ -54,11 +53,6 @@ def gemm_route(m: int, n: int, k: int, dtype: torch.dtype,
         return "ffma", None
     tiles = -(-m // 128) * -(-n // TC_BLOCK_N)
     return "tensor_core", 64 if tiles < sm_count else 128
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _scratch(a: torch.Tensor, m: int, n: int, k: int):
@@ -134,7 +128,7 @@ def _launch(c, a, b, alpha: float, beta: float, out_dtype) -> torch.Tensor:
     (m, k), n = a.shape, b.shape[1]
     device = a.device
     out = torch.empty((m, n), dtype=out_dtype, device=device)
-    body, block_m = gemm_route(m, n, k, a.dtype, _sm_count(device.index or 0))
+    body, block_m = gemm_route(m, n, k, a.dtype, sm_count(device.index or 0))
     if body == "empty":
         return out
     lib = load("matmul")
@@ -152,8 +146,8 @@ def _launch(c, a, b, alpha: float, beta: float, out_dtype) -> torch.Tensor:
         else:
             err = lib.repro_gemm(
                 a.data_ptr(), b.data_ptr(), c_ptr, out.data_ptr(), m, n, k,
-                a.stride(0), b.stride(0), ldc, out.stride(0), 0, 0, 0, 0, 1,
-                alpha, beta, *codes, stream_of(a))
+                a.stride(0), b.stride(0), ldc, out.stride(0), alpha, beta, *codes,
+                stream_of(a))
     check(err, "matmul kernel" if c is None else "schur_update kernel")
     LAUNCHES["gemm_" + body] += 1
     LAUNCHES["matmul" if c is None else "schur_update"] += 1

@@ -3,13 +3,16 @@
     PYTHONPATH=src python -m repro_torch.profile_spin                  # inversion
     PYTHONPATH=src python -m repro_torch.profile_spin --solve          # solve
     PYTHONPATH=src python -m repro_torch.profile_spin --gauss-jordan --calls 4
+    PYTHONPATH=src python -m repro_torch.profile_spin --lu             # LU baseline
 
 Runs `spin_inverse_dense(engine="cuda", leaf_solver="cuda")` at n = 16384,
 block size 1024, f32, on a `make_spd` matrix (seed 0); with `--solve`
 `spin_solve_dense(engine="cuda", leaf_solver="cuda")` of that matrix
 against 256 standard-normal right-hand sides; with `--gauss-jordan`
 `spin_inverse_dense(leaf_solver="gauss_jordan", engine="cuda")` at
-n = 2048, block size 128 (the scalar Gauss-Jordan leaf's path). One
+n = 2048, block size 128 (the scalar Gauss-Jordan leaf's path); with
+`--lu` the paper's baseline, `lu_inverse_dense(engine="cuda")`, at
+n = 16384, block size 1024. One
 warm-up call, `--calls` calls timed by CUDA events one by one, then
 `--calls` calls under `torch.profiler`, each in a range of its own. From
 the trace's device events it prints, for each traced call, one JSON line:
@@ -83,7 +86,7 @@ def device_breakdown(trace: dict, call: str = CALL) -> dict:
 
 
 def main(argv=None) -> int:
-    from .core import spin_inverse_dense, spin_solve_dense, testing
+    from .core import lu_inverse_dense, spin_inverse_dense, spin_solve_dense, testing
     from .kernels import build
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -93,6 +96,8 @@ def main(argv=None) -> int:
     which.add_argument("--gauss-jordan", action="store_true",
                        help=f"trace the n = {GJ_N} inversion with the scalar "
                             "Gauss-Jordan leaf")
+    which.add_argument("--lu", action="store_true",
+                       help="trace the LU baseline's inversion")
     parser.add_argument("--calls", type=int, default=1,
                         help="calls timed, and calls traced, after the warm-up")
     args = parser.parse_args(argv)
@@ -103,8 +108,12 @@ def main(argv=None) -> int:
     rng = np.random.default_rng(SEED)
     n, bs = (GJ_N, GJ_BLOCK_SIZE) if args.gauss_jordan else (N, BLOCK_SIZE)
     a = testing.make_spd(n, rng, device="cuda")
-    call = "spin_solve_dense" if args.solve else CALL
-    if args.solve:
+    call = "spin_solve_dense" if args.solve else "lu_inverse_dense" if args.lu else CALL
+    if args.lu:
+
+        def run():
+            return lu_inverse_dense(a, bs, engine="cuda")
+    elif args.solve:
         b = torch.from_numpy(rng.standard_normal((n, N_RHS), dtype=np.float32)).cuda()
 
         def run():
@@ -141,7 +150,8 @@ def main(argv=None) -> int:
     for i, name in enumerate(names):
         report = device_breakdown(trace, name)
         report.update(call=name, n=n, block_size=bs, n_rhs=N_RHS if args.solve else None,
-                      leaf_solver="gauss_jordan" if args.gauss_jordan else "cuda",
+                      leaf_solver=("gauss_jordan" if args.gauss_jordan
+                                   else "lu" if args.lu else "cuda"),
                       untraced_wall_ms=wall_ms, device=torch.cuda.get_device_name(0),
                       trace=str(path))
         if i == 0:

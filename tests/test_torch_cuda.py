@@ -224,6 +224,44 @@ def test_leaf_kernels_match_plain(cuda_device, batch, bs):
         gj.leaf_inverse_cuda(x.transpose(1, 2))      # not contiguous
 
 
+@pytest.mark.parametrize("out_dtype", [None, torch.float32])
+@pytest.mark.parametrize("in_dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("batch,bs", [(1, 17), (2, 48), (1, 256), (1, 1024)])
+def test_blocked_gauss_jordan_dtypes(cuda_device, batch, bs, in_dtype, out_dtype):
+    x = _spd_blocks(batch, bs, 11, cuda_device).to(in_dtype)
+    kernels.reset_launch_counts()
+    got = gj.blocked_leaf_inverse_cuda(x, out_dtype=out_dtype)
+    assert kernels.launch_counts()["blocked_gauss_jordan"] == 1
+    want = gj_ref.blocked_gauss_jordan_ref(x, gj.default_panel(bs), out_dtype)
+    assert got.dtype == want.dtype == (out_dtype or in_dtype)
+    assert got.shape == want.shape and bool(torch.isfinite(got.float()).all())
+    # f32 out: the sums of another order (1e-4, as above); a 16-bit out:
+    # both round the f32 inverse once, one ulp of the largest entry (2^-7
+    # for bf16, which has the fewer bits).
+    tol = 1e-4 if got.dtype == torch.float32 else 2.0 ** -7
+    scale = float(want.float().abs().max())
+    assert float((got.float() - want.float()).abs().max()) <= tol * scale
+
+
+@pytest.mark.parametrize("batch,bs,panel", [(1, 64, None), (2, 48, 16), (1, 1024, None),
+                                            (1, 256, 32)])
+def test_blocked_gauss_jordan_matches_its_model(cuda_device, batch, bs, panel):
+    """The kernel against the plain model of its own step order (in place,
+    one W·R product a panel): the same algebra, 3xTF32 products and
+    another summation order, so 1e-4 of the largest entry as above."""
+    x = _spd_blocks(batch, bs, 12, cuda_device)
+    t = panel or gj.default_panel(bs)
+    got = gj.blocked_leaf_inverse_cuda(x, panel=t)
+    want = gj_ref.blocked_gauss_jordan_inplace_model(x, t)
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("kernel,strip", [("tri_tc", n) for n in gj.TRI_STRIPS] + [
+    ("tri_dinv", 64), ("tri_pack", 64), ("bgj_panel", 64), ("bgj_update", 64)])
+def test_blocked_leaf_kernels_keep_their_registers(cuda_device, kernel, strip):
+    assert gj.blocked_attributes(kernel, strip)["local_bytes"] == 0
+
+
 @pytest.mark.parametrize("in_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("batch", [1, 133])                  # 133: more blocks than SMs
 @pytest.mark.parametrize("bs", [1, 17, 128, 200, 256])       # 256: the device-memory route
@@ -281,7 +319,7 @@ def _packed_lu(batch: int, bs: int, seed: int, device) -> torch.Tensor:
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("k", [1, 37, 300])
+@pytest.mark.parametrize("k", [1, 37, 300, 256, 4352])      # the last two: the solve's leaves
 @pytest.mark.parametrize("bs", [64, 128, 1024])
 @pytest.mark.parametrize("batch", [1, 2])
 def test_triangular_solve_kernel_matches_plain(cuda_device, batch, bs, k, dtype):
@@ -297,13 +335,46 @@ def test_triangular_solve_kernel_matches_plain(cuda_device, batch, bs, k, dtype)
                                                    unit_diagonal=unit)
         assert got.dtype == b.dtype and got.shape == b.shape
         assert bool(torch.isfinite(got.float()).all())
-        # f32: direct substitution inside a panel and left-looking panel
-        # updates round in another order than the plain version's
+        # f32: the inverted diagonal blocks applied as 3xTF32 products, one
+        # a panel, round in another order than the plain version's
         # Gauss-Jordan sweeps and rank-t updates. bf16: both round the f32
         # solution once, so one bf16 ulp (2^-7) of the largest entry.
         tol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
         scale = float(want.float().abs().max())
         assert float((got.float() - want.float()).abs().max()) <= tol * scale
+
+
+@pytest.mark.parametrize("batch,bs,k,panel", [(1, 64, 5, None), (2, 48, 33, 16),
+                                              (1, 1024, 300, None), (1, 128, 70, 8)])
+def test_triangular_solve_matches_its_model(cuda_device, batch, bs, k, panel):
+    """The kernel against the plain model of its own step order (D_p⁻¹
+    first, then one product a panel): 3xTF32 products and another order of
+    the sums, 1e-4 of the largest entry as above."""
+    t = _packed_lu(batch, bs, 13, cuda_device)
+    g = torch.Generator(device="cpu").manual_seed(bs + k)
+    b = torch.randn(batch, bs, k, generator=g).to(cuda_device)
+    tp = panel or gj.default_panel(bs)
+    for lower, unit in ((True, True), (False, False), (True, False), (False, True)):
+        got = gj.triangular_solve_cuda(t, b, tp, lower=lower, unit_diagonal=unit)
+        want = gj_ref.triangular_solve_dinv_model(t, b, tp, lower=lower, unit_diagonal=unit)
+        assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+def test_lu_leaf_on_the_card_matches_plain(cuda_device):
+    """The LU baseline's leaf at its main-path size: one unpivoted
+    lu_factor_ex on the card against the plain column-by-column loop."""
+    import importlib
+
+    lu_mod = importlib.import_module("repro_torch.core.lu_inverse")
+    a = _spd_blocks(1, 1024, 14, cuda_device)[0]
+    l, u = lu_mod._local_lu(a)
+    packed = lu_mod._local_lu_plain(a)
+    # Both unpivoted in f32, summed in another order: 1e-4 of the largest
+    # entry of each factor at the block's condition (≈ 10).
+    want_l = torch.tril(packed, -1) + torch.eye(1024, device=cuda_device)
+    want_u = torch.triu(packed)
+    assert float((l - want_l).abs().max()) <= 1e-4 * float(want_l.abs().max())
+    assert float((u - want_u).abs().max()) <= 1e-4 * float(want_u.abs().max())
 
 
 def test_triangular_solve_takes_column_major_t(cuda_device):

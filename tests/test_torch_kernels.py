@@ -308,6 +308,23 @@ def test_plain_versions_step_exact_against_jax_refs(bs, panel):
            "float32", f32_rel=1e-4)
 
 
+@pytest.mark.parametrize("bs,panel", [(32, 8), (64, 16), (48, 16), (64, 64), (96, 48)])
+def test_blocked_gauss_jordan_kernel_model_matches_pallas(bs, panel):
+    """The CUDA kernel's step order (in place, D⁻¹ as 2 x 2 blocks of 32
+    above t = 32, one W·R product a panel, the panel's rows and columns
+    zeroed) against the Pallas kernel's [A | I] sweep."""
+    xj, xt = _pair(_spd_blocks(2, bs, 14), "float32")
+    want = blocked_leaf_inverse_pallas(xj, panel=panel, interpret=True)
+    got = gj_ref.blocked_gauss_jordan_inplace_model(xt, panel)
+    assert got.dtype == torch.float32
+    # Another order of the same pivot-free elimination: the pivot blocks
+    # inverted apart, then one product a panel. 1e-5 of the largest entry
+    # at condition ≈ 10, as for the plain version.
+    _close(got, want, "float32", f32_rel=1e-5)
+    assert gj_ref.blocked_gauss_jordan_inplace_model(
+        xt.to(torch.bfloat16), panel, out_dtype=torch.float32).dtype == torch.float32
+
+
 def _full_sweep_gauss_jordan(blocks: torch.Tensor) -> torch.Tensor:
     """The scalar sweep on the whole [A | I], as the kernel ran it before it
     went in place: every step over all 2·bs columns."""
@@ -403,6 +420,34 @@ def test_blocked_triangular_solve_plain_matches_pallas(lower, unit, bs, panel, k
     assert float((got - oracle).abs().max()) <= 1e-5 * float(oracle.abs().max())
 
 
+@pytest.mark.parametrize("k", [1, 5, 33])
+@pytest.mark.parametrize("bs,panel", [(64, 16), (48, 16), (64, 64)])
+@pytest.mark.parametrize("unit", [True, False], ids=["unit", "diag"])
+@pytest.mark.parametrize("lower", [True, False], ids=["lower", "upper"])
+def test_triangular_solve_kernel_model_matches_pallas(lower, unit, bs, panel, k):
+    """The CUDA kernel's step order (every D_p⁻¹ first, P = [−D_p⁻¹·T[p, <p]
+    | D_p⁻¹], then one product a panel over [X; B_p], the upper sweep
+    flipped) against the Pallas kernel, on a full matrix whose untargeted
+    triangle the solve must ignore."""
+    full, rhs = _triangular_system(bs, k, 5 + int(lower) + 2 * int(unit))
+    (tj, tt), (bj, bt) = _pair(full, "float32"), _pair(rhs, "float32")
+    want = jgj_ops.triangular_solve(tj, bj, lower=lower, unit_diagonal=unit, panel=panel)
+    got = gj_ref.triangular_solve_dinv_model(tt[None], bt[None], panel, lower=lower,
+                                             unit_diagonal=unit)[0]
+    assert got.dtype == bt.dtype and tuple(got.shape) == (bs, k)
+    # The same solution: D_p⁻¹ applied as a product instead of a sweep on
+    # [D_p | rhs_p], and the panel updates summed in another order.
+    _close(got, want, "float32", f32_rel=1e-5)
+
+
+@pytest.mark.parametrize("k,batch,sms,want", [
+    (15616, 1, 132, 64), (4352, 1, 132, 64), (2304, 1, 132, 32), (1280, 1, 132, 16),
+    (256, 1, 132, 8), (1, 1, 132, 8), (1024, 4, 132, 32), (300, 2, 8, 64)])
+def test_tri_strip_rule(k, batch, sms, want):
+    strip = gj.tri_strip(k, batch, sms)
+    assert strip == want and strip in gj.TRI_STRIPS
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_triangular_solve_lu_round_trip(dtype):
     """Packed LU: the unit-lower sweep, then the upper sweep, solve the
@@ -441,6 +486,27 @@ def test_triangular_solve_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError):
         gj.triangular_solve_cuda(t[0], b[0])                         # rank 2
     assert torch.equal(gj.triangular_solve_cuda(t, b), b)
+
+
+@pytest.mark.parametrize("bs", [1, 8, 32])
+def test_lu_leaf_plain_matches_reference(bs):
+    """The LU baseline's leaf: the port's plain loop (its CPU path, and the
+    card path's plain version) against the reference's `fori_loop`."""
+    import importlib
+
+    from repro.core.lu_inverse import _local_lu as j_local_lu
+
+    lu_mod = importlib.import_module("repro_torch.core.lu_inverse")
+    xj, xt = _pair(_spd_blocks(1, bs, 15)[0], "float32")
+    packed = lu_mod._local_lu_plain(xt)
+    l, u = lu_mod._local_lu(xt)
+    assert torch.equal(l, torch.tril(packed, -1) + torch.eye(bs))
+    assert torch.equal(u, torch.triu(packed))
+    jl, ju = j_local_lu(xj)
+    # The same unpivoted steps; the reference updates the whole trailing
+    # block as one outer product, the port row by row.
+    _close(l, jl, "float32", f32_rel=1e-5)
+    _close(u, ju, "float32", f32_rel=1e-5)
 
 
 def test_cpu_calls_launch_no_kernel():
