@@ -20,7 +20,8 @@ Phases, each of which fails the run (non-zero exit) on any fault:
      and the one PyTorch library call that computes the same function
      (the GEMM at 8192³, the inversion's top-level product, and at 4096³,
      2048³ and 1024³, its deeper levels, with the pack pre-pass of its
-     tensor-core body timed apart; the blocked Gauss-Jordan, in place with
+     tensor-core body timed apart, and its bf16 body at 8192³ and 4096³,
+     the bf16 preset's top levels; the blocked Gauss-Jordan, in place with
      one 3xTF32 wgmma update a panel, at 1 x 1024²; the scalar
      Gauss-Jordan at 1 x 128² and 16 x 128²; the triangular solve, which
      inverts the diagonal blocks first and then runs one 3xTF32 wgmma
@@ -34,7 +35,7 @@ Phases, each of which fails the run (non-zero exit) on any fault:
   4. SPIN inversion, `spin_inverse_dense(engine="cuda", leaf_solver="cuda")`,
      at n = 16384, block_size = 1024: residual ‖AX − I‖∞ ≤ 1e-3, op counts
      equal to the paper's oracle, and the kernels it launched; in this
-     phase and the next three every matmul and schur_update launch must
+     phase and the next five every matmul and schur_update launch must
      have taken the GEMM's tensor-core body;
   5. the paper's baseline, `lu_inverse_dense`, at the same size, timed
      beside SPIN, and SPIN ÷ LU from this run;
@@ -43,17 +44,35 @@ Phases, each of which fails the run (non-zero exit) on any fault:
      sides: residual ‖AX − B‖∞ / ‖B‖∞ ≤ 1e-3, the inverse-free op profile
      (no multiply, arrange or leaf inversion), and the kernels it launched
      (the GEMM and the triangular solve, nothing else);
-  7. a smaller inversion with `leaf_solver="gauss_jordan"`, the path of
+  7. the bf16 preset on the same matrix, `spin_inverse_dense(...,
+     precision="bf16")`: the raw bf16 recursion (no polish) and the
+     polished call, each timed, bf16 out, residual ≤ the preset's bound
+     (2e-2); 30 schur_update and 60 matmul launches on bf16 operands plus
+     2 f32 matmul launches a polish sweep, 16 blocked Gauss-Jordan leaves;
+     and a small `spin_solve_dense(..., precision="bf16")` that returns at
+     b's dtype;
+  8. the Strassen engine on the same matrix, `spin_inverse_dense(...,
+     engine="strassen")` at the default cutoff: residual ≤ 1e-3, the
+     paper's op counts, the Strassen counters equal to
+     `verify.expected_spin_strassen_counts` ((2862, 8316) at cutoff 512),
+     and one GEMM launch a classical leaf, split between schur_update (the
+     Schur updates that are one leaf) and matmul as
+     `fused_strassen_leaves` derives it;
+  9. the crossover: the dense `strassen_matmul` with one split (cutoff
+     n/2) against one GEMM launch at n = 8192, 16384 and 32768, f32, timed
+     in turns, beside `costmodel.strassen_crossover_n()`;
+ 10. a smaller inversion with `leaf_solver="gauss_jordan"`, the path of
      the scalar Gauss-Jordan kernel;
-  8. the dense LM serving path at full width and depth: granite-8b with
+ 11. the dense LM serving path at full width and depth: granite-8b with
      random weights from SEED, `prefill` of 4 prompts of 2048 tokens (36
      flash attention launches and no other kernel of the port), 32 greedy
      `decode_step`s from the padded cache, the decode logits of the first
      8 steps against `forward` over prompt plus those tokens, and a
      `ServingEngine` (4 slots, max_len 256) answering 8 requests, one of
      which must equal the same request served alone;
-  9. one JSON line with every path's times and residual, and one with
-     every kernel's launches, error and times.
+ 12. one JSON line with every path's times and residual, and one with
+     every kernel's launches, error and times (the GEMM's and blocked
+     Gauss-Jordan's launches on every path beside them).
 
 The last line is {"ok": true, "device": {...}}. The script imports only
 the PyTorch port; it exits non-zero without a result when CUDA is missing
@@ -62,6 +81,7 @@ or when it is not run from a checkout of the repository.
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import importlib
 import json
@@ -84,6 +104,9 @@ SEED = 0
 REPS = 2                      # timed runs of each inversion path
 N, BLOCK_SIZE = 16384, 1024      # the main path: grid 16, four levels
 GEMM_SIZES = (8192, 4096, 2048, 1024)   # the inversion's products, level by level
+BF16_GEMM_SIZES = (8192, 4096)    # the bf16 body timed: the two top levels
+CROSSOVER_SIZES = (8192, 16384, 32768)  # one Strassen split against one GEMM launch
+SOLVE_BF16_N, SOLVE_BF16_RHS = 4096, 16  # the small bf16 solve
 N_RHS = 256                       # right-hand sides of the solve path
 TRI_TIMED_K = (256, 4352, N_RHS + N - BLOCK_SIZE)  # B5 widths timed: narrowest leaf .. widest
 GJ_N, GJ_BLOCK_SIZE = 2048, 128   # the scalar Gauss-Jordan leaf's path
@@ -278,6 +301,36 @@ def check_kernels(torch, rng, n_gemm: int, bs: int, gj_bs: int, tri_k: int) -> d
             report[name].setdefault("by_size", {})[str(size)] = times
         del a, b, c
     del a32, b32, c32
+    torch.cuda.empty_cache()
+    # bf16 times (the bf16 preset's recursion runs on this body) at the
+    # inversion's two top levels, on inputs of their own so that the later
+    # phases' draws stay as they were: kernel, pack, plain version, library
+    # call and the bound of one bf16 tensor-core product (989 TFLOP/s).
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for size in BF16_GEMM_SIZES:
+        a, b, c = (torch.randn(size, size, generator=gen, device=dev).to(torch.bfloat16)
+                   for _ in range(3))
+        for name, with_c, kern, plain, lib in (
+                ("matmul", False, lambda: mm.matmul_cuda(a, b),
+                 lambda: mm_ref.matmul_ref(a, b), lambda: torch.matmul(a, b)),
+                ("schur_update", True, lambda: mm.schur_update_cuda(c, a, b),
+                 lambda: mm_ref.schur_update_ref(c, a, b),
+                 lambda: torch.addmm(c, a, b, beta=-1.0, alpha=1.0))):
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            err = max_abs(got, want)
+            tol = 2.0 ** -7 * float(want.float().abs().max())
+            print(f"check {name} bfloat16 {size}^3: max_abs_err={err!r} tol={tol!r}", flush=True)
+            require(got.dtype == torch.bfloat16 and err <= tol,
+                    f"{name} bf16 {size}^3: max_abs_err {err} > {tol}")
+            del got, want
+            bound, by = gemm_tc_bound_ms(size, size, size, with_c, 2)
+            times = {"ms": time_ms(kern, 5), "pack_ms": time_ms(lambda: mm.gemm_pack_cuda(a, b), 5),
+                     "plain_ms": time_ms(plain, 5), "library_ms": time_ms(lib, 5),
+                     "bound_ms": bound, "bound_by": by, "max_abs_err": err}
+            print(f"time {name} bfloat16 {size}^3: {times}", flush=True)
+            report[name].setdefault("bf16_by_size", {})[str(size)] = times
+        del a, b, c
     torch.cuda.empty_cache()
 
     # Leaf kernels on SPD blocks, the matrices SPIN's leaves see.
@@ -539,10 +592,12 @@ def timed(torch, fn):
     return out, start.elapsed_time(end)
 
 
-def run_path(torch, name, fn, a, grid, *, expect_launches, op_oracle, reps, b=None):
+def run_path(torch, name, fn, a, grid, *, expect_launches, op_oracle, reps, b=None,
+             bound=RESIDUAL_BOUND, out_dtype=None):
     """Drive one path: one warm-up run, then one counted and timed run and
     `reps - 1` more timed runs. With `b` the path solves A X = B and is
-    held to the solve residual, else it inverts A."""
+    held to the solve residual, else it inverts A; the result must have
+    `out_dtype` (default: that of A, or of B) and a residual ≤ `bound`."""
     from repro_torch import kernels
     from repro_torch.core import count_ops, verify
 
@@ -557,10 +612,10 @@ def run_path(torch, name, fn, a, grid, *, expect_launches, op_oracle, reps, b=No
     want = a if b is None else b
     print(f"path {name}: n={a.shape[0]} grid={grid} ms={times!r} residual={res!r} "
           f"launches={launches}", flush=True)
-    require(tuple(x.shape) == tuple(want.shape) and x.dtype == want.dtype,
+    require(tuple(x.shape) == tuple(want.shape) and x.dtype == (out_dtype or want.dtype),
             f"{name}: result shape/dtype {tuple(x.shape)} {x.dtype}")
-    require(bool(torch.isfinite(x).all()), f"{name}: non-finite entries")
-    require(res <= RESIDUAL_BOUND, f"{name}: residual {res} > {RESIDUAL_BOUND}")
+    require(bool(torch.isfinite(x.float()).all()), f"{name}: non-finite entries")
+    require(res <= bound, f"{name}: residual {res} > {bound}")
     if op_oracle:
         verify.assert_paper_op_counts(grid, counts)
     for kern, want in expect_launches.items():
@@ -572,6 +627,72 @@ def run_path(torch, name, fn, a, grid, *, expect_launches, op_oracle, reps, b=No
             f"on the tensor-core body and {launches['gemm_ffma']} on the FFMA one")
     return {"ms": times, "residual": res, "launches": launches,
             "op_counts": counts.as_dict()}
+
+
+def fused_strassen_leaves(grid: int, bs: int, cutoff: int) -> int:
+    """Schur updates that are one classical leaf under engine="strassen":
+    the two of every SPIN node whose half-grid h has h == 1 or h·bs at or
+    below the cutoff. Each is one schur_update launch (B1); every other
+    Strassen leaf is one matmul launch (B2)."""
+    fused, nodes, h = 0, 1, grid // 2
+    while h >= 1:
+        if h == 1 or h * bs <= cutoff:
+            fused += 2 * nodes
+        nodes, h = nodes * 2, h // 2
+    return fused
+
+
+def run_crossover(torch) -> dict:
+    """Phase 9: the dense Strassen multiply with one split (cutoff n/2: 7
+    B2 launches of (n/2)³ and 18 elementwise passes) against one B2 launch
+    of n³, f32, timed in turns (B2, Strassen, Strassen, B2), beside the cost
+    model's crossover."""
+    from repro_torch import kernels
+    from repro_torch.core import costmodel, count_ops, strassen_matmul
+    from repro_torch.kernels.matmul import kernel as mm
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rows = {}
+    for size in CROSSOVER_SIZES:
+        x = torch.randn(size, size, generator=gen, device=dev)
+        y = torch.randn(size, size, generator=gen, device=dev)
+
+        def split():
+            return strassen_matmul(x, y, cutoff=size // 2)
+
+        kernels.reset_launch_counts()
+        with count_ops() as counts:
+            got = split()
+        launches = kernels.launch_counts()
+        want = mm.matmul_cuda(x, y)
+        torch.cuda.synchronize()
+        err = float(torch.linalg.norm(got - want) / torch.linalg.norm(want))
+        del got, want
+        torch.cuda.empty_cache()
+        require(launches["matmul"] == 7 and launches["gemm_tensor_core"] == 7
+                and (counts.strassen_base_multiplies, counts.strassen_adds) == (7, 18),
+                f"crossover {size}: launches {launches}, counts {counts.as_dict()}")
+        # Both round f32 sums of k = n terms (≈ √(n/32)·2⁻²⁴ relative, 2e-6 at
+        # n = 32768), and the split adds its 18 passes' roundings: 1e-4 keeps
+        # a margin, while a wrong quadrant would be O(1).
+        require(err <= 1e-4, f"crossover {size}: relative error {err} > 1e-4")
+        mm_ms = [time_ms(lambda: mm.matmul_cuda(x, y), 2)]
+        st_ms = [time_ms(split, 2), time_ms(split, 2)]
+        mm_ms.append(time_ms(lambda: mm.matmul_cuda(x, y), 2))
+        row = {"matmul_ms": mm_ms, "strassen_ms": st_ms,
+               "strassen_over_matmul": min(st_ms) / min(mm_ms), "rel_err": err,
+               "bound_ms": gemm_tc_bound_ms(size, size, size, False, 4)[0]}
+        print(f"time crossover float32 {size}^3: {row}", flush=True)
+        rows[str(size)] = row
+        del x, y
+        torch.cuda.empty_cache()
+    wins = [int(n) for n, r in rows.items() if r["strassen_over_matmul"] < 1.0]
+    out = {"by_size": rows, "model_crossover_n": costmodel.strassen_crossover_n(),
+           "measured_first_win": min(wins) if wins else None}
+    print(f"path strassen_crossover: model_crossover_n={out['model_crossover_n']} "
+          f"measured_first_win={out['measured_first_win']}", flush=True)
+    return out
 
 
 def run_lm(torch, rng, cfg, dev) -> dict:
@@ -720,8 +841,9 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from repro_torch.configs import get_arch
-    from repro_torch.core import (lu_inverse_dense, spin_inverse_dense,
-                                  spin_solve_dense, testing, verify)
+    from repro_torch.core import (PRECISION_PRESETS, lu_inverse_dense,
+                                  spin_inverse_dense, spin_solve_dense,
+                                  strassen_cutoff, testing, verify)
     from repro_torch.kernels import build
 
     # 1. card
@@ -784,10 +906,86 @@ def main() -> int:
     require(oc["leaf_solves"] == grid and oc["splits"] == grid - 1
             and oc["solve_applies"] == oc["subtracts"] == 3 * (grid - 1),
             f"spin_solve: op profile {oc}")
-    del a, rhs
+    del rhs
     torch.cuda.empty_cache()
 
-    # 7. the scalar Gauss-Jordan leaf's path
+    # 7. the bf16 preset on the same matrix: the recursion in bf16 (B1/B2's
+    # bf16 body, B3 on bf16 blocks), then f32 Newton-Schulz sweeps (B2's f32
+    # body at n³), then the bf16 store; the raw recursion timed apart.
+    bf16 = PRECISION_PRESETS["bf16"]
+    sweeps = bf16.polish_sweeps
+    bf16_bound = bf16.bound(torch.float32)
+    recursion = {"schur_update": 2 * (grid - 1), "matmul": 4 * (grid - 1),
+                 "blocked_gauss_jordan": grid, "gauss_jordan": 0}
+    raw = run_path(
+        torch, "spin_bf16_raw",
+        lambda: spin_inverse_dense(a, bs, "cuda", engine="cuda",
+                                   precision=dataclasses.replace(bf16, polish_sweeps=0)),
+        a, grid, op_oracle=True, reps=REPS, bound=bf16_bound, out_dtype=torch.bfloat16,
+        expect_launches=recursion)
+    polished = run_path(
+        torch, "spin_bf16", lambda: spin_inverse_dense(a, bs, "cuda", engine="cuda",
+                                                       precision="bf16"),
+        a, grid, op_oracle=False, reps=REPS, bound=bf16_bound, out_dtype=torch.bfloat16,
+        expect_launches={**recursion, "matmul": recursion["matmul"] + 2 * sweeps})
+    # By body: the raw run's products all took bf16 operands (the recursion
+    # runs on the bf16 cast of A), and the polished run adds exactly the
+    # sweeps' f32 products; run_path has checked every one took the
+    # tensor-core body.
+    gemm_bf16 = raw["launches"]["gemm_tensor_core"]
+    gemm_f32 = polished["launches"]["gemm_tensor_core"] - gemm_bf16
+    require(gemm_bf16 == 6 * (grid - 1) and gemm_f32 == 2 * sweeps,
+            f"spin_bf16: {gemm_bf16} bf16 and {gemm_f32} f32 tensor-core launches")
+    want_ops = verify.expected_spin_counts(grid)
+    want_ops.multiplies += 2 * sweeps
+    want_ops.block_gemms += 2 * sweeps * grid ** 3
+    want_ops.subtracts += sweeps
+    want_ops.scalar_muls += 1                     # the polish's 2I
+    require(polished["op_counts"] == want_ops.as_dict(),
+            f"spin_bf16: op counts {polished['op_counts']}")
+    print(f"path spin_bf16: raw_residual={raw['residual']!r} "
+          f"polished_residual={polished['residual']!r} bound={bf16_bound!r} "
+          f"gemm_bf16={gemm_bf16} gemm_f32={gemm_f32}", flush=True)
+    # ... and one small solve under the preset: it returns at b's dtype.
+    srng = np.random.default_rng([SEED, 5])
+    sn = SOLVE_BF16_N
+    s_rhs = torch.from_numpy(srng.standard_normal((sn, SOLVE_BF16_RHS),
+                                                  dtype=np.float32)).cuda()
+    sgrid = sn // bs
+    solve_bf16 = run_path(
+        torch, "spin_solve_bf16",
+        lambda: spin_solve_dense(a[:sn, :sn], s_rhs, bs, "cuda", engine="cuda",
+                                 precision="bf16"),
+        a[:sn, :sn], sgrid, op_oracle=False, reps=REPS, b=s_rhs, bound=bf16_bound,
+        expect_launches={"triangular_solve": 2 * sgrid, "matmul": 2 * (sgrid - 1),
+                         "schur_update": 0, "blocked_gauss_jordan": 0, "gauss_jordan": 0})
+    del s_rhs
+
+    # 8. the Strassen engine on the same matrix: 7/18 recursion over the
+    # grid, classical leaves on B2, the bottom level's Schur updates on B1.
+    cutoff = strassen_cutoff()
+    st_base, st_adds = verify.expected_spin_strassen_counts(grid, bs, cutoff)
+    fused = fused_strassen_leaves(grid, bs, cutoff)
+    strassen = run_path(
+        torch, "spin_strassen", lambda: spin_inverse_dense(a, bs, "cuda", engine="strassen"),
+        a, grid, op_oracle=True, reps=REPS,
+        expect_launches={"schur_update": fused, "matmul": st_base - fused,
+                         "blocked_gauss_jordan": grid, "gauss_jordan": 0})
+    oc = strassen["op_counts"]
+    got_st = (oc["strassen_base_multiplies"], oc["strassen_adds"])
+    print(f"path spin_strassen: cutoff={cutoff} strassen_counts={got_st} "
+          f"expected={(st_base, st_adds)} fused_leaves={fused}", flush=True)
+    require(got_st == (st_base, st_adds),
+            f"spin_strassen: Strassen counts {got_st}, want {(st_base, st_adds)}")
+    del a
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 9. where one Strassen split pays on the card: the dense recursion cut
+    # at n/2 (7 GEMM launches and 18 add passes) against one GEMM launch
+    crossover = run_crossover(torch)
+
+    # 10. the scalar Gauss-Jordan leaf's path
     gn, gbs = GJ_N, GJ_BLOCK_SIZE
     ggrid = gn // gbs
     a_gj = testing.make_spd(gn, rng, device="cuda")
@@ -802,7 +1000,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # 8. the dense LM serving path
+    # 11. the dense LM serving path
     lm = run_lm(torch, rng, lm_cfg, torch.device("cuda"))
     gc.collect()
     torch.cuda.empty_cache()
@@ -813,13 +1011,27 @@ def main() -> int:
                "spin_over_lu": spin_over_lu, "leaf": report["lu_leaf"]},
         "spin_solve": {"n": n, "block_size": bs, "n_rhs": N_RHS, "ms": solve["ms"],
                        "residual": solve["residual"]},
+        "spin_bf16_raw": {"n": n, "block_size": bs, "ms": raw["ms"],
+                          "residual": raw["residual"], "bound": bf16_bound,
+                          "launches": raw["launches"]},
+        "spin_bf16": {"n": n, "block_size": bs, "polish_sweeps": sweeps, "ms": polished["ms"],
+                      "residual": polished["residual"], "bound": bf16_bound,
+                      "launches": polished["launches"], "gemm_bf16": gemm_bf16,
+                      "gemm_f32": gemm_f32},
+        "spin_solve_bf16": {"n": sn, "block_size": bs, "n_rhs": SOLVE_BF16_RHS,
+                            "ms": solve_bf16["ms"], "residual": solve_bf16["residual"],
+                            "launches": solve_bf16["launches"]},
+        "spin_strassen": {"n": n, "block_size": bs, "cutoff": cutoff, "ms": strassen["ms"],
+                          "residual": strassen["residual"], "strassen_counts": got_st,
+                          "launches": strassen["launches"]},
+        "strassen_crossover": crossover,
         "spin_gauss_jordan": {"n": gn, "block_size": gbs, "ms": gjp["ms"],
                               "residual": gjp["residual"]},
         "lm_prefill": lm["lm_prefill"], "lm_decode": lm["lm_decode"],
         "lm_serve": lm["lm_serve"]},
         "card": card}), flush=True)
 
-    # 9. the kernels line
+    # 12. the kernels line
     rows = []
     gemm_body = "gemm_tc: pack pre-pass, then 3xTF32 wgmma on a TMA ring (f32)"
     report["schur_update"]["body"] = report["matmul"]["body"] = gemm_body
@@ -844,6 +1056,11 @@ def main() -> int:
              "src/repro/kernels/flash_attention/kernel.py:74", lm)):
         r = report[name]
         require(path["launches"][name] > 0, f"{name}: no launch on its path")
+        if name in ("matmul", "schur_update", "blocked_gauss_jordan"):
+            r["launches_by_path"] = {p: run["launches"][name] for p, run in (
+                ("spin", spin), ("lu", lu), ("spin_solve", solve), ("spin_bf16_raw", raw),
+                ("spin_bf16", polished), ("spin_solve_bf16", solve_bf16),
+                ("spin_strassen", strassen))}
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": path["launches"][name], **r})
     print(json.dumps({"kernels": rows}), flush=True)

@@ -1,5 +1,6 @@
 """repro_torch.core — SPIN inversion, the inverse-free solve and the LU
-baseline on PyTorch.
+baseline on PyTorch, with precision policies, the Newton–Schulz polish,
+the Strassen engine and the cost model.
 
 As in the JAX package, ``from repro_torch.core import multiply`` gives the
 multiply FUNCTION; ``import repro_torch.core.multiply as m`` gives the
@@ -8,19 +9,25 @@ module.
 
 from .blockmatrix import BlockMatrix, OpCounts, count_ops
 from .multiply import multiply, multiply_engine, current_engine, validate_engine
+from .precision import PrecisionPolicy, PRECISION_PRESETS, resolve_precision
+from .strassen import strassen_cutoff, strassen_matmul, strassen_matmul_blocks
 from .spin import spin_inverse, spin_inverse_dense, leaf_inverse, LEAF_SOLVERS
 from .lu_inverse import lu_inverse, lu_inverse_dense, block_lu
 from .solve import (spin_solve, spin_solve_dense, spin_inverse_batched,
                     solve_grid_for)
+from .newton_schulz import newton_schulz_polish, residual_norm
 from .verify import solve_residual
-from . import testing, verify
+from . import costmodel, testing, verify
 
 __all__ = [
     "BlockMatrix", "OpCounts", "count_ops",
     "multiply", "multiply_engine", "current_engine", "validate_engine",
+    "PrecisionPolicy", "PRECISION_PRESETS", "resolve_precision",
+    "strassen_cutoff", "strassen_matmul", "strassen_matmul_blocks",
     "spin_inverse", "spin_inverse_dense", "leaf_inverse", "LEAF_SOLVERS",
     "lu_inverse", "lu_inverse_dense", "block_lu",
     "spin_solve", "spin_solve_dense", "spin_inverse_batched",
     "solve_grid_for", "solve_residual",
-    "testing", "verify",
+    "newton_schulz_polish", "residual_norm",
+    "costmodel", "testing", "verify",
 ]

@@ -164,6 +164,14 @@ class BlockMatrix:
         return self.scalar_mul(-1.0)
 
     @classmethod
+    def identity(cls, grid: int, block_size: int, dtype=torch.float32,
+                 device: str | torch.device = DEFAULT_DEVICE) -> "BlockMatrix":
+        """The n×n identity as a grid of blocks, laid out densely."""
+        eye = torch.eye(grid * block_size, dtype=dtype,
+                        device=resolve_device(device))
+        return cls.from_dense(eye, block_size)
+
+    @classmethod
     def zeros(cls, grid: int, block_size: int, dtype=torch.float32,
               device: str | torch.device = DEFAULT_DEVICE) -> "BlockMatrix":
         return cls(torch.zeros((grid, grid, block_size, block_size),

@@ -1,15 +1,19 @@
 """BlockMatrix multiply — the paper's dominant cost (§5.4) — and its engines.
 
-Two engines in this slice:
+Three engines:
 
-  * ``einsum`` — one `torch.einsum` over the block grid, upcast to f32 and
-                 cast back: the plain baseline.
-  * ``cuda``   — the kernel engine: a grid contraction runs as ONE launch of
-                 the hand-written GEMM (`kernels/matmul`), and the Schur
-                 updates of Algorithm 2 (`V = A21·III − A22`,
-                 `C11 = I − III·C21`) fold the trailing subtract into the
-                 same kernel's accumulator (`schur_update_blocks`). On a
-                 CPU tensor the kernels' plain versions run instead.
+  * ``einsum``   — one `torch.einsum` over the block grid, upcast to f32
+                   and cast back: the plain baseline.
+  * ``cuda``     — the kernel engine: a grid contraction runs as ONE launch
+                   of the hand-written GEMM (`kernels/matmul`), and the
+                   Schur updates of Algorithm 2 (`V = A21·III − A22`,
+                   `C11 = I − III·C21`) fold the trailing subtract into the
+                   same kernel's accumulator (`schur_update_blocks`). On a
+                   CPU tensor the kernels' plain versions run instead.
+  * ``strassen`` — Strassen's 7-multiply recursion over the grid
+                   (`core/strassen.py`), whose classical leaves are GEMM
+                   kernel launches; a Schur update that is one leaf fuses
+                   its subtract into the leaf's launch.
 
 The engine is chosen through a contextvar, as in the JAX package; PyTorch
 runs eagerly, so there is no compiled program to key on it.
@@ -25,13 +29,14 @@ import torch
 
 from ..kernels.matmul import ops as mm_ops
 from .blockmatrix import BlockMatrix, _bump
+from .strassen import strassen_matmul_blocks, strassen_schur_update_blocks
 
 __all__ = ["ENGINES", "multiply", "multiply_engine", "current_engine",
            "validate_engine", "multiply_blocks", "matmul_blocks_einsum",
            "matmul_blocks_cuda", "schur_update_blocks", "multiply_subtract",
            "subtract_multiply"]
 
-ENGINES = ("einsum", "cuda")
+ENGINES = ("einsum", "cuda", "strassen")
 
 _ENGINE: contextvars.ContextVar[str] = contextvars.ContextVar(
     "repro_torch_multiply_engine", default="einsum")
@@ -83,6 +88,8 @@ def multiply_blocks(a: torch.Tensor, b: torch.Tensor,
     engine = validate_engine(engine) or _ENGINE.get()
     if engine == "cuda":
         return matmul_blocks_cuda(a, b)
+    if engine == "strassen":
+        return strassen_matmul_blocks(a, b)
     return matmul_blocks_einsum(a, b)
 
 
@@ -94,9 +101,14 @@ def schur_update_blocks(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor, *,
 
     Under ``cuda`` the subtract folds into the GEMM kernel's f32
     accumulator: (α, β) = (1, −1) for V and (−1, 1) for C11. Under
-    ``einsum`` it is multiply-then-subtract in the unfused order.
+    ``strassen`` the product runs the 7-multiply recursion, and the
+    subtract folds into the leaf's launch when the whole product is one
+    classical leaf. Under ``einsum`` it is multiply-then-subtract in the
+    unfused order.
     """
     engine = validate_engine(engine) or _ENGINE.get()
+    if engine == "strassen":
+        return strassen_schur_update_blocks(c, a, b, negate_c=negate_c)
     if engine == "cuda":
         alpha, beta = (1.0, -1.0) if negate_c else (-1.0, 1.0)
         return mm_ops.grid_schur_update(c, a, b, alpha=alpha, beta=beta)

@@ -21,6 +21,11 @@ triangular-solve kernel.
 
 `spin_inverse_batched` inverts a (batch, n, n) stack, one
 `spin_inverse_dense` call a matrix.
+
+Under a low-precision policy (``precision="bf16"``) the solve runs at the
+policy's compute dtype and returns X at b's dtype; the batched inverse
+runs at the compute dtype and returns the policy's store dtype. Neither
+polishes, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -34,7 +39,9 @@ from ..kernels.leaf_inverse import ops as tri_ops
 from ..kernels.matmul import ops as mm_ops
 from .blockmatrix import BlockMatrix, _bump
 from .multiply import current_engine, multiply_engine, validate_engine
-from .spin import LEAF_SOLVERS, spin_inverse_dense
+from .precision import (resolve_precision, resolve_with_legacy_kwarg,
+                        torch_dtype)
+from .spin import LEAF_SOLVERS, _policy_active, spin_inverse_dense
 
 __all__ = ["spin_solve", "spin_solve_dense", "spin_inverse_batched",
            "solve_grid_for"]
@@ -119,14 +126,23 @@ def _solve(a: BlockMatrix, b: torch.Tensor, leaf_solver: str) -> torch.Tensor:
 
 
 def spin_solve(a: BlockMatrix, b: torch.Tensor, *,
-               leaf_solver: str = "linalg") -> torch.Tensor:
+               leaf_solver: str = "linalg", precision=None) -> torch.Tensor:
     """Solve A X = B via the inverse-free SPIN recursion, on the device A's
     blocks lie on, with the ambient multiply engine.
 
     a: BlockMatrix with a power-of-two grid (SPD or with invertible
     leading blocks, the paper's class). b: (n, k) or (n,). Returns X with
-    b's shape and dtype.
+    b's shape and dtype. precision (PrecisionPolicy | preset string | None)
+    runs the recursion at the policy's compute dtype (f32 accumulation as
+    always); None and "exact" are bitwise the plain call.
     """
+    if precision is not None:
+        policy = resolve_precision(precision)
+        if not policy.is_exact and _policy_active(policy, a.blocks.dtype):
+            cd = torch_dtype(policy.resolve_compute(a.blocks.dtype))
+            x = spin_solve(BlockMatrix(a.blocks.to(cd)), b.to(cd),
+                           leaf_solver=leaf_solver)
+            return x.to(b.dtype)
     grid = a.grid
     if grid & (grid - 1):
         raise ValueError(f"grid must be a power of two, got {grid}")
@@ -144,37 +160,49 @@ def spin_solve(a: BlockMatrix, b: torch.Tensor, *,
 
 def spin_solve_dense(a, b, block_size: int, leaf_solver: str = "linalg", *,
                      engine: str | None = None,
-                     device: str | torch.device = DEFAULT_DEVICE
-                     ) -> torch.Tensor:
+                     device: str | torch.device = DEFAULT_DEVICE,
+                     precision=None, compute_dtype=None) -> torch.Tensor:
     """Dense (n, n) A and (n, k) or (n,) B -> X, computed on `device`.
 
     `a` and `b` are tensors or anything `torch.as_tensor` takes; both are
     moved to `device` first. engine=None inherits the ambient
-    `multiply_engine`.
+    `multiply_engine`. precision (PrecisionPolicy | preset string | None ->
+    $SPIN_PRECISION or exact) runs the solve at the policy's compute dtype
+    and returns X at b's dtype; `compute_dtype=` is the deprecated spelling.
     """
     validate_engine(engine)
+    policy = resolve_with_legacy_kwarg("spin_solve_dense", precision, compute_dtype)
     dev = resolve_device(device)
     a = torch.as_tensor(a).to(dev)
     b = torch.as_tensor(b).to(dev)
     ctx = multiply_engine(engine) if engine else contextlib.nullcontext()
     with ctx:
         return spin_solve(BlockMatrix.from_dense(a, block_size), b,
-                          leaf_solver=leaf_solver)
+                          leaf_solver=leaf_solver, precision=policy)
 
 
 def spin_inverse_batched(batch, block_size: int, leaf_solver: str = "linalg",
                          *, engine: str | None = None,
-                         device: str | torch.device = DEFAULT_DEVICE
-                         ) -> torch.Tensor:
+                         device: str | torch.device = DEFAULT_DEVICE,
+                         precision=None, compute_dtype=None) -> torch.Tensor:
     """SPIN-invert a (batch, n, n) stack of SPD matrices on `device`.
 
     Each slice goes through `spin_inverse_dense` with the same arguments,
-    so it is bitwise equal to the per-matrix call.
+    so it is bitwise equal to the per-matrix call. precision runs every
+    slice at the policy's compute dtype, with no polish, and returns the
+    stack at the policy's store dtype; `compute_dtype=` is the deprecated
+    spelling.
     """
     batch = torch.as_tensor(batch)
     if batch.ndim != 3:
         raise ValueError(f"expected (batch, n, n), got {tuple(batch.shape)}")
     validate_engine(engine)
+    policy = resolve_with_legacy_kwarg("spin_inverse_batched", precision, compute_dtype)
+    store = batch.dtype
+    if not policy.is_exact and _policy_active(policy, batch.dtype):
+        store = torch_dtype(policy.resolve_store(batch.dtype))
+        batch = batch.to(torch_dtype(policy.resolve_compute(batch.dtype)))
     return torch.stack([spin_inverse_dense(m, block_size, leaf_solver,
-                                           engine=engine, device=device)
-                        for m in batch])
+                                           engine=engine, device=device,
+                                           precision="exact")
+                        for m in batch]).to(store)

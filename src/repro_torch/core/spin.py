@@ -16,6 +16,11 @@ Per recursion level (paper §3.1):      leaf (grid == 1):
 Exactly 6 multiplies + 2 subtracts + 1 scalarMul per level and one local
 O(bs³) op per leaf. Valid for matrices whose leading principal blocks are
 invertible (SPD in particular, the class the paper targets).
+
+Under a low-precision policy (`core/precision.py`, e.g. ``precision="bf16"``)
+the recursion runs at the policy's compute dtype, then Newton–Schulz
+polishes the result in f32 (`core/newton_schulz.py`), then it is cast to
+the policy's store dtype.
 """
 
 from __future__ import annotations
@@ -30,6 +35,9 @@ from ..kernels.leaf_inverse import ops as gj_ops
 from .blockmatrix import BlockMatrix, _bump
 from .multiply import (multiply, multiply_engine, multiply_subtract,
                        subtract_multiply, validate_engine)
+from .newton_schulz import newton_schulz_polish
+from .precision import (_dtype_name, resolve_precision,
+                        resolve_with_legacy_kwarg, torch_dtype)
 
 __all__ = ["spin_inverse", "spin_inverse_dense", "leaf_inverse",
            "LEAF_SOLVERS"]
@@ -87,9 +95,42 @@ def leaf_inverse(a: BlockMatrix, solver: str = "linalg") -> BlockMatrix:
 # ---------------------------------------------------------------------------
 
 
-def spin_inverse(a: BlockMatrix, *, leaf_solver: str = "linalg") -> BlockMatrix:
+def _policy_active(policy, operand_dtype) -> bool:
+    """True when `policy` changes the compute or storage dtype of this
+    operand (an "auto" policy over a matching dtype changes nothing, and
+    polishing anyway would change bits for nothing)."""
+    name = _dtype_name(operand_dtype)
+    return (policy.resolve_store(name) != name
+            or policy.resolve_compute(name) != name)
+
+
+def _lowp_inverse_blocks(a: BlockMatrix, leaf_solver: str,
+                         policy) -> BlockMatrix:
+    """Low-precision BlockMatrix inversion: recurse at the policy's compute
+    dtype, Newton–Schulz-polish in f32, store at the policy's store dtype."""
+    op = a.blocks.dtype
+    cd = torch_dtype(policy.resolve_compute(op))
+    x = spin_inverse(BlockMatrix(a.blocks.to(cd)), leaf_solver=leaf_solver)
+    if policy.polish_sweeps:
+        a32 = BlockMatrix(a.blocks.float())
+        x32 = BlockMatrix(x.blocks.float())
+        x = newton_schulz_polish(a32, x32, sweeps=policy.polish_sweeps)
+    return BlockMatrix(x.blocks.to(torch_dtype(policy.resolve_store(op))))
+
+
+def spin_inverse(a: BlockMatrix, *, leaf_solver: str = "linalg",
+                 precision=None) -> BlockMatrix:
     """Strassen inversion of a BlockMatrix (grid must be 2^m), on the
-    device its blocks lie on, with the ambient multiply engine."""
+    device its blocks lie on, with the ambient multiply engine.
+
+    precision (PrecisionPolicy | preset string | None) runs the recursion
+    at the policy's compute dtype, polishes in f32 and returns blocks at
+    the policy's store dtype; None and "exact" are bitwise the plain call.
+    """
+    if precision is not None:
+        policy = resolve_precision(precision)
+        if not policy.is_exact and _policy_active(policy, a.blocks.dtype):
+            return _lowp_inverse_blocks(a, leaf_solver, policy)
     b = a.grid
     if b & (b - 1):
         raise ValueError(f"grid must be a power of two, got {b}")
@@ -115,17 +156,26 @@ def spin_inverse(a: BlockMatrix, *, leaf_solver: str = "linalg") -> BlockMatrix:
 
 def spin_inverse_dense(dense, block_size: int, leaf_solver: str = "linalg", *,
                        engine: str | None = None,
-                       device: str | torch.device = DEFAULT_DEVICE
-                       ) -> torch.Tensor:
+                       device: str | torch.device = DEFAULT_DEVICE,
+                       precision=None, compute_dtype=None) -> torch.Tensor:
     """Dense (n, n) -> dense (n, n) inverse via SPIN, computed on `device`.
 
     `dense` is a tensor or anything `torch.as_tensor` takes; it is moved to
     `device` first. engine=None inherits the ambient `multiply_engine`.
+
+    precision (PrecisionPolicy | preset string | None -> $SPIN_PRECISION or
+    exact) runs the recursion at the policy's compute dtype, polishes in
+    f32 with the same engine, and returns the policy's store dtype.
+    `compute_dtype=` is the deprecated spelling: it warns once and forwards
+    to `policy_from_compute_dtype`.
     """
     validate_engine(engine)
+    policy = resolve_with_legacy_kwarg("spin_inverse_dense", precision,
+                                       compute_dtype)
     dev = resolve_device(device)
     dense = torch.as_tensor(dense).to(dev)
     ctx = multiply_engine(engine) if engine else contextlib.nullcontext()
     with ctx:
         a = BlockMatrix.from_dense(dense, block_size)
-        return spin_inverse(a, leaf_solver=leaf_solver).to_dense()
+        return spin_inverse(a, leaf_solver=leaf_solver,
+                            precision=policy).to_dense()

@@ -6,6 +6,9 @@
   * `expected_spin_counts(grid)` is the closed form of Algorithm 2's costs
     (6 multiplies, 2 subtract-class ops, 1 scalarMul per internal node; one
     leaf inversion per leaf), checked by `assert_paper_op_counts`.
+  * `expected_spin_strassen_counts` is the 7/18 recurrence of the
+    ``strassen`` engine's base multiplies and add passes, checked by
+    `assert_strassen_op_counts`.
   * `run_conformance` sweeps `spin_inverse` and `spin_solve` over the
     matrix zoo × grids.
 """
@@ -20,13 +23,15 @@ import torch
 
 from ..device import DEFAULT_DEVICE, resolve_device
 from .blockmatrix import BlockMatrix, OpCounts, count_ops
+from .precision import torch_dtype
 from .solve import spin_solve
 from .spin import spin_inverse
 from .testing import MATRIX_FAMILIES
 
 __all__ = ["residual_tolerance", "inverse_residual", "solve_residual",
-           "expected_spin_counts",
-           "assert_paper_op_counts", "ConformanceReport", "run_conformance"]
+           "expected_spin_counts", "assert_paper_op_counts",
+           "expected_strassen_counts", "expected_spin_strassen_counts",
+           "assert_strassen_op_counts", "ConformanceReport", "run_conformance"]
 
 # Storage dtype -> max allowed ∞-norm residual on the zoo's well-posed
 # families.
@@ -38,10 +43,11 @@ _RESIDUAL_TOL = {
 }
 
 
-def residual_tolerance(dtype: torch.dtype) -> float:
-    """The residual bound a conformant implementation meets for `dtype`."""
+def residual_tolerance(dtype) -> float:
+    """The residual bound a conformant implementation meets for `dtype`, a
+    torch dtype or its name ("bfloat16")."""
     try:
-        return _RESIDUAL_TOL[dtype]
+        return _RESIDUAL_TOL[torch_dtype(dtype)]
     except KeyError:
         raise ValueError(f"no conformance tolerance for dtype {dtype}") from None
 
@@ -101,16 +107,70 @@ def assert_paper_op_counts(grid: int, counts: OpCounts) -> None:
 
     The solve path's counters (`leaf_lu`, `leaf_solves`, `solve_applies`)
     are not the oracle's, so a record that counted a solve beside the
-    inversion still passes.
+    inversion still passes. Engine-blind: a Strassen product is still ONE
+    Algorithm-2 multiply, and its own counters are checked by
+    `assert_strassen_op_counts`.
     """
     want = expected_spin_counts(grid).as_dict()
     got = counts.as_dict()
     mismatches = {k: (got[k], v) for k, v in want.items() if got[k] != v
-                  and k not in ("leaf_lu", "leaf_solves", "solve_applies")}
+                  and k not in ("leaf_lu", "leaf_solves", "solve_applies",
+                                "strassen_base_multiplies", "strassen_adds")}
     if mismatches:
         raise AssertionError(
             f"op counts diverge from paper Algorithm 2 at grid {grid} "
             f"(got, want): {mismatches}")
+
+
+def expected_strassen_counts(grid: int, block_size: int,
+                             cutoff: int | None = None) -> tuple[int, int]:
+    """(base_multiplies, adds) of ONE Strassen multiply on a grid×grid grid.
+
+    Each split level does 7 recursive multiplies and 18 quadrant add/sub
+    passes; an odd grid pads to grid+1 before splitting. The recursion is
+    classical (1 base multiply, 0 adds) at grid == 1 or when grid·block_size
+    is at/below the cutoff (None reads the live `strassen_cutoff()`), as in
+    `core.strassen.strassen_matmul_blocks`.
+    """
+    if cutoff is None:
+        from .strassen import strassen_cutoff
+
+        cutoff = strassen_cutoff()
+    if grid == 1 or grid * block_size <= cutoff:
+        return 1, 0
+    padded = grid + (grid % 2)
+    base, adds = expected_strassen_counts(padded // 2, block_size, cutoff)
+    return 7 * base, 18 + 7 * adds
+
+
+def expected_spin_strassen_counts(grid: int, block_size: int,
+                                  cutoff: int | None = None
+                                  ) -> tuple[int, int]:
+    """Strassen totals of one spin_inverse under engine="strassen": each
+    internal node at half-grid h runs its 6 Algorithm-2 multiplies (4 plain
+    and 2 fused Schur updates, which book alike) as Strassen multiplies on
+    an h-grid."""
+    if grid < 1 or grid & (grid - 1):
+        raise ValueError(f"grid must be a power of two ≥ 1, got {grid}")
+    total_base = total_adds = 0
+    level_nodes, h = 1, grid // 2
+    while h >= 1:
+        base, adds = expected_strassen_counts(h, block_size, cutoff)
+        total_base += level_nodes * 6 * base
+        total_adds += level_nodes * 6 * adds
+        level_nodes, h = level_nodes * 2, h // 2
+    return total_base, total_adds
+
+
+def assert_strassen_op_counts(grid: int, block_size: int, counts: OpCounts,
+                              cutoff: int | None = None) -> None:
+    """Assert the Strassen counters match the 7/18 recurrence."""
+    want = expected_spin_strassen_counts(grid, block_size, cutoff)
+    got = (counts.strassen_base_multiplies, counts.strassen_adds)
+    if got != want:
+        raise AssertionError(
+            f"Strassen op counts diverge at grid {grid} bs {block_size}: "
+            f"(base_multiplies, adds) got {got}, want {want}")
 
 
 # ---------------------------------------------------------------------------

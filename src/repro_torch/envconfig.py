@@ -1,0 +1,61 @@
+"""The environment knobs the port reads, under the JAX package's names.
+
+Each knob has one entry in `ENV_VARS`, its name and what it does. The
+accessors refuse a name that has no entry, so a knob cannot be read
+without being documented here. Reads are not cached: tests set these
+variables per test, and `SPIN_STRASSEN_CUTOFF` is read on every multiply.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Optional
+
+__all__ = ["ENV_VARS", "env_raw", "env_str", "env_int"]
+
+ENV_VARS: dict[str, str] = {
+    "SPIN_STRASSEN_CUTOFF":
+        "int: operand size at/below which Strassen goes classical (default "
+        "512, costmodel.STRASSEN_CUTOFF); read by core.strassen.",
+    "SPIN_PRECISION":
+        "str: default PrecisionPolicy preset or descriptor (e.g. 'bf16') "
+        "for calls without precision=; unset = exact; read by "
+        "core.precision.",
+    "SPIN_PRECISION_POLISH_SWEEPS":
+        "int: override a resolved policy's Newton-Schulz sweep count.",
+    "SPIN_PRECISION_MAX_POLISH_SWEEPS":
+        "int: override a resolved policy's cap on polish sweeps.",
+    "SPIN_PRECISION_TOL":
+        "float: override a resolved policy's residual tolerance.",
+}
+
+
+def _check(name: str) -> None:
+    if name not in ENV_VARS:
+        raise KeyError(f"{name} is not in envconfig.ENV_VARS; register a "
+                       f"knob there before reading it")
+
+
+def env_raw(name: str) -> Optional[str]:
+    """The raw value, or None when unset."""
+    _check(name)
+    return os.environ.get(name)
+
+
+def env_str(name: str, default: Optional[str] = None) -> Optional[str]:
+    """The value, or `default` when unset or blank."""
+    _check(name)
+    v = os.environ.get(name)
+    return default if v is None or not v.strip() else v
+
+
+def env_int(name: str, default: Optional[int] = None) -> Optional[int]:
+    """The value as an int, or `default` when unset or blank."""
+    _check(name)
+    raw = os.environ.get(name, "").strip()
+    if not raw:
+        return default
+    try:
+        return int(raw)
+    except ValueError:
+        raise ValueError(f"{name} must be an integer, got {raw!r}") from None

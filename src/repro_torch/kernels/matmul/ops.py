@@ -4,7 +4,8 @@ The `grid_*` functions are the multiply engine's mechanism: they flatten a
 (bi, bk, bs, bs) block grid into its dense equivalent and contract it with
 ONE kernel launch, so the whole k-sum stays in the kernel's f32
 accumulator. The flattening copies a strided grid once, O(n²) beside the
-O(n³) product.
+O(n³) product. `block_gemm` is the per-block form: one launch a block
+product, the k-sum added in f32 outside the kernel.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ import torch
 from .kernel import matmul_cuda, schur_update_cuda
 
 __all__ = ["matmul", "schur_update", "grid_matmul", "grid_schur_update",
-           "blocks_to_dense", "dense_to_blocks"]
+           "blocks_to_dense", "dense_to_blocks", "block_gemm"]
 
 
 def _unit_column_stride(t: torch.Tensor) -> torch.Tensor:
@@ -74,3 +75,26 @@ def grid_schur_update(c_blocks: torch.Tensor, a_blocks: torch.Tensor,
                        blocks_to_dense(b_blocks), alpha=alpha, beta=beta,
                        out_dtype=out_dtype)
     return dense_to_blocks(out, bs)
+
+
+def block_gemm(a_blocks: torch.Tensor, b_blocks: torch.Tensor) -> torch.Tensor:
+    """C[i,j] = Σ_k A[i,k]·B[k,j] with one GEMM launch a block product.
+
+    a_blocks: (bi, bk, bs, bs); b_blocks: (bk, bj, bs, bs). Each product
+    leaves the kernel in f32 and the k-sum stays in f32, whatever the
+    operands' dtype; the result has a's dtype. `grid_matmul` is the
+    one-launch form the multiply engine uses.
+    """
+    bi, bk, bs, _ = a_blocks.shape
+    bj = b_blocks.shape[1]
+    out = torch.empty((bi, bj, bs, bs), dtype=a_blocks.dtype,
+                      device=a_blocks.device)
+    for i in range(bi):
+        for j in range(bj):
+            acc = torch.zeros((bs, bs), dtype=torch.float32,
+                              device=a_blocks.device)
+            for k in range(bk):
+                acc += matmul(a_blocks[i, k], b_blocks[k, j],
+                              out_dtype=torch.float32)
+            out[i, j] = acc
+    return out

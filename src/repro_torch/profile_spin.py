@@ -4,6 +4,8 @@
     PYTHONPATH=src python -m repro_torch.profile_spin --solve          # solve
     PYTHONPATH=src python -m repro_torch.profile_spin --gauss-jordan --calls 4
     PYTHONPATH=src python -m repro_torch.profile_spin --lu             # LU baseline
+    PYTHONPATH=src python -m repro_torch.profile_spin --bf16           # bf16 preset
+    PYTHONPATH=src python -m repro_torch.profile_spin --strassen       # Strassen engine
 
 Runs `spin_inverse_dense(engine="cuda", leaf_solver="cuda")` at n = 16384,
 block size 1024, f32, on a `make_spd` matrix (seed 0); with `--solve`
@@ -12,7 +14,10 @@ against 256 standard-normal right-hand sides; with `--gauss-jordan`
 `spin_inverse_dense(leaf_solver="gauss_jordan", engine="cuda")` at
 n = 2048, block size 128 (the scalar Gauss-Jordan leaf's path); with
 `--lu` the paper's baseline, `lu_inverse_dense(engine="cuda")`, at
-n = 16384, block size 1024. One
+n = 16384, block size 1024; with `--bf16` the inversion under
+``precision="bf16"`` (the recursion in bf16, one f32 Newton-Schulz sweep);
+with `--strassen` the inversion under ``engine="strassen"`` at the default
+cutoff. One
 warm-up call, `--calls` calls timed by CUDA events one by one, then
 `--calls` calls under `torch.profiler`, each in a range of its own. From
 the trace's device events it prints, for each traced call, one JSON line:
@@ -98,6 +103,10 @@ def main(argv=None) -> int:
                             "Gauss-Jordan leaf")
     which.add_argument("--lu", action="store_true",
                        help="trace the LU baseline's inversion")
+    which.add_argument("--bf16", action="store_true",
+                       help="trace the inversion under precision='bf16'")
+    which.add_argument("--strassen", action="store_true",
+                       help="trace the inversion under engine='strassen'")
     parser.add_argument("--calls", type=int, default=1,
                         help="calls timed, and calls traced, after the warm-up")
     args = parser.parse_args(argv)
@@ -120,9 +129,11 @@ def main(argv=None) -> int:
             return spin_solve_dense(a, b, bs, "cuda", engine="cuda")
     else:
         leaf = "gauss_jordan" if args.gauss_jordan else "cuda"
+        engine = "strassen" if args.strassen else "cuda"
+        precision = "bf16" if args.bf16 else None
 
         def run():
-            return spin_inverse_dense(a, bs, leaf, engine="cuda")
+            return spin_inverse_dense(a, bs, leaf, engine=engine, precision=precision)
 
     run()
     torch.cuda.synchronize()
@@ -143,7 +154,8 @@ def main(argv=None) -> int:
                 run()
                 torch.cuda.synchronize()
     TRACE_DIR.mkdir(parents=True, exist_ok=True)
-    suffix = "_gauss_jordan" if args.gauss_jordan else ""
+    suffix = next((f"_{flag}" for flag in ("gauss_jordan", "bf16", "strassen")
+                   if getattr(args, flag)), "")
     path = TRACE_DIR / f"{call}{suffix}.json"
     prof.export_chrome_trace(str(path))
     trace = json.loads(path.read_text())
@@ -152,6 +164,8 @@ def main(argv=None) -> int:
         report.update(call=name, n=n, block_size=bs, n_rhs=N_RHS if args.solve else None,
                       leaf_solver=("gauss_jordan" if args.gauss_jordan
                                    else "lu" if args.lu else "cuda"),
+                      engine="strassen" if args.strassen else "cuda",
+                      precision="bf16" if args.bf16 else "exact",
                       untraced_wall_ms=wall_ms, device=torch.cuda.get_device_name(0),
                       trace=str(path))
         if i == 0:

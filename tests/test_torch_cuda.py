@@ -9,18 +9,21 @@ a machine without JAX:
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch import kernels
-from repro_torch.core import (count_ops, lu_inverse_dense, multiply_engine,
-                              spin_inverse_dense, spin_solve_dense, testing,
+from repro_torch.core import (PRECISION_PRESETS, count_ops, lu_inverse_dense,
+                              multiply_engine, spin_inverse_dense,
+                              spin_solve_dense, strassen_matmul, testing,
                               verify)
 from repro_torch.configs import get_arch
 from repro_torch.kernels.flash_attention import kernel as fa, ref as fa_ref
 from repro_torch.kernels.leaf_inverse import kernel as gj, ref as gj_ref
-from repro_torch.kernels.matmul import kernel as mm, ref as mm_ref
+from repro_torch.kernels.matmul import kernel as mm, ops as mm_ops, ref as mm_ref
 from repro_torch.models import attention, transformer as T
 from repro_torch.serving import Request, ServingEngine
 
@@ -410,6 +413,122 @@ def test_spin_solve_on_the_card_matches_cpu(cuda_device):
     # the solutions are compared, not the factors.
     x_cpu = spin_solve_dense(a, b, 64, "cuda", engine="cuda", device="cpu")
     assert float((x.cpu() - x_cpu).abs().max()) <= 1e-4 * float(x_cpu.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# The precision policies and the Strassen engine on the GEMM kernel
+# ---------------------------------------------------------------------------
+
+
+def _gemm_dtypes(monkeypatch) -> list:
+    """Record the operand dtype of every GEMM launch (either body)."""
+    seen = []
+    launch = mm._launch
+
+    def spy(c, a, b, *args):
+        seen.append(a.dtype)
+        return launch(c, a, b, *args)
+
+    monkeypatch.setattr(mm, "_launch", spy)
+    return seen
+
+
+def test_bf16_preset_on_the_card(cuda_device, monkeypatch):
+    rng = np.random.default_rng(4)
+    a = testing.make_spd(512, rng, device="cpu")
+    bf16 = PRECISION_PRESETS["bf16"]
+    seen = _gemm_dtypes(monkeypatch)
+    kernels.reset_launch_counts()
+    raw = spin_inverse_dense(a, 128, "cuda", engine="cuda",
+                             precision=dataclasses.replace(bf16, polish_sweeps=0))
+    launches = kernels.launch_counts()
+    # grid 4: 3 internal nodes of 4 products and 2 Schur updates, 4 leaves,
+    # every product on the bf16 tensor-core body.
+    assert launches["matmul"] == 12 and launches["schur_update"] == 6
+    assert launches["blocked_gauss_jordan"] == 4
+    assert launches["gemm_tensor_core"] == 18 and launches["gemm_ffma"] == 0
+    assert seen == [torch.bfloat16] * 18
+    seen.clear()
+    kernels.reset_launch_counts()
+    x = spin_inverse_dense(a, 128, "cuda", engine="cuda", precision="bf16")
+    launches = kernels.launch_counts()
+    # ... and one f32 polish sweep: two more products, on the f32 body.
+    assert launches["matmul"] == 14 and launches["schur_update"] == 6
+    assert launches["gemm_tensor_core"] == 20 and launches["gemm_ffma"] == 0
+    assert seen == [torch.bfloat16] * 18 + [torch.float32] * 2
+    assert raw.dtype == x.dtype == torch.bfloat16
+    bound = bf16.bound(torch.float32)
+    ac = a.to(cuda_device)
+    assert verify.inverse_residual(ac, x) <= bound
+    assert verify.inverse_residual(ac, x) <= verify.inverse_residual(ac, raw)
+    x_cpu = spin_inverse_dense(a, 128, "cuda", engine="cuda", device="cpu",
+                               precision="bf16").float()
+    assert float((x.cpu().float() - x_cpu).abs().max()) <= 2.0 ** -7 * float(
+        x_cpu.abs().max())
+    b = torch.from_numpy(rng.standard_normal((512, 4), dtype=np.float32))
+    xs = spin_solve_dense(a, b, 128, "cuda", engine="cuda", precision="bf16")
+    assert xs.dtype == torch.float32
+    assert verify.solve_residual(ac, xs, b.to(cuda_device)) <= bound
+
+
+def _fused_strassen_leaves(grid: int, bs: int, cutoff: int) -> int:
+    """Schur updates that are one classical leaf under the strassen engine:
+    the two of every SPIN node whose half-grid h has h == 1 or h·bs at or
+    below the cutoff. Each is one schur_update launch; every other leaf is
+    one matmul launch."""
+    fused, nodes, h = 0, 1, grid // 2
+    while h >= 1:
+        if h == 1 or h * bs <= cutoff:
+            fused += 2 * nodes
+        nodes, h = nodes * 2, h // 2
+    return fused
+
+
+def test_strassen_inversion_on_the_card(cuda_device, monkeypatch):
+    monkeypatch.setenv("SPIN_STRASSEN_CUTOFF", "256")
+    rng = np.random.default_rng(5)
+    a = testing.make_spd(1024, rng, device="cpu")
+    kernels.reset_launch_counts()
+    with count_ops() as counts:
+        x = spin_inverse_dense(a, 128, "cuda", engine="strassen")
+    launches = kernels.launch_counts()
+    base, adds = verify.expected_spin_strassen_counts(8, 128, 256)
+    assert (counts.strassen_base_multiplies, counts.strassen_adds) == (base, adds)
+    verify.assert_paper_op_counts(8, counts)
+    fused = _fused_strassen_leaves(8, 128, 256)
+    assert fused == 12
+    assert launches["schur_update"] == fused
+    assert launches["matmul"] == base - fused
+    assert launches["gemm_tensor_core"] == base and launches["gemm_ffma"] == 0
+    assert launches["blocked_gauss_jordan"] == 8
+    assert verify.inverse_residual(a.to(cuda_device), x) < 1e-3
+    x_cpu = spin_inverse_dense(a, 128, "cuda", engine="strassen", device="cpu")
+    assert float((x.cpu() - x_cpu).abs().max()) <= 1e-4 * float(x_cpu.abs().max())
+
+
+def test_strassen_matmul_on_the_card_matches_the_kernel(cuda_device):
+    g = torch.Generator(device="cpu").manual_seed(6)
+    a, b = (torch.randn(2048, 2048, generator=g).to(cuda_device) for _ in range(2))
+    kernels.reset_launch_counts()
+    got = strassen_matmul(a, b, cutoff=1024)
+    assert kernels.launch_counts()["matmul"] == 7
+    want = mm.matmul_cuda(a, b)
+    # One split: 18 f32 add passes beside the kernel's 3xTF32 products.
+    rel = float(torch.linalg.norm(got - want) / torch.linalg.norm(want))
+    assert rel <= 2e-5
+    assert float((got - mm_ref.matmul_ref(a, b)).abs().max()) <= 1e-4 * float(
+        want.abs().max())
+
+
+def test_block_gemm_on_the_card(cuda_device):
+    g = torch.Generator(device="cpu").manual_seed(7)
+    a = torch.randn(2, 3, 64, 64, generator=g).to(cuda_device)
+    b = torch.randn(3, 2, 64, 64, generator=g).to(cuda_device)
+    kernels.reset_launch_counts()
+    got = mm_ops.block_gemm(a, b)
+    assert kernels.launch_counts()["matmul"] == 2 * 2 * 3
+    want = mm_ops.block_gemm(a.cpu(), b.cpu())
+    assert float((got.cpu() - want).abs().max()) <= 1e-5 * float(want.abs().max())
 
 
 # ---------------------------------------------------------------------------

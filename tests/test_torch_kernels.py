@@ -678,9 +678,16 @@ def test_port_imports_neither_jax_nor_the_reference():
 
 
 def test_port_sources_have_no_jax_reference_or_spin_names():
+    # A SPIN_* name may appear only as a knob of the port's own envconfig
+    # table, each the JAX package's registered knob of the same name.
+    from repro import envconfig as j_envconfig
+    from repro_torch import envconfig
+
+    knobs = set(envconfig.ENV_VARS)
+    assert knobs <= j_envconfig.registered_names()
     forbidden = [re.compile(r"^\s*(import|from)\s+jax\b", re.M),
-                 re.compile(r"^\s*(import|from)\s+repro(\.|\s|$)", re.M),
-                 re.compile(r"SPIN_")]
+                 re.compile(r"^\s*(import|from)\s+repro(\.|\s|$)", re.M)]
+    spin_names = re.compile(r"SPIN_[A-Z0-9_]*")
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 10
@@ -688,3 +695,4 @@ def test_port_sources_have_no_jax_reference_or_spin_names():
         text = path.read_text()
         for pat in forbidden:
             assert not pat.search(text), f"{path}: {pat.pattern}"
+        assert set(spin_names.findall(text)) <= knobs, path

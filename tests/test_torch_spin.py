@@ -163,7 +163,7 @@ def test_residual_tolerance_table_equals_reference(dtype):
 
 def test_unported_engines_and_leaves_raise():
     a = _matrix("spd", 32)
-    for name in ("allgather", "ring", "strassen", "pallas"):
+    for name in ("allgather", "ring", "pallas"):
         with pytest.raises(ValueError, match="einsum"):
             spin_inverse_dense(a, BS, engine=name, device="cpu")
         with pytest.raises(ValueError):
@@ -171,7 +171,7 @@ def test_unported_engines_and_leaves_raise():
                 pass
     with pytest.raises(ValueError, match="leaf solver"):
         spin_inverse_dense(a, BS, "pallas", device="cpu")
-    assert ENGINES == ("einsum", "cuda")
+    assert ENGINES == ("einsum", "cuda", "strassen")
 
 
 def test_engines_agree_on_block_grids():
