@@ -58,25 +58,53 @@ Phases, each of which fails the run (non-zero exit) on any fault:
      and one GEMM launch a classical leaf, split between schur_update (the
      Schur updates that are one leaf) and matmul as
      `fused_strassen_leaves` derives it;
-  9. the crossover: the dense `strassen_matmul` with one split (cutoff
+  9. the planner on the same matrix: `spin_inverse_dense(engine="cuda",
+     leaf_solver="cuda")` timed at block sizes 512, 1024, 2048 and 4096
+     (turns of 2 calls) beside the CUDA pricing's prediction for each;
+     then `spin_inverse_dense(a)` with no block size: it must rank once,
+     write the port's plan file, pick engine `cuda` and a block size
+     within 1.10x of the sweep's fastest, meet the residual bound, launch
+     B1, B2 and B3, and give the same bits as the explicit call with the
+     plan, which a fresh cache object recalls from the file without
+     ranking again; and the planned solve, `spin_solve_dense(a, b)` of
+     256 right-hand sides (B2 and B5);
+ 10. the SMW update of that inverse: dense and BlockMatrix at rank 64, and
+     a replaced symmetric block row at bs = 1024 (rank 2048), each timed,
+     ‖A'X' − I‖∞ ≤ 1e-3, `smw_update_solve`'s residual on the 256
+     right-hand sides ≤ 1e-3 and `estimate_inverse_residual` beside the
+     true residual; the refactor policy's crossover rank beside the one
+     measured (the re-inversion over a rank-1 update's time);
+ 11. the sketched inverse, `sketched_approx_inverse` under the kernel
+     engine: sweeps, seconds, residual_est ≤ 1e-3, two GEMM launches a
+     sweep;
+ 12. `CheckpointedSpin(leaf_solver="cuda")` under the kernel engine at
+     n = 4096, bs = 512, interrupted from `on_op` at node "0/VI" and
+     resumed by a fresh object: the same bits as an uninterrupted run,
+     with loaded_ops > 0; and the inverse through `save_blockmatrix` /
+     `load_blockmatrix` in f32 and bf16, bit for bit (the files in a
+     temporary directory that the phase removes);
+ 13. the crossover: the dense `strassen_matmul` with one split (cutoff
      n/2) against one GEMM launch at n = 8192, 16384 and 32768, f32, timed
      in turns, beside `costmodel.strassen_crossover_n()`;
- 10. a smaller inversion with `leaf_solver="gauss_jordan"`, the path of
+ 14. a smaller inversion with `leaf_solver="gauss_jordan"`, the path of
      the scalar Gauss-Jordan kernel;
- 11. the dense LM serving path at full width and depth: granite-8b with
+ 15. the dense LM serving path at full width and depth: granite-8b with
      random weights from SEED, `prefill` of 4 prompts of 2048 tokens (36
      flash attention launches and no other kernel of the port), 32 greedy
      `decode_step`s from the padded cache, the decode logits of the first
      8 steps against `forward` over prompt plus those tokens, and a
      `ServingEngine` (4 slots, max_len 256) answering 8 requests, one of
      which must equal the same request served alone;
- 12. one JSON line with every path's times and residual, and one with
-     every kernel's launches, error and times (the GEMM's and blocked
-     Gauss-Jordan's launches on every path beside them).
+ 16. one JSON line with every path's times and residual, and one with
+     every kernel's launches, error and times (the GEMM's, blocked
+     Gauss-Jordan's and triangular solve's launches on every path beside
+     them).
 
 The last line is {"ok": true, "device": {...}}. The script imports only
 the PyTorch port; it exits non-zero without a result when CUDA is missing
-or when it is not run from a checkout of the repository.
+or when it is not run from a checkout of the repository. The planner's
+plan file lies in a temporary directory of the run's own
+(SPIN_PLAN_CACHE), removed at the end.
 """
 
 from __future__ import annotations
@@ -85,8 +113,11 @@ import dataclasses
 import gc
 import importlib
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -110,6 +141,12 @@ SOLVE_BF16_N, SOLVE_BF16_RHS = 4096, 16  # the small bf16 solve
 N_RHS = 256                       # right-hand sides of the solve path
 TRI_TIMED_K = (256, 4352, N_RHS + N - BLOCK_SIZE)  # B5 widths timed: narrowest leaf .. widest
 GJ_N, GJ_BLOCK_SIZE = 2048, 128   # the scalar Gauss-Jordan leaf's path
+SWEEP_BLOCK_SIZES = (512, 1024, 2048, 4096)  # the U-shape timed beside the planner
+PLAN_WITHIN = 1.10                # the planned block size's time over the sweep's best
+SMW_RANK = 64                     # the SMW update's rank k
+SMW_BLOCK_ROW = 3                 # the block row replaced at bs = BLOCK_SIZE (rank 2 bs)
+CKPT_N, CKPT_BLOCK_SIZE = 4096, 512  # the checkpointed inversion (bounds the disk)
+CKPT_STOP = "0/VI"                # the node at which it is interrupted
 
 LM_ARCH = "granite-8b"            # the LM serving path, full width and depth
 LM_BATCH, LM_SEQ = 4, 2048        # prefill: 4 prompts of 2048 tokens
@@ -695,6 +732,264 @@ def run_crossover(torch) -> dict:
     return out
 
 
+
+class Interrupted(RuntimeError):
+    """Raised from CheckpointedSpin's on_op hook to stop an inversion."""
+
+
+def run_planner(torch, a, rhs, n: int) -> dict:
+    """Phase 9: the bs sweep against the planner's CUDA pricing, the planned
+    inversion (`block_size=None`), its recall from the plan file, and the
+    planned solve."""
+    from repro_torch import planner
+    from repro_torch.core import spin_inverse_dense, spin_solve_dense
+    from repro_torch.planner import autotune
+
+    dev = a.device
+    sig = planner.signature_for("inverse", n, a.dtype, backend=dev.type)
+    runs = {bs: (lambda bs=bs: spin_inverse_dense(a, bs, "cuda", engine="cuda", device=dev))
+            for bs in SWEEP_BLOCK_SIZES}
+    for run in runs.values():
+        run()
+    sweep_ms = {bs: [] for bs in SWEEP_BLOCK_SIZES}
+    for _ in range(REPS):
+        for bs, run in runs.items():
+            sweep_ms[bs].append(timed(torch, run)[1])
+    predicted_ms = {bs: 1e3 * planner.predict_cost(sig, planner.Plan(
+        block_size=bs, leaf_solver="cuda", multiply_engine="cuda")) for bs in SWEEP_BLOCK_SIZES}
+    for bs in SWEEP_BLOCK_SIZES:
+        print(f"time bs_sweep n={n} bs={bs}: measured_ms={sweep_ms[bs]!r} "
+              f"predicted_ms={predicted_ms[bs]!r}", flush=True)
+    best_bs = min(SWEEP_BLOCK_SIZES, key=lambda bs: min(sweep_ms[bs]))
+
+    # The planned call: it ranks once and writes the port's plan file; a
+    # fresh cache object on that file then recalls the plan, and the
+    # counted, timed calls of run_path rank nothing.
+    ranks = []
+    rank_plans = autotune.rank_plans
+    autotune.rank_plans = lambda *args, **kw: ranks.append(1) or rank_plans(*args, **kw)
+    try:
+        first = spin_inverse_dense(a, device=dev)
+        require(len(ranks) == 1, f"spin_planned: ranked {len(ranks)} times, want 1")
+        with open(planner.default_cache_path()) as f:
+            require(sig.key() in json.load(f)["plans"],
+                    f"spin_planned: no plan under {sig.key()} in {planner.default_cache_path()}")
+        plan = planner.get_plan("inverse", n, a.dtype, backend=dev.type,
+                                cache=planner.PlanCache())
+        require(len(ranks) == 1, "spin_planned: the plan was ranked again, not recalled")
+        grid = n // plan.block_size
+        planned = run_path(
+            torch, "spin_planned", lambda: spin_inverse_dense(a, device=dev), a, grid,
+            op_oracle=True, reps=REPS,
+            expect_launches={"schur_update": 2 * (grid - 1), "matmul": 4 * (grid - 1),
+                             "blocked_gauss_jordan": grid, "gauss_jordan": 0})
+        require(len(ranks) == 1, "spin_planned: a later call ranked again")
+        x = spin_inverse_dense(a, device=dev)
+        require(torch.equal(x, first), "spin_planned: two planned calls differ")
+        explicit = spin_inverse_dense(a, plan.block_size, plan.leaf_solver,
+                                      engine=plan.multiply_engine, device=dev)
+        require(torch.equal(x, explicit),
+                "spin_planned: differs from the explicit call with the chosen plan")
+        del first, explicit
+        plan_ms = min(sweep_ms.get(plan.block_size, planned["ms"]))
+        ratio = plan_ms / min(sweep_ms[best_bs])
+        print(f"path spin_planned: plan={plan.to_dict()} measured_ms={plan_ms!r} "
+              f"best_bs={best_bs} best_ms={min(sweep_ms[best_bs])!r} ratio={ratio!r} "
+              f"cache={planner.default_cache_path()}", flush=True)
+        require(plan.multiply_engine == "cuda",
+                f"spin_planned: engine {plan.multiply_engine}, want cuda")
+        require(ratio <= PLAN_WITHIN,
+                f"spin_planned: bs={plan.block_size} takes {ratio:.3f}x the sweep's best")
+
+        # the planned solve
+        solve_plan = planner.get_plan("solve", n, a.dtype, backend=dev.type,
+                                      measure=False)
+        require((solve_plan.leaf_solver, solve_plan.multiply_engine) == ("cuda", "cuda"),
+                f"spin_solve_planned: plan {solve_plan.to_dict()} would not run B2 and B5")
+        sgrid = n // solve_plan.block_size
+        solve = run_path(
+            torch, "spin_solve_planned", lambda: spin_solve_dense(a, rhs, device=dev),
+            a, sgrid, op_oracle=False, reps=REPS, b=rhs,
+            expect_launches={"triangular_solve": 2 * sgrid, "matmul": 2 * (sgrid - 1),
+                             "schur_update": 0, "blocked_gauss_jordan": 0,
+                             "gauss_jordan": 0})
+    finally:
+        autotune.rank_plans = rank_plans
+    return {"x": x, "sweep": {"n": n, "measured_ms": sweep_ms, "predicted_ms": predicted_ms,
+                              "best_bs": best_bs},
+            "planned": {**planned, "plan": plan.to_dict(), "ratio_to_best": ratio,
+                        "ranked": len(ranks)},
+            "solve": {**solve, "plan": solve_plan.to_dict()}}
+
+
+def run_smw(torch, a, x, rhs, reinvert_ms: float) -> dict:
+    """Phase 10: the SMW update of the maintained inverse `x` of `a`, dense
+    and BlockMatrix at rank SMW_RANK, a replaced block row (rank 2 bs), and
+    the refactor policy's crossover rank beside the measured one."""
+    import numpy as np
+    from repro_torch.core import (BlockMatrix, add_low_rank, block_update_factors,
+                                  estimate_inverse_residual, smw_update_inverse,
+                                  smw_update_solve, verify)
+    from repro_torch.planner import RefactorPolicy
+
+    dev, n = a.device, a.shape[0]
+    rng = np.random.default_rng([SEED, 10])
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def normal(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev)
+
+    # U Uᵀ with U = G/√n: A + U Uᵀ stays SPD, its spectrum moved by ≈ 1.
+    u = normal(n, SMW_RANK) / n ** 0.5
+    # A symmetric block-row replacement of norm ≲ 0.5 (A's spectrum is
+    # [1, 5]): W with entries of scale 0.25/(√bs + √n).
+    w = normal(BLOCK_SIZE, n) * (0.25 / (BLOCK_SIZE ** 0.5 + n ** 0.5))
+    lo, hi = SMW_BLOCK_ROW * BLOCK_SIZE, (SMW_BLOCK_ROW + 1) * BLOCK_SIZE
+    w[:, lo:hi] = (w[:, lo:hi] + w[:, lo:hi].T) / 2
+    bu, bv = block_update_factors(w, SMW_BLOCK_ROW, n)
+    xb = BlockMatrix.from_dense(x, BLOCK_SIZE)
+    cases = {
+        "dense_k64": (lambda: smw_update_inverse(x, u, u), u, u, x),
+        "blockmatrix_k64": (lambda: smw_update_inverse(xb, u, u).to_dense(), u, u, xb),
+        f"block_row_bs{BLOCK_SIZE}": (lambda: smw_update_inverse(x, bu, bv), bu, bv, x),
+    }
+    out = {}
+    for name, (fn, uu, vv, inv) in cases.items():
+        fn()
+        times = [timed(torch, fn)[1] for _ in range(REPS)]
+        x2 = fn()
+        a2 = add_low_rank(a, uu, vv)
+        res = verify.inverse_residual(a2, x2)
+        xs = smw_update_solve(inv, uu, vv, rhs)
+        sres = verify.solve_residual(a2, xs, rhs)
+        est = estimate_inverse_residual(lambda p: a2 @ p, x2, gen, n)
+        print(f"path smw {name}: n={n} rank={uu.shape[1]} ms={times!r} residual={res!r} "
+              f"solve_residual={sres!r} residual_est={est!r}", flush=True)
+        require(tuple(x2.shape) == (n, n) and bool(torch.isfinite(x2).all()),
+                f"smw {name}: shape or non-finite")
+        require(res <= RESIDUAL_BOUND, f"smw {name}: residual {res} > {RESIDUAL_BOUND}")
+        require(sres <= RESIDUAL_BOUND,
+                f"smw {name}: solve residual {sres} > {RESIDUAL_BOUND}")
+        out[name] = {"rank": uu.shape[1], "ms": times, "residual": res,
+                     "solve_residual": sres, "residual_est": est}
+        del x2, a2, xs
+    # Rank 1: the step the crossover is priced in.
+    u1 = u[:, :1]
+    smw_update_inverse(x, u1, u1)
+    rank1_ms = [timed(torch, lambda: smw_update_inverse(x, u1, u1))[1] for _ in range(REPS)]
+    policy = RefactorPolicy()
+    model_rank = policy.crossover_rank(n, a.dtype, backend=dev.type)
+    measured_rank = int(-(-reinvert_ms // min(rank1_ms)))
+    print(f"path smw crossover: model_crossover_rank={model_rank} "
+          f"measured_crossover_rank={measured_rank} rank1_ms={rank1_ms!r} "
+          f"reinvert_ms={reinvert_ms!r} "
+          f"model_reinvert_ms={1e3 * policy.reinversion_cost(n, a.dtype, backend=dev.type)!r}",
+          flush=True)
+    out["crossover"] = {"model_rank": model_rank, "measured_rank": measured_rank,
+                        "rank1_ms": rank1_ms, "reinvert_ms": reinvert_ms}
+    return out
+
+
+def run_sketched(torch, a) -> dict:
+    """Phase 11: the sketched inverse under the kernel engine: every
+    Newton-Schulz sweep is two launches of the GEMM over the whole grid."""
+    from repro_torch import kernels
+    from repro_torch.core import multiply_engine, sketched_approx_inverse, verify
+
+    gen = torch.Generator(device=a.device).manual_seed(SEED)
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with multiply_engine("cuda"):
+        got = sketched_approx_inverse(a, gen)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    res = verify.inverse_residual(a, got.inverse)
+    print(f"path sketched: n={a.shape[0]} sweeps={got.sweeps} s={seconds!r} "
+          f"residual_est={got.residual_est!r} residual={res!r} converged={got.converged} "
+          f"launches={launches}", flush=True)
+    require(got.converged and got.residual_est <= RESIDUAL_BOUND,
+            f"sketched: residual_est {got.residual_est} after {got.sweeps} sweeps")
+    require(bool(torch.isfinite(got.inverse).all()), "sketched: non-finite entries")
+    require(launches["matmul"] == 2 * got.sweeps and launches["schur_update"] == 0,
+            f"sketched: launches {launches} for {got.sweeps} sweeps")
+    return {"sweeps": got.sweeps, "s": seconds, "residual_est": got.residual_est,
+            "residual": res, "launches": launches}
+
+
+def run_checkpoint(torch, a) -> dict:
+    """Phase 12: CheckpointedSpin at n = CKPT_N, interrupted at CKPT_STOP and
+    resumed by a fresh object on the same directory, against an
+    uninterrupted run; then the inverse through save/load_blockmatrix in
+    f32 and bf16. The node files live in a temporary directory that the
+    phase removes."""
+    from repro_torch import kernels
+    from repro_torch.core import (BlockMatrix, CheckpointedSpin, load_blockmatrix,
+                                  multiply_engine, save_blockmatrix, verify)
+
+    a4 = a[:CKPT_N, :CKPT_N].contiguous()
+    bm = BlockMatrix.from_dense(a4, CKPT_BLOCK_SIZE)
+    grid = CKPT_N // CKPT_BLOCK_SIZE
+
+    def stop(name: str) -> None:
+        if name == CKPT_STOP:
+            raise Interrupted(name)
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        with multiply_engine("cuda"):
+            # the uninterrupted run persists nothing (min_grid above the grid)
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            whole = CheckpointedSpin(root + "/whole", leaf_solver="cuda",
+                                     min_grid=grid + 1).inverse(bm)
+            torch.cuda.synchronize()
+            whole_s = time.perf_counter() - t0
+            launches = kernels.launch_counts()
+            run_dir = root + "/run"
+            t0 = time.perf_counter()
+            try:
+                CheckpointedSpin(run_dir, leaf_solver="cuda", on_op=stop).inverse(bm)
+                require(False, f"checkpoint: the run was not interrupted at {CKPT_STOP}")
+            except Interrupted:
+                pass
+            interrupted_s = time.perf_counter() - t0
+            node_bytes = sum(f.stat().st_size for f in Path(run_dir).iterdir())
+            resumed = CheckpointedSpin(run_dir, leaf_solver="cuda")
+            t0 = time.perf_counter()
+            x = resumed.inverse(bm)
+            torch.cuda.synchronize()
+            resume_s = time.perf_counter() - t0
+        res = verify.inverse_residual(a4, x.to_dense())
+        same = torch.equal(x.blocks, whole.blocks)
+        print(f"path checkpoint: n={CKPT_N} bs={CKPT_BLOCK_SIZE} stop={CKPT_STOP} "
+              f"whole_s={whole_s!r} interrupted_s={interrupted_s!r} resume_s={resume_s!r} "
+              f"loaded_ops={resumed.loaded_ops} computed_ops={resumed.computed_ops} "
+              f"node_bytes={node_bytes} residual={res!r} same_bits={same} "
+              f"launches={launches}", flush=True)
+        require(same, "checkpoint: the resumed inverse differs from the uninterrupted run")
+        require(resumed.loaded_ops > 0, "checkpoint: the resume loaded no node")
+        require(res <= RESIDUAL_BOUND, f"checkpoint: residual {res} > {RESIDUAL_BOUND}")
+        require(launches["matmul"] == 6 * (grid - 1) and
+                launches["blocked_gauss_jordan"] == grid,
+                f"checkpoint: launches {launches}")
+        # the inverse through the block-matrix files, f32 and bf16
+        for dtype in (torch.float32, torch.bfloat16):
+            out = BlockMatrix(x.blocks.to(dtype))
+            d = f"{root}/io_{str(dtype)[6:]}"
+            save_blockmatrix(d, out)
+            back = load_blockmatrix(d, device=a.device)
+            require(back.dtype == dtype and torch.equal(back.blocks, out.blocks),
+                    f"checkpoint: {dtype} blocks changed through save/load_blockmatrix")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"n": CKPT_N, "block_size": CKPT_BLOCK_SIZE, "stop": CKPT_STOP,
+            "whole_s": whole_s, "interrupted_s": interrupted_s, "resume_s": resume_s,
+            "loaded_ops": resumed.loaded_ops, "computed_ops": resumed.computed_ops,
+            "node_bytes": node_bytes, "residual": res, "launches": launches}
+
+
 def run_lm(torch, rng, cfg, dev) -> dict:
     """Phase 8: the dense LM serving path, `cfg` on `dev`."""
     import numpy as np
@@ -906,7 +1201,6 @@ def main() -> int:
     require(oc["leaf_solves"] == grid and oc["splits"] == grid - 1
             and oc["solve_applies"] == oc["subtracts"] == 3 * (grid - 1),
             f"spin_solve: op profile {oc}")
-    del rhs
     torch.cuda.empty_cache()
 
     # 7. the bf16 preset on the same matrix: the recursion in bf16 (B1/B2's
@@ -977,15 +1271,31 @@ def main() -> int:
           f"expected={(st_base, st_adds)} fused_leaves={fused}", flush=True)
     require(got_st == (st_base, st_adds),
             f"spin_strassen: Strassen counts {got_st}, want {(st_base, st_adds)}")
+
+    # 9. the planner: the bs sweep beside its pricing, the planned inversion
+    # and solve (block_size=None), the plan recalled from the port's file
+    plan_run = run_planner(torch, a, rhs, n)
+    x_planned = plan_run.pop("x")
+    # 10. the SMW update of that inverse, and the refactor crossover
+    smw = run_smw(torch, a, x_planned, rhs, min(plan_run["planned"]["ms"]))
+    del x_planned, rhs
+    gc.collect()
+    torch.cuda.empty_cache()
+    # 11. the sketched inverse under the kernel engine
+    sketched = run_sketched(torch, a)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # 12. checkpoint and resume at n = CKPT_N, and the block-matrix files
+    ckpt = run_checkpoint(torch, a)
     del a
     gc.collect()
     torch.cuda.empty_cache()
 
-    # 9. where one Strassen split pays on the card: the dense recursion cut
+    # 13. where one Strassen split pays on the card: the dense recursion cut
     # at n/2 (7 GEMM launches and 18 add passes) against one GEMM launch
     crossover = run_crossover(torch)
 
-    # 10. the scalar Gauss-Jordan leaf's path
+    # 14. the scalar Gauss-Jordan leaf's path
     gn, gbs = GJ_N, GJ_BLOCK_SIZE
     ggrid = gn // gbs
     a_gj = testing.make_spd(gn, rng, device="cuda")
@@ -1000,7 +1310,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # 11. the dense LM serving path
+    # 15. the dense LM serving path
     lm = run_lm(torch, rng, lm_cfg, torch.device("cuda"))
     gc.collect()
     torch.cuda.empty_cache()
@@ -1024,6 +1334,15 @@ def main() -> int:
         "spin_strassen": {"n": n, "block_size": bs, "cutoff": cutoff, "ms": strassen["ms"],
                           "residual": strassen["residual"], "strassen_counts": got_st,
                           "launches": strassen["launches"]},
+        "bs_sweep": plan_run["sweep"],
+        "spin_planned": {"n": n, "plan": plan_run["planned"]["plan"],
+                         "ms": plan_run["planned"]["ms"],
+                         "residual": plan_run["planned"]["residual"],
+                         "ratio_to_best": plan_run["planned"]["ratio_to_best"]},
+        "spin_solve_planned": {"n": n, "n_rhs": N_RHS, "plan": plan_run["solve"]["plan"],
+                               "ms": plan_run["solve"]["ms"],
+                               "residual": plan_run["solve"]["residual"]},
+        "smw": smw, "sketched": sketched, "checkpoint": ckpt,
         "strassen_crossover": crossover,
         "spin_gauss_jordan": {"n": gn, "block_size": gbs, "ms": gjp["ms"],
                               "residual": gjp["residual"]},
@@ -1031,7 +1350,7 @@ def main() -> int:
         "lm_serve": lm["lm_serve"]},
         "card": card}), flush=True)
 
-    # 12. the kernels line
+    # 16. the kernels line
     rows = []
     gemm_body = "gemm_tc: pack pre-pass, then 3xTF32 wgmma on a TMA ring (f32)"
     report["schur_update"]["body"] = report["matmul"]["body"] = gemm_body
@@ -1056,11 +1375,13 @@ def main() -> int:
              "src/repro/kernels/flash_attention/kernel.py:74", lm)):
         r = report[name]
         require(path["launches"][name] > 0, f"{name}: no launch on its path")
-        if name in ("matmul", "schur_update", "blocked_gauss_jordan"):
+        if name in ("matmul", "schur_update", "blocked_gauss_jordan", "triangular_solve"):
             r["launches_by_path"] = {p: run["launches"][name] for p, run in (
                 ("spin", spin), ("lu", lu), ("spin_solve", solve), ("spin_bf16_raw", raw),
                 ("spin_bf16", polished), ("spin_solve_bf16", solve_bf16),
-                ("spin_strassen", strassen))}
+                ("spin_strassen", strassen), ("spin_planned", plan_run["planned"]),
+                ("spin_solve_planned", plan_run["solve"]), ("sketched", sketched),
+                ("checkpoint", ckpt))}
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": path["launches"][name], **r})
     print(json.dumps({"kernels": rows}), flush=True)
@@ -1071,4 +1392,12 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    # The planner's plan file lies in a directory of this run's own, so that
+    # no plan of an earlier run is recalled; it is removed at the end.
+    plan_dir = tempfile.mkdtemp(prefix="chip_smoke_plans_")
+    os.environ["SPIN_PLAN_CACHE"] = os.path.join(plan_dir, "plans.json")
+    try:
+        code = main()
+    finally:
+        shutil.rmtree(plan_dir, ignore_errors=True)
+    sys.exit(code)

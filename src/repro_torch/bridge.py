@@ -17,7 +17,11 @@ from .core.blockmatrix import BlockMatrix, OpCounts
 from .device import DEFAULT_DEVICE, resolve_device
 
 __all__ = ["to_torch", "to_numpy", "blockmatrix_from_numpy",
-           "op_counts_from_dict", "lm_params_from_numpy", "lm_params_to_numpy"]
+           "op_counts_from_dict", "plan_from_reference",
+           "lm_params_from_numpy", "lm_params_to_numpy"]
+
+# The JAX package's names of a leaf solver or engine where the port's differ.
+_PORT_NAMES = {"pallas": "cuda"}
 
 
 def to_torch(x, device: str | torch.device = DEFAULT_DEVICE) -> torch.Tensor:
@@ -52,6 +56,22 @@ def blockmatrix_from_numpy(blocks, device: str | torch.device = DEFAULT_DEVICE
 def op_counts_from_dict(d: Mapping[str, int]) -> OpCounts:
     """An `OpCounts.as_dict()` record (from either package) -> OpCounts."""
     return OpCounts(**dict(d))
+
+
+def plan_from_reference(d: Mapping):
+    """A plan of the JAX package's planner (`Plan.to_dict()`) -> the port's
+    `planner.Plan`: its Pallas leaf and engine become the port's CUDA
+    ones. An engine the port does not have raises ValueError."""
+    from .core.multiply import ENGINES
+    from .planner import Plan
+
+    d = dict(d)
+    d["leaf_solver"] = _PORT_NAMES.get(d.get("leaf_solver"), d.get("leaf_solver"))
+    engine = _PORT_NAMES.get(d.get("multiply_engine"), d.get("multiply_engine"))
+    if engine not in ENGINES:
+        raise ValueError(f"engine {engine!r} is not ported; the port has {ENGINES}")
+    d["multiply_engine"] = engine
+    return Plan.from_dict(d)
 
 
 def lm_params_from_numpy(tree: Mapping, device: str | torch.device = DEFAULT_DEVICE

@@ -26,11 +26,16 @@ Under a low-precision policy (``precision="bf16"``) the solve runs at the
 policy's compute dtype and returns X at b's dtype; the batched inverse
 runs at the compute dtype and returns the policy's store dtype. Neither
 polishes, as in the JAX package.
+
+`sketched_approx_inverse` is the degraded-mode answer: a servable
+approximate inverse with a reported residual, from a power-iteration seed
+and Newton–Schulz sweeps, before (or without) the full recursion.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 
 import torch
 
@@ -39,12 +44,14 @@ from ..kernels.leaf_inverse import ops as tri_ops
 from ..kernels.matmul import ops as mm_ops
 from .blockmatrix import BlockMatrix, _bump
 from .multiply import current_engine, multiply_engine, validate_engine
+from .newton_schulz import newton_schulz_polish
 from .precision import (resolve_precision, resolve_with_legacy_kwarg,
                         torch_dtype)
-from .spin import LEAF_SOLVERS, _policy_active, spin_inverse_dense
+from .spin import LEAF_SOLVERS, _explicit, _policy_active, spin_inverse_dense
 
 __all__ = ["spin_solve", "spin_solve_dense", "spin_inverse_batched",
-           "solve_grid_for"]
+           "solve_grid_for", "SketchedInverse", "sketched_approx_inverse"]
+
 
 def solve_grid_for(n: int, max_grid: int = 8, min_block: int = 64) -> int:
     """Largest power-of-two grid ≤ max_grid dividing n with blocks ≥ min_block."""
@@ -126,16 +133,23 @@ def _solve(a: BlockMatrix, b: torch.Tensor, leaf_solver: str) -> torch.Tensor:
 
 
 def spin_solve(a: BlockMatrix, b: torch.Tensor, *,
-               leaf_solver: str = "linalg", precision=None) -> torch.Tensor:
+               leaf_solver: str = "linalg", auto: bool = False,
+               precision=None) -> torch.Tensor:
     """Solve A X = B via the inverse-free SPIN recursion, on the device A's
     blocks lie on, with the ambient multiply engine.
 
     a: BlockMatrix with a power-of-two grid (SPD or with invertible
     leading blocks, the paper's class). b: (n, k) or (n,). Returns X with
-    b's shape and dtype. precision (PrecisionPolicy | preset string | None)
-    runs the recursion at the policy's compute dtype (f32 accumulation as
-    always); None and "exact" are bitwise the plain call.
+    b's shape and dtype. auto=True asks the planner for the leaf solver
+    (the grid is fixed by `a`). precision (PrecisionPolicy | preset string
+    | None) runs the recursion at the policy's compute dtype (f32
+    accumulation as always); None and "exact" are bitwise the plain call.
     """
+    if auto:
+        from ..planner import planned_leaf_solver
+
+        leaf_solver = planned_leaf_solver(a.n, a.block_size, a.dtype,
+                                          kind="solve", backend=a.device.type)
     if precision is not None:
         policy = resolve_precision(precision)
         if not policy.is_exact and _policy_active(policy, a.blocks.dtype):
@@ -158,46 +172,67 @@ def spin_solve(a: BlockMatrix, b: torch.Tensor, *,
     return x[:, 0] if vector else x
 
 
-def spin_solve_dense(a, b, block_size: int, leaf_solver: str = "linalg", *,
-                     engine: str | None = None,
+def spin_solve_dense(a, b, block_size: int | None = None,
+                     leaf_solver: str | None = None, *,
+                     engine: str | None = None, auto: bool = False,
                      device: str | torch.device = DEFAULT_DEVICE,
                      precision=None, compute_dtype=None) -> torch.Tensor:
     """Dense (n, n) A and (n, k) or (n,) B -> X, computed on `device`.
 
     `a` and `b` are tensors or anything `torch.as_tensor` takes; both are
     moved to `device` first. engine=None inherits the ambient
-    `multiply_engine`. precision (PrecisionPolicy | preset string | None ->
-    $SPIN_PRECISION or exact) runs the solve at the policy's compute dtype
-    and returns X at b's dtype; `compute_dtype=` is the deprecated spelling.
+    `multiply_engine`; leaf_solver=None is "linalg". With block_size=None
+    (or auto=True) the planner picks block size, leaf solver and engine;
+    explicit ones override its choice, and the planned call is bitwise the
+    explicit call with the chosen plan. precision (PrecisionPolicy | preset
+    string | None -> $SPIN_PRECISION or exact) runs the solve at the
+    policy's compute dtype and returns X at b's dtype; `compute_dtype=` is
+    the deprecated spelling.
     """
     validate_engine(engine)
     policy = resolve_with_legacy_kwarg("spin_solve_dense", precision, compute_dtype)
     dev = resolve_device(device)
     a = torch.as_tensor(a).to(dev)
     b = torch.as_tensor(b).to(dev)
+    if auto or block_size is None:
+        from ..planner import plan_solve
+
+        kw = _explicit(block_size, leaf_solver, engine)
+        if not policy.is_exact and _policy_active(policy, a.dtype):
+            cd = torch_dtype(policy.resolve_compute(a.dtype))
+            return plan_solve(a.to(cd), b.to(cd), precision=policy,
+                              **kw).to(b.dtype)
+        return plan_solve(a, b, **kw)
     ctx = multiply_engine(engine) if engine else contextlib.nullcontext()
     with ctx:
         return spin_solve(BlockMatrix.from_dense(a, block_size), b,
-                          leaf_solver=leaf_solver, precision=policy)
+                          leaf_solver=leaf_solver or "linalg", precision=policy)
 
 
-def spin_inverse_batched(batch, block_size: int, leaf_solver: str = "linalg",
+def spin_inverse_batched(batch, block_size: int | None = None,
+                         leaf_solver: str = "linalg",
                          *, engine: str | None = None,
                          device: str | torch.device = DEFAULT_DEVICE,
                          precision=None, compute_dtype=None) -> torch.Tensor:
     """SPIN-invert a (batch, n, n) stack of SPD matrices on `device`.
 
     Each slice goes through `spin_inverse_dense` with the same arguments,
-    so it is bitwise equal to the per-matrix call. precision runs every
-    slice at the policy's compute dtype, with no polish, and returns the
-    stack at the policy's store dtype; `compute_dtype=` is the deprecated
-    spelling.
+    so it is bitwise equal to the per-matrix call. block_size=None asks the
+    planner (cost model only) for the per-matrix block size on `device`'s
+    backend. precision runs every slice at the policy's compute dtype, with
+    no polish, and returns the stack at the policy's store dtype;
+    `compute_dtype=` is the deprecated spelling.
     """
     batch = torch.as_tensor(batch)
     if batch.ndim != 3:
         raise ValueError(f"expected (batch, n, n), got {tuple(batch.shape)}")
     validate_engine(engine)
     policy = resolve_with_legacy_kwarg("spin_inverse_batched", precision, compute_dtype)
+    if block_size is None:
+        from ..planner import planned_block_size
+
+        block_size = planned_block_size(batch.shape[-1], batch.dtype,
+                                        backend=resolve_device(device).type)
     store = batch.dtype
     if not policy.is_exact and _policy_active(policy, batch.dtype):
         store = torch_dtype(policy.resolve_store(batch.dtype))
@@ -206,3 +241,73 @@ def spin_inverse_batched(batch, block_size: int, leaf_solver: str = "linalg",
                                            engine=engine, device=device,
                                            precision="exact")
                         for m in batch]).to(store)
+
+
+# ---------------------------------------------------------------------------
+# Degraded-mode (sketched) approximate inverse
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class SketchedInverse:
+    """A servable approximate inverse with its reported residual bound."""
+
+    inverse: torch.Tensor     # dense (n, n), the operand's dtype
+    residual_est: float       # probe estimate of ‖A X − I‖∞ at return
+    sweeps: int               # Newton–Schulz sweeps spent
+    converged: bool           # residual_est ≤ tol when it stopped
+
+
+def sketched_approx_inverse(a: torch.Tensor,
+                            generator: torch.Generator | None = None, *,
+                            block_size: int | None = None,
+                            tol: float | None = None, max_sweeps: int = 60,
+                            probes: int = 2) -> SketchedInverse:
+    """Approximate A⁻¹, servable before (or without) the full recursion.
+
+    A randomized sketch (8 power steps on AᵀA from a random probe)
+    estimates σ_max² and seeds X₀ = Aᵀ/(1.1·σ̂²), for which ‖I − AX₀‖₂ < 1
+    for any nonsingular A (the 1.1 keeps α·σ_max² < 2 under a slightly low
+    estimate). Newton–Schulz sweeps (`newton_schulz_polish`, two
+    BlockMatrix multiplies each under the ambient multiply engine) then
+    converge quadratically, and `update.estimate_inverse_residual`
+    measures the residual after every sweep, stopping at `tol`.
+
+    `a` lies on the device the work runs on; `generator` (a
+    `torch.Generator` on that device, or None for the default one) draws
+    the sketch and the probes. tol=None uses `verify.residual_tolerance`
+    of a's dtype; block_size=None uses n // solve_grid_for(n).
+    """
+    from .update import estimate_inverse_residual  # late: both import this module
+    from .verify import residual_tolerance
+
+    n = a.shape[0]
+    if tol is None:
+        tol = residual_tolerance(a.dtype)
+    f32 = a.float()
+
+    v = torch.randn((n,), generator=generator, dtype=torch.float32,
+                    device=a.device)
+    for _ in range(8):
+        v = f32.T @ (f32 @ v)
+        v = v / torch.linalg.norm(v)
+    sigma2 = float(torch.linalg.norm(f32.T @ (f32 @ v)))
+    x0 = f32.T / (1.1 * sigma2)
+
+    bs = block_size or n // solve_grid_for(n)
+    a_bm = BlockMatrix.from_dense(f32, bs)
+    x = BlockMatrix.from_dense(x0, bs)
+
+    def probe_residual(x_bm: BlockMatrix) -> float:
+        return estimate_inverse_residual(lambda p: f32 @ p, x_bm.to_dense(),
+                                         generator, n, probes=max(1, probes))
+
+    residual = probe_residual(x)
+    sweeps = 0
+    while residual > tol and sweeps < max_sweeps:
+        x = newton_schulz_polish(a_bm, x, sweeps=1)
+        sweeps += 1
+        residual = probe_residual(x)
+    return SketchedInverse(inverse=x.to_dense().to(a.dtype),
+                           residual_est=residual, sweeps=sweeps,
+                           converged=residual <= tol)

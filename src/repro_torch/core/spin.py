@@ -119,14 +119,22 @@ def _lowp_inverse_blocks(a: BlockMatrix, leaf_solver: str,
 
 
 def spin_inverse(a: BlockMatrix, *, leaf_solver: str = "linalg",
-                 precision=None) -> BlockMatrix:
+                 auto: bool = False, precision=None) -> BlockMatrix:
     """Strassen inversion of a BlockMatrix (grid must be 2^m), on the
     device its blocks lie on, with the ambient multiply engine.
 
-    precision (PrecisionPolicy | preset string | None) runs the recursion
-    at the policy's compute dtype, polishes in f32 and returns blocks at
-    the policy's store dtype; None and "exact" are bitwise the plain call.
+    auto=True asks the planner for the leaf solver (the grid is fixed by
+    `a`), priced for the device the blocks lie on; the result is bitwise
+    the call with that solver. precision (PrecisionPolicy | preset string |
+    None) runs the recursion at the policy's compute dtype, polishes in
+    f32 and returns blocks at the policy's store dtype; None and "exact"
+    are bitwise the plain call.
     """
+    if auto:
+        from ..planner import planned_leaf_solver
+
+        leaf_solver = planned_leaf_solver(a.n, a.block_size, a.dtype,
+                                          backend=a.device.type)
     if precision is not None:
         policy = resolve_precision(precision)
         if not policy.is_exact and _policy_active(policy, a.blocks.dtype):
@@ -154,28 +162,56 @@ def spin_inverse(a: BlockMatrix, *, leaf_solver: str = "linalg",
     return BlockMatrix.arrange(c11, c12, c21, c22)
 
 
-def spin_inverse_dense(dense, block_size: int, leaf_solver: str = "linalg", *,
-                       engine: str | None = None,
+def spin_inverse_dense(dense, block_size: int | None = None,
+                       leaf_solver: str | None = None, *,
+                       engine: str | None = None, auto: bool = False,
                        device: str | torch.device = DEFAULT_DEVICE,
                        precision=None, compute_dtype=None) -> torch.Tensor:
     """Dense (n, n) -> dense (n, n) inverse via SPIN, computed on `device`.
 
     `dense` is a tensor or anything `torch.as_tensor` takes; it is moved to
-    `device` first. engine=None inherits the ambient `multiply_engine`.
+    `device` first. engine=None inherits the ambient `multiply_engine`;
+    leaf_solver=None is "linalg".
+
+    With block_size=None (or auto=True) the planner (`repro_torch.planner`)
+    picks the block size, leaf solver and engine for `device`'s backend;
+    a block size, leaf solver or engine given explicitly overrides its
+    choice (it constrains the candidates). The planned call runs this
+    function with the chosen arguments, so it is bitwise the explicit call
+    for plans without a refinement stage.
 
     precision (PrecisionPolicy | preset string | None -> $SPIN_PRECISION or
     exact) runs the recursion at the policy's compute dtype, polishes in
-    f32 with the same engine, and returns the policy's store dtype.
-    `compute_dtype=` is the deprecated spelling: it warns once and forwards
-    to `policy_from_compute_dtype`.
+    f32 with the same engine, and returns the policy's store dtype; under
+    the planner the policy rides the signature, so the plan is priced and
+    cached per policy. `compute_dtype=` is the deprecated spelling: it
+    warns once and forwards to `policy_from_compute_dtype`.
     """
     validate_engine(engine)
     policy = resolve_with_legacy_kwarg("spin_inverse_dense", precision,
                                        compute_dtype)
     dev = resolve_device(device)
     dense = torch.as_tensor(dense).to(dev)
+    if auto or block_size is None:
+        from ..planner import plan_inverse
+
+        return plan_inverse(dense, precision=policy,
+                            **_explicit(block_size, leaf_solver, engine))
     ctx = multiply_engine(engine) if engine else contextlib.nullcontext()
     with ctx:
         a = BlockMatrix.from_dense(dense, block_size)
-        return spin_inverse(a, leaf_solver=leaf_solver,
+        return spin_inverse(a, leaf_solver=leaf_solver or "linalg",
                             precision=policy).to_dense()
+
+
+def _explicit(block_size: int | None, leaf_solver: str | None,
+              engine: str | None) -> dict:
+    """The planner's candidate constraints from a call's explicit arguments."""
+    kw = {}
+    if block_size is not None:
+        kw["block_sizes"] = (int(block_size),)
+    if leaf_solver is not None:
+        kw["leaf_solvers"] = (leaf_solver,)
+    if engine is not None:
+        kw["engines"] = (engine,)
+    return kw

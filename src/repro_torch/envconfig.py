@@ -27,6 +27,11 @@ ENV_VARS: dict[str, str] = {
         "int: override a resolved policy's cap on polish sweeps.",
     "SPIN_PRECISION_TOL":
         "float: override a resolved policy's residual tolerance.",
+    "SPIN_PLAN_CACHE":
+        "path: the JAX package's plan-cache file; the port keeps its own "
+        "beside it (plans.json -> plans.torch.json); unset = "
+        "$XDG_CACHE_HOME or ~/.cache, /repro_torch_spin/plans.json; read "
+        "by planner.cache.",
 }
 
 

@@ -6,6 +6,7 @@
     PYTHONPATH=src python -m repro_torch.profile_spin --lu             # LU baseline
     PYTHONPATH=src python -m repro_torch.profile_spin --bf16           # bf16 preset
     PYTHONPATH=src python -m repro_torch.profile_spin --strassen       # Strassen engine
+    PYTHONPATH=src python -m repro_torch.profile_spin --sweep          # block-size sweep
 
 Runs `spin_inverse_dense(engine="cuda", leaf_solver="cuda")` at n = 16384,
 block size 1024, f32, on a `make_spd` matrix (seed 0); with `--solve`
@@ -25,6 +26,15 @@ each kernel's device time and count, grouped by kernel name and launch
 grid, and the device's idle share: the part of the call, from its start
 on the host to the end of its last device event, in which no kernel, copy
 or fill ran. The Chrome trace is kept under ``build/profile_spin/``.
+
+`--sweep` traces nothing: it times the same inversion at every block size
+of `SWEEP_BLOCK_SIZES` (one warm-up each, then `--calls` rounds, each
+block size once a round), each leaf solver alone at each block size (B3,
+`torch.linalg.inv`, the QR leaf; the scalar Gauss-Jordan B4 up to 1024),
+one B2 launch at each product size the recursions run, and the
+inversion at block size 1024 under the einsum engine, and prints one JSON
+line: the measurements the planner's card constants
+(`planner.autotune.CUDA_CONSTANTS`) are fitted to.
 """
 
 from __future__ import annotations
@@ -36,10 +46,11 @@ from pathlib import Path
 import numpy as np
 import torch
 
-__all__ = ["device_breakdown", "main"]
+__all__ = ["device_breakdown", "sweep", "main"]
 
 N, BLOCK_SIZE, N_RHS, SEED = 16384, 1024, 256, 0
 GJ_N, GJ_BLOCK_SIZE = 2048, 128
+SWEEP_BLOCK_SIZES = (256, 512, 1024, 2048, 4096, 8192, 16384)
 TRACE_DIR = Path(__file__).resolve().parents[2] / "build" / "profile_spin"
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 HOST_LAUNCH_CATEGORIES = ("cuda_runtime", "cuda_driver")
@@ -90,6 +101,59 @@ def device_breakdown(trace: dict, call: str = CALL) -> dict:
             "idle_share": 1.0 - busy / span, "groups": rows}
 
 
+def _event_ms(fn, reps: int) -> float:
+    """Mean device ms of `fn` over `reps` calls, after one warm-up."""
+    fn()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def sweep(calls: int) -> dict:
+    """The block-size sweep at n = N: inversion ms by block size, each leaf
+    solver's ms by block size, B2 ms by product size, and the inversion at
+    BLOCK_SIZE under the einsum engine."""
+    from .core import LEAF_SOLVERS, spin_inverse_dense, testing
+    from .kernels.matmul import ops as mm_ops
+
+    a = testing.make_spd(N, np.random.default_rng(SEED), device="cuda")
+    runs = {bs: (lambda bs=bs: spin_inverse_dense(a, bs, "cuda", engine="cuda"))
+            for bs in SWEEP_BLOCK_SIZES}
+    for run in runs.values():
+        run()
+    torch.cuda.synchronize()
+    inverse_ms = {bs: [] for bs in SWEEP_BLOCK_SIZES}
+    for _ in range(calls):
+        for bs, run in runs.items():
+            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            run()
+            stop.record()
+            stop.synchronize()
+            inverse_ms[bs].append(start.elapsed_time(stop))
+    leaf_ms = {name: {} for name in LEAF_SOLVERS}
+    for bs in SWEEP_BLOCK_SIZES:
+        block = a[:bs, :bs].contiguous()
+        for name, solve in LEAF_SOLVERS.items():
+            if name == "cuda" or bs <= (4096 if name != "gauss_jordan" else 1024):
+                leaf_ms[name][bs] = _event_ms(lambda: solve(block), 3)
+        del block
+    einsum_ms = _event_ms(lambda: spin_inverse_dense(a, BLOCK_SIZE, "cuda", engine="einsum"),
+                          calls)
+    gemm_ms = {}
+    for size in sorted({bs for bs in SWEEP_BLOCK_SIZES if bs < N} | {128}):
+        x, y = a[:size, :size], a[size:2 * size, :size]
+        gemm_ms[size] = _event_ms(lambda: mm_ops.matmul(x, y), 5)
+    return {"n": N, "device": torch.cuda.get_device_name(0),
+            "inverse_ms": inverse_ms, "leaf_ms": leaf_ms, "gemm_ms": gemm_ms,
+            "einsum_engine_ms": {BLOCK_SIZE: einsum_ms}}
+
+
 def main(argv=None) -> int:
     from .core import lu_inverse_dense, spin_inverse_dense, spin_solve_dense, testing
     from .kernels import build
@@ -107,12 +171,18 @@ def main(argv=None) -> int:
                        help="trace the inversion under precision='bf16'")
     which.add_argument("--strassen", action="store_true",
                        help="trace the inversion under engine='strassen'")
+    which.add_argument("--sweep", action="store_true",
+                       help="time the inversion at every block size (no trace)")
     parser.add_argument("--calls", type=int, default=1,
                         help="calls timed, and calls traced, after the warm-up")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_spin: CUDA is not available")
     torch.backends.cuda.matmul.allow_tf32 = False
+    if args.sweep:
+        build.build_all(("matmul", "leaf_inverse"))
+        print(json.dumps(sweep(args.calls)))
+        return 0
     build.build_all()
     rng = np.random.default_rng(SEED)
     n, bs = (GJ_N, GJ_BLOCK_SIZE) if args.gauss_jordan else (N, BLOCK_SIZE)

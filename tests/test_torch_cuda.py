@@ -706,3 +706,100 @@ def test_lm_serving_path_on_the_card(cuda_device):
     alone.submit(solo)
     alone.run_until_done()
     assert all(r.done for r in reqs) and reqs[0].output == solo.output
+
+
+# ---------------------------------------------------------------------------
+# The planner, the SMW update, the sketched inverse and the checkpoint on
+# the card, against the same calls on the CPU (the kernels' plain versions)
+# ---------------------------------------------------------------------------
+
+
+def test_planned_inversion_on_the_card(cuda_device, tmp_path, monkeypatch):
+    from repro_torch import planner
+
+    monkeypatch.setenv("SPIN_PLAN_CACHE", str(tmp_path / "plans.json"))
+    a = testing.make_spd(2048, np.random.default_rng(11), device=cuda_device)
+    kernels.reset_launch_counts()
+    x = spin_inverse_dense(a)                 # n > MEASURE_MAX_N: the model
+    plan = planner.get_plan("inverse", 2048, torch.float32)
+    assert plan.multiply_engine == "cuda" and plan.leaf_solver == "cuda"
+    assert kernels.launch_counts()["blocked_gauss_jordan"] == 2048 // plan.block_size
+    assert torch.equal(x, spin_inverse_dense(a, plan.block_size, plan.leaf_solver,
+                                             engine=plan.multiply_engine))
+    assert verify.inverse_residual(a, x) < 1e-3
+    assert (tmp_path / "plans.torch.json").exists()
+    assert not (tmp_path / "plans.json").exists()
+    # a small problem is timed on the card (warm-up first), then recalled
+    small = testing.make_spd(256, np.random.default_rng(12), device=cuda_device)
+    p = planner.get_plan("inverse", 256, torch.float32, measure=True, top_k=3)
+    assert p.source == "measured" and p.measured_s > 0
+    assert verify.inverse_residual(small, spin_inverse_dense(small)) < 1e-3
+    b = torch.randn(2048, 16, device=cuda_device)
+    assert verify.solve_residual(a, spin_solve_dense(a, b), b) < 1e-3
+
+
+@pytest.mark.parametrize("rep", ["dense", "block"])
+def test_smw_update_on_the_card_matches_cpu(cuda_device, rep):
+    from repro_torch.core import (BlockMatrix, apply_inverse, smw_update_inverse,
+                                  smw_update_solve)
+
+    n, k = 1024, 16
+    rng = np.random.default_rng(13)
+    a = testing.make_spd(n, rng, device="cpu")
+    u = torch.from_numpy(rng.standard_normal((n, k), dtype=np.float32)) / n ** 0.5
+    rhs = torch.from_numpy(rng.standard_normal((n, 4), dtype=np.float32))
+    inv = torch.linalg.inv(a)
+    wrap = (lambda t: BlockMatrix.from_dense(t, 128)) if rep == "block" else (lambda t: t)
+    dense = (lambda r: r.to_dense()) if rep == "block" else (lambda r: r)
+    got = dense(smw_update_inverse(wrap(inv.to(cuda_device)), u.to(cuda_device),
+                                   u.to(cuda_device))).cpu()
+    want = dense(smw_update_inverse(wrap(inv), u, u))
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+    xs = smw_update_solve(wrap(inv.to(cuda_device)), u.to(cuda_device),
+                          u.to(cuda_device), rhs.to(cuda_device)).cpu()
+    ws = smw_update_solve(wrap(inv), u, u, rhs)
+    assert float((xs - ws).abs().max()) <= 1e-4 * float(ws.abs().max())
+    # the bf16 serve GEMM runs on the GEMM kernel's bf16 body, any width
+    inv16 = inv.to(torch.bfloat16)
+    for cols in (1, 2, 3, 130):
+        r = torch.from_numpy(rng.standard_normal((n, cols), dtype=np.float32))
+        kernels.reset_launch_counts()
+        g = apply_inverse(inv16.to(cuda_device), r.to(cuda_device), precision="bf16")
+        assert kernels.launch_counts()["matmul"] == 1
+        w = apply_inverse(inv16, r, precision="bf16")
+        assert g.dtype == torch.float32
+        assert float((g.cpu() - w).abs().max()) <= 1e-5 * float(w.abs().max())
+
+
+def test_sketched_inverse_on_the_card(cuda_device):
+    from repro_torch.core import sketched_approx_inverse
+
+    a = testing.make_spd(1024, np.random.default_rng(14), device=cuda_device)
+    kernels.reset_launch_counts()
+    with multiply_engine("cuda"):
+        got = sketched_approx_inverse(a, torch.Generator(device=cuda_device).manual_seed(0))
+    assert got.converged and got.residual_est <= 1e-3
+    assert kernels.launch_counts()["matmul"] == 2 * got.sweeps
+    assert verify.inverse_residual(a, got.inverse) < 1e-2
+
+
+def test_checkpoint_resume_on_the_card_is_bit_identical(cuda_device, tmp_path):
+    from repro_torch.core import BlockMatrix, CheckpointedSpin
+
+    a = testing.make_spd(1024, np.random.default_rng(15), device=cuda_device)
+    bm = BlockMatrix.from_dense(a, 128)
+
+    def stop(name):
+        if name == "0/VI":
+            raise KeyboardInterrupt(name)
+
+    with multiply_engine("cuda"):
+        whole = CheckpointedSpin(str(tmp_path / "whole"), leaf_solver="cuda").inverse(bm)
+        with pytest.raises(KeyboardInterrupt):
+            CheckpointedSpin(str(tmp_path / "run"), leaf_solver="cuda",
+                             on_op=stop).inverse(bm)
+        resumed = CheckpointedSpin(str(tmp_path / "run"), leaf_solver="cuda")
+        x = resumed.inverse(bm)
+    assert resumed.loaded_ops > 0
+    assert x.device.type == "cuda" and torch.equal(x.blocks, whole.blocks)
+    assert verify.inverse_residual(a, x.to_dense()) < 1e-3
