@@ -83,19 +83,39 @@ Phases, each of which fails the run (non-zero exit) on any fault:
      with loaded_ops > 0; and the inverse through `save_blockmatrix` /
      `load_blockmatrix` in f32 and bf16, bit for bit (the files in a
      temporary directory that the phase removes);
- 13. the crossover: the dense `strassen_matmul` with one split (cutoff
+ 13. the online inverse server, `SpinService(slots=8)`, on the same
+     matrix: `add_matrix("gram", a)` recalls phase 9's plan from the plan
+     file without ranking (bs 1024, the `cuda` engine and leaf; 30 B1, 60
+     B2, 16 B3); 4 ticks of 8 requests of 32 columns, each one coalesced
+     solve (30 B2, 32 B5) bitwise the offline `spin_solve_dense` on the
+     stacked panel; a rank-64 update (reason "smw") and 4 ticks on the
+     maintained path; rank-64 updates until the refactor policy
+     re-factorizes, at exactly its modeled crossover, and a tick bitwise
+     the offline solve on A'; a bf16 tenant served from its bf16 inverse
+     (one B2 bf16 launch a tick, residuals ≤ 2e-2); the dashboard
+     (latency percentiles, counters); on the leading 4096² block at bs
+     512: residency with one resident matrix (4 evictions, 3
+     rehydrations, the same bits), snapshot / restore and an async
+     snapshot followed by an update, a straggler past a 0.5 s deadline
+     served degraded from the sketch and recovered after it lands, a
+     transient failure retried once; and, traced, one planned inversion
+     (15 spin.level and 16 spin.leaf spans, one planner.plan event, one
+     ledger.solve entry: predicted over measured seconds) and two
+     serve.tick spans. Every residual ≤ its bound, every time from CUDA
+     events (the service's own timestamps are dispatch latencies);
+ 14. the crossover: the dense `strassen_matmul` with one split (cutoff
      n/2) against one GEMM launch at n = 8192, 16384 and 32768, f32, timed
      in turns, beside `costmodel.strassen_crossover_n()`;
- 14. a smaller inversion with `leaf_solver="gauss_jordan"`, the path of
+ 15. a smaller inversion with `leaf_solver="gauss_jordan"`, the path of
      the scalar Gauss-Jordan kernel;
- 15. the dense LM serving path at full width and depth: granite-8b with
+ 16. the dense LM serving path at full width and depth: granite-8b with
      random weights from SEED, `prefill` of 4 prompts of 2048 tokens (36
      flash attention launches and no other kernel of the port), 32 greedy
      `decode_step`s from the padded cache, the decode logits of the first
      8 steps against `forward` over prompt plus those tokens, and a
      `ServingEngine` (4 slots, max_len 256) answering 8 requests, one of
      which must equal the same request served alone;
- 16. one JSON line with every path's times and residual, and one with
+ 17. one JSON line with every path's times and residual, and one with
      every kernel's launches, error and times (the GEMM's, blocked
      Gauss-Jordan's and triangular solve's launches on every path beside
      them).
@@ -147,6 +167,11 @@ SMW_RANK = 64                     # the SMW update's rank k
 SMW_BLOCK_ROW = 3                 # the block row replaced at bs = BLOCK_SIZE (rank 2 bs)
 CKPT_N, CKPT_BLOCK_SIZE = 4096, 512  # the checkpointed inversion (bounds the disk)
 CKPT_STOP = "0/VI"                # the node at which it is interrupted
+SERVICE_SLOTS = 8                 # SpinService slots: one tick coalesces them all
+SERVICE_REQUESTS, SERVICE_COLS = 8, 32  # requests a tick, columns a request (256 a tick)
+SERVICE_TICKS = 4                 # ticks timed on each serving path
+SERVICE_SIDE_N, SERVICE_SIDE_BLOCK_SIZE = 4096, 512  # residency, snapshots, degraded mode
+SERVICE_DEADLINE_S, SERVICE_STRAGGLE_S = 0.5, 2.0    # the solve deadline and the straggler
 
 LM_ARCH = "granite-8b"            # the LM serving path, full width and depth
 LM_BATCH, LM_SEQ = 4, 2048        # prefill: 4 prompts of 2048 tokens
@@ -680,7 +705,7 @@ def fused_strassen_leaves(grid: int, bs: int, cutoff: int) -> int:
 
 
 def run_crossover(torch) -> dict:
-    """Phase 9: the dense Strassen multiply with one split (cutoff n/2: 7
+    """Phase 14: the dense Strassen multiply with one split (cutoff n/2: 7
     B2 launches of (n/2)³ and 18 elementwise passes) against one B2 launch
     of n³, f32, timed in turns (B2, Strassen, Strassen, B2), beside the cost
     model's crossover."""
@@ -990,8 +1015,336 @@ def run_checkpoint(torch, a) -> dict:
             "node_bytes": node_bytes, "residual": res, "launches": launches}
 
 
+def run_service(torch, a, planned_plan: dict, smw: dict, reinvert_ms: float) -> dict:
+    """Phase 13: the online inverse server, `SpinService`, on the phase-4
+    matrix: admission (the phase-9 plan recalled from the plan file),
+    coalesced exact ticks, the maintained path after an SMW fold, rank-64
+    folds up to the refactor policy's crossover, a bf16 tenant, the
+    dashboard; side checks on the leading SERVICE_SIDE_N² block (residency,
+    snapshots, degraded mode); and a traced planned inversion. The launch
+    counts are read over the main drive (admission to the bf16 ticks); the
+    offline solves the answers are held to run after that."""
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.core import (PRECISION_PRESETS, spin_inverse_dense, spin_solve_dense,
+                                  verify)
+    from repro_torch.obs import TRACER, tracing
+    from repro_torch.obs import ledger as obs_ledger
+    from repro_torch.parallel import FaultPlan
+    from repro_torch.planner import RefactorPolicy, autotune
+    from repro_torch.serving import SpinService
+
+    dev, n = a.device, a.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rng = np.random.default_rng([SEED, 13])
+    bf16_bound = PRECISION_PRESETS["bf16"].bound(torch.float32)
+
+    def rank_k(rows: int, k: int):
+        # U Uᵀ with U = G/√n, as in phase 10: A + U Uᵀ stays SPD
+        return torch.from_numpy(rng.standard_normal((rows, k), dtype=np.float32)).to(dev) \
+            / rows ** 0.5
+
+    def drain(svc, mid: str, path: str, ticks: int) -> list[dict]:
+        """`ticks` ticks of SERVICE_REQUESTS requests of SERVICE_COLS
+        columns: each tick one coalesced batch, timed by CUDA events
+        (the host's finish_t stamps come before the kernels end)."""
+        out = []
+        for _ in range(ticks):
+            rhs = [torch.randn(n, SERVICE_COLS, generator=gen, device=dev)
+                   for _ in range(SERVICE_REQUESTS)]
+            reqs = [svc.solve(mid, b) for b in rhs]
+            batches = svc.stats["batches"]
+            before = kernels.launch_counts()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            svc.tick()
+            end.record()
+            end.synchronize()
+            ms = start.elapsed_time(end)
+            after = kernels.launch_counts()
+            require(all(r.done and not r.failed and r.path == path for r in reqs),
+                    f"spin_service {mid}: paths {[r.path for r in reqs]}, want {path}")
+            require(svc.stats["batches"] == batches + 1,
+                    f"spin_service {mid}: a tick ran {svc.stats['batches'] - batches} batches")
+            out.append({"rhs": torch.cat(rhs, dim=1), "x": torch.cat([r.x for r in reqs], dim=1),
+                        "residual_est": [r.residual_est for r in reqs], "ms": ms,
+                        "requests_per_s": SERVICE_REQUESTS / (ms / 1e3),
+                        "launches": {k: after[k] - before[k] for k in after}})
+        return out
+
+    def summary(ticks: list[dict]) -> dict:
+        return {"ms": [t["ms"] for t in ticks],
+                "requests_per_s": [t["requests_per_s"] for t in ticks],
+                "residual": [t["residual"] for t in ticks],
+                "residual_est": [None if t["residual_est"][0] is None else max(t["residual_est"])
+                                 for t in ticks]}
+
+    peaks = {}
+
+    def peak() -> float:
+        """GiB of device memory at the high-water mark since the last call."""
+        gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        torch.cuda.reset_peak_memory_stats()
+        return gib
+
+    torch.cuda.synchronize()
+    peaks["before"] = torch.cuda.memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+
+    # 1. admission: the phase-9 plan, recalled from the plan file (no ranking)
+    ranks = []
+    rank_plans = autotune.rank_plans
+    autotune.rank_plans = lambda *args, **kw: ranks.append(1) or rank_plans(*args, **kw)
+    try:
+        svc = SpinService(slots=SERVICE_SLOTS)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        st = svc.add_matrix("gram", a)
+        dispatch_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        admit_s = time.perf_counter() - t0
+    finally:
+        autotune.rank_plans = rank_plans
+    admit = kernels.launch_counts()
+    grid = n // st.block_size
+    print(f"path spin_service admit: plan={st.plan.to_dict()} ranked={len(ranks)} "
+          f"dispatch_s={dispatch_s!r} s={admit_s!r} launches={admit}", flush=True)
+    require(not ranks and st.plan.to_dict() == planned_plan,
+            f"spin_service: plan {st.plan.to_dict()} is not phase 9's {planned_plan}")
+    require((st.block_size, st.leaf_solver, st.engine) == (BLOCK_SIZE, "cuda", "cuda"),
+            f"spin_service: bs {st.block_size}, leaf {st.leaf_solver}, engine {st.engine}")
+    require((admit["schur_update"], admit["matmul"], admit["blocked_gauss_jordan"])
+            == (2 * (grid - 1), 4 * (grid - 1), grid), f"spin_service admit: {admit}")
+
+    peaks["admit"] = peak()
+
+    # 2. the exact path: each tick one coalesced 256-column solve (B2 + B5)
+    exact = drain(svc, "gram", "recursion", SERVICE_TICKS)
+    want = {"matmul": 2 * (grid - 1), "triangular_solve": 2 * grid, "schur_update": 0,
+            "blocked_gauss_jordan": 0}
+    for t in exact:
+        require(all(t["launches"][k] == v for k, v in want.items()),
+                f"spin_service exact tick: launches {t['launches']}, want {want}")
+
+    peaks["exact"] = peak()
+
+    # 3. the maintained path after one rank-64 SMW fold
+    up = svc.update("gram", rank_k(n, SMW_RANK))
+    svc.tick()
+    require(up.done and not up.refactored and up.reason == "smw",
+            f"spin_service: the first rank-{SMW_RANK} update gave {up.reason}")
+    maintained = drain(svc, "gram", "maintained", SERVICE_TICKS)
+    for t in maintained:      # no kernel of the port runs here: plain f32 products
+        t["residual"] = verify.solve_residual(st.a, t["x"], t["rhs"])
+    peaks["maintained"] = peak()
+
+    # 4. rank-64 folds until the refactor policy re-factorizes
+    folds = 1
+    while True:
+        up = svc.update("gram", rank_k(n, SMW_RANK))
+        svc.tick()
+        if up.refactored:
+            break
+        require(up.reason == "smw" and folds < 256, f"spin_service: update gave {up.reason}")
+        folds += 1
+    model_rank = RefactorPolicy().crossover_rank(n, a.dtype, step_rank=SMW_RANK,
+                                                 backend=dev.type)
+    smw_ms = min(smw["dense_k64"]["ms"])
+    print(f"path spin_service refactor: folds={folds} reason={up.reason} "
+          f"model_crossover_rank={model_rank} model_folds={model_rank // SMW_RANK - 1} "
+          f"phase10_rank64_ms={smw_ms!r} reinvert_ms={reinvert_ms!r} "
+          f"measured_folds={reinvert_ms / smw_ms!r}", flush=True)
+    require(up.reason == "crossover" and (folds + 1) * SMW_RANK == model_rank,
+            f"spin_service: refactored ({up.reason}) after {folds} folds, the policy's "
+            f"crossover is rank {model_rank}")
+    a2 = st.a
+    recovered = drain(svc, "gram", "recursion", 1)
+    peaks["refactor"] = peak()
+
+    # 5. a bf16 tenant on the same matrix, served from its bf16 inverse (B2's bf16 body)
+    lowp = svc.add_matrix("gram_bf16", a, precision="bf16")
+    require(lowp.inv.dtype == torch.bfloat16 and lowp.drift.residual_est <= bf16_bound,
+            f"spin_service bf16: {lowp.inv.dtype}, certified {lowp.drift.residual_est}")
+    bf16 = drain(svc, "gram_bf16", "maintained", SERVICE_TICKS)
+    for t in bf16:
+        require(t["launches"]["matmul"] == 1 and t["launches"]["triangular_solve"] == 0,
+                f"spin_service bf16 tick: launches {t['launches']}")
+        require(max(t["residual_est"]) <= bf16_bound,
+                f"spin_service bf16: residual_est {max(t['residual_est'])} > {bf16_bound}")
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    drive_s = time.perf_counter() - t_phase
+    peaks["bf16"] = peak()
+    for name in ("schur_update", "matmul", "blocked_gauss_jordan", "triangular_solve"):
+        require(launches[name] > 0, f"spin_service: {name} was never launched")
+
+    # the answers against the offline calls
+    for t in exact:
+        offline = spin_solve_dense(a, t["rhs"], st.block_size, st.leaf_solver,
+                                   engine=st.engine)
+        require(torch.equal(t["x"], offline),
+                "spin_service: a coalesced tick differs from the offline solve")
+        t["residual"] = verify.solve_residual(a, t["x"], t["rhs"])
+    offline = spin_solve_dense(a2, recovered[0]["rhs"], st.block_size, st.leaf_solver,
+                               engine=st.engine)
+    require(torch.equal(recovered[0]["x"], offline),
+            "spin_service: the tick after the refactor differs from the offline solve on A'")
+    recovered[0]["residual"] = verify.solve_residual(a2, recovered[0]["x"], recovered[0]["rhs"])
+    for t in bf16:
+        t["residual"] = verify.solve_residual(a, t["x"], t["rhs"])
+    del offline
+    paths = {"exact": summary(exact), "maintained": summary(maintained),
+             "recovered": summary(recovered), "bf16": summary(bf16)}
+    for label, bound in (("exact", RESIDUAL_BOUND), ("maintained", RESIDUAL_BOUND),
+                         ("recovered", RESIDUAL_BOUND), ("bf16", bf16_bound)):
+        print(f"path spin_service {label}: {paths[label]}", flush=True)
+        require(max(paths[label]["residual"]) <= bound,
+                f"spin_service {label}: residual {max(paths[label]['residual'])} > {bound}")
+
+    speedup = min(paths["maintained"]["ms"]) / min(paths["bf16"]["ms"])
+    print(f"path spin_service bf16_vs_f32_maintained: {speedup!r}x the requests a second",
+          flush=True)
+
+    # 6. the dashboard
+    m = svc.metrics()
+    dashboard = {stage: {q: 1e3 * m["latency_s"][stage][q] for q in ("p50", "p95", "p99")}
+                 for stage in ("queue_wait", "solve", "total")}
+    print(f"path spin_service dashboard (ms; dispatch latencies): {dashboard} "
+          f"counters={m['counters']} stats={m['stats']}", flush=True)
+
+    # 7. side checks on the leading block, in a temporary directory
+    a4 = a[:SERVICE_SIDE_N, :SERVICE_SIDE_N].contiguous()
+    b4 = a[SERVICE_SIDE_N:2 * SERVICE_SIDE_N, SERVICE_SIDE_N:2 * SERVICE_SIDE_N].contiguous()
+    rhs4 = torch.randn(SERVICE_SIDE_N, SERVICE_COLS, generator=gen, device=dev)
+    sbs = SERVICE_SIDE_BLOCK_SIZE
+
+    def serve(s, mid):
+        req = s.solve(mid, rhs4)
+        s.run_until_done()
+        require(req.done and not req.failed, f"spin_service side {mid}: {req.error}")
+        return req
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_service_")
+    try:
+        # residency: one resident matrix, two tenants served alternately
+        res = SpinService(slots=2, max_resident=1, spill_dir=root + "/spill")
+        res.add_matrix("r0", a4, block_size=sbs)
+        first = {"r0": serve(res, "r0").x}
+        res.add_matrix("r1", b4, block_size=sbs)
+        first["r1"] = serve(res, "r1").x
+        for mid in ("r0", "r1", "r0"):
+            require(torch.equal(serve(res, mid).x, first[mid]),
+                    f"spin_service residency: {mid}'s answer changed through its spill")
+        residency = {k: res.stats[k] for k in ("evictions", "rehydrations")}
+        require(residency == {"evictions": 4, "rehydrations": 3},
+                f"spin_service residency: {residency}")
+        del res, first
+
+        # snapshot / restore, and an async snapshot followed at once by an update
+        snap = SpinService(slots=2)
+        s4 = snap.add_matrix("s", a4, block_size=sbs)
+        u4 = rank_k(SERVICE_SIDE_N, 8)
+        snap.update("s", u4)
+        snap.run_until_done()
+        snap.snapshot(root + "/snap")
+        back = SpinService.restore(root + "/snap")
+        require(torch.equal(back.matrix("s").a, s4.a) and torch.equal(back.matrix("s").inv, s4.inv)
+                and torch.equal(serve(back, "s").x, serve(snap, "s").x),
+                "spin_service snapshot: restore changed the bits")
+        a_before, inv_before = s4.a.clone(), s4.inv.clone()
+        task = snap.snapshot_async(root + "/async")
+        snap.update("s", u4)
+        snap.run_until_done()
+        task.wait(120.0)
+        back = SpinService.restore(root + "/async").matrix("s")
+        require(s4.smw_applied == 2 and back.smw_applied == 1
+                and torch.equal(back.a, a_before) and torch.equal(back.inv, inv_before),
+                "spin_service snapshot_async: the capture saw the later update")
+        del snap, back, a_before, inv_before
+
+        # degraded mode: a straggler past the deadline, then its landing
+        plan = FaultPlan().inject_straggler(0, SERVICE_STRAGGLE_S)
+        deg = SpinService(slots=2, solve_deadline_s=SERVICE_DEADLINE_S, fault_plan=plan)
+        d4 = deg.add_matrix("d", a4, block_size=sbs)
+        before = kernels.launch_counts()["matmul"]
+        reqs = [deg.solve("d", rhs4[:, i]) for i in range(3)]
+        deg.run_until_done()
+        sketch_launches = kernels.launch_counts()["matmul"] - before
+        degraded = {"paths": [r.path for r in reqs],
+                    "residual_est": [r.residual_est for r in reqs],
+                    "tolerance": d4.drift.tolerance, "sweeps": d4.sketch.sweeps,
+                    "b2_launches": sketch_launches,
+                    "shard_timeouts": deg.stats["shard_timeouts"]}
+        require(all(r.done and r.path == "degraded" and r.residual_est <= d4.drift.tolerance
+                    for r in reqs) and deg.stats["shard_timeouts"] == 1
+                and sketch_launches == 2 * d4.sketch.sweeps > 0,
+                f"spin_service degraded: {degraded}")
+        d4.background.wait(120.0)
+        plan.stragglers.clear()
+        r = serve(deg, "d")
+        offline = spin_solve_dense(a4, rhs4, sbs, d4.leaf_solver, engine=d4.engine)
+        degraded["recovered_path"] = r.path
+        require(r.path == "recursion" and not d4.degraded and deg.stats["recoveries"] == 1
+                and torch.equal(r.x, offline),
+                f"spin_service degraded: after the landing path {r.path}")
+        # a transient failure, retried once
+        rt = SpinService(slots=2, solve_deadline_s=30.0,
+                         fault_plan=FaultPlan().inject_failure(0, count=1))
+        rt.add_matrix("t", a4, block_size=sbs)
+        r = serve(rt, "t")
+        degraded["retries"] = rt.stats["retries"]
+        require(r.path == "recursion" and rt.stats["retries"] == 1,
+                f"spin_service retry: path {r.path}, retries {rt.stats['retries']}")
+        print(f"path spin_service side: n={SERVICE_SIDE_N} bs={sbs} residency={residency} "
+              f"degraded={degraded}", flush=True)
+        del deg, rt, offline
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    del a4, b4, rhs4
+    peaks["side"] = peak()
+
+    # 8. tracing: one planned inversion at n, and a short drain
+    with tracing(True, clear=True):
+        spin_inverse_dense(a)
+        nodes = (len(TRACER.spans(kind="recursion_level", name="spin.level")),
+                 len(TRACER.spans(kind="recursion_level", name="spin.leaf")))
+        plans = TRACER.spans(kind="planner_decision", name="planner.plan")
+        ledger_spans = TRACER.spans(kind="cost_ledger", name="ledger.solve")
+        drain(svc, "gram", "recursion", 2)
+        ticks = TRACER.spans(kind="serve_tick", name="serve.tick")
+    TRACER.clear()
+    entry = obs_ledger.ledger().entries("inverse")[-1]
+    traced = {"spin_level": nodes[0], "spin_leaf": nodes[1], "planner_plan": len(plans),
+              "ledger_solve": len(ledger_spans), "serve_tick": len(ticks),
+              "predicted_s": entry.predicted_s, "measured_s": entry.measured_s,
+              "predicted_over_measured": entry.ratio}
+    print(f"path spin_service traced: {traced}", flush=True)
+    require(nodes == (grid - 1, grid) and len(plans) == 1 and len(ledger_spans) == 1
+            and len(ticks) == 2 and entry.n == n and entry.ratio,
+            f"spin_service traced: {traced}")
+    peaks["traced"] = peak()
+    phase_s = time.perf_counter() - t_phase
+    print(f"path spin_service: drive_s={drive_s!r} phase_s={phase_s!r} "
+          f"peak_gib={peaks!r} launches={launches}", flush=True)
+    del svc, st, lowp, exact, maintained, recovered, bf16, a2
+    return {"n": n, "block_size": BLOCK_SIZE, "slots": SERVICE_SLOTS,
+            "requests_per_tick": SERVICE_REQUESTS, "cols_per_request": SERVICE_COLS,
+            "plan": planned_plan, "admit": {"dispatch_s": dispatch_s, "s": admit_s,
+                                            "launches": admit},
+            **paths, "bf16_over_f32_maintained": speedup,
+            "refactor": {"folds": folds, "model_crossover_rank": model_rank,
+                         "phase10_rank64_ms": smw_ms, "reinvert_ms": reinvert_ms},
+            "dashboard_ms": dashboard, "stats": m["stats"],
+            "residency": residency, "degraded": degraded, "traced": traced,
+            "drive_s": drive_s, "phase_s": phase_s, "peak_gib": peaks,
+            "launches": launches}
+
+
 def run_lm(torch, rng, cfg, dev) -> dict:
-    """Phase 8: the dense LM serving path, `cfg` on `dev`."""
+    """Phase 16: the dense LM serving path, `cfg` on `dev`."""
     import numpy as np
     import torch.nn.functional as F
     from repro_torch import kernels
@@ -1277,7 +1630,11 @@ def main() -> int:
     plan_run = run_planner(torch, a, rhs, n)
     x_planned = plan_run.pop("x")
     # 10. the SMW update of that inverse, and the refactor crossover
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     smw = run_smw(torch, a, x_planned, rhs, min(plan_run["planned"]["ms"]))
+    smw["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"path smw: peak_gib={smw['peak_gib']!r}", flush=True)
     del x_planned, rhs
     gc.collect()
     torch.cuda.empty_cache()
@@ -1287,15 +1644,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     # 12. checkpoint and resume at n = CKPT_N, and the block-matrix files
     ckpt = run_checkpoint(torch, a)
+    # 13. the online inverse server on the same matrix
+    service = run_service(torch, a, plan_run["planned"]["plan"], smw,
+                          min(plan_run["planned"]["ms"]))
     del a
     gc.collect()
     torch.cuda.empty_cache()
 
-    # 13. where one Strassen split pays on the card: the dense recursion cut
+    # 14. where one Strassen split pays on the card: the dense recursion cut
     # at n/2 (7 GEMM launches and 18 add passes) against one GEMM launch
     crossover = run_crossover(torch)
 
-    # 14. the scalar Gauss-Jordan leaf's path
+    # 15. the scalar Gauss-Jordan leaf's path
     gn, gbs = GJ_N, GJ_BLOCK_SIZE
     ggrid = gn // gbs
     a_gj = testing.make_spd(gn, rng, device="cuda")
@@ -1310,7 +1670,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # 15. the dense LM serving path
+    # 16. the dense LM serving path
     lm = run_lm(torch, rng, lm_cfg, torch.device("cuda"))
     gc.collect()
     torch.cuda.empty_cache()
@@ -1342,7 +1702,7 @@ def main() -> int:
         "spin_solve_planned": {"n": n, "n_rhs": N_RHS, "plan": plan_run["solve"]["plan"],
                                "ms": plan_run["solve"]["ms"],
                                "residual": plan_run["solve"]["residual"]},
-        "smw": smw, "sketched": sketched, "checkpoint": ckpt,
+        "smw": smw, "sketched": sketched, "checkpoint": ckpt, "spin_service": service,
         "strassen_crossover": crossover,
         "spin_gauss_jordan": {"n": gn, "block_size": gbs, "ms": gjp["ms"],
                               "residual": gjp["residual"]},
@@ -1350,7 +1710,7 @@ def main() -> int:
         "lm_serve": lm["lm_serve"]},
         "card": card}), flush=True)
 
-    # 16. the kernels line
+    # 17. the kernels line
     rows = []
     gemm_body = "gemm_tc: pack pre-pass, then 3xTF32 wgmma on a TMA ring (f32)"
     report["schur_update"]["body"] = report["matmul"]["body"] = gemm_body
@@ -1381,7 +1741,7 @@ def main() -> int:
                 ("spin_bf16", polished), ("spin_solve_bf16", solve_bf16),
                 ("spin_strassen", strassen), ("spin_planned", plan_run["planned"]),
                 ("spin_solve_planned", plan_run["solve"]), ("sketched", sketched),
-                ("checkpoint", ckpt))}
+                ("checkpoint", ckpt), ("spin_service", service))}
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": path["launches"][name], **r})
     print(json.dumps({"kernels": rows}), flush=True)

@@ -14,7 +14,11 @@ keeps its plans in a file of its own. A maintained inverse takes low-rank
 changes through the SMW update (`core.update`), a degraded-mode answer
 comes from the sketched inverse, and long inversions checkpoint and resume
 (`core.solver_ckpt`, `core.matrix_io`, in the JAX package's on-disk
-layout). On the language-model
+layout). `serving.SpinService` serves solves against maintained inverses
+held on the card (coalesced batches, SMW updates, admission control,
+residency, degraded mode, snapshots), and `obs` traces the recursion, the
+planner and the service (spans, metrics registry, flight recorder, cost
+ledger). On the language-model
 side it serves the dense family: `configs` (`get_arch`), `models`
 (`transformer.init_params`, `forward`, `prefill`, `init_cache`,
 `decode_step`), `serving.ServingEngine` and `launch.serve`, with the
@@ -32,6 +36,7 @@ from .core import (BlockMatrix, CheckpointedSpin, DriftTracker, OpCounts,
                    save_blockmatrix, sketched_approx_inverse,
                    smw_update_inverse, smw_update_solve, spin_inverse,
                    spin_inverse_dense, spin_solve, spin_solve_dense)
+from .serving import SpinService
 
 __all__ = ["resolve_device", "BlockMatrix", "OpCounts", "count_ops",
            "multiply_engine", "spin_inverse", "spin_inverse_dense",
@@ -41,4 +46,4 @@ __all__ = ["resolve_device", "BlockMatrix", "OpCounts", "count_ops",
            "add_low_rank", "block_update_factors", "DriftTracker",
            "estimate_inverse_residual", "SketchedInverse",
            "sketched_approx_inverse", "CheckpointedSpin",
-           "save_blockmatrix", "load_blockmatrix"]
+           "save_blockmatrix", "load_blockmatrix", "SpinService"]

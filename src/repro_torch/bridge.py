@@ -17,7 +17,7 @@ from .core.blockmatrix import BlockMatrix, OpCounts
 from .device import DEFAULT_DEVICE, resolve_device
 
 __all__ = ["to_torch", "to_numpy", "blockmatrix_from_numpy",
-           "op_counts_from_dict", "plan_from_reference",
+           "op_counts_from_dict", "port_name", "plan_from_reference",
            "lm_params_from_numpy", "lm_params_to_numpy"]
 
 # The JAX package's names of a leaf solver or engine where the port's differ.
@@ -58,6 +58,12 @@ def op_counts_from_dict(d: Mapping[str, int]) -> OpCounts:
     return OpCounts(**dict(d))
 
 
+def port_name(name):
+    """The port's name of a JAX-package leaf solver or engine ("pallas" ->
+    "cuda"); other names, and None, pass through."""
+    return _PORT_NAMES.get(name, name)
+
+
 def plan_from_reference(d: Mapping):
     """A plan of the JAX package's planner (`Plan.to_dict()`) -> the port's
     `planner.Plan`: its Pallas leaf and engine become the port's CUDA
@@ -66,8 +72,8 @@ def plan_from_reference(d: Mapping):
     from .planner import Plan
 
     d = dict(d)
-    d["leaf_solver"] = _PORT_NAMES.get(d.get("leaf_solver"), d.get("leaf_solver"))
-    engine = _PORT_NAMES.get(d.get("multiply_engine"), d.get("multiply_engine"))
+    d["leaf_solver"] = port_name(d.get("leaf_solver"))
+    engine = port_name(d.get("multiply_engine"))
     if engine not in ENGINES:
         raise ValueError(f"engine {engine!r} is not ported; the port has {ENGINES}")
     d["multiply_engine"] = engine

@@ -32,9 +32,10 @@ import torch
 
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..kernels.leaf_inverse import ops as gj_ops
+from ..obs.trace import TRACER as _TRACER
 from .blockmatrix import BlockMatrix, _bump
-from .multiply import (multiply, multiply_engine, multiply_subtract,
-                       subtract_multiply, validate_engine)
+from .multiply import (current_engine, multiply, multiply_engine,
+                       multiply_subtract, subtract_multiply, validate_engine)
 from .newton_schulz import newton_schulz_polish
 from .precision import (_dtype_name, resolve_precision,
                         resolve_with_legacy_kwarg, torch_dtype)
@@ -119,7 +120,8 @@ def _lowp_inverse_blocks(a: BlockMatrix, leaf_solver: str,
 
 
 def spin_inverse(a: BlockMatrix, *, leaf_solver: str = "linalg",
-                 auto: bool = False, precision=None) -> BlockMatrix:
+                 auto: bool = False, precision=None,
+                 _level: int = 0) -> BlockMatrix:
     """Strassen inversion of a BlockMatrix (grid must be 2^m), on the
     device its blocks lie on, with the ambient multiply engine.
 
@@ -129,6 +131,11 @@ def spin_inverse(a: BlockMatrix, *, leaf_solver: str = "linalg",
     None) runs the recursion at the policy's compute dtype, polishes in
     f32 and returns blocks at the policy's store dtype; None and "exact"
     are bitwise the plain call.
+
+    `_level` carries the recursion depth to the span tracer (`obs.trace`):
+    under $SPIN_TRACE each internal node emits a "spin.level" span and
+    each leaf a "spin.leaf" event, of kind "recursion_level", on every
+    call. Off, a node pays one attribute read.
     """
     if auto:
         from ..planner import planned_leaf_solver
@@ -143,23 +150,38 @@ def spin_inverse(a: BlockMatrix, *, leaf_solver: str = "linalg",
     if b & (b - 1):
         raise ValueError(f"grid must be a power of two, got {b}")
     if b == 1:
+        if _TRACER.enabled:
+            _TRACER.event("spin.leaf", "recursion_level", level=_level,
+                          grid=1, op="leaf", solver=leaf_solver,
+                          block_size=a.block_size,
+                          dtype=_dtype_name(a.blocks.dtype))
         return leaf_inverse(a, solver=leaf_solver)
 
-    a11, a12, a21, a22 = a.split()
-    i_ = spin_inverse(a11, leaf_solver=leaf_solver)     # I   = A11^-1
-    ii = multiply(a21, i_)                              # II  = A21 I
-    iii = multiply(i_, a12)                             # III = I A12
-    # IV = A21·III and V = IV − A22 as ONE fused Schur update: one kernel
-    # under engine="cuda", multiply-then-subtract under "einsum". Op counts
-    # book 1 multiply + 1 subtract either way.
-    v = multiply_subtract(a21, iii, a22)
-    vi = spin_inverse(v, leaf_solver=leaf_solver)       # VI  = V^-1
-    c12 = multiply(iii, vi)
-    c21 = multiply(vi, ii)
-    # VII = III·C21 and C11 = I − VII, same fused contract.
-    c11 = subtract_multiply(i_, iii, c21)
-    c22 = vi.neg()                                      # scalarMul(VI, -1)
-    return BlockMatrix.arrange(c11, c12, c21, c22)
+    if _TRACER.enabled:
+        span_ctx = _TRACER.span(
+            "spin.level", "recursion_level", level=_level, grid=b,
+            op="inverse_node", block_size=a.block_size,
+            dtype=_dtype_name(a.blocks.dtype), engine=current_engine())
+    else:
+        span_ctx = contextlib.nullcontext()
+    with span_ctx:
+        a11, a12, a21, a22 = a.split()
+        i_ = spin_inverse(a11, leaf_solver=leaf_solver,
+                          _level=_level + 1)              # I   = A11^-1
+        ii = multiply(a21, i_)                            # II  = A21 I
+        iii = multiply(i_, a12)                           # III = I A12
+        # IV = A21·III and V = IV − A22 as ONE fused Schur update: one
+        # kernel under engine="cuda", multiply-then-subtract under
+        # "einsum". Op counts book 1 multiply + 1 subtract either way.
+        v = multiply_subtract(a21, iii, a22)
+        vi = spin_inverse(v, leaf_solver=leaf_solver,
+                          _level=_level + 1)              # VI  = V^-1
+        c12 = multiply(iii, vi)
+        c21 = multiply(vi, ii)
+        # VII = III·C21 and C11 = I − VII, same fused contract.
+        c11 = subtract_multiply(i_, iii, c21)
+        c22 = vi.neg()                                    # scalarMul(VI, -1)
+        return BlockMatrix.arrange(c11, c12, c21, c22)
 
 
 def spin_inverse_dense(dense, block_size: int | None = None,

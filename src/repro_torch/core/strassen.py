@@ -27,7 +27,9 @@ elementwise torch ops.
 Op accounting: each split level adds 18 to `strassen_adds` and each
 classical leaf 1 to `strassen_base_multiplies`, the counts that
 `verify.expected_strassen_counts` predicts; the Algorithm-2 counters
-(multiplies, subtracts, ...) do not see the engine.
+(multiplies, subtracts, ...) do not see the engine. Under $SPIN_TRACE
+the grid variant emits a "strassen.split" event a split and a
+"strassen.base" event a classical leaf (kind "strassen_level").
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from typing import Callable
 
 import torch
 
+from ..obs.trace import TRACER as _TRACER
 from .blockmatrix import _bump
 from .costmodel import STRASSEN_CUTOFF
 
@@ -127,7 +130,14 @@ def strassen_matmul_blocks(a: torch.Tensor, b: torch.Tensor, *,
     g, bs = a.shape[0], a.shape[2]
     if g == 1 or g * bs <= cutoff:
         _bump("strassen_base_multiplies")
+        if _TRACER.enabled:
+            _TRACER.event("strassen.base", "strassen_level", grid=g,
+                          block_size=bs, n=g * bs, op="classical_leaf")
         return (base or _default_base_blocks)(a, b)
+    if _TRACER.enabled:
+        _TRACER.event("strassen.split", "strassen_level", grid=g,
+                      block_size=bs, n=g * bs, cutoff=cutoff,
+                      op="seven_multiply_split")
     if g % 2:
         out = strassen_matmul_blocks(_pad_grid(a), _pad_grid(b),
                                      cutoff=cutoff, base=base)

@@ -24,7 +24,9 @@ full-size multiplies per sweep.
 picks the fastest, the paper's Fig. 4 theory-against-practice loop.
 Measurements along the backend's base axis (leaf and engine at rate 1)
 feed `fit_scale`, and the fitted constants are kept in the cache so the
-next problem size is priced with them.
+next problem size is priced with them. Under $SPIN_TRACE a ranking emits
+a "planner.rank" event and a measured choice a "planner.measure" event
+(kind "planner_decision").
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ import torch
 
 from ..core.costmodel import (DTYPE_BYTES, CostParams, apply_inverse_cost,
                               fit_scale, spin_cost, strassen_cost)
+from ..obs.trace import TRACER as _TRACER
 from .plan import Plan, ProblemSignature
 
 __all__ = ["predict_cost", "rank_plans", "measure_plan", "measure_plans",
@@ -245,6 +248,16 @@ def autotune(sig: ProblemSignature, candidates: list[Plan], *,
     """
     ranked = rank_plans(sig, candidates, calibration)
     if not measure:
+        if _TRACER.enabled:
+            _TRACER.event(
+                "planner.rank", "planner_decision", sig=sig.key(),
+                decision="costmodel", candidates=len(candidates),
+                chosen=ranked[0].to_dict(),
+                modeled_top=[{"block_size": p.block_size,
+                              "engine": p.multiply_engine,
+                              "leaf_solver": p.leaf_solver,
+                              "predicted_s": p.predicted_s}
+                             for p in ranked[:4]])
         return ranked[0], None
 
     short = ranked if top_k is None else ranked[:max(top_k, 1)]
@@ -265,4 +278,16 @@ def autotune(sig: ProblemSignature, candidates: list[Plan], *,
         fit = fit_scale(spin_cost, pts, n=sig.n, cores=sig.cores)
         new_calib = {"t_flop": fit.t_flop, "t_leaf": fit.t_leaf,
                      "t_block_op": fit.t_block_op, "t_elem": fit.t_elem}
+    if _TRACER.enabled:
+        _TRACER.event(
+            "planner.measure", "planner_decision", sig=sig.key(),
+            decision="measured", candidates=len(candidates),
+            measured=len(short), behavior_groups=len(uniq),
+            chosen=best.to_dict(), calibrated=new_calib is not None,
+            microbench=[{"block_size": p.block_size,
+                         "engine": p.multiply_engine,
+                         "leaf_solver": p.leaf_solver,
+                         "predicted_s": p.predicted_s,
+                         "measured_s": p.measured_s}
+                        for p in timed])
     return best, new_calib

@@ -10,11 +10,19 @@ A plan is chosen for the backend of the device the operands lie on, so a
 tensor on the CPU is planned with the CPU's pricing and one on the card
 with the card's. `planned_block_size` never measures and memoizes per
 process.
+
+Under $SPIN_TRACE `get_plan` emits a "planner.plan" event (a cache hit or
+a fresh choice), and `plan_inverse` / `plan_solve` run inside a
+"plan.inverse" / "plan.solve" span, synchronise the device to take the
+call's wall time, and record it beside the plan's modeled time in the
+cost ledger (`obs.ledger`, a "ledger.solve" event). Untraced calls never
+synchronise.
 """
 
 from __future__ import annotations
 
 import functools
+import time
 
 import torch
 
@@ -22,6 +30,7 @@ from ..core.blockmatrix import BlockMatrix
 from ..core.multiply import multiply_engine
 from ..core.newton_schulz import newton_schulz_polish
 from ..core.precision import _dtype_name, resolve_precision, torch_dtype
+from ..obs.trace import TRACER as _TRACER
 from .autotune import autotune as _autotune_plans
 from .cache import PlanCache, default_cache, default_cache_path
 from .plan import Plan, default_backend, enumerate_plans, signature_for
@@ -77,6 +86,10 @@ def get_plan(kind: str, n: int, dtype=torch.float32, *,
     cached = cache.get(sig)
     if cached is not None and not force_replan:
         if not (do_measure and cached.source == "costmodel"):
+            if _TRACER.enabled:
+                _TRACER.event("planner.plan", "planner_decision",
+                              sig=sig.key(), decision="cache_hit",
+                              plan=cached.to_dict())
             return cached
 
     candidates = enumerate_plans(sig, **enumerate_kw)
@@ -89,6 +102,11 @@ def get_plan(kind: str, n: int, dtype=torch.float32, *,
     cache.put(sig, plan)
     if calib:
         cache.put_calibration(sig, calib)
+    if _TRACER.enabled:
+        _TRACER.event("planner.plan", "planner_decision", sig=sig.key(),
+                      decision="autotuned", measured=do_measure,
+                      candidates=len(candidates), plan=plan.to_dict(),
+                      calibrated=calib is not None)
     return plan
 
 
@@ -161,6 +179,47 @@ def execute_solve(plan: Plan, dense: torch.Tensor, rhs: torch.Tensor
 # ---------------------------------------------------------------------------
 
 
+def _traced(kind: str, plan: Plan, dense: torch.Tensor, run):
+    """Run one planned call inside its span, synchronised so that the wall
+    time is the device's, and record modeled against measured seconds in
+    the cost ledger. Only called under $SPIN_TRACE."""
+    with _TRACER.span(f"plan.{kind}", "solve", n=int(dense.shape[0]),
+                      block_size=plan.block_size,
+                      engine=plan.multiply_engine):
+        _synchronize(dense.device)
+        t0 = time.perf_counter()
+        out = run()
+        _synchronize(dense.device)
+        _ledger_record(kind, plan, dense, time.perf_counter() - t0)
+    return out
+
+
+def _ledger_record(kind: str, plan: Plan, dense: torch.Tensor,
+                   measured_s: float) -> None:
+    """One traced planned call into the cost ledger. The prediction is the
+    plan's own `predicted_s` when the autotuner annotated it, else
+    `predict_cost` under the call's signature: both are Lemma 4.1."""
+    from ..obs import ledger as obs_ledger
+    from .autotune import predict_cost
+
+    n = int(dense.shape[0])
+    sig = signature_for(kind, n, dense.dtype, backend=dense.device.type)
+    pred = plan.predicted_s
+    if pred is None:
+        pred = predict_cost(sig, plan)
+    entry = obs_ledger.ledger().record_solve(
+        kind=kind, n=n, plan=plan, backend=sig.backend, dtype=sig.dtype,
+        measured_s=measured_s, predicted_s=pred)
+    attrs = entry.to_dict()
+    attrs["solve_kind"] = attrs.pop("kind")    # "kind" names the span kind
+    _TRACER.event("ledger.solve", "cost_ledger", **attrs)
+
+
+def _synchronize(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 def plan_inverse(dense: torch.Tensor, *, plan: Plan | None = None,
                  measure: bool | str = "auto",
                  cache: PlanCache | None = None,
@@ -169,13 +228,18 @@ def plan_inverse(dense: torch.Tensor, *, plan: Plan | None = None,
 
     Equivalent to `spin_inverse_dense(dense, p.block_size, p.leaf_solver,
     engine=p.multiply_engine)`, bit for bit when `p` has no refinement
-    stage. The plan is priced for the device `dense` lies on.
+    stage. The plan is priced for the device `dense` lies on. A traced
+    call synchronises and records its time in the cost ledger.
     """
     if plan is None:
         plan = get_plan("inverse", dense.shape[0], dense.dtype,
                         measure=measure, cache=cache,
                         backend=dense.device.type, **plan_kw)
-    out = execute_inverse(plan, dense)
+    if _TRACER.enabled:
+        out = _traced("inverse", plan, dense,
+                      lambda: execute_inverse(plan, dense))
+    else:
+        out = execute_inverse(plan, dense)
     return (out, plan) if return_plan else out
 
 
@@ -188,7 +252,11 @@ def plan_solve(dense: torch.Tensor, rhs: torch.Tensor, *,
         plan = get_plan("solve", dense.shape[0], dense.dtype,
                         measure=measure, cache=cache,
                         backend=dense.device.type, **plan_kw)
-    out = execute_solve(plan, dense, rhs)
+    if _TRACER.enabled:
+        out = _traced("solve", plan, dense,
+                      lambda: execute_solve(plan, dense, rhs))
+    else:
+        out = execute_solve(plan, dense, rhs)
     return (out, plan) if return_plan else out
 
 

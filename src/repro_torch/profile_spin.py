@@ -7,6 +7,7 @@
     PYTHONPATH=src python -m repro_torch.profile_spin --bf16           # bf16 preset
     PYTHONPATH=src python -m repro_torch.profile_spin --strassen       # Strassen engine
     PYTHONPATH=src python -m repro_torch.profile_spin --sweep          # block-size sweep
+    PYTHONPATH=src python -m repro_torch.profile_spin --service --calls 4   # SpinService ticks
 
 Runs `spin_inverse_dense(engine="cuda", leaf_solver="cuda")` at n = 16384,
 block size 1024, f32, on a `make_spd` matrix (seed 0); with `--solve`
@@ -35,20 +36,35 @@ one B2 launch at each product size the recursions run, and the
 inversion at block size 1024 under the einsum engine, and prints one JSON
 line: the measurements the planner's card constants
 (`planner.autotune.CUDA_CONSTANTS`) are fitted to.
+
+`--service` traces `SpinService` ticks at n = 16384 (block size 1024, the
+`cuda` leaf and engine, 8 slots), as `chip_smoke.py` drives them: each
+tick serves 8 requests of 32 standard-normal columns, coalesced into one
+256-column batch. After one warm-up tick, `--calls` exact-path ticks (one
+`spin_solve_dense` each) are timed by CUDA events and then traced; after
+one rank-64 SMW update, as many maintained-path ticks (one product against
+the maintained inverse). Each tick is a range of its own ("tick.exact#i",
+"tick.maintained#i"), the requests submitted outside it, and it prints
+the same breakdown as above for each. The plan file lies in a temporary
+directory unless $SPIN_PLAN_CACHE names one.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
+import shutil
+import tempfile
 from pathlib import Path
 
 import numpy as np
 import torch
 
-__all__ = ["device_breakdown", "sweep", "main"]
+__all__ = ["device_breakdown", "sweep", "service_ticks", "main"]
 
 N, BLOCK_SIZE, N_RHS, SEED = 16384, 1024, 256, 0
+SERVICE_SLOTS, SERVICE_COLS, SMW_RANK = 8, 32, 64
 GJ_N, GJ_BLOCK_SIZE = 2048, 128
 SWEEP_BLOCK_SIZES = (256, 512, 1024, 2048, 4096, 8192, 16384)
 TRACE_DIR = Path(__file__).resolve().parents[2] / "build" / "profile_spin"
@@ -154,6 +170,65 @@ def sweep(calls: int) -> dict:
             "einsum_engine_ms": {BLOCK_SIZE: einsum_ms}}
 
 
+def _tick_ranges(svc, gen, label: str, calls: int, prof=None) -> list[float]:
+    """`calls` ticks of SERVICE_SLOTS requests on `svc`, each in a range of
+    its own under `prof`, or timed by CUDA events without it."""
+    out = []
+    for i in range(calls):
+        for _ in range(SERVICE_SLOTS):
+            svc.solve("gram", torch.randn(N, SERVICE_COLS, generator=gen, device="cuda"))
+        torch.cuda.synchronize()
+        if prof is None:
+            start, stop = (torch.cuda.Event(enable_timing=True),
+                           torch.cuda.Event(enable_timing=True))
+            start.record()
+            svc.tick()
+            stop.record()
+            stop.synchronize()
+            out.append(start.elapsed_time(stop))
+        else:
+            with torch.profiler.record_function(f"tick.{label}#{i}"):
+                svc.tick()
+                torch.cuda.synchronize()
+    return out
+
+
+def service_ticks(calls: int) -> list[dict]:
+    """Trace the service's exact-path and maintained-path ticks; one report
+    a tick (see the module docstring)."""
+    from .core import testing
+    from .serving import SpinService
+
+    rng = np.random.default_rng(SEED)
+    a = testing.make_spd(N, rng, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    svc = SpinService(slots=SERVICE_SLOTS)
+    svc.add_matrix("gram", a, block_size=BLOCK_SIZE, leaf_solver="cuda", engine="cuda")
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    TRACE_DIR.mkdir(parents=True, exist_ok=True)
+    reports = []
+    for label in ("exact", "maintained"):
+        if label == "maintained":
+            u = torch.from_numpy(rng.standard_normal((N, SMW_RANK), dtype=np.float32))
+            svc.update("gram", u.cuda() / N ** 0.5)
+        _tick_ranges(svc, gen, label, 1)                           # warm-up
+        wall = _tick_ranges(svc, gen, label, calls)
+        with torch.profiler.profile(activities=acts) as prof:
+            _tick_ranges(svc, gen, label, calls, prof)
+        path = TRACE_DIR / f"spin_service_{label}.json"
+        prof.export_chrome_trace(str(path))
+        trace = json.loads(path.read_text())
+        for i in range(calls):
+            report = device_breakdown(trace, f"tick.{label}#{i}")
+            report.update(call=f"tick.{label}#{i}",
+                          path="recursion" if label == "exact" else label,
+                          n=N, block_size=BLOCK_SIZE, requests=SERVICE_SLOTS,
+                          cols=SERVICE_SLOTS * SERVICE_COLS, untraced_wall_ms=wall[i],
+                          device=torch.cuda.get_device_name(0), trace=str(path))
+            reports.append(report)
+    return reports
+
+
 def main(argv=None) -> int:
     from .core import lu_inverse_dense, spin_inverse_dense, spin_solve_dense, testing
     from .kernels import build
@@ -173,6 +248,8 @@ def main(argv=None) -> int:
                        help="trace the inversion under engine='strassen'")
     which.add_argument("--sweep", action="store_true",
                        help="time the inversion at every block size (no trace)")
+    which.add_argument("--service", action="store_true",
+                       help="trace SpinService's exact-path and maintained-path ticks")
     parser.add_argument("--calls", type=int, default=1,
                         help="calls timed, and calls traced, after the warm-up")
     args = parser.parse_args(argv)
@@ -182,6 +259,24 @@ def main(argv=None) -> int:
     if args.sweep:
         build.build_all(("matmul", "leaf_inverse"))
         print(json.dumps(sweep(args.calls)))
+        return 0
+    if args.service:
+        plan_dir = None
+        if "SPIN_PLAN_CACHE" not in os.environ:
+            plan_dir = tempfile.mkdtemp(prefix="profile_spin_plans_")
+            os.environ["SPIN_PLAN_CACHE"] = os.path.join(plan_dir, "plans.json")
+        try:
+            for report in service_ticks(args.calls):
+                print(f"{report['call']}: span {report['span_ms']:.3f} ms, busy "
+                      f"{report['busy_ms']:.3f} ms, idle share {report['idle_share']:.4f}; "
+                      f"untraced wall {report['untraced_wall_ms']:.3f} ms")
+                for r in report["groups"][:6]:
+                    print(f"{r['device_ms']:10.3f} ms {r['count']:5d}x  {r['category']:10s} "
+                          f"grid {r['grid'] or '-':>10s}  {r['name'][:80]}")
+                print(json.dumps(report))
+        finally:
+            if plan_dir is not None:
+                shutil.rmtree(plan_dir, ignore_errors=True)
         return 0
     build.build_all()
     rng = np.random.default_rng(SEED)

@@ -803,3 +803,47 @@ def test_checkpoint_resume_on_the_card_is_bit_identical(cuda_device, tmp_path):
     assert resumed.loaded_ops > 0
     assert x.device.type == "cuda" and torch.equal(x.blocks, whole.blocks)
     assert verify.inverse_residual(a, x.to_dense()) < 1e-3
+
+
+def test_spin_service_on_the_card(cuda_device, tmp_path, monkeypatch):
+    """SpinService at n = 2048 on the card: the planned factorization
+    launches B1, B2 and B3 as the plan implies, a coalesced tick is one
+    solve (B2 + B5) bitwise the offline call, and a bf16 tenant serves
+    within its preset's bound on B2's bf16 body."""
+    from repro_torch.serving import SpinService
+
+    monkeypatch.setenv("SPIN_PLAN_CACHE", str(tmp_path / "plans.json"))
+    n = 2048
+    a = testing.make_spd(n, np.random.default_rng(13), device=cuda_device)
+    svc = SpinService(slots=4)
+    kernels.reset_launch_counts()
+    st = svc.add_matrix("m", a)
+    grid = n // st.block_size
+    assert (st.leaf_solver, st.engine) == ("cuda", "cuda")
+    got = kernels.launch_counts()
+    assert (got["schur_update"], got["matmul"], got["blocked_gauss_jordan"]) == \
+        (2 * (grid - 1), 4 * (grid - 1), grid)
+
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    cols = [torch.randn(n, 8, generator=g, device=cuda_device) for _ in range(4)]
+    kernels.reset_launch_counts()
+    reqs = [svc.solve("m", c) for c in cols]
+    svc.tick()
+    got = kernels.launch_counts()
+    assert (got["triangular_solve"], got["matmul"], got["schur_update"]) == \
+        (2 * grid, 2 * (grid - 1), 0)
+    assert all(r.path == "recursion" for r in reqs)
+    b = torch.cat(cols, dim=1)
+    offline = spin_solve_dense(a, b, st.block_size, "cuda", engine="cuda")
+    assert torch.equal(torch.cat([r.x for r in reqs], dim=1), offline)
+    assert verify.solve_residual(a, offline, b) < 1e-3
+
+    bound = PRECISION_PRESETS["bf16"].bound(torch.float32)
+    lowp = svc.add_matrix("m16", a, precision="bf16")
+    assert lowp.inv.dtype == torch.bfloat16
+    kernels.reset_launch_counts()
+    r = svc.solve("m16", b)
+    svc.tick()
+    assert r.path == "maintained" and r.residual_est <= bound
+    assert kernels.launch_counts()["matmul"] == 1       # the bf16 serve product
+    assert verify.solve_residual(a, r.x, b) <= bound
