@@ -103,19 +103,37 @@ Phases, each of which fails the run (non-zero exit) on any fault:
      ledger.solve entry: predicted over measured seconds) and two
      serve.tick spans. Every residual ≤ its bound, every time from CUDA
      events (the service's own timestamps are dispatch latencies);
- 14. the crossover: the dense `strassen_matmul` with one split (cutoff
+ 14. the sharded placement on the same matrix: `spin_inverse_sharded(a,
+     1024, leaf_solver="cuda", engine="cuda")` on a 1×1 mesh, bit for bit
+     the dense inverse with its launches (60 B2, 30 B1, 16 B3); on a 2×2
+     mesh of the one card (`make_worker_mesh((2, 2), devices=["cuda:0"] *
+     4)`) under the cuda, allgather and ring engines: residual ≤ 1e-3, the
+     largest deviation from the dense inverse, CUDA-event ms, launches
+     (cuda: 144 B2, 72 B1, 16 B3, `sharded_spin_launches`), the bytes
+     copied between mesh coordinates, peak memory and the spec ledger
+     (`assert_mesh_resident`); the sharded solve of 256 right-hand sides
+     (B2 and B5 as `sharded_solve_launches` counts them); the planned
+     sharded inversion (block_size=None) and its plan recalled from the
+     plan file; then at n = 4096, bs = 512, `SpinService` holding the
+     matrix sharded beside a dense tenant of the same matrix (an exact
+     tick, a maintained tick, rank-64 updates to the refactor, a tick
+     after it, each answer within 1e-3 of the dense tenant's, and a
+     snapshot round trip), and the coded inversion (4 workers, any 3
+     decode) with a 2 s straggler on rank 0: decoded from ranks 1-3, wall
+     time under the delay, residual ≤ 1e-3;
+ 15. the crossover: the dense `strassen_matmul` with one split (cutoff
      n/2) against one GEMM launch at n = 8192, 16384 and 32768, f32, timed
      in turns, beside `costmodel.strassen_crossover_n()`;
- 15. a smaller inversion with `leaf_solver="gauss_jordan"`, the path of
+ 16. a smaller inversion with `leaf_solver="gauss_jordan"`, the path of
      the scalar Gauss-Jordan kernel;
- 16. the dense LM serving path at full width and depth: granite-8b with
+ 17. the dense LM serving path at full width and depth: granite-8b with
      random weights from SEED, `prefill` of 4 prompts of 2048 tokens (36
      flash attention launches and no other kernel of the port), 32 greedy
      `decode_step`s from the padded cache, the decode logits of the first
      8 steps against `forward` over prompt plus those tokens, and a
      `ServingEngine` (4 slots, max_len 256) answering 8 requests, one of
      which must equal the same request served alone;
- 17. one JSON line with every path's times and residual, and one with
+ 18. one JSON line with every path's times and residual, and one with
      every kernel's launches, error and times (the GEMM's, blocked
      Gauss-Jordan's and triangular solve's launches on every path beside
      them).
@@ -172,6 +190,7 @@ SERVICE_REQUESTS, SERVICE_COLS = 8, 32  # requests a tick, columns a request (25
 SERVICE_TICKS = 4                 # ticks timed on each serving path
 SERVICE_SIDE_N, SERVICE_SIDE_BLOCK_SIZE = 4096, 512  # residency, snapshots, degraded mode
 SERVICE_DEADLINE_S, SERVICE_STRAGGLE_S = 0.5, 2.0    # the solve deadline and the straggler
+CODED_STRAGGLE_S = 2.0            # the coded inversion's injected straggler
 
 LM_ARCH = "granite-8b"            # the LM serving path, full width and depth
 LM_BATCH, LM_SEQ = 4, 2048        # prefill: 4 prompts of 2048 tokens
@@ -1343,6 +1362,278 @@ def run_service(torch, a, planned_plan: dict, smw: dict, reinvert_ms: float) -> 
             "launches": launches}
 
 
+def sharded_spin_launches(grid: int, mesh_shape: tuple[int, int]) -> dict:
+    """Kernel launches of one sharded inversion on a mesh of ONE card: a
+    node whose quadrant grid h divides both mesh axes runs its 4 products
+    and 2 Schur updates as SUMMA, one launch a shard; a node whose grid
+    does not runs each once (a replicated value is computed once a
+    distinct device); the leaves are one B3 launch each."""
+    d, m = mesh_shape
+    b2 = b1 = 0
+    nodes, h = 1, grid // 2
+    while h >= 1:
+        per = d * m if h % d == 0 and h % m == 0 else 1
+        b2 += nodes * 4 * per
+        b1 += nodes * 2 * per
+        nodes, h = 2 * nodes, h // 2
+    return {"matmul": b2, "schur_update": b1, "blocked_gauss_jordan": grid,
+            "gauss_jordan": 0}
+
+
+def sharded_solve_launches(grid: int, bs: int, data: int) -> dict:
+    """B2 and B5 launches of one sharded solve on a mesh of one card: each
+    of a node's two A21 panel products runs once for each distinct run of
+    A21 block rows that the `data` row shards cover; every leaf solve is
+    two B5 sweeps, once."""
+    b2, nodes, h = 0, 1, grid // 2
+    while h >= 1:
+        rows = h * bs
+        if rows % data:
+            spans = 1
+        else:
+            chunk = rows // data
+            spans = len({(i * chunk // bs, -(-(i + 1) * chunk // bs)) for i in range(data)})
+        b2 += nodes * 2 * spans
+        nodes, h = 2 * nodes, h // 2
+    return {"matmul": b2, "triangular_solve": 2 * grid, "schur_update": 0,
+            "blocked_gauss_jordan": 0, "gauss_jordan": 0}
+
+
+def run_sharded(torch, a) -> dict:
+    """Phase 14: the sharded placement on the phase-4 matrix. The 1×1 mesh
+    bitwise the dense inverse with its launches; a 2×2 mesh of the one card
+    under the cuda, allgather and ring engines (residual, deviation from the
+    dense inverse, CUDA-event ms, launches, bytes copied between mesh
+    coordinates, peak memory, the spec ledger); the sharded solve of the 256
+    right-hand sides; the planned sharded inversion recalled from the plan
+    file; then at n = SERVICE_SIDE_N, `SpinService` with sharded=True
+    against a dense tenant, and the coded inversion with a straggler."""
+    import threading
+
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.core import (count_ops, spin_inverse_dense, spin_inverse_sharded,
+                                  spin_solve_sharded, verify)
+    from repro_torch.launch.mesh import make_worker_mesh, set_mesh
+    from repro_torch.parallel import (CodedConfig, FaultPlan, assert_mesh_resident,
+                                      collective_bytes, record_specs,
+                                      reset_collective_bytes)
+    from repro_torch.parallel.straggler import WORKER_THREAD_PREFIX, coded_inverse
+    from repro_torch.planner import PlanCache, default_cache_path, get_plan, signature_for
+
+    n, bs = a.shape[0], BLOCK_SIZE
+    grid = n // bs
+    x_dense = spin_inverse_dense(a, bs, "cuda", engine="cuda")
+    rhs = torch.from_numpy(np.random.default_rng([SEED, 14]).standard_normal(
+        (n, N_RHS), dtype=np.float32)).to(a.device)
+    out: dict = {"mesh": {}}
+
+    def drive(name, fn, *, expect, b=None, bound=RESIDUAL_BOUND):
+        """One warm-up run, then one counted run (launches, bytes, peak
+        memory, spec ledger) and REPS - 1 more, each timed by CUDA events."""
+        fn()
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        reset_collective_bytes()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        with record_specs() as recs, count_ops() as counts:
+            x, ms = timed(torch, fn)
+        launches = kernels.launch_counts()
+        moved = collective_bytes()
+        peak_gib = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        times = [ms] + [timed(torch, fn)[1] for _ in range(REPS - 1)]
+        res = verify.inverse_residual(a, x) if b is None else verify.solve_residual(a, x, b)
+        tally = assert_mesh_resident(recs)
+        print(f"path {name}: ms={times!r} residual={res!r} launches={launches} "
+              f"bytes={moved} peak_gib_above_inputs={peak_gib!r} ledger={tally}", flush=True)
+        require(bool(torch.isfinite(x).all()), f"{name}: non-finite entries")
+        require(res <= bound, f"{name}: residual {res} > {bound}")
+        for kern, want in expect.items():
+            require(launches[kern] == want,
+                    f"{name}: {kern} launched {launches[kern]} times, want {want}")
+        products = launches["matmul"] + launches["schur_update"]
+        require(launches["gemm_tensor_core"] == products and launches["gemm_ffma"] == 0,
+                f"{name}: {products} GEMM launches, {launches['gemm_tensor_core']} on the "
+                "tensor-core body")
+        return x, {"ms": times, "residual": res, "launches": launches, "bytes": moved,
+                   "peak_gib": peak_gib, "ledger": tally, "op_counts": counts.as_dict()}
+
+    # 1. a 1×1 mesh: the dense path's launches, bit for bit
+    with set_mesh(make_worker_mesh((1, 1), devices=["cuda:0"])):
+        x, run = drive("sharded_1x1",
+                       lambda: spin_inverse_sharded(a, bs, leaf_solver="cuda", engine="cuda"),
+                       expect=sharded_spin_launches(grid, (1, 1)))
+    require(torch.equal(x, x_dense), "sharded_1x1: differs from the dense inverse")
+    require(run["op_counts"] == verify.expected_spin_counts(grid).as_dict(),
+            "sharded_1x1: op counts differ from expected_spin_counts")
+    out["mesh"]["1x1"] = run
+    del x
+
+    # 2. a 2×2 mesh of the one card under each engine
+    mesh22 = make_worker_mesh((2, 2), devices=["cuda:0"] * 4)
+    for engine in ("cuda", "allgather", "ring"):
+        expect = (sharded_spin_launches(grid, (2, 2)) if engine == "cuda" else
+                  {"matmul": 0, "schur_update": 0, "blocked_gauss_jordan": grid})
+        with set_mesh(mesh22):
+            x, run = drive(f"sharded_2x2_{engine}",
+                           lambda: spin_inverse_sharded(a, bs, leaf_solver="cuda",
+                                                        engine=engine),
+                           expect=expect)
+        run["max_dev_from_dense"] = float((x - x_dense).abs().max())
+        require(run["op_counts"] == verify.expected_spin_counts(grid).as_dict(),
+                f"sharded_2x2_{engine}: op counts {run['op_counts']}")
+        print(f"path sharded_2x2_{engine}: max_dev_from_dense={run['max_dev_from_dense']!r}",
+              flush=True)
+        out["mesh"][f"2x2_{engine}"] = run
+        del x
+        gc.collect()
+        torch.cuda.empty_cache()
+    del x_dense
+
+    # 3. the sharded solve of the 256 right-hand sides on 2×2
+    with set_mesh(mesh22):
+        x, run = drive("sharded_solve_2x2",
+                       lambda: spin_solve_sharded(a, rhs, bs, leaf_solver="cuda",
+                                                  engine="cuda"),
+                       expect=sharded_solve_launches(grid, bs, 2), b=rhs)
+    out["solve_2x2"] = run
+    del x, rhs
+
+    # 4. the planned sharded inversion under the 2×2 mesh, and its recall
+    with set_mesh(mesh22):
+        x, planned = drive("sharded_planned_2x2", lambda: spin_inverse_sharded(a),
+                           expect={})
+        plan = get_plan("inverse", n, a.dtype, measure=False, placement="sharded",
+                        backend="cuda")
+        recalled = PlanCache(default_cache_path()).get(signature_for(
+            "inverse", n, a.dtype, backend="cuda", placement="sharded"))
+    require(recalled is not None and recalled.execution_key() == plan.execution_key(),
+            f"sharded_planned_2x2: the plan file holds {recalled}, want {plan}")
+    require(plan.multiply_engine == "cuda", f"sharded_planned_2x2: plan {plan}")
+    planned["plan"] = plan.to_dict()
+    print(f"path sharded_planned_2x2: plan={plan.to_dict()} recalled from "
+          f"{default_cache_path()}", flush=True)
+    out["planned_2x2"] = planned
+    del x
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 5a. SpinService with sharded=True on 2×2 beside a dense tenant
+    from repro_torch.serving import SpinService
+
+    sn, sbs = SERVICE_SIDE_N, SERVICE_SIDE_BLOCK_SIZE
+    a4 = a[:sn, :sn].contiguous()
+    gen = torch.Generator(device=a.device).manual_seed(SEED)
+    rng = np.random.default_rng([SEED, 15])
+
+    def rank_k(k: int):
+        return torch.from_numpy(rng.standard_normal((sn, k), dtype=np.float32)).to(
+            a.device) / sn ** 0.5
+
+    def tick(svc, tag, a_now):
+        rhs_ = [torch.randn(sn, SERVICE_COLS, generator=gen, device=a.device)
+                for _ in range(SERVICE_REQUESTS)]
+        reqs = {m: [svc.solve(m, b) for b in rhs_] for m in ("sharded", "dense")}
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        svc.run_until_done()
+        end.record()
+        end.synchronize()
+        xs = {m: torch.cat([r.x for r in rs], dim=1) for m, rs in reqs.items()}
+        paths = {m: {r.path for r in rs} for m, rs in reqs.items()}
+        require(all(len(p_) == 1 for p_ in paths.values()),
+                f"sharded service {tag}: one tick took paths {paths}")
+        dev_ = float((xs["sharded"] - xs["dense"]).abs().max()
+                     / xs["dense"].abs().max())
+        require(dev_ <= RESIDUAL_BOUND, f"sharded service {tag}: sharded and dense "
+                f"answers differ by {dev_}")
+        res = verify.solve_residual(a_now, xs["sharded"], torch.cat(rhs_, dim=1))
+        require(res <= RESIDUAL_BOUND, f"sharded service {tag}: residual {res}")
+        return {"tag": tag, "path": paths["sharded"].pop(),
+                "dense_path": paths["dense"].pop(), "ms": start.elapsed_time(end),
+                "rel_dev_vs_dense": dev_, "residual": res}
+
+    t_svc = time.perf_counter()
+    with set_mesh(mesh22):
+        svc = SpinService(slots=2 * SERVICE_REQUESTS)
+        st = svc.add_matrix("sharded", a4, block_size=sbs, leaf_solver="cuda",
+                            engine="cuda", sharded=True)
+        svc.add_matrix("dense", a4, block_size=sbs, leaf_solver="cuda", engine="cuda")
+        require(st.placement == "sharded" and type(st.inv).__name__ == "ShardedBlockMatrix",
+                "sharded service: the matrix is not held sharded")
+        ticks = [tick(svc, "exact", a4)]
+        a_cur, updates, refactored = a4, 0, False
+        while not refactored and updates < 400:
+            u = rank_k(SMW_RANK)
+            ups = [svc.update(m, u) for m in ("sharded", "dense")]
+            svc.run_until_done()
+            a_cur = a_cur + u @ u.T
+            updates += 1
+            refactored = bool(ups[0].refactored)
+            if updates == 1:
+                ticks.append(tick(svc, "maintained", a_cur))
+        require(refactored, "sharded service: no refactor within 400 rank-64 updates")
+        ticks.append(tick(svc, "after_refactor", a_cur))
+        require([t["path"] for t in ticks] == ["recursion", "maintained", "recursion"],
+                f"sharded service: paths {[t['path'] for t in ticks]}")
+        snap_dir = tempfile.mkdtemp(prefix="chip_smoke_sharded_snap_")
+        try:
+            svc.snapshot(snap_dir)
+            back = SpinService.restore(snap_dir)
+            rst = back.matrix("sharded")
+            require(rst.placement == "sharded"
+                    and torch.equal(rst.inv.to_dense(), st.inv.to_dense()),
+                    "sharded service: the snapshot round trip changed the inverse")
+        finally:
+            shutil.rmtree(snap_dir, ignore_errors=True)
+    service_s = time.perf_counter() - t_svc
+    print(f"path sharded_service: n={sn} bs={sbs} updates_to_refactor={updates} "
+          f"ticks={ticks} wall_s={service_s!r}", flush=True)
+    out["service"] = {"n": sn, "block_size": sbs, "updates_to_refactor": updates,
+                      "ticks": ticks, "wall_s": service_s}
+    del svc, back, st, rst, ticks
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 5b. the coded inversion on 2×2: 4 workers, any 3 decode; one straggles
+    # A worker is overdue past 1 s (or 10 medians): a fault-free run's
+    # four solves, sharing the card and the host, all finish inside it.
+    cfg = CodedConfig(workers=4, redundancy=1, min_deadline_s=1.0)
+    coded = {}
+    with set_mesh(mesh22):
+        spin_inverse_sharded(a4, sbs, leaf_solver="cuda", engine="cuda", coded=cfg,
+                             fault_plan=FaultPlan())
+        for tag, plan_ in (("fault_free", FaultPlan()),
+                           ("straggler", FaultPlan().inject_straggler(0, CODED_STRAGGLE_S))):
+            t0 = time.perf_counter()
+            inv, report = coded_inverse(a4, cfg, block_size=sbs, leaf_solver="cuda",
+                                        engine="cuda", sharded=True, fault_plan=plan_)
+            wall = time.perf_counter() - t0
+            res = verify.inverse_residual(a4, inv)
+            coded[tag] = {"wall_s": wall, "residual": res, "used_ranks": report.used_ranks,
+                          "stragglers": report.stragglers, "failed": report.failed,
+                          "attempts": report.attempts, "pool_wall_s": report.wall_s,
+                          "median_shard_s": report.median_shard_s}
+            print(f"path sharded_coded_{tag}: {coded[tag]}", flush=True)
+            require(res <= RESIDUAL_BOUND, f"sharded_coded_{tag}: residual {res}")
+    require(coded["straggler"]["used_ranks"] == [1, 2, 3],
+            f"sharded_coded: decoded from {coded['straggler']['used_ranks']}")
+    require(coded["straggler"]["wall_s"] < CODED_STRAGGLE_S,
+            f"sharded_coded: {coded['straggler']['wall_s']} s tracks the "
+            f"{CODED_STRAGGLE_S} s straggler")
+    # the straggler was not waited on: let it finish before the next phase
+    for t in threading.enumerate():
+        if t.name.startswith(WORKER_THREAD_PREFIX):
+            t.join(timeout=4 * CODED_STRAGGLE_S)
+    out["coded"] = coded
+    del a4, inv
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def run_lm(torch, rng, cfg, dev) -> dict:
     """Phase 16: the dense LM serving path, `cfg` on `dev`."""
     import numpy as np
@@ -1647,15 +1938,21 @@ def main() -> int:
     # 13. the online inverse server on the same matrix
     service = run_service(torch, a, plan_run["planned"]["plan"], smw,
                           min(plan_run["planned"]["ms"]))
+    gc.collect()
+    torch.cuda.empty_cache()
+    # 14. the sharded placement on the same matrix: 1×1 and 2×2 meshes of
+    # the card, the sharded solve, the planned sharded inversion, the
+    # sharded service and the coded inversion
+    sharded = run_sharded(torch, a)
     del a
     gc.collect()
     torch.cuda.empty_cache()
 
-    # 14. where one Strassen split pays on the card: the dense recursion cut
+    # 15. where one Strassen split pays on the card: the dense recursion cut
     # at n/2 (7 GEMM launches and 18 add passes) against one GEMM launch
     crossover = run_crossover(torch)
 
-    # 15. the scalar Gauss-Jordan leaf's path
+    # 16. the scalar Gauss-Jordan leaf's path
     gn, gbs = GJ_N, GJ_BLOCK_SIZE
     ggrid = gn // gbs
     a_gj = testing.make_spd(gn, rng, device="cuda")
@@ -1670,7 +1967,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # 16. the dense LM serving path
+    # 17. the dense LM serving path
     lm = run_lm(torch, rng, lm_cfg, torch.device("cuda"))
     gc.collect()
     torch.cuda.empty_cache()
@@ -1707,10 +2004,10 @@ def main() -> int:
         "spin_gauss_jordan": {"n": gn, "block_size": gbs, "ms": gjp["ms"],
                               "residual": gjp["residual"]},
         "lm_prefill": lm["lm_prefill"], "lm_decode": lm["lm_decode"],
-        "lm_serve": lm["lm_serve"]},
+        "lm_serve": lm["lm_serve"], "sharded": sharded},
         "card": card}), flush=True)
 
-    # 17. the kernels line
+    # 18. the kernels line
     rows = []
     gemm_body = "gemm_tc: pack pre-pass, then 3xTF32 wgmma on a TMA ring (f32)"
     report["schur_update"]["body"] = report["matmul"]["body"] = gemm_body
@@ -1741,7 +2038,13 @@ def main() -> int:
                 ("spin_bf16", polished), ("spin_solve_bf16", solve_bf16),
                 ("spin_strassen", strassen), ("spin_planned", plan_run["planned"]),
                 ("spin_solve_planned", plan_run["solve"]), ("sketched", sketched),
-                ("checkpoint", ckpt), ("spin_service", service))}
+                ("checkpoint", ckpt), ("spin_service", service),
+                ("sharded_1x1", sharded["mesh"]["1x1"]),
+                ("sharded_2x2_cuda", sharded["mesh"]["2x2_cuda"]),
+                ("sharded_2x2_allgather", sharded["mesh"]["2x2_allgather"]),
+                ("sharded_2x2_ring", sharded["mesh"]["2x2_ring"]),
+                ("sharded_solve_2x2", sharded["solve_2x2"]),
+                ("sharded_planned_2x2", sharded["planned_2x2"]))}
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": path["launches"][name], **r})
     print(json.dumps({"kernels": rows}), flush=True)

@@ -17,6 +17,7 @@ from .core.blockmatrix import BlockMatrix, OpCounts
 from .device import DEFAULT_DEVICE, resolve_device
 
 __all__ = ["to_torch", "to_numpy", "blockmatrix_from_numpy",
+           "sharded_from_numpy",
            "op_counts_from_dict", "port_name", "plan_from_reference",
            "lm_params_from_numpy", "lm_params_to_numpy"]
 
@@ -51,6 +52,24 @@ def blockmatrix_from_numpy(blocks, device: str | torch.device = DEFAULT_DEVICE
     if t.ndim != 4 or t.shape[0] != t.shape[1] or t.shape[2] != t.shape[3]:
         raise ValueError(f"expected (b, b, bs, bs) blocks, got {tuple(t.shape)}")
     return BlockMatrix(t)
+
+
+def sharded_from_numpy(blocks, mesh=None,
+                       axes: tuple[str, str] = ("data", "model"), *,
+                       device: str | torch.device | None = None):
+    """A (b, b, bs, bs) block array (the JAX package's BlockMatrix or
+    ShardedBlockMatrix `.blocks`) -> a ShardedBlockMatrix laid out over
+    `mesh` (default: the ambient mesh; without one, off the mesh on
+    `device`, default the card)."""
+    from .launch.mesh import current_mesh
+    from .parallel.sharded_blockmatrix import ShardedBlockMatrix
+
+    mesh = mesh if mesh is not None else current_mesh()
+    if device is None:
+        device = (mesh.device(mesh.coords()[0]) if mesh is not None
+                  else DEFAULT_DEVICE)
+    bm = blockmatrix_from_numpy(blocks, device)
+    return ShardedBlockMatrix.from_blockmatrix(bm, axes, mesh=mesh)
 
 
 def op_counts_from_dict(d: Mapping[str, int]) -> OpCounts:

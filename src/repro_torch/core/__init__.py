@@ -13,9 +13,11 @@ from .blockmatrix import BlockMatrix, OpCounts, count_ops
 from .multiply import multiply, multiply_engine, current_engine, validate_engine
 from .precision import PrecisionPolicy, PRECISION_PRESETS, resolve_precision
 from .strassen import strassen_cutoff, strassen_matmul, strassen_matmul_blocks
-from .spin import spin_inverse, spin_inverse_dense, leaf_inverse, LEAF_SOLVERS
+from .spin import (spin_inverse, spin_inverse_dense, spin_inverse_sharded,
+                   leaf_inverse, LEAF_SOLVERS)
 from .lu_inverse import lu_inverse, lu_inverse_dense, block_lu
-from .solve import (spin_solve, spin_solve_dense, spin_inverse_batched,
+from .solve import (spin_solve, spin_solve_dense, spin_solve_sharded,
+                    spin_inverse_batched,
                     solve_grid_for, SketchedInverse, sketched_approx_inverse)
 from .newton_schulz import newton_schulz_polish, residual_norm
 from .solver_ckpt import CheckpointedSpin
@@ -31,9 +33,11 @@ __all__ = [
     "multiply", "multiply_engine", "current_engine", "validate_engine",
     "PrecisionPolicy", "PRECISION_PRESETS", "resolve_precision",
     "strassen_cutoff", "strassen_matmul", "strassen_matmul_blocks",
-    "spin_inverse", "spin_inverse_dense", "leaf_inverse", "LEAF_SOLVERS",
+    "spin_inverse", "spin_inverse_dense", "spin_inverse_sharded",
+    "leaf_inverse", "LEAF_SOLVERS",
     "lu_inverse", "lu_inverse_dense", "block_lu",
-    "spin_solve", "spin_solve_dense", "spin_inverse_batched",
+    "spin_solve", "spin_solve_dense", "spin_solve_sharded",
+    "spin_inverse_batched",
     "solve_grid_for", "solve_residual",
     "SketchedInverse", "sketched_approx_inverse",
     "newton_schulz_polish", "residual_norm", "CheckpointedSpin",

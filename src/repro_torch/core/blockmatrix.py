@@ -19,7 +19,7 @@ import torch
 
 from ..device import DEFAULT_DEVICE, resolve_device
 
-__all__ = ["BlockMatrix", "OpCounts", "count_ops"]
+__all__ = ["BlockMatrix", "OpCounts", "count_ops", "suspend_counts"]
 
 
 # ---------------------------------------------------------------------------
@@ -62,6 +62,17 @@ def count_ops() -> Iterator[OpCounts]:
     token = _COUNTS.set(counts)
     try:
         yield counts
+    finally:
+        _COUNTS.reset(token)
+
+
+@contextlib.contextmanager
+def suspend_counts() -> Iterator[None]:
+    """Count nothing inside the block: work that a mesh repeats on a second
+    device is one logical op, booked once by the first device's run."""
+    token = _COUNTS.set(None)
+    try:
+        yield
     finally:
         _COUNTS.reset(token)
 

@@ -49,7 +49,8 @@ from .precision import (resolve_precision, resolve_with_legacy_kwarg,
                         torch_dtype)
 from .spin import LEAF_SOLVERS, _explicit, _policy_active, spin_inverse_dense
 
-__all__ = ["spin_solve", "spin_solve_dense", "spin_inverse_batched",
+__all__ = ["spin_solve", "spin_solve_dense", "spin_solve_sharded",
+           "spin_inverse_batched",
            "solve_grid_for", "SketchedInverse", "sketched_approx_inverse"]
 
 
@@ -67,16 +68,22 @@ def _apply_blocks(a: BlockMatrix, x: torch.Tensor) -> torch.Tensor:
     returned in x's dtype. Under the ``cuda`` engine it is one launch of
     the GEMM kernel over A's dense view."""
     _bump("solve_applies")
+    return _apply_blocks_raw(a.blocks, x)
+
+
+def _apply_blocks_raw(blocks: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """`_apply_blocks` on a (b_r, b_c, bs, bs) grid, booking nothing: the
+    sharded solve runs it on each row shard's block rows."""
     if current_engine() == "cuda":
-        dense = mm_ops.blocks_to_dense(a.blocks)
+        dense = mm_ops.blocks_to_dense(blocks)
         common = torch.promote_types(dense.dtype, x.dtype)
         out = mm_ops.matmul(dense.to(common), x.to(common),
                             out_dtype=torch.float32)
         return out.to(x.dtype)
-    b, _, bs, _ = a.blocks.shape
-    xb = x.reshape(b, bs, x.shape[-1])
-    out = torch.einsum("ijab,jbk->iak", a.blocks.float(), xb.float())
-    return out.reshape(b * bs, x.shape[-1]).to(x.dtype)
+    br, bc, bs, _ = blocks.shape
+    xb = x.reshape(bc, bs, x.shape[-1])
+    out = torch.einsum("ijab,jbk->iak", blocks.float(), xb.float())
+    return out.reshape(br * bs, x.shape[-1]).to(x.dtype)
 
 
 def _lu_permutation(lu: torch.Tensor, pivots: torch.Tensor) -> torch.Tensor:
@@ -207,6 +214,49 @@ def spin_solve_dense(a, b, block_size: int | None = None,
     with ctx:
         return spin_solve(BlockMatrix.from_dense(a, block_size), b,
                           leaf_solver=leaf_solver or "linalg", precision=policy)
+
+
+def spin_solve_sharded(a, b, block_size: int | None = None, *,
+                       leaf_solver: str | None = None,
+                       engine: str | None = None, auto: bool = False,
+                       precision=None,
+                       device: str | torch.device | None = None
+                       ) -> torch.Tensor:
+    """Mesh-resident multi-RHS solve: panels split by rows over `data`.
+
+    The inverse-free Schur recursion with every dense panel laid out over
+    the ambient mesh between levels (`parallel.sharded_blockmatrix`).
+    `a`: dense (n, n) tensor (block_size required unless auto or the
+    planner picks it), BlockMatrix, or ShardedBlockMatrix; `b`: (n, k) or
+    (n,). Returns X with b's shape, on the mesh's first device; never
+    forms A⁻¹. auto=True consults the planner under the sharded placement;
+    explicit block_size / leaf_solver / engine override it. A low-precision
+    `precision` runs a dense operand at the policy's compute dtype and
+    returns X at b's dtype; a block operand with one raises.
+    """
+    from ..parallel.sharded_blockmatrix import ShardedBlockMatrix, solve_program
+    from .spin import _resolve_sharded_config
+
+    validate_engine(engine)
+    if precision is not None:
+        policy = resolve_precision(precision)
+        dense_in = not isinstance(a, (BlockMatrix, ShardedBlockMatrix))
+        if dense_in:
+            a = torch.as_tensor(a)
+        if not policy.is_exact and _policy_active(policy, a.dtype):
+            if not dense_in:
+                raise ValueError(
+                    "low-precision policies on the sharded solve path need "
+                    f"a dense operand; got {type(a).__name__}")
+            b = torch.as_tensor(b)
+            cd = torch_dtype(policy.resolve_compute(a.dtype))
+            return spin_solve_sharded(a.to(cd), b.to(cd), block_size,
+                                      leaf_solver=leaf_solver, engine=engine,
+                                      auto=auto, device=device).to(b.dtype)
+    a, leaf_solver, engine, _, dev = _resolve_sharded_config(
+        "solve", a, block_size, leaf_solver, engine, auto, device)
+    b = torch.as_tensor(b).to(dev)
+    return solve_program(a, b, leaf_solver=leaf_solver, engine=engine)
 
 
 def spin_inverse_batched(batch, block_size: int | None = None,

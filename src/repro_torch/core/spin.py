@@ -40,8 +40,8 @@ from .newton_schulz import newton_schulz_polish
 from .precision import (_dtype_name, resolve_precision,
                         resolve_with_legacy_kwarg, torch_dtype)
 
-__all__ = ["spin_inverse", "spin_inverse_dense", "leaf_inverse",
-           "LEAF_SOLVERS"]
+__all__ = ["spin_inverse", "spin_inverse_dense", "spin_inverse_sharded",
+           "leaf_inverse", "LEAF_SOLVERS"]
 
 
 # ---------------------------------------------------------------------------
@@ -237,3 +237,139 @@ def _explicit(block_size: int | None, leaf_solver: str | None,
     if engine is not None:
         kw["engines"] = (engine,)
     return kw
+
+
+# ---------------------------------------------------------------------------
+# The sharded placement
+# ---------------------------------------------------------------------------
+
+
+def _sharded_device(device) -> torch.device:
+    """Where a sharded call runs: the ambient mesh's devices when there is
+    one (a `device=` of another kind raises), else `device` (default the
+    card)."""
+    from ..launch.mesh import current_mesh
+
+    mesh = current_mesh()
+    if mesh is not None and mesh.axes:
+        dev = mesh.device(mesh.coords()[0])
+        if device is not None and torch.device(device).type != dev.type:
+            raise ValueError(f"device={device!r} conflicts with the ambient "
+                             f"mesh {mesh}")
+        return dev
+    return resolve_device(DEFAULT_DEVICE if device is None else device)
+
+
+def _resolve_sharded_config(kind: str, a, block_size: int | None,
+                            leaf_solver: str | None, engine: str | None,
+                            auto: bool, device):
+    """Shared planner dispatch for the sharded entry points.
+
+    Returns (ShardedBlockMatrix, leaf_solver, engine, dense_in, device).
+    Explicit arguments always win: a given block_size constrains the
+    plan's candidates, and an explicit leaf_solver or engine is kept over
+    the planner's. The planner is asked for the sharded placement under
+    the ambient mesh, from its cost model alone.
+    """
+    from ..parallel.sharded_blockmatrix import ShardedBlockMatrix
+
+    dense_in = not isinstance(a, (BlockMatrix, ShardedBlockMatrix))
+    if dense_in:
+        dev = _sharded_device(device)
+        a = torch.as_tensor(a).to(dev)
+    else:
+        dev = a.device
+    n = a.shape[0] if dense_in else a.n
+    if auto or (dense_in and block_size is None):
+        from ..planner import get_plan
+
+        fixed = block_size if dense_in else a.block_size
+        kw = {"block_sizes": (int(fixed),)} if fixed else {}
+        plan = get_plan(kind, int(n), a.dtype, measure=False,
+                        placement="sharded", backend=dev.type, **kw)
+        if dense_in and block_size is None:
+            block_size = plan.block_size
+        leaf_solver = leaf_solver or plan.leaf_solver
+        engine = engine or plan.multiply_engine
+    if dense_in:
+        a = ShardedBlockMatrix.from_dense(a, block_size)
+    elif isinstance(a, BlockMatrix):
+        a = ShardedBlockMatrix.from_blockmatrix(a)
+    return a, leaf_solver or "linalg", engine, dense_in, dev
+
+
+def spin_inverse_sharded(a, block_size: int | None = None, *,
+                         leaf_solver: str | None = None,
+                         engine: str | None = None, auto: bool = False,
+                         coded=None, fault_plan=None, precision=None,
+                         device: str | torch.device | None = None):
+    """Mesh-resident SPIN inversion: no gather to dense between levels.
+
+    The Algorithm-2 recursion runs with every intermediate laid out over
+    the ambient mesh (`launch.mesh.set_mesh`) by the divisibility rule of
+    `parallel.sharded_blockmatrix`, its products through the SUMMA engines
+    (`allgather`, `ring`) or the GEMM kernel on each shard (`cuda`).
+
+    `a`: dense (n, n) tensor (block_size required unless auto or the
+    planner picks it), BlockMatrix, or ShardedBlockMatrix. Dense in ->
+    dense out (on the mesh's first device); block input ->
+    ShardedBlockMatrix. With no mesh the layout has one shard and the
+    result is bitwise the dense path's with the same configuration.
+    auto=True consults the planner under the sharded placement; explicit
+    block_size / leaf_solver / engine override its choices. `device`
+    (default the card) applies when there is no ambient mesh; a mesh
+    decides where the call runs.
+
+    A low-precision `precision` casts a dense operand in to the policy's
+    compute dtype and the result out to its store dtype: the mesh
+    recursion has no polish stage. A block operand with a non-exact policy
+    raises.
+
+    coded=CodedConfig(...) routes through the straggler-robust layer
+    (`parallel.straggler.coded_inverse`): the inverse is assembled from w
+    coded worker panel-solves, any w−s of which suffice. `fault_plan`
+    scripts stragglers and failures (None: $SPIN_FAULT_PLAN). The coded
+    path takes a dense or BlockMatrix operand and returns a dense inverse.
+    """
+    from ..parallel.sharded_blockmatrix import (ShardedBlockMatrix,
+                                                inverse_program)
+
+    validate_engine(engine)
+    if precision is not None:
+        policy = resolve_precision(precision)
+        dense_in = not isinstance(a, (BlockMatrix, ShardedBlockMatrix))
+        if dense_in:
+            a = torch.as_tensor(a)
+        if not policy.is_exact and _policy_active(policy, a.dtype):
+            if not dense_in:
+                raise ValueError(
+                    "low-precision policies on the sharded path need a "
+                    "dense operand (cast-in/cast-out semantics); got "
+                    f"{type(a).__name__}")
+            cd = torch_dtype(policy.resolve_compute(a.dtype))
+            out = spin_inverse_sharded(a.to(cd), block_size,
+                                       leaf_solver=leaf_solver, engine=engine,
+                                       auto=auto, coded=coded,
+                                       fault_plan=fault_plan, device=device)
+            return out.to(torch_dtype(policy.resolve_store(a.dtype)))
+    if coded is not None:
+        from ..parallel.straggler import coded_inverse
+
+        if isinstance(a, ShardedBlockMatrix):
+            raise ValueError(
+                "coded execution assembles the inverse from worker panels "
+                "and needs a dense or BlockMatrix operand, not a "
+                "mesh-resident ShardedBlockMatrix")
+        dense = a.to_dense() if isinstance(a, BlockMatrix) else a
+        bs = block_size or (a.block_size if isinstance(a, BlockMatrix)
+                            else None)
+        inv, _ = coded_inverse(dense, coded, block_size=bs,
+                               leaf_solver=leaf_solver or "linalg",
+                               engine=engine, sharded=True,
+                               fault_plan=fault_plan, device=device)
+        return inv
+
+    a, leaf_solver, engine, dense_in, _ = _resolve_sharded_config(
+        "inverse", a, block_size, leaf_solver, engine, auto, device)
+    out = inverse_program(a, leaf_solver=leaf_solver, engine=engine)
+    return out.to_dense() if dense_in else out

@@ -44,7 +44,8 @@ from .blockmatrix import _bump
 from .costmodel import STRASSEN_CUTOFF
 
 __all__ = ["STRASSEN_CUTOFF_ENV", "strassen_cutoff", "strassen_matmul",
-           "strassen_matmul_blocks", "strassen_schur_update_blocks"]
+           "strassen_matmul_blocks", "strassen_schur_update_blocks",
+           "strassen_matmul_dist", "strassen_schur_update_dist"]
 
 STRASSEN_CUTOFF_ENV = "SPIN_STRASSEN_CUTOFF"
 
@@ -61,45 +62,186 @@ def strassen_cutoff() -> int:
     return STRASSEN_CUTOFF if raw is None else max(raw, 0)
 
 
-def _pad_grid(x: torch.Tensor) -> torch.Tensor:
-    """Zero-pad an odd (g, g, ...) grid to (g+1, g+1, ...). The zero row and
-    column meet the other operand's zero column and row, so slicing the
-    product back to g×g is exact."""
-    g = x.shape[0]
-    out = x.new_zeros((g + 1, g + 1) + tuple(x.shape[2:]))
-    out[:g, :g] = x
-    return out
+# ---------------------------------------------------------------------------
+# Mesh anchoring: every intermediate recorded in the spec ledger
+# ---------------------------------------------------------------------------
 
 
-def _quads(x: torch.Tensor):
-    h = x.shape[0] // 2
-    return x[:h, :h], x[:h, h:], x[h:, :h], x[h:, h:]
+@functools.cache
+def _ledger():
+    # Late: the parallel layer imports core.multiply, which imports this
+    # module. Cached, since the host-bound recursion anchors every pass.
+    from ..parallel import sharded_blockmatrix
+
+    return sharded_blockmatrix
 
 
-def _assemble(c11, c12, c21, c22) -> torch.Tensor:
-    h = c11.shape[0]
-    out = c11.new_empty((2 * h, 2 * h) + tuple(c11.shape[2:]))
-    out[:h, :h] = c11
-    out[:h, h:] = c12
-    out[h:, :h] = c21
-    out[h:, h:] = c22
-    return out
+def _anchor(x, op: str):
+    """Record a Strassen intermediate's layout in the spec ledger
+    (`parallel.sharded_blockmatrix.record_specs`), where the JAX package
+    constrains and records one. A plain tensor is off the mesh (spec
+    None); a mesh-laid-out grid (`parallel.collectives.DistArray`) is laid
+    out by `grid_spec` first, with the axis names resolved as the SUMMA
+    engines resolve them. Outside a ledger a plain tensor costs one read."""
+    sbm = _ledger()
+    if isinstance(x, torch.Tensor):
+        if sbm._LEDGER.get() is not None:
+            sbm._record(op, "grid", x.shape, None, ("data", "model"), None)
+        return x
+    from ..parallel import collectives as col
+    from .multiply import _mesh_names
+
+    axes = _mesh_names(x.mesh)
+    spec = col.grid_spec(x.shape[0], x.shape[1], x.mesh, axes)
+    x = col.relayout(x, spec)
+    sbm._record(op, "grid", x.shape, spec, axes, x.mesh)
+    return x
 
 
-def _seven(a, b, rec):
+class _TensorOps:
+    """The recursion's data movement on plain tensors; `mark` records the
+    grid variant's intermediates in the spec ledger."""
+
+    mark = staticmethod(_anchor)
+
+    @classmethod
+    def pad(cls, x):
+        g = x.shape[0]
+        out = cls.mark(x.new_zeros((g + 1, g + 1) + tuple(x.shape[2:])),
+                       "strassen_pad")
+        out[:g, :g] = x
+        return cls.mark(out, "strassen_pad")
+
+    @classmethod
+    def unpad(cls, x, g):
+        return cls.mark(x[:g, :g], "strassen_unpad")
+
+    @staticmethod
+    def quads(x):
+        h = x.shape[0] // 2
+        return x[:h, :h], x[:h, h:], x[h:, :h], x[h:, h:]
+
+    @classmethod
+    def add(cls, x, y):
+        return cls.mark(x + y, "strassen_add")
+
+    @classmethod
+    def sub(cls, x, y):
+        return cls.mark(x - y, "strassen_add")
+
+    @classmethod
+    def assemble(cls, c11, c12, c21, c22):
+        h = c11.shape[0]
+        out = cls.mark(c11.new_empty((2 * h, 2 * h) + tuple(c11.shape[2:])),
+                       "strassen_combine")
+        out[:h, :h] = c11
+        out[:h, h:] = c12
+        out[h:, :h] = c21
+        out[h:, h:] = c22
+        return cls.mark(out, "strassen_combine")
+
+
+class _DenseOps(_TensorOps):
+    """The dense variant's movement: nothing recorded, as in the JAX
+    package."""
+
+    mark = staticmethod(lambda x, op: x)
+
+
+class _MeshOps:
+    """The same movement on grids laid out over a mesh: quadrants, sums
+    and the combined output are laid out by `grid_spec` and recorded."""
+
+    @staticmethod
+    def _spec(x, rows):
+        from ..parallel import collectives as col
+        from .multiply import _mesh_names
+
+        return col.grid_spec(rows, rows, x.mesh, _mesh_names(x.mesh))
+
+    @classmethod
+    def _mark_layout(cls, like, shape, op: str) -> None:
+        # A buffer the JAX package anchors before filling it: the layout
+        # is recorded; here the buffer is the output's own shards.
+        from ..parallel import sharded_blockmatrix as sbm
+        from .multiply import _mesh_names
+
+        sbm._record(op, "grid", shape, cls._spec(like, shape[0]),
+                    _mesh_names(like.mesh), like.mesh)
+
+    @classmethod
+    def pad(cls, x):
+        from ..parallel import collectives as col
+
+        g, bs = x.shape[0], x.shape[2]
+        shape = (g + 1, g + 1, bs, bs)
+        cls._mark_layout(x, shape, "strassen_pad")
+        out = col.assemble([((0, 0, 0, 0), x)], shape, cls._spec(x, g + 1),
+                           x.mesh, zero_fill=True)
+        return _anchor(out, "strassen_pad")
+
+    @classmethod
+    def unpad(cls, x, g):
+        from ..parallel import collectives as col
+
+        bs = x.shape[2]
+        out = col.take(x, ((0, g), (0, g), (0, bs), (0, bs)),
+                       cls._spec(x, g))
+        return _anchor(out, "strassen_unpad")
+
+    @classmethod
+    def quads(cls, x):
+        from ..parallel import collectives as col
+
+        h, bs = x.shape[0] // 2, x.shape[2]
+        spec = cls._spec(x, h)
+        return tuple(col.take(x, ((r, r + h), (c, c + h), (0, bs), (0, bs)),
+                              spec)
+                     for r, c in ((0, 0), (0, h), (h, 0), (h, h)))
+
+    @staticmethod
+    def add(x, y):
+        from ..parallel import collectives as col
+
+        return _anchor(col.zip_map(torch.add, x, col.relayout(y, x.spec)),
+                       "strassen_add")
+
+    @staticmethod
+    def sub(x, y):
+        from ..parallel import collectives as col
+
+        return _anchor(col.zip_map(torch.sub, x, col.relayout(y, x.spec)),
+                       "strassen_add")
+
+    @classmethod
+    def assemble(cls, c11, c12, c21, c22):
+        from ..parallel import collectives as col
+
+        h, bs = c11.shape[0], c11.shape[2]
+        shape = (2 * h, 2 * h, bs, bs)
+        cls._mark_layout(c11, shape, "strassen_combine")
+        out = col.assemble([((0, 0, 0, 0), c11), ((0, h, 0, 0), c12),
+                            ((h, 0, 0, 0), c21), ((h, h, 0, 0), c22)],
+                           shape, cls._spec(c11, 2 * h), c11.mesh)
+        return _anchor(out, "strassen_combine")
+
+
+def _seven(a, b, rec, ops=_TensorOps):
     """The 7 products and the combine of one split, on quadrant views."""
-    a11, a12, a21, a22 = _quads(a)
-    b11, b12, b21, b22 = _quads(b)
-    m1 = rec(a11 + a22, b11 + b22)
-    m2 = rec(a21 + a22, b11)
-    m3 = rec(a11, b12 - b22)
-    m4 = rec(a22, b21 - b11)
-    m5 = rec(a11 + a12, b22)
-    m6 = rec(a21 - a11, b11 + b12)
-    m7 = rec(a12 - a22, b21 + b22)
+    a11, a12, a21, a22 = ops.quads(a)
+    b11, b12, b21, b22 = ops.quads(b)
+    add, sub = ops.add, ops.sub
+    m1 = rec(add(a11, a22), add(b11, b22))
+    m2 = rec(add(a21, a22), b11)
+    m3 = rec(a11, sub(b12, b22))
+    m4 = rec(a22, sub(b21, b11))
+    m5 = rec(add(a11, a12), b22)
+    m6 = rec(sub(a21, a11), add(b11, b12))
+    m7 = rec(sub(a12, a22), add(b21, b22))
     # 10 operand-side + 8 output-side elementwise passes a split level.
     _bump("strassen_adds", 18)
-    return _assemble(m1 + m4 - m5 + m7, m3 + m5, m2 + m4, m1 - m2 + m3 + m6)
+    return ops.assemble(add(sub(add(m1, m4), m5), m7), add(m3, m5),
+                        add(m2, m4), add(add(sub(m1, m2), m3), m6))
 
 
 # ---------------------------------------------------------------------------
@@ -125,6 +267,11 @@ def strassen_matmul_blocks(a: torch.Tensor, b: torch.Tensor, *,
         raise ValueError(
             f"expected matching square (g, g, bs, bs) grids, got "
             f"{tuple(a.shape)} vs {tuple(b.shape)}")
+    return _strassen_grid(a, b, cutoff, base or _default_base_blocks,
+                          _TensorOps)
+
+
+def _strassen_grid(a, b, cutoff, base, ops):
     if cutoff is None:
         cutoff = strassen_cutoff()
     g, bs = a.shape[0], a.shape[2]
@@ -133,17 +280,36 @@ def strassen_matmul_blocks(a: torch.Tensor, b: torch.Tensor, *,
         if _TRACER.enabled:
             _TRACER.event("strassen.base", "strassen_level", grid=g,
                           block_size=bs, n=g * bs, op="classical_leaf")
-        return (base or _default_base_blocks)(a, b)
+        return base(a, b)
     if _TRACER.enabled:
         _TRACER.event("strassen.split", "strassen_level", grid=g,
                       block_size=bs, n=g * bs, cutoff=cutoff,
                       op="seven_multiply_split")
+    rec = functools.partial(_strassen_grid, cutoff=cutoff, base=base,
+                            ops=ops)
     if g % 2:
-        out = strassen_matmul_blocks(_pad_grid(a), _pad_grid(b),
-                                     cutoff=cutoff, base=base)
-        return out[:g, :g]
-    return _seven(a, b, functools.partial(strassen_matmul_blocks,
-                                          cutoff=cutoff, base=base))
+        return ops.unpad(rec(ops.pad(a), ops.pad(b)), g)
+    return _seven(a, b, rec, ops)
+
+
+def _base_dist(a, b):
+    # A classical leaf on the mesh: the GEMM kernel through SUMMA (one
+    # launch a shard), or whole once a device when the grid does not
+    # divide the mesh.
+    from .multiply import multiply_dist
+
+    return multiply_dist(a, b, "cuda")
+
+
+def strassen_matmul_dist(a, b, *, cutoff: int | None = None):
+    """Strassen's recursion over grids laid out on a mesh
+    (`parallel.collectives.DistArray`): quadrants, sums and the combine
+    stay laid out by `grid_spec` and are recorded in the spec ledger, and
+    each classical leaf is the `cuda` engine's SUMMA product."""
+    if a.shape != b.shape or a.shape[0] != a.shape[1]:
+        raise ValueError(f"expected matching square grids, got {a.shape} "
+                         f"vs {b.shape}")
+    return _strassen_grid(a, b, cutoff, _base_dist, _MeshOps)
 
 
 def strassen_schur_update_blocks(c: torch.Tensor, a: torch.Tensor,
@@ -165,7 +331,27 @@ def strassen_schur_update_blocks(c: torch.Tensor, a: torch.Tensor,
         _bump("strassen_base_multiplies")
         return st_ops.base_schur_update(c, a, b, negate_c=negate_c)
     prod = strassen_matmul_blocks(a, b, cutoff=cutoff)
-    return prod - c if negate_c else c - prod
+    return _anchor(prod - c if negate_c else c - prod, "strassen_schur")
+
+
+def strassen_schur_update_dist(c, a, b, *, negate_c: bool,
+                               cutoff: int | None = None):
+    """`strassen_schur_update_blocks` on grids laid out over a mesh: a
+    one-leaf product is the `cuda` engine's fused update on C's shards."""
+    from ..parallel import collectives as col
+    from .multiply import schur_update_dist
+
+    if cutoff is None:
+        cutoff = strassen_cutoff()
+    g, bs = a.shape[0], a.shape[2]
+    if g == 1 or g * bs <= cutoff:
+        _bump("strassen_base_multiplies")
+        return schur_update_dist(c, a, b, negate_c=negate_c, engine="cuda")
+    prod = strassen_matmul_dist(a, b, cutoff=cutoff)
+    c = col.relayout(c, prod.spec)
+    out = (col.zip_map(torch.sub, prod, c) if negate_c
+           else col.zip_map(lambda p, c_: c_ - p, prod, c))
+    return _anchor(out, "strassen_schur")
 
 
 # ---------------------------------------------------------------------------
@@ -202,4 +388,4 @@ def strassen_matmul(a: torch.Tensor, b: torch.Tensor, *,
         pad = (0, 1, 0, 1)
         return rec(torch.nn.functional.pad(a, pad),
                    torch.nn.functional.pad(b, pad))[:n, :n]
-    return _seven(a, b, rec)
+    return _seven(a, b, rec, _DenseOps)

@@ -11,9 +11,11 @@ operand. `smw_update_solve` answers (A + U Vᵀ) x = b from the base
 inverse without forming the updated one.
 
 Every entry point dispatches on the maintained inverse's representation:
-a dense (n, n) tensor, or a `BlockMatrix`, whose panel products run block
+a dense (n, n) tensor, a `BlockMatrix`, whose panel products run block
 by block (``ijab,jbk->iak``) and whose rank-k correction is scattered back
-onto the grid without densifying it. Sums accumulate in f32 (f64 stays
+onto the grid without densifying it, or a `ShardedBlockMatrix`, whose
+panels stay split by rows over the mesh and whose correction runs on each
+shard. Sums accumulate in f32 (f64 stays
 f64 where the JAX package keeps it), in plain PyTorch.
 
 `block_update_factors` writes the replacement of symmetric block row and
@@ -92,27 +94,28 @@ def _smw_solve_dense(inv: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
 
 
 def _blocks_apply(blocks: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """X·x for a (b, b, bs, bs) grid and an (n, k) panel, f32 out."""
-    b, _, bs, _ = blocks.shape
+    """X·x for a (b_r, b_c, bs, bs) grid and a (b_c·bs, k) panel, f32 out."""
+    br, bc, bs, _ = blocks.shape
     out = torch.einsum("ijab,jbk->iak", blocks.float(),
-                       x.float().reshape(b, bs, x.shape[-1]))
-    return out.reshape(b * bs, x.shape[-1])
+                       x.float().reshape(bc, bs, x.shape[-1]))
+    return out.reshape(br * bs, x.shape[-1])
 
 
 def _blocks_apply_t(blocks: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Xᵀ·x without forming the transpose (grid and intra-block swap)."""
-    b, _, bs, _ = blocks.shape
+    br, bc, bs, _ = blocks.shape
     out = torch.einsum("ijab,iak->jbk", blocks.float(),
-                       x.float().reshape(b, bs, x.shape[-1]))
-    return out.reshape(b * bs, x.shape[-1])
+                       x.float().reshape(br, bs, x.shape[-1]))
+    return out.reshape(bc * bs, x.shape[-1])
 
 
 def _smw_correction_blocks(blocks: torch.Tensor, p: torch.Tensor,
                            m: torch.Tensor) -> torch.Tensor:
-    """blocks − P·M scattered onto the block grid (P: (n, k), M: (k, n))."""
-    b, _, bs, _ = blocks.shape
-    corr = torch.einsum("iak,kjb->ijab", p.float().reshape(b, bs, p.shape[-1]),
-                        m.float().reshape(m.shape[0], b, bs))
+    """blocks − P·M scattered onto the block grid (P: (b_r·bs, k), M:
+    (k, b_c·bs))."""
+    br, bc, bs, _ = blocks.shape
+    corr = torch.einsum("iak,kjb->ijab", p.float().reshape(br, bs, p.shape[-1]),
+                        m.float().reshape(m.shape[0], bc, bs))
     return (blocks.float() - corr).to(blocks.dtype)
 
 
@@ -126,6 +129,93 @@ def _smw_inverse_blocks(blocks: torch.Tensor, u: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# Sharded path: the block path on a mesh-laid-out grid
+# ---------------------------------------------------------------------------
+
+
+def _sbm():
+    # Late import: core must not import the parallel layer at module scope.
+    from ..parallel import sharded_blockmatrix
+
+    return sharded_blockmatrix
+
+
+def _is_sharded(x) -> bool:
+    return isinstance(x, _sbm().ShardedBlockMatrix)
+
+
+def _replicated(t: torch.Tensor, mesh):
+    from ..parallel import collectives as col
+
+    return col.distribute(t, (None,) * t.ndim, mesh)
+
+
+def _correction_sharded(a, p, m, op: str):
+    """`_smw_correction_blocks` on each shard: P's rows of the shard's
+    block rows, M's columns of its block columns, both gathered."""
+    from ..parallel import collectives as col
+
+    sbm, bs = _sbm(), a.block_size
+
+    def corr(shard, r, c):
+        (i0, i1), (j0, j1) = r[0], r[1]
+        p_rows = col.fetch(p, ((i0 * bs, i1 * bs), (0, p.shape[1])), c,
+                           "gather")
+        m_cols = col.fetch(m, ((0, m.shape[0]), (j0 * bs, j1 * bs)), c,
+                           "gather")
+        return _smw_correction_blocks(shard, p_rows, m_cols)
+
+    out = col.map_regions(a.dist, corr)
+    return sbm.ShardedBlockMatrix(sbm._constrain(out, op, a.axes), a.axes)
+
+
+def _smw_inverse_sharded(inv, u: torch.Tensor, v: torch.Tensor):
+    """The block path's Woodbury revision with every panel laid out on the
+    mesh: P = A⁻¹U and Q = (VᵀA⁻¹)ᵀ split by rows, the k×k capacitance
+    solve once a device, and the correction on each shard."""
+    from ..parallel import collectives as col
+
+    sbm = _sbm()
+    a = inv.constrain("smw_input")
+    mesh, axes = a.dist.mesh, a.axes
+    layout = sbm._panel_layout(a.n, mesh, axes)
+    ud, vd = _replicated(u, mesh), _replicated(v, mesh)
+    p = sbm._constrain_panel(col.row_apply(a.dist, ud, layout, _blocks_apply),
+                             "smw_panel", axes)
+    qt = sbm._constrain_panel(
+        col.row_apply(a.dist, vd, layout, _blocks_apply_t, by_cols=True),
+        "smw_panel", axes)
+    m = col.once_per_device(
+        lambda pf, qf, vf: torch.linalg.solve(
+            _eye(u.shape[1], pf) + vf.float().T @ pf, qf.T),
+        [p, qt, vd], (None, None), mesh)
+    return _correction_sharded(a, p, m, "smw_update")
+
+
+def _apply_inverse_sharded(inv, rhs: torch.Tensor) -> torch.Tensor:
+    """X·B with the panel split by rows over `data`, gathered onto B's
+    device."""
+    from ..parallel import collectives as col
+
+    sbm = _sbm()
+    a = inv.constrain("apply_input")
+    mesh = a.dist.mesh
+    out = col.row_apply(a.dist, _replicated(rhs.to(a.device), mesh),
+                        sbm._panel_layout(a.n, mesh, a.axes),
+                        lambda blk, xf: _blocks_apply(blk, xf).to(rhs.dtype))
+    out = sbm._constrain_panel(out, "apply_inverse", a.axes)
+    return col.gather(out, rhs.device if rhs.device.type == a.device.type
+                      else a.device)
+
+
+def _add_low_rank_sharded(a, u: torch.Tensor, v: torch.Tensor):
+    a = a.constrain("add_input")
+    mesh = a.dist.mesh
+    return _correction_sharded(a, _replicated(-u.float(), mesh),
+                               _replicated(v.float().T, mesh), "add_low_rank")
+
+
+# ---------------------------------------------------------------------------
 # Public dispatchers
 # ---------------------------------------------------------------------------
 
@@ -133,13 +223,17 @@ def _smw_inverse_blocks(blocks: torch.Tensor, u: torch.Tensor,
 def smw_update_inverse(inv, u: torch.Tensor, v: torch.Tensor):
     """Woodbury-revise a maintained inverse of A for A' = A + U Vᵀ.
 
-    `inv`: dense (n, n) tensor or `BlockMatrix` holding A⁻¹; returns the
-    same representation holding (A + U Vᵀ)⁻¹ in O(n²k). U, V: (n, k), or
-    (n,) vectors (Sherman–Morrison).
+    `inv`: dense (n, n) tensor, `BlockMatrix` or `ShardedBlockMatrix`
+    holding A⁻¹; returns the same representation holding (A + U Vᵀ)⁻¹ in
+    O(n²k). U, V: (n, k), or (n,) vectors (Sherman–Morrison). The sharded
+    path keeps every panel and the output grid laid out on the mesh (no
+    gather to dense); off the mesh it is bitwise the BlockMatrix path.
     """
     u, _ = _as_panel(u)
     v, _ = _as_panel(v)
     _bump("smw_updates")
+    if _is_sharded(inv):
+        return _smw_inverse_sharded(inv, u.to(inv.device), v.to(inv.device))
     if isinstance(inv, BlockMatrix):
         return BlockMatrix(_smw_inverse_blocks(inv.blocks, u, v))
     return _smw_inverse_dense(inv, u, v)
@@ -155,7 +249,7 @@ def smw_update_solve(inv, u: torch.Tensor, v: torch.Tensor,
     u, _ = _as_panel(u)
     v, _ = _as_panel(v)
     rhs2, vector = _as_panel(rhs)
-    if isinstance(inv, BlockMatrix):
+    if isinstance(inv, BlockMatrix) or _is_sharded(inv):
         x0 = apply_inverse(inv, rhs2).float()
         p = apply_inverse(inv, u).float()
         v32 = v.float()
@@ -167,8 +261,8 @@ def smw_update_solve(inv, u: torch.Tensor, v: torch.Tensor,
 
 
 def apply_inverse(inv, rhs: torch.Tensor, *, precision=None) -> torch.Tensor:
-    """X·B for a maintained inverse in either representation; B (n, c) or
-    (n,).
+    """X·B for a maintained inverse in any representation (dense,
+    BlockMatrix, ShardedBlockMatrix); B (n, c) or (n,).
 
     The O(n²c) serving path: one panel product against the resident
     inverse. `precision` (PrecisionPolicy | preset string | None) selects
@@ -178,7 +272,10 @@ def apply_inverse(inv, rhs: torch.Tensor, *, precision=None) -> torch.Tensor:
     block representation accumulates in f32 and ignores it.
     """
     rhs2, vector = _as_panel(rhs)
-    if isinstance(inv, BlockMatrix):
+    if _is_sharded(inv):
+        _bump("solve_applies")
+        x = _apply_inverse_sharded(inv, rhs2)
+    elif isinstance(inv, BlockMatrix):
         _bump("solve_applies")
         x = _blocks_apply(inv.blocks, rhs2).to(rhs.dtype)
     else:
@@ -212,6 +309,8 @@ def add_low_rank(a, u: torch.Tensor, v: torch.Tensor):
     of `smw_update_inverse`)."""
     u, _ = _as_panel(u)
     v, _ = _as_panel(v)
+    if _is_sharded(a):
+        return _add_low_rank_sharded(a, u.to(a.device), v.to(a.device))
     if isinstance(a, BlockMatrix):
         return BlockMatrix(_smw_correction_blocks(a.blocks, -u.float(),
                                                   v.float().T))

@@ -188,11 +188,15 @@ class ConformanceReport:
     solve_residual: float
     tolerance: float
     op_counts_ok: bool
+    path: str = "dense"                      # "dense" | "sharded"
+    parity_vs_dense: float | None = None     # sharded only: rel. max |Δ|
 
     @property
     def ok(self) -> bool:
         return (self.op_counts_ok and self.inverse_residual < self.tolerance
-                and self.solve_residual < self.tolerance)
+                and self.solve_residual < self.tolerance
+                and (self.parity_vs_dense is None
+                     or self.parity_vs_dense < self.tolerance))
 
     def as_dict(self) -> dict:
         d = dataclasses.asdict(self)
@@ -206,12 +210,27 @@ def run_conformance(grids: Sequence[int] = (2, 4, 8), block_size: int = 32,
                                                "ill_conditioned_spd",
                                                "block_banded_spd"),
                     seed: int = 0, leaf_solver: str = "linalg",
-                    device: str | torch.device = DEFAULT_DEVICE
-                    ) -> list[ConformanceReport]:
+                    device: str | torch.device | None = None,
+                    sharded: bool = False) -> list[ConformanceReport]:
     """Sweep SPIN inversion and the `n_rhs`-column solve over the zoo with
     the ambient engine and `leaf_solver`; a conformant build has every
-    report's `.ok`."""
-    dev = resolve_device(device)
+    report's `.ok`.
+
+    sharded=True runs the mesh-resident recursion
+    (`parallel.sharded_blockmatrix`) over the ambient mesh instead: the
+    same op-count oracle, plus `parity_vs_dense`, the relative max
+    deviation from the dense path's inverse, held to the same tolerance
+    (0 off the mesh). `device` defaults to the mesh's devices under a
+    mesh, else the card.
+    """
+    if sharded:
+        from ..parallel.sharded_blockmatrix import (
+            ShardedBlockMatrix, sharded_spin_inverse, sharded_spin_solve)
+        from .spin import _sharded_device
+
+        dev = _sharded_device(device)
+    else:
+        dev = resolve_device(DEFAULT_DEVICE if device is None else device)
     rng = np.random.default_rng(seed)
     reports = []
     for family in families:
@@ -227,9 +246,19 @@ def run_conformance(grids: Sequence[int] = (2, 4, 8), block_size: int = 32,
             rhs = torch.from_numpy(rng.standard_normal(
                 (n, n_rhs), dtype=np.float32)).to(dev, dtype)
             bm = BlockMatrix.from_dense(a, block_size)
-            with count_ops() as counts:
-                inv = spin_inverse(bm, leaf_solver=leaf_solver).to_dense()
-            x = spin_solve(bm, rhs, leaf_solver=leaf_solver)
+            parity = None
+            if sharded:
+                sbm = ShardedBlockMatrix.from_blockmatrix(bm)
+                with count_ops() as counts:
+                    inv = sharded_spin_inverse(sbm, leaf_solver).to_dense()
+                x = sharded_spin_solve(sbm, rhs, leaf_solver=leaf_solver)
+                ref = spin_inverse(bm, leaf_solver=leaf_solver).to_dense()
+                parity = float((inv - ref).float().abs().max()
+                               / (ref.float().abs().max() + 1e-30))
+            else:
+                with count_ops() as counts:
+                    inv = spin_inverse(bm, leaf_solver=leaf_solver).to_dense()
+                x = spin_solve(bm, rhs, leaf_solver=leaf_solver)
             try:
                 assert_paper_op_counts(grid, counts)
                 counts_ok = True
@@ -243,5 +272,7 @@ def run_conformance(grids: Sequence[int] = (2, 4, 8), block_size: int = 32,
                 dtype=str(dtype).removeprefix("torch."),
                 inverse_residual=inverse_residual(a, inv),
                 solve_residual=solve_residual(a, x, rhs), tolerance=tol,
-                op_counts_ok=counts_ok))
+                op_counts_ok=counts_ok,
+                path="sharded" if sharded else "dense",
+                parity_vs_dense=parity))
     return reports

@@ -40,6 +40,13 @@ ENV_VARS: dict[str, str] = {
         "int: override a resolved policy's cap on polish sweeps.",
     "SPIN_PRECISION_TOL":
         "float: override a resolved policy's residual tolerance.",
+    "SPIN_COORDINATOR":
+        "str: host:port of process 0 for a multi-process run; read by "
+        "launch.mesh.init_distributed (unset = single process).",
+    "SPIN_NUM_PROCS":
+        "int: number of processes under SPIN_COORDINATOR (default 1).",
+    "SPIN_PROC_ID":
+        "int: this process's index under SPIN_COORDINATOR (default 0).",
     "SPIN_PLAN_CACHE":
         "path: the JAX package's plan-cache file; the port keeps its own "
         "beside it (plans.json -> plans.torch.json); unset = "

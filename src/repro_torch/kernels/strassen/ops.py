@@ -29,11 +29,8 @@ def base_schur_update(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor, *,
     """One classical leaf Schur update, A·B − C (negate_c) or C − A·B, as
     one fused GEMM launch. In f32 on the CPU the plain version rounds as
     `base_matmul_blocks` followed by the subtract does, bit for bit."""
-    # Late import: core.multiply dispatches into core.strassen, which
-    # dispatches into this module.
-    from ...core.multiply import schur_update_blocks
-
-    return schur_update_blocks(c, a, b, negate_c=negate_c, engine="cuda")
+    alpha, beta = (1.0, -1.0) if negate_c else (-1.0, 1.0)
+    return mm_ops.grid_schur_update(c, a, b, alpha=alpha, beta=beta)
 
 
 def base_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -15,9 +15,9 @@ comparison running in service:
     (`PlanCache.put_calibration`), as the autotuner's timings do;
   * `record_coded_run` folds a coded run's report into per-process
     straggle statistics, and `observed_straggler_prob()` gives the rate
-    seen once enough runs are on record. The port's coded execution, the
-    writer of those records, is not ported yet: the statistics are kept
-    as data.
+    seen once enough runs are on record; `parallel.straggler.coded_inverse`
+    writes those records and reads the rate back when it plans its
+    redundancy.
 """
 
 from __future__ import annotations

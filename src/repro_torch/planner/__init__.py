@@ -11,7 +11,7 @@ block size, and every `auto=True`, route through here.
 
 from .plan import (STRASSEN_MIN_N, STRASSEN_MIN_N_CUDA, Plan,
                    ProblemSignature, candidate_grids, default_backend,
-                   enumerate_plans, signature_for)
+                   enumerate_plans, mesh_descriptor, signature_for)
 # NB: the `autotune` *function* is not re-exported: it would shadow the
 # `repro_torch.planner.autotune` submodule. Use
 # `repro_torch.planner.autotune.autotune` (or `get_plan`).
@@ -27,7 +27,7 @@ from .refactor_policy import (RefactorDecision, RefactorPolicy,
 
 __all__ = [
     "Plan", "ProblemSignature", "signature_for", "enumerate_plans",
-    "candidate_grids", "default_backend",
+    "candidate_grids", "default_backend", "mesh_descriptor",
     "STRASSEN_MIN_N", "STRASSEN_MIN_N_CUDA",
     "predict_cost", "rank_plans", "measure_plan", "measure_plans",
     "LEAF_SOLVER_RATE", "ENGINE_RATE", "CUDA_CONSTANTS",

@@ -32,6 +32,7 @@ a "planner.rank" event and a measured choice a "planner.measure" event
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 
 import numpy as np
@@ -89,9 +90,12 @@ LEAF_SOLVER_RATE: dict[str, dict[str, float]] = {
 # 8192³ (21.49 against 9.789 ms, PERF.md §6). Off the card the kernel
 # engine runs its plain version and is priced out, as the JAX package
 # prices its interpreted engine. Strassen's win is modeled structurally
-# (`strassen_cost`), so its rate is 1.0.
+# (`strassen_cost`), so its rate is 1.0. The SUMMA engines multiply each
+# shard with the same einsum, so they take its rate.
 ENGINE_RATE: dict[str, dict[str, float]] = {
     "einsum": {"cuda": 2.2},
+    "allgather": {"cuda": 2.2},
+    "ring": {"cuda": 2.2},
     "cuda": {"cuda": 1.0, "default": 200.0},
     "strassen": {},
 }
@@ -200,7 +204,11 @@ def measure_plans(sig: ProblemSignature, plans: list[Plan], *,
     from . import dispatch  # late: dispatch imports this module
 
     operands = _bench_operands(sig)
-    run = dispatch.execute_solve if sig.kind == "solve" else dispatch.execute_inverse
+    # Time the executor the plan will run under: for a sharded signature
+    # the mesh-resident recursion, not the dense path.
+    run = functools.partial(
+        dispatch.execute_solve if sig.kind == "solve"
+        else dispatch.execute_inverse, placement=sig.placement)
     sync = torch.cuda.synchronize if sig.backend == "cuda" else (lambda: None)
     for plan in plans:
         for _ in range(warmup):
@@ -235,6 +243,15 @@ def _calibration_points(measured: list[Plan], sig: ProblemSignature
     return pts
 
 
+def _behavior(sig: ProblemSignature, p: Plan) -> tuple:
+    """What a plan executes: its execution key, with `allgather` and
+    `ring` read as `einsum` off the mesh."""
+    key = p.execution_key()
+    if not sig.mesh and p.multiply_engine in ("allgather", "ring"):
+        key = key[:2] + ("einsum",) + key[3:]
+    return key
+
+
 def autotune(sig: ProblemSignature, candidates: list[Plan], *,
              measure: bool = False, top_k: int | None = 4,
              calibration: dict | None = None
@@ -262,13 +279,16 @@ def autotune(sig: ProblemSignature, candidates: list[Plan], *,
 
     short = ranked if top_k is None else ranked[:max(top_k, 1)]
     # One timing per executed configuration (the best-ranked plan of each,
-    # so ties resolve to the model's preference).
+    # so ties resolve to the model's preference). Off the mesh (the
+    # signature's descriptor decides) the SUMMA engines are the einsum
+    # product, so they share its timing instead of letting timer noise
+    # pick among one program.
     reps: dict[tuple, Plan] = {}
     for p in short:
-        reps.setdefault(p.execution_key(), p)
+        reps.setdefault(_behavior(sig, p), p)
     uniq = list(reps.values())
     secs = dict(zip(reps, measure_plans(sig, uniq)))
-    timed = [dataclasses.replace(p, measured_s=secs[p.execution_key()],
+    timed = [dataclasses.replace(p, measured_s=secs[_behavior(sig, p)],
                                  source="measured") for p in short]
     best = min(timed, key=lambda p: p.measured_s)   # ties -> ranked order
 

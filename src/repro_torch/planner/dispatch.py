@@ -33,7 +33,8 @@ from ..core.precision import _dtype_name, resolve_precision, torch_dtype
 from ..obs.trace import TRACER as _TRACER
 from .autotune import autotune as _autotune_plans
 from .cache import PlanCache, default_cache, default_cache_path
-from .plan import Plan, default_backend, enumerate_plans, signature_for
+from .plan import (Plan, default_backend, enumerate_plans, mesh_descriptor,
+                   signature_for)
 
 __all__ = ["get_plan", "plan_inverse", "plan_solve", "planned_block_size",
            "planned_leaf_solver", "execute_inverse", "execute_solve",
@@ -147,9 +148,19 @@ def _refined_inverse(plan: Plan, dense: torch.Tensor) -> torch.Tensor:
                                     sweeps=plan.refine_sweeps).to_dense()
 
 
-def execute_inverse(plan: Plan, dense: torch.Tensor) -> torch.Tensor:
+def execute_inverse(plan: Plan, dense: torch.Tensor,
+                    placement: str = "dense") -> torch.Tensor:
     """Run one concrete inversion plan on a dense (n, n) matrix, on the
-    device the matrix lies on."""
+    device the matrix lies on. placement="sharded" runs the mesh-resident
+    recursion over the ambient mesh instead (no refinement stage exists
+    there; enumeration never produces one)."""
+    if placement == "sharded":
+        from ..core.spin import spin_inverse_sharded
+
+        return spin_inverse_sharded(dense, plan.block_size,
+                                    leaf_solver=plan.leaf_solver,
+                                    engine=plan.multiply_engine,
+                                    device=dense.device)
     from ..core.spin import spin_inverse_dense
 
     if plan.compute_dtype != _dtype_name(dense.dtype) and plan.refine_sweeps:
@@ -165,9 +176,17 @@ def execute_inverse(plan: Plan, dense: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def execute_solve(plan: Plan, dense: torch.Tensor, rhs: torch.Tensor
-                  ) -> torch.Tensor:
-    """Run one concrete solve plan on dense A (n, n) and B (n, k) or (n,)."""
+def execute_solve(plan: Plan, dense: torch.Tensor, rhs: torch.Tensor,
+                  placement: str = "dense") -> torch.Tensor:
+    """Run one concrete solve plan on dense A (n, n) and B (n, k) or (n,)
+    (placement="sharded": the mesh-resident solve)."""
+    if placement == "sharded":
+        from ..core.solve import spin_solve_sharded
+
+        return spin_solve_sharded(dense, rhs, plan.block_size,
+                                  leaf_solver=plan.leaf_solver,
+                                  engine=plan.multiply_engine,
+                                  device=dense.device)
     from ..core.solve import spin_solve_dense
 
     return spin_solve_dense(dense, rhs, plan.block_size, plan.leaf_solver,
@@ -263,10 +282,12 @@ def plan_solve(dense: torch.Tensor, rhs: torch.Tensor, *,
 @functools.lru_cache(maxsize=256)
 def _planned_fields(kind: str, n: int, dtype_name: str,
                     block_sizes: tuple[int, ...] | None,
-                    cache_path: str, backend: str) -> tuple[int, str]:
+                    cache_path: str, backend: str,
+                    mesh: str = "") -> tuple[int, str]:
     # cache_path is part of the memo key, so a changed $SPIN_PLAN_CACHE
     # (a test pointing at a temporary directory) is seen instead of
-    # answers memoized against the previous file.
+    # answers memoized against the previous file; `mesh` likewise, since
+    # the ambient mesh is on the signature get_plan derives.
     kw = {"block_sizes": block_sizes} if block_sizes else {}
     plan = get_plan(kind, n, dtype_name, measure=False, backend=backend, **kw)
     return plan.block_size, plan.leaf_solver
@@ -276,7 +297,8 @@ def planned_block_size(n: int, dtype=torch.float32, kind: str = "inverse", *,
                        backend: str | None = None) -> int:
     """Cost-model block size for (kind, n, dtype) on `backend`."""
     return _planned_fields(kind, int(n), _dtype_name(dtype), None,
-                           default_cache_path(), backend or default_backend())[0]
+                           default_cache_path(), backend or default_backend(),
+                           mesh_descriptor())[0]
 
 
 def planned_leaf_solver(n: int, block_size: int, dtype=torch.float32,
@@ -284,4 +306,5 @@ def planned_leaf_solver(n: int, block_size: int, dtype=torch.float32,
                         backend: str | None = None) -> str:
     """Leaf solver for a problem whose block grid is already fixed."""
     return _planned_fields(kind, int(n), _dtype_name(dtype), (int(block_size),),
-                           default_cache_path(), backend or default_backend())[1]
+                           default_cache_path(), backend or default_backend(),
+                           mesh_descriptor())[1]

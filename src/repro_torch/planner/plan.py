@@ -10,10 +10,12 @@ Plans are frozen dataclasses, so they round-trip through the JSON plan
 cache; their fields and cache keys read as the JAX package's do, with the
 ``cuda`` leaf and engine where that package has ``pallas``.
 
-The backend is the device the call runs on: "cuda" or "cpu". The port
-runs on one device, so `device_count` is 1 and `mesh` is "" (the fields
-stay, so that keys read as the JAX package's), and the sharded placement
-is not taken yet.
+The backend is the device the call runs on: "cuda" or "cpu". `mesh` is
+the ambient mesh's topology ("data2:model2", "" for none) and
+`device_count` counts its DISTINCT devices: a 2×2 mesh of one card is one
+device, so the cost model promises no speed-up one card cannot give,
+while the key still tells the topologies apart. The sharded placement
+(`placement="sharded"`) plans the mesh-resident recursion.
 """
 
 from __future__ import annotations
@@ -27,7 +29,8 @@ from ..core.precision import PrecisionPolicy, _dtype_name
 from ..core.spin import LEAF_SOLVERS
 
 __all__ = ["Plan", "ProblemSignature", "signature_for", "enumerate_plans",
-           "candidate_grids", "default_backend", "STRASSEN_MIN_N",
+           "candidate_grids", "default_backend", "mesh_descriptor",
+           "STRASSEN_MIN_N",
            "STRASSEN_MIN_N_CUDA", "BACKENDS"]
 
 BACKENDS = ("cuda", "cpu")
@@ -58,10 +61,10 @@ class ProblemSignature:
     n: int               # matrix dimension
     dtype: str           # dtype name ("float32", "bfloat16", ...)
     backend: str         # "cuda" | "cpu"
-    device_count: int    # devices (the paper's workers): 1 in the port
+    device_count: int    # distinct devices of the mesh (paper's workers)
     cores: int           # parallel lanes for the §4 cost model's PF terms
-    mesh: str = ""       # mesh topology: none ("") in the port
-    placement: str = "dense"  # engine placement
+    mesh: str = ""       # ambient mesh topology ("data2:model2", "" = none)
+    placement: str = "dense"  # engine placement: "dense" | "sharded"
     update_rank: int = 0  # accumulated SMW churn the plan is priced under
     precision: str = ""  # PrecisionPolicy.descriptor() ("" = exact default)
     constraint: str = ""  # e.g. "block_sizes=64" when the grid is pre-fixed
@@ -82,9 +85,26 @@ class ProblemSignature:
         return dataclasses.asdict(self)
 
 
+def mesh_descriptor() -> str:
+    """The ambient mesh's topology, e.g. "data2:model2" ("" = none)."""
+    from ..launch.mesh import current_mesh
+
+    mesh = current_mesh()
+    return mesh.descriptor() if mesh is not None else ""
+
+
+def _mesh_device_count() -> int:
+    from ..launch.mesh import current_mesh
+
+    mesh = current_mesh()
+    return len(mesh.distinct_devices) if mesh is not None else 1
+
+
 def signature_for(kind: str, n: int, dtype=torch.float32, *,
                   backend: str | None = None,
+                  device_count: int | None = None,
                   cores: int | None = None,
+                  mesh: str | None = None,
                   placement: str = "dense",
                   update_rank: int = 0,
                   precision: str = "",
@@ -92,26 +112,30 @@ def signature_for(kind: str, n: int, dtype=torch.float32, *,
     """The signature of one problem on `backend` (default: the card where
     there is one, else the CPU).
 
-    `cores` feeds the cost model's parallelization-factor terms: on the CPU
-    the host's threads run block products side by side, so it defaults to
-    os.cpu_count(); on the card it is the device count, and the card's own
-    parallelism lives in its constants.
+    `device_count` defaults to the distinct devices of the ambient mesh
+    (1 without one) and `mesh` to its topology. `cores` feeds the cost
+    model's parallelization-factor terms: on the CPU the host's threads run
+    block products side by side, so it defaults to os.cpu_count() (at
+    least the device count); on the card it is the device count, and the
+    card's own parallelism lives in its constants.
     """
     backend = backend or default_backend()
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; want one of {BACKENDS}")
-    if placement == "sharded":
-        raise ValueError("the sharded placement is not ported yet; "
-                         "use placement='dense'")
-    if placement != "dense":
+    if placement not in ("dense", "sharded"):
         raise ValueError(f"unknown placement {placement!r}")
     if update_rank < 0:
         raise ValueError(f"update_rank must be >= 0, got {update_rank}")
+    device_count = device_count or _mesh_device_count()
     if cores is None:
-        cores = (os.cpu_count() or 1) if backend == "cpu" else 1
+        cores = (max(os.cpu_count() or 1, device_count) if backend == "cpu"
+                 else device_count)
+    if mesh is None:
+        mesh = mesh_descriptor()
     return ProblemSignature(kind=kind, n=int(n), dtype=_dtype_name(dtype),
-                            backend=backend, device_count=1, cores=int(cores),
-                            placement=placement, update_rank=int(update_rank),
+                            backend=backend, device_count=int(device_count),
+                            cores=int(cores), mesh=mesh, placement=placement,
+                            update_rank=int(update_rank),
                             precision=precision, constraint=constraint)
 
 
@@ -165,14 +189,17 @@ def candidate_grids(n: int, *, min_block: int = 8, max_grid: int = 64
 
 def _default_engines(sig: ProblemSignature) -> tuple[str, ...]:
     # The kernel engine only where its kernels run (the card), first, so that
-    # the multiply-free b = 1 plan names it; Strassen only from the
-    # backend's crossover.
+    # the multiply-free b = 1 plan names it; the SUMMA engines only for the
+    # sharded placement under a mesh; Strassen only from the backend's
+    # crossover.
     if sig.backend == "cuda":
         engines = ("cuda", "einsum")
         strassen_min = STRASSEN_MIN_N_CUDA
     else:
         engines = ("einsum",)
         strassen_min = STRASSEN_MIN_N
+    if sig.placement == "sharded" and sig.mesh:
+        engines = engines + ("allgather", "ring")
     return engines + (("strassen",) if sig.n >= strassen_min else ())
 
 
@@ -190,10 +217,12 @@ def enumerate_plans(sig: ProblemSignature, *,
     to f32) are enumerated by default only for f32 inversions on the card,
     where bf16 runs on the tensor cores; on the CPU bf16 is emulated and
     never wins. Newton–Schulz polishes an inverse, so solve signatures
-    never get one. The ``cuda`` engine is enumerated only on a CUDA
-    signature, and ``strassen`` only from the backend's crossover
-    (`STRASSEN_MIN_N`, `STRASSEN_MIN_N_CUDA`); pass `engines=` to opt in
-    anywhere.
+    never get one, and neither does the sharded placement: the mesh
+    recursion has no refinement stage. The ``cuda`` engine is enumerated
+    only on a CUDA signature, ``allgather`` and ``ring`` only for a sharded
+    signature under a mesh, and ``strassen`` only from the backend's
+    crossover (`STRASSEN_MIN_N`, `STRASSEN_MIN_N_CUDA`); pass `engines=`
+    to opt in anywhere.
     """
     if leaf_solvers is None:
         leaf_solvers = tuple(LEAF_SOLVERS)
@@ -201,7 +230,8 @@ def enumerate_plans(sig: ProblemSignature, *,
         engines = _default_engines(sig)
     if include_refinement is None:
         include_refinement = sig.backend == "cuda" and sig.dtype == "float32"
-    include_refinement = include_refinement and sig.kind == "inverse"
+    include_refinement = (include_refinement and sig.kind == "inverse"
+                          and sig.placement != "sharded")
 
     if block_sizes is not None:
         grids = sorted({sig.n // bs for bs in block_sizes if sig.n % bs == 0})
@@ -233,9 +263,10 @@ def _store_dtype_variants(sig: ProblemSignature, plans: list[Plan]
     "bf16" preset) rewrites every candidate to store at the pinned dtype.
     An `auto_store` policy prices both the exact and the low-precision
     store of each candidate and lets `predict_cost`'s serving term decide.
-    Solve signatures keep exact storage: there is no maintained operand.
+    Solve and sharded signatures keep exact storage: there is no
+    maintained low-precision operand in either.
     """
-    if not sig.precision or sig.kind != "inverse":
+    if not sig.precision or sig.kind != "inverse" or sig.placement == "sharded":
         return plans
     policy = PrecisionPolicy.from_descriptor(sig.precision)
     out: list[Plan] = []

@@ -8,6 +8,7 @@
     PYTHONPATH=src python -m repro_torch.profile_spin --strassen       # Strassen engine
     PYTHONPATH=src python -m repro_torch.profile_spin --sweep          # block-size sweep
     PYTHONPATH=src python -m repro_torch.profile_spin --service --calls 4   # SpinService ticks
+    PYTHONPATH=src python -m repro_torch.profile_spin --sharded        # 2×2 mesh, one card
 
 Runs `spin_inverse_dense(engine="cuda", leaf_solver="cuda")` at n = 16384,
 block size 1024, f32, on a `make_spd` matrix (seed 0); with `--solve`
@@ -19,7 +20,12 @@ n = 2048, block size 128 (the scalar Gauss-Jordan leaf's path); with
 n = 16384, block size 1024; with `--bf16` the inversion under
 ``precision="bf16"`` (the recursion in bf16, one f32 Newton-Schulz sweep);
 with `--strassen` the inversion under ``engine="strassen"`` at the default
-cutoff. One
+cutoff; with `--sharded` `spin_inverse_sharded(leaf_solver="cuda",
+engine="cuda")` on a 2×2 mesh of the one card (`make_worker_mesh((2, 2),
+devices=["cuda:0"] * 4)`), whose report adds the device time by class
+(B1+B2's GEMM and pack, B3, B5, the copies between mesh coordinates and
+the layout's other copies, cuBLAS, the rest: `device_classes`) and the
+bytes the collectives copied. One
 warm-up call, `--calls` calls timed by CUDA events one by one, then
 `--calls` calls under `torch.profiler`, each in a range of its own. From
 the trace's device events it prints, for each traced call, one JSON line:
@@ -61,7 +67,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-__all__ = ["device_breakdown", "sweep", "service_ticks", "main"]
+__all__ = ["device_breakdown", "device_classes", "sweep", "service_ticks",
+           "main"]
 
 N, BLOCK_SIZE, N_RHS, SEED = 16384, 1024, 256, 0
 SERVICE_SLOTS, SERVICE_COLS, SMW_RANK = 8, 32, 64
@@ -115,6 +122,34 @@ def device_breakdown(trace: dict, call: str = CALL) -> dict:
     rows.sort(key=lambda r: -r["device_ms"])
     return {"span_ms": span / 1e3, "busy_ms": busy / 1e3,
             "idle_share": 1.0 - busy / span, "groups": rows}
+
+
+# Kernel classes of a breakdown, first match wins: the port's kernels by
+# their names in csrc/, then copies (memcpy and PyTorch's copy kernels:
+# the layout's moves between mesh coordinates and the assembly of
+# quadrants), then cuBLAS.
+_CLASSES = (
+    ("B1+B2 gemm_tc", lambda cat, name: "gemm_tc" in name),
+    ("B1+B2 pack", lambda cat, name: "gemm_pack" in name),
+    ("B3 blocked Gauss-Jordan", lambda cat, name: "bgj_" in name),
+    ("B5 triangular solve", lambda cat, name: "tri_" in name),
+    ("copies", lambda cat, name: cat == "gpu_memcpy" or "copy" in name.lower()),
+    ("fills", lambda cat, name: cat == "gpu_memset" or "fill" in name.lower()),
+    ("cuBLAS", lambda cat, name: any(k in name.lower()
+                                     for k in ("gemm", "xmma", "cutlass"))),
+    ("other", lambda cat, name: True),
+)
+
+
+def device_classes(report: dict) -> dict:
+    """A `device_breakdown` report's device ms and launches by class."""
+    out: dict[str, dict] = {}
+    for r in report["groups"]:
+        label = next(c for c, match in _CLASSES if match(r["category"], r["name"]))
+        cls = out.setdefault(label, {"device_ms": 0.0, "count": 0})
+        cls["device_ms"] += r["device_ms"]
+        cls["count"] += r["count"]
+    return out
 
 
 def _event_ms(fn, reps: int) -> float:
@@ -250,6 +285,8 @@ def main(argv=None) -> int:
                        help="time the inversion at every block size (no trace)")
     which.add_argument("--service", action="store_true",
                        help="trace SpinService's exact-path and maintained-path ticks")
+    which.add_argument("--sharded", action="store_true",
+                       help="trace the inversion on a 2x2 mesh of the one card")
     parser.add_argument("--calls", type=int, default=1,
                         help="calls timed, and calls traced, after the warm-up")
     args = parser.parse_args(argv)
@@ -278,12 +315,24 @@ def main(argv=None) -> int:
             if plan_dir is not None:
                 shutil.rmtree(plan_dir, ignore_errors=True)
         return 0
+    from .parallel import collective_bytes, reset_collective_bytes
+
     build.build_all()
     rng = np.random.default_rng(SEED)
     n, bs = (GJ_N, GJ_BLOCK_SIZE) if args.gauss_jordan else (N, BLOCK_SIZE)
     a = testing.make_spd(n, rng, device="cuda")
-    call = "spin_solve_dense" if args.solve else "lu_inverse_dense" if args.lu else CALL
-    if args.lu:
+    call = ("spin_solve_dense" if args.solve else "lu_inverse_dense" if args.lu
+            else "spin_inverse_sharded" if args.sharded else CALL)
+    if args.sharded:
+        from .core import spin_inverse_sharded
+        from .launch.mesh import make_worker_mesh, set_mesh
+
+        mesh = make_worker_mesh((2, 2), devices=["cuda:0"] * 4)
+
+        def run():
+            with set_mesh(mesh):
+                return spin_inverse_sharded(a, bs, leaf_solver="cuda", engine="cuda")
+    elif args.lu:
 
         def run():
             return lu_inverse_dense(a, bs, engine="cuda")
@@ -313,13 +362,16 @@ def main(argv=None) -> int:
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     names = [f"{call}#{i}" for i in range(args.calls)]
+    moved = []
     with torch.profiler.profile(activities=acts) as prof:
         for name in names:
+            reset_collective_bytes()
             with torch.profiler.record_function(name):
                 run()
                 torch.cuda.synchronize()
+            moved.append(collective_bytes())
     TRACE_DIR.mkdir(parents=True, exist_ok=True)
-    suffix = next((f"_{flag}" for flag in ("gauss_jordan", "bf16", "strassen")
+    suffix = next((f"_{flag}" for flag in ("gauss_jordan", "bf16", "strassen", "sharded")
                    if getattr(args, flag)), "")
     path = TRACE_DIR / f"{call}{suffix}.json"
     prof.export_chrome_trace(str(path))
@@ -332,7 +384,9 @@ def main(argv=None) -> int:
                       engine="strassen" if args.strassen else "cuda",
                       precision="bf16" if args.bf16 else "exact",
                       untraced_wall_ms=wall_ms, device=torch.cuda.get_device_name(0),
-                      trace=str(path))
+                      trace=str(path), classes=device_classes(report),
+                      collective_bytes=moved[i],
+                      mesh="data2:model2 of cuda:0" if args.sharded else None)
         if i == 0:
             for r in report["groups"]:
                 print(f"{r['device_ms']:10.3f} ms {r['count']:5d}x  {r['category']:10s} "

@@ -95,8 +95,14 @@ after dispatch, as under the JAX package's asynchronous dispatch: on the
 card a request's `finish_t` may precede the end of its kernels. Measure
 device time by synchronising before reading a clock.
 
-Sharded placement is not ported yet (ROADMAP.md A14): ``sharded=True``
-raises `ValueError`.
+Sharded placement: `add_matrix(..., sharded=True)` (or a
+`ShardedBlockMatrix` operand) holds the matrix AND its maintained inverse
+as `ShardedBlockMatrix` pairs laid out over the mesh ambient at admission
+(`launch.mesh.set_mesh`); exact solves run the mesh-resident
+`spin_solve_sharded`, SMW folds and re-factorizations keep both sides
+sharded (no gather to dense), and snapshots write the pair as block
+matrices that a restore lays out over its own ambient mesh. Sharded
+serving is exact: a non-exact policy with ``sharded=True`` raises.
 """
 
 from __future__ import annotations
@@ -115,9 +121,10 @@ from ..core.blockmatrix import BlockMatrix
 from ..core.multiply import multiply_engine
 from ..core.precision import (PrecisionPolicy, _dtype_name, resolve_precision,
                               torch_dtype)
-from ..core.solve import sketched_approx_inverse, spin_solve_dense
+from ..core.solve import (sketched_approx_inverse, spin_solve_dense,
+                          spin_solve_sharded)
 from ..core.solver_ckpt import validate_snapshot_key as _validate_snapshot_key
-from ..core.spin import spin_inverse_dense
+from ..core.spin import spin_inverse_dense, spin_inverse_sharded
 from ..core.update import (DriftTracker, add_low_rank, apply_inverse,
                            block_update_factors, estimate_inverse_residual,
                            smw_update_inverse)
@@ -219,9 +226,9 @@ class MatrixState:
     """Device-resident serving state of one maintained inverse."""
 
     matrix_id: str
-    a: torch.Tensor                  # dense (n, n)
-    inv: Optional[torch.Tensor]      # dense (n, n), store dtype
-    placement: str                   # "dense"
+    a: object                        # dense (n, n) | ShardedBlockMatrix
+    inv: object                      # the same representation, store dtype
+    placement: str                   # "dense" | "sharded"
     block_size: int
     leaf_solver: str
     engine: str | None
@@ -347,41 +354,58 @@ class SpinService:
         service's device.
 
         `a`: dense (n, n) SPD tensor (or anything `torch.as_tensor` takes),
-        or a `BlockMatrix`, whose grid then fixes the plan's block size
-        unless `block_size` re-blocks it. Explicit block_size / leaf_solver
-        / engine override the planner, as on the offline entry points.
+        a `BlockMatrix`, whose grid then fixes the plan's block size
+        unless `block_size` re-blocks it, or a `ShardedBlockMatrix`
+        (implies the sharded placement; its grid is fixed). sharded=True
+        lays a dense or BlockMatrix operand out over the ambient mesh.
+        Explicit block_size / leaf_solver / engine override the planner,
+        as on the offline entry points.
 
         `precision` (PrecisionPolicy | preset string | None) selects this
         matrix's serve precision; None falls back to the service default,
         then $SPIN_PRECISION, then exact. A non-exact policy rides the
         planner signature, the maintained inverse is held at the resolved
         store dtype, and serving is certified against the policy's bound.
+        Dense placement only: sharded serving stays exact.
         """
+        from ..parallel.sharded_blockmatrix import ShardedBlockMatrix
+
         if matrix_id in self._matrices or matrix_id in self._evicted:
             raise ValueError(f"matrix {matrix_id!r} already admitted")
         _validate_snapshot_key(matrix_id)       # snapshot dirs embed the id
         pol = resolve_precision(
             precision if precision is not None else self.precision)
-        if sharded:
-            raise ValueError(
-                "sharded placement is not ported yet (ROADMAP.md A14): the "
-                "port's service is dense-only"
-                + ("" if pol.is_exact else
-                   "; low-precision serving is dense-only in any case"))
-        if isinstance(a, BlockMatrix):
+        if isinstance(a, ShardedBlockMatrix):
+            sharded = True
+            if block_size and block_size != a.block_size:
+                raise ValueError(
+                    f"block_size={block_size} conflicts with the sharded "
+                    f"operand's fixed grid (block_size {a.block_size})")
+            block_size = a.block_size
+        elif isinstance(a, BlockMatrix):
             # a pre-blocked operand's grid is the plan constraint unless
             # it is explicitly re-blocked
             block_size = block_size or a.block_size
             a = a.to_dense()
-        a = self._on_device(a)
-        n, dtype = a.shape[0], a.dtype
+        placement = "sharded" if sharded else "dense"
+        if not pol.is_exact and sharded:
+            raise ValueError(
+                "low-precision serving is dense-only: sharded placement "
+                "keeps the exact path (pass precision=None/'exact')")
+        if not isinstance(a, ShardedBlockMatrix):
+            a = self._on_device(a)
+        n = a.n if isinstance(a, ShardedBlockMatrix) else a.shape[0]
+        dtype = a.dtype
         kw = {"block_sizes": (int(block_size),)} if block_size else {}
         from ..planner import get_plan
 
-        plan = get_plan("inverse", n, dtype, measure=False, placement="dense",
+        plan = get_plan("inverse", n, dtype, measure=False,
+                        placement=placement,
                         precision=None if pol.is_exact else pol,
                         backend=self.device.type, **kw)
         block_size = block_size or plan.block_size
+        if sharded and not isinstance(a, ShardedBlockMatrix):
+            a = ShardedBlockMatrix.from_dense(a, block_size)
         # Pin the policy's store decision: the plan's store_dtype is the
         # planner's (cost-priced) choice.
         op_name = _dtype_name(dtype)
@@ -398,7 +422,7 @@ class SpinService:
             eff = None
             drift = DriftTracker.for_dtype(dtype, scale=self.drift_scale)
         state = MatrixState(
-            matrix_id=matrix_id, a=a, inv=None, placement="dense",
+            matrix_id=matrix_id, a=a, inv=None, placement=placement,
             block_size=int(block_size),
             leaf_solver=leaf_solver or plan.leaf_solver,
             engine=engine or plan.multiply_engine, plan=plan,
@@ -435,10 +459,14 @@ class SpinService:
         matrix also CERTIFIES the fresh inverse (one probe, polish only if
         the probe exceeds the bound): that probe is the one synchronisation
         low-precision factorization pays."""
-        state.inv = spin_inverse_dense(
-            state.a, state.block_size, state.leaf_solver,
-            engine=state.engine, device=self.device,
-            precision=self._policy_of(state))
+        if state.placement == "sharded":
+            state.inv = spin_inverse_sharded(
+                state.a, leaf_solver=state.leaf_solver, engine=state.engine)
+        else:
+            state.inv = spin_inverse_dense(
+                state.a, state.block_size, state.leaf_solver,
+                engine=state.engine, device=self.device,
+                precision=self._policy_of(state))
         state.drift.reset()
         state.smw_spent_s = 0.0
         if state.precision:
@@ -944,6 +972,10 @@ class SpinService:
 
     def _exact_solve(self, state: MatrixState, rhs: torch.Tensor
                      ) -> torch.Tensor:
+        if state.placement == "sharded":
+            return spin_solve_sharded(state.a, rhs,
+                                      leaf_solver=state.leaf_solver,
+                                      engine=state.engine)
         return spin_solve_dense(state.a, rhs, state.block_size,
                                 state.leaf_solver, engine=state.engine,
                                 device=self.device)
@@ -978,9 +1010,12 @@ class SpinService:
         tolerance, drift_scale × the dtype's residual tolerance: the
         service's advertised degraded bound."""
         if state.sketch is None:
+            a = state.a
+            if state.placement == "sharded":
+                a = a.to_dense()
             with multiply_engine(state.engine):
                 state.sketch = sketched_approx_inverse(
-                    state.a, self._gen, block_size=state.block_size,
+                    a, self._gen, block_size=state.block_size,
                     tol=state.drift.tolerance,
                     max_sweeps=self.degraded_max_sweeps,
                     probes=max(1, self.drift_probes))
@@ -1071,22 +1106,33 @@ class SpinService:
             "polish_triggers": st.polish_triggers,
             "polish_sweeps": st.polish_sweeps,
         }
-        pair = {"a": BlockMatrix.from_dense(st.a, st.block_size),
-                "inv": BlockMatrix.from_dense(st.inv, st.block_size)}
+        if st.placement == "sharded":
+            pair = {"a": st.a.to_blockmatrix(),
+                    "inv": st.inv.to_blockmatrix()}
+        else:
+            pair = {"a": BlockMatrix.from_dense(st.a, st.block_size),
+                    "inv": BlockMatrix.from_dense(st.inv, st.block_size)}
         return meta, pair
 
     def _state_from_meta(self, mid: str, m: dict,
                          pair: dict[str, BlockMatrix]) -> MatrixState:
         """Inverse of `_matrix_payload` (shared by restore and rehydrate).
         A JAX-package snapshot's leaf and engine names map to the port's
-        (`bridge.port_name`)."""
-        if m["placement"] != "dense":
-            raise ValueError(
-                f"matrix {mid!r} has placement {m['placement']!r}; sharded "
-                "placement is not ported yet (ROADMAP.md A14)")
+        (`bridge.port_name`). A sharded pair is laid out over the ambient
+        mesh."""
+        from ..parallel.sharded_blockmatrix import ShardedBlockMatrix
+
+        if m["placement"] == "sharded":
+            a = ShardedBlockMatrix.from_blockmatrix(pair["a"])
+            inv = ShardedBlockMatrix.from_blockmatrix(pair["inv"])
+        elif m["placement"] == "dense":
+            a, inv = pair["a"].to_dense(), pair["inv"].to_dense()
+        else:
+            raise ValueError(f"matrix {mid!r} has unknown placement "
+                             f"{m['placement']!r}")
         st = MatrixState(
-            matrix_id=mid, a=pair["a"].to_dense(), inv=pair["inv"].to_dense(),
-            placement="dense", block_size=m["block_size"],
+            matrix_id=mid, a=a, inv=inv,
+            placement=m["placement"], block_size=m["block_size"],
             leaf_solver=bridge.port_name(m["leaf_solver"]),
             engine=bridge.port_name(m["engine"]),
             plan=bridge.plan_from_reference(m["plan"]),

@@ -847,3 +847,136 @@ def test_spin_service_on_the_card(cuda_device, tmp_path, monkeypatch):
     assert r.path == "maintained" and r.residual_est <= bound
     assert kernels.launch_counts()["matmul"] == 1       # the bf16 serve product
     assert verify.solve_residual(a, r.x, b) <= bound
+
+
+# ----------------------------------------------------- the sharded placement
+
+
+def _mesh(shape):
+    from repro_torch.launch.mesh import make_worker_mesh
+
+    return make_worker_mesh(shape, devices=["cuda:0"] * (shape[0] * shape[1]))
+
+
+def test_sharded_inverse_on_a_1x1_mesh_is_the_dense_path(cuda_device):
+    from repro_torch.core import spin_inverse_sharded
+    from repro_torch.launch.mesh import set_mesh
+
+    n, bs = 1024, 128
+    a = testing.make_spd(n, np.random.default_rng(20), device=cuda_device)
+    kernels.reset_launch_counts()
+    dense = spin_inverse_dense(a, bs, "cuda", engine="cuda")
+    want = kernels.launch_counts()
+    kernels.reset_launch_counts()
+    with set_mesh(_mesh((1, 1))):
+        x = spin_inverse_sharded(a, bs, leaf_solver="cuda", engine="cuda")
+    assert torch.equal(x, dense)
+    assert kernels.launch_counts() == want
+
+
+@pytest.mark.parametrize("engine", ["cuda", "allgather", "ring", "strassen"])
+def test_sharded_engines_on_a_2x2_mesh_of_one_card(cuda_device, engine):
+    """Each engine on a 2×2 mesh of the card against its plain run on the
+    CPU mesh of the same shape; the cuda engine's launches: one B2 or B1 a
+    shard where the quadrant grid divides the mesh, once where it does
+    not, one B3 a leaf."""
+    from repro_torch.core import spin_inverse_sharded
+    from repro_torch.launch.mesh import make_worker_mesh, set_mesh
+    from repro_torch.parallel import (assert_mesh_resident, collective_bytes,
+                                      record_specs, reset_collective_bytes)
+
+    n, bs = 1024, 64
+    grid = n // bs
+    a = testing.make_spd(n, np.random.default_rng(21), device=cuda_device)
+    with set_mesh(make_worker_mesh((2, 2), devices=["cpu"] * 4)):
+        plain = spin_inverse_sharded(a.cpu(), bs, leaf_solver="linalg",
+                                     engine=engine)
+    kernels.reset_launch_counts()
+    reset_collective_bytes()
+    with set_mesh(_mesh((2, 2))), record_specs() as recs:
+        x = spin_inverse_sharded(a, bs, leaf_solver="cuda", engine=engine)
+    launches = kernels.launch_counts()
+    assert verify.inverse_residual(a, x) < 1e-3
+    assert float((x.cpu() - plain).abs().max()) < 1e-3 * float(plain.abs().max())
+    assert assert_mesh_resident(recs)["grid_sharded"] > 0
+    assert collective_bytes()["gather"] + collective_bytes()["ring"] > 0
+    assert launches["blocked_gauss_jordan"] == grid
+    if engine == "cuda":
+        b2 = b1 = 0
+        nodes, h = 1, grid // 2
+        while h >= 1:
+            per = 4 if h % 2 == 0 else 1
+            b2, b1 = b2 + nodes * 4 * per, b1 + nodes * 2 * per
+            nodes, h = 2 * nodes, h // 2
+        assert (launches["matmul"], launches["schur_update"]) == (b2, b1)
+    elif engine in ("allgather", "ring"):
+        assert launches["matmul"] == launches["schur_update"] == 0
+
+
+def test_sharded_solve_on_a_2x2_mesh_of_one_card(cuda_device):
+    from repro_torch.core import spin_solve_sharded
+    from repro_torch.launch.mesh import set_mesh
+
+    n, bs = 1024, 128
+    a = testing.make_spd(n, np.random.default_rng(22), device=cuda_device)
+    b = torch.randn(n, 16, generator=torch.Generator().manual_seed(22)).to(cuda_device)
+    kernels.reset_launch_counts()
+    with set_mesh(_mesh((2, 2))):
+        x = spin_solve_sharded(a, b, bs, leaf_solver="cuda", engine="cuda")
+    assert verify.solve_residual(a, x, b) < 1e-3
+    launches = kernels.launch_counts()
+    assert launches["triangular_solve"] == 2 * (n // bs)
+    assert launches["matmul"] > 0
+
+
+def test_ring_overlaps_on_the_side_stream_and_stays_exact(cuda_device):
+    """The ring at a size where its panel copies run beside the products
+    on the side stream. Each shard must equal, bit for bit, the same sum
+    taken on one stream with no copies in flight (acc + A_cols·B_panel,
+    panel by panel, in the ring's order), so a panel freed or overwritten
+    while in flight would show."""
+    from repro_torch.core.multiply import matmul_blocks_einsum, multiply_dist
+    from repro_torch.parallel import collectives as col
+
+    mesh = _mesh((2, 2))
+    g = torch.Generator(device=cuda_device).manual_seed(23)
+    a, b = (torch.randn((8, 8, 512, 512), generator=g, device=cuda_device)
+            for _ in range(2))
+    spec = ("data", "model", None, None)
+    da, db = col.distribute(a, spec, mesh), col.distribute(b, spec, mesh)
+    want = torch.empty_like(a)
+    for i in range(2):
+        for j in range(2):
+            acc = torch.zeros((4, 4, 512, 512), device=cuda_device)
+            for t in range(2):
+                src = (i - t) % 2
+                acc = acc + matmul_blocks_einsum(
+                    a[4 * i:4 * i + 4, 4 * src:4 * src + 4],
+                    b[4 * src:4 * src + 4, 4 * j:4 * j + 4])
+            want[4 * i:4 * i + 4, 4 * j:4 * j + 4] = acc
+    for _ in range(3):
+        col.reset_collective_bytes()
+        got = col.gather(multiply_dist(da, db, "ring"))
+        assert torch.equal(got, want)
+        # one ring step on two data ranks: every shard of B crosses once
+        assert col.collective_bytes()["ring"] == b.numel() * b.element_size()
+    assert torch.device("cuda:0") in col._SIDE_STREAMS
+
+
+def test_coded_inverse_on_the_card_does_not_wait_for_the_straggler(cuda_device):
+    import time
+
+    from repro_torch.parallel import CodedConfig, FaultPlan, coded_inverse
+
+    n, bs = 1024, 128
+    a = testing.make_spd(n, np.random.default_rng(24), device=cuda_device)
+    cfg = CodedConfig(workers=4, redundancy=1)
+    coded_inverse(a, cfg, block_size=bs, leaf_solver="cuda", engine="cuda",
+                  fault_plan=FaultPlan())
+    t0 = time.perf_counter()
+    inv, report = coded_inverse(a, cfg, block_size=bs, leaf_solver="cuda",
+                                engine="cuda",
+                                fault_plan=FaultPlan().inject_straggler(0, 3.0))
+    assert time.perf_counter() - t0 < 3.0
+    assert report.used_ranks == [1, 2, 3]
+    assert verify.inverse_residual(a, inv) < 1e-3

@@ -110,8 +110,15 @@ def test_signature_keys_and_axes_equal_reference():
         assert port.key() == ref.key()
         assert port.as_dict() == ref.as_dict()
     assert signature_for("inverse", 64, torch.bfloat16).dtype == "bfloat16"
+    # the sharded placement is ported: off the mesh its key is the JAX
+    # package's; an unknown placement still raises
+    port = signature_for("inverse", 256, torch.float32, backend="cpu",
+                         cores=4, placement="sharded")
+    ref = jp.signature_for("inverse", 256, jnp.float32, backend="cpu",
+                           device_count=1, cores=4, placement="sharded")
+    assert port.key() == ref.key()
     with pytest.raises(ValueError):
-        signature_for("inverse", 256, placement="sharded")
+        signature_for("inverse", 256, placement="replicated")
     with pytest.raises(ValueError):
         signature_for("inverse", 256, backend="tpu")
     with pytest.raises(ValueError):
@@ -386,9 +393,13 @@ def test_plan_from_reference_maps_the_kernel_names():
         assert isinstance(plan, Plan)
         assert _ref_key(plan) == jplan.execution_key()
         assert plan.predicted_s == 0.5
+    # the SUMMA engines are ported and map as they are; a name the port
+    # does not have raises
+    assert bridge.plan_from_reference(jp.Plan(
+        block_size=64, multiply_engine="ring").to_dict()).multiply_engine == "ring"
     with pytest.raises(ValueError):
         bridge.plan_from_reference(jp.Plan(block_size=64,
-                                           multiply_engine="ring").to_dict())
+                                           multiply_engine="mosaic").to_dict())
     # a recalled reference plan runs in the port
     a = _spd(64, seed=7)
     plan = bridge.plan_from_reference(jp.Plan(block_size=16, leaf_solver="pallas",

@@ -163,7 +163,7 @@ def test_residual_tolerance_table_equals_reference(dtype):
 
 def test_unported_engines_and_leaves_raise():
     a = _matrix("spd", 32)
-    for name in ("allgather", "ring", "pallas"):
+    for name in ("pallas",):
         with pytest.raises(ValueError, match="einsum"):
             spin_inverse_dense(a, BS, engine=name, device="cpu")
         with pytest.raises(ValueError):
@@ -171,7 +171,12 @@ def test_unported_engines_and_leaves_raise():
                 pass
     with pytest.raises(ValueError, match="leaf solver"):
         spin_inverse_dense(a, BS, "pallas", device="cpu")
-    assert ENGINES == ("einsum", "cuda", "strassen")
+    # the SUMMA engines are ported; off the mesh they are the einsum product
+    ref = spin_inverse_dense(a, BS, engine="einsum", device="cpu")
+    for name in ("allgather", "ring"):
+        assert torch.equal(spin_inverse_dense(a, BS, engine=name,
+                                              device="cpu"), ref)
+    assert ENGINES == ("einsum", "cuda", "strassen", "allgather", "ring")
 
 
 def test_engines_agree_on_block_grids():

@@ -4,8 +4,8 @@ against the JAX package.
 The port's tests are those of `tests/test_spin_service.py` on dense
 placement: coalesced solves bitwise the offline `spin_solve_dense`, per-
 matrix FIFO barriers, the refactor policy's two paths, snapshot/restore,
-degraded mode under injected faults. Sharded placement is not ported and
-raises `ValueError`.
+degraded mode under injected faults. The sharded placement's tests are in
+`tests/test_torch_distributed.py`.
 
 Against the JAX package, inputs are made with numpy from a seed and handed
 bit for bit to both services:
@@ -323,10 +323,17 @@ def test_default_device_is_the_card(monkeypatch):
 
 
 def test_sharded_placement_raises_until_ported():
+    # The sharded placement is ported (tests/test_torch_distributed.py);
+    # what it still refuses is a block size that re-blocks a sharded
+    # operand's fixed grid, and nothing is admitted then.
+    from repro_torch.parallel import ShardedBlockMatrix
+
     svc = SpinService(slots=2, device="cpu")
-    with pytest.raises(ValueError, match="A14"):
-        svc.add_matrix("s", _spd(0), block_size=BS, sharded=True)
+    sbm = ShardedBlockMatrix.from_dense(_spd(0), BS)
+    with pytest.raises(ValueError, match="fixed grid"):
+        svc.add_matrix("s", sbm, block_size=2 * BS)
     assert not svc._matrices
+    assert svc.add_matrix("s", sbm).placement == "sharded"
 
 
 def test_snapshot_restore_resumes_bit_identically():

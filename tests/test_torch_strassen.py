@@ -313,6 +313,6 @@ def test_cutoff_env_changes_the_recursion(monkeypatch):
 
 
 def test_engine_registry_has_strassen():
-    assert ENGINES == ("einsum", "cuda", "strassen")
+    assert ENGINES == ("einsum", "cuda", "strassen", "allgather", "ring")
     with multiply_engine("strassen"):
         pass
