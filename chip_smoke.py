@@ -2,7 +2,8 @@
 """Drive the PyTorch port on one NVIDIA GPU: build, check and time it.
 
     python3 chip_smoke.py            # full width: n = 16384, bs = 1024, f32;
-                                     # granite-8b at B = 4, S = 2048
+                                     # granite-8b at B = 4, S = 2048;
+                                     # olmo-1b trained at 8 x 2048 tokens a step
 
 Phases, each of which fails the run (non-zero exit) on any fault:
 
@@ -14,7 +15,8 @@ Phases, each of which fails the run (non-zero exit) on any fault:
      Gauss-Jordan kernel, and of the blocked leaves' kernels: the
      triangular solve's tensor-core sweep (every strip width), its
      diagonal-block inverse and pack, and the blocked Gauss-Jordan's panel
-     and tensor-core update;
+     and tensor-core update; and of the flash attention backward's dK/dV
+     and dQ kernels (no spill at hd = 128);
   3. hold each kernel against its plain PyTorch version on the card, at the
      main paths' shapes, in f32 and bf16, and time kernel, plain version
      and the one PyTorch library call that computes the same function
@@ -31,7 +33,11 @@ Phases, each of which fails the run (non-zero exit) on any fault:
      LU baseline's leaf, torch.linalg.lu_factor_ex(pivot=False), against
      its plain loop at 1024²; flash attention at the granite-8b layer,
      B = 4, H = 32, KV = 8, S = 2048, hd = 128, causal, in bf16, f16 and
-     f32, plus a ragged S = 2000 and a non-causal case);
+     f32, plus a ragged S = 2000 and a non-causal case; its backward,
+     B6-bwd, against torch.autograd.grad of the plain version at the
+     olmo-1b layer, B = 4, H = KV = 16, S = 2048, hd = 128, and the
+     granite-8b layer, causal in bf16 and f32, plus a ragged S = 2000 and a
+     non-causal case, timed beside SDPA's backward);
   4. SPIN inversion, `spin_inverse_dense(engine="cuda", leaf_solver="cuda")`,
      at n = 16384, block_size = 1024: residual ‖AX − I‖∞ ≤ 1e-3, op counts
      equal to the paper's oracle, and the kernels it launched; in this
@@ -133,7 +139,21 @@ Phases, each of which fails the run (non-zero exit) on any fault:
      8 steps against `forward` over prompt plus those tokens, and a
      `ServingEngine` (4 slots, max_len 256) answering 8 requests, one of
      which must equal the same request served alone;
- 18. one JSON line with every path's times and residual, and one with
+ 18. training the dense LM at full width and depth: olmo-1b with random
+     weights from SEED, `TokenStream` batches of 8 x 2048 tokens, 2
+     microbatches, full remat. AdamW: one warm-up and 3 timed steps (ms,
+     tokens/s, loss, grad norm, peak memory; 64 B6 and 32 B6-bwd launches
+     a step and no other kernel of the port), 5 steps on one repeated
+     batch whose loss must fall, the state saved and restored bit for bit
+     through `checkpoint.ckpt` in a temporary directory that the phase
+     removes, and one more step from the restored state equal to the same
+     step from the live one. SPIN-Shampoo at its default config: step 1
+     refreshes (the refresh timed apart; its B1, B2 and B3 launches equal
+     to the plans' counts times the factors' layers), step 2 does not
+     (none of them); the residual of layer 0's largest factor's inverse
+     (8192²) against 4·n·2^-24·κ with κ its condition; peak memory; the
+     depth cut only if 80 GB cannot hold it, and then printed;
+ 19. one JSON line with every path's times and residual, and one with
      every kernel's launches, error and times (the GEMM's, blocked
      Gauss-Jordan's and triangular solve's launches on every path beside
      them).
@@ -212,6 +232,23 @@ SERVE_PROMPT_LENS = (16, 64)      # prompt lengths drawn from this range
 # Flash attention tolerances of the reference's own test
 # (tests/test_flash_attention.py): bf16 keeps 8 mantissa bits, f16 11.
 FLASH_TOL = {"float32": 2e-3, "bfloat16": 2e-2, "float16": 1e-2}
+# B6-bwd against torch.autograd.grad of the plain version, relative to each
+# gradient's largest entry: f32 differs in summation order only; bf16
+# rounds each gradient once to 8 mantissa bits, and the kernel's
+# D = rowsum(dO o O) reads the rounded O (tests/test_torch_attention_grad.py).
+FLASH_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+TRAIN_ARCH = "olmo-1b"            # the training phase, full width and depth
+TRAIN_BATCH, TRAIN_SEQ = 8, 2048  # 16384 tokens a step
+TRAIN_MICRO = 2                   # microbatches of 4 x 2048
+TRAIN_TIMED_STEPS = 3             # AdamW steps timed after one warm-up
+TRAIN_FALL_STEPS = 5              # AdamW steps on one repeated batch
+TRAIN_DEPTH_CUTS = (12, 8)        # SPIN-Shampoo's depth if 80 GB cannot hold all 16 layers
+U_F32 = 2.0 ** -24                # f32 unit roundoff
+# The refresh residual's bound: c·n·u·κ, the first-order bound on an
+# inverse's residual by elimination, with c = 4 over the 1.3 measured at
+# n = 256, κ = 8e3 for both packages (tests/test_torch_optim.py).
+REFRESH_RESIDUAL_C = 4.0
 
 
 class SmokeFailure(RuntimeError):
@@ -296,6 +333,18 @@ def flash_bound_ms(b: int, h: int, kv: int, sq: int, skv: int, hd: int,
     pairs = n * (n + 1) // 2 + (sq - n) * skv if causal else sq * skv
     flops = 4.0 * hd * b * h * pairs
     nbytes = itemsize * hd * (2.0 * b * h * sq + 2.0 * b * kv * skv)
+    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def flash_bwd_bound_ms(b: int, h: int, kv: int, s: int, hd: int, causal: bool,
+                       itemsize: int, peak_flops: float) -> tuple[float, str]:
+    # 10·hd operations a live (q, k) pair: S = Q Kᵀ again, dP = dO Vᵀ,
+    # dV += Pᵀ dO, dK += dSᵀ Q, dQ += dS K. q, o, dO and k, v read once,
+    # dq, dk, dv written once, the f32 log-sum-exp read once.
+    pairs = s * (s + 1) // 2 if causal else s * s
+    flops = 10.0 * hd * b * h * pairs
+    nbytes = itemsize * hd * (4.0 * b * h * s + 4.0 * b * kv * s) + 4.0 * b * h * s
     t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
@@ -632,6 +681,79 @@ def check_flash(torch, rng, b: int, h: int, kv: int, s: int, hd: int) -> dict:
     return row
 
 
+def check_flash_bwd(torch, shapes) -> dict:
+    """Phase 3, B6-bwd: dq, dk, dv of the kernel against torch.autograd.grad
+    of the plain version at the LM layers' shapes (`shapes`: name -> (B, H,
+    KV, S, hd)), causal in bf16 and f32, plus a ragged S and a non-causal
+    case in bf16; timed beside its bound and SDPA's backward. Its own
+    inputs, so that the later phases' draws stay as they were."""
+    from repro_torch.kernels.flash_attention import kernel as fa, ref as fa_ref
+    import numpy as np
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng([SEED, 21])
+    row = {}
+    for shape_name, (b, h, kv, s, hd) in shapes.items():
+        for dtype, peak in ((torch.bfloat16, PEAK_BF16_FLOPS), (torch.float32, PEAK_F32_FLOPS)):
+            name = str(dtype)[6:]
+            cases = [("causal", s, True)]
+            if dtype == torch.bfloat16 and shape_name == "granite-8b":
+                cases += [("ragged", s - 48, True), ("full", s, False)]
+            for case, sq, causal in cases:
+                def one(heads):
+                    x = rng.standard_normal((b, sq, heads, hd), dtype=np.float32)
+                    return torch.from_numpy(x).to(dev, dtype).transpose(1, 2)
+                q, k, v, do = one(h), one(kv), one(kv), one(h)
+                out, lse = fa._forward(q, k, v, causal, want_lse=True)
+                got = fa.flash_attention_bwd_cuda(q, k, v, out, do, lse, causal=causal)
+                want = fa_ref.attention_bwd_ref(q, k, v, do, causal=causal)
+                torch.cuda.synchronize()
+                errs = [max_abs(g, w) for g, w in zip(got, want)]
+                rels = [e / float(w.float().abs().max()) for e, w in zip(errs, want)]
+                tol = FLASH_BWD_TOL[name]
+                print(f"check flash_attention_bwd {shape_name} {case} {name} B={b} H={h} "
+                      f"KV={kv} S={sq} hd={hd}: max_abs_err(dq,dk,dv)={errs!r} "
+                      f"rel={rels!r} tol={tol!r}", flush=True)
+                for g, t in zip(got, (q, k, v)):
+                    require(g.dtype == dtype and g.shape == t.shape,
+                            f"flash_attention_bwd {case} {name}: dtype/shape differ")
+                    require(bool(torch.isfinite(g.float()).all()),
+                            f"flash_attention_bwd {case} {name}: non-finite")
+                require(max(rels) <= tol,
+                        f"flash_attention_bwd {shape_name} {case} {name}: rel err "
+                        f"{max(rels)} > {tol}")
+                del got, want
+                if case == "causal":
+                    bound, by = flash_bwd_bound_ms(b, h, kv, sq, hd, True, q.element_size(),
+                                                   peak)
+                    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+                    # the yardstick; the port never calls it
+                    lib_out = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                                             enable_gqa=True)
+                    times = {
+                        "ms": time_ms(lambda: fa.flash_attention_bwd_cuda(
+                            q, k, v, out, do, lse, causal=True), 3),
+                        "plain_ms": time_ms(lambda: fa_ref.attention_bwd_ref(
+                            q, k, v, do, causal=True), 1),
+                        "library_ms": time_ms(lambda: torch.autograd.grad(
+                            lib_out, leaves, do, retain_graph=True), 3),
+                        "bound_ms": bound, "bound_by": by, "max_abs_err": max(errs),
+                        "rel_err": max(rels)}
+                    print(f"time flash_attention_bwd {shape_name} {name}: {times}",
+                          flush=True)
+                    del lib_out, leaves
+                    if dtype == torch.bfloat16 and shape_name == TRAIN_ARCH:
+                        row.update(times, shape=f"B={b} H={h} KV={kv} S={sq} hd={hd} "
+                                                f"causal bf16 ({shape_name} layer)")
+                    else:
+                        prefix = f"{shape_name}_{'bf16' if dtype == torch.bfloat16 else 'f32'}"
+                        row.update({f"{prefix}_{key}": val for key, val in times.items()})
+                del q, k, v, do, out, lse
+                torch.cuda.empty_cache()
+    return row
+
+
 def print_kernel_resources(torch) -> None:
     """Phase 2: registers, shared memory and spills of the tensor-core GEMM
     body, of the tensor-core flash attention kernel at every head dim, of
@@ -651,6 +773,15 @@ def print_kernel_resources(torch) -> None:
         for hd in fa.SUPPORTED_HEAD_DIMS:
             attrs = fa.flash_attention_attributes(dtype, hd)
             print(f"resources flash_attention {str(dtype)[6:]} hd={hd}: {attrs}", flush=True)
+    # B6-bwd's FFMA kernels: no spill allowed at the LM's head dim.
+    for dtype in (torch.bfloat16, torch.float32):
+        for hd in (64, 128, 160):
+            attrs = fa.flash_attention_bwd_attributes(dtype, hd)
+            print(f"resources flash_attention_bwd {str(dtype)[6:]} hd={hd}: {attrs}",
+                  flush=True)
+            if hd == 128:
+                require(all(a["local_bytes"] == 0 for a in attrs.values()),
+                        f"flash_attention_bwd {dtype} hd={hd} spills")
     for bs in (128, gj.GJ_INPLACE_MAX_BS):
         print(f"resources gauss_jordan bs={bs}: {gj.gauss_jordan_attributes(bs)}", flush=True)
     # The blocked leaves' kernels: no spill allowed.
@@ -1635,7 +1766,7 @@ def run_sharded(torch, a) -> dict:
 
 
 def run_lm(torch, rng, cfg, dev) -> dict:
-    """Phase 16: the dense LM serving path, `cfg` on `dev`."""
+    """Phase 17: the dense LM serving path, `cfg` on `dev`."""
     import numpy as np
     import torch.nn.functional as F
     from repro_torch import kernels
@@ -1760,6 +1891,260 @@ def run_lm(torch, rng, cfg, dev) -> dict:
                      "solo_match_batch1": solo[1]}}
 
 
+def _timed_step(torch, step_fn, state, batch):
+    """(new state, metrics as floats, device ms) of one training step."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    state, metrics = step_fn(state, batch)
+    end.record()
+    end.synchronize()
+    return state, {k: float(v) for k, v in metrics.items()}, start.elapsed_time(end)
+
+
+def _check_step_launches(name: str, launches: dict, n_layers: int, spin: dict) -> None:
+    """A training step launches B6 twice a layer and microbatch (forward and
+    the remat's recompute), B6-bwd once, and of the SPIN kernels `spin`."""
+    want = {k: 0 for k in launches}
+    want.update(flash_attention=2 * n_layers * TRAIN_MICRO,
+                flash_attention_bwd=n_layers * TRAIN_MICRO, **spin)
+    want["gemm_tensor_core"] = spin.get("matmul", 0) + spin.get("schur_update", 0)
+    for kern, n in launches.items():
+        require(n == want[kern], f"{name}: {kern} launched {n} times, want {want[kern]}")
+
+
+def refresh_launches(opt) -> dict:
+    """B1, B2 and B3 launches of one refresh: each factor layer's SPIN
+    inversion on its plan's grid (2(g-1) Schur updates, 4(g-1) products
+    and g leaves a grid g), the plan the one `invert_spd` asks for."""
+    import torch
+    from repro_torch.planner import get_plan
+
+    want = {"schur_update": 0, "matmul": 0, "blocked_gauss_jordan": 0}
+    for fac in opt.factors:
+        if fac is None:
+            continue
+        for f in (fac.l, fac.r):
+            n, count = f.shape[-1], (f.shape[0] if f.ndim == 3 else 1)
+            plan = get_plan("inverse", n, torch.float32, measure=False, backend="cuda")
+            require(plan.leaf_solver == "cuda" and plan.multiply_engine == "cuda",
+                    f"refresh: the plan for n={n} is {plan.to_dict()}, not cuda/cuda")
+            g = n // plan.block_size
+            want["schur_update"] += count * 2 * (g - 1)
+            want["matmul"] += count * 4 * (g - 1)
+            want["blocked_gauss_jordan"] += count * g
+    return want
+
+
+def run_train_adamw(torch, cfg, dev) -> dict:
+    """Phase 18, AdamW: one warm-up and TRAIN_TIMED_STEPS timed steps (the
+    first counted), TRAIN_FALL_STEPS on one repeated batch, then the state
+    saved and restored bit for bit, and one step from each equal."""
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.runtime.trainer import TrainConfig, init_state, make_train_step
+    from repro_torch.tree import leaves
+
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    tcfg = TrainConfig(microbatches=TRAIN_MICRO, optimizer="adamw", warmup=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_state(cfg, tcfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    n_params = sum(p.numel() for p in leaves(state.params))
+    stream = TokenStream(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=SEED, device=str(dev))
+    step = make_train_step(cfg, tcfg)
+    torch.cuda.synchronize()
+    print(f"train: {cfg.name} {n_params} parameters, AdamW state on the card in "
+          f"{time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated", flush=True)
+
+    state, _, warm_ms = _timed_step(torch, step, state, stream.next())
+    steps = []
+    for i in range(TRAIN_TIMED_STEPS):
+        if i == 0:
+            kernels.reset_launch_counts()
+        state, m, ms = _timed_step(torch, step, state, stream.next())
+        if i == 0:
+            launches = kernels.launch_counts()
+        steps.append({"ms": ms, "loss": m["loss"], "grad_norm": m["grad_norm"]})
+        require(all(np.isfinite(v) for v in m.values() if isinstance(v, float)),
+                f"train_adamw: non-finite metrics {m}")
+    _check_step_launches("train_adamw", launches, cfg.n_layers, {})
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ms = [st["ms"] for st in steps]
+    print(f"path train_adamw: {cfg.name} B={TRAIN_BATCH} S={TRAIN_SEQ} "
+          f"microbatches={TRAIN_MICRO} remat=full warmup_ms={warm_ms!r} ms={ms!r} "
+          f"tokens_per_s={tokens / (min(ms) / 1e3)!r} steps={steps} peak_gib={peak!r} "
+          f"launches={launches}", flush=True)
+
+    fixed = stream.next()
+    losses = []
+    for _ in range(TRAIN_FALL_STEPS):
+        state, m, _ = _timed_step(torch, step, state, fixed)
+        losses.append(m["loss"])
+    print(f"path train_adamw: repeated batch losses={losses!r}", flush=True)
+    require(all(np.isfinite(losses)) and losses[-1] < losses[0],
+            f"train_adamw: the loss on a repeated batch did not fall: {losses}")
+
+    # the state to disk and back, and one more step from each
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_train_ckpt_")
+    try:
+        free = shutil.disk_usage(ckpt_dir).free
+        nbytes = sum(t.numel() * t.element_size() for t in leaves(state))
+        print(f"train_ckpt: {nbytes / 2**30:.2f} GiB of state, "
+              f"{free / 2**30:.1f} GiB free at {ckpt_dir}", flush=True)
+        t0 = time.perf_counter()
+        ckpt.save(ckpt_dir, int(state.step), state, extra={"stream": stream.state_dict()})
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        restored, extra = ckpt.restore(ckpt_dir, int(state.step), state)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    require(extra == {"stream": stream.state_dict()}, f"train_ckpt: extra {extra}")
+    for a, b in zip(leaves(restored), leaves(state)):
+        require(a.dtype == b.dtype and a.device == b.device and torch.equal(a, b),
+                "train_ckpt: a restored leaf differs from the live state")
+    nxt = stream.next()
+    from_restored, m_r, _ = _timed_step(torch, step, restored, nxt)
+    del restored
+    from_live, m_l, _ = _timed_step(torch, step, state, nxt)
+    del state
+    same = all(torch.equal(a, b) for a, b in zip(leaves(from_restored), leaves(from_live)))
+    print(f"path train_ckpt: save_s={save_s!r} restore_s={restore_s!r} "
+          f"bytes={nbytes} step_from_restored_equal={same} loss={m_r['loss']!r} "
+          f"{m_l['loss']!r}", flush=True)
+    require(same and m_r == m_l, "train_ckpt: a step from the restored state differs")
+    del from_restored, from_live
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"arch": cfg.name, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+            "microbatches": TRAIN_MICRO, "remat": "full", "n_params": n_params,
+            "warmup_ms": warm_ms, "ms": ms, "tokens_per_s": tokens / (min(ms) / 1e3),
+            "steps": steps, "peak_gib": peak, "repeated_batch_losses": losses,
+            "launches": launches,
+            "checkpoint": {"bytes": nbytes, "save_s": save_s, "restore_s": restore_s,
+                           "bitwise": True, "next_step_equal": same}}
+
+
+def _shampoo_run(torch, cfg, dev) -> dict:
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.core import verify
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.optim import spin_shampoo as shampoo
+    from repro_torch.runtime.trainer import TrainConfig, init_state, make_train_step
+
+    tcfg = TrainConfig(microbatches=TRAIN_MICRO, optimizer="spin_shampoo", warmup=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_state(cfg, tcfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    stream = TokenStream(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=SEED, device=str(dev))
+    step = make_train_step(cfg, tcfg)
+    torch.cuda.synchronize()
+    factors = [f for f in state.opt.factors if f is not None]
+    n_inversions = sum(f.shape[0] if f.ndim == 3 else 1
+                       for fac in factors for f in (fac.l, fac.r))
+    want = refresh_launches(state.opt)
+    print(f"train_shampoo: {cfg.n_layers} layers, {len(factors)} factored leaves, "
+          f"{n_inversions} inversions a refresh, state on the card in "
+          f"{time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated; refresh launches "
+          f"want {want}", flush=True)
+
+    # the refresh timed apart inside step 1, with its own launch counts
+    refreshes = []
+    original = shampoo.refresh_inverses
+
+    def timed_refresh(opt, opt_cfg):
+        before = kernels.launch_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        original(opt, opt_cfg)
+        end.record()
+        end.synchronize()
+        after = kernels.launch_counts()
+        refreshes.append({"ms": start.elapsed_time(end),
+                          "launches": {k: after[k] - before[k] for k in want}})
+
+    shampoo.refresh_inverses = timed_refresh
+    try:
+        kernels.reset_launch_counts()
+        state, m1, ms1 = _timed_step(torch, step, state, stream.next())
+        launches1 = kernels.launch_counts()
+        # layer 0's largest factor, against the damping invert_spd applied
+        fac = max((f for f in factors if f.l.ndim == 3),
+                  key=lambda f: max(f.l.shape[-1], f.r.shape[-1]))
+        f, inv = (fac.r, fac.rinv) if fac.r.shape[-1] >= fac.l.shape[-1] else (fac.l, fac.linv)
+        f0, x0 = f[0], inv[0]
+        n = f0.shape[-1]
+        damped = f0 + tcfg.shampoo.damping * (torch.trace(f0) / n + 1e-12) * torch.eye(
+            n, device=dev)
+        residual = verify.inverse_residual(damped, x0)
+        eig = torch.linalg.eigvalsh(damped)
+        kappa = float(eig.max() / eig.min())
+        bound = REFRESH_RESIDUAL_C * n * U_F32 * kappa
+        # the yardstick: cuSOLVER's pivoted LU inverse of the same matrix in
+        # f32, which the port never calls here
+        lu_residual = verify.inverse_residual(damped, torch.linalg.inv(damped))
+        del damped, eig
+        kernels.reset_launch_counts()
+        state, m2, ms2 = _timed_step(torch, step, state, stream.next())
+        launches2 = kernels.launch_counts()
+    finally:
+        shampoo.refresh_inverses = original
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    require(len(refreshes) == 1, f"train_shampoo: {len(refreshes)} refreshes in two steps")
+    print(f"path train_shampoo: {cfg.name} layers={cfg.n_layers} step1_ms={ms1!r} "
+          f"step2_ms={ms2!r} refresh_ms={refreshes[0]['ms']!r} "
+          f"refresh_launches={refreshes[0]['launches']} loss={m1['loss']!r} {m2['loss']!r} "
+          f"grad_norm={m1['grad_norm']!r} {m2['grad_norm']!r} peak_gib={peak!r}", flush=True)
+    print(f"path train_shampoo: layer 0 factor n={n} residual={residual!r} "
+          f"condition={kappa!r} bound={bound!r} (4·n·2^-24·κ) "
+          f"pivoted_lu_residual={lu_residual!r}", flush=True)
+    require(all(np.isfinite([m1["loss"], m2["loss"], m1["grad_norm"], m2["grad_norm"]])),
+            "train_shampoo: non-finite metrics")
+    require(refreshes[0]["launches"] == want,
+            f"train_shampoo: refresh launched {refreshes[0]['launches']}, want {want}")
+    _check_step_launches("train_shampoo step 1", launches1, cfg.n_layers, want)
+    _check_step_launches("train_shampoo step 2", launches2, cfg.n_layers, {})
+    require(residual <= bound, f"train_shampoo: residual {residual} > {bound}")
+    del state, fac, f, inv, f0, x0
+    return {"arch": cfg.name, "layers": cfg.n_layers, "step1_ms": ms1, "step2_ms": ms2,
+            "refresh_ms": refreshes[0]["ms"], "refresh_launches": refreshes[0]["launches"],
+            "inversions": n_inversions, "losses": [m1["loss"], m2["loss"]],
+            "grad_norms": [m1["grad_norm"], m2["grad_norm"]], "peak_gib": peak,
+            "factor_n": n, "factor_residual": residual, "factor_condition": kappa,
+            "factor_bound": bound, "factor_pivoted_lu_residual": lu_residual,
+            "launches_step1": launches1, "launches_step2": launches2}
+
+
+def run_train_shampoo(torch, cfg, dev) -> dict:
+    """Phase 18, SPIN-Shampoo at the default config: step 1 refreshes every
+    factor's inverse through B1, B2 and B3, step 2 does not; full width,
+    and full depth unless the card cannot hold it (then printed)."""
+    depths = [cfg.n_layers] + [d for d in TRAIN_DEPTH_CUTS if d < cfg.n_layers]
+    for depth in depths:
+        try:
+            out = _shampoo_run(torch, dataclasses.replace(cfg, n_layers=depth), dev)
+        except torch.cuda.OutOfMemoryError as err:
+            print(f"train_shampoo: {depth} layers do not fit ({str(err)[:120]}); "
+                  "cutting the depth for this run", flush=True)
+            out = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        if out is not None:
+            out["depth_cut"] = depth != cfg.n_layers
+            return out
+    raise SmokeFailure(f"train_shampoo: {depths[-1]} layers do not fit either")
+
+
 def _leaves(tree: dict):
     for v in tree.values():
         yield from (_leaves(v) if isinstance(v, dict) else (v,))
@@ -1811,6 +2196,10 @@ def main() -> int:
     lm_cfg = get_arch(LM_ARCH)
     report["flash_attention"] = check_flash(
         torch, rng, LM_BATCH, lm_cfg.n_heads, lm_cfg.n_kv_heads, LM_SEQ, lm_cfg.head_dim)
+    train_cfg = get_arch(TRAIN_ARCH)
+    report["flash_attention_bwd"] = check_flash_bwd(torch, {
+        name: (TRAIN_BATCH // TRAIN_MICRO, c.n_heads, c.n_kv_heads, TRAIN_SEQ, c.head_dim)
+        for name, c in ((TRAIN_ARCH, train_cfg), (LM_ARCH, lm_cfg))})
 
     # 4. SPIN at full width
     a = testing.make_spd(n, rng, device="cuda")
@@ -1972,6 +2361,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # 18. training the dense LM: AdamW, the checkpoint, SPIN-Shampoo
+    train_adamw = run_train_adamw(torch, train_cfg, torch.device("cuda"))
+    train_shampoo = run_train_shampoo(torch, train_cfg, torch.device("cuda"))
+
     print(json.dumps({"paths": {
         "spin": {"n": n, "block_size": bs, "ms": spin["ms"], "residual": spin["residual"]},
         "lu": {"n": n, "block_size": bs, "ms": lu["ms"], "residual": lu["residual"],
@@ -2004,10 +2397,11 @@ def main() -> int:
         "spin_gauss_jordan": {"n": gn, "block_size": gbs, "ms": gjp["ms"],
                               "residual": gjp["residual"]},
         "lm_prefill": lm["lm_prefill"], "lm_decode": lm["lm_decode"],
-        "lm_serve": lm["lm_serve"], "sharded": sharded},
+        "lm_serve": lm["lm_serve"], "sharded": sharded,
+        "train_adamw": train_adamw, "train_shampoo": train_shampoo},
         "card": card}), flush=True)
 
-    # 18. the kernels line
+    # 19. the kernels line
     rows = []
     gemm_body = "gemm_tc: pack pre-pass, then 3xTF32 wgmma on a TMA ring (f32)"
     report["schur_update"]["body"] = report["matmul"]["body"] = gemm_body
@@ -2029,7 +2423,10 @@ def main() -> int:
             ("triangular_solve", "src/repro_torch/kernels/csrc/leaf_inverse.cu",
              "src/repro/kernels/leaf_inverse/kernel.py:270", solve),
             ("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
-             "src/repro/kernels/flash_attention/kernel.py:74", lm)):
+             "src/repro/kernels/flash_attention/kernel.py:74", lm),
+            # no Pallas backward: the reference differentiates its chunked scan
+            ("flash_attention_bwd", "src/repro_torch/kernels/csrc/flash_attention.cu",
+             "src/repro/models/attention.py:77", train_adamw)):
         r = report[name]
         require(path["launches"][name] > 0, f"{name}: no launch on its path")
         if name in ("matmul", "schur_update", "blocked_gauss_jordan", "triangular_solve"):
@@ -2045,6 +2442,14 @@ def main() -> int:
                 ("sharded_2x2_ring", sharded["mesh"]["2x2_ring"]),
                 ("sharded_solve_2x2", sharded["solve_2x2"]),
                 ("sharded_planned_2x2", sharded["planned_2x2"]))}
+        if name == "flash_attention":
+            r["launches_by_path"] = {
+                "lm_prefill": lm["launches"][name],
+                "train_adamw_step": train_adamw["launches"][name],
+                "train_shampoo_step1": train_shampoo["launches_step1"][name]}
+        if name in ("matmul", "schur_update", "blocked_gauss_jordan"):
+            r["launches_by_path"]["train_shampoo_refresh"] = \
+                train_shampoo["refresh_launches"][name]
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": path["launches"][name], **r})
     print(json.dumps({"kernels": rows}), flush=True)

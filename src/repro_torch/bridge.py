@@ -19,7 +19,8 @@ from .device import DEFAULT_DEVICE, resolve_device
 __all__ = ["to_torch", "to_numpy", "blockmatrix_from_numpy",
            "sharded_from_numpy",
            "op_counts_from_dict", "port_name", "plan_from_reference",
-           "lm_params_from_numpy", "lm_params_to_numpy"]
+           "lm_params_from_numpy", "lm_params_to_numpy",
+           "train_state_from_numpy", "train_state_to_numpy"]
 
 # The JAX package's names of a leaf solver or engine where the port's differ.
 _PORT_NAMES = {"pallas": "cuda"}
@@ -28,11 +29,10 @@ _PORT_NAMES = {"pallas": "cuda"}
 def to_torch(x, device: str | torch.device = DEFAULT_DEVICE) -> torch.Tensor:
     """numpy (or anything `np.asarray` takes) -> torch, same bits."""
     device = resolve_device(device)
-    arr = np.asarray(x)
+    arr = np.array(x, order="C")  # a copy; keeps 0-dim arrays 0-dim
     if arr.dtype.name == "bfloat16":
-        bits = torch.from_numpy(np.ascontiguousarray(arr).view(np.uint16).copy())
-        return bits.view(torch.bfloat16).to(device)
-    return torch.from_numpy(np.ascontiguousarray(arr).copy()).to(device)
+        return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(arr).to(device)
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:
@@ -112,3 +112,42 @@ def lm_params_to_numpy(params: Mapping) -> dict:
     """The port's LM parameters -> nested dicts of numpy arrays, same bits."""
     return {k: lm_params_to_numpy(v) if isinstance(v, Mapping) else to_numpy(v)
             for k, v in params.items()}
+
+
+def _opt_from_numpy(opt, device: torch.device):
+    """The JAX package's AdamWState or SpinShampooState (numpy leaves) ->
+    the port's, by its fields."""
+    from .optim.adamw import AdamWState
+    from .optim.spin_shampoo import SpinShampooState, _Factor
+
+    step = to_torch(opt.step, "cpu").to(torch.int32)  # the port keeps it on the host
+    if "factors" not in opt._fields:
+        return AdamWState(step, *(lm_params_from_numpy(getattr(opt, f), device)
+                                  for f in ("master", "m", "v")))
+    lists = {f: [to_torch(x, device) for x in getattr(opt, f)]
+             for f in ("master", "m", "v")}
+    factors = [None if f is None else _Factor(*(to_torch(x, device) for x in f))
+               for f in opt.factors]
+    return SpinShampooState(step, lists["master"], factors, lists["m"], lists["v"])
+
+
+def train_state_from_numpy(state, device: str | torch.device = DEFAULT_DEVICE):
+    """The JAX package's TrainState as numpy (`jax.tree.map(np.asarray,
+    state)`, AdamW or SPIN-Shampoo; None factors stay None) -> the port's,
+    same bits; the step counters go to the host, as the port keeps them."""
+    from .runtime.trainer import TrainState
+
+    device = resolve_device(device)
+    return TrainState(lm_params_from_numpy(state.params, device),
+                      _opt_from_numpy(state.opt, device),
+                      to_torch(state.step, "cpu").to(torch.int32))
+
+
+def train_state_to_numpy(state):
+    """The port's TrainState -> the same structure with numpy leaves, same
+    bits. Its leaves come in the reference's flattening order, so
+    ``jax.tree.unflatten(jax.tree.structure(ref_state),
+    repro_torch.tree.leaves(out))`` builds the reference's TrainState."""
+    from .tree import tree_map
+
+    return tree_map(to_numpy, state)

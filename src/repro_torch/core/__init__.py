@@ -9,7 +9,7 @@ multiply FUNCTION; ``import repro_torch.core.multiply as m`` gives the
 module.
 """
 
-from .blockmatrix import BlockMatrix, OpCounts, count_ops
+from .blockmatrix import BlockMatrix, OpCounts, count_ops, current_counts
 from .multiply import multiply, multiply_engine, current_engine, validate_engine
 from .precision import PrecisionPolicy, PRECISION_PRESETS, resolve_precision
 from .strassen import strassen_cutoff, strassen_matmul, strassen_matmul_blocks
@@ -29,7 +29,7 @@ from .verify import solve_residual
 from . import costmodel, testing, verify
 
 __all__ = [
-    "BlockMatrix", "OpCounts", "count_ops",
+    "BlockMatrix", "OpCounts", "count_ops", "current_counts",
     "multiply", "multiply_engine", "current_engine", "validate_engine",
     "PrecisionPolicy", "PRECISION_PRESETS", "resolve_precision",
     "strassen_cutoff", "strassen_matmul", "strassen_matmul_blocks",

@@ -19,7 +19,8 @@ import torch
 
 from ..device import DEFAULT_DEVICE, resolve_device
 
-__all__ = ["BlockMatrix", "OpCounts", "count_ops", "suspend_counts"]
+__all__ = ["BlockMatrix", "OpCounts", "count_ops", "current_counts",
+           "suspend_counts"]
 
 
 # ---------------------------------------------------------------------------
@@ -64,6 +65,11 @@ def count_ops() -> Iterator[OpCounts]:
         yield counts
     finally:
         _COUNTS.reset(token)
+
+
+def current_counts() -> OpCounts | None:
+    """The counters of the innermost `count_ops` block, or None outside one."""
+    return _COUNTS.get()
 
 
 @contextlib.contextmanager

@@ -14,8 +14,8 @@ import torch
 
 from ..device import DEFAULT_DEVICE, resolve_device
 
-__all__ = ["make_spd", "make_diag_dominant", "make_ill_conditioned_spd",
-           "make_block_banded_spd", "MATRIX_FAMILIES"]
+__all__ = ["make_spd", "make_spd_batch", "make_diag_dominant",
+           "make_ill_conditioned_spd", "make_block_banded_spd", "MATRIX_FAMILIES"]
 
 
 def _normal(rng: np.random.Generator, n: int, dev: torch.device) -> torch.Tensor:
@@ -76,7 +76,17 @@ def make_block_banded_spd(n: int, rng: np.random.Generator,
     return out.to(dtype)
 
 
-# name -> generator(n, rng, dtype=..., device=...): the square zoo.
+def make_spd_batch(batch: int, n: int, rng: np.random.Generator,
+                   dtype=torch.float32, cond_boost: float = 1.0,
+                   device: str | torch.device = DEFAULT_DEVICE) -> torch.Tensor:
+    """(batch, n, n) stack of independent SPD matrices: `make_spd` drawn
+    `batch` times in a row from `rng`."""
+    return torch.stack([make_spd(n, rng, dtype=dtype, cond_boost=cond_boost,
+                                 device=device) for _ in range(batch)])
+
+
+# name -> generator(n, rng, dtype=..., device=...): the square zoo. Batched
+# families have another arity and go through `make_spd_batch`.
 MATRIX_FAMILIES = {
     "spd": make_spd,
     "diag_dominant": make_diag_dominant,

@@ -22,7 +22,8 @@ __all__ = ["LAUNCHES", "launch_counts", "reset_launch_counts", "DTYPE_CODES",
 LAUNCHES: dict[str, int] = {"matmul": 0, "schur_update": 0,
                             "gemm_tensor_core": 0, "gemm_ffma": 0,
                             "gauss_jordan": 0, "blocked_gauss_jordan": 0,
-                            "triangular_solve": 0, "flash_attention": 0}
+                            "triangular_solve": 0, "flash_attention": 0,
+                            "flash_attention_bwd": 0}
 
 # Element types the kernels take, by their code in csrc/gemm_tile.cuh.
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}

@@ -71,7 +71,32 @@
 //
 // Both take a ragged sequence and any strides on the B, H and S axes with
 // unit stride on hd, so the model's (B, S, H, hd) activations pass as
-// transposed views.
+// transposed views. Given a non-null `lse`, both also write each query
+// row's log-sum-exp, m + log(l) in natural-log units, as f32 (B, H, Sq):
+// what the backward needs to recompute P. The serving path passes null and
+// runs the same code, with one predicated store skipped at the end.
+//
+// Backward (flash_bwd_*): dQ, dK, dV of the same function. The JAX package
+// has no backward kernel: its models differentiate the chunked scan
+// `_attend_chunked` (src/repro/models/attention.py:77-143), whose gradient
+// XLA derives. Here it is three FFMA launches, f32 sums, in any dtype:
+//  * flash_bwd_delta: D = rowsum(dO o O), one warp a query row;
+//  * flash_bwd_dkdv: one block a (batch, kv head, 64-row kv tile), its K and
+//    V tiles staged once; it walks every query head of the kv head's group
+//    and every 64-row query tile that sees the kv tile (from the diagonal
+//    on when causal), recomputes S = Q Kᵀ, P = exp(S·scale − lse),
+//    dP = dO Vᵀ and dS = P o (dP − D) for the 64 x 64 tile, and adds
+//    dV += Pᵀ dO and dK += dSᵀ Q in registers; dK is scaled at the end. The
+//    group's heads are summed inside the block (GQA) in a fixed order;
+//  * flash_bwd_dq: one block a (batch, head, 64-row query tile) walks the
+//    kv tiles it sees, recomputes P and dS, and adds dQ += dS K.
+//  dQ gets its own pass instead of f32 atomics from the dK/dV blocks: it
+//  recomputes S and dP once more (14·hd operations a live pair instead of
+//  10·hd), and in return every gradient is summed in one fixed order, so a
+//  training step gives the same bits each time it runs.
+//  Bound on an H100: 10·hd operations a live (q, k) pair at the tensor
+//  cores' rate in bf16 and f16; these FFMA kernels reach at most the f32
+//  rate (67 TFLOP/s). A wgmma version is later work.
 #include <cuda.h>
 #include <math_constants.h>
 
@@ -87,6 +112,7 @@ constexpr int kBQ = 64;         // query rows a block
 constexpr int kBK = 64;         // key and value rows a tile
 constexpr int kThreads = 256;   // 16 x 16
 constexpr int kLDP = kBK + 16;  // row stride of the P tile: its stores hit 32 banks
+static_assert(kBQ == kBK, "the backward's causal tile walk assumes square tiles");
 constexpr float kNegInf = -1e30f;
 
 struct FlashArgs {
@@ -101,6 +127,7 @@ struct FlashArgs {
   long long o_sb, o_sh, o_ss;
   int causal;
   float scale;
+  float* lse;  // (B, H, Sq) f32 log-sum-exp of each query row, or nullptr
 };
 
 template <int HD>
@@ -264,6 +291,8 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd(FlashArgs p) {
 #pragma unroll
       for (int c = 0; c < kCols; ++c)
         O[qpos * p.o_ss + tx + 16 * c] = from_f32<T>(acc[i][c] / denom);
+      if (p.lse != nullptr && tx == 0)
+        p.lse[(static_cast<long long>(bb) * p.h + hh) * p.sq + qpos] = m[i] + logf(denom);
     }
   }
 }
@@ -332,6 +361,8 @@ struct TcArgs {
   long long o_sb, o_sh, o_ss;
   int causal;
   float scale_log2;  // hd^-0.5 · log2(e): the softmax runs on exp2
+  float* lse;        // (B, H, Sq) f32, natural-log units, or nullptr
+  int h;
 };
 
 template <typename T>
@@ -528,6 +559,10 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     for (int r = 0; r < 2; ++r) {
       const int row = row0 + 8 * r;
       if (row >= p.sq) continue;
+      // m and l run in log2 units of the scaled scores
+      if (p.lse != nullptr && (lane & 3) == 0)
+        p.lse[(static_cast<long long>(bb) * p.h + hh) * p.sq + row] =
+            (m[r] + log2f(fmaxf(l[r], 1e-30f))) * 0.69314718055994531f;
       T* const orow = O + row * p.o_ss;
 #pragma unroll
       for (int c = 0; c < kChunks; ++c)
@@ -585,7 +620,7 @@ cudaError_t launch_tc(const FlashArgs& p, int batch, int kv_heads, cudaStream_t 
                              static_cast<int>(Sh::kSmem));
   if (err != cudaSuccess) return err;
   const TcArgs args{p.o, p.group, p.sq, p.skv, p.o_sb, p.o_sh, p.o_ss, p.causal,
-                    p.scale * 1.4426950408889634f};
+                    p.scale * 1.4426950408889634f, p.lse, p.h};
   const dim3 grid((p.sq + kTcBQ - 1) / kTcBQ, p.h, batch);
   flash_fwd_tc<T, HD><<<grid, kTcThreads, Sh::kSmem, s>>>(tq, tk, tv, args);
   return cudaGetLastError();
@@ -600,6 +635,392 @@ cudaError_t launch_tc_hd(const FlashArgs& p, int batch, int kv_heads, int hd, cu
     case 96: return launch_tc<T, 96>(p, batch, kv_heads, s);
     case 128: return launch_tc<T, 128>(p, batch, kv_heads, s);
     case 160: return launch_tc<T, 160>(p, batch, kv_heads, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// Backward (any dtype): FFMA, f32 sums, 64 x 64 tiles, 256 threads as 16 x 16
+// ---------------------------------------------------------------------------
+
+struct BwdArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* o;
+  const void* dout;
+  const float* lse;  // (B, H, Sq) f32, from the forward
+  void* dq;
+  void* dk;
+  void* dv;
+  float* delta;      // (B, H, Sq) f32 scratch: rowsum(dO o O)
+  int h, group, sq, skv;
+  long long q_sb, q_sh, q_ss;  // strides of the B, H and S axes, in elements
+  long long k_sb, k_sh, k_ss;
+  long long v_sb, v_sh, v_ss;
+  long long o_sb, o_sh, o_ss;
+  long long do_sb, do_sh, do_ss;
+  long long dq_sb, dq_sh, dq_ss;
+  long long dk_sb, dk_sh, dk_ss;
+  long long dv_sb, dv_sh, dv_ss;
+  int causal;
+  float scale;
+};
+
+// K, V, Q and dO tiles, P and dS tiles, the q rows' lse and D.
+template <int HD>
+constexpr size_t bwd_dkdv_smem() {
+  return sizeof(float) * (4 * kBQ * (HD + 4) + 2 * kBK * kLDP + 2 * kBQ);
+}
+
+// Q, dO, K and V tiles, the dS tile, the q rows' lse and D.
+template <int HD>
+constexpr size_t bwd_dq_smem() {
+  return sizeof(float) * (4 * kBQ * (HD + 4) + kBQ * kLDP + 2 * kBQ);
+}
+
+__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  return fmaf(a.w, b.w, acc);
+}
+
+__device__ __forceinline__ float lane_of(const float4& v, int u) {
+  return reinterpret_cast<const float*>(&v)[u];
+}
+
+// D = rowsum(dO o O) in f32, one warp a query row.
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads) flash_bwd_delta(BwdArgs p) {
+  const int lane = threadIdx.x % 32;
+  const int row = blockIdx.x * (kThreads / 32) + threadIdx.x / 32;
+  const int hh = blockIdx.y, bb = blockIdx.z;
+  if (row >= p.sq) return;
+  const T* O = static_cast<const T*>(p.o) + bb * p.o_sb + hh * p.o_sh + row * p.o_ss;
+  const T* dO = static_cast<const T*>(p.dout) + bb * p.do_sb + hh * p.do_sh + row * p.do_ss;
+  float acc = 0.f;
+#pragma unroll
+  for (int d = lane; d < HD; d += 32) acc = fmaf(to_f32(O[d]), to_f32(dO[d]), acc);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) p.delta[(static_cast<long long>(bb) * p.h + hh) * p.sq + row] = acc;
+}
+
+// Stage the q tile's lse and D (rows past Sq read as 0; their P is masked).
+__device__ __forceinline__ void stage_rows(float* Ls, float* Ds, const BwdArgs& p, int bb,
+                                           int hh, int q0) {
+  if (threadIdx.x < kBQ) {
+    const int r = q0 + threadIdx.x;
+    const long long at = (static_cast<long long>(bb) * p.h + hh) * p.sq + r;
+    Ls[threadIdx.x] = r < p.sq ? p.lse[at] : 0.f;
+    Ds[threadIdx.x] = r < p.sq ? p.delta[at] : 0.f;
+  }
+}
+
+// dK and dV of one 64-row kv tile, summed over the group's query heads.
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkdv(BwdArgs p) {
+  constexpr int kLD = HD + 4;
+  constexpr int kCols = HD / 16;
+  extern __shared__ __align__(16) float smem[];
+  float* Ks = smem;               // kBK x kLD
+  float* Vs = Ks + kBK * kLD;
+  float* Qs = Vs + kBK * kLD;     // kBQ x kLD
+  float* dOs = Qs + kBQ * kLD;
+  float* Ps = dOs + kBQ * kLD;    // kBK x kLDP: row = kv row, column = q row
+  float* dSs = Ps + kBK * kLDP;
+  float* Ls = dSs + kBK * kLDP;   // kBQ
+  float* Ds = Ls + kBQ;           // kBQ
+
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int k0 = blockIdx.x * kBK;
+  const int kvh = blockIdx.y, bb = blockIdx.z;
+  stage_tile<T, HD>(Ks, static_cast<const T*>(p.k) + bb * p.k_sb + kvh * p.k_sh + k0 * p.k_ss,
+                    p.k_ss, p.skv - k0);
+  stage_tile<T, HD>(Vs, static_cast<const T*>(p.v) + bb * p.v_sb + kvh * p.v_sh + k0 * p.v_ss,
+                    p.v_ss, p.skv - k0);
+
+  float dk[4][kCols], dv[4][kCols];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) dk[a][c] = dv[a][c] = 0.f;
+
+  // Causal: query rows before k0 see none of this tile (kBQ == kBK).
+  const int q_begin = p.causal ? k0 : 0;
+  for (int hh = kvh * p.group; hh < (kvh + 1) * p.group; ++hh) {
+    const T* Qh = static_cast<const T*>(p.q) + bb * p.q_sb + hh * p.q_sh;
+    const T* dOh = static_cast<const T*>(p.dout) + bb * p.do_sb + hh * p.do_sh;
+    for (int q0 = q_begin; q0 < p.sq; q0 += kBQ) {
+      __syncthreads();  // the previous tile's Q, dO, P and dS are read
+      stage_tile<T, HD>(Qs, Qh + q0 * p.q_ss, p.q_ss, p.sq - q0);
+      stage_tile<T, HD>(dOs, dOh + q0 * p.do_ss, p.do_ss, p.sq - q0);
+      stage_rows(Ls, Ds, p, bb, hh, q0);
+      __syncthreads();
+
+      // S and dP of kv rows ty + 16 a against q rows tx + 16 b.
+      float s[4][4], dp[4][4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int b = 0; b < 4; ++b) s[a][b] = dp[a][b] = 0.f;
+#pragma unroll 2
+      for (int d = 0; d < HD; d += 4) {
+        float4 kr[4], vr[4], qr[4], orow[4];
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          kr[a] = *reinterpret_cast<const float4*>(&Ks[(ty + 16 * a) * kLD + d]);
+          vr[a] = *reinterpret_cast<const float4*>(&Vs[(ty + 16 * a) * kLD + d]);
+        }
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          qr[b] = *reinterpret_cast<const float4*>(&Qs[(tx + 16 * b) * kLD + d]);
+          orow[b] = *reinterpret_cast<const float4*>(&dOs[(tx + 16 * b) * kLD + d]);
+        }
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int b = 0; b < 4; ++b) {
+            s[a][b] = dot4(kr[a], qr[b], s[a][b]);
+            dp[a][b] = dot4(vr[a], orow[b], dp[a][b]);
+          }
+      }
+
+      // P from the forward's lse; masked pairs (past Sq or Skv, or above
+      // the diagonal) take no weight. dS = P o (dP - D).
+      const bool edge = q0 + kBQ > p.sq || k0 + kBK > p.skv || (p.causal && q0 < k0 + kBK - 1);
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          const int i = q0 + tx + 16 * b, j = k0 + ty + 16 * a;
+          float pr = expf(s[a][b] * p.scale - Ls[tx + 16 * b]);
+          if (edge && (i >= p.sq || j >= p.skv || (p.causal && i < j))) pr = 0.f;
+          Ps[(ty + 16 * a) * kLDP + tx + 16 * b] = pr;
+          dSs[(ty + 16 * a) * kLDP + tx + 16 * b] = pr * (dp[a][b] - Ds[tx + 16 * b]);
+        }
+      __syncthreads();
+
+      // dV += Pᵀ dO and dK += dSᵀ Q over the tile's q rows.
+#pragma unroll 2
+      for (int i = 0; i < kBQ; i += 4) {
+        float4 pv[4], sv[4];
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          pv[a] = *reinterpret_cast<const float4*>(&Ps[(ty + 16 * a) * kLDP + i]);
+          sv[a] = *reinterpret_cast<const float4*>(&dSs[(ty + 16 * a) * kLDP + i]);
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          float ov[kCols], qv[kCols];
+#pragma unroll
+          for (int c = 0; c < kCols; ++c) {
+            ov[c] = dOs[(i + u) * kLD + tx + 16 * c];
+            qv[c] = Qs[(i + u) * kLD + tx + 16 * c];
+          }
+#pragma unroll
+          for (int a = 0; a < 4; ++a) {
+            const float w = lane_of(pv[a], u), ws = lane_of(sv[a], u);
+#pragma unroll
+            for (int c = 0; c < kCols; ++c) {
+              dv[a][c] = fmaf(w, ov[c], dv[a][c]);
+              dk[a][c] = fmaf(ws, qv[c], dk[a][c]);
+            }
+          }
+        }
+      }
+    }
+  }
+
+  T* dK = static_cast<T*>(p.dk) + bb * p.dk_sb + kvh * p.dk_sh;
+  T* dV = static_cast<T*>(p.dv) + bb * p.dv_sb + kvh * p.dv_sh;
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int j = k0 + ty + 16 * a;
+    if (j >= p.skv) continue;
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) {
+      dK[j * p.dk_ss + tx + 16 * c] = from_f32<T>(dk[a][c] * p.scale);
+      dV[j * p.dv_ss + tx + 16 * c] = from_f32<T>(dv[a][c]);
+    }
+  }
+}
+
+// dQ of one 64-row query tile of one head.
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq(BwdArgs p) {
+  constexpr int kLD = HD + 4;
+  constexpr int kCols = HD / 16;
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;               // kBQ x kLD
+  float* dOs = Qs + kBQ * kLD;
+  float* Ks = dOs + kBQ * kLD;    // kBK x kLD
+  float* Vs = Ks + kBK * kLD;
+  float* dSs = Vs + kBK * kLD;    // kBQ x kLDP: row = q row, column = kv row
+  float* Ls = dSs + kBQ * kLDP;   // kBQ
+  float* Ds = Ls + kBQ;           // kBQ
+
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int nq = (p.sq + kBQ - 1) / kBQ;
+  const int q0 = (nq - 1 - static_cast<int>(blockIdx.x)) * kBQ;  // longest first
+  const int hh = blockIdx.y, bb = blockIdx.z, kvh = hh / p.group;
+  const T* K = static_cast<const T*>(p.k) + bb * p.k_sb + kvh * p.k_sh;
+  const T* V = static_cast<const T*>(p.v) + bb * p.v_sb + kvh * p.v_sh;
+  stage_tile<T, HD>(Qs, static_cast<const T*>(p.q) + bb * p.q_sb + hh * p.q_sh + q0 * p.q_ss,
+                    p.q_ss, p.sq - q0);
+  stage_tile<T, HD>(dOs,
+                    static_cast<const T*>(p.dout) + bb * p.do_sb + hh * p.do_sh + q0 * p.do_ss,
+                    p.do_ss, p.sq - q0);
+  stage_rows(Ls, Ds, p, bb, hh, q0);
+
+  float dq[4][kCols];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) dq[a][c] = 0.f;
+
+  int n_tiles = (p.skv + kBK - 1) / kBK;
+  if (p.causal) n_tiles = min(n_tiles, (min(q0 + kBQ, p.sq) - 1) / kBK + 1);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * kBK;
+    __syncthreads();  // the previous tile's K and dS are read
+    stage_tile<T, HD>(Ks, K + k0 * p.k_ss, p.k_ss, p.skv - k0);
+    stage_tile<T, HD>(Vs, V + k0 * p.v_ss, p.v_ss, p.skv - k0);
+    __syncthreads();
+
+    // S and dP of q rows ty + 16 a against kv rows tx + 16 b.
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) s[a][b] = dp[a][b] = 0.f;
+#pragma unroll 2
+    for (int d = 0; d < HD; d += 4) {
+      float4 qr[4], orow[4], kr[4], vr[4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        qr[a] = *reinterpret_cast<const float4*>(&Qs[(ty + 16 * a) * kLD + d]);
+        orow[a] = *reinterpret_cast<const float4*>(&dOs[(ty + 16 * a) * kLD + d]);
+      }
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        kr[b] = *reinterpret_cast<const float4*>(&Ks[(tx + 16 * b) * kLD + d]);
+        vr[b] = *reinterpret_cast<const float4*>(&Vs[(tx + 16 * b) * kLD + d]);
+      }
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          s[a][b] = dot4(qr[a], kr[b], s[a][b]);
+          dp[a][b] = dot4(orow[a], vr[b], dp[a][b]);
+        }
+    }
+
+    const bool edge = q0 + kBQ > p.sq || k0 + kBK > p.skv || (p.causal && q0 < k0 + kBK - 1);
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const int i = q0 + ty + 16 * a, j = k0 + tx + 16 * b;
+        float pr = expf(s[a][b] * p.scale - Ls[ty + 16 * a]);
+        if (edge && (i >= p.sq || j >= p.skv || (p.causal && i < j))) pr = 0.f;
+        dSs[(ty + 16 * a) * kLDP + tx + 16 * b] = pr * (dp[a][b] - Ds[ty + 16 * a]);
+      }
+    __syncthreads();
+
+    // dQ += dS K over the tile's kv rows.
+#pragma unroll 2
+    for (int j = 0; j < kBK; j += 4) {
+      float4 sv[4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+        sv[a] = *reinterpret_cast<const float4*>(&dSs[(ty + 16 * a) * kLDP + j]);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        float kv[kCols];
+#pragma unroll
+        for (int c = 0; c < kCols; ++c) kv[c] = Ks[(j + u) * kLD + tx + 16 * c];
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          const float w = lane_of(sv[a], u);
+#pragma unroll
+          for (int c = 0; c < kCols; ++c) dq[a][c] = fmaf(w, kv[c], dq[a][c]);
+        }
+      }
+    }
+  }
+
+  T* dQ = static_cast<T*>(p.dq) + bb * p.dq_sb + hh * p.dq_sh;
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int i = q0 + ty + 16 * a;
+    if (i >= p.sq) continue;
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) dQ[i * p.dq_ss + tx + 16 * c] = from_f32<T>(dq[a][c] * p.scale);
+  }
+}
+
+template <typename T, int HD>
+cudaError_t launch_bwd_t(const BwdArgs& p, int batch, int kv_heads, cudaStream_t s) {
+  constexpr size_t smem_kv = bwd_dkdv_smem<HD>(), smem_q = bwd_dq_smem<HD>();
+  static_assert(smem_kv <= 232448 && smem_q <= 232448, "tiles must fit in 227 KB");
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkdv<T, HD>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem_kv));
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(flash_bwd_dq<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem_q));
+  if (err != cudaSuccess) return err;
+  if (p.sq > 0) {
+    flash_bwd_delta<T, HD><<<dim3((p.sq + kThreads / 32 - 1) / (kThreads / 32), p.h, batch),
+                             kThreads, 0, s>>>(p);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  flash_bwd_dkdv<T, HD><<<dim3((p.skv + kBK - 1) / kBK, kv_heads, batch), kThreads, smem_kv, s>>>(p);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if (p.sq > 0)
+    flash_bwd_dq<T, HD><<<dim3((p.sq + kBQ - 1) / kBQ, p.h, batch), kThreads, smem_q, s>>>(p);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_bwd_hd(const BwdArgs& p, int batch, int kv_heads, int hd, cudaStream_t s) {
+  switch (hd) {
+    case 16: return launch_bwd_t<T, 16>(p, batch, kv_heads, s);
+    case 32: return launch_bwd_t<T, 32>(p, batch, kv_heads, s);
+    case 64: return launch_bwd_t<T, 64>(p, batch, kv_heads, s);
+    case 96: return launch_bwd_t<T, 96>(p, batch, kv_heads, s);
+    case 128: return launch_bwd_t<T, 128>(p, batch, kv_heads, s);
+    case 160: return launch_bwd_t<T, 160>(p, batch, kv_heads, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// Registers, shared memory and spills of the backward's dK/dV (which 0)
+// or dQ (which 1) kernel.
+template <typename T, int HD>
+cudaError_t bwd_attributes_t(int which, int* out) {
+  cudaFuncAttributes fa;
+  const cudaError_t err = which == 0 ? cudaFuncGetAttributes(&fa, flash_bwd_dkdv<T, HD>)
+                                     : cudaFuncGetAttributes(&fa, flash_bwd_dq<T, HD>);
+  if (err != cudaSuccess) return err;
+  out[0] = fa.numRegs;
+  out[1] = static_cast<int>(fa.sharedSizeBytes);
+  out[2] = static_cast<int>(which == 0 ? bwd_dkdv_smem<HD>() : bwd_dq_smem<HD>());
+  out[3] = static_cast<int>(fa.localSizeBytes);
+  return cudaSuccess;
+}
+
+template <typename T>
+cudaError_t bwd_attributes_hd(int hd, int which, int* out) {
+  switch (hd) {
+    case 16: return bwd_attributes_t<T, 16>(which, out);
+    case 32: return bwd_attributes_t<T, 32>(which, out);
+    case 64: return bwd_attributes_t<T, 64>(which, out);
+    case 96: return bwd_attributes_t<T, 96>(which, out);
+    case 128: return bwd_attributes_t<T, 128>(which, out);
+    case 160: return bwd_attributes_t<T, 160>(which, out);
   }
   return cudaErrorInvalidValue;
 }
@@ -643,7 +1064,10 @@ cudaError_t attributes_hd(int hd, int* out) {
 
 // q, o: (batch, h, sq, hd); k, v: (batch, kv_heads, skv, hd); each at its
 // own strides for the first three axes and unit stride on hd; one dtype.
+// lse: nullptr, or (batch, h, sq) f32 contiguous, written with each query
+// row's log-sum-exp.
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v, void* o,
+                                     float* lse,
                                      int batch, int h, int kv_heads, int sq, int skv, int hd,
                                      long long q_sb, long long q_sh, long long q_ss,
                                      long long k_sb, long long k_sh, long long k_ss,
@@ -655,12 +1079,53 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
     return cudaErrorInvalidValue;
   const FlashArgs p{q, k, v, o, h, h / kv_heads, sq, skv,
                     q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss,
-                    causal, scale};
+                    causal, scale, lse};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case repro::kF32: return launch_hd<float>(p, batch, hd, s);
     case repro::kBF16: return launch_tc_hd<__nv_bfloat16>(p, batch, kv_heads, hd, s);
     case repro::kF16: return launch_tc_hd<__half>(p, batch, kv_heads, hd, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// dq, dk, dv of the forward whose output is o and log-sum-exp lse, given
+// dout; every tensor at its own strides on the first three axes, unit
+// stride on hd, one dtype; lse and delta (scratch) (batch, h, sq) f32.
+extern "C" int repro_flash_attention_bwd(
+    const void* q, const void* k, const void* v, const void* o, const void* dout,
+    const float* lse, void* dq, void* dk, void* dv, float* delta,
+    int batch, int h, int kv_heads, int sq, int skv, int hd,
+    long long q_sb, long long q_sh, long long q_ss, long long k_sb, long long k_sh,
+    long long k_ss, long long v_sb, long long v_sh, long long v_ss, long long o_sb,
+    long long o_sh, long long o_ss, long long do_sb, long long do_sh, long long do_ss,
+    long long dq_sb, long long dq_sh, long long dq_ss, long long dk_sb, long long dk_sh,
+    long long dk_ss, long long dv_sb, long long dv_sh, long long dv_ss,
+    int causal, float scale, int dtype, void* stream) {
+  if (batch == 0 || h == 0 || skv == 0) return 0;
+  if (kv_heads < 1 || h % kv_heads || h > 65535 || batch > 65535 || kv_heads > 65535)
+    return cudaErrorInvalidValue;
+  const BwdArgs p{q, k, v, o, dout, lse, dq, dk, dv, delta, h, h / kv_heads, sq, skv,
+                  q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss,
+                  do_sb, do_sh, do_ss, dq_sb, dq_sh, dq_ss, dk_sb, dk_sh, dk_ss,
+                  dv_sb, dv_sh, dv_ss, causal, scale};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case repro::kF32: return launch_bwd_hd<float>(p, batch, kv_heads, hd, s);
+    case repro::kBF16: return launch_bwd_hd<__nv_bfloat16>(p, batch, kv_heads, hd, s);
+    case repro::kF16: return launch_bwd_hd<__half>(p, batch, kv_heads, hd, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// out[0..3]: registers a thread, static and dynamic shared memory, and
+// local (spill) bytes of the backward's dK/dV kernel (which 0) or dQ
+// kernel (which 1) for dtype and hd.
+extern "C" int repro_flash_attention_bwd_attributes(int dtype, int hd, int which, int* out) {
+  switch (dtype) {
+    case repro::kF32: return bwd_attributes_hd<float>(hd, which, out);
+    case repro::kBF16: return bwd_attributes_hd<__nv_bfloat16>(hd, which, out);
+    case repro::kF16: return bwd_attributes_hd<__half>(hd, which, out);
   }
   return cudaErrorInvalidValue;
 }

@@ -1,4 +1,6 @@
 from . import ops, ref
-from .kernel import SUPPORTED_HEAD_DIMS, flash_attention_cuda
+from .kernel import (SUPPORTED_HEAD_DIMS, FlashAttentionFn,
+                     flash_attention_bwd_cuda, flash_attention_cuda)
 
-__all__ = ["ops", "ref", "flash_attention_cuda", "SUPPORTED_HEAD_DIMS"]
+__all__ = ["ops", "ref", "flash_attention_cuda", "flash_attention_bwd_cuda",
+           "FlashAttentionFn", "SUPPORTED_HEAD_DIMS"]

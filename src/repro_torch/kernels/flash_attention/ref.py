@@ -1,10 +1,10 @@
-"""Plain PyTorch version of the flash attention kernel."""
+"""Plain PyTorch versions of the flash attention kernels."""
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["attention_ref"]
+__all__ = ["attention_ref", "attention_bwd_ref"]
 
 NEG_INF = -1e30
 
@@ -24,3 +24,14 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         s = torch.where(i >= j, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", p, vv).to(q.dtype)
+
+
+def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      do: torch.Tensor, *, causal: bool = True):
+    """(dq, dk, dv) of `attention_ref` at (q, k, v) against the output
+    gradient `do`: `torch.autograd.grad` through the plain version, in the
+    operands' dtype."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = attention_ref(*leaves, causal=causal)
+        return torch.autograd.grad(out, leaves, do)

@@ -5,8 +5,11 @@ The port of `repro.models.attention` for full attention. The reference's
 online-softmax scan over KV chunks (`_attend_chunked`) becomes one launch
 of the flash attention kernel (`kernels/flash_attention`), which walks
 the KV tiles inside each block; on the CPU the same call runs the
-kernel's plain version. Decode stays plain PyTorch, as in the reference:
-one query token against the (B, S, KV, hd) cache.
+kernel's plain version. When autograd needs the gradient on the card the
+call goes through `FlashAttentionFn`, whose backward is the B6-bwd
+kernel; on the CPU autograd differentiates the plain version. Decode
+stays plain PyTorch, as in the reference: one query token against the
+(B, S, KV, hd) cache.
 
 Sliding-window attention belongs to the hybrid family and its slice of
 the port; asking for it raises.
@@ -63,7 +66,7 @@ def _project(params: dict, x: torch.Tensor, cfg: ArchConfig,
 def attn_apply(params: dict, x: torch.Tensor, cfg: ArchConfig,
                positions: Optional[torch.Tensor] = None,
                q_chunk: int = 0, kv_chunk: int = 0, *, want_kv: bool = False):
-    """Full-sequence attention (prefill). x: (B, S, d) -> (B, S, d).
+    """Full-sequence attention (train / prefill). x: (B, S, d) -> (B, S, d).
 
     `q_chunk` and `kv_chunk` are the reference scan's tiling hints, taken
     for signature parity; the kernel tiles itself. With `want_kv` it also

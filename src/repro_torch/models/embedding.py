@@ -8,11 +8,16 @@ reference's vocab-sharded `shard_map` path waits for the port of
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 __all__ = ["embed_lookup"]
 
 
 def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    """embed: (V, d); tokens: (...) integer ids. Returns (..., d)."""
-    rows = embed.index_select(0, tokens.reshape(-1))
-    return rows.reshape(*tokens.shape, embed.shape[1])
+    """embed: (V, d); tokens: (...) integer ids. Returns (..., d).
+
+    `F.embedding` rather than `index_select`: the same gather, but its
+    backward on the card sums a token's rows in one order (sorted), where
+    `index_select`'s adds them with atomics, so a training step repeats
+    its bits."""
+    return F.embedding(tokens, embed)

@@ -1,37 +1,51 @@
 """Model assembly for the dense family: a loop over stacked layers.
 
-The port of `repro.models.transformer` for serving a dense LM (granite,
-olmo, stablelm): parameters are declared and stacked (L, ...) per layer
-exactly as in the reference, so weights carry across one to one
+The port of `repro.models.transformer` for training and serving a dense
+LM (granite, olmo, stablelm): parameters are declared and stacked (L, ...)
+per layer exactly as in the reference, so weights carry across one to one
 (`repro_torch.bridge.lm_params_from_numpy`). `forward` runs a Python loop
-over the layers under `torch.inference_mode()`, with no remat, since
-nothing trains in this slice; the reference's `jax.lax.scan` exists for
-compile time, which PyTorch does not pay.
+over the layers; the reference's `jax.lax.scan` exists for compile time,
+which PyTorch does not pay.
+
+`forward` takes one of two paths, by what it is given:
+  * training, when autograd is recording and a parameter requires grad:
+    each layer under `torch.utils.checkpoint` (non-reentrant) with
+    remat=True, saving only the residual stream ("full") or also the
+    matrix products' outputs ("dots", selective checkpointing), as the
+    reference's `jax.checkpoint` policies do; attention goes through
+    `FlashAttentionFn` on the card (B6 forward, B6-bwd backward);
+  * inference otherwise, under `torch.inference_mode()`, which `prefill`
+    and `decode_step` always take; remat does not apply.
+Both give the same logits for the same parameters.
 
 Entry points:
   param_defs / init_params
   forward(...)            logits (+ prefill cache)
+  loss_fn(...)            next-token CE and its metrics
   prefill(...)            forward with the cache
   init_cache / decode_step
-The MoE, SSM, hybrid, audio and VLM families, the loss and the sharding
-helpers come with later slices; asking for another family raises.
+The MoE, SSM, hybrid, audio and VLM families and the sharding helpers come
+with later slices; asking for another family raises.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
+from torch.utils import checkpoint as torch_checkpoint
 
 from ..configs.registry import ArchConfig
 from ..device import DEFAULT_DEVICE, resolve_device
+from ..tree import leaves
 from . import attention
 from .embedding import embed_lookup
 from .layers import (DTYPE, ParamDef, init_tree, map_defs, mlp_apply,
                      mlp_params, norm_apply, norm_params)
 
-__all__ = ["param_defs", "init_params", "forward", "prefill", "init_cache",
-           "decode_step"]
+__all__ = ["param_defs", "init_params", "forward", "loss_fn", "prefill",
+           "init_cache", "decode_step", "REMAT_POLICIES"]
 
 # The slice of the port that brings each family this one does not carry.
 _LATER_FAMILIES = {"moe": "MoE", "ssm": "SSM", "hybrid": "hybrid (sliding-window)",
@@ -106,13 +120,85 @@ def _logits(params: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     return torch.matmul(x.float(), head.float())
 
 
+REMAT_POLICIES = ("full", "dots")
+
+# Ops whose outputs the "dots" policy keeps: the projections, which the
+# reference's `dots_with_no_batch_dims_saveable` keeps (a (B, S, d) @ (d, k)
+# product is one 2-D `mm`; attention's batched products are not kept).
+_SAVED_DOTS = (torch.ops.aten.mm.default,)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _unstack(tree: dict, n: int) -> list[dict]:
+    """The stacked (L, ...) parameters as L per-layer dicts, by `unbind`,
+    whose backward stacks the L gradients once."""
+    out: list[dict] = [{} for _ in range(n)]
+    for k, v in tree.items():
+        parts = _unstack(v, n) if isinstance(v, dict) else torch.unbind(v)
+        for i in range(n):
+            out[i][k] = parts[i]
+    return out
+
+
+def _layer_fwd(cfg: ArchConfig, lp: dict, x: torch.Tensor,
+               positions: torch.Tensor) -> torch.Tensor:
+    h = _norm(cfg, lp, "attn_norm", x)
+    x = x + attention.attn_apply(lp["attn"], h, cfg, positions)
+    h = _norm(cfg, lp, "mlp_norm", x)
+    return x + mlp_apply(lp["mlp"], h, cfg.activation)
+
+
+def _tracks_grad(params: dict) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in leaves(params))
+
+
+def _train_forward(params: dict, batch: dict, cfg: ArchConfig, remat: bool,
+                   remat_policy: str):
+    if remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat_policy {remat_policy!r}; want one of "
+                         f"{REMAT_POLICIES}")
+    x = embed_lookup(params["embed"], batch["tokens"]).to(DTYPE)
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    context_fn = torch_checkpoint.noop_context_fn
+    if remat_policy == "dots":
+        context_fn = functools.partial(
+            torch_checkpoint.create_selective_checkpoint_contexts, _dots_policy)
+    for lp in _unstack(params["layers"], cfg.n_layers):
+        if remat:
+            x = torch_checkpoint.checkpoint(_layer_fwd, cfg, lp, x, positions,
+                                            use_reentrant=False,
+                                            context_fn=context_fn)
+        else:
+            x = _layer_fwd(cfg, lp, x, positions)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    return _logits(params, x, cfg), zero, zero, None
+
+
 def forward(params: dict, batch: dict, cfg: ArchConfig, *,
-            want_cache: bool = False):
+            want_cache: bool = False, remat: bool = True,
+            remat_policy: str = "full"):
     """Full-sequence forward over batch["tokens"] (B, S). Returns
     (logits (B, S, V) f32, aux, z, cache | None); aux and z, the MoE
     losses of the reference, are zero for the dense family. The cache
-    holds k, v (L, B, S, KV, hd) and pos = S."""
+    holds k, v (L, B, S, KV, hd) and pos = S.
+
+    With autograd recording and a parameter requiring grad this is the
+    training forward (see the module docstring); `remat` and
+    `remat_policy` ("full" | "dots") choose what the backward recomputes.
+    Otherwise it runs under `torch.inference_mode()`."""
     _check_dense(cfg)
+    if _tracks_grad(params):
+        if want_cache:
+            raise ValueError("the prefill cache comes from the inference "
+                             "forward; call prefill without grad")
+        return _train_forward(params, batch, cfg, remat, remat_policy)
     with torch.inference_mode():
         x = embed_lookup(params["embed"], batch["tokens"]).to(DTYPE)
         b, s, _ = x.shape
@@ -139,6 +225,28 @@ def forward(params: dict, batch: dict, cfg: ArchConfig, *,
             cache["pos"] = torch.full((b,), s, dtype=torch.int32, device=dev)
         zero = torch.zeros((), dtype=torch.float32, device=dev)
         return logits, zero, zero, cache
+
+
+def loss_fn(params: dict, batch: dict, cfg: ArchConfig, *,
+            aux_weight: float = 0.01, z_weight: float = 1e-3,
+            remat: bool = True, remat_policy: str = "full"):
+    """Next-token cross-entropy of batch["tokens"] against batch["labels"]
+    (B, S); labels < 0 carry no loss. Returns (total, {"ce", "aux", "z",
+    "tokens"}), 0-dim f32 tensors. The log-likelihood is picked by
+    `gather`, one index a row, so its backward writes each entry once: on
+    the card the gradient has the same bits on every run."""
+    logits, aux, z, _ = forward(params, batch, cfg, remat=remat,
+                                remat_policy=remat_policy)
+    labels = batch["labels"]
+    mask = labels >= 0
+    safe = labels.clamp(min=0).long()
+    logp = torch.log_softmax(logits, dim=-1)
+    token_ll = torch.gather(logp, -1, safe[..., None])[..., 0]
+    n_tokens = mask.sum()
+    ce = -torch.where(mask, token_ll, 0.0).sum() / n_tokens.clamp(min=1)
+    total = ce + aux_weight * aux + z_weight * z
+    return total, {"ce": ce, "aux": aux, "z": z,
+                   "tokens": n_tokens.to(torch.float32)}
 
 
 def prefill(params: dict, batch: dict, cfg: ArchConfig):

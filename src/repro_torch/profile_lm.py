@@ -1,7 +1,9 @@
-"""Trace the dense LM serving path on the card, or sweep its decode drift.
+"""Trace the dense LM serving or training path on the card, or sweep its
+decode drift.
 
     PYTHONPATH=src python -m repro_torch.profile_lm                 # trace
     PYTHONPATH=src python -m repro_torch.profile_lm --consistency   # drift
+    PYTHONPATH=src python -m repro_torch.profile_lm --train [--optimizer spin_shampoo]
 
 granite-8b at full width, random weights from seed 0, 4 prompts of 2048
 tokens (numpy seed 0), as `chip_smoke.py` drives it.
@@ -12,6 +14,13 @@ prints the device time by kernel class (the B6 flash attention kernel,
 cuBLAS GEMMs, the rest) and by kernel, and the idle share of the traced
 range (`profile_spin.device_breakdown`), with the untraced wall time;
 the Chrome traces are kept under ``build/profile_lm/``.
+
+Train: olmo-1b at full width and depth, random weights from seed 0,
+`TokenStream` batches of 8 x 2048 tokens (seed 0), 2 microbatches, full
+remat, as `chip_smoke.py` phase 18 drives it. AdamW: one warm-up step,
+then one traced step. SPIN-Shampoo: step 1 (which refreshes every
+factor's inverse) and step 2, each traced. Device time by class (B6,
+B6-bwd, the SPIN kernels, cuBLAS GEMMs, the rest) and idle share.
 
 Consistency: the largest and the root-mean-square difference between
 the logits of 8 decode steps and those of `forward` over the prompt plus
@@ -38,6 +47,7 @@ from .profile_spin import device_breakdown
 __all__ = ["main"]
 
 ARCH, BATCH, SEQ, SEED = "granite-8b", 4, 2048, 0
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO = "olmo-1b", 8, 2048, 2
 DECODE_STEPS = 4          # traced decode steps
 CHECK_STEPS = 8           # decode steps held against forward
 DEPTHS = (1, 2, 4, 9, 18, 36)
@@ -45,8 +55,14 @@ TRACE_DIR = Path(__file__).resolve().parents[2] / "build" / "profile_lm"
 
 
 def kernel_class(name: str) -> str:
+    if "flash_bwd" in name:
+        return "flash_attention_bwd (B6-bwd)"
     if "flash_fwd" in name:
         return "flash_attention (B6)"
+    if "gemm_tc" in name or "gemm_pack" in name:
+        return "B1/B2 (gemm_pack, gemm_tc)"
+    if "bgj_" in name:
+        return "B3 (bgj_panel, bgj_update)"
     if any(key in name.lower() for key in ("gemm", "nvjet", "cutlass", "xmma")):
         return "cuBLAS GEMM"
     return "other"
@@ -78,14 +94,15 @@ def _traced(name: str, fn) -> dict:
     return report
 
 
-def _print(report: dict, wall_ms: float) -> None:
+def _print(report: dict, wall_ms: float | None = None) -> None:
     for key, ms in sorted(report["classes"].items(), key=lambda kv: -kv[1]):
         print(f"{report['call']}: {ms:10.3f} ms  {key}")
     for r in report["groups"][:25]:
         print(f"{r['device_ms']:10.3f} ms {r['count']:5d}x  grid {r['grid'] or '-':>12s}  "
               f"{r['name'][:90]}")
+    wall = "" if wall_ms is None else f"; untraced wall {wall_ms:.3f} ms"
     print(f"{report['call']}: span {report['span_ms']:.3f} ms, busy {report['busy_ms']:.3f} ms, "
-          f"idle share {report['idle_share']:.4f}; untraced wall {wall_ms:.3f} ms", flush=True)
+          f"idle share {report['idle_share']:.4f}{wall}", flush=True)
 
 
 def _prompts(cfg, device) -> torch.Tensor:
@@ -124,6 +141,33 @@ def trace(params, cfg, device) -> None:
     _print(report, wall)
     print(json.dumps({**report, "untraced_wall_ms_per_step": wall,
                       "steps": DECODE_STEPS}))
+
+
+def train_trace(optimizer: str, device) -> None:
+    from .configs import get_arch
+    from .data.synthetic import TokenStream
+    from .runtime.trainer import TrainConfig, init_state, make_train_step
+
+    cfg = get_arch(TRAIN_ARCH)
+    tcfg = TrainConfig(microbatches=TRAIN_MICRO, optimizer=optimizer, warmup=1)
+    held = {"state": init_state(cfg, tcfg, torch.Generator(device=device).manual_seed(SEED),
+                                device)}
+    stream = TokenStream(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=SEED, device=str(device))
+    step = make_train_step(cfg, tcfg)
+    print(f"train {cfg.name} {optimizer} on {torch.cuda.get_device_name(0)}", flush=True)
+
+    def one():
+        held["state"], metrics = step(held["state"], stream.next())
+        float(metrics["loss"])
+
+    calls = ["train_adamw_step"] if optimizer == "adamw" else [
+        "train_shampoo_step1", "train_shampoo_step2"]
+    if optimizer == "adamw":
+        one()                                   # warm-up
+    for name in calls:
+        report = _traced(name, one)
+        _print(report)
+        print(json.dumps(report))
 
 
 def consistency(params, cfg, device) -> None:
@@ -174,12 +218,18 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--consistency", action="store_true",
                         help="sweep decode-vs-forward differences over depth")
+    parser.add_argument("--train", action="store_true",
+                        help="trace olmo-1b training steps instead")
+    parser.add_argument("--optimizer", default="adamw", choices=["adamw", "spin_shampoo"])
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_lm: CUDA is not available")
     torch.backends.cuda.matmul.allow_tf32 = False
     build.build_all()
     device = torch.device("cuda")
+    if args.train:
+        train_trace(args.optimizer, device)
+        return 0
     cfg = get_arch(ARCH)
     params = T.init_params(cfg, torch.Generator(device=device).manual_seed(SEED), device)
     print(f"{cfg.name} on {torch.cuda.get_device_name(0)}", flush=True)
