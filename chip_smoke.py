@@ -16,7 +16,8 @@ Phases, each of which fails the run (non-zero exit) on any fault:
      triangular solve's tensor-core sweep (every strip width), its
      diagonal-block inverse and pack, and the blocked Gauss-Jordan's panel
      and tensor-core update; and of the flash attention backward's dK/dV
-     and dQ kernels (no spill at hd = 128);
+     and dQ kernels: the tensor-core ones (bf16, f16) at every head dim,
+     no spill at any, and the f32 FFMA ones (no spill at hd = 128);
   3. hold each kernel against its plain PyTorch version on the card, at the
      main paths' shapes, in f32 and bf16, and time kernel, plain version
      and the one PyTorch library call that computes the same function
@@ -36,8 +37,11 @@ Phases, each of which fails the run (non-zero exit) on any fault:
      f32, plus a ragged S = 2000 and a non-causal case; its backward,
      B6-bwd, against torch.autograd.grad of the plain version at the
      olmo-1b layer, B = 4, H = KV = 16, S = 2048, hd = 128, and the
-     granite-8b layer, causal in bf16 and f32, plus a ragged S = 2000 and a
-     non-causal case, timed beside SDPA's backward);
+     granite-8b layer, causal in bf16 and f32 (and f16 at the olmo-1b
+     layer), plus a ragged S = 2000 and a non-causal case, timed beside
+     SDPA's backward; at the olmo-1b layer in bf16 and f16 also against
+     its own arithmetic, `attention_bwd_rounded_ref`, and repeated bit for
+     bit);
   4. SPIN inversion, `spin_inverse_dense(engine="cuda", leaf_solver="cuda")`,
      at n = 16384, block_size = 1024: residual ‖AX − I‖∞ ≤ 1e-3, op counts
      equal to the paper's oracle, and the kernels it launched; in this
@@ -236,7 +240,13 @@ FLASH_TOL = {"float32": 2e-3, "bfloat16": 2e-2, "float16": 1e-2}
 # gradient's largest entry: f32 differs in summation order only; bf16
 # rounds each gradient once to 8 mantissa bits, and the kernel's
 # D = rowsum(dO o O) reads the rounded O (tests/test_torch_attention_grad.py).
-FLASH_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+FLASH_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2, "float16": 1e-2}
+# The tensor-core kernels against their own arithmetic (P and dS rounded to
+# the operand dtype, D from the forward's output), 4x tighter: the one
+# rounding of each gradient (half an ulp, at most 2^-8 of the largest
+# entry in bf16) and f32 sums in another order
+# (tests/test_torch_attention_grad.py).
+FLASH_BWD_ROUNDED_TOL = {name: tol / 4 for name, tol in FLASH_BWD_TOL.items()}
 
 TRAIN_ARCH = "olmo-1b"            # the training phase, full width and depth
 TRAIN_BATCH, TRAIN_SEQ = 8, 2048  # 16384 tokens a step
@@ -685,8 +695,11 @@ def check_flash_bwd(torch, shapes) -> dict:
     """Phase 3, B6-bwd: dq, dk, dv of the kernel against torch.autograd.grad
     of the plain version at the LM layers' shapes (`shapes`: name -> (B, H,
     KV, S, hd)), causal in bf16 and f32, plus a ragged S and a non-causal
-    case in bf16; timed beside its bound and SDPA's backward. Its own
-    inputs, so that the later phases' draws stay as they were."""
+    case in bf16, and f16 at the training layer; timed beside its bound and
+    SDPA's backward. In bf16 and f16 at the training layer the tensor-core
+    kernels are also held to their own arithmetic
+    (`attention_bwd_rounded_ref`) and repeated bit for bit. Its own inputs,
+    so that the later phases' draws stay as they were."""
     from repro_torch.kernels.flash_attention import kernel as fa, ref as fa_ref
     import numpy as np
     import torch.nn.functional as F
@@ -695,7 +708,10 @@ def check_flash_bwd(torch, shapes) -> dict:
     rng = np.random.default_rng([SEED, 21])
     row = {}
     for shape_name, (b, h, kv, s, hd) in shapes.items():
-        for dtype, peak in ((torch.bfloat16, PEAK_BF16_FLOPS), (torch.float32, PEAK_F32_FLOPS)):
+        dtypes = [(torch.bfloat16, PEAK_BF16_FLOPS), (torch.float32, PEAK_F32_FLOPS)]
+        if shape_name == TRAIN_ARCH:
+            dtypes.append((torch.float16, PEAK_BF16_FLOPS))
+        for dtype, peak in dtypes:
             name = str(dtype)[6:]
             cases = [("causal", s, True)]
             if dtype == torch.bfloat16 and shape_name == "granite-8b":
@@ -723,7 +739,28 @@ def check_flash_bwd(torch, shapes) -> dict:
                 require(max(rels) <= tol,
                         f"flash_attention_bwd {shape_name} {case} {name}: rel err "
                         f"{max(rels)} > {tol}")
-                del got, want
+                del want
+                extra = {}
+                if shape_name == TRAIN_ARCH and dtype != torch.float32:
+                    # the kernels' own arithmetic, on the forward's output
+                    rounded = fa_ref.attention_bwd_rounded_ref(q, k, v, do, causal=causal,
+                                                               out=out)
+                    extra["rounded_rel_err"] = max(
+                        max_abs(g, w) / float(w.abs().max()) for g, w in zip(got, rounded))
+                    del rounded
+                    again = fa.flash_attention_bwd_cuda(q, k, v, out, do, lse, causal=causal)
+                    extra["bitwise_repeat"] = all(torch.equal(g, a) for g, a in zip(got, again))
+                    del again
+                    rtol = FLASH_BWD_ROUNDED_TOL[name]
+                    print(f"check flash_attention_bwd {shape_name} {case} {name}: "
+                          f"rounded_rel_err={extra['rounded_rel_err']!r} tol={rtol!r} "
+                          f"bitwise_repeat={extra['bitwise_repeat']}", flush=True)
+                    require(extra["rounded_rel_err"] <= rtol,
+                            f"flash_attention_bwd {shape_name} {name}: against its own "
+                            f"arithmetic {extra['rounded_rel_err']} > {rtol}")
+                    require(extra["bitwise_repeat"],
+                            f"flash_attention_bwd {shape_name} {name}: a repeat differs")
+                del got
                 if case == "causal":
                     bound, by = flash_bwd_bound_ms(b, h, kv, sq, hd, True, q.element_size(),
                                                    peak)
@@ -731,15 +768,19 @@ def check_flash_bwd(torch, shapes) -> dict:
                     # the yardstick; the port never calls it
                     lib_out = F.scaled_dot_product_attention(*leaves, is_causal=True,
                                                              enable_gqa=True)
+                    # enough launches that the first one's host time (checks,
+                    # eight tensor maps) does not count: 20 of the tensor-core
+                    # kernels, 3 of the f32 ones (≈ 15 ms each)
+                    reps = 3 if dtype == torch.float32 else 20
                     times = {
                         "ms": time_ms(lambda: fa.flash_attention_bwd_cuda(
-                            q, k, v, out, do, lse, causal=True), 3),
+                            q, k, v, out, do, lse, causal=True), reps),
                         "plain_ms": time_ms(lambda: fa_ref.attention_bwd_ref(
                             q, k, v, do, causal=True), 1),
                         "library_ms": time_ms(lambda: torch.autograd.grad(
-                            lib_out, leaves, do, retain_graph=True), 3),
+                            lib_out, leaves, do, retain_graph=True), reps),
                         "bound_ms": bound, "bound_by": by, "max_abs_err": max(errs),
-                        "rel_err": max(rels)}
+                        "rel_err": max(rels), **extra}
                     print(f"time flash_attention_bwd {shape_name} {name}: {times}",
                           flush=True)
                     del lib_out, leaves
@@ -747,8 +788,9 @@ def check_flash_bwd(torch, shapes) -> dict:
                         row.update(times, shape=f"B={b} H={h} KV={kv} S={sq} hd={hd} "
                                                 f"causal bf16 ({shape_name} layer)")
                     else:
-                        prefix = f"{shape_name}_{'bf16' if dtype == torch.bfloat16 else 'f32'}"
-                        row.update({f"{prefix}_{key}": val for key, val in times.items()})
+                        short = {torch.bfloat16: "bf16", torch.float16: "f16"}.get(dtype, "f32")
+                        row.update({f"{shape_name}_{short}_{key}": val
+                                    for key, val in times.items()})
                 del q, k, v, do, out, lse
                 torch.cuda.empty_cache()
     return row
@@ -773,13 +815,15 @@ def print_kernel_resources(torch) -> None:
         for hd in fa.SUPPORTED_HEAD_DIMS:
             attrs = fa.flash_attention_attributes(dtype, hd)
             print(f"resources flash_attention {str(dtype)[6:]} hd={hd}: {attrs}", flush=True)
-    # B6-bwd's FFMA kernels: no spill allowed at the LM's head dim.
-    for dtype in (torch.bfloat16, torch.float32):
-        for hd in (64, 128, 160):
+    # B6-bwd: the tensor-core kernels (bf16, f16) at every head dim, no
+    # spill allowed; the f32 FFMA kernels, no spill at the LM's head dim.
+    for dtype, hds in ((torch.bfloat16, fa.SUPPORTED_HEAD_DIMS),
+                       (torch.float16, fa.SUPPORTED_HEAD_DIMS), (torch.float32, (64, 128, 160))):
+        for hd in hds:
             attrs = fa.flash_attention_bwd_attributes(dtype, hd)
             print(f"resources flash_attention_bwd {str(dtype)[6:]} hd={hd}: {attrs}",
                   flush=True)
-            if hd == 128:
+            if dtype != torch.float32 or hd == 128:
                 require(all(a["local_bytes"] == 0 for a in attrs.values()),
                         f"flash_attention_bwd {dtype} hd={hd} spills")
     for bs in (128, gj.GJ_INPLACE_MAX_BS):
@@ -2169,6 +2213,7 @@ def main() -> int:
                                   spin_inverse_dense, spin_solve_dense,
                                   strassen_cutoff, testing, verify)
     from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import kernel as fa
 
     # 1. card
     card = card_line()
@@ -2450,6 +2495,12 @@ def main() -> int:
         if name in ("matmul", "schur_update", "blocked_gauss_jordan"):
             r["launches_by_path"]["train_shampoo_refresh"] = \
                 train_shampoo["refresh_launches"][name]
+        if name == "flash_attention_bwd":
+            r["kernels_by_dtype"] = {
+                "bf16, f16": ["flash_bwd_delta",
+                              *fa.flash_attention_bwd_kernels(torch.bfloat16).values()],
+                "f32": ["flash_bwd_delta",
+                        *fa.flash_attention_bwd_kernels(torch.float32).values()]}
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": path["launches"][name], **r})
     print(json.dumps({"kernels": rows}), flush=True)

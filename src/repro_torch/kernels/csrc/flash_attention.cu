@@ -79,24 +79,52 @@
 // Backward (flash_bwd_*): dQ, dK, dV of the same function. The JAX package
 // has no backward kernel: its models differentiate the chunked scan
 // `_attend_chunked` (src/repro/models/attention.py:77-143), whose gradient
-// XLA derives. Here it is three FFMA launches, f32 sums, in any dtype:
-//  * flash_bwd_delta: D = rowsum(dO o O), one warp a query row;
-//  * flash_bwd_dkdv: one block a (batch, kv head, 64-row kv tile), its K and
-//    V tiles staged once; it walks every query head of the kv head's group
-//    and every 64-row query tile that sees the kv tile (from the diagonal
-//    on when causal), recomputes S = Q Kᵀ, P = exp(S·scale − lse),
-//    dP = dO Vᵀ and dS = P o (dP − D) for the 64 x 64 tile, and adds
-//    dV += Pᵀ dO and dK += dSᵀ Q in registers; dK is scaled at the end. The
-//    group's heads are summed inside the block (GQA) in a fixed order;
-//  * flash_bwd_dq: one block a (batch, head, 64-row query tile) walks the
-//    kv tiles it sees, recomputes P and dS, and adds dQ += dS K.
+// XLA derives. Three launches, f32 sums, split by dtype like the forward:
+//  * flash_bwd_delta (every dtype): D = rowsum(dO o O), one warp a query
+//    row; for the tensor-core kernels it also writes lse·log2(e), both
+//    padded with zeros to a multiple of 128 rows so that a tile's rows are
+//    one bulk copy.
+//  * bf16 and f16, on Hopper's tensor cores (the FlashAttention-3 shape),
+//    384 threads as the forward: one producer warpgroup (24 registers; one
+//    thread issues every TMA load) and two consumer warpgroups (240):
+//    - flash_bwd_dkdv_tc: one block a (batch, kv head, 128-row kv tile),
+//      64 kv rows a consumer. K and V come in once; the 64-row Q and dO
+//      tiles (32 rows at hd 160) of every query head of the group, each with
+//      its rows' lse and D, stream through a two-stage ring, head after head
+//      in a fixed order (the GQA sum stays in the block, no drain between
+//      heads), from the diagonal on when causal. Sᵀ = K Qᵀ and dPᵀ = V dOᵀ
+//      are SS wgmma (both operands K-major, hd the reduction axis);
+//      Pᵀ = exp2(Sᵀ·scale·log2e − lse·log2e) and dSᵀ = Pᵀ o (dPᵀ − D) are
+//      computed on the accumulator registers (lse and D index columns), the
+//      masks only on tiles that cross the diagonal or an end; then
+//      dV += Pᵀ dO and dK += dSᵀ Q are RS wgmma: Pᵀ and dSᵀ rounded to the
+//      operand dtype are A fragments in place (the forward's P trick), and
+//      the same swizzled Q and dO tiles are read MN-major through the
+//      transpose bit. P and dS never touch shared memory.
+//    - flash_bwd_dq_tc: one block a (batch, head, 128-row query tile),
+//      longest first, 64 query rows a consumer; 64-row K and V tiles stream
+//      through the ring. S = Q Kᵀ and dP = dO Vᵀ are SS wgmma, dS is made
+//      in registers, dQ += dS K is RS wgmma with K read MN-major.
+//    Both grids put the tile index on their slowest axis, so that every
+//    head's longest tiles (when causal) are issued first and the short
+//    ones fill the tail.
+//    hd 160 takes 32-row query tiles in the dK/dV kernel: with Sᵀ and dPᵀ
+//    at n32, its 80 + 80 dK and dV accumulators stay in registers. Shared
+//    memory at hd 128: 130 KB (dK/dV: K, V and two stages of Q and dO) and
+//    129 KB (dQ: Q, dO and two stages of K and V).
+//  * f32: FFMA (flash_bwd_dkdv, flash_bwd_dq: 64 x 64 tiles, 256 threads as
+//    16 x 16, operands staged in f32). TF32 products would not hold the f32
+//    tolerance, and no f32 path trains; the same walks as the tensor-core
+//    kernels with 64-row kv tiles.
 //  dQ gets its own pass instead of f32 atomics from the dK/dV blocks: it
 //  recomputes S and dP once more (14·hd operations a live pair instead of
 //  10·hd), and in return every gradient is summed in one fixed order, so a
 //  training step gives the same bits each time it runs.
 //  Bound on an H100: 10·hd operations a live (q, k) pair at the tensor
-//  cores' rate in bf16 and f16; these FFMA kernels reach at most the f32
-//  rate (67 TFLOP/s). A wgmma version is later work.
+//  cores' rate (989 TFLOP/s) in bf16 and f16, at the f32 rate (67) in f32.
+//  Rounding Pᵀ and dSᵀ to the operand dtype before their products is the
+//  forward's choice and FlashAttention-3's (`attention_bwd_rounded_ref` is
+//  that arithmetic in plain torch).
 #include <cuda.h>
 #include <math_constants.h>
 
@@ -640,7 +668,8 @@ cudaError_t launch_tc_hd(const FlashArgs& p, int batch, int kv_heads, int hd, cu
 }
 
 // ---------------------------------------------------------------------------
-// Backward (any dtype): FFMA, f32 sums, 64 x 64 tiles, 256 threads as 16 x 16
+// Backward: D in every dtype; f32 on FFMA, f32 sums, 64 x 64 tiles, 256
+// threads as 16 x 16
 // ---------------------------------------------------------------------------
 
 struct BwdArgs {
@@ -653,7 +682,7 @@ struct BwdArgs {
   void* dq;
   void* dk;
   void* dv;
-  float* delta;      // (B, H, Sq) f32 scratch: rowsum(dO o O)
+  float* delta;      // f32 scratch, 2·B·H·bwd_ld(Sq): D = rowsum(dO o O), then lse·log2(e)
   int h, group, sq, skv;
   long long q_sb, q_sh, q_ss;  // strides of the B, H and S axes, in elements
   long long k_sb, k_sh, k_ss;
@@ -690,21 +719,31 @@ __device__ __forceinline__ float lane_of(const float4& v, int u) {
   return reinterpret_cast<const float*>(&v)[u];
 }
 
-// D = rowsum(dO o O) in f32, one warp a query row.
+// D = rowsum(dO o O) in f32, one warp a query row, at
+// delta[(b·h + head)·ld + row] for rows below ld, zero from sq on. With a
+// non-null `lse2`, also the forward's lse in log2 units at the same place
+// (zero from sq on): the tensor-core kernels copy a tile's rows of both.
 template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads) flash_bwd_delta(BwdArgs p) {
+__global__ void __launch_bounds__(kThreads) flash_bwd_delta(BwdArgs p, int ld, float* lse2) {
   const int lane = threadIdx.x % 32;
   const int row = blockIdx.x * (kThreads / 32) + threadIdx.x / 32;
   const int hh = blockIdx.y, bb = blockIdx.z;
-  if (row >= p.sq) return;
-  const T* O = static_cast<const T*>(p.o) + bb * p.o_sb + hh * p.o_sh + row * p.o_ss;
-  const T* dO = static_cast<const T*>(p.dout) + bb * p.do_sb + hh * p.do_sh + row * p.do_ss;
+  if (row >= ld) return;
   float acc = 0.f;
+  if (row < p.sq) {  // the same for the whole warp
+    const T* O = static_cast<const T*>(p.o) + bb * p.o_sb + hh * p.o_sh + row * p.o_ss;
+    const T* dO = static_cast<const T*>(p.dout) + bb * p.do_sb + hh * p.do_sh + row * p.do_ss;
 #pragma unroll
-  for (int d = lane; d < HD; d += 32) acc = fmaf(to_f32(O[d]), to_f32(dO[d]), acc);
+    for (int d = lane; d < HD; d += 32) acc = fmaf(to_f32(O[d]), to_f32(dO[d]), acc);
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) p.delta[(static_cast<long long>(bb) * p.h + hh) * p.sq + row] = acc;
+    for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  }
+  if (lane == 0) {
+    const long long head = static_cast<long long>(bb) * p.h + hh;
+    p.delta[head * ld + row] = acc;
+    if (lse2 != nullptr)
+      lse2[head * ld + row] = row < p.sq ? p.lse[head * p.sq + row] * 1.4426950408889634f : 0.f;
+  }
 }
 
 // Stage the q tile's lse and D (rows past Sq read as 0; their P is masked).
@@ -961,27 +1000,479 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq(BwdArgs p) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// Backward on the tensor cores (bf16, f16): wgmma products, TMA loads
+// ---------------------------------------------------------------------------
+
+// Rows of the delta and lse·log2(e) scratch a (batch, head): Sq padded to a
+// whole 128-row tile, so that every staged tile's rows lie inside it.
+__host__ __device__ constexpr int bwd_ld(int sq) { return (sq + 127) / 128 * 128; }
+
+// dK/dV kernel: 128 kv rows a block, 64 a consumer warpgroup; query tiles
+// of kBQ rows, each with its rows' lse and D, through a ring of kStages.
+template <int HD>
+struct DkdvShape {
+  static constexpr int kBK = 128;
+  // hd 160: Sᵀ and dPᵀ at n32 leave room for the 80 + 80 dK, dV registers
+  static constexpr int kBQ = HD <= 128 ? 64 : 32;
+  static constexpr int kStages = 2;
+  static constexpr int kKVBytes = kBK * HD * 2;  // one K or one V tile
+  static constexpr int kQBytes = kBQ * HD * 2;   // one Q or one dO tile
+  static constexpr int kRowBytes = kBQ * 4;      // one tile's lse or D
+  static constexpr int kStageTx = 2 * kQBytes + 2 * kRowBytes;
+  static constexpr int kBarBytes = 8 * (1 + 2 * kStages);
+  static constexpr size_t kSmem = 1024 + 2 * kKVBytes + kStages * kStageTx + kBarBytes;
+  static_assert(kSmem <= 232448, "tiles must fit in 227 KB");
+};
+
+// dQ kernel: 128 query rows a block, 64 a consumer warpgroup; kv tiles of
+// kBK rows through a ring of kStages.
+template <int HD>
+struct DqShape {
+  static constexpr int kBQ = 128;
+  static constexpr int kBK = 64;
+  static constexpr int kStages = 2;
+  static constexpr int kQBytes = kBQ * HD * 2;   // one Q or one dO tile
+  static constexpr int kKVBytes = kBK * HD * 2;  // one K or one V tile
+  static constexpr int kBarBytes = 8 * (1 + 2 * kStages);
+  static constexpr size_t kSmem = 1024 + 2 * kQBytes + 2 * kStages * kKVBytes + kBarBytes;
+  static_assert(kSmem <= 232448, "tiles must fit in 227 KB");
+};
+
+struct BwdTcArgs {
+  void* dq;
+  void* dk;
+  void* dv;
+  const float* delta;  // (B, H, ld) f32: D, zero from Sq on
+  const float* lse2;   // (B, H, ld) f32: lse·log2(e), zero from Sq on
+  int h, group, sq, skv, ld;
+  long long dq_sb, dq_sh, dq_ss;
+  long long dk_sb, dk_sh, dk_ss;
+  long long dv_sb, dv_sh, dv_ss;
+  int causal;
+  float scale;       // hd^-0.5
+  float scale_log2;  // hd^-0.5 · log2(e)
+};
+
+template <int N, typename T>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db,
+                                         int scale_d) {
+  if constexpr (N == 32) repro::wgmma_ss_n32<T>(d, da, db, scale_d);
+  else repro::wgmma_ss_n64<T>(d, da, db, scale_d);
+}
+
+// d = A Bᵀ over hd, both read K-major: A the 64 rows at `a` of a tile of
+// AR rows, B the N rows of the tile at `b`. Tiles are hd / kCE chunks of
+// rows x kSw bytes, as TMA writes them.
+template <typename T, int HD, int AR, int N>
+__device__ __forceinline__ void product_over_hd(float (&d)[N / 2], const uint8_t* a,
+                                                const uint8_t* b) {
+  using Sh = TcShape<HD>;
+#pragma unroll
+  for (int ks = 0; ks < HD / 16; ++ks) {
+    const int chunk = ks * 16 / Sh::kCE, off = ((ks * 16) % Sh::kCE) * 2;
+    const uint64_t da =
+        repro::wgmma_desc(a + chunk * AR * Sh::kSw + off, 16, 8 * Sh::kSw, Sh::kLayout);
+    const uint64_t db =
+        repro::wgmma_desc(b + chunk * N * Sh::kSw + off, 16, 8 * Sh::kSw, Sh::kLayout);
+    wgmma_ss<N, T>(d, da, db, ks > 0);
+  }
+}
+
+// d += A B: A (64 x K) from registers as K / 16 fragments, B the K x hd
+// tile at `b` read MN-major through the transpose bit, one swizzle atom of
+// hd columns a product (the forward's P V).
+template <typename T, int HD, int K>
+__device__ __forceinline__ void product_into_hd(
+    float (&d)[TcShape<HD>::kChunks][TcShape<HD>::kCE / 2], const uint32_t (&a)[K / 16][4],
+    const uint8_t* b) {
+  using Sh = TcShape<HD>;
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk)
+#pragma unroll
+    for (int c = 0; c < Sh::kChunks; ++c) {
+      const uint64_t db = repro::wgmma_desc(b + c * K * Sh::kSw + kk * 16 * Sh::kSw,
+                                            K * Sh::kSw, 8 * Sh::kSw, Sh::kLayout);
+      wgmma_rs<Sh::kCE, T>(d[c], a[kk], db);
+    }
+}
+
+// An m64nNk16 accumulator rounded to A fragments of K = N: the accumulator
+// layout of 16 columns is the A fragment layout (the forward's P).
+template <typename T, int N>
+__device__ __forceinline__ void to_frags(uint32_t (&a)[N / 16][4], const float (&x)[N / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) a[kk][q] = pack2<T>(x[8 * kk + 2 * q], x[8 * kk + 2 * q + 1]);
+}
+
+template <int HD>
+__device__ __forceinline__ void zero_acc(float (&d)[TcShape<HD>::kChunks][TcShape<HD>::kCE / 2]) {
+#pragma unroll
+  for (int c = 0; c < TcShape<HD>::kChunks; ++c)
+#pragma unroll
+    for (int i = 0; i < TcShape<HD>::kCE / 2; ++i) d[c][i] = 0.f;
+}
+
+template <int HD>
+__device__ __forceinline__ void fence_acc(float (&d)[TcShape<HD>::kChunks][TcShape<HD>::kCE / 2]) {
+#pragma unroll
+  for (int c = 0; c < TcShape<HD>::kChunks; ++c) repro::fence_regs(d[c]);
+}
+
+// Store a 64 x hd accumulator times `scale`: this thread's rows `row` and
+// row + 8 (absolute positions, at stride ss from `base`), those below `rows`.
+template <typename T, int HD>
+__device__ __forceinline__ void store_acc(T* base, long long ss, int row, int rows,
+                                          const float (&d)[TcShape<HD>::kChunks][TcShape<HD>::kCE / 2],
+                                          float scale, int lane) {
+  using Sh = TcShape<HD>;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (row + 8 * r >= rows) continue;
+    T* const out = base + (row + 8 * r) * ss;
+#pragma unroll
+    for (int c = 0; c < Sh::kChunks; ++c)
+#pragma unroll
+      for (int j = 0; j < Sh::kCE / 8; ++j)
+        *reinterpret_cast<uint32_t*>(out + c * Sh::kCE + acc_col(4 * j, lane)) =
+            pack2<T>(d[c][4 * j + 2 * r] * scale, d[c][4 * j + 2 * r + 1] * scale);
+  }
+}
+
+// dK and dV of one 128-row kv tile, summed over the group's query heads.
+template <typename T, int HD>
+__global__ void __launch_bounds__(kTcThreads, 1)
+    flash_bwd_dkdv_tc(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      const __grid_constant__ CUtensorMap tdo, const BwdTcArgs p) {
+  using Sh = TcShape<HD>;
+  using Kv = DkdvShape<HD>;
+  constexpr int kSw = Sh::kSw, kCE = Sh::kCE, kChunks = Sh::kChunks;
+  constexpr int kBQ = Kv::kBQ, kBK = Kv::kBK, kStages = Kv::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* const Ks = smem_raw + ((1024 - (repro::smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* const Vs = Ks + Kv::kKVBytes;
+  uint8_t* const Qs = Vs + Kv::kKVBytes;                  // stage s at + s · kQBytes
+  uint8_t* const dOs = Qs + kStages * Kv::kQBytes;
+  float* const Ls = reinterpret_cast<float*>(dOs + kStages * Kv::kQBytes);  // + s · kBQ
+  float* const Ds = Ls + kStages * kBQ;
+  uint64_t* const kv_full = reinterpret_cast<uint64_t*>(Ds + kStages * kBQ);
+  uint64_t* const full = kv_full + 1;
+  uint64_t* const empty = full + kStages;
+
+  const int k0 = blockIdx.z * kBK;
+  const int kvh = blockIdx.x, bb = blockIdx.y;
+  const int h_begin = kvh * p.group, h_end = h_begin + p.group;
+  // Causal: query rows before k0 see none of this tile (k0 is a multiple of kBQ).
+  const int q_begin = p.causal ? k0 : 0;
+
+  if (threadIdx.x == 0) {
+    repro::mbar_init(kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      repro::mbar_init(&full[s], 1);
+      repro::mbar_init(&empty[s], 256);  // every consumer thread
+    }
+    repro::mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == 256) {
+      repro::mbar_expect_tx(kv_full, 2 * Kv::kKVBytes);
+      for (int c = 0; c < kChunks; ++c) {
+        repro::tma_load_4d(Ks + c * kBK * kSw, &tk, kv_full, c * kCE, k0, kvh, bb);
+        repro::tma_load_4d(Vs + c * kBK * kSw, &tv, kv_full, c * kCE, k0, kvh, bb);
+      }
+      int s = 0, phase = 0;
+      for (int hh = h_begin; hh < h_end; ++hh)
+        for (int q0 = q_begin; q0 < p.sq; q0 += kBQ) {
+          repro::mbar_wait(&empty[s], phase ^ 1);
+          repro::mbar_expect_tx(&full[s], Kv::kStageTx);
+          uint8_t* const qt = Qs + s * Kv::kQBytes;
+          uint8_t* const dot = dOs + s * Kv::kQBytes;
+          for (int c = 0; c < kChunks; ++c) {
+            repro::tma_load_4d(qt + c * kBQ * kSw, &tq, &full[s], c * kCE, q0, hh, bb);
+            repro::tma_load_4d(dot + c * kBQ * kSw, &tdo, &full[s], c * kCE, q0, hh, bb);
+          }
+          const long long at = (static_cast<long long>(bb) * p.h + hh) * p.ld + q0;
+          repro::bulk_load(Ls + s * kBQ, p.lse2 + at, Kv::kRowBytes, &full[s]);
+          repro::bulk_load(Ds + s * kBQ, p.delta + at, Kv::kRowBytes, &full[s]);
+          if (++s == kStages) {
+            s = 0;
+            phase ^= 1;
+          }
+        }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int tid = threadIdx.x % 128, lane = tid % 32;
+    const int kw = k0 + 64 * wg;                        // first kv row of this warpgroup
+    const int row = kw + 16 * (tid / 32) + lane / 4;    // the thread's kv rows: row, row + 8
+    const uint8_t* const Kw = Ks + 64 * wg * kSw;
+    const uint8_t* const Vw = Vs + 64 * wg * kSw;
+
+    float dk[kChunks][kCE / 2], dv[kChunks][kCE / 2];
+    zero_acc<HD>(dk);
+    zero_acc<HD>(dv);
+
+    repro::mbar_wait(kv_full, 0);
+    int s = 0, phase = 0;
+    for (int hh = h_begin; hh < h_end; ++hh)
+      for (int q0 = q_begin; q0 < p.sq; q0 += kBQ) {
+        repro::mbar_wait(&full[s], phase);
+        // A tile wholly above this warpgroup's diagonal, or past Skv, adds nothing.
+        if (kw < p.skv && !(p.causal && q0 + kBQ - 1 < kw)) {
+          const uint8_t* const qt = Qs + s * Kv::kQBytes;
+          const uint8_t* const dot = dOs + s * Kv::kQBytes;
+          // Sᵀ = K Qᵀ and dPᵀ = V dOᵀ: rows are kv rows, columns query rows.
+          float st[kBQ / 2], dpt[kBQ / 2];
+          repro::wgmma_fence();
+          product_over_hd<T, HD, kBK, kBQ>(st, Kw, qt);
+          product_over_hd<T, HD, kBK, kBQ>(dpt, Vw, dot);
+          repro::wgmma_commit();
+          repro::wgmma_wait_all();
+          repro::fence_regs(st);
+          repro::fence_regs(dpt);
+
+          // Pᵀ and dSᵀ; lse and D belong to the columns. Masked pairs (past
+          // Sq or Skv, or above the diagonal) take no weight.
+          const float* const L = Ls + s * kBQ;
+          const float* const D = Ds + s * kBQ;
+          const bool edge = q0 + kBQ > p.sq || kw + 64 > p.skv || (p.causal && q0 < kw + 63);
+#pragma unroll
+          for (int i = 0; i < kBQ / 2; ++i) {
+            const int col = acc_col(i, lane);
+            float pr = exp2f(st[i] * p.scale_log2 - L[col]);
+            if (edge) {
+              const int qi = q0 + col, kj = row + acc_row(i);
+              if (qi >= p.sq || kj >= p.skv || (p.causal && qi < kj)) pr = 0.f;
+            }
+            st[i] = pr;
+            dpt[i] = pr * (dpt[i] - D[col]);
+          }
+          uint32_t pa[kBQ / 16][4], sa[kBQ / 16][4];
+          to_frags<T, kBQ>(pa, st);
+          to_frags<T, kBQ>(sa, dpt);
+
+          // dV += Pᵀ dO and dK += dSᵀ Q, dO and Q read MN-major.
+          repro::wgmma_fence();
+          product_into_hd<T, HD, kBQ>(dv, pa, dot);
+          product_into_hd<T, HD, kBQ>(dk, sa, qt);
+          repro::wgmma_commit();
+          repro::wgmma_wait_all();
+          fence_acc<HD>(dv);
+          fence_acc<HD>(dk);
+        }
+        repro::mbar_arrive(&empty[s]);
+        if (++s == kStages) {
+          s = 0;
+          phase ^= 1;
+        }
+      }
+
+    T* const dK = static_cast<T*>(p.dk) + bb * p.dk_sb + kvh * p.dk_sh;
+    T* const dV = static_cast<T*>(p.dv) + bb * p.dv_sb + kvh * p.dv_sh;
+    store_acc<T, HD>(dK, p.dk_ss, row, p.skv, dk, p.scale, lane);
+    store_acc<T, HD>(dV, p.dv_ss, row, p.skv, dv, 1.f, lane);
+  }
+}
+
+// dQ of one 128-row query tile of one head.
+template <typename T, int HD>
+__global__ void __launch_bounds__(kTcThreads, 1)
+    flash_bwd_dq_tc(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    const __grid_constant__ CUtensorMap tdo, const BwdTcArgs p) {
+  using Sh = TcShape<HD>;
+  using Dq = DqShape<HD>;
+  constexpr int kSw = Sh::kSw, kCE = Sh::kCE, kChunks = Sh::kChunks;
+  constexpr int kBQ = Dq::kBQ, kBK = Dq::kBK, kStages = Dq::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* const Qs = smem_raw + ((1024 - (repro::smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* const dOs = Qs + Dq::kQBytes;
+  uint8_t* const Ks = dOs + Dq::kQBytes;                   // stage s at + s · kKVBytes
+  uint8_t* const Vs = Ks + kStages * Dq::kKVBytes;
+  uint64_t* const q_full = reinterpret_cast<uint64_t*>(Vs + kStages * Dq::kKVBytes);
+  uint64_t* const full = q_full + 1;
+  uint64_t* const empty = full + kStages;
+
+  const int nq = (p.sq + kBQ - 1) / kBQ;
+  const int q0 = (nq - 1 - static_cast<int>(blockIdx.z)) * kBQ;  // longest first
+  const int hh = blockIdx.x, bb = blockIdx.y, kvh = hh / p.group;
+  int n_tiles = (p.skv + kBK - 1) / kBK;
+  if (p.causal) n_tiles = min(n_tiles, (min(q0 + kBQ, p.sq) - 1) / kBK + 1);
+
+  if (threadIdx.x == 0) {
+    repro::mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      repro::mbar_init(&full[s], 1);
+      repro::mbar_init(&empty[s], 256);
+    }
+    repro::mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == 256) {
+      repro::mbar_expect_tx(q_full, 2 * Dq::kQBytes);
+      for (int c = 0; c < kChunks; ++c) {
+        repro::tma_load_4d(Qs + c * kBQ * kSw, &tq, q_full, c * kCE, q0, hh, bb);
+        repro::tma_load_4d(dOs + c * kBQ * kSw, &tdo, q_full, c * kCE, q0, hh, bb);
+      }
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % kStages, use = t / kStages;
+        repro::mbar_wait(&empty[s], (use & 1) ^ 1);
+        repro::mbar_expect_tx(&full[s], 2 * Dq::kKVBytes);
+        uint8_t* const kt = Ks + s * Dq::kKVBytes;
+        uint8_t* const vt = Vs + s * Dq::kKVBytes;
+        for (int c = 0; c < kChunks; ++c) {
+          repro::tma_load_4d(kt + c * kBK * kSw, &tk, &full[s], c * kCE, t * kBK, kvh, bb);
+          repro::tma_load_4d(vt + c * kBK * kSw, &tv, &full[s], c * kCE, t * kBK, kvh, bb);
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int tid = threadIdx.x % 128, lane = tid % 32;
+    const int qw = q0 + 64 * wg;                        // first query row of this warpgroup
+    const int row = qw + 16 * (tid / 32) + lane / 4;    // the thread's rows: row, row + 8
+    const uint8_t* const Qw = Qs + 64 * wg * kSw;
+    const uint8_t* const dOw = dOs + 64 * wg * kSw;
+    // The rows' lse and D, read once (row + 8 < q0 + 128 <= ld).
+    const long long at = (static_cast<long long>(bb) * p.h + hh) * p.ld + row;
+    const float L[2] = {p.lse2[at], p.lse2[at + 8]};
+    const float D[2] = {p.delta[at], p.delta[at + 8]};
+
+    float dq[kChunks][kCE / 2];
+    zero_acc<HD>(dq);
+
+    repro::mbar_wait(q_full, 0);
+    for (int t = 0; t < n_tiles; ++t) {
+      const int st = t % kStages, parity = (t / kStages) & 1;
+      const int k0 = t * kBK;
+      repro::mbar_wait(&full[st], parity);
+      // A tile wholly above this warpgroup's diagonal, or rows past Sq, add nothing.
+      if (qw < p.sq && !(p.causal && k0 > qw + 63)) {
+        const uint8_t* const kt = Ks + st * Dq::kKVBytes;
+        const uint8_t* const vt = Vs + st * Dq::kKVBytes;
+        float sc[kBK / 2], dp[kBK / 2];
+        repro::wgmma_fence();
+        product_over_hd<T, HD, kBQ, kBK>(sc, Qw, kt);
+        product_over_hd<T, HD, kBQ, kBK>(dp, dOw, vt);
+        repro::wgmma_commit();
+        repro::wgmma_wait_all();
+        repro::fence_regs(sc);
+        repro::fence_regs(dp);
+
+        const bool edge = qw + 64 > p.sq || k0 + kBK > p.skv || (p.causal && k0 + kBK - 1 > qw);
+#pragma unroll
+        for (int i = 0; i < kBK / 2; ++i) {
+          const int r = (i >> 1) & 1;
+          float pr = exp2f(sc[i] * p.scale_log2 - L[r]);
+          if (edge) {
+            const int col = k0 + acc_col(i, lane), qi = row + 8 * r;
+            if (col >= p.skv || qi >= p.sq || (p.causal && qi < col)) pr = 0.f;
+          }
+          dp[i] = pr * (dp[i] - D[r]);
+        }
+        uint32_t sa[kBK / 16][4];
+        to_frags<T, kBK>(sa, dp);
+
+        // dQ += dS K, K read MN-major.
+        repro::wgmma_fence();
+        product_into_hd<T, HD, kBK>(dq, sa, kt);
+        repro::wgmma_commit();
+        repro::wgmma_wait_all();
+        fence_acc<HD>(dq);
+      }
+      repro::mbar_arrive(&empty[st]);
+    }
+
+    T* const dQ = static_cast<T*>(p.dq) + bb * p.dq_sb + hh * p.dq_sh;
+    store_acc<T, HD>(dQ, p.dq_ss, row, p.sq, dq, p.scale, lane);
+  }
+}
+
+template <typename T, int HD>
+cudaError_t launch_bwd_tc(const BwdArgs& p, int batch, int kv_heads, cudaStream_t s) {
+  using Kv = DkdvShape<HD>;
+  using Dq = DqShape<HD>;
+  const int ld = bwd_ld(p.sq);
+  if ((p.skv + Kv::kBK - 1) / Kv::kBK > 65535 || (p.sq + Dq::kBQ - 1) / Dq::kBQ > 65535)
+    return cudaErrorInvalidValue;  // the tile index is the grid's z axis
+  float* const lse2 = p.delta + static_cast<long long>(batch) * p.h * ld;
+  CUtensorMap q_kv, do_kv, k_kv, v_kv, q_q, do_q, k_q, v_q;
+  cudaError_t err;
+  if ((err = make_map<T, HD>(&q_kv, p.q, p.sq, p.h, batch, p.q_sb, p.q_sh, p.q_ss, Kv::kBQ)) ||
+      (err = make_map<T, HD>(&do_kv, p.dout, p.sq, p.h, batch, p.do_sb, p.do_sh, p.do_ss,
+                             Kv::kBQ)) ||
+      (err = make_map<T, HD>(&k_kv, p.k, p.skv, kv_heads, batch, p.k_sb, p.k_sh, p.k_ss,
+                             Kv::kBK)) ||
+      (err = make_map<T, HD>(&v_kv, p.v, p.skv, kv_heads, batch, p.v_sb, p.v_sh, p.v_ss,
+                             Kv::kBK)) ||
+      (err = make_map<T, HD>(&q_q, p.q, p.sq, p.h, batch, p.q_sb, p.q_sh, p.q_ss, Dq::kBQ)) ||
+      (err = make_map<T, HD>(&do_q, p.dout, p.sq, p.h, batch, p.do_sb, p.do_sh, p.do_ss,
+                             Dq::kBQ)) ||
+      (err = make_map<T, HD>(&k_q, p.k, p.skv, kv_heads, batch, p.k_sb, p.k_sh, p.k_ss,
+                             Dq::kBK)) ||
+      (err = make_map<T, HD>(&v_q, p.v, p.skv, kv_heads, batch, p.v_sb, p.v_sh, p.v_ss,
+                             Dq::kBK)))
+    return err;
+  if ((err = cudaFuncSetAttribute(flash_bwd_dkdv_tc<T, HD>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  static_cast<int>(Kv::kSmem))) ||
+      (err = cudaFuncSetAttribute(flash_bwd_dq_tc<T, HD>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  static_cast<int>(Dq::kSmem))))
+    return err;
+  flash_bwd_delta<T, HD><<<dim3(ld / (kThreads / 32), p.h, batch), kThreads, 0, s>>>(p, ld, lse2);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const BwdTcArgs args{p.dq, p.dk, p.dv, p.delta, lse2, p.h, p.group, p.sq, p.skv, ld,
+                       p.dq_sb, p.dq_sh, p.dq_ss, p.dk_sb, p.dk_sh, p.dk_ss,
+                       p.dv_sb, p.dv_sh, p.dv_ss, p.causal, p.scale,
+                       p.scale * 1.4426950408889634f};
+  // The tile index is the slowest grid axis: every head's longest tiles
+  // (kv tile 0, the last query tile, when causal) are issued first.
+  flash_bwd_dkdv_tc<T, HD><<<dim3(kv_heads, batch, (p.skv + Kv::kBK - 1) / Kv::kBK), kTcThreads,
+                             Kv::kSmem, s>>>(q_kv, k_kv, v_kv, do_kv, args);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  flash_bwd_dq_tc<T, HD><<<dim3(p.h, batch, (p.sq + Dq::kBQ - 1) / Dq::kBQ), kTcThreads,
+                           Dq::kSmem, s>>>(q_q, k_q, v_q, do_q, args);
+  return cudaGetLastError();
+}
+
 template <typename T, int HD>
 cudaError_t launch_bwd_t(const BwdArgs& p, int batch, int kv_heads, cudaStream_t s) {
-  constexpr size_t smem_kv = bwd_dkdv_smem<HD>(), smem_q = bwd_dq_smem<HD>();
-  static_assert(smem_kv <= 232448 && smem_q <= 232448, "tiles must fit in 227 KB");
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkdv<T, HD>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem_kv));
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(flash_bwd_dq<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem_q));
-  if (err != cudaSuccess) return err;
-  if (p.sq > 0) {
-    flash_bwd_delta<T, HD><<<dim3((p.sq + kThreads / 32 - 1) / (kThreads / 32), p.h, batch),
-                             kThreads, 0, s>>>(p);
+  if constexpr (!std::is_same_v<T, float>) {
+    return launch_bwd_tc<T, HD>(p, batch, kv_heads, s);
+  } else {
+    constexpr size_t smem_kv = bwd_dkdv_smem<HD>(), smem_q = bwd_dq_smem<HD>();
+    static_assert(smem_kv <= 232448 && smem_q <= 232448, "tiles must fit in 227 KB");
+    cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkdv<T, HD>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(smem_kv));
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(flash_bwd_dq<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem_q));
+    if (err != cudaSuccess) return err;
+    if (p.sq > 0) {
+      flash_bwd_delta<T, HD><<<dim3((p.sq + kThreads / 32 - 1) / (kThreads / 32), p.h, batch),
+                               kThreads, 0, s>>>(p, p.sq, nullptr);
+      if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    }
+    flash_bwd_dkdv<T, HD><<<dim3((p.skv + kBK - 1) / kBK, kv_heads, batch), kThreads, smem_kv,
+                            s>>>(p);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    if (p.sq > 0)
+      flash_bwd_dq<T, HD><<<dim3((p.sq + kBQ - 1) / kBQ, p.h, batch), kThreads, smem_q, s>>>(p);
+    return cudaGetLastError();
   }
-  flash_bwd_dkdv<T, HD><<<dim3((p.skv + kBK - 1) / kBK, kv_heads, batch), kThreads, smem_kv, s>>>(p);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  if (p.sq > 0)
-    flash_bwd_dq<T, HD><<<dim3((p.sq + kBQ - 1) / kBQ, p.h, batch), kThreads, smem_q, s>>>(p);
-  return cudaGetLastError();
 }
 
 template <typename T>
@@ -998,16 +1489,26 @@ cudaError_t launch_bwd_hd(const BwdArgs& p, int batch, int kv_heads, int hd, cud
 }
 
 // Registers, shared memory and spills of the backward's dK/dV (which 0)
-// or dQ (which 1) kernel.
+// or dQ (which 1) kernel that dtype T launches: flash_bwd_{dkdv,dq}_tc in
+// bf16 and f16, flash_bwd_{dkdv,dq} in f32.
 template <typename T, int HD>
 cudaError_t bwd_attributes_t(int which, int* out) {
   cudaFuncAttributes fa;
-  const cudaError_t err = which == 0 ? cudaFuncGetAttributes(&fa, flash_bwd_dkdv<T, HD>)
-                                     : cudaFuncGetAttributes(&fa, flash_bwd_dq<T, HD>);
+  cudaError_t err;
+  size_t dynamic;
+  if constexpr (std::is_same_v<T, float>) {
+    err = which == 0 ? cudaFuncGetAttributes(&fa, flash_bwd_dkdv<T, HD>)
+                     : cudaFuncGetAttributes(&fa, flash_bwd_dq<T, HD>);
+    dynamic = which == 0 ? bwd_dkdv_smem<HD>() : bwd_dq_smem<HD>();
+  } else {
+    err = which == 0 ? cudaFuncGetAttributes(&fa, flash_bwd_dkdv_tc<T, HD>)
+                     : cudaFuncGetAttributes(&fa, flash_bwd_dq_tc<T, HD>);
+    dynamic = which == 0 ? DkdvShape<HD>::kSmem : DqShape<HD>::kSmem;
+  }
   if (err != cudaSuccess) return err;
   out[0] = fa.numRegs;
   out[1] = static_cast<int>(fa.sharedSizeBytes);
-  out[2] = static_cast<int>(which == 0 ? bwd_dkdv_smem<HD>() : bwd_dq_smem<HD>());
+  out[2] = static_cast<int>(dynamic);
   out[3] = static_cast<int>(fa.localSizeBytes);
   return cudaSuccess;
 }
@@ -1091,7 +1592,9 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
 
 // dq, dk, dv of the forward whose output is o and log-sum-exp lse, given
 // dout; every tensor at its own strides on the first three axes, unit
-// stride on hd, one dtype; lse and delta (scratch) (batch, h, sq) f32.
+// stride on hd, one dtype; lse (batch, h, sq) f32; delta f32 scratch of
+// 2·batch·h·bwd_ld(sq) floats. bf16 and f16 load by TMA: q, k, v, dout
+// 16-byte aligned with 16-byte strides, and sq >= 1.
 extern "C" int repro_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o, const void* dout,
     const float* lse, void* dq, void* dk, void* dv, float* delta,

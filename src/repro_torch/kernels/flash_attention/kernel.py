@@ -12,12 +12,18 @@ bf16 and f16 run on the tensor cores (wgmma, operands loaded by TMA,
 which needs 16-byte aligned rows); f32 runs the FFMA kernel.
 
 `flash_attention_bwd_cuda` is the gradient: dQ, dK and dV from the
-forward's output and its rows' log-sum-exp, in three FFMA launches
-(D = rowsum(dO o O); dK and dV a kv tile, summed over the group's query
-heads; dQ a query tile), every sum in f32 and in one fixed order.
-The JAX package has no backward kernel: its models differentiate the
-chunked scan `_attend_chunked` (src/repro/models/attention.py:77-143).
-`FlashAttentionFn` ties the two kernels into autograd.
+forward's output and its rows' log-sum-exp, in three launches, every sum
+in f32 and in one fixed order: D = rowsum(dO o O) (`flash_bwd_delta`);
+dK and dV a kv tile, summed over the group's query heads; dQ a query
+tile. In bf16 and f16 the last two are tensor-core kernels
+(`flash_bwd_dkdv_tc`, `flash_bwd_dq_tc`: wgmma on TMA-loaded tiles, P and
+dS rounded to the operand dtype before their products, as
+`ref.attention_bwd_rounded_ref` computes them); in f32 they are FFMA
+kernels (`flash_bwd_dkdv`, `flash_bwd_dq`), chosen by dtype as the
+forward chooses. The JAX package has no backward kernel: its models
+differentiate the chunked scan `_attend_chunked`
+(src/repro/models/attention.py:77-143). `FlashAttentionFn` ties the two
+kernels into autograd.
 """
 
 from __future__ import annotations
@@ -32,7 +38,8 @@ from .ref import attention_bwd_ref, attention_ref
 
 __all__ = ["flash_attention_cuda", "flash_attention_bwd_cuda",
            "FlashAttentionFn", "flash_attention_attributes",
-           "flash_attention_bwd_attributes", "SUPPORTED_HEAD_DIMS"]
+           "flash_attention_bwd_attributes", "flash_attention_bwd_kernels",
+           "SUPPORTED_HEAD_DIMS"]
 
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 96, 128, 160)  # launch_hd in the source
 
@@ -69,15 +76,29 @@ def _check_kernel_layout(*named: tuple[str, torch.Tensor]) -> None:
                              "stride on hd")
 
 
+def _tma_ok(t: torch.Tensor) -> bool:
+    """Whether TMA can load `t`: a 16-byte aligned base and 16-byte
+    multiples of the strides of its B, H and S axes (of those longer
+    than 1)."""
+    return not (t.data_ptr() % 16 or any(t.stride(i) * t.element_size() % 16
+                                         for i in range(3) if t.shape[i] > 1))
+
+
+def _check_tma(*named: tuple[str, torch.Tensor]) -> None:
+    """Raise unless every operand of a bf16 or f16 (tensor-core) kernel
+    meets TMA's rule."""
+    if named[0][1].dtype == torch.float32:
+        return
+    for name, t in named:
+        if not _tma_ok(t):
+            raise ValueError(f"{name}: the tensor-core kernel loads by TMA, "
+                             "which needs a 16-byte aligned base and strides")
+
+
 def _forward(q, k, v, causal: bool, want_lse: bool):
     """Launch the forward kernel on CUDA operands: (out, lse or None)."""
     _check_kernel_layout(("q", q), ("k", k), ("v", v))
-    if q.dtype != torch.float32:
-        for name, t in (("q", q), ("k", k), ("v", v)):
-            if t.data_ptr() % 16 or any(t.stride(i) * t.element_size() % 16
-                                        for i in range(3) if t.shape[i] > 1):
-                raise ValueError(f"{name}: the tensor-core kernel loads by TMA, "
-                                 "which needs a 16-byte aligned base and strides")
+    _check_tma(("q", q), ("k", k), ("v", v))
     b, h, sq, hd = q.shape
     n_kv, skv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)  # keeps q's layout when q is dense
@@ -131,11 +152,17 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"out {tuple(out.shape)} {out.dtype} does not match q")
     if any(t.device != q.device for t in (out, dout, lse)):
         raise ValueError("out, dout and lse must lie on q's device")
-    _check_kernel_layout(("q", q), ("k", k), ("v", v), ("out", out), ("dout", dout))
+    named = (("q", q), ("k", k), ("v", v), ("out", out), ("dout", dout))
+    _check_kernel_layout(*named)
+    _check_tma(*named)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if dk.numel() == 0:
         return dq, dk, dv
-    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    if sq == 0:  # no query row: dK and dV are zero, and nothing launches
+        return dq, dk.zero_(), dv.zero_()
+    # D, then lse·log2(e), each (B, H, Sq padded to 128 rows) f32 (bwd_ld in the source)
+    delta = torch.empty(2 * b * h * (-(-sq // 128) * 128), dtype=torch.float32,
+                        device=q.device)
     with torch.cuda.device(q.device):
         err = load("flash_attention").repro_flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -170,8 +197,10 @@ class FlashAttentionFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        if dout.stride(3) != 1:  # autograd picks dout's layout; the kernel reads rows
-            dout = dout.contiguous()
+        # autograd picks dout's layout; the kernels read rows, by TMA in bf16 and f16
+        # (a fresh copy: `contiguous` keeps a dense tensor's misaligned base)
+        if dout.stride(3) != 1 or (dout.dtype != torch.float32 and not _tma_ok(dout)):
+            dout = dout.clone(memory_format=torch.contiguous_format)
         dq, dk, dv = flash_attention_bwd_cuda(q, k, v, out, dout, lse,
                                               causal=ctx.causal)
         return dq, dk, dv, None
@@ -188,15 +217,23 @@ def flash_attention_attributes(dtype: torch.dtype, hd: int) -> dict:
             "local_bytes": out[3]}
 
 
+def flash_attention_bwd_kernels(dtype: torch.dtype) -> dict:
+    """The dK/dV and dQ kernels that `dtype` launches (besides
+    `flash_bwd_delta`): {"dkdv": name, "dq": name}."""
+    tc = "" if dtype == torch.float32 else "_tc"
+    return {"dkdv": f"flash_bwd_dkdv{tc}", "dq": f"flash_bwd_dq{tc}"}
+
+
 def flash_attention_bwd_attributes(dtype: torch.dtype, hd: int) -> dict:
     """Registers, shared memory and spills of the backward's dK/dV and dQ
-    kernels for `dtype` and `hd`: {"dkdv": {...}, "dq": {...}}."""
+    kernels that `dtype` launches at `hd`: {"dkdv": {"kernel": name, ...},
+    "dq": {...}}."""
     lib = load("flash_attention")
     got = {}
-    for which, name in enumerate(("dkdv", "dq")):
+    for which, (name, kernel) in enumerate(flash_attention_bwd_kernels(dtype).items()):
         out = (ctypes.c_int * 4)()
         check(lib.repro_flash_attention_bwd_attributes(DTYPE_CODES[dtype], hd, which, out),
               "flash_attention backward attributes")
-        got[name] = {"registers": out[0], "static_smem": out[1],
+        got[name] = {"kernel": kernel, "registers": out[0], "static_smem": out[1],
                      "dynamic_smem": out[2], "local_bytes": out[3]}
     return got

@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["attention_ref", "attention_bwd_ref"]
+__all__ = ["attention_ref", "attention_bwd_ref", "attention_bwd_rounded_ref"]
 
 NEG_INF = -1e30
 
@@ -35,3 +35,41 @@ def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         leaves = [t.detach().requires_grad_() for t in (q, k, v)]
         out = attention_ref(*leaves, causal=causal)
         return torch.autograd.grad(out, leaves, do)
+
+
+def attention_bwd_rounded_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              do: torch.Tensor, *, causal: bool = True,
+                              out: torch.Tensor | None = None):
+    """(dq, dk, dv) as the tensor-core backward kernels compute them, in
+    plain torch: P = exp(S - lse) and dS = P o (dP - D) in f32, rounded to
+    the operands' dtype before the dV += Pᵀ dO, dK += dSᵀ Q and dQ += dS K
+    products; D = rowsum(dO o O) of the rounded output O; every sum in f32.
+    `out` is that O, the forward's output as the kernels are handed it (by
+    default `attention_ref`'s). Returned in f32, before the kernels' one
+    rounding of each gradient, so that a comparison sees that rounding
+    alone. In f32 it is the exact gradient, as `attention_bwd_ref`."""
+    dtype, hd = q.dtype, q.shape[-1]
+    b, n_kv, skv = k.shape[:3]
+    group = q.shape[1] // n_kv
+    scale = hd ** -0.5
+    qf, dof = q.float(), do.float()
+    kk = k.repeat_interleave(group, dim=1).float()
+    vv = v.repeat_interleave(group, dim=1).float()
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kk) * scale
+    if causal:
+        i = torch.arange(q.shape[2], device=q.device)[:, None]
+        j = torch.arange(skv, device=q.device)[None, :]
+        s = s.masked_fill(i < j, float("-inf"))
+    p = torch.exp(s - torch.logsumexp(s, dim=-1, keepdim=True))
+    if out is None:
+        out = attention_ref(q, k, v, causal=causal)
+    d = (dof * out.float()).sum(-1, keepdim=True)
+    ds = p * (torch.einsum("bhqd,bhkd->bhqk", dof, vv) - d)
+    p, ds = p.to(dtype).float(), ds.to(dtype).float()
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kk) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf) * scale
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+    # the group's query heads sum into their kv head
+    dk = dk.view(b, n_kv, group, skv, hd).sum(2)
+    dv = dv.view(b, n_kv, group, skv, hd).sum(2)
+    return dq, dk, dv

@@ -7,8 +7,13 @@ carried across by `repro_torch.bridge`, inputs drawn with numpy. The
 plain backward `attention_bwd_ref` is held to `jax.grad` of the JAX
 package's `attention_ref`.
 
+The plain version of the tensor-core backward's arithmetic,
+`attention_bwd_rounded_ref` (P and dS rounded to the operand dtype), is
+held to `jax.grad` of the same reference in bf16 and f16.
+
 The `cuda`-marked tests need the card: `FlashAttentionFn` (B6 with its
-log-sum-exp, then the B6-bwd kernel) against `attention_bwd_ref`, and
+log-sum-exp, then the B6-bwd kernels) against `attention_bwd_ref` and, in
+bf16 and f16, against `attention_bwd_rounded_ref` 4x tighter, and
 `attn_apply`'s weight gradients on the card against the plain path. They
 need no JAX, so the file imports it only where it is installed:
 
@@ -83,6 +88,60 @@ def test_attention_bwd_ref_matches_jax_grad(ref, h, kv, causal):
         assert torch.equal(g, a)
 
 
+# The tensor-core backward's arithmetic (P and dS rounded to the operand
+# dtype before their products) against jax.grad of the reference's f32
+# softmax on the same rounded inputs, relative to each gradient's largest
+# entry: the card tests' tolerance (`_BWD_TOL`), bf16 keeping 8 mantissa
+# bits and f16 11.
+_ROUNDED_TOL = {"bfloat16": 2e-2, "float16": 1e-2}
+
+
+@pytest.mark.parametrize("hd", [16, 64, 128])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("h,kv", [(4, 4), (4, 1), (6, 2)])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_attention_bwd_rounded_ref_matches_jax_grad(ref, dtype, h, kv, causal, hd):
+    rng = np.random.default_rng([h, kv, causal, hd])
+    jdt = jnp.dtype(dtype)
+    q, k, v, do = (jnp.asarray(rng.standard_normal(shape, dtype=np.float32), jdt)
+                   for shape in ((2, h, 13, hd), (2, kv, 13, hd), (2, kv, 13, hd),
+                                 (2, h, 13, hd)))
+    _, vjp = jax.vjp(lambda a, b, c: j_attention_ref(a, b, c, causal=causal), q, k, v)
+    want = vjp(do)
+    got = fa_ref.attention_bwd_rounded_ref(
+        *(bridge.to_torch(np.asarray(t), "cpu") for t in (q, k, v, do)), causal=causal)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        scale = float(np.abs(_f32(w)).max())
+        assert _err(g, w) <= _ROUNDED_TOL[dtype] * scale, (_err(g, w), scale)
+
+
+def test_rounded_ref_is_the_exact_gradient_in_f32():
+    g = torch.Generator().manual_seed(5)
+    q, k, v, do = (torch.randn(shape, generator=g) for shape in
+                   ((2, 6, 13, 16), (2, 2, 13, 16), (2, 2, 13, 16), (2, 6, 13, 16)))
+    for causal in (True, False):
+        for a, b in zip(fa_ref.attention_bwd_rounded_ref(q, k, v, do, causal=causal),
+                        fa_ref.attention_bwd_ref(q, k, v, do, causal=causal)):
+            assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
+def test_tma_rule_of_the_wrappers():
+    """`_tma_ok`: a 16-byte aligned base and 16-byte strides on B, H, S
+    (an axis of extent 1 is never stepped); `_check_tma` applies it to bf16
+    and f16 operands only."""
+    x = torch.zeros(2, 3, 5, 16, dtype=torch.bfloat16)
+    assert fa._tma_ok(x) and fa._tma_ok(x.transpose(1, 2))
+    shifted = torch.zeros(x.numel() + 1, dtype=torch.bfloat16)[1:].view(x.shape)
+    assert not fa._tma_ok(shifted)
+    narrow = torch.zeros(2, 3, 5, 20, dtype=torch.bfloat16)[..., :16]
+    assert not fa._tma_ok(narrow)                       # rows 40 bytes apart
+    assert fa._tma_ok(torch.zeros(1, 1, 1, 24, dtype=torch.bfloat16)[..., :16])
+    with pytest.raises(ValueError, match="TMA"):
+        fa._check_tma(("dout", shifted))
+    fa._check_tma(("dout", shifted.float()))            # f32 runs FFMA: no rule
+
+
 @pytest.mark.parametrize("arch,kv", [("olmo-1b", None), ("granite-8b", None),
                                      ("granite-8b", 2)])   # MHA, MQA, GQA (2 a group)
 def test_attn_apply_gradients_match_jax(ref, arch, kv):
@@ -141,6 +200,12 @@ def cuda_device():
 # mantissa bits, and the kernel's D = rowsum(dO o O) reads the rounded O,
 # the forward's tolerance (tests/test_flash_attention.py).
 _BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float16: 1e-2}
+# Against `attention_bwd_rounded_ref` on the forward's own output, the
+# tensor-core kernels' arithmetic, 4x tighter: the kernel's one rounding of
+# each gradient (half a bf16 ulp is at most 2^-8 of the largest entry) and
+# f32 sums in another order, so that a layout fault smaller than
+# `_BWD_TOL` shows.
+_ROUNDED_CARD_TOL = {dtype: tol / 4 for dtype, tol in _BWD_TOL.items()}
 
 
 def _qkv_do(b, h, kv, sq, skv, hd, dtype, seed, device):
@@ -152,24 +217,35 @@ def _qkv_do(b, h, kv, sq, skv, hd, dtype, seed, device):
     return q, k, v, do
 
 
-def _rel_err(got, want) -> float:
-    scale = float(want.float().abs().max()) or 1.0
+def _rel_err(got, want, scale_of=None) -> float:
+    """Largest |got - want| relative to the largest entry of `scale_of`
+    (default `want`), or absolute where that is zero."""
+    ref = want if scale_of is None else scale_of
+    scale = float(ref.float().abs().max()) or 1.0
     return float((got.float() - want.float()).abs().max()) / scale
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("h,kv,sq,skv,hd", [
-    (4, 4, 200, 200, 64), (8, 2, 130, 130, 128), (6, 1, 77, 130, 32),
-    (4, 2, 130, 77, 16), (2, 2, 1, 1, 160), (4, 4, 64, 64, 96)])
-def test_flash_attention_fn_gradients_match_plain(cuda_device, h, kv, sq, skv, hd,
+@pytest.mark.parametrize("h,kv,sq,skv,hd,layout", [
+    (4, 4, 200, 200, 64, "model"), (8, 2, 130, 130, 128, "model"),
+    (6, 1, 77, 130, 32, "model"), (4, 2, 130, 77, 16, "model"),
+    (2, 2, 1, 1, 160, "model"), (4, 4, 64, 64, 96, "model"),
+    (8, 2, 300, 300, 128, "model"),      # a GQA group of 4, S not a multiple of 128
+    (4, 2, 200, 200, 160, "model"),
+    (4, 2, 130, 130, 64, "hd_major")])   # autograd hands dout with hd strided
+def test_flash_attention_fn_gradients_match_plain(cuda_device, h, kv, sq, skv, hd, layout,
                                                   dtype, causal):
     q, k, v, do = _qkv_do(2, h, kv, sq, skv, hd, dtype, sq * hd + h, cuda_device)
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
     kernels.reset_launch_counts()
     out = fa.FlashAttentionFn.apply(*leaves, causal)
-    got = torch.autograd.grad(out, leaves, do)
+    if layout == "model":
+        got = torch.autograd.grad(out, leaves, do)
+    else:  # the loss reads out as (B, H, hd, S): its gradient comes back so
+        got = torch.autograd.grad(out.transpose(2, 3), leaves,
+                                  do.transpose(2, 3).contiguous())
     assert kernels.launch_counts()["flash_attention"] == 1
     assert kernels.launch_counts()["flash_attention_bwd"] == 1
     assert torch.equal(out, fa.flash_attention_cuda(q, k, v, causal=causal))
@@ -178,16 +254,28 @@ def test_flash_attention_fn_gradients_match_plain(cuda_device, h, kv, sq, skv, h
         assert g.dtype == dtype and g.shape == t.shape and g.stride() == t.stride()
         assert bool(torch.isfinite(g.float()).all())
         assert _rel_err(g, w) <= _BWD_TOL[dtype], _rel_err(g, w)
+    if dtype != torch.float32:
+        rounded = fa_ref.attention_bwd_rounded_ref(q, k, v, do, causal=causal,
+                                                   out=out.detach())
+        # relative to the exact gradient's scale: where P o (dP - D) cancels
+        # to rounding noise (one key a query), the rounded version's own
+        # largest entry is that noise
+        for g, r, w in zip(got, rounded, want):
+            assert _rel_err(g, r, w) <= _ROUNDED_CARD_TOL[dtype], _rel_err(g, r, w)
 
 
 @pytest.mark.cuda
-def test_flash_attention_bwd_is_deterministic_and_checks_its_inputs(cuda_device):
-    q, k, v, do = _qkv_do(2, 8, 2, 300, 300, 128, torch.bfloat16, 3, cuda_device)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("h,kv", [(8, 2), (32, 8)])   # the second: granite-8b's layer
+def test_flash_attention_bwd_is_deterministic_and_checks_its_inputs(cuda_device, h, kv,
+                                                                    dtype):
+    q, k, v, do = _qkv_do(2, h, kv, 300, 300, 128, dtype, 3, cuda_device)
     out, lse = fa._forward(q, k, v, True, want_lse=True)
     first = fa.flash_attention_bwd_cuda(q, k, v, out, do, lse)
-    second = fa.flash_attention_bwd_cuda(q, k, v, out, do, lse)
-    for a, b in zip(first, second):
-        assert torch.equal(a, b)       # one summation order, no atomics
+    for _ in range(2):
+        again = fa.flash_attention_bwd_cuda(q, k, v, out, do, lse)
+        for a, b in zip(first, again):
+            assert torch.equal(a, b)   # one summation order, no atomics
     with pytest.raises(ValueError, match="log-sum-exp"):
         fa.flash_attention_bwd_cuda(q, k, v, out, do, None)
     with pytest.raises(ValueError, match="head_dim"):
@@ -196,10 +284,39 @@ def test_flash_attention_bwd_is_deterministic_and_checks_its_inputs(cuda_device)
                                     torch.zeros(1, 2, 64, device=cuda_device))
     # the log-sum-exp is each row's, in natural-log units
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(),
-                     k.float().repeat_interleave(4, 1)) * 128 ** -0.5
+                     k.float().repeat_interleave(h // kv, 1)) * 128 ** -0.5
     s = s.masked_fill(torch.ones(300, 300, dtype=torch.bool,
                                  device=cuda_device).triu(1), float("-inf"))
     assert float((lse - torch.logsumexp(s, -1)).abs().max()) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_misaligned_dout_is_copied_by_the_function_or_refused_by_the_wrapper(cuda_device):
+    q, k, v, do = _qkv_do(2, 4, 2, 130, 130, 64, torch.bfloat16, 6, cuda_device)
+    # the same values at a base 2 bytes past a 16-byte boundary
+    bad = torch.empty(do.numel() + 1, dtype=do.dtype, device=cuda_device)[1:].view(do.shape)
+    bad.copy_(do)
+    assert bad.data_ptr() % 16
+    out, lse = fa._forward(q, k, v, True, want_lse=True)
+    with pytest.raises(ValueError, match="TMA"):
+        fa.flash_attention_bwd_cuda(q, k, v, out, bad, lse)
+    want = fa.flash_attention_bwd_cuda(q, k, v, out, do, lse)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    got = torch.autograd.grad(fa.FlashAttentionFn.apply(*leaves, True), leaves, bad)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", fa.SUPPORTED_HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_tensor_core_backward_keeps_its_registers(cuda_device, dtype, hd):
+    # The consumers grow to 240 registers by setmaxnreg; hd 160 takes
+    # 32-row query tiles in the dK/dV kernel so that dK and dV fit.
+    attrs = fa.flash_attention_bwd_attributes(dtype, hd)
+    assert [a["kernel"] for a in attrs.values()] == ["flash_bwd_dkdv_tc", "flash_bwd_dq_tc"]
+    for a in attrs.values():
+        assert a["local_bytes"] == 0 and a["dynamic_smem"] <= 232448, attrs
 
 
 @pytest.mark.cuda
