@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py            # full width: n = 16384, bs = 1024, f32;
                                      # granite-8b at B = 4, S = 2048;
+                                     # qwen2-moe, hymba, mamba2, phi-3-vision,
+                                     # hubert at B = 4, S = 2048;
                                      # olmo-1b trained at 8 x 2048 tokens a step
 
 Phases, each of which fails the run (non-zero exit) on any fault:
@@ -11,7 +13,7 @@ Phases, each of which fails the run (non-zero exit) on any fault:
   2. build every CUDA kernel of the port from src/repro_torch/kernels/csrc,
      and print the registers, shared memory and spills of the tensor-core
      GEMM body (f32, bf16, f16; 64- and 128-row tiles), of the tensor-core
-     flash attention kernel (every head dim), of the in-place
+     flash attention kernel (every head dim; no spill at hd 80), of the in-place
      Gauss-Jordan kernel, and of the blocked leaves' kernels: the
      triangular solve's tensor-core sweep (every strip width), its
      diagonal-block inverse and pack, and the blocked Gauss-Jordan's panel
@@ -34,7 +36,12 @@ Phases, each of which fails the run (non-zero exit) on any fault:
      LU baseline's leaf, torch.linalg.lu_factor_ex(pivot=False), against
      its plain loop at 1024²; flash attention at the granite-8b layer,
      B = 4, H = 32, KV = 8, S = 2048, hd = 128, causal, in bf16, f16 and
-     f32, plus a ragged S = 2000 and a non-causal case; its backward,
+     f32, plus a ragged S = 2000 and a non-causal case, and with a sliding
+     window at the hymba-1.5b layer (B = 4, H = 25, KV = 5, S = 2048,
+     hd = 64, window 1024) in bf16 and f32 and at a ragged S = 2000, and at
+     hd = 80 at the hubert-xlarge layer (H = KV = 16, non-causal) in bf16,
+     each timed beside SDPA with the same boolean mask and a bound that
+     counts the live pairs only; its backward,
      B6-bwd, against torch.autograd.grad of the plain version at the
      olmo-1b layer, B = 4, H = KV = 16, S = 2048, hd = 128, and the
      granite-8b layer, causal in bf16 and f32 (and f16 at the olmo-1b
@@ -143,6 +150,21 @@ Phases, each of which fails the run (non-zero exit) on any fault:
      8 steps against `forward` over prompt plus those tokens, and a
      `ServingEngine` (4 slots, max_len 256) answering 8 requests, one of
      which must equal the same request served alone;
+ 17b. the other five families at full width and depth, random weights
+     from SEED, one at a time and each freed before the next: qwen2-moe
+     (64 experts after padding, top-4, 4 shared), hymba-1.5b (window 1024,
+     SSD heads), mamba2-130m, phi-3-vision-4.2b (576 patch embeddings and
+     1472 tokens) and hubert-xlarge (2048 masked frame embeddings, forward
+     only): the prefill of 4 x 2048 positions with B6 launched once a layer
+     (24, 32, 0, 32, 48) and no other kernel of the port, 32 greedy decode
+     steps (hymba's from a prefill of exactly its window, so that the cache
+     rolls and its first step overwrites slot 0), the first 8 against
+     `forward` over the prompt plus the fed tokens (SSM and hybrid padded to
+     whole SSD chunks; MoE: the route flips between the two paths counted
+     by layer, the bound held on the tokens whose routes agree at every
+     layer, at least one, and at least 90 % of the tokens routed alike at
+     the first layer), and the engine (8 requests, 4 slots); ms,
+     tokens/s, launches and peak GiB of each;
  18. training the dense LM at full width and depth: olmo-1b with random
      weights from SEED, `TokenStream` batches of 8 x 2048 tokens, 2
      microbatches, full remat. AdamW: one warm-up and 3 timed steps (ms,
@@ -248,6 +270,28 @@ FLASH_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2, "float16": 1e-2}
 # (tests/test_torch_attention_grad.py).
 FLASH_BWD_ROUNDED_TOL = {name: tol / 4 for name, tol in FLASH_BWD_TOL.items()}
 
+# Phase 17b: the other five families at full width and depth, in this order:
+# (config, path name). B6 launches once a layer on every attention path.
+FAMILY_RUNS = (("qwen2-moe-a2.7b", "lm_prefill_moe"), ("hymba-1.5b", "lm_prefill_hybrid"),
+               ("mamba2-130m", "lm_prefill_ssm"), ("phi-3-vision-4.2b", "lm_prefill_vlm"),
+               ("hubert-xlarge", "lm_forward_audio"))
+FAMILY_HD = 80                    # hubert-xlarge's head dim, new in B6
+# MoE decode against forward: a bf16 near-tie in the router may send a
+# token to another expert in one path than in the other, and from there its
+# hidden state parts ways. The bound holds the tokens whose top-k sets agree
+# at every layer (there must be one), and at the first MoE layer, where both
+# paths route the same embeddings through one attention layer, at least this
+# share of the checked tokens must route alike. At full depth the share that
+# agrees at every layer is no test (`python -m repro_torch.profile_lm
+# --routes` measures it on an H100 at qwen2-moe's full width): two forwards
+# that differ only in the attention kernel (B6 against plain f32 softmax)
+# move the router's input by 0.3 % at layer 0 and 3 % at layer 23, its
+# logits by 0.007 and 0.05-0.08, against a median gap of 0.06-0.1 between
+# the 4th and 5th expert: 5-15 % of the routes left flip at each layer,
+# and 4-5 of 32 tokens keep theirs at all 24 layers.
+MOE_ROUTE_AGREE_MIN = 0.9
+GRANITE_B6_BEFORE_MS = 0.4290     # B6 bf16 at the granite-8b layer before the window (H100 80GB HBM3, 700 W)
+
 TRAIN_ARCH = "olmo-1b"            # the training phase, full width and depth
 TRAIN_BATCH, TRAIN_SEQ = 8, 2048  # 16384 tokens a step
 TRAIN_MICRO = 2                   # microbatches of 4 x 2048
@@ -336,11 +380,17 @@ def triangular_solve_bound_ms(batch: int, bs: int, k: int, itemsize: int,
 
 
 def flash_bound_ms(b: int, h: int, kv: int, sq: int, skv: int, hd: int,
-                   causal: bool, itemsize: int, peak_flops: float) -> tuple[float, str]:
+                   causal: bool, itemsize: int, peak_flops: float,
+                   window: int = 0) -> tuple[float, str]:
     # 4·hd operations a live (q, k) pair (the score and the weighted sum);
-    # causal rows see kv positions 0..q only. q and o, k and v once each.
+    # causal rows see kv positions 0..q only, and with a window the last
+    # `window` of them: S·w - w(w - 1)/2 pairs at S >= w (sq = skv). q and
+    # o, k and v once each.
     n = min(sq, skv)
     pairs = n * (n + 1) // 2 + (sq - n) * skv if causal else sq * skv
+    if window:
+        n = min(sq, window)
+        pairs = n * (n + 1) // 2 + (sq - n) * window
     flops = 4.0 * hd * b * h * pairs
     nbytes = itemsize * hd * (2.0 * b * h * sq + 2.0 * b * kv * skv)
     t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
@@ -691,6 +741,69 @@ def check_flash(torch, rng, b: int, h: int, kv: int, s: int, hd: int) -> dict:
     return row
 
 
+def check_flash_families(torch, hybrid, audio) -> dict:
+    """Phase 3, B6 on the new families' layers: `hybrid`'s sliding window
+    (hymba-1.5b: B = 4, H = 25, KV = 5, S = 2048, hd = 64, window 1024) in
+    bf16 and f32 and at a ragged S = 2000, and `audio`'s hd 80
+    (hubert-xlarge: B = 4, H = KV = 16, S = 2048, non-causal) in bf16, each
+    against attention_ref, timed beside its bound (the live pairs only) and
+    SDPA with the same boolean mask. Its own draws, so that the later
+    phases' stay as they were."""
+    from repro_torch.kernels.flash_attention import kernel as fa, ref as fa_ref
+    import numpy as np
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng([SEED, 7])
+    out = {}
+    cases = (("window", hybrid, LM_SEQ, torch.bfloat16, True),
+             ("window_f32", hybrid, LM_SEQ, torch.float32, True),
+             ("window_ragged", hybrid, LM_SEQ - 48, torch.bfloat16, False),
+             ("hd80", audio, LM_SEQ, torch.bfloat16, True))
+    for case, cfg, sq, dtype, timed_case in cases:
+        b, h, kv, hd = LM_BATCH, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        causal, window = cfg.causal, cfg.sliding_window
+
+        def one(heads):
+            x = rng.standard_normal((b, sq, heads, hd), dtype=np.float32)
+            return torch.from_numpy(x).to(dev, dtype).transpose(1, 2)
+        q, k, v = one(h), one(kv), one(kv)
+        name = str(dtype)[6:]
+        got = fa.flash_attention_cuda(q, k, v, causal=causal, window=window)
+        want = fa_ref.attention_ref(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        err, tol = max_abs(got, want), FLASH_TOL[name]
+        shape = (f"B={b} H={h} KV={kv} S={sq} hd={hd} "
+                 f"{'causal' if causal else 'full'} window={window} {name}")
+        print(f"check flash_attention {case} {shape}: max_abs_err={err!r} tol={tol!r}",
+              flush=True)
+        require(got.dtype == dtype and got.shape == q.shape and
+                bool(torch.isfinite(got.float()).all()),
+                f"flash_attention {case}: dtype, shape or non-finite")
+        require(err <= tol, f"flash_attention {case}: max_abs_err {err} > {tol}")
+        del got, want
+        row = {"shape": shape, "max_abs_err": err}
+        if timed_case:
+            peak = PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
+            bound, by = flash_bound_ms(b, h, kv, sq, sq, hd, causal, q.element_size(), peak,
+                                       window=window)
+            mask = fa_ref.attention_mask(sq, sq, causal, window, dev)
+            row.update(
+                ms=time_ms(lambda: fa.flash_attention_cuda(q, k, v, causal=causal,
+                                                           window=window), 5),
+                plain_ms=time_ms(lambda: fa_ref.attention_ref(q, k, v, causal=causal,
+                                                              window=window), 2),
+                # the yardstick; the port never calls it
+                library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask, enable_gqa=True), 5),
+                bound_ms=bound, bound_by=by)
+            print(f"time flash_attention {case}: {row}", flush=True)
+        out[case] = row
+        del q, k, v
+        torch.cuda.empty_cache()
+    return out
+
+
 def check_flash_bwd(torch, shapes) -> dict:
     """Phase 3, B6-bwd: dq, dk, dv of the kernel against torch.autograd.grad
     of the plain version at the LM layers' shapes (`shapes`: name -> (B, H,
@@ -815,10 +928,12 @@ def print_kernel_resources(torch) -> None:
         for hd in fa.SUPPORTED_HEAD_DIMS:
             attrs = fa.flash_attention_attributes(dtype, hd)
             print(f"resources flash_attention {str(dtype)[6:]} hd={hd}: {attrs}", flush=True)
+            if hd == FAMILY_HD:  # hubert-xlarge's: the 32-byte swizzle, 5 chunks a row
+                require(attrs["local_bytes"] == 0, f"flash_attention {dtype} hd={hd} spills")
     # B6-bwd: the tensor-core kernels (bf16, f16) at every head dim, no
     # spill allowed; the f32 FFMA kernels, no spill at the LM's head dim.
-    for dtype, hds in ((torch.bfloat16, fa.SUPPORTED_HEAD_DIMS),
-                       (torch.float16, fa.SUPPORTED_HEAD_DIMS), (torch.float32, (64, 128, 160))):
+    for dtype, hds in ((torch.bfloat16, fa.BWD_HEAD_DIMS),
+                       (torch.float16, fa.BWD_HEAD_DIMS), (torch.float32, (64, 128, 160))):
         for hd in hds:
             attrs = fa.flash_attention_bwd_attributes(dtype, hd)
             print(f"resources flash_attention_bwd {str(dtype)[6:]} hd={hd}: {attrs}",
@@ -1815,7 +1930,6 @@ def run_lm(torch, rng, cfg, dev) -> dict:
     import torch.nn.functional as F
     from repro_torch import kernels
     from repro_torch.models import transformer as T
-    from repro_torch.serving import Request, ServingEngine
 
     t0 = time.perf_counter()
     params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
@@ -1887,7 +2001,223 @@ def run_lm(torch, rng, cfg, dev) -> dict:
     del full, got, step_logits
     torch.cuda.empty_cache()
 
-    # continuous batching: 8 requests through 4 slots
+    serve = serve_requests(torch, cfg, params, "lm_serve")
+    del params
+    return {
+        "launches": launches,
+        "lm_prefill": {"arch": cfg.name, "batch": LM_BATCH, "seq": LM_SEQ, "ms": prefill_ms,
+                       "tokens_per_s": tokens_per_s},
+        "lm_decode": {"steps": LM_DECODE_STEPS, "ms_per_step": decode_ms,
+                      "tokens_per_s": LM_BATCH / (decode_ms / 1e3),
+                      "consistency_err": err, "consistency_rms": rms,
+                      "consistency_bound": LM_CONSISTENCY_BOUND},
+        "lm_serve": serve}
+
+
+def _route_recorder(moe_mod):
+    """Record every MoE route (the (t, k) expert indices) while it is
+    installed: (list of routes, uninstall)."""
+    routes, route = [], moe_mod.route
+
+    def recording(x, router_w, cfg):
+        out = route(x, router_w, cfg)
+        routes.append(out[3])
+        return out
+    moe_mod.route = recording
+
+    def uninstall():
+        moe_mod.route = route
+    return routes, uninstall
+
+
+def _route_flips(dec_routes: list, fwd_routes: list, n_layers: int, start: int,
+                 steps: int, batch: int) -> list:
+    """For each MoE layer, (B, steps) bool: where a checked token's top-k
+    expert set differs between the decode steps and the forward."""
+    import torch
+
+    out = []
+    for layer in range(n_layers):
+        dec = torch.stack([dec_routes[i * n_layers + layer] for i in range(steps)], 1)
+        fwd = fwd_routes[layer].reshape(batch, -1, dec.shape[-1])[:, start:start + steps]
+        out.append((dec.sort(-1).values != fwd.sort(-1).values).any(-1))
+    return out
+
+
+def run_lm_family(torch, cfg, path: str, dev, index: int) -> dict:
+    """Phase 17b, one family at full width and depth, random weights from
+    SEED: the prefill (audio: the forward) of a `make_batch` batch of 4 x
+    2048 positions, once to warm up, then counted and timed, and timed
+    again; B6 must launch once a layer and no other kernel of the port. A
+    decoding family then decodes 32 greedy steps (hymba from a prefill of
+    exactly its window, so that the cache rolls and its first step
+    overwrites slot 0), holds the first 8 against `forward` over the
+    prompt plus the fed tokens (padded to whole SSD chunks; MoE: the
+    tokens whose routes agree at every layer, and 90 % of them routed alike
+    at the first layer: MOE_ROUTE_AGREE_MIN), and serves 8 requests
+    through the engine."""
+    import numpy as np
+    import torch.nn.functional as F
+    from repro_torch import kernels
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.models import moe as moe_mod, transformer as T
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"lm_family: {cfg.name} ({cfg.family}) {n_params} parameters on the card in "
+          f"{time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated", flush=True)
+    batch = make_batch(cfg, LM_BATCH, LM_SEQ, np.random.default_rng([SEED, 17, index]),
+                       "prefill", dev)
+    if cfg.decode_capable:
+        run = lambda: T.prefill(params, batch, cfg)       # noqa: E731
+    else:
+        run = lambda: T.forward(params, batch, cfg)       # noqa: E731
+    run()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    (logits, aux, z, cache), ms = timed(torch, run)
+    launches = kernels.launch_counts()
+    prefill_ms = [ms, timed(torch, run)[1]]
+    b6 = 0 if cfg.attn_free else cfg.n_layers
+    tokens_per_s = LM_BATCH * LM_SEQ / (min(prefill_ms) / 1e3)
+    print(f"path {path}: {cfg.name} B={LM_BATCH} S={LM_SEQ} ms={prefill_ms!r} "
+          f"tokens_per_s={tokens_per_s!r} launches={launches} aux={float(aux)!r} "
+          f"z={float(z)!r}", flush=True)
+    require(tuple(logits.shape) == (LM_BATCH, LM_SEQ, cfg.vocab)
+            and logits.dtype == torch.float32, f"{path}: logits {tuple(logits.shape)}")
+    require(bool(torch.isfinite(logits).all()), f"{path}: non-finite logits")
+    require(cfg.moe is None or (float(aux) > 0 and np.isfinite(float(z))),
+            f"{path}: aux {float(aux)}, z {float(z)}")
+    for kern, n in launches.items():
+        want = b6 if kern == "flash_attention" else 0
+        require(n == want, f"{path}: {kern} launched {n} times, want {want}")
+    out = {"arch": cfg.name, "family": cfg.family, "params": n_params, "batch": LM_BATCH,
+           "seq": LM_SEQ, "ms": prefill_ms, "tokens_per_s": tokens_per_s,
+           "launches": launches}
+    if not cfg.decode_capable:
+        del logits, cache, params, batch
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"path {path}: peak_gib={out['peak_gib']!r}", flush=True)
+        return out
+
+    # greedy decode: hymba from a prefill of exactly its window (the cache
+    # rolls), the others from the 2048-token cache padded by the steps
+    start = cfg.sliding_window or LM_SEQ
+    if cfg.sliding_window:
+        del logits, cache
+        prompt = {"tokens": batch["tokens"][:, :start]}
+        logits, _, _, cache = T.prefill(params, prompt, cfg)
+        require(cache["k"].shape[2] == cfg.sliding_window, f"{path}: cache {cache['k'].shape}")
+        slot0 = cache["k"][:, :, 0].clone()
+    else:
+        pad = (0, 0, 0, 0, 0, LM_DECODE_STEPS)
+        cache = {k: F.pad(v, pad) if k in ("k", "v") else v for k, v in cache.items()}
+    n_prefix = batch["patch_embeds"].shape[1] if cfg.family == "vlm" else 0
+    tok = torch.argmax(logits[:, -1], dim=-1)
+    del logits
+    routes, uninstall = _route_recorder(moe_mod) if cfg.moe is not None else ([], None)
+    fed, step_logits, step_ms = [], [], []
+    try:
+        for i in range(LM_DECODE_STEPS):
+            fed.append(tok)
+            (lg, cache), ms = timed(torch, lambda: T.decode_step(params, cache, tok, cfg))
+            step_ms.append(ms)
+            if i < LM_CHECK_STEPS:
+                step_logits.append(lg)
+            require(bool(torch.isfinite(lg).all()), f"{path}: non-finite decode logits at {i}")
+            tok = torch.argmax(lg, dim=-1)
+    finally:
+        if uninstall:
+            uninstall()
+    end = start + LM_DECODE_STEPS
+    require(torch.equal(cache["pos"].cpu(), torch.full((LM_BATCH,), end, dtype=torch.int32)),
+            f"{path}: decode pos {cache['pos'].tolist()}")
+    if cfg.sliding_window:   # the first step wrote position `start` into slot 0
+        require(not torch.equal(cache["k"][:, :, 0], slot0), f"{path}: slot 0 not rolled")
+    del cache
+    decode_ms = sum(step_ms) / len(step_ms)
+
+    # decode logits against forward over the prompt plus the fed tokens,
+    # padded to whole SSD chunks for the SSM families (causal: the compared
+    # positions never see the padding)
+    text = batch["tokens"][:, :start - n_prefix] if cfg.sliding_window else batch["tokens"]
+    seq = torch.cat([text, torch.stack(fed[:LM_CHECK_STEPS], 1)], 1)
+    if cfg.ssm is not None:
+        chunk = cfg.ssm.chunk
+        seq = F.pad(seq, (0, -(seq.shape[1] + n_prefix) % chunk))
+    fbatch = {**{k: v for k, v in batch.items() if k == "patch_embeds"}, "tokens": seq}
+    fwd_routes, uninstall = _route_recorder(moe_mod) if cfg.moe is not None else ([], None)
+    try:
+        full = T.forward(params, fbatch, cfg)[0][:, start:start + LM_CHECK_STEPS]
+    finally:
+        if uninstall:
+            uninstall()
+    got = torch.stack(step_logits, 1)
+    keep = torch.ones((LM_BATCH, LM_CHECK_STEPS), dtype=torch.bool, device=dev)
+    flips_by_layer, first_agree = [], 1.0
+    if cfg.moe is not None:
+        differ = _route_flips(routes, fwd_routes, cfg.n_layers, start, LM_CHECK_STEPS,
+                              LM_BATCH)
+        for d in differ:      # the tokens that part ways at this layer first
+            flips_by_layer.append(int((d & keep).sum()))
+            keep = keep & ~d
+        first_agree = 1.0 - float(differ[0].float().mean())
+        print(f"path {path}: route flips by layer (tokens parting ways there first): "
+              f"{flips_by_layer}; (token, layer) pairs that differ: "
+              f"{sum(int(d.sum()) for d in differ)}; first layer agrees on "
+              f"{first_agree!r}", flush=True)
+    require(first_agree >= MOE_ROUTE_AGREE_MIN and bool(keep.any()),
+            f"{path}: the first MoE layer routes {first_agree} of the tokens alike "
+            f"(< {MOE_ROUTE_AGREE_MIN}), or no token agrees at every layer")
+    agree_share = float(keep.float().mean())
+    diff = (got - full).abs().amax(-1)                      # (B, steps)
+    err = float(diff[keep].max())
+    rms = float((got - full)[keep].square().mean().sqrt())
+    top2 = torch.topk(full, 2, dim=-1).values
+    clear = ((top2[..., 0] - top2[..., 1]) > LM_CONSISTENCY_BOUND) & keep
+    agree = torch.argmax(got, -1) == torch.argmax(full, -1)
+    print(f"path {path.replace('prefill', 'decode')}: from_pos={start} "
+          f"steps={LM_DECODE_STEPS} ms_per_step={decode_ms!r} ms={step_ms!r} "
+          f"consistency_err={err!r} rms={rms!r} bound={LM_CONSISTENCY_BOUND!r} "
+          f"all_tokens_err={float(diff.max())!r} "
+          f"route_agree_tokens={int(keep.sum())}/{keep.numel()} "
+          f"tokens_agree={int(agree.sum())}/{agree.numel()}", flush=True)
+    require(err <= LM_CONSISTENCY_BOUND,
+            f"{path}: decode vs forward logits differ by {err} > {LM_CONSISTENCY_BOUND}")
+    require(bool(agree[clear].all()), f"{path}: a token differs where the top-2 margin "
+                                      f"exceeds {LM_CONSISTENCY_BOUND}")
+    del full, got, step_logits, batch, fbatch
+    torch.cuda.empty_cache()
+    # MoE: another request's tokens share the experts' buffers, so the
+    # same-width solo run is reported, not required
+    serve = serve_requests(torch, cfg, params, path.replace("prefill", "serve"),
+                           require_solo=cfg.moe is None)
+    del params
+    out.update(decode={"from_pos": start, "steps": LM_DECODE_STEPS, "ms_per_step": decode_ms,
+                       "tokens_per_s": LM_BATCH / (decode_ms / 1e3),
+                       "consistency_err": err, "consistency_rms": rms,
+                       "consistency_bound": LM_CONSISTENCY_BOUND,
+                       "route_flips_by_layer": flips_by_layer,
+                       "route_first_layer_agree": first_agree,
+                       "route_agree_share": agree_share},
+               serve=serve, peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    print(f"path {path}: peak_gib={out['peak_gib']!r}", flush=True)
+    return out
+
+
+def serve_requests(torch, cfg, params, path: str, require_solo: bool = True) -> dict:
+    """Continuous batching: 8 requests through a `ServingEngine` of 4 slots
+    (max_len 256), then the first request alone in an engine of the same
+    width (the same GEMM shapes, so the same rounding), which must give the
+    same tokens where `require_solo`, and alone at batch 1, reported."""
+    import numpy as np
+    from repro_torch.serving import Request, ServingEngine
+
     prng = np.random.default_rng([SEED, 1])
     lens = prng.integers(SERVE_PROMPT_LENS[0], SERVE_PROMPT_LENS[1] + 1, SERVE_REQUESTS)
     reqs = [Request(uid=i, prompt=prng.integers(0, cfg.vocab, n).tolist(),
@@ -1902,10 +2232,7 @@ def run_lm(torch, rng, cfg, dev) -> dict:
     serve_s = time.perf_counter() - t0
     generated = sum(len(r.output) for r in reqs)
     require(all(r.done and len(r.output) == SERVE_NEW_TOKENS for r in reqs),
-            "lm_serve: a request did not finish with all its tokens")
-    # The first request served alone, in an engine of the same width (the
-    # same GEMM shapes, so the same rounding), must get the same tokens;
-    # alone at batch 1 it is reported, since other GEMM shapes round apart.
+            f"{path}: a request did not finish with all its tokens")
     solo = {}
     for width in (SERVE_SLOTS, 1):
         alone = Request(uid=0, prompt=list(reqs[0].prompt), max_new_tokens=SERVE_NEW_TOKENS)
@@ -1913,26 +2240,17 @@ def run_lm(torch, rng, cfg, dev) -> dict:
         one.submit(alone)
         one.run_until_done()
         solo[width] = sum(a == b for a, b in zip(alone.output, reqs[0].output))
-    print(f"path lm_serve: requests={SERVE_REQUESTS} slots={SERVE_SLOTS} ticks={eng.ticks} "
+    print(f"path {path}: requests={SERVE_REQUESTS} slots={SERVE_SLOTS} ticks={eng.ticks} "
           f"generated={generated} s={serve_s!r} tokens_per_s={generated / serve_s!r} "
           f"solo_match_same_width={solo[SERVE_SLOTS]}/{SERVE_NEW_TOKENS} "
           f"solo_match_batch1={solo[1]}/{SERVE_NEW_TOKENS}", flush=True)
-    require(solo[SERVE_SLOTS] == SERVE_NEW_TOKENS,
-            "lm_serve: the first request differs from the same request served alone")
-    ticks = eng.ticks
-    del params, eng, one
-    return {
-        "launches": launches,
-        "lm_prefill": {"arch": cfg.name, "batch": LM_BATCH, "seq": LM_SEQ, "ms": prefill_ms,
-                       "tokens_per_s": tokens_per_s},
-        "lm_decode": {"steps": LM_DECODE_STEPS, "ms_per_step": decode_ms,
-                      "tokens_per_s": LM_BATCH / (decode_ms / 1e3),
-                      "consistency_err": err, "consistency_rms": rms,
-                      "consistency_bound": LM_CONSISTENCY_BOUND},
-        "lm_serve": {"requests": SERVE_REQUESTS, "slots": SERVE_SLOTS,
-                     "max_len": SERVE_MAX_LEN, "ticks": ticks, "generated": generated,
-                     "s": serve_s, "tokens_per_s": generated / serve_s,
-                     "solo_match_batch1": solo[1]}}
+    if require_solo:
+        require(solo[SERVE_SLOTS] == SERVE_NEW_TOKENS,
+                f"{path}: the first request differs from the same request served alone")
+    return {"requests": SERVE_REQUESTS, "slots": SERVE_SLOTS, "max_len": SERVE_MAX_LEN,
+            "ticks": eng.ticks, "generated": generated, "s": serve_s,
+            "tokens_per_s": generated / serve_s,
+            "solo_match_same_width": solo[SERVE_SLOTS], "solo_match_batch1": solo[1]}
 
 
 def _timed_step(torch, step_fn, state, batch):
@@ -2241,6 +2559,10 @@ def main() -> int:
     lm_cfg = get_arch(LM_ARCH)
     report["flash_attention"] = check_flash(
         torch, rng, LM_BATCH, lm_cfg.n_heads, lm_cfg.n_kv_heads, LM_SEQ, lm_cfg.head_dim)
+    report["flash_attention"].update(check_flash_families(
+        torch, get_arch("hymba-1.5b"), get_arch("hubert-xlarge")))
+    print(f"time flash_attention granite-8b layer bf16: ms={report['flash_attention']['ms']!r} "
+          f"before_window_ms={GRANITE_B6_BEFORE_MS!r}", flush=True)
     train_cfg = get_arch(TRAIN_ARCH)
     report["flash_attention_bwd"] = check_flash_bwd(torch, {
         name: (TRAIN_BATCH // TRAIN_MICRO, c.n_heads, c.n_kv_heads, TRAIN_SEQ, c.head_dim)
@@ -2406,6 +2728,15 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # 17b. the other five families at full width and depth, one at a time,
+    # each freed before the next and before phase 18 (SPIN-Shampoo: 56 GiB)
+    families = {}
+    for index, (arch, path) in enumerate(FAMILY_RUNS):
+        families[path] = run_lm_family(torch, get_arch(arch), path, torch.device("cuda"),
+                                       index)
+        gc.collect()
+        torch.cuda.empty_cache()
+
     # 18. training the dense LM: AdamW, the checkpoint, SPIN-Shampoo
     train_adamw = run_train_adamw(torch, train_cfg, torch.device("cuda"))
     train_shampoo = run_train_shampoo(torch, train_cfg, torch.device("cuda"))
@@ -2442,7 +2773,7 @@ def main() -> int:
         "spin_gauss_jordan": {"n": gn, "block_size": gbs, "ms": gjp["ms"],
                               "residual": gjp["residual"]},
         "lm_prefill": lm["lm_prefill"], "lm_decode": lm["lm_decode"],
-        "lm_serve": lm["lm_serve"], "sharded": sharded,
+        "lm_serve": lm["lm_serve"], "lm_families": families, "sharded": sharded,
         "train_adamw": train_adamw, "train_shampoo": train_shampoo},
         "card": card}), flush=True)
 
@@ -2490,6 +2821,7 @@ def main() -> int:
         if name == "flash_attention":
             r["launches_by_path"] = {
                 "lm_prefill": lm["launches"][name],
+                **{p: fam["launches"][name] for p, fam in families.items()},
                 "train_adamw_step": train_adamw["launches"][name],
                 "train_shampoo_step1": train_shampoo["launches_step1"][name]}
         if name in ("matmul", "schur_update", "blocked_gauss_jordan"):

@@ -20,6 +20,7 @@ __all__ = ["to_torch", "to_numpy", "blockmatrix_from_numpy",
            "sharded_from_numpy",
            "op_counts_from_dict", "port_name", "plan_from_reference",
            "lm_params_from_numpy", "lm_params_to_numpy",
+           "lm_cache_from_numpy", "lm_cache_to_numpy",
            "train_state_from_numpy", "train_state_to_numpy"]
 
 # The JAX package's names of a leaf solver or engine where the port's differ.
@@ -112,6 +113,20 @@ def lm_params_to_numpy(params: Mapping) -> dict:
     """The port's LM parameters -> nested dicts of numpy arrays, same bits."""
     return {k: lm_params_to_numpy(v) if isinstance(v, Mapping) else to_numpy(v)
             for k, v in params.items()}
+
+
+def lm_cache_from_numpy(cache: Mapping, device: str | torch.device = DEFAULT_DEVICE
+                        ) -> dict:
+    """The JAX package's decode cache as numpy (pos, k, v, ssm_h, ssm_conv,
+    whichever the family has) -> the port's `decode_step` cache, same bits
+    and dtypes."""
+    device = resolve_device(device)
+    return {k: to_torch(v, device) for k, v in cache.items()}
+
+
+def lm_cache_to_numpy(cache: Mapping) -> dict:
+    """The port's decode cache -> numpy arrays, same bits."""
+    return {k: to_numpy(v) for k, v in cache.items()}
 
 
 def _opt_from_numpy(opt, device: torch.device):

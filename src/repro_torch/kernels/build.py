@@ -60,7 +60,7 @@ _SIGNATURES = {
     },
     "flash_attention": {
         "repro_flash_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                  *(_L,) * 12, _I, _F, _I, _P),
+                                  *(_L,) * 12, _I, _I, _F, _I, _P),
         "repro_flash_attention_bwd": (*(_P,) * 10, *(_I,) * 6, *(_L,) * 24,
                                       _I, _F, _I, _P),
         "repro_flash_attention_attributes": (_I, _I, _P),

@@ -69,6 +69,18 @@
 //  * Causal tiles above the diagonal are never visited (the Pallas
 //    kernel's `pl.when(live)`), and query tiles are issued longest first.
 //
+// Sliding window (causal only, the hybrid family's attention): query i sees
+// key j iff 0 <= i - j < window, the reference's `_chunk_mask`
+// (src/repro/models/attention.py:47-56). Both kernels start their kv walk
+// at the band's first tile for the block's first row, as the reference's
+// `_kv_band` does, so tiles wholly below the band are never loaded, and
+// mask the band's lower edge on the tiles that cross it. Live pairs a
+// (batch, head) at S >= w: S·w - w(w - 1)/2.
+//
+// Head dims 16, 32, 64, 80, 96, 128, 160. hd 80 (hubert-xlarge) takes the
+// 32-byte swizzle of hd 16 with 5 chunks a row, and its P V products are
+// five n16 wgmma a k-step. The backward is built for the others only.
+//
 // Both take a ragged sequence and any strides on the B, H and S axes with
 // unit stride on hd, so the model's (B, S, H, hd) activations pass as
 // transposed views. Given a non-null `lse`, both also write each query
@@ -156,6 +168,7 @@ struct FlashArgs {
   int causal;
   float scale;
   float* lse;  // (B, H, Sq) f32 log-sum-exp of each query row, or nullptr
+  int window;  // > 0: query i sees key j iff 0 <= i - j < window (causal only)
 };
 
 template <int HD>
@@ -219,8 +232,11 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd(FlashArgs p) {
 
   int n_tiles = (p.skv + kBK - 1) / kBK;
   if (p.causal) n_tiles = min(n_tiles, (min(q0 + kBQ, p.sq) - 1) / kBK + 1);
+  // A window starts the walk at the band's first tile (the reference's
+  // `_kv_band`): tiles wholly below the band are never loaded.
+  const int t_lo = p.window > 0 ? max(0, q0 - p.window + 1) / kBK : 0;
 
-  for (int t = 0; t < n_tiles; ++t) {
+  for (int t = t_lo; t < n_tiles; ++t) {
     const int k0 = t * kBK;
     __syncthreads();  // the previous tile's V is read
     stage_tile<T, HD>(KVs, K + k0 * p.k_ss, p.k_ss, p.skv - k0);
@@ -253,8 +269,9 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd(FlashArgs p) {
         }
     }
 
-    // Scale and mask; kv rows past Skv take no weight at all.
-    const bool edge = k0 + kBK > p.skv || (p.causal && k0 + kBK - 1 > q0);
+    // Scale and mask; kv rows past Skv, and below the band, take no weight at all.
+    const bool edge = k0 + kBK > p.skv || (p.causal && k0 + kBK - 1 > q0) ||
+                      (p.window > 0 && q0 + kBQ - 1 - k0 >= p.window);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int qpos = q0 + ty + 16 * i;
@@ -264,7 +281,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd(FlashArgs p) {
         const int kpos = k0 + tx + 16 * j;
         float x = s[i][j] * p.scale;
         if (edge) {
-          if (kpos >= p.skv) x = -CUDART_INF_F;
+          if (kpos >= p.skv || (p.window > 0 && qpos - kpos >= p.window)) x = -CUDART_INF_F;
           else if (p.causal && qpos < kpos) x = kNegInf;
         }
         s[i][j] = x;
@@ -337,13 +354,14 @@ cudaError_t launch_t(const FlashArgs& p, int batch, cudaStream_t s) {
   return cudaGetLastError();
 }
 
-// The head dims of the configs: 16 (reduced), 64, 96, 128, 160 (and 32).
+// The head dims of the configs: 16 (reduced), 64, 80, 96, 128, 160 (and 32).
 template <typename T>
 cudaError_t launch_hd(const FlashArgs& p, int batch, int hd, cudaStream_t s) {
   switch (hd) {
     case 16: return launch_t<T, 16>(p, batch, s);
     case 32: return launch_t<T, 32>(p, batch, s);
     case 64: return launch_t<T, 64>(p, batch, s);
+    case 80: return launch_t<T, 80>(p, batch, s);
     case 96: return launch_t<T, 96>(p, batch, s);
     case 128: return launch_t<T, 128>(p, batch, s);
     case 160: return launch_t<T, 160>(p, batch, s);
@@ -391,6 +409,7 @@ struct TcArgs {
   float scale_log2;  // hd^-0.5 · log2(e): the softmax runs on exp2
   float* lse;        // (B, H, Sq) f32, natural-log units, or nullptr
   int h;
+  int window;        // > 0: the band 0 <= i - j < window (causal only)
 };
 
 template <typename T>
@@ -420,7 +439,9 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
   else repro::wgmma_rs_n64<T>(d, a, db, 1);
 }
 
-template <typename T, int HD>
+// kWindow: the sliding-window build; without it the band code folds away,
+// so the full and causal paths compile as they did before the window.
+template <typename T, int HD, bool kWindow>
 __global__ void __launch_bounds__(kTcThreads, 1)
     flash_fwd_tc(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                  const __grid_constant__ CUtensorMap tv, const TcArgs p) {
@@ -440,6 +461,8 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   const int hh = blockIdx.y, bb = blockIdx.z, kvh = hh / p.group;
   int n_tiles = (p.skv + kTcBK - 1) / kTcBK;
   if (p.causal) n_tiles = min(n_tiles, (min(q0 + kTcBQ, p.sq) - 1) / kTcBK + 1);
+  // The band's first tile for the block's first row: the walk starts there.
+  const int t_lo = kWindow ? max(0, q0 - p.window + 1) / kTcBK : 0;
 
   if (threadIdx.x == 0) {
     repro::mbar_init(q_full, 1);
@@ -464,8 +487,8 @@ __global__ void __launch_bounds__(kTcThreads, 1)
       repro::mbar_expect_tx(q_full, Sh::kQBytes);
       for (int c = 0; c < kChunks; ++c)
         repro::tma_load_4d(Qs + c * kTcBQ * kSw, &tq, q_full, c * kCE, q0, hh, bb);
-      for (int t = 0; t < n_tiles; ++t) {
-        const int s = t % kTcStages, use = t / kTcStages;
+      for (int t = t_lo; t < n_tiles; ++t) {
+        const int s = (t - t_lo) % kTcStages, use = (t - t_lo) / kTcStages;
         repro::mbar_wait(&kv_empty[s], (use & 1) ^ 1);
         uint8_t* const kt = Ks + s * Sh::kKVBytes;
         uint8_t* const vt = Vs + s * Sh::kKVBytes;
@@ -492,8 +515,8 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
 
     repro::mbar_wait(q_full, 0);
-    for (int t = 0; t < n_tiles; ++t) {
-      const int st = t % kTcStages, parity = (t / kTcStages) & 1;
+    for (int t = t_lo; t < n_tiles; ++t) {
+      const int st = (t - t_lo) % kTcStages, parity = ((t - t_lo) / kTcStages) & 1;
       const uint8_t* const kt = Ks + st * Sh::kKVBytes;
       const uint8_t* const vt = Vs + st * Sh::kKVBytes;
 
@@ -514,17 +537,21 @@ __global__ void __launch_bounds__(kTcThreads, 1)
       repro::wgmma_wait_all();
       repro::fence_regs(s);
 
-      // Scale, mask on the registers (only tiles that cross the diagonal or
-      // the end of the keys), and the online softmax in f32.
+      // Scale, mask on the registers (only tiles that cross the diagonal,
+      // the band's lower edge or the end of the keys), and the online
+      // softmax in f32. A row may find a whole tile below its band: its
+      // scores are -inf against m = -1e30, so the tile adds nothing.
       const int k0 = t * kTcBK;
-      const bool edge = k0 + kTcBK > p.skv || (p.causal && k0 + kTcBK - 1 > qw);
+      const bool edge = k0 + kTcBK > p.skv || (p.causal && k0 + kTcBK - 1 > qw) ||
+                        (kWindow && qw + 63 - k0 >= p.window);
       float mx[2] = {m[0], m[1]};
 #pragma unroll
       for (int i = 0; i < kTcBK / 2; ++i) {
         float x = s[i] * p.scale_log2;
         if (edge) {
           const int col = k0 + acc_col(i, lane), row = row0 + acc_row(i);
-          if (col >= p.skv || (p.causal && row < col)) x = -CUDART_INF_F;
+          if (col >= p.skv || (p.causal && row < col) || (kWindow && row - col >= p.window))
+            x = -CUDART_INF_F;
         }
         s[i] = x;
         mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], x);
@@ -644,13 +671,14 @@ cudaError_t launch_tc(const FlashArgs& p, int batch, int kv_heads, cudaStream_t 
       (err = make_map<T, HD>(&tk, p.k, p.skv, kv_heads, batch, p.k_sb, p.k_sh, p.k_ss, kTcBK)) ||
       (err = make_map<T, HD>(&tv, p.v, p.skv, kv_heads, batch, p.v_sb, p.v_sh, p.v_ss, kTcBK)))
     return err;
-  err = cudaFuncSetAttribute(flash_fwd_tc<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  const auto kernel = p.window > 0 ? flash_fwd_tc<T, HD, true> : flash_fwd_tc<T, HD, false>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(Sh::kSmem));
   if (err != cudaSuccess) return err;
   const TcArgs args{p.o, p.group, p.sq, p.skv, p.o_sb, p.o_sh, p.o_ss, p.causal,
-                    p.scale * 1.4426950408889634f, p.lse, p.h};
+                    p.scale * 1.4426950408889634f, p.lse, p.h, p.window};
   const dim3 grid((p.sq + kTcBQ - 1) / kTcBQ, p.h, batch);
-  flash_fwd_tc<T, HD><<<grid, kTcThreads, Sh::kSmem, s>>>(tq, tk, tv, args);
+  kernel<<<grid, kTcThreads, Sh::kSmem, s>>>(tq, tk, tv, args);
   return cudaGetLastError();
 }
 
@@ -660,6 +688,7 @@ cudaError_t launch_tc_hd(const FlashArgs& p, int batch, int kv_heads, int hd, cu
     case 16: return launch_tc<T, 16>(p, batch, kv_heads, s);
     case 32: return launch_tc<T, 32>(p, batch, kv_heads, s);
     case 64: return launch_tc<T, 64>(p, batch, kv_heads, s);
+    case 80: return launch_tc<T, 80>(p, batch, kv_heads, s);
     case 96: return launch_tc<T, 96>(p, batch, kv_heads, s);
     case 128: return launch_tc<T, 128>(p, batch, kv_heads, s);
     case 160: return launch_tc<T, 160>(p, batch, kv_heads, s);
@@ -1537,7 +1566,7 @@ cudaError_t attributes_t(int* out) {
     err = cudaFuncGetAttributes(&fa, flash_fwd<T, HD>);
     dynamic = smem_bytes<HD>();
   } else {
-    err = cudaFuncGetAttributes(&fa, flash_fwd_tc<T, HD>);
+    err = cudaFuncGetAttributes(&fa, flash_fwd_tc<T, HD, false>);
     dynamic = TcShape<HD>::kSmem;
   }
   if (err != cudaSuccess) return err;
@@ -1554,6 +1583,7 @@ cudaError_t attributes_hd(int hd, int* out) {
     case 16: return attributes_t<T, 16>(out);
     case 32: return attributes_t<T, 32>(out);
     case 64: return attributes_t<T, 64>(out);
+    case 80: return attributes_t<T, 80>(out);
     case 96: return attributes_t<T, 96>(out);
     case 128: return attributes_t<T, 128>(out);
     case 160: return attributes_t<T, 160>(out);
@@ -1566,7 +1596,8 @@ cudaError_t attributes_hd(int hd, int* out) {
 // q, o: (batch, h, sq, hd); k, v: (batch, kv_heads, skv, hd); each at its
 // own strides for the first three axes and unit stride on hd; one dtype.
 // lse: nullptr, or (batch, h, sq) f32 contiguous, written with each query
-// row's log-sum-exp.
+// row's log-sum-exp. window: 0, or > 0 with causal (query i sees key j iff
+// 0 <= i - j < window).
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v, void* o,
                                      float* lse,
                                      int batch, int h, int kv_heads, int sq, int skv, int hd,
@@ -1574,13 +1605,15 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
                                      long long k_sb, long long k_sh, long long k_ss,
                                      long long v_sb, long long v_sh, long long v_ss,
                                      long long o_sb, long long o_sh, long long o_ss,
-                                     int causal, float scale, int dtype, void* stream) {
+                                     int causal, int window, float scale, int dtype,
+                                     void* stream) {
   if (batch == 0 || h == 0 || sq == 0) return 0;
-  if (kv_heads < 1 || h % kv_heads || skv < 1 || h > 65535 || batch > 65535)
+  if (kv_heads < 1 || h % kv_heads || skv < 1 || h > 65535 || batch > 65535 || window < 0 ||
+      (window > 0 && !causal))
     return cudaErrorInvalidValue;
   const FlashArgs p{q, k, v, o, h, h / kv_heads, sq, skv,
                     q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss,
-                    causal, scale, lse};
+                    causal, scale, lse, window};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case repro::kF32: return launch_hd<float>(p, batch, hd, s);

@@ -3,10 +3,13 @@
 `flash_attention_cuda` replaces `flash_attention_pallas`
 (src/repro/kernels/flash_attention/kernel.py): causal or full softmax
 attention with an online softmax and grouped-query heads, f32
-accumulation, output in q's dtype. Unlike the Pallas kernel it takes any
-sequence length (the last tile is masked) and any strides on the B, H
-and S axes, with unit stride on hd, so the model's (B, S, H, hd)
-activations pass as ``transpose(1, 2)`` views without a copy.
+accumulation, output in q's dtype. Causal attention may take a sliding
+`window` (the hybrid family's), with the reference's meaning: query i
+sees key j iff 0 <= i - j < window; the kernels walk only the band.
+Unlike the Pallas kernel it takes any sequence length (the last tile is
+masked) and any strides on the B, H and S axes, with unit stride on hd,
+so the model's (B, S, H, hd) activations pass as ``transpose(1, 2)``
+views without a copy.
 
 bf16 and f16 run on the tensor cores (wgmma, operands loaded by TMA,
 which needs 16-byte aligned rows); f32 runs the FFMA kernel.
@@ -39,9 +42,13 @@ from .ref import attention_bwd_ref, attention_ref
 __all__ = ["flash_attention_cuda", "flash_attention_bwd_cuda",
            "FlashAttentionFn", "flash_attention_attributes",
            "flash_attention_bwd_attributes", "flash_attention_bwd_kernels",
-           "SUPPORTED_HEAD_DIMS"]
+           "SUPPORTED_HEAD_DIMS", "BWD_HEAD_DIMS"]
 
-SUPPORTED_HEAD_DIMS = (16, 32, 64, 96, 128, 160)  # launch_hd in the source
+SUPPORTED_HEAD_DIMS = (16, 32, 64, 80, 96, 128, 160)  # launch_hd in the source
+BWD_HEAD_DIMS = (16, 32, 64, 96, 128, 160)           # launch_bwd_hd in the source
+# What the backward kernels do not take yet, and the slice that brings it.
+_BWD_LATER = ("the training slice of the hybrid and audio families (B6-bwd with "
+              "a window and at hd 80)")
 
 
 def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -62,6 +69,14 @@ def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"H={h} must be a multiple of KV={n_kv}")
     if k.shape[2] == 0:
         raise ValueError("attention over an empty key sequence")
+
+
+def _check_window(causal: bool, window: int) -> None:
+    if window < 0:
+        raise ValueError(f"window {window} < 0")
+    if window and not causal:
+        raise ValueError("a sliding window needs causal attention; no config "
+                         "asks for a bidirectional window")
 
 
 def _check_kernel_layout(*named: tuple[str, torch.Tensor]) -> None:
@@ -95,7 +110,7 @@ def _check_tma(*named: tuple[str, torch.Tensor]) -> None:
                              "which needs a 16-byte aligned base and strides")
 
 
-def _forward(q, k, v, causal: bool, want_lse: bool):
+def _forward(q, k, v, causal: bool, want_lse: bool, window: int = 0):
     """Launch the forward kernel on CUDA operands: (out, lse or None)."""
     _check_kernel_layout(("q", q), ("k", k), ("v", v))
     _check_tma(("q", q), ("k", k), ("v", v))
@@ -112,20 +127,22 @@ def _forward(q, k, v, causal: bool, want_lse: bool):
             lse.data_ptr() if want_lse else None,
             b, h, n_kv, sq, skv, hd,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-            int(causal), hd ** -0.5, DTYPE_CODES[q.dtype], stream_of(q))
+            int(causal), int(window), hd ** -0.5, DTYPE_CODES[q.dtype], stream_of(q))
     check(err, "flash_attention kernel")
     LAUNCHES["flash_attention"] += 1
     return out, lse
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                         causal: bool = True) -> torch.Tensor:
-    """q: (B, H, Sq, hd); k, v: (B, KV, Skv, hd); H % KV == 0. The result
-    carries no autograd history on CUDA: `FlashAttentionFn` differentiates."""
+                         causal: bool = True, window: int = 0) -> torch.Tensor:
+    """q: (B, H, Sq, hd); k, v: (B, KV, Skv, hd); H % KV == 0; `window` > 0
+    needs `causal`. The result carries no autograd history on CUDA:
+    `FlashAttentionFn` differentiates."""
     _check_qkv(q, k, v)
+    _check_window(causal, window)
     if q.device.type == "cpu":
-        return attention_ref(q, k, v, causal=causal)
-    return _forward(q, k, v, causal, want_lse=False)[0]
+        return attention_ref(q, k, v, causal=causal, window=window)
+    return _forward(q, k, v, causal, want_lse=False, window=window)[0]
 
 
 def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -153,6 +170,8 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if any(t.device != q.device for t in (out, dout, lse)):
         raise ValueError("out, dout and lse must lie on q's device")
     named = (("q", q), ("k", k), ("v", v), ("out", out), ("dout", dout))
+    if hd not in BWD_HEAD_DIMS:
+        raise ValueError(f"the backward kernels at head_dim {hd} come with {_BWD_LATER}")
     _check_kernel_layout(*named)
     _check_tma(*named)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
@@ -181,11 +200,17 @@ class FlashAttentionFn(torch.autograd.Function):
     """Flash attention on CUDA operands with its backward kernel: the
     forward launches B6 with the log-sum-exp output and keeps (q, k, v, out,
     lse); the backward launches B6-bwd. ``FlashAttentionFn.apply(q, k, v,
-    causal)``."""
+    causal, window=0)``. B6-bwd has no window and no hd 80 yet: asking for
+    either raises before the forward launches."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal):
+    def forward(ctx, q, k, v, causal, window=0):
         _check_qkv(q, k, v)
+        _check_window(bool(causal), window)
+        if window or q.shape[3] not in BWD_HEAD_DIMS:
+            what = f"window {window}" if window else f"head_dim {q.shape[3]}"
+            raise ValueError(f"attention with a gradient at {what} on the card "
+                             f"comes with {_BWD_LATER}")
         if q.device.type != "cuda":
             raise ValueError("FlashAttentionFn runs the CUDA kernels; on the "
                              "CPU autograd differentiates attention_ref")
@@ -203,7 +228,7 @@ class FlashAttentionFn(torch.autograd.Function):
             dout = dout.clone(memory_format=torch.contiguous_format)
         dq, dk, dv = flash_attention_bwd_cuda(q, k, v, out, dout, lse,
                                               causal=ctx.causal)
-        return dq, dk, dv, None
+        return dq, dk, dv, None, None
 
 
 def flash_attention_attributes(dtype: torch.dtype, hd: int) -> dict:

@@ -4,36 +4,51 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["attention_ref", "attention_bwd_ref", "attention_bwd_rounded_ref"]
+__all__ = ["attention_ref", "attention_mask", "attention_bwd_ref",
+           "attention_bwd_rounded_ref"]
 
 NEG_INF = -1e30
 
 
+def attention_mask(sq: int, skv: int, causal: bool, window: int,
+                   device) -> torch.Tensor | None:
+    """(Sq, Skv) bool, True where query i sees key j: i >= j when causal,
+    and i - j < window when window > 0 (the reference's `_chunk_mask`);
+    None when every pair is live."""
+    if not causal and not window:
+        return None
+    i = torch.arange(sq, device=device)[:, None]
+    j = torch.arange(skv, device=device)[None, :]
+    ok = i >= j if causal else torch.ones((sq, skv), dtype=torch.bool, device=device)
+    return ok & (i - j < window) if window else ok
+
+
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                  causal: bool = True) -> torch.Tensor:
+                  causal: bool = True, window: int = 0) -> torch.Tensor:
     """Naive full-softmax attention in f32, cast to q's dtype.
-    q: (B, H, Sq, hd); k, v: (B, KV, Skv, hd), H a multiple of KV."""
+    q: (B, H, Sq, hd); k, v: (B, KV, Skv, hd), H a multiple of KV. A
+    `window` > 0 keeps the pairs 0 <= i - j < window; masked scores are
+    -1e30, as in the reference."""
     hd = q.shape[-1]
     group = q.shape[1] // k.shape[1]
     kk = k.repeat_interleave(group, dim=1).float()
     vv = v.repeat_interleave(group, dim=1).float()
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk) * hd ** -0.5
-    if causal:
-        i = torch.arange(q.shape[2], device=q.device)[:, None]
-        j = torch.arange(k.shape[2], device=q.device)[None, :]
-        s = torch.where(i >= j, s, NEG_INF)
+    mask = attention_mask(q.shape[2], k.shape[2], causal, window, q.device)
+    if mask is not None:
+        s = torch.where(mask, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", p, vv).to(q.dtype)
 
 
 def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      do: torch.Tensor, *, causal: bool = True):
+                      do: torch.Tensor, *, causal: bool = True, window: int = 0):
     """(dq, dk, dv) of `attention_ref` at (q, k, v) against the output
     gradient `do`: `torch.autograd.grad` through the plain version, in the
     operands' dtype."""
     with torch.enable_grad():
         leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-        out = attention_ref(*leaves, causal=causal)
+        out = attention_ref(*leaves, causal=causal, window=window)
         return torch.autograd.grad(out, leaves, do)
 
 

@@ -1,9 +1,12 @@
-"""Serving launcher: batched greedy decode against a KV cache.
+"""Serving launcher: batched greedy decode against a KV/SSM cache.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \
         --batch 4 --steps 64 [--reduced] [--device cpu]
 
-Random weights from seed 0; runs on the card unless `--device cpu`.
+Any decoding family (dense, MoE, SSM, hybrid, VLM on text); an
+encoder-only config (hubert-xlarge) exits, as in the reference. Random
+weights from seed 0, MoE experts unpadded (model_size_hint 1, as the
+reference's launcher); runs on the card unless `--device cpu`.
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ def main(argv: list[str] | None = None) -> dict:
     device = resolve_device(args.device)
 
     gen = torch.Generator(device=device).manual_seed(0)
-    params = T.init_params(cfg, gen, device)
+    params = T.init_params(cfg, gen, device, model_size_hint=1)
     cache = T.init_cache(cfg, args.batch, args.cache_len, device)
 
     def sync():

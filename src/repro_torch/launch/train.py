@@ -1,12 +1,15 @@
-"""Training launcher: the dense LM on synthetic tokens.
+"""Training launcher: an LM of any family on synthetic batches.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b \
         --batch 8 --seq 2048 --steps 10 [--optimizer spin_shampoo]
     PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b \
         --reduced --device cpu --steps 3 --batch 2 --seq 32 --microbatches 1
 
-Random weights from seed 0, batches from `data.synthetic.TokenStream`
-(seed 0); runs on the card unless `--device cpu`. `--mesh single|multi`
+Random weights from seed 0 (MoE experts unpadded, model_size_hint 1, as
+the reference's launcher without a mesh), batches from
+`data.synthetic.TokenStream` (seed 0); runs on the card unless `--device
+cpu`. On the card a config with a sliding window (hymba) or head dim 80
+(hubert) raises at its first step: B6-bwd does not take them yet. `--mesh single|multi`
 needs the production mesh, which the port does not have yet: it raises.
 """
 
@@ -57,7 +60,7 @@ def main(argv: list[str] | None = None) -> dict:
     tcfg = TrainConfig(microbatches=args.microbatches, optimizer=args.optimizer,
                        total_steps=max(args.steps, 100))
     state = init_state(cfg, tcfg, torch.Generator(device=device).manual_seed(0),
-                       device)
+                       device, model_size_hint=1)
     stream = TokenStream(cfg, batch, seq, seed=0, device=str(device))
     trainer = Trainer(cfg, tcfg, stream, ckpt_dir=args.ckpt_dir,
                       ckpt_every=args.ckpt_every)

@@ -1,18 +1,17 @@
 """Attention: GQA over the full sequence (prefill) and against a KV cache
-(decode).
+(decode), full or sliding-window.
 
-The port of `repro.models.attention` for full attention. The reference's
-online-softmax scan over KV chunks (`_attend_chunked`) becomes one launch
-of the flash attention kernel (`kernels/flash_attention`), which walks
-the KV tiles inside each block; on the CPU the same call runs the
-kernel's plain version. When autograd needs the gradient on the card the
-call goes through `FlashAttentionFn`, whose backward is the B6-bwd
-kernel; on the CPU autograd differentiates the plain version. Decode
-stays plain PyTorch, as in the reference: one query token against the
-(B, S, KV, hd) cache.
-
-Sliding-window attention belongs to the hybrid family and its slice of
-the port; asking for it raises.
+The port of `repro.models.attention`. The reference's online-softmax scan
+over KV chunks (`_attend_chunked`) becomes one launch of the flash
+attention kernel (`kernels/flash_attention`), which walks the KV tiles
+inside each block, and with a sliding window only the band's tiles, as
+the reference's `_kv_band` walks only the band's chunks; on the CPU the
+same call runs the kernel's plain version. When autograd needs the
+gradient on the card the call goes through `FlashAttentionFn`, whose
+backward is the B6-bwd kernel (no window yet: it raises); on the CPU
+autograd differentiates the plain version. Decode stays plain PyTorch,
+as in the reference: one query token against the (B, S, KV, hd) cache,
+which rolls (slot pos % S) when it is no longer than the window.
 """
 
 from __future__ import annotations
@@ -41,13 +40,6 @@ def attn_params(cfg: ArchConfig) -> dict:
     }
 
 
-def _check_full_attention(cfg: ArchConfig) -> None:
-    if cfg.sliding_window:
-        raise ValueError(
-            f"{cfg.name}: sliding-window attention (window {cfg.sliding_window}) "
-            "comes with the hybrid-family slice of the port")
-
-
 def _split_heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
     b, s, _ = x.shape
     return x.reshape(b, s, n_heads, -1)
@@ -73,14 +65,14 @@ def attn_apply(params: dict, x: torch.Tensor, cfg: ArchConfig,
     returns the rotated k and the v it attended over, (B, S, KV, hd)
     each: the prefill cache, the same bits the reference recomputes.
     """
-    _check_full_attention(cfg)
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device).expand(b, s)
     q, k, v = _project(params, x, cfg, positions)
     # (B, S, H, hd) -> (B, H, S, hd) views: the kernel takes the strides.
     out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                          v.transpose(1, 2), causal=cfg.causal)
+                          v.transpose(1, 2), causal=cfg.causal,
+                          window=cfg.sliding_window)
     y = torch.matmul(out.transpose(1, 2).reshape(b, s, -1), params["wo"])
     return (y, k, v) if want_kv else y
 
@@ -90,21 +82,29 @@ def attn_decode(params: dict, x: torch.Tensor, cache_k: torch.Tensor,
     """One-token decode. x: (B, 1, d); cache_{k,v}: (B, S, KV, hd); pos:
     (B,) current position. Returns (out, cache_k, cache_v).
 
-    The new k, v row is written into the cache in place at slot `pos`
-    (the reference returns new arrays, which its jitted callers donate).
-    Where pos >= S nothing is written and every slot counts as valid, as
-    the reference's one-hot write and mask do.
+    The new k, v row is written into the cache in place (the reference
+    returns new arrays, which its jitted callers donate): at slot
+    pos % S when the config has a sliding window and S <= window (a
+    rolling cache), else at slot pos. Where pos >= S every slot counts as
+    valid, and a cache that does not roll is not written, as the
+    reference's one-hot write and mask do. A cache longer than the window
+    attends to every written slot, without the window, as the reference
+    does (`init_cache` never builds one).
     """
-    _check_full_attention(cfg)
     b = x.shape[0]
     s_max = cache_k.shape[1]
     q, k, v = _project(params, x, cfg, pos[:, None])
 
     rows = torch.arange(b, device=x.device)
-    slot = pos.long().clamp(max=s_max - 1)
-    fits = (pos < s_max)[:, None, None]
-    cache_k[rows, slot] = torch.where(fits, k[:, 0], cache_k[rows, slot])
-    cache_v[rows, slot] = torch.where(fits, v[:, 0], cache_v[rows, slot])
+    if cfg.sliding_window and s_max <= cfg.sliding_window:
+        slot = pos.long() % s_max                        # rolling cache
+        cache_k[rows, slot] = k[:, 0]
+        cache_v[rows, slot] = v[:, 0]
+    else:
+        slot = pos.long().clamp(max=s_max - 1)
+        fits = (pos < s_max)[:, None, None]
+        cache_k[rows, slot] = torch.where(fits, k[:, 0], cache_k[rows, slot])
+        cache_v[rows, slot] = torch.where(fits, v[:, 0], cache_v[rows, slot])
 
     n_kv, hd = cfg.n_kv_heads, cfg.head_dim
     group = cfg.n_heads // n_kv

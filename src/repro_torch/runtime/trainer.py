@@ -1,6 +1,6 @@
 """Training step and loop: microbatch accumulation, remat, restart.
 
-The port of `repro.runtime.trainer` for the dense family. `make_train_step`
+The port of `repro.runtime.trainer`, for every LM family. `make_train_step`
 builds the step:
     state -> for each microbatch: loss and gradients by autograd (the
              layers checkpointed, attention through B6 and B6-bwd on the
@@ -63,11 +63,12 @@ def _check_optimizer(tcfg: TrainConfig) -> None:
 
 
 def init_state(cfg: ArchConfig, tcfg: TrainConfig, generator: torch.Generator,
-               device: str | torch.device = DEFAULT_DEVICE) -> TrainState:
-    """Random parameters from `generator` (on `device`) and a fresh
-    optimizer state."""
+               device: str | torch.device = DEFAULT_DEVICE,
+               model_size_hint: int = 16) -> TrainState:
+    """Random parameters from `generator` (on `device`; MoE experts padded
+    to a multiple of `model_size_hint`) and a fresh optimizer state."""
     _check_optimizer(tcfg)
-    params = T.init_params(cfg, generator, device)
+    params = T.init_params(cfg, generator, device, model_size_hint)
     opt = (adamw_init(params) if tcfg.optimizer == "adamw"
            else spin_shampoo_init(params, tcfg.shampoo))
     return TrainState(params, opt, torch.zeros((), dtype=torch.int32))
@@ -84,16 +85,20 @@ def make_train_step(cfg: ArchConfig, tcfg: TrainConfig, rules=None
         flat = leaves(state.params)
         acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
                for p in flat]
-        sum_loss = torch.zeros((), dtype=torch.float32, device=flat[0].device)
+        sums = {k: torch.zeros((), dtype=torch.float32, device=flat[0].device)
+                for k in ("loss", "aux", "z")}
         for i in range(nm):
             mb = {k: v.reshape(nm, v.shape[0] // nm, *v.shape[1:])[i]
                   for k, v in batch.items()}
             ps = [p.detach().requires_grad_() for p in flat]
-            loss, _ = T.loss_fn(unflatten(state.params, ps), mb, cfg,
-                                remat=tcfg.remat, remat_policy=tcfg.remat_policy)
-            for a, g in zip(acc, torch.autograd.grad(loss, ps)):
-                a.add_(g.float())
-            sum_loss += loss.detach()
+            loss, parts = T.loss_fn(unflatten(state.params, ps), mb, cfg,
+                                    remat=tcfg.remat, remat_policy=tcfg.remat_policy)
+            # a leaf the family does not read (audio's token table) gets a zero gradient
+            for a, g in zip(acc, torch.autograd.grad(loss, ps, allow_unused=True)):
+                if g is not None:
+                    a.add_(g.float())
+            for k, v in (("loss", loss), ("aux", parts["aux"]), ("z", parts["z"])):
+                sums[k] += v.detach()
         grads = unflatten(state.params,
                           [a.div_(nm).to(p.dtype) for a, p in zip(acc, flat)])
         del acc
@@ -104,7 +109,9 @@ def make_train_step(cfg: ArchConfig, tcfg: TrainConfig, rules=None
         new_params, new_opt, gnorm = update(opt_cfg, grads, state.opt, lr_scale)
         new_state = TrainState(new_params, new_opt,
                                torch.tensor(int(state.step) + 1, dtype=torch.int32))
-        return new_state, {"loss": sum_loss / nm, "grad_norm": gnorm,
+        # aux and z: the MoE losses inside "loss" (zero for the other families)
+        return new_state, {"loss": sums["loss"] / nm, "aux": sums["aux"] / nm,
+                           "z": sums["z"] / nm, "grad_norm": gnorm,
                            "lr_scale": lr_scale}
 
     return train_step
@@ -159,7 +166,9 @@ class Trainer:
             metrics.update(step=step, dt=dt)
             logs.append(metrics)
             if log_every and i % log_every == 0:
-                print(f"step {step:5d} loss {metrics['loss']:.4f} "
+                moe = (f" aux {metrics['aux']:.4f} z {metrics['z']:.4f}"
+                       if self.cfg.moe is not None else "")
+                print(f"step {step:5d} loss {metrics['loss']:.4f}{moe} "
                       f"gnorm {metrics['grad_norm']:.3f} {dt*1e3:.0f}ms")
             if self.ckpt_dir and step % self.ckpt_every == 0:
                 from ..checkpoint.ckpt import save

@@ -7,11 +7,16 @@ slots by one token through `transformer.decode_step`, and finished slots
 are recycled without disturbing their neighbours. The scheduler is the
 reference's, line for line, in host Python.
 
-Correctness relies on `decode_step` masking kv positions above a slot's
-pos, so rows left by a slot's previous occupant are invisible. The
-dense family keeps no other state, so admitting a request only resets
-its slot's pos. The cache is updated in place by each step (the
-reference donates it to its jitted step instead).
+Correctness relies on two properties of `transformer.decode_step`'s
+cache, as in the reference:
+  * attention masks kv positions above a slot's pos, so rows left by a
+    slot's previous occupant are invisible (a rolling cache overwrites
+    them before it reads them);
+  * the SSM state integrates history, so admitting a request zeroes its
+    slot's `ssm_h` and `ssm_conv` along with its pos.
+The cache is updated in place by each step (the reference donates it to
+its jitted step instead). An encoder-only config has no decode step and
+raises.
 """
 
 from __future__ import annotations
@@ -66,6 +71,9 @@ class ServingEngine:
     def _reset_slot(self, slot: int) -> None:
         with torch.inference_mode():
             self.cache["pos"][slot] = 0
+            for key in ("ssm_h", "ssm_conv"):
+                if key in self.cache:     # the state integrates history: zero it
+                    self.cache[key][:, slot] = 0
 
     def _admit(self) -> None:
         while self._queue and self._free:

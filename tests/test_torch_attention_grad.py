@@ -308,7 +308,7 @@ def test_misaligned_dout_is_copied_by_the_function_or_refused_by_the_wrapper(cud
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hd", fa.SUPPORTED_HEAD_DIMS)
+@pytest.mark.parametrize("hd", fa.BWD_HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_tensor_core_backward_keeps_its_registers(cuda_device, dtype, hd):
     # The consumers grow to 240 registers by setmaxnreg; hd 160 takes

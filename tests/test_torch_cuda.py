@@ -597,6 +597,63 @@ def test_flash_attention_tensor_core_kernel_keeps_its_registers(cuda_device, dty
     assert attrs["dynamic_smem"] <= 232448, attrs
 
 
+@pytest.mark.parametrize("window", [1, 7, 64, 100, 128, 257, 1024])
+@pytest.mark.parametrize("s", [129, 300, 2048])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_flash_attention_window_matches_plain(cuda_device, dtype, s, window):
+    """The sliding window (hymba's attention): both kernels walk the band
+    from its first tile and mask its lower edge; GQA 10/2, ragged S."""
+    q, k, v = _qkv(2, 10, 2, s, s, 64, dtype, s + window, cuda_device)
+    kernels.reset_launch_counts()
+    got = fa.flash_attention_cuda(q, k, v, causal=True, window=window)
+    assert kernels.launch_counts()["flash_attention"] == 1
+    want = fa_ref.attention_ref(q, k, v, causal=True, window=window)
+    assert got.dtype == dtype and got.shape == q.shape
+    assert bool(torch.isfinite(got.float()).all())
+    assert _fa_err(got, want) < _FA_TOL[dtype]
+
+
+@pytest.mark.parametrize("causal,window", [(False, 0), (True, 0), (True, 200)])
+@pytest.mark.parametrize("s", [64, 129, 2048])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_flash_attention_hd80_matches_plain(cuda_device, dtype, s, causal, window):
+    """hd 80 (hubert-xlarge): the 32-byte swizzle with 5 chunks a row on the
+    tensor cores, 5 columns a thread on FFMA."""
+    q, k, v = _qkv(2, 16, 16, s, s, 80, dtype, s + 80 + window, cuda_device)
+    got = fa.flash_attention_cuda(q, k, v, causal=causal, window=window)
+    want = fa_ref.attention_ref(q, k, v, causal=causal, window=window)
+    assert got.dtype == dtype and got.shape == q.shape
+    assert bool(torch.isfinite(got.float()).all())
+    assert _fa_err(got, want) < _FA_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_attention_hd80_keeps_its_registers(cuda_device, dtype):
+    attrs = fa.flash_attention_attributes(dtype, 80)
+    assert attrs["local_bytes"] == 0 and attrs["dynamic_smem"] <= 232448, attrs
+
+
+def test_the_backward_refuses_a_window_and_hd80_on_the_card(cuda_device):
+    """B6-bwd takes neither yet: the training route raises before any
+    launch, and the forward without grad still runs."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+
+    q, k, v = _qkv(1, 4, 2, 64, 64, 64, torch.bfloat16, 3, cuda_device)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    kernels.reset_launch_counts()
+    with pytest.raises(ValueError, match="window 16 on the card"):
+        flash_attention(*leaves, causal=True, window=16)
+    q8, k8, v8 = _qkv(1, 4, 4, 64, 64, 80, torch.bfloat16, 4, cuda_device)
+    with pytest.raises(ValueError, match="head_dim 80 on the card"):
+        flash_attention(q8.detach().requires_grad_(), k8, v8, causal=False)
+    assert kernels.launch_counts()["flash_attention"] == 0
+    with pytest.raises(ValueError, match="head_dim 80"):
+        fa.flash_attention_bwd_cuda(q8, k8, v8, q8, q8,
+                                    torch.zeros(1, 4, 64, device=cuda_device))
+    flash_attention(q8, k8, v8, causal=False)
+    assert kernels.launch_counts()["flash_attention"] == 1
+
+
 def _kernel_names(fn) -> list[str]:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
