@@ -5,7 +5,8 @@
                                      # granite-8b at B = 4, S = 2048;
                                      # qwen2-moe, hymba, mamba2, phi-3-vision,
                                      # hubert at B = 4, S = 2048;
-                                     # olmo-1b trained at 8 x 2048 tokens a step
+                                     # olmo-1b and the five families trained
+                                     # at 8 x 2048 tokens a step
 
 Phases, each of which fails the run (non-zero exit) on any fault:
 
@@ -19,7 +20,8 @@ Phases, each of which fails the run (non-zero exit) on any fault:
      diagonal-block inverse and pack, and the blocked Gauss-Jordan's panel
      and tensor-core update; and of the flash attention backward's dK/dV
      and dQ kernels: the tensor-core ones (bf16, f16) at every head dim,
-     no spill at any, and the f32 FFMA ones (no spill at hd = 128);
+     hd 80 included, and their sliding-window builds, no spill at any, and
+     the f32 FFMA ones (no spill at hd = 64, 80 and 128);
   3. hold each kernel against its plain PyTorch version on the card, at the
      main paths' shapes, in f32 and bf16, and time kernel, plain version
      and the one PyTorch library call that computes the same function
@@ -39,16 +41,22 @@ Phases, each of which fails the run (non-zero exit) on any fault:
      f32, plus a ragged S = 2000 and a non-causal case, and with a sliding
      window at the hymba-1.5b layer (B = 4, H = 25, KV = 5, S = 2048,
      hd = 64, window 1024) in bf16 and f32 and at a ragged S = 2000, and at
-     hd = 80 at the hubert-xlarge layer (H = KV = 16, non-causal) in bf16,
-     each timed beside SDPA with the same boolean mask and a bound that
-     counts the live pairs only; its backward,
+     hd = 80 at the hubert-xlarge layer (H = KV = 16, non-causal) and at
+     hd = 96 at the phi-3-vision-4.2b layer (H = KV = 32, causal) in bf16,
+     each timed beside SDPA (with the same boolean mask under the window)
+     and a bound that counts the live pairs only; its backward,
      B6-bwd, against torch.autograd.grad of the plain version at the
      olmo-1b layer, B = 4, H = KV = 16, S = 2048, hd = 128, and the
      granite-8b layer, causal in bf16 and f32 (and f16 at the olmo-1b
      layer), plus a ragged S = 2000 and a non-causal case, timed beside
-     SDPA's backward; at the olmo-1b layer in bf16 and f16 also against
-     its own arithmetic, `attention_bwd_rounded_ref`, and repeated bit for
-     bit);
+     SDPA's backward; at the hymba-1.5b layer (B = 4, H = 25, KV = 5,
+     S = 2048, hd = 64, window 1024, SDPA given the same boolean mask),
+     the hubert-xlarge layer (H = KV = 16, hd = 80, non-causal) and the
+     phi-3-vision-4.2b layer (H = KV = 32, hd = 96, causal), in bf16 and
+     f32, with a bound that counts the live pairs only; at the olmo-1b,
+     hymba, hubert and phi-3-vision layers in bf16 (and f16 at olmo-1b's) also
+     against its own arithmetic, `attention_bwd_rounded_ref`, and repeated
+     bit for bit);
   4. SPIN inversion, `spin_inverse_dense(engine="cuda", leaf_solver="cuda")`,
      at n = 16384, block_size = 1024: residual ‖AX − I‖∞ ≤ 1e-3, op counts
      equal to the paper's oracle, and the kernels it launched; in this
@@ -165,6 +173,17 @@ Phases, each of which fails the run (non-zero exit) on any fault:
      layer, at least one, and at least 90 % of the tokens routed alike at
      the first layer), and the engine (8 requests, 4 slots); ms,
      tokens/s, launches and peak GiB of each;
+ 18b. training the five families with AdamW, random weights from SEED,
+     `TokenStream` batches of 8 x 2048 positions (the modality batches for
+     audio and VLM), 2 microbatches, full remat, one at a time and each
+     freed before the next and before phase 18: qwen2-moe-a2.7b cut to its
+     first 4 layers, phi-3-vision-4.2b cut to 28, hymba-1.5b, hubert-xlarge
+     and mamba2-130m whole; the cuts printed, and running out of memory
+     fails the phase. Each: one warm-up and 3 timed steps (ms, tokens/s,
+     the caching allocator's retries a step),
+     B6 launched 2·L·2 times and B6-bwd L·2 times a step (L the layers
+     that ran; 0 for mamba2) and no other kernel of the port, 3 steps on
+     one repeated batch whose loss must fall, and peak GiB;
  18. training the dense LM at full width and depth: olmo-1b with random
      weights from SEED, `TokenStream` batches of 8 x 2048 tokens, 2
      microbatches, full remat. AdamW: one warm-up and 3 timed steps (ms,
@@ -298,6 +317,17 @@ TRAIN_MICRO = 2                   # microbatches of 4 x 2048
 TRAIN_TIMED_STEPS = 3             # AdamW steps timed after one warm-up
 TRAIN_FALL_STEPS = 5              # AdamW steps on one repeated batch
 TRAIN_DEPTH_CUTS = (12, 8)        # SPIN-Shampoo's depth if 80 GB cannot hold all 16 layers
+# Phase 18b: the five families trained with AdamW, in this order, each with
+# its depth (None: whole). At 20 B a parameter (bf16 weights and
+# gradients, the f32 master, m, v and gradient sums) qwen2-moe's 24 layers
+# (14.3 B parameters with 64 padded experts) need 267 GiB and
+# phi-3-vision's 32 layers 71 GiB before activations; 4 layers of
+# qwen2-moe (3.04 B, 67.5 GiB peak) and 28 of phi-3-vision (3.37 B, 65.9
+# GiB) leave room for a step's activations and f32 logits.
+FAMILY_TRAIN_RUNS = (("qwen2-moe-a2.7b", 4), ("phi-3-vision-4.2b", 28),
+                     ("hymba-1.5b", None), ("hubert-xlarge", None), ("mamba2-130m", None))
+FAMILY_TRAIN_TIMED_STEPS = 3      # steps timed after one warm-up
+FAMILY_TRAIN_FALL_STEPS = 3       # steps on one repeated batch
 U_F32 = 2.0 ** -24                # f32 unit roundoff
 # The refresh residual's bound: c·n·u·κ, the first-order bound on an
 # inverse's residual by elimination, with c = 4 over the 1.3 measured at
@@ -398,11 +428,15 @@ def flash_bound_ms(b: int, h: int, kv: int, sq: int, skv: int, hd: int,
 
 
 def flash_bwd_bound_ms(b: int, h: int, kv: int, s: int, hd: int, causal: bool,
-                       itemsize: int, peak_flops: float) -> tuple[float, str]:
+                       itemsize: int, peak_flops: float, window: int = 0) -> tuple[float, str]:
     # 10·hd operations a live (q, k) pair: S = Q Kᵀ again, dP = dO Vᵀ,
-    # dV += Pᵀ dO, dK += dSᵀ Q, dQ += dS K. q, o, dO and k, v read once,
-    # dq, dk, dv written once, the f32 log-sum-exp read once.
+    # dV += Pᵀ dO, dK += dSᵀ Q, dQ += dS K; a window keeps the pairs
+    # 0 <= i - j < window, S·w - w(w - 1)/2 of them at S >= w. q, o, dO and
+    # k, v read once, dq, dk, dv written once, the f32 log-sum-exp read once.
     pairs = s * (s + 1) // 2 if causal else s * s
+    if window:
+        w = min(s, window)
+        pairs = w * (w + 1) // 2 + (s - w) * window
     flops = 10.0 * hd * b * h * pairs
     nbytes = itemsize * hd * (4.0 * b * h * s + 4.0 * b * kv * s) + 4.0 * b * h * s
     t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
@@ -741,13 +775,15 @@ def check_flash(torch, rng, b: int, h: int, kv: int, s: int, hd: int) -> dict:
     return row
 
 
-def check_flash_families(torch, hybrid, audio) -> dict:
+def check_flash_families(torch, hybrid, audio, vlm) -> dict:
     """Phase 3, B6 on the new families' layers: `hybrid`'s sliding window
     (hymba-1.5b: B = 4, H = 25, KV = 5, S = 2048, hd = 64, window 1024) in
-    bf16 and f32 and at a ragged S = 2000, and `audio`'s hd 80
-    (hubert-xlarge: B = 4, H = KV = 16, S = 2048, non-causal) in bf16, each
+    bf16 and f32 and at a ragged S = 2000, `audio`'s hd 80 (hubert-xlarge:
+    B = 4, H = KV = 16, S = 2048, non-causal) and `vlm`'s hd 96
+    (phi-3-vision-4.2b: B = 4, H = KV = 32, S = 2048, causal) in bf16, each
     against attention_ref, timed beside its bound (the live pairs only) and
-    SDPA with the same boolean mask. Its own draws, so that the later
+    SDPA (given the same boolean mask under the window, told `is_causal`
+    without one). Its own draws, so that the later
     phases' stay as they were."""
     from repro_torch.kernels.flash_attention import kernel as fa, ref as fa_ref
     import numpy as np
@@ -759,7 +795,8 @@ def check_flash_families(torch, hybrid, audio) -> dict:
     cases = (("window", hybrid, LM_SEQ, torch.bfloat16, True),
              ("window_f32", hybrid, LM_SEQ, torch.float32, True),
              ("window_ragged", hybrid, LM_SEQ - 48, torch.bfloat16, False),
-             ("hd80", audio, LM_SEQ, torch.bfloat16, True))
+             ("hd80", audio, LM_SEQ, torch.bfloat16, True),
+             ("hd96", vlm, LM_SEQ, torch.bfloat16, True))
     for case, cfg, sq, dtype, timed_case in cases:
         b, h, kv, hd = LM_BATCH, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
         causal, window = cfg.causal, cfg.sliding_window
@@ -787,7 +824,9 @@ def check_flash_families(torch, hybrid, audio) -> dict:
             peak = PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
             bound, by = flash_bound_ms(b, h, kv, sq, sq, hd, causal, q.element_size(), peak,
                                        window=window)
-            mask = fa_ref.attention_mask(sq, sq, causal, window, dev)
+            # SDPA takes a boolean mask only for the window: a causal mask
+            # it is given rather than told of keeps it off its flash path
+            mask = fa_ref.attention_mask(sq, sq, causal, window, dev) if window else None
             row.update(
                 ms=time_ms(lambda: fa.flash_attention_cuda(q, k, v, causal=causal,
                                                            window=window), 5),
@@ -795,7 +834,8 @@ def check_flash_families(torch, hybrid, audio) -> dict:
                                                               window=window), 2),
                 # the yardstick; the port never calls it
                 library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-                    q, k, v, attn_mask=mask, enable_gqa=True), 5),
+                    q, k, v, attn_mask=mask, is_causal=causal and not window,
+                    enable_gqa=True), 5),
                 bound_ms=bound, bound_by=by)
             print(f"time flash_attention {case}: {row}", flush=True)
         out[case] = row
@@ -807,12 +847,15 @@ def check_flash_families(torch, hybrid, audio) -> dict:
 def check_flash_bwd(torch, shapes) -> dict:
     """Phase 3, B6-bwd: dq, dk, dv of the kernel against torch.autograd.grad
     of the plain version at the LM layers' shapes (`shapes`: name -> (B, H,
-    KV, S, hd)), causal in bf16 and f32, plus a ragged S and a non-causal
-    case in bf16, and f16 at the training layer; timed beside its bound and
-    SDPA's backward. In bf16 and f16 at the training layer the tensor-core
-    kernels are also held to their own arithmetic
-    (`attention_bwd_rounded_ref`) and repeated bit for bit. Its own inputs,
-    so that the later phases' draws stay as they were."""
+    KV, S, hd, causal, window)), in bf16 and f32, plus a ragged S and a
+    non-causal case in bf16 at the granite-8b layer, a ragged S in bf16
+    at the families' layers (under the window at hymba's), and f16 at the
+    training layer; timed beside its
+    bound (the live pairs only) and SDPA's backward (given the same
+    boolean mask under a window). In bf16 and f16 at every layer but
+    granite-8b's the tensor-core kernels are also held to their own
+    arithmetic (`attention_bwd_rounded_ref`) and repeated bit for bit. Its
+    own inputs, so that the later phases' draws stay as they were."""
     from repro_torch.kernels.flash_attention import kernel as fa, ref as fa_ref
     import numpy as np
     import torch.nn.functional as F
@@ -820,30 +863,36 @@ def check_flash_bwd(torch, shapes) -> dict:
     dev = torch.device("cuda")
     rng = np.random.default_rng([SEED, 21])
     row = {}
-    for shape_name, (b, h, kv, s, hd) in shapes.items():
+    for shape_name, (b, h, kv, s, hd, causal, window) in shapes.items():
         dtypes = [(torch.bfloat16, PEAK_BF16_FLOPS), (torch.float32, PEAK_F32_FLOPS)]
         if shape_name == TRAIN_ARCH:
             dtypes.append((torch.float16, PEAK_BF16_FLOPS))
+        main = "window" if window else "causal" if causal else "full"
         for dtype, peak in dtypes:
             name = str(dtype)[6:]
-            cases = [("causal", s, True)]
-            if dtype == torch.bfloat16 and shape_name == "granite-8b":
+            cases = [(main, s, causal)]
+            if dtype == torch.bfloat16 and shape_name == LM_ARCH:
                 cases += [("ragged", s - 48, True), ("full", s, False)]
-            for case, sq, causal in cases:
+            if dtype == torch.bfloat16 and window:
+                cases.append(("window_ragged", s - 48, True))
+            elif dtype == torch.bfloat16 and shape_name not in (LM_ARCH, TRAIN_ARCH):
+                cases.append(("ragged", s - 48, causal))
+            for case, sq, cs in cases:
                 def one(heads):
                     x = rng.standard_normal((b, sq, heads, hd), dtype=np.float32)
                     return torch.from_numpy(x).to(dev, dtype).transpose(1, 2)
                 q, k, v, do = one(h), one(kv), one(kv), one(h)
-                out, lse = fa._forward(q, k, v, causal, want_lse=True)
-                got = fa.flash_attention_bwd_cuda(q, k, v, out, do, lse, causal=causal)
-                want = fa_ref.attention_bwd_ref(q, k, v, do, causal=causal)
+                out, lse = fa._forward(q, k, v, cs, want_lse=True, window=window)
+                got = fa.flash_attention_bwd_cuda(q, k, v, out, do, lse, causal=cs,
+                                                  window=window)
+                want = fa_ref.attention_bwd_ref(q, k, v, do, causal=cs, window=window)
                 torch.cuda.synchronize()
                 errs = [max_abs(g, w) for g, w in zip(got, want)]
                 rels = [e / float(w.float().abs().max()) for e, w in zip(errs, want)]
                 tol = FLASH_BWD_TOL[name]
                 print(f"check flash_attention_bwd {shape_name} {case} {name} B={b} H={h} "
-                      f"KV={kv} S={sq} hd={hd}: max_abs_err(dq,dk,dv)={errs!r} "
-                      f"rel={rels!r} tol={tol!r}", flush=True)
+                      f"KV={kv} S={sq} hd={hd} window={window}: "
+                      f"max_abs_err(dq,dk,dv)={errs!r} rel={rels!r} tol={tol!r}", flush=True)
                 for g, t in zip(got, (q, k, v)):
                     require(g.dtype == dtype and g.shape == t.shape,
                             f"flash_attention_bwd {case} {name}: dtype/shape differ")
@@ -854,14 +903,15 @@ def check_flash_bwd(torch, shapes) -> dict:
                         f"{max(rels)} > {tol}")
                 del want
                 extra = {}
-                if shape_name == TRAIN_ARCH and dtype != torch.float32:
+                if shape_name != LM_ARCH and dtype != torch.float32 and case == main:
                     # the kernels' own arithmetic, on the forward's output
-                    rounded = fa_ref.attention_bwd_rounded_ref(q, k, v, do, causal=causal,
-                                                               out=out)
+                    rounded = fa_ref.attention_bwd_rounded_ref(q, k, v, do, causal=cs,
+                                                               window=window, out=out)
                     extra["rounded_rel_err"] = max(
                         max_abs(g, w) / float(w.abs().max()) for g, w in zip(got, rounded))
                     del rounded
-                    again = fa.flash_attention_bwd_cuda(q, k, v, out, do, lse, causal=causal)
+                    again = fa.flash_attention_bwd_cuda(q, k, v, out, do, lse, causal=cs,
+                                                        window=window)
                     extra["bitwise_repeat"] = all(torch.equal(g, a) for g, a in zip(got, again))
                     del again
                     rtol = FLASH_BWD_ROUNDED_TOL[name]
@@ -874,29 +924,30 @@ def check_flash_bwd(torch, shapes) -> dict:
                     require(extra["bitwise_repeat"],
                             f"flash_attention_bwd {shape_name} {name}: a repeat differs")
                 del got
-                if case == "causal":
-                    bound, by = flash_bwd_bound_ms(b, h, kv, sq, hd, True, q.element_size(),
-                                                   peak)
+                if case == main:
+                    bound, by = flash_bwd_bound_ms(b, h, kv, sq, hd, cs, q.element_size(),
+                                                   peak, window=window)
                     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
                     # the yardstick; the port never calls it
-                    lib_out = F.scaled_dot_product_attention(*leaves, is_causal=True,
-                                                             enable_gqa=True)
+                    mask = fa_ref.attention_mask(sq, sq, cs, window, dev) if window else None
+                    lib_out = F.scaled_dot_product_attention(
+                        *leaves, attn_mask=mask, is_causal=cs and not window, enable_gqa=True)
                     # enough launches that the first one's host time (checks,
                     # eight tensor maps) does not count: 20 of the tensor-core
                     # kernels, 3 of the f32 ones (≈ 15 ms each)
                     reps = 3 if dtype == torch.float32 else 20
                     times = {
                         "ms": time_ms(lambda: fa.flash_attention_bwd_cuda(
-                            q, k, v, out, do, lse, causal=True), reps),
+                            q, k, v, out, do, lse, causal=cs, window=window), reps),
                         "plain_ms": time_ms(lambda: fa_ref.attention_bwd_ref(
-                            q, k, v, do, causal=True), 1),
+                            q, k, v, do, causal=cs, window=window), 1),
                         "library_ms": time_ms(lambda: torch.autograd.grad(
                             lib_out, leaves, do, retain_graph=True), reps),
                         "bound_ms": bound, "bound_by": by, "max_abs_err": max(errs),
                         "rel_err": max(rels), **extra}
                     print(f"time flash_attention_bwd {shape_name} {name}: {times}",
                           flush=True)
-                    del lib_out, leaves
+                    del lib_out, leaves, mask
                     if dtype == torch.bfloat16 and shape_name == TRAIN_ARCH:
                         row.update(times, shape=f"B={b} H={h} KV={kv} S={sq} hd={hd} "
                                                 f"causal bf16 ({shape_name} layer)")
@@ -904,6 +955,10 @@ def check_flash_bwd(torch, shapes) -> dict:
                         short = {torch.bfloat16: "bf16", torch.float16: "f16"}.get(dtype, "f32")
                         row.update({f"{shape_name}_{short}_{key}": val
                                     for key, val in times.items()})
+                        if shape_name != TRAIN_ARCH:
+                            row[f"{shape_name}_shape"] = (
+                                f"B={b} H={h} KV={kv} S={s} hd={hd} {main}"
+                                + (f" {window}" if window else ""))
                 del q, k, v, do, out, lse
                 torch.cuda.empty_cache()
     return row
@@ -930,17 +985,19 @@ def print_kernel_resources(torch) -> None:
             print(f"resources flash_attention {str(dtype)[6:]} hd={hd}: {attrs}", flush=True)
             if hd == FAMILY_HD:  # hubert-xlarge's: the 32-byte swizzle, 5 chunks a row
                 require(attrs["local_bytes"] == 0, f"flash_attention {dtype} hd={hd} spills")
-    # B6-bwd: the tensor-core kernels (bf16, f16) at every head dim, no
-    # spill allowed; the f32 FFMA kernels, no spill at the LM's head dim.
+    # B6-bwd: the tensor-core kernels (bf16, f16) at every head dim and
+    # their sliding-window builds, no spill allowed; the f32 FFMA kernels
+    # (one build), no spill at the trained families' head dims.
     for dtype, hds in ((torch.bfloat16, fa.BWD_HEAD_DIMS),
-                       (torch.float16, fa.BWD_HEAD_DIMS), (torch.float32, (64, 128, 160))):
+                       (torch.float16, fa.BWD_HEAD_DIMS), (torch.float32, (64, 80, 96, 128, 160))):
         for hd in hds:
-            attrs = fa.flash_attention_bwd_attributes(dtype, hd)
-            print(f"resources flash_attention_bwd {str(dtype)[6:]} hd={hd}: {attrs}",
-                  flush=True)
-            if dtype != torch.float32 or hd == 128:
-                require(all(a["local_bytes"] == 0 for a in attrs.values()),
-                        f"flash_attention_bwd {dtype} hd={hd} spills")
+            for window in ((False,) if dtype == torch.float32 else (False, True)):
+                attrs = fa.flash_attention_bwd_attributes(dtype, hd, window=window)
+                print(f"resources flash_attention_bwd {str(dtype)[6:]} hd={hd}"
+                      f"{' window' if window else ''}: {attrs}", flush=True)
+                if dtype != torch.float32 or hd != 160:
+                    require(all(a["local_bytes"] == 0 for a in attrs.values()),
+                            f"flash_attention_bwd {dtype} hd={hd} window={window} spills")
     for bs in (128, gj.GJ_INPLACE_MAX_BS):
         print(f"resources gauss_jordan bs={bs}: {gj.gauss_jordan_attributes(bs)}", flush=True)
     # The blocked leaves' kernels: no spill allowed.
@@ -2264,12 +2321,13 @@ def _timed_step(torch, step_fn, state, batch):
     return state, {k: float(v) for k, v in metrics.items()}, start.elapsed_time(end)
 
 
-def _check_step_launches(name: str, launches: dict, n_layers: int, spin: dict) -> None:
-    """A training step launches B6 twice a layer and microbatch (forward and
-    the remat's recompute), B6-bwd once, and of the SPIN kernels `spin`."""
+def _check_step_launches(name: str, launches: dict, attn_layers: int, spin: dict) -> None:
+    """A training step launches B6 twice an attention layer and microbatch
+    (forward and the remat's recompute), B6-bwd once, and of the SPIN
+    kernels `spin`."""
     want = {k: 0 for k in launches}
-    want.update(flash_attention=2 * n_layers * TRAIN_MICRO,
-                flash_attention_bwd=n_layers * TRAIN_MICRO, **spin)
+    want.update(flash_attention=2 * attn_layers * TRAIN_MICRO,
+                flash_attention_bwd=attn_layers * TRAIN_MICRO, **spin)
     want["gemm_tensor_core"] = spin.get("matmul", 0) + spin.get("schur_update", 0)
     for kern, n in launches.items():
         require(n == want[kern], f"{name}: {kern} launched {n} times, want {want[kern]}")
@@ -2393,6 +2451,89 @@ def run_train_adamw(torch, cfg, dev) -> dict:
                            "bitwise": True, "next_step_equal": same}}
 
 
+def _family_train_run(torch, cfg, dev, cut_from: int) -> dict:
+    """Phase 18b, one family: `cfg` trained with AdamW at the depth it
+    gives, cut from `cut_from` layers (the cut printed); out of memory
+    fails the phase."""
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.runtime.trainer import TrainConfig, init_state, make_train_step
+    from repro_torch.tree import leaves
+
+    positions = TRAIN_BATCH * TRAIN_SEQ
+    tcfg = TrainConfig(microbatches=TRAIN_MICRO, optimizer="adamw", warmup=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = init_state(cfg, tcfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    n_params = sum(p.numel() for p in leaves(state.params))
+    stream = TokenStream(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=SEED, device=str(dev))
+    step = make_train_step(cfg, tcfg)
+    state, _, warm_ms = _timed_step(torch, step, state, stream.next())
+    steps = []
+    for i in range(FAMILY_TRAIN_TIMED_STEPS):
+        if i == 0:
+            kernels.reset_launch_counts()
+        retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+        state, m, ms = _timed_step(torch, step, state, stream.next())
+        if i == 0:
+            launches = kernels.launch_counts()
+        # a retry frees the allocator's cached blocks and allocates again:
+        # a step near the card's capacity pays for it in time
+        steps.append({"ms": ms, "loss": m["loss"], "grad_norm": m["grad_norm"],
+                      "aux": m["aux"], "alloc_retries":
+                      torch.cuda.memory_stats().get("num_alloc_retries", 0) - retries})
+        require(all(np.isfinite(v) for v in m.values()),
+                f"train {cfg.name}: non-finite metrics {m}")
+    attn_layers = 0 if cfg.attn_free else cfg.n_layers
+    _check_step_launches(f"train {cfg.name}", launches, attn_layers, {})
+    fixed = stream.next()
+    losses = []
+    for _ in range(FAMILY_TRAIN_FALL_STEPS):
+        state, m, _ = _timed_step(torch, step, state, fixed)
+        losses.append(m["loss"])
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ms = [st["ms"] for st in steps]
+    print(f"path train_family: {cfg.name} layers={cfg.n_layers} params={n_params} "
+          f"B={TRAIN_BATCH} S={TRAIN_SEQ} microbatches={TRAIN_MICRO} remat=full "
+          f"warmup_ms={warm_ms!r} ms={ms!r} tokens_per_s={positions / (min(ms) / 1e3)!r} "
+          f"steps={steps} repeated_batch_losses={losses!r} peak_gib={peak!r} "
+          f"launches={launches}", flush=True)
+    require(all(np.isfinite(losses)) and losses[-1] < losses[0],
+            f"train {cfg.name}: the loss on a repeated batch did not fall: {losses}")
+    if cfg.n_layers != cut_from:
+        print(f"train {cfg.name}: depth cut to {cfg.n_layers} of {cut_from} layers (the "
+              "optimizer state of every layer does not fit 80 GB)", flush=True)
+    del state
+    return {"arch": cfg.name, "layers": cfg.n_layers, "depth_cut": cfg.n_layers != cut_from,
+            "n_params": n_params,
+            "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "microbatches": TRAIN_MICRO,
+            "remat": "full", "warmup_ms": warm_ms, "ms": ms,
+            "tokens_per_s": positions / (min(ms) / 1e3), "steps": steps,
+            "repeated_batch_losses": losses, "peak_gib": peak, "launches": launches}
+
+
+def first_depth_that_fits(torch, cfg, depths, run, dev) -> dict:
+    """`run(torch, cfg, dev)` at full width and the first of `depths` that
+    the card holds; a cut printed, and marked in the result."""
+    for depth in depths:
+        try:
+            out = run(torch, dataclasses.replace(cfg, n_layers=depth), dev)
+        except torch.cuda.OutOfMemoryError as err:
+            print(f"{cfg.name}: {depth} layers do not fit ({str(err)[:120]}); "
+                  "cutting the depth for this run", flush=True)
+            out = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        if out is not None:
+            out["depth_cut"] = depth != cfg.n_layers
+            if out["depth_cut"]:
+                print(f"{cfg.name}: depth cut to {depth} of {cfg.n_layers} layers (the "
+                      "optimizer state of every layer does not fit 80 GB)", flush=True)
+            return out
+    raise SmokeFailure(f"{cfg.name}: {depths[-1]} layers do not fit either")
+
+
 def _shampoo_run(torch, cfg, dev) -> dict:
     import numpy as np
     from repro_torch import kernels
@@ -2492,19 +2633,7 @@ def run_train_shampoo(torch, cfg, dev) -> dict:
     factor's inverse through B1, B2 and B3, step 2 does not; full width,
     and full depth unless the card cannot hold it (then printed)."""
     depths = [cfg.n_layers] + [d for d in TRAIN_DEPTH_CUTS if d < cfg.n_layers]
-    for depth in depths:
-        try:
-            out = _shampoo_run(torch, dataclasses.replace(cfg, n_layers=depth), dev)
-        except torch.cuda.OutOfMemoryError as err:
-            print(f"train_shampoo: {depth} layers do not fit ({str(err)[:120]}); "
-                  "cutting the depth for this run", flush=True)
-            out = None
-        gc.collect()
-        torch.cuda.empty_cache()
-        if out is not None:
-            out["depth_cut"] = depth != cfg.n_layers
-            return out
-    raise SmokeFailure(f"train_shampoo: {depths[-1]} layers do not fit either")
+    return first_depth_that_fits(torch, cfg, depths, _shampoo_run, dev)
 
 
 def _leaves(tree: dict):
@@ -2560,13 +2689,18 @@ def main() -> int:
     report["flash_attention"] = check_flash(
         torch, rng, LM_BATCH, lm_cfg.n_heads, lm_cfg.n_kv_heads, LM_SEQ, lm_cfg.head_dim)
     report["flash_attention"].update(check_flash_families(
-        torch, get_arch("hymba-1.5b"), get_arch("hubert-xlarge")))
+        torch, get_arch("hymba-1.5b"), get_arch("hubert-xlarge"),
+        get_arch("phi-3-vision-4.2b")))
     print(f"time flash_attention granite-8b layer bf16: ms={report['flash_attention']['ms']!r} "
           f"before_window_ms={GRANITE_B6_BEFORE_MS!r}", flush=True)
     train_cfg = get_arch(TRAIN_ARCH)
     report["flash_attention_bwd"] = check_flash_bwd(torch, {
-        name: (TRAIN_BATCH // TRAIN_MICRO, c.n_heads, c.n_kv_heads, TRAIN_SEQ, c.head_dim)
-        for name, c in ((TRAIN_ARCH, train_cfg), (LM_ARCH, lm_cfg))})
+        name: (TRAIN_BATCH // TRAIN_MICRO, c.n_heads, c.n_kv_heads, TRAIN_SEQ, c.head_dim,
+               c.causal, c.sliding_window)
+        for name, c in ((TRAIN_ARCH, train_cfg), (LM_ARCH, lm_cfg),
+                        ("hymba-1.5b", get_arch("hymba-1.5b")),
+                        ("hubert-xlarge", get_arch("hubert-xlarge")),
+                        ("phi-3-vision-4.2b", get_arch("phi-3-vision-4.2b")))})
 
     # 4. SPIN at full width
     a = testing.make_spd(n, rng, device="cuda")
@@ -2737,6 +2871,17 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
+    # 18b. training the five families with AdamW, one at a time, each freed
+    # before the next and before phase 18
+    train_families = {}
+    for arch, depth in FAMILY_TRAIN_RUNS:
+        cfg = get_arch(arch)
+        train_families[arch] = _family_train_run(
+            torch, dataclasses.replace(cfg, n_layers=depth or cfg.n_layers),
+            torch.device("cuda"), cut_from=cfg.n_layers)
+        gc.collect()
+        torch.cuda.empty_cache()
+
     # 18. training the dense LM: AdamW, the checkpoint, SPIN-Shampoo
     train_adamw = run_train_adamw(torch, train_cfg, torch.device("cuda"))
     train_shampoo = run_train_shampoo(torch, train_cfg, torch.device("cuda"))
@@ -2774,7 +2919,8 @@ def main() -> int:
                               "residual": gjp["residual"]},
         "lm_prefill": lm["lm_prefill"], "lm_decode": lm["lm_decode"],
         "lm_serve": lm["lm_serve"], "lm_families": families, "sharded": sharded,
-        "train_adamw": train_adamw, "train_shampoo": train_shampoo},
+        "train_adamw": train_adamw, "train_shampoo": train_shampoo,
+        "train_families": train_families},
         "card": card}), flush=True)
 
     # 19. the kernels line
@@ -2823,11 +2969,17 @@ def main() -> int:
                 "lm_prefill": lm["launches"][name],
                 **{p: fam["launches"][name] for p, fam in families.items()},
                 "train_adamw_step": train_adamw["launches"][name],
-                "train_shampoo_step1": train_shampoo["launches_step1"][name]}
+                "train_shampoo_step1": train_shampoo["launches_step1"][name],
+                **{f"train_{arch}_step": run["launches"][name]
+                   for arch, run in train_families.items()}}
         if name in ("matmul", "schur_update", "blocked_gauss_jordan"):
             r["launches_by_path"]["train_shampoo_refresh"] = \
                 train_shampoo["refresh_launches"][name]
         if name == "flash_attention_bwd":
+            r["launches_by_path"] = {
+                "train_adamw_step": train_adamw["launches"][name],
+                **{f"train_{arch}_step": run["launches"][name]
+                   for arch, run in train_families.items()}}
             r["kernels_by_dtype"] = {
                 "bf16, f16": ["flash_bwd_delta",
                               *fa.flash_attention_bwd_kernels(torch.bfloat16).values()],

@@ -79,7 +79,8 @@
 //
 // Head dims 16, 32, 64, 80, 96, 128, 160. hd 80 (hubert-xlarge) takes the
 // 32-byte swizzle of hd 16 with 5 chunks a row, and its P V products are
-// five n16 wgmma a k-step. The backward is built for the others only.
+// five n16 wgmma a k-step; the backward's MN-major reads of Q, dO and K
+// are the same five n16 products on the same tiles.
 //
 // Both take a ragged sequence and any strides on the B, H and S axes with
 // unit stride on hd, so the model's (B, S, H, hd) activations pass as
@@ -137,6 +138,16 @@
 //  Rounding Pᵀ and dSᵀ to the operand dtype before their products is the
 //  forward's choice and FlashAttention-3's (`attention_bwd_rounded_ref` is
 //  that arithmetic in plain torch).
+//  The sliding window walks the band in the backward too: the dQ kernels
+//  start at the band's first kv tile for the block's first row, as the
+//  forward does; the dK/dV kernels stop at the last query that still sees
+//  the kv tile, k0 + BK - 2 + window. Tiles that cross the band's far edge
+//  mask i - j >= window, and a warpgroup skips a tile wholly outside its
+//  band. The tensor-core kernels take the window as a template flag
+//  (kWindow), as flash_fwd_tc does, so the causal and full builds compile
+//  as they did without it; the f32 kernels read it at run time, as
+//  flash_fwd does. Every query row keeps its own key, so the forward's lse
+//  is finite on every row the backward reads.
 #include <cuda.h>
 #include <math_constants.h>
 
@@ -723,6 +734,7 @@ struct BwdArgs {
   long long dv_sb, dv_sh, dv_ss;
   int causal;
   float scale;
+  int window;  // > 0: query i sees key j iff 0 <= i - j < window (causal only)
 };
 
 // K, V, Q and dO tiles, P and dS tiles, the q rows' lse and D.
@@ -815,12 +827,14 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkdv(BwdArgs p) {
 #pragma unroll
     for (int c = 0; c < kCols; ++c) dk[a][c] = dv[a][c] = 0.f;
 
-  // Causal: query rows before k0 see none of this tile (kBQ == kBK).
+  // Causal: query rows before k0 see none of this tile (kBQ == kBK); a
+  // window: rows from k0 + kBK - 1 + window on see none either.
   const int q_begin = p.causal ? k0 : 0;
+  const int q_end = p.window > 0 ? min(p.sq, k0 + kBK - 1 + p.window) : p.sq;
   for (int hh = kvh * p.group; hh < (kvh + 1) * p.group; ++hh) {
     const T* Qh = static_cast<const T*>(p.q) + bb * p.q_sb + hh * p.q_sh;
     const T* dOh = static_cast<const T*>(p.dout) + bb * p.do_sb + hh * p.do_sh;
-    for (int q0 = q_begin; q0 < p.sq; q0 += kBQ) {
+    for (int q0 = q_begin; q0 < q_end; q0 += kBQ) {
       __syncthreads();  // the previous tile's Q, dO, P and dS are read
       stage_tile<T, HD>(Qs, Qh + q0 * p.q_ss, p.q_ss, p.sq - q0);
       stage_tile<T, HD>(dOs, dOh + q0 * p.do_ss, p.do_ss, p.sq - q0);
@@ -855,16 +869,20 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkdv(BwdArgs p) {
           }
       }
 
-      // P from the forward's lse; masked pairs (past Sq or Skv, or above
-      // the diagonal) take no weight. dS = P o (dP - D).
-      const bool edge = q0 + kBQ > p.sq || k0 + kBK > p.skv || (p.causal && q0 < k0 + kBK - 1);
+      // P from the forward's lse; masked pairs (past Sq or Skv, above the
+      // diagonal or below the band) take no weight. dS = P o (dP - D).
+      const bool edge = q0 + kBQ > p.sq || k0 + kBK > p.skv ||
+                        (p.causal && q0 < k0 + kBK - 1) ||
+                        (p.window > 0 && q0 + kBQ - 1 - k0 >= p.window);
 #pragma unroll
       for (int a = 0; a < 4; ++a)
 #pragma unroll
         for (int b = 0; b < 4; ++b) {
           const int i = q0 + tx + 16 * b, j = k0 + ty + 16 * a;
           float pr = expf(s[a][b] * p.scale - Ls[tx + 16 * b]);
-          if (edge && (i >= p.sq || j >= p.skv || (p.causal && i < j))) pr = 0.f;
+          if (edge && (i >= p.sq || j >= p.skv || (p.causal && i < j) ||
+                       (p.window > 0 && i - j >= p.window)))
+            pr = 0.f;
           Ps[(ty + 16 * a) * kLDP + tx + 16 * b] = pr;
           dSs[(ty + 16 * a) * kLDP + tx + 16 * b] = pr * (dp[a][b] - Ds[tx + 16 * b]);
         }
@@ -950,7 +968,9 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq(BwdArgs p) {
 
   int n_tiles = (p.skv + kBK - 1) / kBK;
   if (p.causal) n_tiles = min(n_tiles, (min(q0 + kBQ, p.sq) - 1) / kBK + 1);
-  for (int t = 0; t < n_tiles; ++t) {
+  // A window starts the walk at the band's first tile for the tile's first row.
+  const int t_lo = p.window > 0 ? max(0, q0 - p.window + 1) / kBK : 0;
+  for (int t = t_lo; t < n_tiles; ++t) {
     const int k0 = t * kBK;
     __syncthreads();  // the previous tile's K and dS are read
     stage_tile<T, HD>(Ks, K + k0 * p.k_ss, p.k_ss, p.skv - k0);
@@ -985,14 +1005,18 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq(BwdArgs p) {
         }
     }
 
-    const bool edge = q0 + kBQ > p.sq || k0 + kBK > p.skv || (p.causal && q0 < k0 + kBK - 1);
+    const bool edge = q0 + kBQ > p.sq || k0 + kBK > p.skv ||
+                      (p.causal && q0 < k0 + kBK - 1) ||
+                      (p.window > 0 && q0 + kBQ - 1 - k0 >= p.window);
 #pragma unroll
     for (int a = 0; a < 4; ++a)
 #pragma unroll
       for (int b = 0; b < 4; ++b) {
         const int i = q0 + ty + 16 * a, j = k0 + tx + 16 * b;
         float pr = expf(s[a][b] * p.scale - Ls[ty + 16 * a]);
-        if (edge && (i >= p.sq || j >= p.skv || (p.causal && i < j))) pr = 0.f;
+        if (edge && (i >= p.sq || j >= p.skv || (p.causal && i < j) ||
+                     (p.window > 0 && i - j >= p.window)))
+          pr = 0.f;
         dSs[(ty + 16 * a) * kLDP + tx + 16 * b] = pr * (dp[a][b] - Ds[ty + 16 * a]);
       }
     __syncthreads();
@@ -1081,6 +1105,7 @@ struct BwdTcArgs {
   int causal;
   float scale;       // hd^-0.5
   float scale_log2;  // hd^-0.5 · log2(e)
+  int window;        // > 0: the band 0 <= i - j < window (causal only)
 };
 
 template <int N, typename T>
@@ -1171,7 +1196,8 @@ __device__ __forceinline__ void store_acc(T* base, long long ss, int row, int ro
 }
 
 // dK and dV of one 128-row kv tile, summed over the group's query heads.
-template <typename T, int HD>
+// kWindow: the sliding-window build (see flash_fwd_tc).
+template <typename T, int HD, bool kWindow>
 __global__ void __launch_bounds__(kTcThreads, 1)
     flash_bwd_dkdv_tc(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                       const __grid_constant__ CUtensorMap tv,
@@ -1194,8 +1220,10 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   const int k0 = blockIdx.z * kBK;
   const int kvh = blockIdx.x, bb = blockIdx.y;
   const int h_begin = kvh * p.group, h_end = h_begin + p.group;
-  // Causal: query rows before k0 see none of this tile (k0 is a multiple of kBQ).
+  // Causal: query rows before k0 see none of this tile (k0 is a multiple of
+  // kBQ); a window: rows from k0 + kBK - 1 + window on see none either.
   const int q_begin = p.causal ? k0 : 0;
+  const int q_end = kWindow ? min(p.sq, k0 + kBK - 1 + p.window) : p.sq;
 
   if (threadIdx.x == 0) {
     repro::mbar_init(kv_full, 1);
@@ -1218,7 +1246,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
       }
       int s = 0, phase = 0;
       for (int hh = h_begin; hh < h_end; ++hh)
-        for (int q0 = q_begin; q0 < p.sq; q0 += kBQ) {
+        for (int q0 = q_begin; q0 < q_end; q0 += kBQ) {
           repro::mbar_wait(&empty[s], phase ^ 1);
           repro::mbar_expect_tx(&full[s], Kv::kStageTx);
           uint8_t* const qt = Qs + s * Kv::kQBytes;
@@ -1251,10 +1279,12 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     repro::mbar_wait(kv_full, 0);
     int s = 0, phase = 0;
     for (int hh = h_begin; hh < h_end; ++hh)
-      for (int q0 = q_begin; q0 < p.sq; q0 += kBQ) {
+      for (int q0 = q_begin; q0 < q_end; q0 += kBQ) {
         repro::mbar_wait(&full[s], phase);
-        // A tile wholly above this warpgroup's diagonal, or past Skv, adds nothing.
-        if (kw < p.skv && !(p.causal && q0 + kBQ - 1 < kw)) {
+        // A tile wholly above this warpgroup's diagonal, below its band, or
+        // past Skv, adds nothing.
+        if (kw < p.skv && !(p.causal && q0 + kBQ - 1 < kw) &&
+            !(kWindow && q0 - (kw + 63) >= p.window)) {
           const uint8_t* const qt = Qs + s * Kv::kQBytes;
           const uint8_t* const dot = dOs + s * Kv::kQBytes;
           // Sᵀ = K Qᵀ and dPᵀ = V dOᵀ: rows are kv rows, columns query rows.
@@ -1268,17 +1298,20 @@ __global__ void __launch_bounds__(kTcThreads, 1)
           repro::fence_regs(dpt);
 
           // Pᵀ and dSᵀ; lse and D belong to the columns. Masked pairs (past
-          // Sq or Skv, or above the diagonal) take no weight.
+          // Sq or Skv, above the diagonal or below the band) take no weight.
           const float* const L = Ls + s * kBQ;
           const float* const D = Ds + s * kBQ;
-          const bool edge = q0 + kBQ > p.sq || kw + 64 > p.skv || (p.causal && q0 < kw + 63);
+          const bool edge = q0 + kBQ > p.sq || kw + 64 > p.skv || (p.causal && q0 < kw + 63) ||
+                            (kWindow && q0 + kBQ - 1 - kw >= p.window);
 #pragma unroll
           for (int i = 0; i < kBQ / 2; ++i) {
             const int col = acc_col(i, lane);
             float pr = exp2f(st[i] * p.scale_log2 - L[col]);
             if (edge) {
               const int qi = q0 + col, kj = row + acc_row(i);
-              if (qi >= p.sq || kj >= p.skv || (p.causal && qi < kj)) pr = 0.f;
+              if (qi >= p.sq || kj >= p.skv || (p.causal && qi < kj) ||
+                  (kWindow && qi - kj >= p.window))
+                pr = 0.f;
             }
             st[i] = pr;
             dpt[i] = pr * (dpt[i] - D[col]);
@@ -1310,8 +1343,8 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   }
 }
 
-// dQ of one 128-row query tile of one head.
-template <typename T, int HD>
+// dQ of one 128-row query tile of one head. kWindow as in flash_bwd_dkdv_tc.
+template <typename T, int HD, bool kWindow>
 __global__ void __launch_bounds__(kTcThreads, 1)
     flash_bwd_dq_tc(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                     const __grid_constant__ CUtensorMap tv,
@@ -1334,6 +1367,8 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   const int hh = blockIdx.x, bb = blockIdx.y, kvh = hh / p.group;
   int n_tiles = (p.skv + kBK - 1) / kBK;
   if (p.causal) n_tiles = min(n_tiles, (min(q0 + kBQ, p.sq) - 1) / kBK + 1);
+  // The band's first tile for the block's first row: the walk starts there.
+  const int t_lo = kWindow ? max(0, q0 - p.window + 1) / kBK : 0;
 
   if (threadIdx.x == 0) {
     repro::mbar_init(q_full, 1);
@@ -1354,8 +1389,8 @@ __global__ void __launch_bounds__(kTcThreads, 1)
         repro::tma_load_4d(Qs + c * kBQ * kSw, &tq, q_full, c * kCE, q0, hh, bb);
         repro::tma_load_4d(dOs + c * kBQ * kSw, &tdo, q_full, c * kCE, q0, hh, bb);
       }
-      for (int t = 0; t < n_tiles; ++t) {
-        const int s = t % kStages, use = t / kStages;
+      for (int t = t_lo; t < n_tiles; ++t) {
+        const int s = (t - t_lo) % kStages, use = (t - t_lo) / kStages;
         repro::mbar_wait(&empty[s], (use & 1) ^ 1);
         repro::mbar_expect_tx(&full[s], 2 * Dq::kKVBytes);
         uint8_t* const kt = Ks + s * Dq::kKVBytes;
@@ -1382,12 +1417,14 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     zero_acc<HD>(dq);
 
     repro::mbar_wait(q_full, 0);
-    for (int t = 0; t < n_tiles; ++t) {
-      const int st = t % kStages, parity = (t / kStages) & 1;
+    for (int t = t_lo; t < n_tiles; ++t) {
+      const int st = (t - t_lo) % kStages, parity = ((t - t_lo) / kStages) & 1;
       const int k0 = t * kBK;
       repro::mbar_wait(&full[st], parity);
-      // A tile wholly above this warpgroup's diagonal, or rows past Sq, add nothing.
-      if (qw < p.sq && !(p.causal && k0 > qw + 63)) {
+      // A tile wholly above this warpgroup's diagonal or below its band, or
+      // rows past Sq, add nothing.
+      if (qw < p.sq && !(p.causal && k0 > qw + 63) &&
+          !(kWindow && qw - (k0 + kBK - 1) >= p.window)) {
         const uint8_t* const kt = Ks + st * Dq::kKVBytes;
         const uint8_t* const vt = Vs + st * Dq::kKVBytes;
         float sc[kBK / 2], dp[kBK / 2];
@@ -1399,14 +1436,17 @@ __global__ void __launch_bounds__(kTcThreads, 1)
         repro::fence_regs(sc);
         repro::fence_regs(dp);
 
-        const bool edge = qw + 64 > p.sq || k0 + kBK > p.skv || (p.causal && k0 + kBK - 1 > qw);
+        const bool edge = qw + 64 > p.sq || k0 + kBK > p.skv || (p.causal && k0 + kBK - 1 > qw) ||
+                          (kWindow && qw + 63 - k0 >= p.window);
 #pragma unroll
         for (int i = 0; i < kBK / 2; ++i) {
           const int r = (i >> 1) & 1;
           float pr = exp2f(sc[i] * p.scale_log2 - L[r]);
           if (edge) {
             const int col = k0 + acc_col(i, lane), qi = row + 8 * r;
-            if (col >= p.skv || qi >= p.sq || (p.causal && qi < col)) pr = 0.f;
+            if (col >= p.skv || qi >= p.sq || (p.causal && qi < col) ||
+                (kWindow && qi - col >= p.window))
+              pr = 0.f;
           }
           dp[i] = pr * (dp[i] - D[r]);
         }
@@ -1453,11 +1493,12 @@ cudaError_t launch_bwd_tc(const BwdArgs& p, int batch, int kv_heads, cudaStream_
       (err = make_map<T, HD>(&v_q, p.v, p.skv, kv_heads, batch, p.v_sb, p.v_sh, p.v_ss,
                              Dq::kBK)))
     return err;
-  if ((err = cudaFuncSetAttribute(flash_bwd_dkdv_tc<T, HD>,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+  const bool window = p.window > 0;
+  const auto dkdv = window ? flash_bwd_dkdv_tc<T, HD, true> : flash_bwd_dkdv_tc<T, HD, false>;
+  const auto dq = window ? flash_bwd_dq_tc<T, HD, true> : flash_bwd_dq_tc<T, HD, false>;
+  if ((err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   static_cast<int>(Kv::kSmem))) ||
-      (err = cudaFuncSetAttribute(flash_bwd_dq_tc<T, HD>,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (err = cudaFuncSetAttribute(dq, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   static_cast<int>(Dq::kSmem))))
     return err;
   flash_bwd_delta<T, HD><<<dim3(ld / (kThreads / 32), p.h, batch), kThreads, 0, s>>>(p, ld, lse2);
@@ -1465,14 +1506,14 @@ cudaError_t launch_bwd_tc(const BwdArgs& p, int batch, int kv_heads, cudaStream_
   const BwdTcArgs args{p.dq, p.dk, p.dv, p.delta, lse2, p.h, p.group, p.sq, p.skv, ld,
                        p.dq_sb, p.dq_sh, p.dq_ss, p.dk_sb, p.dk_sh, p.dk_ss,
                        p.dv_sb, p.dv_sh, p.dv_ss, p.causal, p.scale,
-                       p.scale * 1.4426950408889634f};
+                       p.scale * 1.4426950408889634f, p.window};
   // The tile index is the slowest grid axis: every head's longest tiles
   // (kv tile 0, the last query tile, when causal) are issued first.
-  flash_bwd_dkdv_tc<T, HD><<<dim3(kv_heads, batch, (p.skv + Kv::kBK - 1) / Kv::kBK), kTcThreads,
-                             Kv::kSmem, s>>>(q_kv, k_kv, v_kv, do_kv, args);
+  dkdv<<<dim3(kv_heads, batch, (p.skv + Kv::kBK - 1) / Kv::kBK), kTcThreads, Kv::kSmem, s>>>(
+      q_kv, k_kv, v_kv, do_kv, args);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  flash_bwd_dq_tc<T, HD><<<dim3(p.h, batch, (p.sq + Dq::kBQ - 1) / Dq::kBQ), kTcThreads,
-                           Dq::kSmem, s>>>(q_q, k_q, v_q, do_q, args);
+  dq<<<dim3(p.h, batch, (p.sq + Dq::kBQ - 1) / Dq::kBQ), kTcThreads, Dq::kSmem, s>>>(
+      q_q, k_q, v_q, do_q, args);
   return cudaGetLastError();
 }
 
@@ -1510,6 +1551,7 @@ cudaError_t launch_bwd_hd(const BwdArgs& p, int batch, int kv_heads, int hd, cud
     case 16: return launch_bwd_t<T, 16>(p, batch, kv_heads, s);
     case 32: return launch_bwd_t<T, 32>(p, batch, kv_heads, s);
     case 64: return launch_bwd_t<T, 64>(p, batch, kv_heads, s);
+    case 80: return launch_bwd_t<T, 80>(p, batch, kv_heads, s);
     case 96: return launch_bwd_t<T, 96>(p, batch, kv_heads, s);
     case 128: return launch_bwd_t<T, 128>(p, batch, kv_heads, s);
     case 160: return launch_bwd_t<T, 160>(p, batch, kv_heads, s);
@@ -1519,20 +1561,26 @@ cudaError_t launch_bwd_hd(const BwdArgs& p, int batch, int kv_heads, int hd, cud
 
 // Registers, shared memory and spills of the backward's dK/dV (which 0)
 // or dQ (which 1) kernel that dtype T launches: flash_bwd_{dkdv,dq}_tc in
-// bf16 and f16, flash_bwd_{dkdv,dq} in f32.
+// bf16 and f16, flash_bwd_{dkdv,dq} in f32; which 2 and 3 are the same
+// kernels' sliding-window builds (the f32 kernels have one build).
 template <typename T, int HD>
 cudaError_t bwd_attributes_t(int which, int* out) {
   cudaFuncAttributes fa;
   cudaError_t err;
   size_t dynamic;
+  const bool dkdv = which % 2 == 0;
   if constexpr (std::is_same_v<T, float>) {
-    err = which == 0 ? cudaFuncGetAttributes(&fa, flash_bwd_dkdv<T, HD>)
-                     : cudaFuncGetAttributes(&fa, flash_bwd_dq<T, HD>);
-    dynamic = which == 0 ? bwd_dkdv_smem<HD>() : bwd_dq_smem<HD>();
+    err = dkdv ? cudaFuncGetAttributes(&fa, flash_bwd_dkdv<T, HD>)
+               : cudaFuncGetAttributes(&fa, flash_bwd_dq<T, HD>);
+    dynamic = dkdv ? bwd_dkdv_smem<HD>() : bwd_dq_smem<HD>();
   } else {
-    err = which == 0 ? cudaFuncGetAttributes(&fa, flash_bwd_dkdv_tc<T, HD>)
-                     : cudaFuncGetAttributes(&fa, flash_bwd_dq_tc<T, HD>);
-    dynamic = which == 0 ? DkdvShape<HD>::kSmem : DqShape<HD>::kSmem;
+    switch (which) {
+      case 0: err = cudaFuncGetAttributes(&fa, flash_bwd_dkdv_tc<T, HD, false>); break;
+      case 1: err = cudaFuncGetAttributes(&fa, flash_bwd_dq_tc<T, HD, false>); break;
+      case 2: err = cudaFuncGetAttributes(&fa, flash_bwd_dkdv_tc<T, HD, true>); break;
+      default: err = cudaFuncGetAttributes(&fa, flash_bwd_dq_tc<T, HD, true>); break;
+    }
+    dynamic = dkdv ? DkdvShape<HD>::kSmem : DqShape<HD>::kSmem;
   }
   if (err != cudaSuccess) return err;
   out[0] = fa.numRegs;
@@ -1548,6 +1596,7 @@ cudaError_t bwd_attributes_hd(int hd, int which, int* out) {
     case 16: return bwd_attributes_t<T, 16>(which, out);
     case 32: return bwd_attributes_t<T, 32>(which, out);
     case 64: return bwd_attributes_t<T, 64>(which, out);
+    case 80: return bwd_attributes_t<T, 80>(which, out);
     case 96: return bwd_attributes_t<T, 96>(which, out);
     case 128: return bwd_attributes_t<T, 128>(which, out);
     case 160: return bwd_attributes_t<T, 160>(which, out);
@@ -1627,7 +1676,8 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
 // dout; every tensor at its own strides on the first three axes, unit
 // stride on hd, one dtype; lse (batch, h, sq) f32; delta f32 scratch of
 // 2·batch·h·bwd_ld(sq) floats. bf16 and f16 load by TMA: q, k, v, dout
-// 16-byte aligned with 16-byte strides, and sq >= 1.
+// 16-byte aligned with 16-byte strides, and sq >= 1. window: 0, or > 0
+// with causal, as the forward's.
 extern "C" int repro_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o, const void* dout,
     const float* lse, void* dq, void* dk, void* dv, float* delta,
@@ -1637,14 +1687,15 @@ extern "C" int repro_flash_attention_bwd(
     long long o_sh, long long o_ss, long long do_sb, long long do_sh, long long do_ss,
     long long dq_sb, long long dq_sh, long long dq_ss, long long dk_sb, long long dk_sh,
     long long dk_ss, long long dv_sb, long long dv_sh, long long dv_ss,
-    int causal, float scale, int dtype, void* stream) {
+    int causal, int window, float scale, int dtype, void* stream) {
   if (batch == 0 || h == 0 || skv == 0) return 0;
-  if (kv_heads < 1 || h % kv_heads || h > 65535 || batch > 65535 || kv_heads > 65535)
+  if (kv_heads < 1 || h % kv_heads || h > 65535 || batch > 65535 || kv_heads > 65535 ||
+      window < 0 || (window > 0 && !causal))
     return cudaErrorInvalidValue;
   const BwdArgs p{q, k, v, o, dout, lse, dq, dk, dv, delta, h, h / kv_heads, sq, skv,
                   q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss,
                   do_sb, do_sh, do_ss, dq_sb, dq_sh, dq_ss, dk_sb, dk_sh, dk_ss,
-                  dv_sb, dv_sh, dv_ss, causal, scale};
+                  dv_sb, dv_sh, dv_ss, causal, scale, window};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case repro::kF32: return launch_bwd_hd<float>(p, batch, kv_heads, hd, s);
@@ -1656,8 +1707,9 @@ extern "C" int repro_flash_attention_bwd(
 
 // out[0..3]: registers a thread, static and dynamic shared memory, and
 // local (spill) bytes of the backward's dK/dV kernel (which 0) or dQ
-// kernel (which 1) for dtype and hd.
+// kernel (which 1) for dtype and hd; 2 and 3: their sliding-window builds.
 extern "C" int repro_flash_attention_bwd_attributes(int dtype, int hd, int which, int* out) {
+  if (which < 0 || which > 3) return cudaErrorInvalidValue;
   switch (dtype) {
     case repro::kF32: return bwd_attributes_hd<float>(hd, which, out);
     case repro::kBF16: return bwd_attributes_hd<__nv_bfloat16>(hd, which, out);

@@ -108,7 +108,15 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, 
                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
+// The encoder checks the address against the context current on the
+// calling thread. The runtime makes the device's primary context current at
+// a thread's first launch; PyTorch's autograd worker thread takes its device
+// without binding the context, so an encode that is that thread's first
+// CUDA work (a backward whose first launch is B6-bwd) would be refused
+// with CUDA_ERROR_INVALID_VALUE. cudaSetDevice binds it; nullptr if it cannot.
 inline EncodeTiled encode_tiled() {
+  int dev;
+  if (cudaGetDevice(&dev) != cudaSuccess || cudaSetDevice(dev) != cudaSuccess) return nullptr;
   static EncodeTiled fn = [] {
     void* ptr = nullptr;
     cudaDriverEntryPointQueryResult found;

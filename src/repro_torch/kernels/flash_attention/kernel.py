@@ -23,10 +23,11 @@ tile. In bf16 and f16 the last two are tensor-core kernels
 dS rounded to the operand dtype before their products, as
 `ref.attention_bwd_rounded_ref` computes them); in f32 they are FFMA
 kernels (`flash_bwd_dkdv`, `flash_bwd_dq`), chosen by dtype as the
-forward chooses. The JAX package has no backward kernel: its models
-differentiate the chunked scan `_attend_chunked`
-(src/repro/models/attention.py:77-143). `FlashAttentionFn` ties the two
-kernels into autograd.
+forward chooses. It takes the forward's sliding window and walks only
+the band, and every head dim the forward takes. The JAX package has no
+backward kernel: its models differentiate the chunked scan
+`_attend_chunked` (src/repro/models/attention.py:77-143).
+`FlashAttentionFn` ties the two kernels into autograd.
 """
 
 from __future__ import annotations
@@ -45,10 +46,7 @@ __all__ = ["flash_attention_cuda", "flash_attention_bwd_cuda",
            "SUPPORTED_HEAD_DIMS", "BWD_HEAD_DIMS"]
 
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 80, 96, 128, 160)  # launch_hd in the source
-BWD_HEAD_DIMS = (16, 32, 64, 96, 128, 160)           # launch_bwd_hd in the source
-# What the backward kernels do not take yet, and the slice that brings it.
-_BWD_LATER = ("the training slice of the hybrid and audio families (B6-bwd with "
-              "a window and at hd 80)")
+BWD_HEAD_DIMS = (16, 32, 64, 80, 96, 128, 160)       # launch_bwd_hd in the source
 
 
 def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -148,17 +146,19 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              out: torch.Tensor, dout: torch.Tensor,
                              lse: torch.Tensor | None = None, *,
-                             causal: bool = True):
+                             causal: bool = True, window: int = 0):
     """(dq, dk, dv) of ``out = attention(q, k, v)`` given ``dout``, in the
-    operands' dtype and layouts. `lse` is the forward's (B, H, Sq) f32
-    log-sum-exp (`FlashAttentionFn` keeps it). On the CPU it is the plain
-    version, `attention_bwd_ref`, which needs neither `out` nor `lse`."""
+    operands' dtype and layouts; `window` as the forward's. `lse` is the
+    forward's (B, H, Sq) f32 log-sum-exp (`FlashAttentionFn` keeps it). On
+    the CPU it is the plain version, `attention_bwd_ref`, which needs
+    neither `out` nor `lse`."""
     _check_qkv(q, k, v)
+    _check_window(causal, window)
     if tuple(dout.shape) != tuple(q.shape) or dout.dtype != q.dtype:
         raise ValueError(f"dout {tuple(dout.shape)} {dout.dtype} does not match "
                          f"q {tuple(q.shape)} {q.dtype}")
     if q.device.type == "cpu":
-        return attention_bwd_ref(q, k, v, dout, causal=causal)
+        return attention_bwd_ref(q, k, v, dout, causal=causal, window=window)
     b, h, sq, hd = q.shape
     n_kv, skv = k.shape[1], k.shape[2]
     if (lse is None or tuple(lse.shape) != (b, h, sq) or lse.dtype != torch.float32
@@ -170,8 +170,6 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if any(t.device != q.device for t in (out, dout, lse)):
         raise ValueError("out, dout and lse must lie on q's device")
     named = (("q", q), ("k", k), ("v", v), ("out", out), ("dout", dout))
-    if hd not in BWD_HEAD_DIMS:
-        raise ValueError(f"the backward kernels at head_dim {hd} come with {_BWD_LATER}")
     _check_kernel_layout(*named)
     _check_tma(*named)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
@@ -190,7 +188,7 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             b, h, n_kv, sq, skv, hd,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
             *dout.stride()[:3], *dq.stride()[:3], *dk.stride()[:3], *dv.stride()[:3],
-            int(causal), hd ** -0.5, DTYPE_CODES[q.dtype], stream_of(q))
+            int(causal), int(window), hd ** -0.5, DTYPE_CODES[q.dtype], stream_of(q))
     check(err, "flash_attention backward kernel")
     LAUNCHES["flash_attention_bwd"] += 1
     return dq, dk, dv
@@ -199,24 +197,23 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 class FlashAttentionFn(torch.autograd.Function):
     """Flash attention on CUDA operands with its backward kernel: the
     forward launches B6 with the log-sum-exp output and keeps (q, k, v, out,
-    lse); the backward launches B6-bwd. ``FlashAttentionFn.apply(q, k, v,
-    causal, window=0)``. B6-bwd has no window and no hd 80 yet: asking for
-    either raises before the forward launches."""
+    lse); the backward launches B6-bwd with the same `window`.
+    ``FlashAttentionFn.apply(q, k, v, causal, window=0)``. A head dim the
+    kernels are not built for raises before the forward launches."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window=0):
         _check_qkv(q, k, v)
         _check_window(bool(causal), window)
-        if window or q.shape[3] not in BWD_HEAD_DIMS:
-            what = f"window {window}" if window else f"head_dim {q.shape[3]}"
-            raise ValueError(f"attention with a gradient at {what} on the card "
-                             f"comes with {_BWD_LATER}")
+        if q.shape[3] not in BWD_HEAD_DIMS:
+            raise ValueError(f"attention with a gradient at head_dim {q.shape[3]}: "
+                             f"the backward kernels take {BWD_HEAD_DIMS}")
         if q.device.type != "cuda":
             raise ValueError("FlashAttentionFn runs the CUDA kernels; on the "
                              "CPU autograd differentiates attention_ref")
-        out, lse = _forward(q, k, v, bool(causal), want_lse=True)
+        out, lse = _forward(q, k, v, bool(causal), want_lse=True, window=window)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal = bool(causal)
+        ctx.causal, ctx.window = bool(causal), window
         return out
 
     @staticmethod
@@ -227,7 +224,7 @@ class FlashAttentionFn(torch.autograd.Function):
         if dout.stride(3) != 1 or (dout.dtype != torch.float32 and not _tma_ok(dout)):
             dout = dout.clone(memory_format=torch.contiguous_format)
         dq, dk, dv = flash_attention_bwd_cuda(q, k, v, out, dout, lse,
-                                              causal=ctx.causal)
+                                              causal=ctx.causal, window=ctx.window)
         return dq, dk, dv, None, None
 
 
@@ -249,16 +246,18 @@ def flash_attention_bwd_kernels(dtype: torch.dtype) -> dict:
     return {"dkdv": f"flash_bwd_dkdv{tc}", "dq": f"flash_bwd_dq{tc}"}
 
 
-def flash_attention_bwd_attributes(dtype: torch.dtype, hd: int) -> dict:
+def flash_attention_bwd_attributes(dtype: torch.dtype, hd: int, *,
+                                   window: bool = False) -> dict:
     """Registers, shared memory and spills of the backward's dK/dV and dQ
-    kernels that `dtype` launches at `hd`: {"dkdv": {"kernel": name, ...},
-    "dq": {...}}."""
+    kernels that `dtype` launches at `hd` (with `window`, their
+    sliding-window builds): {"dkdv": {"kernel": name, ...}, "dq": {...}}."""
     lib = load("flash_attention")
     got = {}
     for which, (name, kernel) in enumerate(flash_attention_bwd_kernels(dtype).items()):
         out = (ctypes.c_int * 4)()
-        check(lib.repro_flash_attention_bwd_attributes(DTYPE_CODES[dtype], hd, which, out),
-              "flash_attention backward attributes")
+        check(lib.repro_flash_attention_bwd_attributes(
+            DTYPE_CODES[dtype], hd, which + 2 * window, out),
+            "flash_attention backward attributes")
         got[name] = {"kernel": kernel, "registers": out[0], "static_smem": out[1],
                      "dynamic_smem": out[2], "local_bytes": out[3]}
     return got

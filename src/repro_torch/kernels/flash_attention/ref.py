@@ -53,16 +53,17 @@ def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def attention_bwd_rounded_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                              do: torch.Tensor, *, causal: bool = True,
+                              do: torch.Tensor, *, causal: bool = True, window: int = 0,
                               out: torch.Tensor | None = None):
     """(dq, dk, dv) as the tensor-core backward kernels compute them, in
     plain torch: P = exp(S - lse) and dS = P o (dP - D) in f32, rounded to
     the operands' dtype before the dV += Pᵀ dO, dK += dSᵀ Q and dQ += dS K
     products; D = rowsum(dO o O) of the rounded output O; every sum in f32.
     `out` is that O, the forward's output as the kernels are handed it (by
-    default `attention_ref`'s). Returned in f32, before the kernels' one
-    rounding of each gradient, so that a comparison sees that rounding
-    alone. In f32 it is the exact gradient, as `attention_bwd_ref`."""
+    default `attention_ref`'s); `window` as `attention_ref`'s. Returned in
+    f32, before the kernels' one rounding of each gradient, so that a
+    comparison sees that rounding alone. In f32 it is the exact gradient,
+    as `attention_bwd_ref`."""
     dtype, hd = q.dtype, q.shape[-1]
     b, n_kv, skv = k.shape[:3]
     group = q.shape[1] // n_kv
@@ -71,13 +72,12 @@ def attention_bwd_rounded_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kk = k.repeat_interleave(group, dim=1).float()
     vv = v.repeat_interleave(group, dim=1).float()
     s = torch.einsum("bhqd,bhkd->bhqk", qf, kk) * scale
-    if causal:
-        i = torch.arange(q.shape[2], device=q.device)[:, None]
-        j = torch.arange(skv, device=q.device)[None, :]
-        s = s.masked_fill(i < j, float("-inf"))
+    mask = attention_mask(q.shape[2], skv, causal, window, q.device)
+    if mask is not None:
+        s = s.masked_fill(~mask, float("-inf"))
     p = torch.exp(s - torch.logsumexp(s, dim=-1, keepdim=True))
     if out is None:
-        out = attention_ref(q, k, v, causal=causal)
+        out = attention_ref(q, k, v, causal=causal, window=window)
     d = (dof * out.float()).sum(-1, keepdim=True)
     ds = p * (torch.einsum("bhqd,bhkd->bhqk", dof, vv) - d)
     p, ds = p.to(dtype).float(), ds.to(dtype).float()

@@ -4,18 +4,23 @@
         --batch 8 --seq 2048 --steps 10 [--optimizer spin_shampoo]
     PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b \
         --reduced --device cpu --steps 3 --batch 2 --seq 32 --microbatches 1
+    PYTHONPATH=src python -m repro_torch.launch.train --arch phi-3-vision-4.2b \
+        --layers 28 --batch 8 --seq 2048 --steps 10
 
 Random weights from seed 0 (MoE experts unpadded, model_size_hint 1, as
 the reference's launcher without a mesh), batches from
 `data.synthetic.TokenStream` (seed 0); runs on the card unless `--device
-cpu`. On the card a config with a sliding window (hymba) or head dim 80
-(hubert) raises at its first step: B6-bwd does not take them yet. `--mesh single|multi`
+cpu`. Every family trains on the card, hymba's sliding window and
+hubert's head dim 80 included. `--layers N` keeps the config's first N
+layers at full width, for a config whose optimizer state does not fit one
+card whole (phi-3-vision-4.2b, qwen2-moe-a2.7b). `--mesh single|multi`
 needs the production mesh, which the port does not have yet: it raises.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 
 import torch
 
@@ -24,6 +29,8 @@ def main(argv: list[str] | None = None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="keep the config's first N layers (a depth cut)")
     ap.add_argument("--shape", default=None,
                     help="assigned shape id (sets batch/seq); overrides "
                          "--batch/--seq")
@@ -51,6 +58,10 @@ def main(argv: list[str] | None = None) -> dict:
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if args.layers is not None:
+        if not 1 <= args.layers <= cfg.n_layers:
+            raise ValueError(f"--layers {args.layers}: {cfg.name} has {cfg.n_layers}")
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     batch, seq = args.batch, args.seq
     if args.shape:
         sh = SHAPES[args.shape]
@@ -68,8 +79,8 @@ def main(argv: list[str] | None = None) -> dict:
     state, logs = trainer.run(state, args.steps, log_every=10)
     print(f"done: step {int(state.step)} loss {logs[-1]['loss']:.4f}; "
           f"straggler events: {len(trainer.straggler_events)}")
-    return {"arch": cfg.name, "device": str(device), "steps": int(state.step),
-            "loss": logs[-1]["loss"], "logs": logs}
+    return {"arch": cfg.name, "layers": cfg.n_layers, "device": str(device),
+            "steps": int(state.step), "loss": logs[-1]["loss"], "logs": logs}
 
 
 if __name__ == "__main__":

@@ -8,7 +8,7 @@ inside each block, and with a sliding window only the band's tiles, as
 the reference's `_kv_band` walks only the band's chunks; on the CPU the
 same call runs the kernel's plain version. When autograd needs the
 gradient on the card the call goes through `FlashAttentionFn`, whose
-backward is the B6-bwd kernel (no window yet: it raises); on the CPU
+backward is the B6-bwd kernel, which walks the same band; on the CPU
 autograd differentiates the plain version. Decode stays plain PyTorch,
 as in the reference: one query token against the (B, S, KV, hd) cache,
 which rolls (slot pos % S) when it is no longer than the window.

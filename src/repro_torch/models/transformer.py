@@ -16,8 +16,8 @@ weights carry across one to one (`repro_torch.bridge.lm_params_from_numpy`).
     remat=True, saving only the residual stream ("full") or also the
     matrix products' outputs ("dots", selective checkpointing), as the
     reference's `jax.checkpoint` policies do; attention goes through
-    `FlashAttentionFn` on the card (B6 forward, B6-bwd backward), which
-    does not take a window or hd 80 yet and raises for them;
+    `FlashAttentionFn` on the card (B6 forward, B6-bwd backward, both
+    with the sliding window and at every config's head dim);
   * inference otherwise, under `torch.inference_mode()`, which `prefill`
     and `decode_step` always take; remat does not apply.
 Both give the same logits for the same parameters.

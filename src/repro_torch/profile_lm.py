@@ -5,6 +5,8 @@ or sweep the dense LM's decode drift.
     PYTHONPATH=src python -m repro_torch.profile_lm --consistency    # drift
     PYTHONPATH=src python -m repro_torch.profile_lm --routes --arch qwen2-moe-a2.7b
     PYTHONPATH=src python -m repro_torch.profile_lm --train [--optimizer spin_shampoo]
+    PYTHONPATH=src python -m repro_torch.profile_lm --train --arch hymba-1.5b [--layers N]
+    PYTHONPATH=src python -m repro_torch.profile_lm --train --arch hubert-xlarge --steps 4
 
 `--arch` (default granite-8b) at full width, random weights from seed 0,
 a batch of 4 x 2048 positions from `data.synthetic.make_batch` (numpy seed
@@ -19,12 +21,17 @@ cuBLAS GEMMs, the rest) and by kernel, and the idle share of the traced
 range (`profile_spin.device_breakdown`), with the untraced wall time;
 the Chrome traces are kept under ``build/profile_lm/``.
 
-Train: olmo-1b at full width and depth, random weights from seed 0,
-`TokenStream` batches of 8 x 2048 tokens (seed 0), 2 microbatches, full
-remat, as `chip_smoke.py` phase 18 drives it. AdamW: one warm-up step,
+Train: olmo-1b (or `--arch`, cut to its first `--layers` layers) at full
+width, random weights from seed 0, `TokenStream` batches of 8 x 2048
+tokens (seed 0; the modality batches for audio and VLM), 2 microbatches,
+full remat, as `chip_smoke.py` phases 18 and 18b drive it. AdamW: one warm-up step,
 then one traced step. SPIN-Shampoo: step 1 (which refreshes every
 factor's inverse) and step 2, each traced. Device time by class (B6,
-B6-bwd, the SPIN kernels, cuBLAS GEMMs, the rest) and idle share.
+B6-bwd, the SPIN kernels, cuBLAS GEMMs, the rest) and idle share. With
+`--steps K`, K steps after the warm-up are timed untraced instead (CUDA
+events around each step), each with the host ms that drawing its batch
+took and the caching allocator's retries, and the peak GiB. Each batch is
+drawn before the clock or the trace starts, as `chip_smoke.py` draws it.
 
 Routes (an MoE config): the prefill, 8 greedy decode steps, `forward`
 over the prompt plus the fed tokens, and that forward again with the
@@ -163,29 +170,58 @@ def trace(params, cfg, device) -> None:
                       "steps": DECODE_STEPS}))
 
 
-def train_trace(optimizer: str, device) -> None:
+def train_trace(optimizer: str, device, arch: str = TRAIN_ARCH,
+                layers: int | None = None, steps: int = 0) -> None:
     from .configs import get_arch
     from .data.synthetic import TokenStream
     from .runtime.trainer import TrainConfig, init_state, make_train_step
 
-    cfg = get_arch(TRAIN_ARCH)
+    cfg = get_arch(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     tcfg = TrainConfig(microbatches=TRAIN_MICRO, optimizer=optimizer, warmup=1)
     held = {"state": init_state(cfg, tcfg, torch.Generator(device=device).manual_seed(SEED),
                                 device)}
     stream = TokenStream(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=SEED, device=str(device))
     step = make_train_step(cfg, tcfg)
-    print(f"train {cfg.name} {optimizer} on {torch.cuda.get_device_name(0)}", flush=True)
+    print(f"train {cfg.name} ({cfg.n_layers} layers) {optimizer} on "
+          f"{torch.cuda.get_device_name(0)}", flush=True)
 
-    def one():
-        held["state"], metrics = step(held["state"], stream.next())
+    def one(batch):
+        held["state"], metrics = step(held["state"], batch)
         float(metrics["loss"])
 
+    # each batch is drawn on the host before the clock or the trace starts,
+    # as chip_smoke.py times a step: the audio and VLM batches' embeddings
+    # are numpy draws that take a third of a second
     calls = ["train_adamw_step"] if optimizer == "adamw" else [
         "train_shampoo_step1", "train_shampoo_step2"]
     if optimizer == "adamw":
-        one()                                   # warm-up
+        one(stream.next())                      # warm-up
+    if steps:
+        times = []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            batch = stream.next()
+            batch_ms = 1e3 * (time.perf_counter() - t0)
+            retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            one(batch)
+            end.record()
+            end.synchronize()
+            times.append({"ms": start.elapsed_time(end), "batch_ms": batch_ms,
+                          "alloc_retries":
+                          torch.cuda.memory_stats().get("num_alloc_retries", 0) - retries})
+        print(json.dumps({"call": f"train_{optimizer}_steps", "arch": cfg.name,
+                          "layers": cfg.n_layers, "steps": times,
+                          "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}),
+              flush=True)
+        return
     for name in calls:
-        report = _traced(name, one)
+        batch = stream.next()
+        report = _traced(name, lambda: one(batch))
         _print(report)
         print(json.dumps(report))
 
@@ -314,25 +350,32 @@ def main(argv=None) -> int:
     from .models import transformer as T
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--arch", default=ARCH,
-                        help="the config whose prefill (and decode) to trace")
+    parser.add_argument("--arch", default=None,
+                        help=f"the config whose prefill (and decode) to trace (default "
+                             f"{ARCH}), or with --train to train (default {TRAIN_ARCH})")
+    parser.add_argument("--layers", type=int, default=None,
+                        help="with --train: keep the config's first N layers")
     parser.add_argument("--consistency", action="store_true",
                         help="sweep granite-8b's decode-vs-forward differences over depth")
     parser.add_argument("--routes", action="store_true",
                         help="an MoE config's route divergence between decode and forward")
     parser.add_argument("--train", action="store_true",
-                        help="trace olmo-1b training steps instead")
+                        help="trace training steps instead")
     parser.add_argument("--optimizer", default="adamw", choices=["adamw", "spin_shampoo"])
+    parser.add_argument("--steps", type=int, default=0,
+                        help="with --train: time this many steps untraced instead")
     args = parser.parse_args(argv)
+    if (args.layers is not None or args.steps) and not args.train:
+        parser.error("--layers and --steps go with --train only")
     if not torch.cuda.is_available():
         raise SystemExit("profile_lm: CUDA is not available")
     torch.backends.cuda.matmul.allow_tf32 = False
     build.build_all()
     device = torch.device("cuda")
     if args.train:
-        train_trace(args.optimizer, device)
+        train_trace(args.optimizer, device, args.arch or TRAIN_ARCH, args.layers, args.steps)
         return 0
-    cfg = get_arch(ARCH if args.consistency else args.arch)
+    cfg = get_arch(ARCH if args.consistency else args.arch or ARCH)
     params = T.init_params(cfg, torch.Generator(device=device).manual_seed(SEED), device)
     print(f"{cfg.name} on {torch.cuda.get_device_name(0)}", flush=True)
     run = consistency if args.consistency else routes if args.routes else trace

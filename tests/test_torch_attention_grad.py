@@ -9,12 +9,16 @@ package's `attention_ref`.
 
 The plain version of the tensor-core backward's arithmetic,
 `attention_bwd_rounded_ref` (P and dS rounded to the operand dtype), is
-held to `jax.grad` of the same reference in bf16 and f16.
+held to `jax.grad` of the same reference in bf16 and f16. Both are also
+held, with a sliding window at S above it (hymba's band) and at hd 80
+(hubert's head dim), to `jax.vjp` of the reference's chunked scan
+`_attend_chunked`, whose gradient the JAX package's models take.
 
 The `cuda`-marked tests need the card: `FlashAttentionFn` (B6 with its
 log-sum-exp, then the B6-bwd kernels) against `attention_bwd_ref` and, in
-bf16 and f16, against `attention_bwd_rounded_ref` 4x tighter, and
-`attn_apply`'s weight gradients on the card against the plain path. They
+bf16 and f16, against `attention_bwd_rounded_ref` 4x tighter, also with
+a window and at hd 80, and `attn_apply`'s weight gradients on the card
+against the plain path. They
 need no JAX, so the file imports it only where it is installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_attention_grad.py
@@ -39,6 +43,7 @@ try:  # the card's machine has no JAX; the parity tests skip there
     from repro.configs import get_arch as j_get_arch
     from repro.kernels.flash_attention.ref import attention_ref as j_attention_ref
     from repro.models import attention as j_attention, transformer as JT
+    from repro.models.attention import _attend_chunked as j_attend_chunked
 except ImportError:
     jax = None
 
@@ -116,6 +121,75 @@ def test_attention_bwd_rounded_ref_matches_jax_grad(ref, dtype, h, kv, causal, h
         assert _err(g, w) <= _ROUNDED_TOL[dtype] * scale, (_err(g, w), scale)
 
 
+# (H, KV, hd, causal, window) at S 96: hymba's GQA group of 5 under a
+# window of 32 (so the band masks keys, as the reduced configs' S 32 never
+# does) at hd 16 and at its own hd 64; hubert's hd 80, bidirectional, and
+# hd 80 under a window.
+_BAND_CASES = [(5, 1, 16, True, 32), (5, 1, 64, True, 32), (4, 4, 80, False, 0),
+               (4, 2, 80, True, 40)]
+_BAND_S = 96
+
+
+def _chunked_vjp(q, k, v, do, causal: bool, window: int) -> list:
+    """jax.vjp of the reference's `_attend_chunked` (16-row q and kv chunks,
+    its (B, S, H, hd) layout) at numpy f32 (B, H, S, hd) inputs: (dq, dk,
+    dv) as numpy f32 (B, H, S, hd)."""
+    t = lambda x: jnp.asarray(np.swapaxes(x, 1, 2))
+    _, vjp = jax.vjp(lambda a, b, c: j_attend_chunked(a, b, c, causal=causal, window=window,
+                                                      q_chunk=16, kv_chunk=16),
+                     t(q), t(k), t(v))
+    return [np.swapaxes(_f32(g), 1, 2) for g in vjp(t(do))]
+
+
+def _band_inputs(h, kv, hd, window, seed=0):
+    rng = np.random.default_rng([h, kv, hd, window, seed])
+    return [rng.standard_normal(shape, dtype=np.float32)
+            for shape in ((2, h, _BAND_S, hd), (2, kv, _BAND_S, hd), (2, kv, _BAND_S, hd),
+                          (2, h, _BAND_S, hd))]
+
+
+@pytest.mark.parametrize("h,kv,hd,causal,window", _BAND_CASES)
+def test_attention_bwd_ref_with_a_window_and_at_hd80_matches_jax_grad(ref, h, kv, hd, causal,
+                                                                      window):
+    q, k, v, do = _band_inputs(h, kv, hd, window)
+    want = _chunked_vjp(q, k, v, do, causal, window)
+    tq, tk, tv, tdo = (torch.from_numpy(t) for t in (q, k, v, do))
+    got = fa_ref.attention_bwd_ref(tq, tk, tv, tdo, causal=causal, window=window)
+    # f32 both sides: summation order only (96 keys, the scan's 16-key chunks).
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and tuple(g.shape) == w.shape
+        scale = float(np.abs(w).max())
+        assert float(np.abs(g.numpy() - w).max()) <= 1e-5 * max(1.0, scale)
+    # the rounded version is the exact gradient in f32, and the wrapper's
+    # CPU path is the plain version, bit for bit
+    rounded = fa_ref.attention_bwd_rounded_ref(tq, tk, tv, tdo, causal=causal, window=window)
+    again = fa.flash_attention_bwd_cuda(tq, tk, tv, None, tdo, causal=causal, window=window)
+    for g, r, a in zip(got, rounded, again):
+        assert float((g - r).abs().max()) <= 1e-5 * float(g.abs().max())
+        assert torch.equal(g, a)
+    if window:  # at this S the band masks keys: the gradient is not the causal one
+        causal_only = fa_ref.attention_bwd_ref(tq, tk, tv, tdo, causal=True)
+        assert float((got[0] - causal_only[0]).abs().max()) > 1e-2 * float(got[0].abs().max())
+
+
+@pytest.mark.parametrize("h,kv,hd,causal,window", _BAND_CASES)
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_attention_bwd_rounded_ref_with_a_window_and_at_hd80_matches_jax_grad(
+        ref, dtype, h, kv, hd, causal, window):
+    """The tensor-core arithmetic under the band against the reference's
+    exact f32 gradient on the same rounded inputs, `_ROUNDED_TOL`."""
+    jdt = jnp.dtype(dtype)
+    rounded_in = [np.asarray(jnp.asarray(t, jdt)) for t in _band_inputs(h, kv, hd, window, 1)]
+    want = _chunked_vjp(*(t.astype(np.float32) for t in rounded_in), causal, window)
+    got = fa_ref.attention_bwd_rounded_ref(
+        *(bridge.to_torch(t, "cpu") for t in rounded_in), causal=causal, window=window)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and tuple(g.shape) == w.shape
+        scale = float(np.abs(w).max())
+        err = float(np.abs(g.numpy() - w).max())
+        assert err <= _ROUNDED_TOL[dtype] * scale, (err, scale)
+
+
 def test_rounded_ref_is_the_exact_gradient_in_f32():
     g = torch.Generator().manual_seed(5)
     q, k, v, do = (torch.randn(shape, generator=g) for shape in
@@ -142,18 +216,31 @@ def test_tma_rule_of_the_wrappers():
     fa._check_tma(("dout", shifted.float()))            # f32 runs FFMA: no rule
 
 
+# The reduced configs' changes for the families' layers: hymba at S 96,
+# above its reduced window of 32 (at S <= 32 the window masks nothing), and
+# hubert at its own head dim, 80 (the reduced configs set 16).
+_ATTN_SEQ = {"hymba-1.5b": 96}
+_ATTN_HEAD_DIM = {"hubert-xlarge": 80}
+
+
 @pytest.mark.parametrize("arch,kv", [("olmo-1b", None), ("granite-8b", None),
-                                     ("granite-8b", 2)])   # MHA, MQA, GQA (2 a group)
+                                     ("granite-8b", 2),     # MHA, MQA, GQA (2 a group)
+                                     ("hymba-1.5b", None),  # the window, a group of 4
+                                     ("hubert-xlarge", None)])  # hd 80, bidirectional
 def test_attn_apply_gradients_match_jax(ref, arch, kv):
     jcfg, cfg = j_get_arch(arch).reduced(), get_arch(arch).reduced()
     if kv:
         jcfg = dataclasses.replace(jcfg, n_kv_heads=kv)
         cfg = dataclasses.replace(cfg, n_kv_heads=kv)
+    if arch in _ATTN_HEAD_DIM:
+        jcfg = dataclasses.replace(jcfg, head_dim=_ATTN_HEAD_DIM[arch])
+        cfg = dataclasses.replace(cfg, head_dim=_ATTN_HEAD_DIM[arch])
+    seq = _ATTN_SEQ.get(arch, 24)
     jparams = JT.init_params(jcfg, jax.random.PRNGKey(4), model_size_hint=1)
     jlp = jax.tree.map(lambda a: np.asarray(a[0]), jparams["layers"]["attn"])
     rng = np.random.default_rng([7, len(arch)])
-    x = rng.standard_normal((2, 24, cfg.d_model), dtype=np.float32)
-    ct = rng.standard_normal((2, 24, cfg.d_model), dtype=np.float32)
+    x = rng.standard_normal((2, seq, cfg.d_model), dtype=np.float32)
+    ct = rng.standard_normal((2, seq, cfg.d_model), dtype=np.float32)
     xj = jnp.asarray(x, jnp.bfloat16)
     ctj = jnp.asarray(ct, jnp.bfloat16)
 
@@ -232,8 +319,11 @@ def _rel_err(got, want, scale_of=None) -> float:
     (4, 4, 200, 200, 64, "model"), (8, 2, 130, 130, 128, "model"),
     (6, 1, 77, 130, 32, "model"), (4, 2, 130, 77, 16, "model"),
     (2, 2, 1, 1, 160, "model"), (4, 4, 64, 64, 96, "model"),
+    (8, 8, 300, 300, 96, "model"),       # phi-3-vision's head dim over several tiles, ragged
     (8, 2, 300, 300, 128, "model"),      # a GQA group of 4, S not a multiple of 128
     (4, 2, 200, 200, 160, "model"),
+    (16, 16, 300, 300, 80, "model"),     # hubert's head dim: the 32-byte swizzle, 5 chunks
+    (4, 2, 77, 130, 80, "model"),
     (4, 2, 130, 130, 64, "hd_major")])   # autograd hands dout with hd strided
 def test_flash_attention_fn_gradients_match_plain(cuda_device, h, kv, sq, skv, hd, layout,
                                                   dtype, causal):
@@ -262,6 +352,82 @@ def test_flash_attention_fn_gradients_match_plain(cuda_device, h, kv, sq, skv, h
         # largest entry is that noise
         for g, r, w in zip(got, rounded, want):
             assert _rel_err(g, r, w) <= _ROUNDED_CARD_TOL[dtype], _rel_err(g, r, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 80])
+@pytest.mark.parametrize("s", [2048, 2000, 300])        # whole tiles, ragged at the band's end
+@pytest.mark.parametrize("window", [16, 200, 1024])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_flash_attention_fn_window_gradients_match_plain(cuda_device, dtype, window, s, hd):
+    """The sliding window in the backward (hymba's attention): the dQ
+    kernels start at the band's first kv tile, the dK/dV kernels stop at the
+    last query that sees the kv tile, both mask the band's far edge; a GQA
+    group of 5, as hymba's (H 25, KV 5)."""
+    q, k, v, do = _qkv_do(1, 10, 2, s, s, hd, dtype, s + window + hd, cuda_device)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    kernels.reset_launch_counts()
+    out = fa.FlashAttentionFn.apply(*leaves, True, window)
+    got = torch.autograd.grad(out, leaves, do)
+    assert kernels.launch_counts()["flash_attention"] == 1
+    assert kernels.launch_counts()["flash_attention_bwd"] == 1
+    assert torch.equal(out, fa.flash_attention_cuda(q, k, v, causal=True, window=window))
+    want = fa_ref.attention_bwd_ref(q, k, v, do, causal=True, window=window)
+    for g, w, t in zip(got, want, (q, k, v)):
+        assert g.dtype == dtype and g.shape == t.shape and g.stride() == t.stride()
+        assert bool(torch.isfinite(g.float()).all())
+        assert _rel_err(g, w) <= _BWD_TOL[dtype], _rel_err(g, w)
+    if dtype != torch.float32:
+        rounded = fa_ref.attention_bwd_rounded_ref(q, k, v, do, causal=True, window=window,
+                                                   out=out.detach())
+        for g, r, w in zip(got, rounded, want):
+            assert _rel_err(g, r, w) <= _ROUNDED_CARD_TOL[dtype], _rel_err(g, r, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("h,kv,hd,causal,window", [(25, 5, 64, True, 1024),   # hymba's layer
+                                                   (16, 16, 80, False, 0),    # hubert's
+                                                   (32, 32, 96, True, 0)])    # phi-3-vision's
+def test_flash_attention_bwd_repeats_its_bits_at_the_family_layers(cuda_device, h, kv, hd,
+                                                                   causal, window, dtype):
+    q, k, v, do = _qkv_do(2, h, kv, 2048, 2048, hd, dtype, 11, cuda_device)
+    out, lse = fa._forward(q, k, v, causal, want_lse=True, window=window)
+    first = fa.flash_attention_bwd_cuda(q, k, v, out, do, lse, causal=causal, window=window)
+    for _ in range(2):
+        again = fa.flash_attention_bwd_cuda(q, k, v, out, do, lse, causal=causal,
+                                            window=window)
+        for a, b in zip(first, again):
+            assert torch.equal(a, b)   # one summation order, no atomics
+
+
+@pytest.mark.cuda
+def test_the_backward_runs_as_the_autograd_threads_first_cuda_work(cuda_device):
+    """A backward whose first launch is B6-bwd runs on PyTorch's autograd
+    worker thread before that thread has bound the device's context; the
+    tensor maps must still encode (they were refused, CUDA error 1, before
+    `encode_tiled` bound the context). A fresh process, so that the thread
+    is new."""
+    code = (
+        "import sys, torch; sys.path.insert(0, 'src')\n"
+        "from repro_torch.kernels.flash_attention import kernel as fa, ref as fa_ref\n"
+        "g = torch.Generator().manual_seed(0)\n"
+        "q, k, v, do = (torch.randn(2, n, 300, 64, generator=g).cuda().bfloat16()\n"
+        "               for n in (10, 2, 2, 10))\n"
+        "leaves = [t.detach().requires_grad_() for t in (q, k, v)]\n"
+        "got = torch.autograd.grad(fa.FlashAttentionFn.apply(*leaves, True, 16), leaves, do)\n"
+        "want = fa_ref.attention_bwd_ref(q, k, v, do, causal=True, window=16)\n"
+        "print(max(float((a.float() - b.float()).abs().max() / b.float().abs().max())\n"
+        "          for a, b in zip(got, want)))\n")
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    run = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True,
+                         text=True, timeout=600)
+    assert run.returncode == 0, run.stderr[-2000:]
+    assert float(run.stdout.split()[-1]) <= _BWD_TOL[torch.bfloat16]
 
 
 @pytest.mark.cuda
@@ -308,12 +474,14 @@ def test_misaligned_dout_is_copied_by_the_function_or_refused_by_the_wrapper(cud
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("window", [False, True])
 @pytest.mark.parametrize("hd", fa.BWD_HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
-def test_tensor_core_backward_keeps_its_registers(cuda_device, dtype, hd):
+def test_tensor_core_backward_keeps_its_registers(cuda_device, dtype, hd, window):
     # The consumers grow to 240 registers by setmaxnreg; hd 160 takes
-    # 32-row query tiles in the dK/dV kernel so that dK and dV fit.
-    attrs = fa.flash_attention_bwd_attributes(dtype, hd)
+    # 32-row query tiles in the dK/dV kernel so that dK and dV fit; hd 80
+    # (five 32-byte chunks a row) and the sliding-window builds spill none.
+    attrs = fa.flash_attention_bwd_attributes(dtype, hd, window=window)
     assert [a["kernel"] for a in attrs.values()] == ["flash_bwd_dkdv_tc", "flash_bwd_dq_tc"]
     for a in attrs.values():
         assert a["local_bytes"] == 0 and a["dynamic_smem"] <= 232448, attrs

@@ -633,25 +633,109 @@ def test_flash_attention_hd80_keeps_its_registers(cuda_device, dtype):
     assert attrs["local_bytes"] == 0 and attrs["dynamic_smem"] <= 232448, attrs
 
 
-def test_the_backward_refuses_a_window_and_hd80_on_the_card(cuda_device):
-    """B6-bwd takes neither yet: the training route raises before any
-    launch, and the forward without grad still runs."""
+def test_the_backward_takes_a_window_and_hd80_on_the_card(cuda_device):
+    """B6-bwd takes hymba's sliding window and hubert's hd 80: the training
+    route launches B6 and B6-bwd once each and its gradients agree with the
+    plain version's; a head dim the kernels are not built for (48) still
+    raises before any launch, and the forward without grad still runs."""
     from repro_torch.kernels.flash_attention.ops import flash_attention
 
-    q, k, v = _qkv(1, 4, 2, 64, 64, 64, torch.bfloat16, 3, cuda_device)
-    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    for h, kv, hd, causal, window, seed in ((5, 1, 64, True, 16, 3), (4, 4, 80, False, 0, 4)):
+        q, k, v = _qkv(1, h, kv, 200, 200, hd, torch.bfloat16, seed, cuda_device)
+        do = _qkv(1, h, h, 200, 200, hd, torch.bfloat16, seed + 10, cuda_device)[0]
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        kernels.reset_launch_counts()
+        got = torch.autograd.grad(flash_attention(*leaves, causal=causal, window=window),
+                                  leaves, do)
+        assert kernels.launch_counts()["flash_attention"] == 1
+        assert kernels.launch_counts()["flash_attention_bwd"] == 1
+        want = fa_ref.attention_bwd_ref(q, k, v, do, causal=causal, window=window)
+        for g, w in zip(got, want):
+            # bf16: each gradient rounded once, D from the rounded output
+            scale = float(w.float().abs().max())
+            assert float((g.float() - w.float()).abs().max()) <= 2e-2 * scale
+    q, k, v = _qkv(1, 4, 2, 64, 64, 48, torch.bfloat16, 5, cuda_device)
     kernels.reset_launch_counts()
-    with pytest.raises(ValueError, match="window 16 on the card"):
-        flash_attention(*leaves, causal=True, window=16)
-    q8, k8, v8 = _qkv(1, 4, 4, 64, 64, 80, torch.bfloat16, 4, cuda_device)
-    with pytest.raises(ValueError, match="head_dim 80 on the card"):
-        flash_attention(q8.detach().requires_grad_(), k8, v8, causal=False)
+    with pytest.raises(ValueError, match="head_dim 48"):
+        flash_attention(q.detach().requires_grad_(), k, v, causal=True, window=16)
     assert kernels.launch_counts()["flash_attention"] == 0
-    with pytest.raises(ValueError, match="head_dim 80"):
-        fa.flash_attention_bwd_cuda(q8, k8, v8, q8, q8,
-                                    torch.zeros(1, 4, 64, device=cuda_device))
+    q8, k8, v8 = _qkv(1, 4, 4, 64, 64, 80, torch.bfloat16, 4, cuda_device)
     flash_attention(q8, k8, v8, causal=False)
     assert kernels.launch_counts()["flash_attention"] == 1
+
+
+# The five families, reduced, trained on the card (ROADMAP A.1).
+_TRAIN_FAMILIES = ["qwen2-moe-a2.7b", "hymba-1.5b", "mamba2-130m", "phi-3-vision-4.2b",
+                   "hubert-xlarge"]
+
+
+def _train_state(cfg, device):
+    """The reduced config's AdamW state from seed 0 on the CPU, on `device`."""
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.runtime.trainer import TrainState
+
+    params = _tree_to(T.init_params(cfg, torch.Generator().manual_seed(0), "cpu", 1), device)
+    return TrainState(params, adamw_init(params), torch.zeros((), dtype=torch.int32))
+
+
+def _family_batches(cfg, n: int, device) -> list:
+    """`n` train batches of 4 x 96 positions: above the reduced window (32),
+    a whole number of reduced SSD chunks (16)."""
+    from repro_torch.data.synthetic import make_batch
+
+    return [make_batch(cfg, 4, 96, np.random.default_rng([3, i]), "train", device)
+            for i in range(n)]
+
+
+@pytest.mark.parametrize("arch", _TRAIN_FAMILIES)
+def test_a_reduced_family_trains_a_step_on_the_card_as_on_the_cpu(cuda_device, arch):
+    """One AdamW step (2 microbatches, full remat) of each reduced family on
+    the card against the same step on the CPU, where attention is the
+    kernels' plain version: loss and gradient norm within 2e-2 relative (bf16
+    activations rounded at other places by B6 and B6-bwd than by the plain
+    softmax, and by cuBLAS than by the CPU's products); B6 launched 2·L·2
+    times and B6-bwd L·2 times (none for mamba2), no other kernel."""
+    from repro_torch.runtime.trainer import TrainConfig, make_train_step
+
+    cfg = get_arch(arch).reduced()
+    step = make_train_step(cfg, TrainConfig(microbatches=2, warmup=1))
+    (batch,) = _family_batches(cfg, 1, "cpu")
+    _, want = step(_train_state(cfg, "cpu"), batch)
+    kernels.reset_launch_counts()
+    _, got = step(_train_state(cfg, cuda_device), _tree_to(batch, cuda_device))
+    launches = kernels.launch_counts()
+    attn_layers = 0 if cfg.attn_free else cfg.n_layers
+    assert launches["flash_attention"] == 2 * attn_layers * 2
+    assert launches["flash_attention_bwd"] == attn_layers * 2
+    assert sum(launches.values()) == 3 * attn_layers * 2
+    for key in ("loss", "grad_norm"):
+        g, w = float(got[key]), float(want[key])
+        assert np.isfinite(g) and abs(g - w) <= 2e-2 * abs(w), (key, g, w)
+    assert (float(got["aux"]) > 0) == (cfg.moe is not None)
+
+
+@pytest.mark.parametrize("arch", _TRAIN_FAMILIES)
+def test_a_reduced_family_repeats_its_steps_bit_for_bit_on_the_card(cuda_device, arch):
+    """Two runs of two AdamW steps from the same state and batches give the
+    same bits: B6-bwd sums in one order, the embedding's backward sorts, and
+    the MoE combine's gather (`y[ex, pos2]`), whose backward accumulates by
+    index, meets at most one nonzero gradient a slot."""
+    from repro_torch.runtime.trainer import TrainConfig, make_train_step
+    from repro_torch.tree import leaves
+
+    cfg = get_arch(arch).reduced()
+    step = make_train_step(cfg, TrainConfig(microbatches=2, warmup=1))
+    batches = _family_batches(cfg, 2, cuda_device)
+    runs = []
+    for _ in range(2):
+        state, metrics = _train_state(cfg, cuda_device), []
+        for batch in batches:
+            state, m = step(state, batch)
+            metrics.append({k: float(v) for k, v in m.items()})
+        runs.append((leaves(state.params), metrics))
+    (p0, m0), (p1, m1) = runs
+    assert m0 == m1
+    assert all(torch.equal(a, b) for a, b in zip(p0, p1))
 
 
 def _kernel_names(fn) -> list[str]:

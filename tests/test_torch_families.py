@@ -203,6 +203,45 @@ def test_init_params_tree_matches_the_reference(fam):
         [(jax.tree_util.keystr(p), a.shape, a.dtype) for p, a in want]
 
 
+_SSD_SUMS = {f"['layers']['ssm']['{n}']" for n in ("a_log", "d_skip", "dt_bias", "conv_w")}
+
+
+def test_hybrid_loss_gradients_match_the_reference():
+    """The reduced hymba's gradients of `loss_fn` (every parameter) against
+    `jax.grad` of the reference's `loss_fn`, at S 96, above the reduced
+    window of 32, so that the band masks keys in the attention and in its
+    gradient (at SEQ = 32 it masks none)."""
+    name, seq = "hymba-1.5b", 96
+    jcfg, cfg = j_get_arch(name).reduced(), get_arch(name).reduced()
+    assert seq > cfg.sliding_window
+    jparams = JT.init_params(jcfg, jax.random.PRNGKey(0), model_size_hint=1)
+    params = bridge.lm_params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu")
+    batch = make_batch(cfg, B, seq, np.random.default_rng([9, seq]), "train", "cpu")
+    jgrads = jax.grad(lambda p: JT.loss_fn(p, _to_jax(batch), jcfg)[0])(jparams)
+    flat = [t.detach().requires_grad_() for t in tree.leaves(params)]
+    loss, _ = T.loss_fn(tree.unflatten(params, flat), batch, cfg)
+    grads = tree.unflatten(params, list(torch.autograd.grad(loss, flat)))
+    got = jax.tree_util.tree_flatten_with_path(bridge.lm_params_to_numpy(grads))[0]
+    want = jax.tree_util.tree_flatten_with_path(jax.tree.map(np.asarray, jgrads))[0]
+    assert [jax.tree_util.keystr(k) for k, _ in got] == [jax.tree_util.keystr(k) for k, _ in want]
+    # bf16 gradients through two layers of attention and SSD heads: the two
+    # packages round the same activations to bf16 but sum in f32 in other
+    # orders, so a rounding may flip by one ulp and carry on; each gradient
+    # is held to 2^-5 of its largest entry (8 bf16 ulps). The SSD's per-head
+    # scalars and conv taps are each one sum over every position and channel
+    # of bf16 products that largely cancel: they differ by up to 0.06 of
+    # their largest entry at S 32 too, where the window masks nothing, and
+    # are held to 2^-3.
+    for (path, g), (_, w) in zip(got, want):
+        key = jax.tree_util.keystr(path)
+        g32, w32 = g.astype(np.float32), np.asarray(w, np.float32)
+        scale = float(np.abs(w32).max())
+        assert scale > 0, key
+        err = float(np.abs(g32 - w32).max())
+        tol = 2.0 ** -3 if key in _SSD_SUMS else 2.0 ** -5
+        assert err <= tol * scale, (key, err, scale)
+
+
 # ---------------------------------------------------------------------------
 # The sliding window: the plain attention against the reference's scan
 # ---------------------------------------------------------------------------

@@ -227,12 +227,13 @@ def test_attn_decode_matches_the_reference(model, where):
 
 
 def test_sliding_window_and_other_families_raise(monkeypatch):
-    """What still raises now that every family runs: MoE on a mesh with a
-    `model` axis (the expert-parallel path comes with sharding, ROADMAP
-    A.2); serving the encoder-only hubert-xlarge; and a training forward on
-    the card with a sliding window or at hd 80, where B6-bwd does not take
-    them yet. The card's training route (`FlashAttentionFn`) is what the
-    mock below sends the CPU tensors to."""
+    """What still raises now that every family runs and trains: MoE on a
+    mesh with a `model` axis (the expert-parallel path comes with sharding,
+    ROADMAP A.2); serving the encoder-only hubert-xlarge; and a training
+    forward on the card at a head dim the kernels are not built for (48),
+    before any launch. The sliding window (hymba's 32 here) and hd 80 no
+    longer raise there. The card's training route (`FlashAttentionFn`) is
+    what the mock below sends the CPU tensors to."""
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.launch import serve
     from repro_torch.launch.mesh import Mesh, set_mesh
@@ -255,17 +256,24 @@ def test_sliding_window_and_other_families_raise(monkeypatch):
         return fa.FlashAttentionFn.apply(q, k, v, causal, window)
 
     monkeypatch.setattr(attention, "flash_attention", on_the_card)
-    cfg = get_arch("hymba-1.5b").reduced()
+    cfg = dataclasses.replace(get_arch("hymba-1.5b").reduced(), head_dim=48)
+    assert cfg.sliding_window == 32
     params = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu", 1)
     for p in leaves(params):
         p.requires_grad_()
     batch = {"tokens": torch.zeros(1, 16, dtype=torch.int64),
              "labels": torch.zeros(1, 16, dtype=torch.int64)}
-    with pytest.raises(ValueError, match="window 32 on the card"):
+    with pytest.raises(ValueError, match="head_dim 48"):
         T.loss_fn(params, batch, cfg)
-    q = torch.zeros(1, 2, 8, 80, requires_grad=True)
-    with pytest.raises(ValueError, match="head_dim 80 on the card"):
+    q = torch.zeros(1, 2, 8, 48, requires_grad=True)
+    with pytest.raises(ValueError, match="head_dim 48"):
         on_the_card(q, q, q, causal=False)
+    # past the head-dim check, a window and hd 80 reach the device check:
+    # the mock hands CPU tensors to a function that runs the CUDA kernels
+    for hd, causal, window in ((80, False, 0), (64, True, 32)):
+        q = torch.zeros(1, 2, 8, hd, requires_grad=True)
+        with pytest.raises(ValueError, match="runs the CUDA kernels"):
+            on_the_card(q, q, q, causal=causal, window=window)
 
 
 def test_lm_entry_points_raise_without_cuda(monkeypatch):

@@ -237,7 +237,9 @@ def test_make_spd_batch_matches_the_reference_family():
 def test_current_counts_matches_the_reference():
     assert current_counts() is None and j_current_counts() is None
     # The reference counts while it traces: a size no other test of this
-    # file inverts, so that its program is traced here.
+    # file inverts, and its compiled programs dropped first, since a test
+    # file run earlier in the same worker process may have traced it.
+    jax.clear_caches()
     a = testing.make_spd(80, np.random.default_rng(5), device="cpu")
     with count_ops() as counts, j_count_ops() as j_counts:
         assert current_counts() is counts and j_current_counts() is j_counts

@@ -296,6 +296,35 @@ def test_async_save_overlaps_and_persists():
         assert torch.equal(got["w"], torch.arange(16.0).reshape(4, 4))
 
 
+def test_train_launcher_cuts_the_depth(tmp_path, monkeypatch):
+    """`--layers N` trains the config's first N layers at full width (the
+    depth cut of the configs whose AdamW state does not fit one card), and
+    refuses a depth the config does not have."""
+    from repro_torch.launch import train
+
+    monkeypatch.setenv("SPIN_PLAN_CACHE", str(tmp_path / "plans.json"))
+    args = ["--arch", "hymba-1.5b", "--reduced", "--device", "cpu", "--steps", "1",
+            "--batch", "2", "--seq", "32", "--microbatches", "1"]
+    out = train.main(args + ["--layers", "1"])
+    assert out["layers"] == 1 and out["steps"] == 1 and np.isfinite(out["loss"])
+    with pytest.raises(ValueError, match="--layers 3"):
+        train.main(args + ["--layers", "3"])
+
+
+def test_profile_lm_cuts_the_depth_of_a_training_trace_only():
+    from repro_torch import profile_lm
+
+    with pytest.raises(SystemExit):
+        profile_lm.main(["--arch", "hymba-1.5b", "--layers", "2"])   # no --train
+
+
+def test_profile_lm_times_training_steps_only():
+    from repro_torch import profile_lm
+
+    with pytest.raises(SystemExit):
+        profile_lm.main(["--arch", "hubert-xlarge", "--steps", "4"])   # no --train
+
+
 def test_launchers_smoke(tmp_path):
     """The CLI launchers run end to end on reduced configs on the CPU."""
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
