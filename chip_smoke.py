@@ -198,7 +198,29 @@ Phases, each of which fails the run (non-zero exit) on any fault:
      (none of them); the residual of layer 0's largest factor's inverse
      (8192²) against 4·n·2^-24·κ with κ its condition; peak memory; the
      depth cut only if 80 GB cannot hold it, and then printed;
- 19. one JSON line with every path's times and residual, and one with
+ 19. a mesh of the one card, (data 2, model 4) with every coordinate on
+     cuda:0 (`make_worker_mesh((2, 4), devices=["cuda:0"] * 8)`), so the
+     copies the layout implies are paid and counted: qwen2-moe's MoE block
+     at full width (64 padded experts, 16 a model shard, B 4 x S 2048)
+     expert-parallel against the mesh-free block at capacity factor 8
+     (no drop at either level: bf16 output within 2e-2 of its largest
+     entry on the tokens whose top-k set is the same both ways, at most 1 %
+     routed apart, z within 1e-3, aux printed beside), then at 1.25 both
+     levels' drops, the bytes of each collective kind and the EP call's ms
+     beside the mesh-free call's, and peak memory; the sharded embedding of
+     qwen2-moe's 151936 x 2048 table, bit for bit `F.embedding`;
+     `compressed_psum` over a 4-coordinate `pod` mesh at one expert's
+     gradient (2048 x 1408 f32), within 5 % of the exact sum, its bytes
+     beside an f32 psum's; AdamW on qwen2-moe cut to 4 layers, a warm-up
+     and 3 steps without the mesh (the allocator's retries a step), then a
+     warm-up and 3 steps under it through
+     `Trainer(rules=DEFAULT_RULES)` (finite losses, B6 and B6-bwd launches
+     equal to the mesh-free step's, a `shard` record at every site equal
+     to `logical_spec`, ms, bytes by kind, peak GiB), every expert leaf's
+     gradient non-zero and finite, and the parameters saved and restored
+     by `param_specs` onto the (2, 4) mesh and an 8-way `data` mesh, bit
+     for bit; `phase_s["19"]` printed;
+ 20. one JSON line with every path's times and residual, and one with
      every kernel's launches, error and times (the GEMM's, blocked
      Gauss-Jordan's and triangular solve's launches on every path beside
      them).
@@ -328,6 +350,28 @@ FAMILY_TRAIN_RUNS = (("qwen2-moe-a2.7b", 4), ("phi-3-vision-4.2b", 28),
                      ("hymba-1.5b", None), ("hubert-xlarge", None), ("mamba2-130m", None))
 FAMILY_TRAIN_TIMED_STEPS = 3      # steps timed after one warm-up
 FAMILY_TRAIN_FALL_STEPS = 3       # steps on one repeated batch
+# Phase 19: a mesh of the one card. qwen2-moe-a2.7b under (data 2, model
+# 4), every coordinate on cuda:0, so the copies its layout implies are paid
+# and counted on one card.
+MESH_SHAPE = (2, 4)
+MESH_ARCH = "qwen2-moe-a2.7b"
+MESH_HINT = 16                    # 60 experts padded to 64: 16 a model shard
+MESH_LAYERS = 4                   # phase 18b's depth cut
+MESH_STEPS = 3                    # steps under the mesh after one warm-up
+MESH_X_SPEC = (("data",), "model", None)   # the EP region's token layout (B 4, S 2048)
+# At capacity factor 8 neither level drops: a shard's 1024 tokens make
+# 4096 choices against cap = 8·1024·4/4 = 8192 slots a destination, and
+# cap2 = 2·4·8192/16 = 4096 rows an expert against a shard's 4096 rows.
+MESH_NO_DROP_CF = 8.0
+# The EP output against the mesh-free one, bf16, relative to its largest
+# entry (tests/test_torch_moe.py's bound); over the tokens whose top-k set
+# is the same both ways: a coordinate's f32 router product runs at M =
+# 1024 rows where the mesh-free one runs at 8192, and cuBLAS may sum them
+# in another order, which can flip a near-tie. At most this share may flip.
+MESH_MOE_RTOL = 2e-2
+MESH_ROUTE_FLIP_MAX = 0.01
+MESH_Z_RTOL = 1e-3
+MESH_PSUM_RTOL = 0.05             # compressed_psum (tests/test_distributed.py:154)
 U_F32 = 2.0 ** -24                # f32 unit roundoff
 # The refresh residual's bound: c·n·u·κ, the first-order bound on an
 # inverse's residual by elimination, with c = 4 over the 1.3 measured at
@@ -2636,6 +2680,352 @@ def run_train_shampoo(torch, cfg, dev) -> dict:
     return first_depth_that_fits(torch, cfg, depths, _shampoo_run, dev)
 
 
+def _moe_drops(torch, x, router, cfg, mesh=None) -> dict:
+    """Both levels' dropped (token, choice) pairs and rows of `moe_apply`
+    on x, mesh-free or expert-parallel on `mesh`, counted by running its
+    dispatch phases."""
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.parallel import collectives as col
+
+    with torch.inference_mode():
+        if mesh is None:
+            e_loc = router.shape[1]
+            r = moe_mod._dispatch(x, router, cfg, 1, e_loc)
+            first, received = int(r["dropped"].sum()), [r["send_le"]]
+        else:
+            m = mesh.shape["model"]
+            e_loc = router.shape[1] // m
+            xs = col.split(x, MESH_X_SPEC, mesh)
+            rs = {c: moe_mod._dispatch(xs[c], router, cfg, m, e_loc) for c in mesh.coords()}
+            first = sum(int(r["dropped"].sum()) for r in rs.values())
+            received = list(col.all_to_all({c: r["send_le"] for c, r in rs.items()},
+                                           "model", 0, 0, mesh).values())
+        second = sum(int(moe_mod.second_level(le, e_loc)[1].sum()) for le in received)
+    return {"first_level": first, "second_level": second,
+            "choices": x.shape[0] * x.shape[1] * cfg.moe.top_k}
+
+
+def run_mesh_moe(torch, dev, mesh) -> dict:
+    """Phase 19.1: qwen2-moe's MoE block at full width, expert-parallel on
+    the mesh, against the mesh-free block."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import set_mesh
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.layers import init_tree
+    from repro_torch.parallel import collectives as col
+    from repro_torch.parallel import collective_bytes, reset_collective_bytes
+
+    cfg = get_arch(MESH_ARCH)
+
+    def with_cf(cf):
+        return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=cf))
+
+    params = init_tree(moe_mod.moe_params(cfg, MESH_HINT),
+                       torch.Generator(device=dev).manual_seed(SEED), dev)
+    x = torch.randn((LM_BATCH, LM_SEQ, cfg.d_model), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(SEED + 1)).to(torch.bfloat16)
+    router = params["router"]
+
+    def ep(c):
+        with set_mesh(mesh):
+            return moe_mod.moe_apply(params, x, c)
+
+    with torch.inference_mode():
+        cfg8 = with_cf(MESH_NO_DROP_CF)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        free8, got8 = moe_mod.moe_apply(params, x, cfg8), ep(cfg8)
+        peak8 = torch.cuda.max_memory_allocated() / 2 ** 30
+        # the tokens whose top-k expert set is the same both ways
+        want = moe_mod.route(x, router, cfg8)[3].sort(-1).values.reshape(LM_BATCH, LM_SEQ, -1)
+        xs = col.split(x, MESH_X_SPEC, mesh)
+        same = torch.ones((LM_BATCH, LM_SEQ), dtype=torch.bool, device=dev)
+        for c in mesh.coords():
+            (b0, b1), (s0, s1), _ = col.region_of(x.shape, MESH_X_SPEC, mesh, c)
+            got = moe_mod.route(xs[c], router, cfg8)[3].sort(-1).values
+            same[b0:b1, s0:s1] = (got.reshape(b1 - b0, s1 - s0, -1) ==
+                                  want[b0:b1, s0:s1]).all(-1)
+        flips = int((~same).sum())
+        diff = (got8[0].float() - free8[0].float()).abs().amax(-1)
+        err = float(diff[same].max()) / float(free8[0].float().abs().max())
+        z_rel = abs(float(got8[2]) - float(free8[2])) / abs(float(free8[2]))
+        aux8 = (float(got8[1]), float(free8[1]))
+        del free8, got8
+        drops8 = {"ep": _moe_drops(torch, x, router, cfg8, mesh),
+                  "mesh_free": _moe_drops(torch, x, router, cfg8)}
+        print(f"path mesh_moe: {MESH_ARCH} B={LM_BATCH} S={LM_SEQ} mesh={mesh.descriptor()} "
+              f"cf={MESH_NO_DROP_CF} route_flips={flips} of {same.numel()} "
+              f"max_err_rel={err!r} (bound {MESH_MOE_RTOL}) z_rel={z_rel!r} "
+              f"aux_ep={aux8[0]!r} aux_mesh_free={aux8[1]!r} drops={drops8} "
+              f"peak_gib={peak8!r}", flush=True)
+        require(flips <= MESH_ROUTE_FLIP_MAX * same.numel(),
+                f"mesh_moe: {flips} tokens routed apart")
+        require(err <= MESH_MOE_RTOL, f"mesh_moe: EP output {err} from mesh-free")
+        require(z_rel <= MESH_Z_RTOL, f"mesh_moe: z {z_rel} from mesh-free")
+        require(all(d["first_level"] == d["second_level"] == 0 for d in drops8.values()),
+                f"mesh_moe: drops at the no-drop factor: {drops8}")
+
+        # the default capacity factor: per-shard drops, bytes, time
+        drops = {"ep": _moe_drops(torch, x, router, cfg, mesh),
+                 "mesh_free": _moe_drops(torch, x, router, cfg)}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_collective_bytes()
+        out, aux, z = ep(cfg)
+        moved = collective_bytes()
+        require(bool(torch.isfinite(out.float()).all()), "mesh_moe: non-finite output")
+        del out
+        ep_ms = time_ms(lambda: ep(cfg), 3)
+        free_ms = time_ms(lambda: moe_mod.moe_apply(params, x, cfg), 3)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"path mesh_moe: cf={cfg.moe.capacity_factor} drops={drops} "
+          f"bytes={ {k: v for k, v in moved.items() if v} } ep_ms={ep_ms!r} "
+          f"mesh_free_ms={free_ms!r} peak_gib={peak!r}", flush=True)
+    del params, x
+    return {"no_drop": {"capacity_factor": MESH_NO_DROP_CF, "route_flips": flips,
+                        "tokens": same.numel(), "max_err_rel": err, "bound": MESH_MOE_RTOL,
+                        "z_rel": z_rel, "aux_ep": aux8[0], "aux_mesh_free": aux8[1],
+                        "peak_gib": peak8},
+            "default": {"capacity_factor": cfg.moe.capacity_factor, "drops": drops,
+                        "collective_bytes": moved, "ep_ms": ep_ms, "mesh_free_ms": free_ms,
+                        "peak_gib": peak}}
+
+
+def run_mesh_embed(torch, dev, mesh) -> dict:
+    """Phase 19.2: the sharded lookup of qwen2-moe's table, bit for bit
+    `F.embedding`."""
+    import torch.nn.functional as F
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import set_mesh
+    from repro_torch.models.embedding import embed_lookup
+    from repro_torch.parallel import collective_bytes, reset_collective_bytes
+
+    cfg = get_arch(MESH_ARCH)
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    table = (0.02 * torch.randn((cfg.vocab, cfg.d_model), generator=g, device=dev)
+             ).to(torch.bfloat16)
+    toks = torch.randint(0, cfg.vocab, (TRAIN_BATCH // TRAIN_MICRO, TRAIN_SEQ), generator=g,
+                         device=dev)
+
+    def sharded():
+        with set_mesh(mesh):
+            return embed_lookup(table, toks)
+
+    with torch.inference_mode():
+        reset_collective_bytes()
+        got = sharded()
+        moved = collective_bytes()
+        same = torch.equal(got, F.embedding(toks, table))
+        del got
+        ms, plain_ms = time_ms(sharded, 3), time_ms(lambda: F.embedding(toks, table), 3)
+    print(f"path mesh_embed: table={tuple(table.shape)} tokens={tuple(toks.shape)} "
+          f"bitwise={same} bytes={ {k: v for k, v in moved.items() if v} } ms={ms!r} "
+          f"plain_ms={plain_ms!r}", flush=True)
+    require(same, "mesh_embed: the sharded lookup differs from F.embedding")
+    return {"bitwise": same, "collective_bytes": moved, "ms": ms, "plain_ms": plain_ms}
+
+
+def run_mesh_psum(torch, dev) -> dict:
+    """Phase 19.3: compressed_psum over a 4-coordinate `pod` mesh of the
+    card, at one expert's wi gradient (d x d_ff_expert f32) a coordinate."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import make_worker_mesh
+    from repro_torch.parallel import collectives as col
+    from repro_torch.parallel import collective_bytes, reset_collective_bytes
+    from repro_torch.parallel.compression import compressed_psum
+
+    cfg = get_arch(MESH_ARCH)
+    pod = make_worker_mesh((4,), ("pod",), devices=[dev] * 4)
+    n = cfg.d_model * cfg.moe.d_ff_expert
+    x = 1e-3 * torch.randn((4, n), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(SEED + 3))
+    xs = col.split(x, ("pod", None), pod)
+    exact = x.double().sum(0)
+    reset_collective_bytes()
+    got = compressed_psum(xs, "pod", pod)
+    int8_bytes = collective_bytes()
+    rel = max(float((got[c].double().reshape(-1) - exact).abs().max()) for c in pod.coords()
+              ) / float(exact.abs().max())
+    reset_collective_bytes()
+    col.psum(xs, "pod", pod)
+    f32_bytes = collective_bytes()
+    ms = time_ms(lambda: compressed_psum(xs, "pod", pod), 3)
+    f32_ms = time_ms(lambda: col.psum(xs, "pod", pod), 3)
+    wire = {k: v for k, v in int8_bytes.items() if v}
+    print(f"path mesh_compressed_psum: 4 x {n} f32 rel_err={rel!r} (bound {MESH_PSUM_RTOL}) "
+          f"bytes={wire} f32_psum_bytes={f32_bytes['psum']} ms={ms!r} f32_psum_ms={f32_ms!r}",
+          flush=True)
+    require(rel <= MESH_PSUM_RTOL, f"mesh_compressed_psum: {rel} from the exact sum")
+    return {"elements": n, "rel_err": rel, "bytes": wire, "f32_psum_bytes": f32_bytes["psum"],
+            "ms": ms, "f32_psum_ms": f32_ms}
+
+
+def run_mesh_train(torch, dev, mesh) -> dict:
+    """Phase 19.4-5: AdamW on qwen2-moe cut to MESH_LAYERS at full width,
+    one mesh-free step and MESH_STEPS under the mesh through
+    `Trainer(rules=DEFAULT_RULES)`, every expert leaf's gradient, the
+    layout ledger; then the parameters saved and restored onto the mesh
+    and onto an 8-way `data` mesh by `param_specs`."""
+    import contextlib
+
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs import get_arch
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.launch.mesh import make_worker_mesh, set_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel import (DEFAULT_RULES, collective_bytes, logical_spec,
+                                      record_specs, reset_collective_bytes)
+    from repro_torch.parallel.collectives import DistArray, gather
+    from repro_torch.runtime.trainer import TrainConfig, Trainer, init_state, make_train_step
+    from repro_torch.tree import leaves, leaves_with_path, unflatten
+
+    cfg = dataclasses.replace(get_arch(MESH_ARCH), n_layers=MESH_LAYERS)
+    tcfg = TrainConfig(microbatches=TRAIN_MICRO, optimizer="adamw", warmup=1)
+    gc.collect()
+    torch.cuda.empty_cache()
+    state = init_state(cfg, tcfg, torch.Generator(device=dev).manual_seed(SEED), dev,
+                       MESH_HINT)
+    stream = TokenStream(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=SEED, device=str(dev))
+
+    # the same step without a mesh: a warm-up and MESH_STEPS timed steps,
+    # the first counted (a step that follows an allocator retry pays for it)
+    free_step = make_train_step(cfg, tcfg)
+    state, _, _ = _timed_step(torch, free_step, state, stream.next())
+    free_ms, free_retries = [], []
+    for i in range(MESH_STEPS):
+        kernels.reset_launch_counts()
+        retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+        state, m, ms = _timed_step(torch, free_step, state, stream.next())
+        free_ms.append(ms)
+        free_retries.append(torch.cuda.memory_stats().get("num_alloc_retries", 0) - retries)
+        if i == 0:
+            free_launches = kernels.launch_counts()
+        require(np.isfinite(m["loss"]), f"mesh_train: mesh-free loss {m['loss']}")
+
+    trainer = Trainer(cfg, tcfg, stream, rules=DEFAULT_RULES)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps, recs = [], []
+    with set_mesh(mesh):
+        state, _ = trainer.run(state, 1, log_every=0)          # warm-up
+        for i in range(MESH_STEPS):
+            kernels.reset_launch_counts()
+            reset_collective_bytes()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+            with record_specs() if i == 0 else contextlib.nullcontext() as ledger:
+                start.record()
+                state, logs = trainer.run(state, 1, log_every=0)
+                end.record()
+                end.synchronize()
+            if i == 0:
+                recs, launches = list(ledger), kernels.launch_counts()
+            steps.append({"ms": start.elapsed_time(end), "loss": logs[0]["loss"],
+                          "aux": logs[0]["aux"], "grad_norm": logs[0]["grad_norm"],
+                          "alloc_retries": torch.cuda.memory_stats().get(
+                              "num_alloc_retries", 0) - retries,
+                          "collective_bytes": {k: v for k, v in collective_bytes().items()
+                                               if v}})
+            require(np.isfinite(logs[0]["loss"]), f"mesh_train: step {i} loss {logs[0]}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    require(launches == free_launches,
+            f"mesh_train: launches {launches} under the mesh, {free_launches} without")
+    sites = {r.axes for r in recs}
+    want_sites = {("batch", "seq", "embed"), ("batch", "seq", "vocab"),
+                  ("batch", "seq", "heads", None), ("batch", "seq", "kv_heads", None)}
+    require(want_sites <= sites, f"mesh_train: no shard record at {want_sites - sites}")
+    for r in recs:
+        require(r.spec == logical_spec(r.shape, r.axes, DEFAULT_RULES, mesh),
+                f"mesh_train: record {r} is not logical_spec's")
+
+    # every expert leaf's gradient, from one microbatch under the mesh
+    batch = {k: v[:TRAIN_BATCH // TRAIN_MICRO] for k, v in stream.next().items()}
+    flat = [p.detach().requires_grad_() for p in leaves(state.params)]
+    keys = [k for k, _ in leaves_with_path(state.params)]
+    experts = [i for i, k in enumerate(keys) if "|moe|" in k]
+    with set_mesh(mesh):
+        loss, _ = T.loss_fn(unflatten(state.params, flat), batch, cfg, DEFAULT_RULES)
+    grads = torch.autograd.grad(loss, [flat[i] for i in experts])
+    expert_grads = {keys[i]: float(g.float().abs().max()) for i, g in zip(experts, grads)}
+    del loss, grads, flat
+    bad = {k: v for k, v in expert_grads.items() if not (np.isfinite(v) and v > 0)}
+    ms = [st["ms"] for st in steps]
+    print(f"path mesh_train: {cfg.name} layers={cfg.n_layers} mesh={mesh.descriptor()} "
+          f"B={TRAIN_BATCH} S={TRAIN_SEQ} microbatches={TRAIN_MICRO} remat=full "
+          f"ms={ms!r} mesh_free_ms={free_ms!r} mesh_free_alloc_retries={free_retries} "
+          f"steps={steps} peak_gib={peak!r} "
+          f"launches={launches} mesh_free_launches={free_launches} shard_records={len(recs)} "
+          f"sites={len(sites)} expert_grad_max={expert_grads}", flush=True)
+    require(not bad, f"mesh_train: expert gradients zero or non-finite: {bad}")
+
+    # the parameters to disk and back, laid out across two meshes
+    params = state.params
+    del state, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_mesh_ckpt_")
+    restored = {}
+    try:
+        t0 = time.perf_counter()
+        ckpt.save(ckpt_dir, 1, params)
+        save_s = time.perf_counter() - t0
+        data8 = make_worker_mesh((8,), ("data",), devices=[dev] * 8)
+        for name, target in (("2x4", mesh), ("data8", data8)):
+            shardings = _shardings(T.param_specs(cfg, DEFAULT_RULES, target, MESH_HINT), target)
+            t0 = time.perf_counter()
+            got, _ = ckpt.restore(ckpt_dir, 1, params, shardings=shardings)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            same = all(isinstance(a, DistArray) and a.mesh is target
+                       and torch.equal(gather(a), b)
+                       for a, b in zip(leaves(got), leaves(params)))
+            restored[name] = {"restore_s": restore_s, "bitwise": same,
+                              "regions": max(len(a.tiles()) for a in leaves(got))}
+            del got
+            require(same, f"mesh_ckpt: the restore onto {name} differs")
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    nbytes = sum(t.numel() * t.element_size() for t in leaves(params))
+    print(f"path mesh_ckpt: bytes={nbytes} save_s={save_s!r} restored={restored}", flush=True)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"arch": cfg.name, "layers": cfg.n_layers, "mesh": mesh.descriptor(),
+            "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "microbatches": TRAIN_MICRO,
+            "ms": ms, "mesh_free_ms": free_ms, "mesh_free_alloc_retries": free_retries,
+            "steps": steps, "peak_gib": peak,
+            "launches": launches, "mesh_free_launches": free_launches,
+            "shard_records": len(recs), "expert_grad_max": expert_grads,
+            "checkpoint": {"bytes": nbytes, "save_s": save_s, "restored": restored}}
+
+
+def _shardings(specs: dict, mesh) -> dict:
+    """`param_specs`' tree as NamedShardings on `mesh`."""
+    from repro_torch.parallel import NamedSharding
+
+    return {k: _shardings(v, mesh) if isinstance(v, dict) else NamedSharding(mesh, v)
+            for k, v in specs.items()}
+
+
+def run_mesh(torch, dev) -> dict:
+    """Phase 19: a mesh of the one card."""
+    from repro_torch.launch.mesh import make_worker_mesh
+
+    mesh = make_worker_mesh(MESH_SHAPE, devices=["cuda:0"] * (MESH_SHAPE[0] * MESH_SHAPE[1]))
+    out = {"moe": run_mesh_moe(torch, dev, mesh)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["embed"] = run_mesh_embed(torch, dev, mesh)
+    out["compressed_psum"] = run_mesh_psum(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["train"] = run_mesh_train(torch, dev, mesh)
+    return out
+
+
 def _leaves(tree: dict):
     for v in tree.values():
         yield from (_leaves(v) if isinstance(v, dict) else (v,))
@@ -2885,6 +3275,16 @@ def main() -> int:
     # 18. training the dense LM: AdamW, the checkpoint, SPIN-Shampoo
     train_adamw = run_train_adamw(torch, train_cfg, torch.device("cuda"))
     train_shampoo = run_train_shampoo(torch, train_cfg, torch.device("cuda"))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 19. a mesh of the one card: expert-parallel MoE, the sharded
+    # embedding, compressed_psum, training and the elastic restore
+    phase_s = {}
+    t0 = time.perf_counter()
+    mesh = run_mesh(torch, torch.device("cuda"))
+    phase_s["19"] = time.perf_counter() - t0
+    print(f"phase_s {json.dumps(phase_s)}", flush=True)
 
     print(json.dumps({"paths": {
         "spin": {"n": n, "block_size": bs, "ms": spin["ms"], "residual": spin["residual"]},
@@ -2920,10 +3320,10 @@ def main() -> int:
         "lm_prefill": lm["lm_prefill"], "lm_decode": lm["lm_decode"],
         "lm_serve": lm["lm_serve"], "lm_families": families, "sharded": sharded,
         "train_adamw": train_adamw, "train_shampoo": train_shampoo,
-        "train_families": train_families},
+        "train_families": train_families, "mesh": mesh, "phase_s": phase_s},
         "card": card}), flush=True)
 
-    # 19. the kernels line
+    # 20. the kernels line
     rows = []
     gemm_body = "gemm_tc: pack pre-pass, then 3xTF32 wgmma on a TMA ring (f32)"
     report["schur_update"]["body"] = report["matmul"]["body"] = gemm_body
@@ -2971,7 +3371,8 @@ def main() -> int:
                 "train_adamw_step": train_adamw["launches"][name],
                 "train_shampoo_step1": train_shampoo["launches_step1"][name],
                 **{f"train_{arch}_step": run["launches"][name]
-                   for arch, run in train_families.items()}}
+                   for arch, run in train_families.items()},
+                "train_mesh_step": mesh["train"]["launches"][name]}
         if name in ("matmul", "schur_update", "blocked_gauss_jordan"):
             r["launches_by_path"]["train_shampoo_refresh"] = \
                 train_shampoo["refresh_launches"][name]
@@ -2979,7 +3380,8 @@ def main() -> int:
             r["launches_by_path"] = {
                 "train_adamw_step": train_adamw["launches"][name],
                 **{f"train_{arch}_step": run["launches"][name]
-                   for arch, run in train_families.items()}}
+                   for arch, run in train_families.items()},
+                "train_mesh_step": mesh["train"]["launches"][name]}
             r["kernels_by_dtype"] = {
                 "bf16, f16": ["flash_bwd_delta",
                               *fa.flash_attention_bwd_kernels(torch.bfloat16).values()],

@@ -12,6 +12,13 @@ Atomicity: write to ``<dir>/tmp.<step>/``, fsync, then rename to
 ``<dir>/step_<step>/``, so a crash mid-save never corrupts the latest
 complete checkpoint. `async_save` copies the state to host memory first,
 then writes on a background thread while training goes on.
+
+Elastic rescale: leaves are saved whole (their logical layout; a leaf
+laid out over a mesh, a DistArray, is gathered first), so
+`restore(..., shardings=)` lays each one out across any mesh, of any
+shape, from the same files: a pytree of `parallel.sharding.NamedSharding`
+matching the template gives every leaf back as a
+`parallel.collectives.DistArray` on its sharding's mesh, bit for bit.
 """
 
 from __future__ import annotations
@@ -25,13 +32,22 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from ..tree import leaves_with_path, unflatten
+from ..tree import leaves, leaves_with_path, unflatten
 
 __all__ = ["save", "async_save", "restore", "latest_step", "list_steps"]
 
 
+def _whole(leaf):
+    """A leaf laid out over a mesh (a DistArray) as its whole tensor: the
+    checkpoint holds the logical layout."""
+    from ..parallel.collectives import DistArray, gather
+
+    return gather(leaf) if isinstance(leaf, DistArray) else leaf
+
+
 def _host(leaf) -> np.ndarray | torch.Tensor:
     """A leaf copied to host memory: a CPU tensor, or a numpy array."""
+    leaf = _whole(leaf)
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().to("cpu", copy=True)
     return np.asarray(leaf)
@@ -40,6 +56,7 @@ def _host(leaf) -> np.ndarray | torch.Tensor:
 def _flatten(tree) -> dict[str, np.ndarray]:
     out = {}
     for key, leaf in leaves_with_path(tree):
+        leaf = _whole(leaf)
         if isinstance(leaf, torch.Tensor):
             t = leaf.detach().cpu()
             if t.dtype == torch.bfloat16:  # no numpy bf16: raw uint16 with a marker
@@ -52,6 +69,8 @@ def _flatten(tree) -> dict[str, np.ndarray]:
 
 
 def _unflatten_into(template, blobs: dict[str, np.ndarray]):
+    from ..parallel.collectives import DistArray
+
     vals = []
     for key, leaf in leaves_with_path(template):
         if key in blobs:
@@ -60,7 +79,7 @@ def _unflatten_into(template, blobs: dict[str, np.ndarray]):
             t = torch.from_numpy(np.array(blobs["BF16:" + key])).view(torch.bfloat16)
         else:
             raise KeyError(f"checkpoint missing leaf {key!r}")
-        if isinstance(leaf, torch.Tensor):
+        if isinstance(leaf, (torch.Tensor, DistArray)):
             t = t.to(leaf.device)
         vals.append(t)
     return unflatten(template, vals)
@@ -123,12 +142,28 @@ def latest_step(directory: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
-def restore(directory: str, step: int, template) -> tuple[Any, dict]:
+def restore(directory: str, step: int, template,
+            shardings=None) -> tuple[Any, dict]:
     """Restore into `template`'s structure: each leaf on its template
-    leaf's device (the host for a non-tensor), at the dtype saved."""
+    leaf's device (the host for a non-tensor), at the dtype saved. With
+    `shardings` (a matching pytree of NamedSharding), each leaf is laid
+    out by its sharding instead: a DistArray on that mesh, whose shards
+    lie on the mesh's devices."""
     path = os.path.join(directory, f"step_{step}")
     with np.load(os.path.join(path, "leaves.npz"), allow_pickle=False) as f:
         blobs = dict(f)
     with open(os.path.join(path, "meta.json")) as f:
         meta = json.load(f)
-    return _unflatten_into(template, blobs), meta.get("extra", {})
+    state = _unflatten_into(template, blobs)
+    if shardings is not None:
+        from ..parallel.collectives import distribute
+
+        flat = leaves(state)
+        specs = leaves(shardings)
+        if len(specs) != len(flat):
+            raise ValueError(f"shardings has {len(specs)} leaves, the state {len(flat)}")
+        state = unflatten(template, [
+            distribute(torch.as_tensor(t).to(sh.mesh.device(sh.mesh.coords()[0])),
+                       sh.spec, sh.mesh)
+            for t, sh in zip(flat, specs)])
+    return state, meta.get("extra", {})

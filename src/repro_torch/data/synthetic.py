@@ -8,8 +8,10 @@ step counter. The draws are not the reference's, which come from
 The shapes are the reference's `_batch_shapes`: tokens (and labels) for
 the token families; frame embeddings, a Bernoulli(0.15) frame mask and
 codebook labels for audio; patch embeddings and max(seq - patches, 1)
-text tokens for VLM. The dry run's `input_specs` comes with the port of
-the dry run.
+text tokens for VLM. `input_specs` gives the same inputs as `meta`
+tensors (shapes and dtypes, no allocation) at the reference's dtypes: ids
+int32 (`make_batch` draws them int64; the model takes either), masks
+bool, embeddings in the activation dtype.
 """
 
 from __future__ import annotations
@@ -20,10 +22,11 @@ import numpy as np
 import torch
 
 from ..configs.registry import ArchConfig
+from ..configs.shapes import ShapeConfig
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..models.layers import DTYPE
 
-__all__ = ["make_batch", "TokenStream", "host_shard"]
+__all__ = ["make_batch", "input_specs", "TokenStream", "host_shard"]
 
 MASK_RATE = 0.15      # audio: the share of frames masked
 
@@ -46,6 +49,16 @@ def _batch_shapes(cfg: ArchConfig, batch: int, seq: int, kind: str) -> dict:
     if kind == "train":
         out["labels"] = ((batch, seq), "ids")
     return out
+
+
+_SPEC_DTYPES = {"ids": torch.int32, "mask": torch.bool, "embeds": DTYPE}
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeConfig) -> dict:
+    """One (arch x shape) cell's model inputs as `meta` tensors."""
+    shapes = _batch_shapes(cfg, shape.global_batch, shape.seq_len, shape.kind)
+    return {name: torch.empty(dims, dtype=_SPEC_DTYPES[what], device="meta")
+            for name, (dims, what) in shapes.items()}
 
 
 def _draw(rng: np.random.Generator, shape: tuple, what: str, vocab: int) -> torch.Tensor:

@@ -59,8 +59,11 @@ class Mesh:
         types = {d.type for d in self._devices.values()}
         if len(types) > 1:
             raise ValueError(f"a mesh holds one kind of device, got {types}")
-        for d in self._devices.values():
+        for c, d in self._devices.items():
             resolve_device(d)          # a cuda mesh needs the card
+            if d.type == "cuda" and d.index is None:
+                # the card a tensor made on "cuda" reports: compare equal to it
+                self._devices[c] = torch.device("cuda", torch.cuda.current_device())
 
     @classmethod
     def solo(cls, device: torch.device) -> "Mesh":

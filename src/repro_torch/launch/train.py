@@ -14,7 +14,10 @@ cpu`. Every family trains on the card, hymba's sliding window and
 hubert's head dim 80 included. `--layers N` keeps the config's first N
 layers at full width, for a config whose optimizer state does not fit one
 card whole (phi-3-vision-4.2b, qwen2-moe-a2.7b). `--mesh single|multi`
-needs the production mesh, which the port does not have yet: it raises.
+needs the production mesh (ROADMAP A item 4, the dry run), which the port
+does not have yet: it raises. A repeated-device mesh of one card runs
+through the library (`set_mesh(make_worker_mesh((2, 4), devices=["cuda:0"]
+* 8))` around `Trainer(..., rules=DEFAULT_RULES)`).
 """
 
 from __future__ import annotations
@@ -47,8 +50,9 @@ def main(argv: list[str] | None = None) -> dict:
     args = ap.parse_args(argv)
 
     if args.mesh != "none":
-        raise ValueError(f"--mesh {args.mesh} needs the production mesh, which "
-                         "comes with the port of the dry run")
+        raise ValueError(f"--mesh {args.mesh} needs the production mesh "
+                         "(make_production_mesh, 16x16 or 2x16x16 devices), which "
+                         "comes with the port of the dry run, ROADMAP A item 4")
 
     from repro_torch.configs import SHAPES, get_arch
     from repro_torch.data.synthetic import TokenStream

@@ -22,6 +22,7 @@ import torch
 
 from ..configs.registry import ArchConfig
 from ..kernels.flash_attention.ops import flash_attention
+from ..parallel.sharding import DEFAULT_RULES, ShardingRules, shard
 from .layers import ParamDef, rotary
 
 __all__ = ["attn_params", "attn_apply", "attn_decode"]
@@ -57,11 +58,14 @@ def _project(params: dict, x: torch.Tensor, cfg: ArchConfig,
 
 def attn_apply(params: dict, x: torch.Tensor, cfg: ArchConfig,
                positions: Optional[torch.Tensor] = None,
+               rules: ShardingRules = DEFAULT_RULES,
                q_chunk: int = 0, kv_chunk: int = 0, *, want_kv: bool = False):
     """Full-sequence attention (train / prefill). x: (B, S, d) -> (B, S, d).
 
     `q_chunk` and `kv_chunk` are the reference scan's tiling hints, taken
-    for signature parity; the kernel tiles itself. With `want_kv` it also
+    for signature parity; the kernel tiles itself. `rules` resolves the
+    reference's sharding constraints on q, k and the output
+    (`parallel.sharding.shard`: recorded, nothing moves). With `want_kv` it also
     returns the rotated k and the v it attended over, (B, S, KV, hd)
     each: the prefill cache, the same bits the reference recomputes.
     """
@@ -69,16 +73,20 @@ def attn_apply(params: dict, x: torch.Tensor, cfg: ArchConfig,
     if positions is None:
         positions = torch.arange(s, device=x.device).expand(b, s)
     q, k, v = _project(params, x, cfg, positions)
+    q = shard(q, "batch", "seq", "heads", None, rules=rules)
+    k = shard(k, "batch", "seq", "kv_heads", None, rules=rules)
     # (B, S, H, hd) -> (B, H, S, hd) views: the kernel takes the strides.
     out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                           v.transpose(1, 2), causal=cfg.causal,
-                          window=cfg.sliding_window)
-    y = torch.matmul(out.transpose(1, 2).reshape(b, s, -1), params["wo"])
+                          window=cfg.sliding_window).transpose(1, 2)
+    out = shard(out, "batch", "seq", "heads", None, rules=rules)
+    y = torch.matmul(out.reshape(b, s, -1), params["wo"])
     return (y, k, v) if want_kv else y
 
 
 def attn_decode(params: dict, x: torch.Tensor, cache_k: torch.Tensor,
-                cache_v: torch.Tensor, pos: torch.Tensor, cfg: ArchConfig):
+                cache_v: torch.Tensor, pos: torch.Tensor, cfg: ArchConfig,
+                rules: ShardingRules = DEFAULT_RULES):
     """One-token decode. x: (B, 1, d); cache_{k,v}: (B, S, KV, hd); pos:
     (B,) current position. Returns (out, cache_k, cache_v).
 

@@ -15,9 +15,11 @@ import torch
 import torch.nn.functional as F
 
 from ..device import DEFAULT_DEVICE, resolve_device
+from ..parallel.sharding import DEFAULT_RULES, ShardingRules, logical_spec, shard
 
-__all__ = ["ParamDef", "init_tree", "norm_apply", "norm_params", "rotary",
-           "mlp_params", "mlp_apply", "DTYPE", "PARAM_DTYPE", "map_defs"]
+__all__ = ["ParamDef", "init_tree", "abstract_tree", "spec_tree", "norm_apply",
+           "norm_params", "rotary", "mlp_params", "mlp_apply", "DTYPE",
+           "PARAM_DTYPE", "map_defs"]
 
 DTYPE = torch.bfloat16        # activation dtype
 PARAM_DTYPE = torch.bfloat16  # stored parameter dtype
@@ -58,6 +60,18 @@ def init_tree(defs, generator: torch.Generator,
     drawing from `generator` (which must live on the same device)."""
     device = resolve_device(device)
     return map_defs(defs, lambda d: d.materialize(generator, device))
+
+
+def abstract_tree(defs):
+    """The tree as tensors on the `meta` device, at their dtypes: shapes
+    and dtypes with no allocation (the reference's ShapeDtypeStructs)."""
+    return map_defs(defs, lambda d: torch.empty(d.shape, dtype=d.dtype or PARAM_DTYPE,
+                                                device="meta"))
+
+
+def spec_tree(defs, rules: ShardingRules = DEFAULT_RULES, mesh=None):
+    """The tree's PartitionSpecs resolved against `mesh`."""
+    return map_defs(defs, lambda d: logical_spec(d.shape, d.logical, rules, mesh))
 
 
 # ---------------------------------------------------------------------------
@@ -122,11 +136,13 @@ def mlp_params(d: int, f: int, activation: str) -> dict:
     return p
 
 
-def mlp_apply(params: dict, x: torch.Tensor, activation: str) -> torch.Tensor:
+def mlp_apply(params: dict, x: torch.Tensor, activation: str,
+              rules: ShardingRules = DEFAULT_RULES) -> torch.Tensor:
     h = torch.matmul(x, params["wi"])
     if activation == "swiglu":
         g = torch.matmul(x, params["wg"])
         h = F.silu(g.float()).to(x.dtype) * h
     else:
         h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
+    h = shard(h, "batch", "seq", "ffn", rules=rules)
     return torch.matmul(h, params["wo"])

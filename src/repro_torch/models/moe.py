@@ -1,16 +1,18 @@
 """Mixture of experts: top-k routing, two-level capacity dispatch, grouped
-SwiGLU experts, shared experts, and the aux losses.
+SwiGLU experts, shared experts, and the aux losses; expert-parallel under
+a mesh.
 
-The port of `repro.models.moe` on one device: the reference's per-shard
-body `_moe_local` with one model shard (m_size = 1), line for line:
+The port of `repro.models.moe`. The reference's per-shard body
+`_moe_local` runs in phases, line for line:
 
   1. router top-k over the real experts (the phantom experts that pad E to
      the model-axis multiple are masked to -1e30);
-  2. first level: each (token, choice) takes the next slot of a
-     capacity-`cap` send buffer, cap = max(8, int(cf·t·k)); past it the
-     choice is dropped;
-  3. second level: the buffer's rows go to per-expert buffers of
-     `cap2` rows (the running count per expert); past it a row is dropped;
+  2. first level: each (token, choice) takes the next slot of its
+     destination shard's capacity-`cap` send buffer, cap = max(8,
+     int(cf·t·k / M)) with M the `model` axis (1 without a mesh); past it
+     the choice is dropped;
+  3. second level: the received rows go to per-expert buffers of `cap2`
+     rows (the running count per local expert); past it a row is dropped;
   4. the grouped SwiGLU expert products `ecd,edf->ecf` (`torch.matmul`
      over the expert axis, as the reference leaves them to XLA), gathered
      back and combined with the renormalised gates; a dropped choice
@@ -22,8 +24,28 @@ The reference's `.at[...].set(mode="drop")` and `.get(mode="fill")` become
 writes and reads of one extra slot past the end of each buffer, which the
 dropped rows point at: a write there is thrown away and a read there finds
 zeros. No dropped row is clamped into a real slot, and the device never
-waits on the host for a count. The expert-parallel path (`all_to_all`
-over the `model` axis) comes with the port of sharding (ROADMAP A.2).
+waits on the host for a count.
+
+Expert parallelism: under a mesh whose `model` axis is longer than 1,
+`moe_apply` runs the reference's `shard_map` program per coordinate
+(`parallel.collectives.region`) with the reference's layout: tokens split
+over the batch axes and the sequence over `model`, experts over `model`
+(E_loc = E/M a coordinate) and their width over `data` (FSDP). Each
+coordinate all-gathers its experts over `data`, routes its own tokens,
+fills (M, cap, d) send buffers, and an `all_to_all` over `model` delivers
+each buffer to the shard that holds its experts; the second-level
+dispatch, the expert products and a reverse `all_to_all` follow, then the
+gated combine. The capacities are per shard, so EP drops the tokens the
+reference's EP drops, which differ from the mesh-free drops. aux and z
+are each group's losses, `pmean`'d over the batch axes and `model`.
+The shared experts take each coordinate's own tokens through the WHOLE
+shared FFN (its weights all-gathered over `model`): the mesh-free
+semantics. The reference instead multiplies each coordinate's tokens by
+its `model` slice of the shared FFN and `psum`s the slices over `model`,
+which adds partial sums of different tokens once the sequence is split
+over `model` (ROADMAP §C, reference caveats). The EP phases run inside
+profiler ranges "moe:fsdp_gather", "moe:dispatch", "moe:experts" and
+"moe:combine" (`profile_lm --train --mesh`).
 """
 
 from __future__ import annotations
@@ -32,8 +54,12 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.profiler import record_function
 
 from ..configs.registry import ArchConfig, MoEConfig
+from ..launch.mesh import current_mesh
+from ..parallel import collectives as col
+from ..parallel.sharding import DEFAULT_RULES, PartitionSpec as P, ShardingRules
 from .layers import ParamDef
 
 __all__ = ["moe_params", "moe_apply"]
@@ -94,89 +120,194 @@ def route(x: torch.Tensor, router_w: torch.Tensor, cfg: ArchConfig):
     return logits, probs, gate, eidx
 
 
-def first_level(eidx: torch.Tensor, cfg: ArchConfig):
-    """(pos (t, k), dropped (t, k), cap) of the first-level dispatch with
-    one model shard: each (token, choice) in row-major order takes the next
-    of `cap` slots."""
+def first_level(eidx: torch.Tensor, cfg: ArchConfig, m_size: int = 1,
+                e_loc: int | None = None):
+    """(pos (t, k), dropped (t, k), cap) of the first-level dispatch over
+    `m_size` model shards of `e_loc` experts each (one shard holding every
+    expert by default): each (token, choice) in row-major order takes the
+    next of `cap` slots of its destination shard."""
     t, k = eidx.shape
-    cap = max(8, int(cfg.moe.capacity_factor * t * k))
-    pos = _positions_by_dest(torch.zeros(t * k, dtype=torch.long, device=eidx.device),
-                             1).reshape(t, k)
+    cap = max(8, int(cfg.moe.capacity_factor * t * k / max(m_size, 1)))
+    if m_size == 1:
+        dest = torch.zeros(t * k, dtype=torch.long, device=eidx.device)
+    else:
+        dest = (eidx // e_loc).reshape(-1)
+    pos = _positions_by_dest(dest, m_size).reshape(t, k)
     pos = torch.where(pos < cap, pos, cap)
     return pos, pos >= cap, cap
 
 
-def _moe_local(x: torch.Tensor, router_w, wi, wg, wo, shared, *, cfg: ArchConfig):
-    """The reference's per-shard body with one model shard. x: (B, S, d)."""
-    moe = cfg.moe
-    e_pad = e_loc = wi.shape[0]
+def _dispatch(x: torch.Tensor, router_w, cfg: ArchConfig, m_size: int, e_loc: int):
+    """Route one shard's tokens and fill its (M, cap, d) send buffers and
+    their local-expert indices (e_loc marks an empty slot)."""
     bsz, s, d = x.shape
-    t, k = bsz * s, moe.top_k
-    dev = x.device
-
+    t, k = bsz * s, cfg.moe.top_k
     tokens = x.reshape(t, d)
     logits, probs, gate, eidx = route(x, router_w, cfg)
-
-    # ---- first level: (token, choice) -> send slots; slot `cap` drops -----
-    pos, dropped, cap = first_level(eidx, cfg)
-    dest = eidx // e_loc                                  # all 0: one shard
-    send_x = torch.zeros((1, cap + 1, d), dtype=x.dtype, device=dev)
-    send_le = torch.full((1, cap + 1), e_loc, dtype=torch.long, device=dev)
+    pos, dropped, cap = first_level(eidx, cfg, m_size, e_loc)
+    dest = eidx // e_loc
+    send_x = torch.zeros((m_size, cap + 1, d), dtype=x.dtype, device=x.device)
+    send_le = torch.full((m_size, cap + 1), e_loc, dtype=torch.long, device=x.device)
     for j in range(k):
         send_x[dest[:, j], pos[:, j]] = tokens
         send_le[dest[:, j], pos[:, j]] = eidx[:, j] % e_loc
+    return dict(tokens=tokens, logits=logits, probs=probs, gate=gate, eidx=eidx,
+                dest=dest, pos=pos, dropped=dropped, cap=cap,
+                send_x=send_x[:, :cap], send_le=send_le[:, :cap])
 
-    # ---- second level: rows -> per-expert buffers; slot `cap2` drops ------
-    rows = send_x[:, :cap].reshape(cap, d)
-    rle = send_le[:, :cap].reshape(cap)
-    cap2 = cap if e_loc == 1 else max(8, int(2 * cap / e_loc))
+
+def second_level(recv_le: torch.Tensor, e_loc: int):
+    """(pos2 (M·cap,), dropped (M·cap,), cap2) of the second-level dispatch
+    of one shard's (M, cap) received rows into its `e_loc` experts' cap2
+    slots: a row's slot is the running count of its expert; an empty row
+    (marker e_loc) or one past cap2 takes slot cap2, which drops."""
+    m_size, cap = recv_le.shape
+    rle = recv_le.reshape(m_size * cap)
+    cap2 = m_size * cap if e_loc == 1 else max(8, int(2 * m_size * cap / e_loc))
     pos2 = _positions_by_dest(rle, e_loc)
-    pos2 = torch.where((rle < e_loc) & (pos2 < cap2), pos2, cap2)
+    live = rle < e_loc
+    pos2 = torch.where(live & (pos2 < cap2), pos2, cap2)
+    return pos2, live & (pos2 >= cap2), cap2
+
+
+def _experts(recv_x: torch.Tensor, recv_le: torch.Tensor, wi, wg, wo) -> torch.Tensor:
+    """Second-level dispatch of the (M, cap, d) received rows into
+    (E_loc, cap2, d) expert buffers, the grouped SwiGLU products, and the
+    rows gathered back into (M, cap, d) (zeros where a row was dropped)."""
+    m_size, cap, d = recv_x.shape
+    e_loc = wi.shape[0]
+    rows = recv_x.reshape(m_size * cap, d)
+    rle = recv_le.reshape(m_size * cap)
+    pos2, _, cap2 = second_level(recv_le, e_loc)
     ex = rle.clamp(0, e_loc - 1)
-    buf = torch.zeros((e_loc, cap2 + 1, d), dtype=x.dtype, device=dev)
+    buf = torch.zeros((e_loc, cap2 + 1, d), dtype=recv_x.dtype, device=recv_x.device)
     buf[ex, pos2] = rows
     buf = buf[:, :cap2]
 
-    # ---- grouped expert FFN (swiglu) --------------------------------------
     h = torch.matmul(buf, wi)
     g = torch.matmul(buf, wg)
     h = F.silu(g.float()).to(h.dtype) * h
     y = F.pad(torch.matmul(h, wo), (0, 0, 0, 1))          # slot cap2 reads zeros
+    return y[ex, pos2].reshape(m_size, cap, d)
 
-    # ---- gather back + combine --------------------------------------------
-    ret = F.pad(y[ex, pos2].reshape(1, cap, d), (0, 0, 0, 1))   # slot cap: zeros
-    out = torch.zeros((t, d), dtype=torch.float32, device=dev)
-    for j in range(k):
+
+def _combine(ret: torch.Tensor, r: dict) -> torch.Tensor:
+    """The gated sum (t, d) f32 of each token's returned choices."""
+    ret = F.pad(ret, (0, 0, 0, 1))                        # slot cap reads zeros
+    dest, pos = r["dest"], r["pos"]
+    out = torch.zeros(r["tokens"].shape, dtype=torch.float32, device=ret.device)
+    for j in range(dest.shape[1]):
         got = ret[dest[:, j], pos[:, j]]
-        w = torch.where(dropped[:, j], 0.0, gate[:, j])
+        w = torch.where(r["dropped"][:, j], 0.0, r["gate"][:, j])
         out = out + w[:, None] * got.float()
+    return out
 
-    # ---- shared experts (dense) -------------------------------------------
+
+def _shared(tokens: torch.Tensor, shared: dict) -> torch.Tensor:
+    hs = torch.matmul(tokens, shared["wi"])
+    gs = torch.matmul(tokens, shared["wg"])
+    hs = F.silu(gs.float()).to(hs.dtype) * hs
+    return torch.matmul(hs, shared["wo"]).float()
+
+
+def _losses(r: dict, cfg: ArchConfig):
+    """(load-balance aux, router z) of one group's tokens, 0-dim f32."""
+    e_pad = r["probs"].shape[1]
+    me = r["probs"].mean(0)                               # (E,)
+    ce = F.one_hot(r["eidx"][:, 0], e_pad).float().mean(0)
+    aux = cfg.moe.num_experts * torch.sum(me * ce)
+    z = torch.mean(torch.logsumexp(r["logits"], dim=-1) ** 2)
+    return aux, z
+
+
+def _moe_local(x: torch.Tensor, router_w, wi, wg, wo, shared, *, cfg: ArchConfig):
+    """The reference's per-shard body with one model shard. x: (B, S, d)."""
+    r = _dispatch(x, router_w, cfg, 1, wi.shape[0])
+    out = _combine(_experts(r["send_x"], r["send_le"], wi, wg, wo), r)
     if shared is not None:
-        hs = torch.matmul(tokens, shared["wi"])
-        gs = torch.matmul(tokens, shared["wg"])
-        hs = F.silu(gs.float()).to(hs.dtype) * hs
-        out = out + torch.matmul(hs, shared["wo"]).float()
-
-    # ---- aux losses --------------------------------------------------------
-    me = probs.mean(0)                                    # (E,)
-    ce = F.one_hot(eidx[:, 0], e_pad).float().mean(0)
-    aux = moe.num_experts * torch.sum(me * ce)
-    z = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
-    return out.reshape(bsz, s, d).to(x.dtype), aux, z
+        out = out + _shared(r["tokens"], shared)
+    aux, z = _losses(r, cfg)
+    return out.reshape(x.shape).to(x.dtype), aux, z
 
 
-def moe_apply(params: dict, x: torch.Tensor, cfg: ArchConfig
+def _moe_ep(mesh, x, router_w, wi, wg, wo, shared, *, cfg: ArchConfig,
+            data_axis, reduce_axes):
+    """The expert-parallel body over every coordinate of `mesh`: dicts
+    coordinate -> local tensor in, (out, aux, z) dicts out."""
+    coords = mesh.coords()
+    m_size = mesh.shape["model"]
+    c0 = coords[0]
+    e_loc = wi[c0].shape[0]
+    with record_function("moe:fsdp_gather"):
+        # FSDP: the experts arrive d-split over `data`; gather them before use
+        if data_axis:
+            wi = col.all_gather(wi, data_axis, 1, mesh)
+            wg = col.all_gather(wg, data_axis, 1, mesh)
+            wo = col.all_gather(wo, data_axis, 2, mesh)
+        if shared is not None:
+            # the whole shared FFN on every coordinate: its own tokens through it
+            shared = {"wi": col.all_gather(shared["wi"], "model", 1, mesh),
+                      "wg": col.all_gather(shared["wg"], "model", 1, mesh),
+                      "wo": col.all_gather(shared["wo"], "model", 0, mesh)}
+    with record_function("moe:dispatch"):
+        r = {c: _dispatch(x[c], router_w[c], cfg, m_size, e_loc) for c in coords}
+    recv_x = col.all_to_all({c: r[c]["send_x"] for c in coords}, "model", 0, 0, mesh)
+    recv_le = col.all_to_all({c: r[c]["send_le"] for c in coords}, "model", 0, 0, mesh)
+    with record_function("moe:experts"):
+        back = {c: _experts(recv_x[c], recv_le[c], wi[c], wg[c], wo[c]) for c in coords}
+    del recv_x, recv_le
+    ret = col.all_to_all(back, "model", 0, 0, mesh)
+    out, aux, z = {}, {}, {}
+    with record_function("moe:combine"):
+        for c in coords:
+            o = _combine(ret[c], r[c])
+            if shared is not None:
+                o = o + _shared(r[c]["tokens"], {k: v[c] for k, v in shared.items()})
+            out[c] = o.reshape(x[c].shape).to(x[c].dtype)
+            aux[c], z[c] = _losses(r[c], cfg)
+    if reduce_axes:
+        aux, z = col.pmean(aux, reduce_axes, mesh), col.pmean(z, reduce_axes, mesh)
+    return out, aux, z
+
+
+def moe_apply(params: dict, x: torch.Tensor, cfg: ArchConfig,
+              rules: ShardingRules = DEFAULT_RULES
               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> (out, load_balance_aux, router_z_loss); aux and z are
     0-dim f32. Under an ambient mesh with a `model` axis longer than 1 it
-    raises: expert parallelism comes with sharding (ROADMAP A.2)."""
-    from ..launch.mesh import current_mesh
-
+    runs expert-parallel (see the module docstring); the padded expert
+    count and the experts' width must split over `model` and `data` then,
+    as the reference's shard_map requires."""
     mesh = current_mesh()
-    if mesh is not None and mesh.shape.get("model", 1) > 1:
-        raise ValueError(f"moe_apply on a mesh with model axis {mesh.shape['model']}: "
-                         "the expert-parallel path (all_to_all over `model`) comes "
-                         "with the port of sharding, ROADMAP A.2")
-    return _moe_local(x, params["router"], params["wi"], params["wg"], params["wo"],
-                      params.get("shared"), cfg=cfg)
+    shared = params.get("shared")
+    if mesh is None or not mesh.shape or mesh.shape.get("model", 1) == 1:
+        return _moe_local(x, params["router"], params["wi"], params["wg"], params["wo"],
+                          shared, cfg=cfg)
+
+    axes = dict(mesh.shape)
+    batch_axes = tuple(a for a in ("pod", "data") if a in axes
+                       and x.shape[0] % axes[a] == 0)
+    # keep batch sharding only if the full tuple divides evenly
+    if batch_axes and x.shape[0] % math.prod(axes[a] for a in batch_axes):
+        batch_axes = batch_axes[:1]
+    data_axis = "data" if axes.get("data", 1) > 1 else None
+    bspec = batch_axes if batch_axes else None
+    # The sequence splits over `model` for dispatch, so that every
+    # coordinate routes its own tokens (decode, S = 1, keeps it whole).
+    seq_axis = "model" if x.shape[1] % axes["model"] == 0 else None
+    reduce_axes = batch_axes + ((seq_axis,) if seq_axis else ())
+    shared_specs = None
+    if shared is not None:
+        shared_specs = {"wi": P(None, "model"), "wg": P(None, "model"),
+                        "wo": P("model", None)}
+
+    def body(x, router, wi, wg, wo, shared):
+        return _moe_ep(mesh, x, router, wi, wg, wo, shared, cfg=cfg,
+                       data_axis=data_axis, reduce_axes=reduce_axes)
+
+    return col.region(
+        body, mesh,
+        (P(bspec, seq_axis, None), P(None, None), P("model", data_axis, None),
+         P("model", data_axis, None), P("model", None, data_axis), shared_specs),
+        (P(bspec, seq_axis, None), P(), P()),
+    )(x, params["router"], params["wi"], params["wg"], params["wo"], shared)

@@ -12,8 +12,8 @@ layout, as in the reference:
 `dt`, `log_a`, the decay tensor and the state h are f32, as in the
 reference; the conv state stays in the activation dtype. The reference's
 products are XLA einsums outside any Pallas kernel, so they stay
-`torch.matmul` here. Its `shard` constraints come with the port of
-`parallel/sharding.py`.
+`torch.matmul` here. Its `shard` constraints resolve and record the
+reference's layouts (`parallel.sharding.shard`); nothing moves.
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.registry import ArchConfig, SSMConfig
+from ..parallel.sharding import DEFAULT_RULES, ShardingRules, shard
 from . import scan_util
 from .layers import ParamDef
 
@@ -83,7 +84,8 @@ def _gated_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor) -> torch.
 
 def _ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                  b_in: torch.Tensor, c_in: torch.Tensor, chunk: int,
-                 h0: torch.Tensor | None = None
+                 h0: torch.Tensor | None = None,
+                 rules: ShardingRules = DEFAULT_RULES
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """Chunked SSD. x: (B, S, H, P); dt: (B, S, H); a: (H,) negative;
     b_in, c_in: (B, S, N). Returns (y (B, S, H, P) in x's dtype, final
@@ -108,10 +110,13 @@ def _ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     log_a = dt * a[None, None, :]                       # (B, S, H)  <= 0
     xdt = x.float() * dt[..., None]
 
-    xc = xdt.reshape(bsz, nc, q, h, p)
-    lac = log_a.reshape(bsz, nc, q, h)
-    bc = b_in.float().reshape(bsz, nc, q, n)
-    cc = c_in.float().reshape(bsz, nc, q, n)
+    # chunked views: (B, nc, Q, ...), chunk-sharded
+    def ck(t, *ax):
+        return shard(t, "batch", "ssm_chunk", *ax, rules=rules)
+    xc = ck(xdt.reshape(bsz, nc, q, h, p), None, None, None)
+    lac = ck(log_a.reshape(bsz, nc, q, h), None, None)
+    bc = ck(b_in.float().reshape(bsz, nc, q, n), None, None)
+    cc = ck(c_in.float().reshape(bsz, nc, q, n), None, None)
 
     cum = torch.cumsum(lac, dim=2)                      # (B, nc, Q, H)
     cum_h = cum.transpose(2, 3)                         # (B, nc, H, Q)
@@ -122,12 +127,12 @@ def _ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     del seg
 
     # intra-chunk ("attention" term): ((C Bᵀ) ⊙ L) X
-    cb = torch.matmul(cc, bc.transpose(-1, -2))[:, :, None]   # (B, nc, 1, Q_i, Q_j)
+    cb = ck(torch.matmul(cc, bc.transpose(-1, -2)), None, None)[:, :, None]  # (B, nc, 1, Q, Q)
     # in place unless autograd keeps exp's output for the backward
     decay = decay * cb if decay.requires_grad else decay.mul_(cb)
     y_intra = torch.matmul(decay, xc.permute(0, 1, 3, 2, 4))   # (B, nc, H, Q, P)
     del decay
-    y_intra = y_intra.permute(0, 1, 3, 2, 4)            # (B, nc, Q, H, P)
+    y_intra = ck(y_intra.permute(0, 1, 3, 2, 4), None, None, None)   # (B, nc, Q, H, P)
 
     # each chunk's contribution to the carried state
     decay_to_end = torch.exp(cum[:, :, -1:, :] - cum)  # (B, nc, Q, H)
@@ -149,13 +154,14 @@ def _ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
 
     # inter-chunk output: C_t · h_{chunk start} · decay(0..t)
     ch = torch.matmul(cc[:, :, None], hprevs)           # (B, nc, H, Q, P)
-    y_inter = ch.permute(0, 1, 3, 2, 4) * torch.exp(cum)[..., None]
+    y_inter = ck(ch.permute(0, 1, 3, 2, 4) * torch.exp(cum)[..., None], None, None, None)
 
     y = (y_intra + y_inter).reshape(bsz, s, h, p)
     return y.to(x.dtype), hlast
 
 
 def ssm_apply(params: dict, x: torch.Tensor, cfg: ArchConfig,
+              rules: ShardingRules = DEFAULT_RULES,
               h0: torch.Tensor | None = None, conv0: torch.Tensor | None = None
               ) -> tuple[torch.Tensor, SSMState]:
     """Full-sequence SSD. x: (B, S, d) -> (out, final SSMState). The conv
@@ -168,9 +174,9 @@ def ssm_apply(params: dict, x: torch.Tensor, cfg: ArchConfig,
     dt = torch.matmul(x, params["wdt"]) + params["dt_bias"].float()
     xbc = _causal_conv(xbc_in, params["conv_w"], conv0)
     xs, b_in, c_in = torch.split(xbc, [di, n, n], dim=-1)
-    xs = xs.reshape(bsz, s, h, p)
+    xs = shard(xs.reshape(bsz, s, h, p), "batch", "seq", "ssm_inner", None, rules=rules)
     a = -torch.exp(params["a_log"].float())
-    y, hlast = _ssd_chunked(xs, dt, a, b_in, c_in, cfg.ssm.chunk, h0=h0)
+    y, hlast = _ssd_chunked(xs, dt, a, b_in, c_in, cfg.ssm.chunk, h0=h0, rules=rules)
     y = y + params["d_skip"].to(y.dtype)[None, None, :, None] * xs
     y = _gated_norm(y.reshape(bsz, s, di), z, params["norm_scale"])
     out = torch.matmul(y, params["wo"])

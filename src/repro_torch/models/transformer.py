@@ -22,14 +22,20 @@ weights carry across one to one (`repro_torch.bridge.lm_params_from_numpy`).
     and `decode_step` always take; remat does not apply.
 Both give the same logits for the same parameters.
 
+Under an ambient mesh (`launch.mesh.set_mesh`) every entry point takes
+the reference's `rules`: the activations keep the global view and each
+`shard` site records its resolved layout (`parallel.sharding`), while
+the embedding lookup and MoE run their per-coordinate programs. The
+training forward carries the mesh into each checkpointed layer, since
+its recompute runs on autograd's worker thread on the card, where the
+ambient mesh is not set.
+
 Entry points:
-  param_defs / init_params
+  param_defs / init_params / abstract_params / param_specs
   forward(...)            logits, MoE aux losses (+ prefill cache)
   loss_fn(...)            next-token CE (masked-frame CE for audio) + aux
   prefill(...)            forward with the cache
-  init_cache / decode_step
-The sharding helpers (`param_specs`, `abstract_*`, `cache_specs`) come with
-the port of `parallel/sharding.py`.
+  init_cache / abstract_cache / cache_specs / decode_step
 """
 
 from __future__ import annotations
@@ -42,14 +48,17 @@ from torch.utils import checkpoint as torch_checkpoint
 
 from ..configs.registry import ArchConfig
 from ..device import DEFAULT_DEVICE, resolve_device
+from ..launch.mesh import current_mesh, set_mesh
+from ..parallel.sharding import DEFAULT_RULES, ShardingRules, logical_spec, shard
 from ..tree import leaves
 from . import attention, moe as moe_mod, ssm as ssm_mod
 from .embedding import embed_lookup
-from .layers import (DTYPE, ParamDef, init_tree, map_defs, mlp_apply,
-                     mlp_params, norm_apply, norm_params)
+from .layers import (DTYPE, ParamDef, abstract_tree, init_tree, map_defs, mlp_apply,
+                     mlp_params, norm_apply, norm_params, spec_tree)
 
-__all__ = ["param_defs", "init_params", "forward", "loss_fn", "prefill",
-           "init_cache", "decode_step", "REMAT_POLICIES"]
+__all__ = ["param_defs", "init_params", "abstract_params", "param_specs",
+           "forward", "loss_fn", "prefill", "init_cache", "abstract_cache",
+           "cache_specs", "decode_step", "REMAT_POLICIES"]
 
 
 # ---------------------------------------------------------------------------
@@ -104,6 +113,17 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     return init_tree(param_defs(cfg, model_size_hint), generator, device)
 
 
+def abstract_params(cfg: ArchConfig, model_size_hint: int = 16) -> dict:
+    """The parameters as `meta` tensors: shapes and dtypes, no allocation."""
+    return abstract_tree(param_defs(cfg, model_size_hint))
+
+
+def param_specs(cfg: ArchConfig, rules: ShardingRules = DEFAULT_RULES,
+                mesh=None, model_size_hint: int = 16) -> dict:
+    """The parameters' PartitionSpecs on `mesh` (default: the ambient one)."""
+    return spec_tree(param_defs(cfg, model_size_hint), rules, mesh)
+
+
 # ---------------------------------------------------------------------------
 # Forward
 # ---------------------------------------------------------------------------
@@ -119,12 +139,14 @@ def _norm(cfg: ArchConfig, params: dict, name: str, x: torch.Tensor) -> torch.Te
     return norm_apply(cfg.norm, params.get(name, {}), x)
 
 
-def _logits(params: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+def _logits(params: dict, x: torch.Tensor, cfg: ArchConfig,
+            rules: ShardingRules = DEFAULT_RULES) -> torch.Tensor:
     """f32 logits of bf16 operands: upcast, multiply, keep f32 (the
     reference's `preferred_element_type=jnp.float32`)."""
     x = norm_apply(cfg.norm, params["final_norm"], x)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return torch.matmul(x.float(), head.float())
+    logits = torch.matmul(x.float(), head.float())
+    return shard(logits, "batch", "seq", "vocab", rules=rules)
 
 
 REMAT_POLICIES = ("full", "dots")
@@ -158,7 +180,7 @@ def _zero(x: torch.Tensor) -> torch.Tensor:
 
 
 def _layer_fwd(cfg: ArchConfig, lp: dict, x: torch.Tensor, positions: torch.Tensor,
-               want_cache: bool = False):
+               want_cache: bool = False, rules: ShardingRules = DEFAULT_RULES):
     """One layer of any family: (x, aux, z, cache slice). aux and z are the
     MoE losses (0-dim f32, zero without MoE); the cache slice holds the
     layer's k, v (B, S, KV, hd) and SSM state when `want_cache`."""
@@ -166,12 +188,13 @@ def _layer_fwd(cfg: ArchConfig, lp: dict, x: torch.Tensor, positions: torch.Tens
     cache: dict = {}
     if not cfg.attn_free:
         h = _norm(cfg, lp, "attn_norm", x)
-        a_out = attention.attn_apply(lp["attn"], h, cfg, positions, want_kv=want_cache)
+        a_out = attention.attn_apply(lp["attn"], h, cfg, positions, rules,
+                                     want_kv=want_cache)
         if want_cache:
             a_out, cache["k"], cache["v"] = a_out
         if cfg.family == "hybrid":
             # attention and SSD heads in parallel on the same norm, mean-combined
-            s_out, st = ssm_mod.ssm_apply(lp["ssm"], h, cfg)
+            s_out, st = ssm_mod.ssm_apply(lp["ssm"], h, cfg, rules)
             x = x + 0.5 * (a_out + s_out)
             if want_cache:
                 cache["ssm_h"], cache["ssm_conv"] = st.h, st.conv
@@ -179,25 +202,31 @@ def _layer_fwd(cfg: ArchConfig, lp: dict, x: torch.Tensor, positions: torch.Tens
             x = x + a_out
     if cfg.ssm is not None and cfg.family != "hybrid":
         h = _norm(cfg, lp, "ssm_norm", x)
-        s_out, st = ssm_mod.ssm_apply(lp["ssm"], h, cfg)
+        s_out, st = ssm_mod.ssm_apply(lp["ssm"], h, cfg, rules)
         x = x + s_out
         if want_cache:
             cache["ssm_h"], cache["ssm_conv"] = st.h, st.conv
     if cfg.d_ff:
         h = _norm(cfg, lp, "mlp_norm", x)
-        x = x + mlp_apply(lp["mlp"], h, cfg.activation)
+        x = x + mlp_apply(lp["mlp"], h, cfg.activation, rules)
     if cfg.moe is not None:
         h = _norm(cfg, lp, "moe_norm", x)
-        m_out, aux, z = moe_mod.moe_apply(lp["moe"], h, cfg)
+        m_out, aux, z = moe_mod.moe_apply(lp["moe"], h, cfg, rules)
         x = x + m_out
+    x = shard(x, "batch", "seq", "embed", rules=rules)
     return x, aux, z, cache
 
 
-def _train_layer(cfg: ArchConfig, lp: dict, x: torch.Tensor, positions: torch.Tensor):
-    return _layer_fwd(cfg, lp, x, positions)[:3]
+def _train_layer(cfg: ArchConfig, rules: ShardingRules, mesh, lp: dict, x: torch.Tensor,
+                 positions: torch.Tensor):
+    # `mesh` comes in explicitly: a checkpointed layer's recompute runs on
+    # autograd's worker thread on the card, which has no ambient mesh
+    with set_mesh(mesh):
+        return _layer_fwd(cfg, lp, x, positions, rules=rules)[:3]
 
 
-def _embed_inputs(params: dict, batch: dict, cfg: ArchConfig):
+def _embed_inputs(params: dict, batch: dict, cfg: ArchConfig,
+                  rules: ShardingRules = DEFAULT_RULES):
     """Token or frontend embedding: (x (B, S, d) in DTYPE, positions)."""
     if cfg.family == "audio":
         x = batch["frame_embeds"].to(DTYPE)            # the frontend's stub output
@@ -209,6 +238,7 @@ def _embed_inputs(params: dict, batch: dict, cfg: ArchConfig):
     else:
         x = embed_lookup(params["embed"], batch["tokens"]).to(DTYPE)
     b, s, _ = x.shape
+    x = shard(x, "batch", "seq", "embed", rules=rules)
     return x, torch.arange(s, device=x.device).expand(b, s)
 
 
@@ -216,12 +246,13 @@ def _tracks_grad(params: dict) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in leaves(params))
 
 
-def _train_forward(params: dict, batch: dict, cfg: ArchConfig, remat: bool,
-                   remat_policy: str):
+def _train_forward(params: dict, batch: dict, cfg: ArchConfig, rules: ShardingRules,
+                   remat: bool, remat_policy: str):
     if remat_policy not in REMAT_POLICIES:
         raise ValueError(f"unknown remat_policy {remat_policy!r}; want one of "
                          f"{REMAT_POLICIES}")
-    x, positions = _embed_inputs(params, batch, cfg)
+    x, positions = _embed_inputs(params, batch, cfg, rules)
+    mesh = current_mesh()
     context_fn = torch_checkpoint.noop_context_fn
     if remat_policy == "dots":
         context_fn = functools.partial(
@@ -229,16 +260,17 @@ def _train_forward(params: dict, batch: dict, cfg: ArchConfig, remat: bool,
     aux = z = _zero(x)
     for lp in _unstack(params["layers"], cfg.n_layers):
         if remat:
-            x, a, zz = torch_checkpoint.checkpoint(_train_layer, cfg, lp, x, positions,
-                                                   use_reentrant=False,
+            x, a, zz = torch_checkpoint.checkpoint(_train_layer, cfg, rules, mesh, lp, x,
+                                                   positions, use_reentrant=False,
                                                    context_fn=context_fn)
         else:
-            x, a, zz = _train_layer(cfg, lp, x, positions)
+            x, a, zz = _train_layer(cfg, rules, mesh, lp, x, positions)
         aux, z = aux + a, z + zz
-    return _logits(params, x, cfg), aux, z, None
+    return _logits(params, x, cfg, rules), aux, z, None
 
 
-def forward(params: dict, batch: dict, cfg: ArchConfig, *,
+def forward(params: dict, batch: dict, cfg: ArchConfig,
+            rules: ShardingRules = DEFAULT_RULES, *,
             want_cache: bool = False, remat: bool = True,
             remat_policy: str = "full"):
     """Full-sequence forward. The batch holds "tokens" (B, S); audio gives
@@ -257,25 +289,26 @@ def forward(params: dict, batch: dict, cfg: ArchConfig, *,
         if want_cache:
             raise ValueError("the prefill cache comes from the inference "
                              "forward; call prefill without grad")
-        return _train_forward(params, batch, cfg, remat, remat_policy)
+        return _train_forward(params, batch, cfg, rules, remat, remat_policy)
     with torch.inference_mode():
-        x, positions = _embed_inputs(params, batch, cfg)
+        x, positions = _embed_inputs(params, batch, cfg, rules)
         b, s, _ = x.shape
         cache = _empty_cache(cfg, b, s, x.device, torch.empty) if want_cache else None
         aux = z = _zero(x)
         for i in range(cfg.n_layers):
             x, a, zz, layer_cache = _layer_fwd(cfg, _layer(params["layers"], i), x,
-                                               positions, want_cache)
+                                               positions, want_cache, rules)
             aux, z = aux + a, z + zz
             for key, val in layer_cache.items():
                 cache[key][i] = val
-        logits = _logits(params, x, cfg)
+        logits = _logits(params, x, cfg, rules)
         if want_cache:
             cache["pos"].fill_(s)
         return logits, aux, z, cache
 
 
-def loss_fn(params: dict, batch: dict, cfg: ArchConfig, *,
+def loss_fn(params: dict, batch: dict, cfg: ArchConfig,
+            rules: ShardingRules = DEFAULT_RULES, *,
             aux_weight: float = 0.01, z_weight: float = 1e-3,
             remat: bool = True, remat_policy: str = "full"):
     """Next-token cross-entropy of the logits against batch["labels"] (B,
@@ -285,7 +318,7 @@ def loss_fn(params: dict, batch: dict, cfg: ArchConfig, *,
     f32 tensors. The log-likelihood is picked by `gather`, one index a row,
     so its backward writes each entry once: on the card the gradient has
     the same bits on every run."""
-    logits, aux, z, _ = forward(params, batch, cfg, remat=remat,
+    logits, aux, z, _ = forward(params, batch, cfg, rules, remat=remat,
                                 remat_policy=remat_policy)
     labels = batch["labels"]
     if cfg.family == "vlm":
@@ -305,13 +338,14 @@ def loss_fn(params: dict, batch: dict, cfg: ArchConfig, *,
                    "tokens": n_tokens.to(torch.float32)}
 
 
-def prefill(params: dict, batch: dict, cfg: ArchConfig):
+def prefill(params: dict, batch: dict, cfg: ArchConfig,
+            rules: ShardingRules = DEFAULT_RULES):
     """Prefill forward: logits + populated cache (inference). The k, v
     cache covers the whole prompt, also where a sliding window makes
     `init_cache` roll: to decode past the prompt, pad its S axis to the
     decode length first (a cache no longer than the window rolls; a longer
     one attends without the window, as in the reference)."""
-    return forward(params, batch, cfg, want_cache=True)
+    return forward(params, batch, cfg, rules, want_cache=True)
 
 
 # ---------------------------------------------------------------------------
@@ -346,12 +380,36 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int,
     window (a rolling cache); ssm_h and ssm_conv where the family has an
     SSM."""
     device = resolve_device(device)
-    s_eff = min(seq_len, cfg.sliding_window) if cfg.sliding_window else seq_len
-    return _empty_cache(cfg, batch, s_eff, device, torch.zeros)
+    return _empty_cache(cfg, batch, _kv_len(cfg, seq_len), device, torch.zeros)
+
+
+def _kv_len(cfg: ArchConfig, seq_len: int) -> int:
+    return min(seq_len, cfg.sliding_window) if cfg.sliding_window else seq_len
+
+
+def abstract_cache(cfg: ArchConfig, batch: int, seq_len: int) -> dict:
+    """`init_cache`'s tensors on the `meta` device: no allocation."""
+    return _empty_cache(cfg, batch, _kv_len(cfg, seq_len), torch.device("meta"),
+                        torch.empty)
+
+
+_CACHE_LOGICAL = {"pos": ("batch",),
+                  "k": ("layers", "batch", "kv_seq", "kv_heads", None),
+                  "v": ("layers", "batch", "kv_seq", "kv_heads", None),
+                  "ssm_h": ("layers", "batch", "ssm_inner", None, None),
+                  "ssm_conv": ("layers", "batch", None, None)}
+
+
+def cache_specs(cfg: ArchConfig, batch: int, seq_len: int,
+                rules: ShardingRules = DEFAULT_RULES, mesh=None) -> dict:
+    """The decode cache's PartitionSpecs on `mesh` (default: the ambient
+    one), the reference's logical layout."""
+    return {k: logical_spec(tuple(v.shape), _CACHE_LOGICAL[k], rules, mesh)
+            for k, v in abstract_cache(cfg, batch, seq_len).items()}
 
 
 def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
-                cfg: ArchConfig):
+                cfg: ArchConfig, rules: ShardingRules = DEFAULT_RULES):
     """One decode step. tokens: (B,) ids. Returns (logits (B, V) f32,
     new_cache). The cache's k, v and SSM state are written in place (the
     reference's jitted callers donate them); new_cache shares them and has
@@ -364,7 +422,7 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
             if not cfg.attn_free:
                 h = _norm(cfg, lp, "attn_norm", x)
                 a_out, _, _ = attention.attn_decode(lp["attn"], h, cache["k"][i],
-                                                    cache["v"][i], pos, cfg)
+                                                    cache["v"][i], pos, cfg, rules)
                 if cfg.family == "hybrid":
                     s_out = _ssm_decode(lp, h, cache, i, cfg)
                     x = x + 0.5 * (a_out + s_out)
@@ -375,11 +433,11 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
                 x = x + _ssm_decode(lp, h, cache, i, cfg)
             if cfg.d_ff:
                 h = _norm(cfg, lp, "mlp_norm", x)
-                x = x + mlp_apply(lp["mlp"], h, cfg.activation)
+                x = x + mlp_apply(lp["mlp"], h, cfg.activation, rules)
             if cfg.moe is not None:
                 h = _norm(cfg, lp, "moe_norm", x)
-                x = x + moe_mod.moe_apply(lp["moe"], h, cfg)[0]
-        logits = _logits(params, x, cfg)[:, 0]
+                x = x + moe_mod.moe_apply(lp["moe"], h, cfg, rules)[0]
+        logits = _logits(params, x, cfg, rules)[:, 0]
         new_cache = {k: v for k, v in cache.items() if k != "pos"}
         new_cache["pos"] = pos + 1
         return logits, new_cache

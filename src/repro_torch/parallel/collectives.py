@@ -27,7 +27,27 @@ so a mesh that repeats one card pays, and counts, the data movement its
 layout implies. `collective_bytes()` reports the bytes copied between
 coordinates since the last reset, by kind: "gather" (product operands),
 "ring" (the ring's panel passes), "reshard" (quadrant views, arrange, a
-change of layout) and "to_dense" (densifying a result).
+change of layout, a region's inputs sent to another device) and
+"to_dense" (densifying a result).
+
+The reference's `shard_map` regions (MoE's expert-parallel dispatch, the
+sharded embedding, `compressed_psum`) run here per coordinate, as dicts
+coordinate -> local tensor: `split` slices an input by its spec onto each
+coordinate's device, the body runs one phase over every coordinate, then
+a collective between them, then the next phase, and `join` reassembles
+an output by its spec on the mesh's home device. The collectives act
+over a named mesh axis (or a tuple of axes, row-major), group by group:
+`all_to_all`, tiled `all_gather`, `psum`, `pmean`, `pmax`, with
+`axis_index` and `axis_size`. Each is a `torch.autograd.Function` whose
+backward is the transposed collective (all_to_all with its dims swapped,
+a reduce-scatter, a psum), so a training step differentiates through a
+region. Each counts, forward and backward, the bytes a coordinate takes
+from another under its own kind: an all_to_all the chunks it receives, an
+all_gather the pieces, a psum / pmean / pmax the inputs read by the
+group's first coordinate plus the result handed back to the others. No
+threads: autograd and the ambient mesh do not cross into them. Each
+collective runs inside a profiler range "collective:<kind>" (its backward
+too), which `profile_lm --train --mesh` reads.
 """
 
 from __future__ import annotations
@@ -37,21 +57,24 @@ import threading
 from typing import Callable, Sequence
 
 import torch
+from torch.autograd.profiler import record_function
 
 from ..core.blockmatrix import suspend_counts
-from ..launch.mesh import Mesh
+from ..launch.mesh import Mesh, current_mesh
 
 __all__ = ["DistArray", "Region", "grid_spec", "panel_spec", "region_of",
            "fetch", "take", "assemble", "distribute", "from_replicas", "zip_map", "once_per_device",
            "summa", "ring", "grid_to_panel", "panel_to_grid", "row_apply",
            "map_regions",
            "gather", "relayout", "collective_bytes",
-           "reset_collective_bytes"]
+           "reset_collective_bytes", "split", "join", "region", "all_to_all",
+           "all_gather", "psum", "pmean", "pmax", "axis_index", "axis_size"]
 
 Region = tuple[tuple[int, int], ...]          # (lo, hi) a dimension
 
 _BYTES: dict[str, int] = {"gather": 0, "ring": 0, "reshard": 0,
-                          "to_dense": 0}
+                          "to_dense": 0, "all_to_all": 0, "all_gather": 0,
+                          "psum": 0, "pmean": 0, "pmax": 0}
 _LOCK = threading.Lock()
 
 
@@ -98,17 +121,40 @@ def panel_spec(rows: int, mesh, axes: tuple[str, str] = ("data", "model")
     return (d if d in shape and rows % shape[d] == 0 else None, None)
 
 
-def region_of(shape: Sequence[int], spec: Sequence[str | None], mesh: Mesh,
+def _names(axis) -> tuple[str, ...]:
+    """A spec entry or collective axis as a tuple of mesh axis names."""
+    if axis is None:
+        return ()
+    return (axis,) if isinstance(axis, str) else tuple(axis)
+
+
+def _extent(mesh: Mesh, axis) -> int:
+    n = 1
+    for a in _names(axis):
+        n *= mesh.shape[a]
+    return n
+
+
+def _position(mesh: Mesh, axis, coord: tuple[int, ...]) -> int:
+    """`coord`'s index along `axis`: row-major over a tuple of axes, the
+    first outermost, as JAX splits a dimension over several axes."""
+    i = 0
+    for a in _names(axis):
+        i = i * mesh.shape[a] + coord[mesh.axis_index(a)]
+    return i
+
+
+def region_of(shape: Sequence[int], spec: Sequence, mesh: Mesh,
               coord: tuple[int, ...]) -> Region:
-    """The global region coordinate `coord` holds under `spec`."""
+    """The global region coordinate `coord` holds under `spec`; an entry
+    may be a tuple of mesh axes (split over their product, row-major)."""
     out = []
     for n, ax in zip(shape, spec):
         if ax is None:
             out.append((0, n))
             continue
-        size = mesh.shape[ax]
-        chunk = n // size
-        i = coord[mesh.axis_index(ax)]
+        chunk = n // _extent(mesh, ax)
+        i = _position(mesh, ax, coord)
         out.append((i * chunk, (i + 1) * chunk))
     return tuple(out)
 
@@ -289,7 +335,8 @@ def assemble(parts: Sequence[tuple[Sequence[int], DistArray]],
 def distribute(t: torch.Tensor, spec: Sequence[str | None],
                mesh: Mesh) -> DistArray:
     """Lay a global tensor out over `mesh`: views of it on its own device,
-    copies on the others."""
+    copies on the others. A dimension its axes do not divide raises."""
+    _check_spec(t.shape, spec, mesh)
     whole = _whole(t.shape)
 
     def make(c, r):
@@ -343,7 +390,7 @@ def _rebuild(like: DistArray, shards: dict) -> DistArray:
     local = shards[c0].shape
     shape = []
     for n, ax in zip(local, like.spec):
-        shape.append(n if ax is None else n * like.mesh.shape[ax])
+        shape.append(n * _extent(like.mesh, ax))
     return DistArray(shape, like.spec, like.mesh, shards)
 
 
@@ -569,3 +616,330 @@ def map_regions(x: DistArray,
     per distinct (device, region)."""
     return _layout(x.mesh, x.shape, x.spec,
                    lambda c, r: fn(x.shards[c], r, c))
+
+
+# ---------------------------------------------------------------------------
+# Per-coordinate programs: the reference's shard_map regions
+# ---------------------------------------------------------------------------
+
+
+def _the_mesh(mesh: Mesh | None) -> Mesh:
+    mesh = mesh if mesh is not None else current_mesh()
+    if mesh is None or not mesh.axes:
+        raise ValueError("a per-coordinate collective needs a mesh with axes")
+    return mesh
+
+
+def _check_coords(xs: dict, mesh: Mesh) -> None:
+    if set(xs) != set(mesh.coords()):
+        raise ValueError(f"per-coordinate values for {sorted(xs)} do not match the "
+                         f"mesh's coordinates {mesh.coords()}")
+
+
+def _groups(mesh: Mesh, axis) -> list[list[tuple[int, ...]]]:
+    """The coordinates that a collective over `axis` joins, group by group
+    (the other axes fixed), each ordered by its index along `axis`."""
+    names = _names(axis)
+    for a in names:
+        if a not in mesh.shape:
+            raise ValueError(f"mesh {mesh.descriptor()} has no axis {a!r}")
+    groups: dict = {}
+    for c in mesh.coords():
+        key = tuple(i for i, n in zip(c, mesh.axis_names) if n not in names)
+        groups.setdefault(key, []).append(c)
+    return [sorted(g, key=lambda c: _position(mesh, names, c)) for g in groups.values()]
+
+
+def axis_size(axis, mesh: Mesh | None = None) -> int:
+    """The number of coordinates along `axis` (a name or tuple of names)."""
+    return _extent(_the_mesh(mesh), axis)
+
+
+def axis_index(axis, mesh: Mesh | None = None) -> dict:
+    """Each coordinate's index along `axis` (row-major over a tuple)."""
+    mesh = _the_mesh(mesh)
+    return {c: _position(mesh, axis, c) for c in mesh.coords()}
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _zeros_for(gs, shapes, dtypes, devices):
+    return [torch.zeros(s, dtype=d, device=dev) if g is None else g
+            for g, s, d, dev in zip(gs, shapes, dtypes, devices)]
+
+
+@record_function("collective:all_to_all")
+def _all_to_all(xs, split_dim: int, concat_dim: int, devices) -> list:
+    n = len(xs)
+    for x in xs:
+        if x.shape[split_dim] % n:
+            raise ValueError(f"all_to_all: dim {split_dim} of {tuple(x.shape)} does "
+                             f"not split {n} ways")
+    chunks = [torch.tensor_split(x, n, dim=split_dim) for x in xs]
+    outs = []
+    for i in range(n):
+        parts = []
+        for j in range(n):
+            if j != i:
+                _count("all_to_all", _nbytes(chunks[j][i]))
+            parts.append(chunks[j][i].to(devices[i]))
+        outs.append(torch.cat(parts, concat_dim))
+    return outs
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, split_dim, concat_dim, devices, *xs):
+        outs = _all_to_all(xs, split_dim, concat_dim, devices)
+        ctx.args = (split_dim, concat_dim, devices,
+                    [o.shape for o in outs], [o.dtype for o in outs])
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        split_dim, concat_dim, devices, shapes, dtypes = ctx.args
+        gs = _zeros_for(gs, shapes, dtypes, devices)
+        return (None, None, None, *_all_to_all(gs, concat_dim, split_dim, devices))
+
+
+@record_function("collective:all_gather")
+def _all_gather(xs, dim: int, devices) -> list:
+    outs = []
+    for i in range(len(xs)):
+        for j, x in enumerate(xs):
+            if j != i:
+                _count("all_gather", _nbytes(x))
+        outs.append(torch.cat([x.to(devices[i]) for x in xs], dim))
+    return outs
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, dim, devices, *xs):
+        ctx.args = (dim, devices, [x.shape[dim] for x in xs])
+        return tuple(_all_gather(xs, dim, devices))
+
+    @staticmethod
+    @record_function("collective:all_gather")
+    def backward(ctx, *gs):
+        # the transpose of a tiled all-gather: a reduce-scatter
+        dim, devices, sizes = ctx.args
+        out, lo = [], 0
+        for j, size in enumerate(sizes):
+            acc = None
+            for i, g in enumerate(gs):
+                if g is None:
+                    continue
+                piece = g.narrow(dim, lo, size)
+                if i != j:
+                    _count("all_gather", _nbytes(piece))
+                piece = piece.to(devices[j])
+                acc = piece.clone() if acc is None else acc.add_(piece)
+            out.append(acc)
+            lo += size
+        return (None, None, *out)
+
+
+def _sum_to(xs, devices, kind: str):
+    """Σ xs in group order on the first device, handed back to every
+    coordinate (a copy each; the first keeps the sum)."""
+    total = xs[0]
+    for x in xs[1:]:
+        _count(kind, _nbytes(x))
+        total = total + x.to(devices[0])
+    outs = [total]
+    for dev in devices[1:]:
+        _count(kind, _nbytes(total))
+        outs.append(total.to(dev, copy=True))
+    return outs
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, kind, devices, *xs):
+        ctx.args = (kind, devices)
+        with record_function(f"collective:{kind}"):
+            return tuple(_sum_to(list(xs), devices, kind))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        # every output is the sum of every input: each input's gradient is
+        # the sum of the outputs' gradients
+        kind, devices = ctx.args
+        live = [(g, devices[i]) for i, g in enumerate(gs) if g is not None]
+        if not live:
+            return (None, None, *([None] * len(devices)))
+        order = [d for _, d in live]
+        with record_function(f"collective:{kind}"):
+            total = _sum_to([g for g, _ in live], order, kind)[0]
+            out = []
+            for dev in devices:
+                if dev != order[0]:
+                    _count(kind, _nbytes(total))
+                out.append(total.to(dev))
+        return (None, None, *out)
+
+
+def _by_group(xs: dict, axis, mesh: Mesh | None, run) -> dict:
+    mesh = _the_mesh(mesh)
+    _check_coords(xs, mesh)
+    out = {}
+    for group in _groups(mesh, axis):
+        if len(group) == 1:
+            out[group[0]] = xs[group[0]]
+            continue
+        devices = tuple(mesh.device(c) for c in group)
+        out.update(zip(group, run(devices, [xs[c] for c in group])))
+    return {c: out[c] for c in mesh.coords()}
+
+
+def all_to_all(xs: dict, axis, split_dim: int, concat_dim: int,
+               mesh: Mesh | None = None) -> dict:
+    """`jax.lax.all_to_all` over `axis`: each coordinate splits its tensor
+    into n chunks along `split_dim`, sends chunk i to the group's i-th
+    coordinate, and concatenates what it receives along `concat_dim` in
+    the senders' order."""
+    return _by_group(xs, axis, mesh, lambda devs, ts: _AllToAll.apply(
+        split_dim, concat_dim, devs, *ts))
+
+
+def all_gather(xs: dict, axis, dim: int, mesh: Mesh | None = None) -> dict:
+    """`jax.lax.all_gather(..., tiled=True)` over `axis`: every coordinate
+    gets the group's tensors concatenated along `dim`, a copy each."""
+    return _by_group(xs, axis, mesh, lambda devs, ts: _AllGather.apply(dim, devs, *ts))
+
+
+def _sum(xs: dict, axis, mesh: Mesh | None, kind: str) -> dict:
+    return _by_group(xs, axis, mesh, lambda devs, ts: _Psum.apply(kind, devs, *ts))
+
+
+def psum(xs: dict, axis, mesh: Mesh | None = None) -> dict:
+    """`jax.lax.psum` over `axis` (a name or tuple of names)."""
+    return _sum(xs, axis, mesh, "psum")
+
+
+def pmean(xs: dict, axis, mesh: Mesh | None = None) -> dict:
+    """`jax.lax.pmean` over `axis`."""
+    n = axis_size(axis, mesh)
+    return {c: t / n for c, t in _sum(xs, axis, mesh, "pmean").items()}
+
+
+def pmax(xs: dict, axis, mesh: Mesh | None = None) -> dict:
+    """`jax.lax.pmax` over `axis` (no gradient: it picks a scale)."""
+    def run(devices, ts):
+        with torch.no_grad(), record_function("collective:pmax"):
+            for t in ts[1:]:
+                _count("pmax", _nbytes(t))
+            top = torch.stack([t.to(devices[0]) for t in ts]).amax(0)
+            outs = [top]
+            for dev in devices[1:]:
+                _count("pmax", _nbytes(top))
+                outs.append(top.to(dev, copy=True))
+            return outs
+    return _by_group(xs, axis, mesh, run)
+
+
+def _check_spec(shape, spec, mesh: Mesh) -> None:
+    if len(spec) != len(shape):
+        raise ValueError(f"spec {tuple(spec)} does not match the rank of {tuple(shape)}")
+    for n, ax in zip(shape, spec):
+        if ax is not None and n % _extent(mesh, ax):
+            raise ValueError(f"dim {n} of {tuple(shape)} does not split over "
+                             f"{ax} ({_extent(mesh, ax)} ways) on {mesh.descriptor()}")
+
+
+class _Split(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, spec, mesh):
+        whole = _whole(x.shape)
+        regions = [region_of(x.shape, spec, mesh, c) for c in mesh.coords()]
+        outs = []
+        for c, r in zip(mesh.coords(), regions):
+            piece, dev = x[_slices(r, whole)], mesh.device(c)
+            if piece.device != dev:
+                _count("reshard", _nbytes(piece))
+                piece = piece.to(dev)
+            outs.append(piece)
+        ctx.args = (x.shape, x.dtype, x.device, regions)
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        shape, dtype, device, regions = ctx.args
+        whole = _whole(shape)
+        g = torch.zeros(shape, dtype=dtype, device=device)
+        for r, gr in zip(regions, gs):
+            if gr is not None:
+                g[_slices(r, whole)] += gr.to(device)
+        return g, None, None
+
+
+def split(x: torch.Tensor, spec: Sequence, mesh: Mesh) -> dict:
+    """Each coordinate's shard of the global `x` under `spec`, on its
+    device (a view where it lies there already). A dimension that its axes
+    do not divide raises, as `shard_map` does. Differentiable: the
+    backward sums the shards' gradients into one tensor of x's shape."""
+    _check_spec(x.shape, spec, mesh)
+    return dict(zip(mesh.coords(), _Split.apply(x, tuple(spec), mesh)))
+
+
+class _Join(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, spec, mesh, *xs):
+        coords = mesh.coords()
+        home = mesh.device(coords[0])
+        first = xs[0]
+        shape = [n * _extent(mesh, ax) for n, ax in zip(first.shape, spec)]
+        whole = _whole(shape)
+        out = torch.empty(shape, dtype=first.dtype, device=home)
+        seen, holders = set(), []
+        for c, x in zip(coords, xs):
+            r = region_of(shape, spec, mesh, c)
+            holders.append(r not in seen)
+            if r in seen:
+                continue
+            seen.add(r)
+            if x.device != home:
+                _count("reshard", _nbytes(x))
+            out[_slices(r, whole)].copy_(x)
+        ctx.args = (spec, mesh, shape, holders)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        spec, mesh, shape, holders = ctx.args
+        whole = _whole(shape)
+        out = []
+        for c, first in zip(mesh.coords(), holders):
+            r = region_of(shape, spec, mesh, c)
+            out.append(g[_slices(r, whole)].to(mesh.device(c)) if first else None)
+        return (None, None, *out)
+
+
+def join(xs: dict, spec: Sequence, mesh: Mesh) -> torch.Tensor:
+    """The global tensor whose shards under `spec` are `xs`, on the mesh's
+    home device; a region several coordinates hold is taken from the first
+    (the reference's out_specs, unchecked)."""
+    _check_coords(xs, mesh)
+    return _Join.apply(tuple(spec), mesh, *[xs[c] for c in mesh.coords()])
+
+
+def region(fn: Callable, mesh: Mesh, in_specs: Sequence, out_specs: Sequence):
+    """`shard_map` for a body written over coordinates: the returned
+    callable splits each argument by its spec (a tensor; a dict of tensors
+    with a dict of specs; None), calls `fn` with the per-coordinate dicts,
+    and joins each output by its spec."""
+    def split_arg(arg, spec):
+        if arg is None:
+            return None
+        if isinstance(arg, dict):
+            return {k: split_arg(v, spec[k]) for k, v in arg.items()}
+        return split(arg, spec, mesh)
+
+    def run(*args):
+        outs = fn(*[split_arg(a, s) for a, s in zip(args, in_specs)])
+        return tuple(join(o, s, mesh) for o, s in zip(outs, out_specs))
+
+    return run

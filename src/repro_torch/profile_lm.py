@@ -7,6 +7,8 @@ or sweep the dense LM's decode drift.
     PYTHONPATH=src python -m repro_torch.profile_lm --train [--optimizer spin_shampoo]
     PYTHONPATH=src python -m repro_torch.profile_lm --train --arch hymba-1.5b [--layers N]
     PYTHONPATH=src python -m repro_torch.profile_lm --train --arch hubert-xlarge --steps 4
+    PYTHONPATH=src python -m repro_torch.profile_lm --train --arch qwen2-moe-a2.7b \
+        --layers 4 --mesh 2x4 [--steps K]
 
 `--arch` (default granite-8b) at full width, random weights from seed 0,
 a batch of 4 x 2048 positions from `data.synthetic.make_batch` (numpy seed
@@ -32,6 +34,15 @@ B6-bwd, the SPIN kernels, cuBLAS GEMMs, the rest) and idle share. With
 events around each step), each with the host ms that drawing its batch
 took and the caching allocator's retries, and the peak GiB. Each batch is
 drawn before the clock or the trace starts, as `chip_smoke.py` draws it.
+With `--mesh DxM` the steps run under a (data D, model M) mesh that
+repeats the card (`chip_smoke.py` phase 19: MoE expert-parallel, the
+sharded embedding), and the report adds the bytes each step copies
+between coordinates by collective kind and, traced, the device time of
+the kernels launched inside each profiler range: the MoE phases
+("moe:fsdp_gather", "moe:dispatch", "moe:experts", "moe:combine") and
+each collective ("collective:all_to_all", "collective:all_gather",
+"collective:psum", "collective:pmean"), summed over the step (the
+collectives' ranges lie inside the MoE ones, so the rows overlap).
 
 Routes (an MoE config): the prefill, 8 greedy decode steps, `forward`
 over the prompt plus the fed tokens, and that forward again with the
@@ -55,6 +66,7 @@ differences between the two paths grow with depth.
 from __future__ import annotations
 
 import argparse
+import bisect
 import dataclasses
 import json
 import time
@@ -64,7 +76,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .profile_spin import device_breakdown
+from .profile_spin import DEVICE_CATEGORIES, HOST_LAUNCH_CATEGORIES, device_breakdown
 
 __all__ = ["main"]
 
@@ -98,7 +110,7 @@ def _sync_ms(fn) -> float:
     return 1e3 * (time.perf_counter() - t0)
 
 
-def _traced(name: str, fn) -> dict:
+def _traced(name: str, fn, spans: bool = False) -> dict:
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         with torch.profiler.record_function(name):
@@ -107,13 +119,50 @@ def _traced(name: str, fn) -> dict:
     TRACE_DIR.mkdir(parents=True, exist_ok=True)
     path = TRACE_DIR / f"{name}.json"
     prof.export_chrome_trace(str(path))
-    report = device_breakdown(json.loads(path.read_text()), name)
+    trace_json = json.loads(path.read_text())
+    report = device_breakdown(trace_json, name)
+    if spans:
+        report["spans"] = span_breakdown(trace_json)
     classes: dict[str, float] = {}
     for r in report["groups"]:
         key = kernel_class(r["name"])
         classes[key] = classes.get(key, 0.0) + r["device_ms"]
     report.update(call=name, classes=classes, trace=str(path))
     return report
+
+
+SPAN_PREFIXES = ("moe:", "collective:")
+
+
+def span_breakdown(trace: dict, prefixes=SPAN_PREFIXES) -> dict:
+    """{range name: {"ranges", "host_ms", "device_ms", "kernels"}} for each
+    profiler range whose name starts with one of `prefixes`: the device
+    time of the kernels launched (matched by correlation id) inside any of
+    its ranges."""
+    events = [e for e in trace["traceEvents"] if e.get("ph") == "X"]
+    launches = [(float(e["ts"]), e["args"]["correlation"]) for e in events
+                if e.get("cat") in HOST_LAUNCH_CATEGORIES and "correlation" in e.get("args", {})]
+    launches.sort()
+    device = {}
+    for e in events:
+        if e.get("cat") in DEVICE_CATEGORIES and "correlation" in e.get("args", {}):
+            device.setdefault(e["args"]["correlation"], []).append(float(e["dur"]))
+    times = [t for t, _ in launches]
+    out: dict[str, dict] = {}
+    for e in events:
+        name = e.get("name", "")
+        if e.get("cat") != "user_annotation" or not name.startswith(prefixes):
+            continue
+        lo, hi = float(e["ts"]), float(e["ts"]) + float(e["dur"])
+        row = out.setdefault(name, {"ranges": 0, "host_ms": 0.0, "corr": set()})
+        row["ranges"] += 1
+        row["host_ms"] += (hi - lo) / 1e3
+        for i in range(bisect.bisect_left(times, lo), bisect.bisect_right(times, hi)):
+            row["corr"].add(launches[i][1])
+    for row in out.values():
+        durs = [d for c in row.pop("corr") for d in device.get(c, ())]
+        row.update(device_ms=sum(durs) / 1e3, kernels=len(durs))
+    return out
 
 
 def _print(report: dict, wall_ms: float | None = None) -> None:
@@ -171,9 +220,14 @@ def trace(params, cfg, device) -> None:
 
 
 def train_trace(optimizer: str, device, arch: str = TRAIN_ARCH,
-                layers: int | None = None, steps: int = 0) -> None:
+                layers: int | None = None, steps: int = 0,
+                mesh_shape: tuple[int, int] | None = None) -> None:
+    import contextlib
+
     from .configs import get_arch
     from .data.synthetic import TokenStream
+    from .launch.mesh import make_worker_mesh, set_mesh
+    from .parallel import collective_bytes, reset_collective_bytes
     from .runtime.trainer import TrainConfig, init_state, make_train_step
 
     cfg = get_arch(arch)
@@ -184,12 +238,17 @@ def train_trace(optimizer: str, device, arch: str = TRAIN_ARCH,
                                 device)}
     stream = TokenStream(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=SEED, device=str(device))
     step = make_train_step(cfg, tcfg)
+    mesh = None
+    if mesh_shape is not None:
+        mesh = make_worker_mesh(mesh_shape, devices=[device] * (mesh_shape[0] * mesh_shape[1]))
     print(f"train {cfg.name} ({cfg.n_layers} layers) {optimizer} on "
-          f"{torch.cuda.get_device_name(0)}", flush=True)
+          f"{torch.cuda.get_device_name(0)}"
+          + (f" under mesh {mesh.descriptor()}" if mesh else ""), flush=True)
 
     def one(batch):
-        held["state"], metrics = step(held["state"], batch)
-        float(metrics["loss"])
+        with set_mesh(mesh) if mesh else contextlib.nullcontext():
+            held["state"], metrics = step(held["state"], batch)
+            float(metrics["loss"])
 
     # each batch is drawn on the host before the clock or the trace starts,
     # as chip_smoke.py times a step: the audio and VLM batches' embeddings
@@ -207,22 +266,32 @@ def train_trace(optimizer: str, device, arch: str = TRAIN_ARCH,
             retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
+            reset_collective_bytes()
             start.record()
             one(batch)
             end.record()
             end.synchronize()
             times.append({"ms": start.elapsed_time(end), "batch_ms": batch_ms,
                           "alloc_retries":
-                          torch.cuda.memory_stats().get("num_alloc_retries", 0) - retries})
+                          torch.cuda.memory_stats().get("num_alloc_retries", 0) - retries,
+                          **({"collective_bytes": collective_bytes()} if mesh else {})})
         print(json.dumps({"call": f"train_{optimizer}_steps", "arch": cfg.name,
-                          "layers": cfg.n_layers, "steps": times,
+                          "layers": cfg.n_layers,
+                          "mesh": mesh.descriptor() if mesh else None, "steps": times,
                           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}),
               flush=True)
         return
     for name in calls:
         batch = stream.next()
-        report = _traced(name, lambda: one(batch))
+        reset_collective_bytes()
+        report = _traced(name, lambda: one(batch), spans=mesh is not None)
         _print(report)
+        if mesh is not None:
+            report.update(mesh=mesh.descriptor(), collective_bytes=collective_bytes())
+            for span, row in sorted(report["spans"].items(), key=lambda kv: -kv[1]["device_ms"]):
+                print(f"{name}: {row['device_ms']:10.3f} ms device, {row['host_ms']:10.3f} ms "
+                      f"host, {row['ranges']:5d} ranges, {row['kernels']:6d} kernels  {span}")
+            print(f"{name}: bytes between coordinates {report['collective_bytes']}")
         print(json.dumps(report))
 
 
@@ -364,16 +433,27 @@ def main(argv=None) -> int:
     parser.add_argument("--optimizer", default="adamw", choices=["adamw", "spin_shampoo"])
     parser.add_argument("--steps", type=int, default=0,
                         help="with --train: time this many steps untraced instead")
+    parser.add_argument("--mesh", default=None,
+                        help="with --train: DxM, a (data, model) mesh repeating the card")
     args = parser.parse_args(argv)
-    if (args.layers is not None or args.steps) and not args.train:
-        parser.error("--layers and --steps go with --train only")
+    if (args.layers is not None or args.steps or args.mesh) and not args.train:
+        parser.error("--layers, --steps and --mesh go with --train only")
+    mesh_shape = None
+    if args.mesh:
+        try:
+            mesh_shape = tuple(int(n) for n in args.mesh.lower().split("x"))
+        except ValueError:
+            mesh_shape = ()
+        if len(mesh_shape) != 2 or min(mesh_shape) < 1:
+            parser.error(f"--mesh {args.mesh!r}: want DxM, e.g. 2x4")
     if not torch.cuda.is_available():
         raise SystemExit("profile_lm: CUDA is not available")
     torch.backends.cuda.matmul.allow_tf32 = False
     build.build_all()
     device = torch.device("cuda")
     if args.train:
-        train_trace(args.optimizer, device, args.arch or TRAIN_ARCH, args.layers, args.steps)
+        train_trace(args.optimizer, device, args.arch or TRAIN_ARCH, args.layers, args.steps,
+                    mesh_shape)
         return 0
     cfg = get_arch(ARCH if args.consistency else args.arch or ARCH)
     params = T.init_params(cfg, torch.Generator(device=device).manual_seed(SEED), device)

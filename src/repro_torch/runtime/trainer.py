@@ -9,6 +9,11 @@ builds the step:
 The microbatches run one after another, so activation memory is one
 microbatch deep whatever the global batch.
 
+Under an ambient mesh (`launch.mesh.set_mesh`) the step runs the
+sharded model: `rules` reaches `loss_fn`, the `shard` sites record their
+layouts, and the embedding and MoE run per coordinate (expert-parallel
+MoE, FSDP's gathers). `abstract_state` is the state on the `meta` device.
+
 `Trainer` adds the operational layer: checkpoint / restart, a step-time
 watchdog (EWMA), and a restartable data stream. The optimizer state is
 updated in place, as the reference's jitted step donates it: a state
@@ -28,10 +33,11 @@ from ..device import DEFAULT_DEVICE
 from ..models import transformer as T
 from ..optim import (AdamWConfig, SpinShampooConfig, adamw_init, adamw_update,
                      schedule, spin_shampoo_init, spin_shampoo_update)
-from ..tree import leaves, unflatten
+from ..parallel.sharding import DEFAULT_RULES, ShardingRules
+from ..tree import leaves, tree_map, unflatten
 
 __all__ = ["TrainConfig", "TrainState", "make_train_step", "init_state",
-           "Trainer"]
+           "abstract_state", "Trainer"]
 
 OPTIMIZERS = ("adamw", "spin_shampoo")
 
@@ -74,10 +80,24 @@ def init_state(cfg: ArchConfig, tcfg: TrainConfig, generator: torch.Generator,
     return TrainState(params, opt, torch.zeros((), dtype=torch.int32))
 
 
-def make_train_step(cfg: ArchConfig, tcfg: TrainConfig, rules=None
+def abstract_state(cfg: ArchConfig, tcfg: TrainConfig,
+                   model_size_hint: int = 16) -> TrainState:
+    """`init_state`'s structure, shapes and dtypes on the `meta` device:
+    nothing is allocated but the host's 0-dim step counters, which move to
+    `meta` too."""
+    _check_optimizer(tcfg)
+    params = T.abstract_params(cfg, model_size_hint)
+    opt = (adamw_init(params) if tcfg.optimizer == "adamw"
+           else spin_shampoo_init(params, tcfg.shampoo))
+    return TrainState(params, tree_map(lambda t: t.to("meta"), opt),
+                      torch.empty((), dtype=torch.int32, device="meta"))
+
+
+def make_train_step(cfg: ArchConfig, tcfg: TrainConfig,
+                    rules: ShardingRules = DEFAULT_RULES
                     ) -> Callable[[TrainState, dict], tuple[TrainState, dict]]:
-    """The step function. `rules` (the reference's sharding rules) is
-    accepted and ignored until the port has `parallel/sharding.py`."""
+    """The step function; `rules` goes to `loss_fn` (it acts under an
+    ambient mesh)."""
     _check_optimizer(tcfg)
     nm = tcfg.microbatches
 
@@ -91,7 +111,7 @@ def make_train_step(cfg: ArchConfig, tcfg: TrainConfig, rules=None
             mb = {k: v.reshape(nm, v.shape[0] // nm, *v.shape[1:])[i]
                   for k, v in batch.items()}
             ps = [p.detach().requires_grad_() for p in flat]
-            loss, parts = T.loss_fn(unflatten(state.params, ps), mb, cfg,
+            loss, parts = T.loss_fn(unflatten(state.params, ps), mb, cfg, rules,
                                     remat=tcfg.remat, remat_policy=tcfg.remat_policy)
             # a leaf the family does not read (audio's token table) gets a zero gradient
             for a, g in zip(acc, torch.autograd.grad(loss, ps, allow_unused=True)):
@@ -122,9 +142,10 @@ class Trainer:
 
     def __init__(self, cfg: ArchConfig, tcfg: TrainConfig, stream,
                  ckpt_dir: Optional[str] = None, ckpt_every: int = 50,
-                 rules=None):
+                 rules: ShardingRules = DEFAULT_RULES):
         self.cfg, self.tcfg, self.stream = cfg, tcfg, stream
         self.ckpt_dir, self.ckpt_every = ckpt_dir, ckpt_every
+        self.rules = rules
         self.step_fn = make_train_step(cfg, tcfg, rules)
         self._ewma: Optional[float] = None
         self.straggler_events: list[dict] = []

@@ -16,7 +16,8 @@ cache, as in the reference:
     slot's `ssm_h` and `ssm_conv` along with its pos.
 The cache is updated in place by each step (the reference donates it to
 its jitted step instead). An encoder-only config has no decode step and
-raises.
+raises. `rules` (the reference's sharding rules) reaches every
+`decode_step`, and under an ambient mesh the step runs sharded.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ import torch
 
 from ..configs.registry import ArchConfig
 from ..models import transformer as T
+from ..parallel.sharding import DEFAULT_RULES, ShardingRules
 
 __all__ = ["Request", "ServingEngine"]
 
@@ -51,10 +53,11 @@ class ServingEngine:
 
     def __init__(self, cfg: ArchConfig, params: dict, *, slots: int = 4,
                  max_len: int = 256,
-                 sampler: Optional[Callable] = None):
+                 sampler: Optional[Callable] = None,
+                 rules: ShardingRules = DEFAULT_RULES):
         if not cfg.decode_capable:
             raise ValueError(f"{cfg.name} has no decode step")
-        self.cfg, self.params = cfg, params
+        self.cfg, self.params, self.rules = cfg, params, rules
         self.slots, self.max_len = slots, max_len
         self.device = params["embed"].device
         self.cache = T.init_cache(cfg, slots, max_len, device=self.device)
@@ -105,7 +108,8 @@ class ServingEngine:
                     else (req.prompt[-1] if req.prompt else 0)
         logits, self.cache = T.decode_step(
             self.params, self.cache,
-            torch.tensor(tokens, dtype=torch.int32, device=self.device), self.cfg)
+            torch.tensor(tokens, dtype=torch.int32, device=self.device), self.cfg,
+            self.rules)
         nxt = self.sampler(logits).tolist()
         pos = self.cache["pos"].tolist()
         for slot in list(self._live):

@@ -1121,3 +1121,113 @@ def test_coded_inverse_on_the_card_does_not_wait_for_the_straggler(cuda_device):
     assert time.perf_counter() - t0 < 3.0
     assert report.used_ranks == [1, 2, 3]
     assert verify.inverse_residual(a, inv) < 1e-3
+
+
+# ---------------------------------------------------------------------------
+# A mesh of the one card (chip_smoke.py phase 19, at a reduced size)
+# ---------------------------------------------------------------------------
+
+
+def _mesh_of(device, shape=(2, 4), axes=("data", "model")):
+    from repro_torch.launch.mesh import make_worker_mesh
+
+    n = int(np.prod(shape))
+    return make_worker_mesh(shape, axes, devices=[device] * n)
+
+
+@pytest.mark.parametrize("cf", [1.25, 8.0])
+def test_expert_parallel_moe_on_the_card_matches_the_cpu(cuda_device, cf):
+    """The reduced qwen2-moe's MoE block, f32, expert-parallel under a
+    (2, 4) mesh of the card against the same on a CPU mesh (the same drops:
+    to 1e-5 of the largest entry), and at factor 8 against the mesh-free
+    block on the card; every coordinate's shards stay on the card."""
+    from repro_torch.launch.mesh import set_mesh
+    from repro_torch.models import moe
+
+    base = get_arch("qwen2-moe-a2.7b").reduced()
+    cfg = dataclasses.replace(base, moe=dataclasses.replace(base.moe, capacity_factor=cf))
+    layers = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu", 4)["layers"]["moe"]
+    params = {k: ({n: w[0].float() for n, w in v.items()} if isinstance(v, dict)
+                  else v[0].float()) for k, v in layers.items()}
+    x = torch.randn(4, 16, cfg.d_model, generator=torch.Generator().manual_seed(1))
+    with set_mesh(_mesh_of("cpu")):
+        want = moe.moe_apply(params, x, cfg)
+    with set_mesh(_mesh_of(cuda_device)):
+        got = moe.moe_apply(_tree_to(params, cuda_device), x.to(cuda_device), cfg)
+    assert all(t.device.type == "cuda" for t in got)
+    for g, w in zip(got, want):
+        assert float((g.cpu() - w).abs().max()) <= 1e-5 * float(w.abs().max())
+    if cf == 8.0:
+        free = moe.moe_apply(_tree_to(params, cuda_device), x.to(cuda_device), cfg)
+        assert float((got[0] - free[0]).abs().max()) <= 1e-5 * float(free[0].abs().max())
+
+
+def test_sharded_embedding_and_compressed_psum_on_the_card(cuda_device):
+    import torch.nn.functional as F
+
+    from repro_torch.launch.mesh import set_mesh
+    from repro_torch.models.embedding import embed_lookup
+    from repro_torch.parallel import collectives as col
+    from repro_torch.parallel.compression import compressed_psum
+
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    table = torch.randn(512, 64, generator=g, device=cuda_device).to(torch.bfloat16)
+    toks = torch.randint(0, 512, (4, 40), generator=g, device=cuda_device)
+    with set_mesh(_mesh_of(cuda_device)):
+        got = embed_lookup(table, toks)
+    assert got.device.type == "cuda" and torch.equal(got, F.embedding(toks, table))
+
+    x = torch.randn(4, 4096, generator=g, device=cuda_device)
+    pods = {"cpu": _mesh_of("cpu", (4,), ("pod",)), "cuda": _mesh_of(cuda_device, (4,), ("pod",))}
+    sums = {}
+    for name, pod in pods.items():
+        out = compressed_psum(col.split(x.to(pod.device(pod.coords()[0])), ("pod", None), pod),
+                              "pod", pod)
+        sums[name] = [out[c].cpu() for c in pod.coords()]
+    for a, b in zip(sums["cuda"], sums["cpu"]):
+        assert torch.equal(a, b)      # integer sums and one f32 rescale: the same bits
+
+
+def test_a_moe_step_under_a_mesh_of_the_card_meets_the_cpus(cuda_device):
+    """One AdamW step (2 microbatches, full remat) of the reduced qwen2-moe
+    under a (2, 4) mesh of the card against the same under a CPU mesh: the
+    card's backward runs on autograd's worker thread, so each checkpointed
+    layer's recompute must carry the mesh in. Loss and gradient norm
+    within 2e-2 relative (as the mesh-free card test), B6 and B6-bwd as
+    mesh-free, and a second run repeats the step's bits."""
+    from repro_torch.launch.mesh import set_mesh
+    from repro_torch.runtime.trainer import TrainConfig, make_train_step
+    from repro_torch.tree import leaves
+
+    cfg = get_arch("qwen2-moe-a2.7b").reduced()
+    step = make_train_step(cfg, TrainConfig(microbatches=2, warmup=1))
+    (batch,) = _family_batches(cfg, 1, "cpu")
+    with set_mesh(_mesh_of("cpu")):
+        _, want = step(_train_state(cfg, "cpu"), batch)
+    runs = []
+    for _ in range(2):
+        kernels.reset_launch_counts()
+        with set_mesh(_mesh_of(cuda_device)):
+            state, got = step(_train_state(cfg, cuda_device), _tree_to(batch, cuda_device))
+        runs.append((leaves(state.params), {k: float(v) for k, v in got.items()},
+                     kernels.launch_counts()))
+    (p0, m0, launches), (p1, m1, _) = runs
+    assert launches["flash_attention"] == 2 * cfg.n_layers * 2
+    assert launches["flash_attention_bwd"] == cfg.n_layers * 2
+    for key in ("loss", "grad_norm"):
+        assert abs(m0[key] - float(want[key])) <= 2e-2 * abs(float(want[key])), key
+    assert m0 == m1 and all(torch.equal(a, b) for a, b in zip(p0, p1))
+
+
+def test_elastic_restore_onto_a_mesh_of_the_card(cuda_device, tmp_path):
+    from repro_torch.checkpoint.ckpt import restore, save
+    from repro_torch.parallel import NamedSharding, PartitionSpec as P
+    from repro_torch.parallel.collectives import gather
+
+    w = torch.randn(64, 8, generator=torch.Generator().manual_seed(4)).to(cuda_device)
+    save(str(tmp_path), 3, {"w": w})
+    for mesh, spec in ((_mesh_of(cuda_device), P("data", "model")),
+                       (_mesh_of(cuda_device, (8,), ("data",)), P("data", None))):
+        got, _ = restore(str(tmp_path), 3, {"w": w}, shardings={"w": NamedSharding(mesh, spec)})
+        assert all(t.device.type == "cuda" for t in got["w"].shards.values())
+        assert torch.equal(gather(got["w"]), w)

@@ -183,12 +183,21 @@ def test_moe_apply_keeps_its_gradient():
 
 
 def test_moe_apply_refuses_a_model_axis():
+    """A model axis that does not split the padded experts (4 over 3) is
+    refused, as the reference's shard_map refuses it; one that splits them
+    runs expert-parallel (tests/test_torch_moe_ep.py holds its numbers),
+    and a model axis of 1 takes the local path, bit for bit."""
     _, cfg, _, tp, _, xt = _setup("dbrx-132b", 1)
-    with set_mesh(Mesh([["cpu", "cpu"]], ("data", "model"))):
-        with pytest.raises(ValueError, match="A.2"):
+    with set_mesh(Mesh([["cpu", "cpu", "cpu"]], ("data", "model"))):
+        with pytest.raises(ValueError, match="does not split"):
             moe.moe_apply(tp, xt, cfg)
+    with set_mesh(Mesh([["cpu", "cpu"]], ("data", "model"))):
+        out, _, _ = moe.moe_apply(tp, xt, cfg)
+    assert tuple(out.shape) == tuple(xt.shape)
     with set_mesh(Mesh([["cpu"], ["cpu"]], ("data", "model"))):
-        moe.moe_apply(tp, xt, cfg)                       # model axis 1: the local path
+        local = moe.moe_apply(tp, xt, cfg)               # model axis 1: the local path
+    for a, b in zip(local, moe.moe_apply(tp, xt, cfg)):
+        assert torch.equal(a, b)
 
 
 def test_spin_shampoo_leaves_stacked_expert_weights_to_adam():
