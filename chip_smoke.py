@@ -188,7 +188,8 @@ Phases, each of which fails the run (non-zero exit) on any fault:
      weights from SEED, `TokenStream` batches of 8 x 2048 tokens, 2
      microbatches, full remat. AdamW: one warm-up and 3 timed steps (ms,
      tokens/s, loss, grad norm, peak memory; 64 B6 and 32 B6-bwd launches
-     a step and no other kernel of the port), 5 steps on one repeated
+     a step and no other kernel of the port), one step under
+     `FlopCounterMode` (its aten FLOPs, for phase 20), 5 steps on one repeated
      batch whose loss must fall, the state saved and restored bit for bit
      through `checkpoint.ckpt` in a temporary directory that the phase
      removes, and one more step from the restored state equal to the same
@@ -220,7 +221,24 @@ Phases, each of which fails the run (non-zero exit) on any fault:
      gradient non-zero and finite, and the parameters saved and restored
      by `param_specs` onto the (2, 4) mesh and an 8-way `data` mesh, bit
      for bit; `phase_s["19"]` printed;
- 20. one JSON line with every path's times and residual, and one with
+ 20. the dry run against the card (`repro_torch.launch.dryrun`): the same
+     programs run once more on meta tensors under meshes of meta devices,
+     through the functions `run_solver_cell` and `run_cell` use, and their
+     predictions held against what phases 14, 18 and 19 counted on the
+     card in this process: (a) the 2×2 sharded inversion at n = 16384,
+     bs 1024 under allgather and ring, bytes by collective kind equal to
+     phase 14's (whose dense result adds its densify, "to_dense", which
+     the program keeps laid out); (b) qwen2-moe cut to 4 layers, one
+     AdamW step of 8 x 2048 under (data 2, model 4), bytes by kind equal
+     to phase 19's counted step; (c) olmo-1b whole, mesh-free, phase 18's
+     step: the aten FLOPs equal to `FlopCounterMode` over a step on the
+     card, the booked B6 and B6-bwd calls and work equal to the step's
+     launches times one launch's work, and the meta run's peak live bytes
+     plus its arguments printed beside `max_memory_allocated`; (d) one
+     production cell, `run_cell("olmo-1b", "train_4k")` on the 16 x 16
+     mesh, its record and trace seconds; no kernel launches in the
+     phase; `phase_s["20"]` printed;
+ 21. one JSON line with every path's times and residual, and one with
      every kernel's launches, error and times (the GEMM's, blocked
      Gauss-Jordan's and triangular solve's launches on every path beside
      them).
@@ -2438,6 +2456,16 @@ def run_train_adamw(torch, cfg, dev) -> dict:
                 f"train_adamw: non-finite metrics {m}")
     _check_step_launches("train_adamw", launches, cfg.n_layers, {})
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    # one more step under FlopCounterMode: the aten FLOPs phase 20 predicts
+    from torch.utils.flop_counter import FlopCounterMode
+
+    kernels.reset_launch_counts()
+    with FlopCounterMode(display=False) as flop_counter:
+        state, _, _ = _timed_step(torch, step, state, stream.next())
+    aten_flops = flop_counter.get_total_flops()
+    flop_step_launches = kernels.launch_counts()
+    print(f"path train_adamw: aten_flops={aten_flops} launches={flop_step_launches}",
+          flush=True)
     ms = [st["ms"] for st in steps]
     print(f"path train_adamw: {cfg.name} B={TRAIN_BATCH} S={TRAIN_SEQ} "
           f"microbatches={TRAIN_MICRO} remat=full warmup_ms={warm_ms!r} ms={ms!r} "
@@ -2490,7 +2518,8 @@ def run_train_adamw(torch, cfg, dev) -> dict:
             "microbatches": TRAIN_MICRO, "remat": "full", "n_params": n_params,
             "warmup_ms": warm_ms, "ms": ms, "tokens_per_s": tokens / (min(ms) / 1e3),
             "steps": steps, "peak_gib": peak, "repeated_batch_losses": losses,
-            "launches": launches,
+            "launches": launches, "aten_flops": aten_flops,
+            "flop_step_launches": flop_step_launches,
             "checkpoint": {"bytes": nbytes, "save_s": save_s, "restore_s": restore_s,
                            "bitwise": True, "next_step_equal": same}}
 
@@ -3026,6 +3055,101 @@ def run_mesh(torch, dev) -> dict:
     return out
 
 
+def run_dryrun(torch, sharded: dict, mesh: dict, train_adamw: dict) -> dict:
+    """Phase 20: the dry run on meta tensors, held against phases 14, 18
+    and 19 of this process (see the module docstring)."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_work
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_worker_mesh
+    from repro_torch.parallel import DEFAULT_RULES
+
+    launches0 = kernels.launch_counts()
+    out: dict = {"sharded_2x2": {}}
+
+    # (a) the sharded inversion: the program's bytes by kind; phase 14's
+    # dense call adds the densify of its result from the 3 other coordinates
+    meta22 = make_worker_mesh((2, 2), devices=["meta"] * 4)
+    densify = N * N * 4 * 3 // 4
+    for engine in ("allgather", "ring"):
+        traced = dryrun._trace_solver(N, BLOCK_SIZE, meta22, engine=engine)
+        pred, card = traced["moved"], sharded["mesh"][f"2x2_{engine}"]["bytes"]
+        del traced
+        print(f"dry_run sharded_2x2_{engine}: predicted={pred} card={card} "
+              f"densify={densify}", flush=True)
+        for kind, n in card.items():
+            want = pred[kind] + (densify if kind == "to_dense" else 0)
+            require(n == want, f"dry_run sharded_2x2_{engine}: {kind} {n} on the card, "
+                               f"{want} predicted")
+        out["sharded_2x2"][engine] = {"predicted": pred, "card": card, "densify": densify}
+
+    # (b) the MoE step under (data 2, model 4): phase 19's counted step
+    cfg = dataclasses.replace(get_arch(MESH_ARCH), n_layers=MESH_LAYERS)
+    meta_mesh = make_worker_mesh(MESH_SHAPE, devices=["meta"] * (MESH_SHAPE[0] * MESH_SHAPE[1]))
+    shape = ShapeConfig("phase19_step", TRAIN_SEQ, TRAIN_BATCH, "train")
+    t0 = time.perf_counter()
+    traced = dryrun._trace_cell(cfg, shape, meta_mesh, DEFAULT_RULES, TRAIN_MICRO,
+                                model_size_hint=MESH_HINT)
+    pred = {k: v for k, v in traced["moved"].items() if v}
+    del traced
+    card = mesh["train"]["steps"][0]["collective_bytes"]
+    print(f"dry_run mesh_train: predicted={pred} card={card} "
+          f"trace_s={time.perf_counter() - t0!r}", flush=True)
+    require(pred == card, f"dry_run mesh_train: {pred} predicted, {card} on the card")
+    out["mesh_train"] = {"predicted": pred, "card": card}
+
+    # (c) olmo-1b mesh-free: phase 18's step
+    cfg = get_arch(TRAIN_ARCH)
+    shape = ShapeConfig("phase18_step", TRAIN_SEQ, TRAIN_BATCH, "train")
+    t0 = time.perf_counter()
+    traced = dryrun._trace_cell(cfg, shape, None, DEFAULT_RULES, TRAIN_MICRO)
+    m = dryrun._measure(traced)
+    arg_bytes = dryrun._io_bytes(traced, "train", None)[0]
+    del traced
+    trace_s = time.perf_counter() - t0
+    q_shape = (TRAIN_BATCH // TRAIN_MICRO, cfg.n_heads, TRAIN_SEQ, cfg.head_dim)
+    k_shape = (TRAIN_BATCH // TRAIN_MICRO, cfg.n_kv_heads, TRAIN_SEQ, cfg.head_dim)
+    per_launch = {
+        "flash_attention": flash_attention_work(q_shape, k_shape, torch.bfloat16,
+                                                causal=cfg.causal),
+        "flash_attention_bwd": flash_attention_work(q_shape, k_shape, torch.bfloat16,
+                                                    causal=cfg.causal, backward=True)}
+    card_launches = train_adamw["flop_step_launches"]
+    print(f"dry_run train_adamw: aten_flops predicted={m['flops_aten']} "
+          f"card={train_adamw['aten_flops']} booked={m['booked']} "
+          f"per_launch={per_launch} card_launches={card_launches} "
+          f"trace_s={trace_s!r}", flush=True)
+    require(m["flops_aten"] == train_adamw["aten_flops"],
+            f"dry_run train_adamw: {m['flops_aten']} aten FLOPs predicted, "
+            f"{train_adamw['aten_flops']} counted on the card")
+    for name, work in per_launch.items():
+        b = m["booked"][name]
+        require(b["calls"] == card_launches[name] and b["flops"] == card_launches[name] * work,
+                f"dry_run train_adamw: {name} booked {b}, launched {card_launches[name]} "
+                f"times at {work} a launch")
+    predicted_peak = m["temp_bytes_global"] + arg_bytes
+    print(f"dry_run train_adamw: temp_bytes_global={m['temp_bytes_global']} "
+          f"argument_bytes={arg_bytes} sum_gib={predicted_peak / 2**30!r} "
+          f"card_max_memory_allocated_gib={train_adamw['peak_gib']!r}", flush=True)
+    out["train_adamw"] = {"aten_flops": m["flops_aten"], "booked": m["booked"],
+                          "per_launch": per_launch,
+                          "temp_bytes_global": m["temp_bytes_global"],
+                          "argument_bytes": arg_bytes, "predicted_peak_bytes": predicted_peak,
+                          "card_peak_gib": train_adamw["peak_gib"]}
+
+    # (d) one production cell
+    rec = dryrun.run_cell("olmo-1b", "train_4k", multi_pod=False)
+    print(f"dry_run cell: {json.dumps(rec)}", flush=True)
+    require(rec["runnable"] and not rec["launches_moved"],
+            "dry_run cell: not runnable, or a kernel launched")
+    out["cell_olmo_train_4k"] = {k: rec[k] for k in ("trace_s", "per_device", "cost",
+                                                     "collectives_once")}
+    require(kernels.launch_counts() == launches0, "dry_run: a kernel launched")
+    return out
+
+
 def _leaves(tree: dict):
     for v in tree.values():
         yield from (_leaves(v) if isinstance(v, dict) else (v,))
@@ -3286,6 +3410,12 @@ def main() -> int:
     phase_s["19"] = time.perf_counter() - t0
     print(f"phase_s {json.dumps(phase_s)}", flush=True)
 
+    # 20. the dry run's meta predictions against what the card counted
+    t0 = time.perf_counter()
+    dry_run = run_dryrun(torch, sharded, mesh, train_adamw)
+    phase_s["20"] = time.perf_counter() - t0
+    print(f"phase_s {json.dumps(phase_s)}", flush=True)
+
     print(json.dumps({"paths": {
         "spin": {"n": n, "block_size": bs, "ms": spin["ms"], "residual": spin["residual"]},
         "lu": {"n": n, "block_size": bs, "ms": lu["ms"], "residual": lu["residual"],
@@ -3320,10 +3450,11 @@ def main() -> int:
         "lm_prefill": lm["lm_prefill"], "lm_decode": lm["lm_decode"],
         "lm_serve": lm["lm_serve"], "lm_families": families, "sharded": sharded,
         "train_adamw": train_adamw, "train_shampoo": train_shampoo,
-        "train_families": train_families, "mesh": mesh, "phase_s": phase_s},
+        "train_families": train_families, "mesh": mesh, "dry_run": dry_run,
+        "phase_s": phase_s},
         "card": card}), flush=True)
 
-    # 20. the kernels line
+    # 21. the kernels line
     rows = []
     gemm_body = "gemm_tc: pack pre-pass, then 3xTF32 wgmma on a TMA ring (f32)"
     report["schur_update"]["body"] = report["matmul"]["body"] = gemm_body

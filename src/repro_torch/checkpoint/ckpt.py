@@ -32,6 +32,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from .. import threads as _threads
 from ..tree import leaves, leaves_with_path, unflatten
 
 __all__ = ["save", "async_save", "restore", "latest_step", "list_steps"]
@@ -119,9 +120,7 @@ def async_save(directory: str, step: int, state, extra: Optional[dict] = None
         with _save_lock:
             save(directory, step, host, extra)
 
-    t = threading.Thread(target=run, daemon=True)
-    t.start()
-    return t
+    return _threads.start(run, name="async-save")
 
 
 def list_steps(directory: str) -> list[int]:

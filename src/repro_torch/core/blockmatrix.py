@@ -183,13 +183,15 @@ class BlockMatrix:
     @classmethod
     def identity(cls, grid: int, block_size: int, dtype=torch.float32,
                  device: str | torch.device = DEFAULT_DEVICE) -> "BlockMatrix":
-        """The n×n identity as a grid of blocks, laid out densely."""
+        """The n×n identity as a grid of blocks, laid out densely (on
+        `meta` too when named: the dry run's grids)."""
         eye = torch.eye(grid * block_size, dtype=dtype,
-                        device=resolve_device(device))
+                        device=resolve_device(device, allow_meta=True))
         return cls.from_dense(eye, block_size)
 
     @classmethod
     def zeros(cls, grid: int, block_size: int, dtype=torch.float32,
               device: str | torch.device = DEFAULT_DEVICE) -> "BlockMatrix":
-        return cls(torch.zeros((grid, grid, block_size, block_size),
-                               dtype=dtype, device=resolve_device(device)))
+        """A zero grid (on `meta` too when named, as `identity`)."""
+        return cls(torch.zeros((grid, grid, block_size, block_size), dtype=dtype,
+                               device=resolve_device(device, allow_meta=True)))

@@ -28,20 +28,31 @@ the band, and every head dim the forward takes. The JAX package has no
 backward kernel: its models differentiate the chunked scan
 `_attend_chunked` (src/repro/models/attention.py:77-143).
 `FlashAttentionFn` ties the two kernels into autograd.
+
+On ``meta`` operands (the dry run) the wrappers and `FlashAttentionFn`
+return empty outputs of the kernels' shapes and dtypes (out; lse f32
+(B, H, Sq); dq, dk, dv) and book the kernels' work (`kernels.book`):
+4·hd operations for each (q, k) pair inside the tiles the forward visits
+(`_visited_pairs`: causal tiles above the diagonal, and tiles outside the
+window, are skipped), 10·hd for each pair the backward's dK/dV walk
+visits, and the bytes of q, k, v, out and lse, plus dout, dq, dk and dv
+for the backward. Nothing is built or launched.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
-from .. import DTYPE_CODES, LAUNCHES, check_operand, stream_of
+from .. import DTYPE_CODES, LAUNCHES, book, check_operand, stream_of
 from ..build import check, load
 from .ref import attention_bwd_ref, attention_ref
 
 __all__ = ["flash_attention_cuda", "flash_attention_bwd_cuda",
-           "FlashAttentionFn", "flash_attention_attributes",
+           "FlashAttentionFn", "flash_attention_work",
+           "flash_attention_attributes",
            "flash_attention_bwd_attributes", "flash_attention_bwd_kernels",
            "SUPPORTED_HEAD_DIMS", "BWD_HEAD_DIMS"]
 
@@ -49,11 +60,69 @@ SUPPORTED_HEAD_DIMS = (16, 32, 64, 80, 96, 128, 160)  # launch_hd in the source
 BWD_HEAD_DIMS = (16, 32, 64, 80, 96, 128, 160)       # launch_bwd_hd in the source
 
 
+def _tiles(dtype: torch.dtype, hd: int, backward: bool) -> tuple[int, int]:
+    """(query rows, key rows) of the tile a kernel walks: the f32 FFMA
+    kernels 64 x 64 (kBQ, kBK); the tensor-core forward 128 x 128 (kTcBQ,
+    kTcBK); the tensor-core dK/dV kernel 64 (32 above hd 128) x 128."""
+    if dtype == torch.float32:
+        return 64, 64
+    if backward:
+        return (64 if hd <= 128 else 32), 128
+    return 128, 128
+
+
+@functools.lru_cache(maxsize=None)
+def _visited_pairs(sq: int, skv: int, causal: bool, window: int, bq: int, bk: int,
+                  kv_outer: bool = False) -> int:
+    """(q, k) pairs inside the tiles a kernel visits for one (batch, head):
+    the forward's walk (a block of `bq` query rows over the key tiles of
+    `bk` rows, up to the diagonal tile when causal, from the band's first
+    tile under a window), or with `kv_outer` the backward's dK/dV walk (a
+    tile of `bk` keys over the query blocks from its first row k0 when
+    causal, up to k0 + bk - 1 + window under a window). Pairs past Sq or
+    Skv do not count."""
+    pairs = 0
+    if kv_outer:
+        for k0 in range(0, skv, bk):
+            q_begin = k0 if causal else 0
+            q_end = min(sq, k0 + bk - 1 + window) if window else sq
+            if q_end <= q_begin:
+                continue
+            blocks = -(-(q_end - q_begin) // bq)
+            pairs += (min(q_begin + blocks * bq, sq) - q_begin) * min(bk, skv - k0)
+        return pairs
+    n_all = -(-skv // bk)
+    for q0 in range(0, sq, bq):
+        n_tiles = n_all
+        if causal:
+            n_tiles = min(n_tiles, (min(q0 + bq, sq) - 1) // bk + 1)
+        t_lo = max(0, q0 - window + 1) // bk if window else 0
+        if n_tiles > t_lo:
+            pairs += min(bq, sq - q0) * (min(n_tiles * bk, skv) - t_lo * bk)
+    return pairs
+
+
+def _nbytes(*ts: torch.Tensor) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def flash_attention_work(q_shape, k_shape, dtype: torch.dtype, *, causal: bool,
+                         window: int = 0, backward: bool = False) -> int:
+    """Operations of one B6 launch (4·hd a visited pair), or of one B6-bwd
+    launch with `backward` (10·hd a pair of its dK/dV walk), over every
+    (batch, head) of q (B, H, Sq, hd) against k (B, KV, Skv, hd)."""
+    b, h, sq, hd = q_shape
+    bq, bk = _tiles(dtype, hd, backward)
+    pairs = _visited_pairs(sq, k_shape[2], bool(causal), int(window), bq, bk,
+                          kv_outer=backward)
+    return (10 if backward else 4) * hd * pairs * b * h
+
+
 def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     """Raise unless q, k, v are operands of the kernels or their plain
     versions: one dtype and device, k and v alike, H a multiple of KV."""
     for name, t in (("q", q), ("k", k), ("v", v)):
-        check_operand(t, name, 4)
+        check_operand(t, name, 4, meta_ok=True)
     if not (q.dtype == k.dtype == v.dtype):
         raise ValueError(f"q, k, v dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}")
     if not (q.device == k.device == v.device):
@@ -109,8 +178,17 @@ def _check_tma(*named: tuple[str, torch.Tensor]) -> None:
 
 
 def _forward(q, k, v, causal: bool, want_lse: bool, window: int = 0):
-    """Launch the forward kernel on CUDA operands: (out, lse or None)."""
+    """Launch the forward kernel on CUDA operands: (out, lse or None); on
+    meta operands, book it and return empty outputs."""
     _check_kernel_layout(("q", q), ("k", k), ("v", v))
+    if q.device.type == "meta":
+        out = torch.empty_like(q)
+        lse = (torch.empty((q.shape[0], q.shape[1], q.shape[2]), dtype=torch.float32,
+                           device=q.device) if want_lse else None)
+        book("flash_attention",
+             flash_attention_work(q.shape, k.shape, q.dtype, causal=causal, window=window),
+             _nbytes(q, k, v, out, *(() if lse is None else (lse,))))
+        return out, lse
     _check_tma(("q", q), ("k", k), ("v", v))
     b, h, sq, hd = q.shape
     n_kv, skv = k.shape[1], k.shape[2]
@@ -171,6 +249,13 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("out, dout and lse must lie on q's device")
     named = (("q", q), ("k", k), ("v", v), ("out", out), ("dout", dout))
     _check_kernel_layout(*named)
+    if q.device.type == "meta":
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        book("flash_attention_bwd",
+             flash_attention_work(q.shape, k.shape, q.dtype, causal=causal,
+                                  window=window, backward=True),
+             _nbytes(q, k, v, out, lse, dout, dq, dk, dv))
+        return dq, dk, dv
     _check_tma(*named)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if dk.numel() == 0:
@@ -208,9 +293,10 @@ class FlashAttentionFn(torch.autograd.Function):
         if q.shape[3] not in BWD_HEAD_DIMS:
             raise ValueError(f"attention with a gradient at head_dim {q.shape[3]}: "
                              f"the backward kernels take {BWD_HEAD_DIMS}")
-        if q.device.type != "cuda":
-            raise ValueError("FlashAttentionFn runs the CUDA kernels; on the "
-                             "CPU autograd differentiates attention_ref")
+        if q.device.type not in ("cuda", "meta"):
+            raise ValueError("FlashAttentionFn runs the CUDA kernels (or books "
+                             "them on meta); on the CPU autograd differentiates "
+                             "attention_ref")
         out, lse = _forward(q, k, v, bool(causal), want_lse=True, window=window)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.window = bool(causal), window

@@ -1,0 +1,772 @@
+"""Dry run: every (arch × shape) cell, and the SPIN solver, on the
+production meshes, with no storage and no card.
+
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch olmo-1b \\
+        --shape train_4k --mesh single
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --solver --mesh single
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --mesh both   # the grid
+
+The port of `repro.launch.dryrun`. The reference lowers and compiles each
+cell on 512 fake host devices and reads the compiler's cost and memory
+analysis. The port instead *runs* each cell's step once, on `meta`
+tensors (shapes and dtypes, no storage), under the production mesh
+(`launch.mesh.make_production_mesh(devices=["meta"])`: 256 or 512
+coordinates, all on the meta device), inside one counting dispatch mode.
+The names and record keys are the reference's, so each has its
+counterpart: `build_train` / `build_prefill` / `build_decode` return (fn,
+args, in_specs, out_specs, donate); `_trace_cell` is `_compile_cell`'s
+counterpart, `_measure`, `_extrapolate`, `collective_stats`, `run_cell`,
+`run_solver_cell` and `main()` keep their roles and flags. Records land in
+`experiments/dryrun_torch/` by default.
+
+What each record key means in the port:
+
+* ``per_device.argument_bytes``: the sum of each argument leaf's local
+  shard bytes under its spec (`param_specs`, the optimizer state's specs,
+  `_batch_specs`, `cache_specs`; a replicated 0-dim counter counts whole).
+  It equals the reference's `argument_size_in_bytes` on olmo-1b.
+* ``per_device.output_bytes`` and ``alias_bytes``: the same rule for the
+  outputs the reference gives specs to (train: the state, donated; the
+  metric scalars are not counted) and for the donated cache (decode).
+  Outputs whose layout the reference leaves to its compiler (prefill's
+  logits and cache, decode's logits) take the spec the port's `shard`
+  sites record (`record_specs()`); where none is recorded the key is null.
+* ``per_device.temp_bytes`` is null: one controller holds no per-device
+  intermediates. ``temp_bytes_global`` is the peak of the live
+  intermediate bytes during the run: each output of an aten op that is
+  not a view counts from when it is made until its tensor is freed.
+* ``cost.flops``: the whole program's operations ÷ chips, with
+  ``flops_global`` beside it: the matmul-class aten ops that
+  `torch.utils.flop_counter`'s formulas count (composite ops decomposed
+  first, as `FlopCounterMode` does), plus the work the kernels' meta
+  branches book (`kernels.BOOKED`: B6 and B6-bwd, 4·hd and 10·hd a (q, k)
+  pair their tiles visit).
+* ``cost.bytes_accessed``: the tensor inputs plus outputs of each aten op
+  that is not a view (an unfused count), plus the kernels' booked bytes,
+  ÷ chips.
+* ``cost.coll_bytes`` and ``collectives_once``: the port's own
+  collectives (`parallel.collective_bytes()` and `collective_calls()`),
+  bytes ÷ chips, mapped onto the reference's five names: all_gather,
+  gather and to_dense -> all-gather; psum, pmean and pmax -> all-reduce;
+  all_to_all and reshard -> all-to-all; ring -> collective-permute; the
+  all_gather's backward (reduce_scatter) -> reduce-scatter. The port runs
+  one global-view program: the collectives its compiler-free layout
+  implies for FSDP gathers, gradient all-reduces and tensor-parallel
+  reductions are not run, only those of its per-coordinate regions (the
+  embedding, MoE's expert parallelism, the sharded solver). So
+  ``coll_scope`` is "port regions", and a dense cell's ``coll_bytes`` is
+  not the reference's number.
+* ``cost`` equals ``cost_raw``: an eager run counts every loop iteration.
+  ``cost_extrapolated`` is `_extrapolate` of probes at L = 1 and 2 (one
+  microbatch, under `scan_util.unroll_scans()`), a cross-check; on a dense
+  cell its FLOPs equal the full run's exactly.
+* ``trace_s``: the host seconds of the full run (the counterpart of
+  ``lower_s``); every per-coordinate region runs once a coordinate, so it
+  grows with the mesh. ``variant_effect`` says what a config variant
+  changes in the port: the attention-chunk variants change nothing, as
+  the kernel tiles itself.
+
+The kernel launch counters do not move: the meta branches build and
+launch nothing.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import time
+import traceback
+import weakref
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils.flop_counter import flop_registry
+
+from .. import kernels
+from ..configs import SHAPES, cell_status, get_arch, list_archs
+from ..configs.registry import ArchConfig
+from ..configs.shapes import ShapeConfig
+from ..data.synthetic import input_specs
+from ..models import transformer as T
+from ..models.scan_util import unroll_scans
+from ..optim.adamw import AdamWState
+from ..parallel.collectives import (collective_bytes, collective_calls,
+                                    reset_collective_bytes)
+from ..parallel.sharded_blockmatrix import record_specs
+from ..parallel.sharding import (DEFAULT_RULES, PartitionSpec as P, ShardingRules,
+                                 logical_spec)
+from ..runtime.trainer import TrainConfig, TrainState, abstract_state, make_train_step
+from .mesh import make_production_mesh, set_mesh
+
+__all__ = ["RULES_VARIANTS", "CFG_VARIANTS", "collective_stats", "build_train",
+           "build_prefill", "build_decode", "run_cell", "run_solver_cell", "main"]
+
+# Named sharding-rule variants (the reference's hillclimb knobs).
+RULES_VARIANTS: dict[str, ShardingRules] = {
+    "default": DEFAULT_RULES,
+    "sp": ShardingRules(seq="model"),                   # Megatron-style SP
+    "dp_only": ShardingRules(heads=None, kv_heads=None, ffn=None,
+                             vocab=None, experts=None, ssm_inner=None,
+                             embed_w=("data", "model")),
+    "fsdp_both": ShardingRules(embed_w=("data", "model"), seq="model"),
+    "ssd_cp": ShardingRules(ssm_chunk="model"),
+    "sp_ssd_cp": ShardingRules(seq="model", ssm_chunk="model"),
+}
+
+
+def _hymba_tuned(cfg: ArchConfig) -> ArchConfig:
+    return dataclasses.replace(cfg, attn_q_chunk=512, attn_kv_chunk=512,
+                               ssm=dataclasses.replace(cfg.ssm, chunk=64))
+
+
+def _hymba_tuned2(cfg: ArchConfig) -> ArchConfig:
+    return dataclasses.replace(cfg, attn_q_chunk=512, attn_kv_chunk=512,
+                               ssm=dataclasses.replace(cfg.ssm, chunk=32))
+
+
+def _ssd_chunk(q: int):
+    def f(cfg: ArchConfig) -> ArchConfig:
+        return dataclasses.replace(cfg, ssm=dataclasses.replace(cfg.ssm, chunk=q))
+    return f
+
+
+def _attn_chunk(q: int):
+    def f(cfg: ArchConfig) -> ArchConfig:
+        return dataclasses.replace(cfg, attn_q_chunk=q, attn_kv_chunk=q)
+    return f
+
+
+# Named config transforms (the reference's hillclimb knobs).
+CFG_VARIANTS = {
+    "base": lambda cfg: cfg,
+    "hymba_tuned": _hymba_tuned,
+    "hymba_tuned2": _hymba_tuned2,
+    "ssd_chunk_64": _ssd_chunk(64),
+    "ssd_chunk_128": _ssd_chunk(128),
+    "attn_chunk_512": _attn_chunk(512),
+    "attn_chunk_1024": _attn_chunk(1024),
+}
+
+_COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+                "collective-permute")
+
+# The port's collective kinds under the reference's HLO names.
+_KIND_NAMES = {"all_gather": "all-gather", "gather": "all-gather",
+               "to_dense": "all-gather", "psum": "all-reduce",
+               "pmean": "all-reduce", "pmax": "all-reduce",
+               "all_to_all": "all-to-all", "reshard": "all-to-all",
+               "ring": "collective-permute", "reduce_scatter": "reduce-scatter"}
+
+# Config fields the port reads nowhere: the reference scan's tile sizes.
+_UNREAD_FIELDS = ("attn_q_chunk", "attn_kv_chunk")
+
+METHOD = ("one eager run of the cell's step on meta tensors under the production "
+          "mesh of meta devices, inside one counting dispatch mode; FLOPs: the "
+          "matmul-class aten ops torch.utils.flop_counter counts plus the kernels' "
+          "booked work; bytes_accessed: inputs plus outputs of each non-view aten op "
+          "plus the kernels' booked bytes; collectives: the port's per-coordinate "
+          "regions (collective_bytes), per device = global / chips; argument, output "
+          "and alias bytes: each leaf's local shard under its spec; temp_bytes_global: "
+          "peak live bytes of non-view op outputs")
+
+
+def collective_stats(moved: dict, calls: dict, chips: int = 1) -> dict:
+    """The port's collectives by kind (bytes and calls, as
+    `collective_bytes()` and `collective_calls()` give them) under the
+    reference's five names: {name: {"count", "operand_bytes"}} with the
+    bytes ÷ `chips`, and "total_operand_bytes"."""
+    stats: dict = {c: {"count": 0, "operand_bytes": 0} for c in _COLLECTIVES}
+    for kind, nbytes in moved.items():
+        name = _KIND_NAMES[kind]
+        stats[name]["operand_bytes"] += nbytes / chips
+        stats[name]["count"] += calls.get(kind, 0)
+    stats["total_operand_bytes"] = sum(
+        v["operand_bytes"] for k, v in stats.items() if isinstance(v, dict))
+    return stats
+
+
+# ---------------------------------------------------------------------------
+# The counting mode
+# ---------------------------------------------------------------------------
+
+_SIMPLE = (int, float, bool, str, type(None), torch.dtype, torch.device,
+           torch.layout, torch.memory_format)
+
+
+def _flat(xs, out: list) -> bool:
+    """Flatten args into `out`: tensors, lengths and plain values; False
+    when a value can key no cache (it is left out)."""
+    keyed = True
+    for x in xs:
+        if isinstance(x, torch.Tensor) or isinstance(x, _SIMPLE):
+            out.append(x)
+        elif isinstance(x, (list, tuple)):
+            out.append(len(x))
+            keyed = _flat(x, out) and keyed
+        else:
+            keyed = False
+    return keyed
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+class _Counter(TorchDispatchMode):
+    """Counts a run's aten ops: FLOPs by `flop_registry` (decomposing a
+    composite op first, as `FlopCounterMode` does), the bytes each non-view
+    op reads and writes, and the peak of the live bytes its non-view
+    outputs hold (each dropped by `weakref.finalize` when freed).
+
+    An op on meta tensors whose outputs are fresh tensors gives outputs
+    whose shapes, strides and dtypes follow from its inputs' and its other
+    arguments: the first run of each such signature is kept, and a repeat
+    (one per mesh coordinate, mostly) makes empty outputs of the kept
+    layout without running the meta kernel again. Counts are the same.
+    """
+
+    def __init__(self):
+        super().__init__()
+        self.flops = 0
+        self.bytes = 0
+        self.ops = 0
+        self.live = 0
+        self.peak = 0
+        self._kinds: dict = {}
+        self._composite: dict = {}
+        self._cache: dict = {}
+
+    def _free(self, nbytes: int) -> None:
+        self.live -= nbytes
+
+    def _kind(self, func) -> tuple[bool, bool]:
+        """(fresh outputs only, a pure view)."""
+        got = self._kinds.get(func)
+        if got is None:
+            rets = func._schema.returns
+            aliased = [r.alias_info is not None for r in rets]
+            writes = any(r.alias_info is not None and r.alias_info.is_write for r in rets)
+            fresh = bool(rets) and not any(aliased) and not func._schema.is_mutable and all(
+                str(r.type) in ("Tensor", "List[Tensor]") for r in rets)
+            got = self._kinds[func] = (fresh, bool(rets) and all(aliased) and not writes)
+        return got
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        composite = self._composite.get(func)
+        if composite is None:
+            composite = self._composite[func] = (
+                func is not torch.ops.prim.device.default
+                and torch._C._dispatch_has_kernel_for_dispatch_key(
+                    func.name(), "CompositeImplicitAutograd"))
+        if composite:
+            with self:
+                r = func.decompose(*args, **kwargs)
+            if r is not NotImplemented:
+                return r
+        self.ops += 1
+        fresh, view = self._kind(func)
+        flat: list = []
+        keyed = _flat(args, flat) & _flat(kwargs.values(), flat)
+        key = None
+        if fresh and keyed and all(t.device.type == "meta" for t in flat
+                                   if isinstance(t, torch.Tensor)):
+            key = (func, tuple(kwargs), tuple(
+                (tuple(t.shape), t.stride(), t.dtype) if isinstance(t, torch.Tensor) else t
+                for t in flat))
+        hit = self._cache.get(key) if key is not None else None
+        if hit is not None:
+            layouts, single, flops, nbytes = hit
+            outs = [torch.empty_strided(s, st, dtype=dt, device="meta")
+                    for s, st, dt in layouts]
+            out = outs[0] if single else outs
+        else:
+            out = func(*args, **kwargs)
+            outs = [out] if isinstance(out, torch.Tensor) else [
+                o for o in (out if isinstance(out, (list, tuple)) else ())
+                if isinstance(o, torch.Tensor)]
+            formula = flop_registry.get(func._overloadpacket)
+            flops = formula(*args, **kwargs, out_val=out) if formula is not None else 0
+            nbytes = 0 if view else (
+                sum(_nbytes(t) for t in flat if isinstance(t, torch.Tensor))
+                + sum(_nbytes(o) for o in outs))
+            if key is not None:
+                self._cache[key] = ([(tuple(o.shape), o.stride(), o.dtype) for o in outs],
+                                    isinstance(out, torch.Tensor), flops, nbytes)
+        self.flops += flops
+        self.bytes += nbytes
+        if fresh:
+            for o in outs:
+                n = _nbytes(o)
+                self.live += n
+                weakref.finalize(o, self._free, n)
+            self.peak = max(self.peak, self.live)
+        return out
+
+
+# ---------------------------------------------------------------------------
+# Bytes a device holds under a spec
+# ---------------------------------------------------------------------------
+
+
+def _extent(spec, mesh) -> int:
+    """How many ways `spec` splits a tensor over `mesh`."""
+    if mesh is None or spec is None:
+        return 1
+    n = 1
+    for entry in spec:
+        for axis in (() if entry is None else (entry,) if isinstance(entry, str) else entry):
+            n *= mesh.shape[axis]
+    return n
+
+
+def _shard_bytes(tree, specs, mesh) -> int:
+    """Σ over the leaves of `tree` of their local shard bytes under the
+    matching leaf of `specs` (a PartitionSpec a tensor)."""
+    if tree is None:
+        return 0
+    if isinstance(tree, torch.Tensor):
+        return _nbytes(tree) // _extent(specs, mesh)
+    if isinstance(tree, dict):
+        return sum(_shard_bytes(tree[k], specs[k], mesh) for k in tree)
+    if isinstance(tree, (list, tuple)):
+        return sum(_shard_bytes(t, s, mesh) for t, s in zip(tree, specs))
+    return 0
+
+
+def _tensors(tree) -> list:
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in _tensors(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [t for x in tree for t in _tensors(x)]
+    return []
+
+
+def _recorded_spec(records, shape: tuple):
+    """The spec the last `shard` record of `shape` gives (a record whose
+    shape has extra size-1 dims matches with their entries dropped)."""
+    for r in reversed(records):
+        if r.spec is None:
+            continue
+        if r.shape == shape:
+            return r.spec
+        kept = [(n, s) for n, s in zip(r.shape, r.spec) if n != 1]
+        if tuple(n for n, _ in kept) == tuple(n for n in shape if n != 1) and len(r.shape) > len(shape):
+            return tuple(s for _, s in kept)
+    return None
+
+
+def _recorded_bytes(outs, records, mesh):
+    """Bytes a device holds of `outs` under the recorded specs, or None."""
+    total = 0
+    for t in _tensors(outs):
+        spec = () if t.ndim == 0 else _recorded_spec(records, tuple(t.shape))
+        if spec is None:
+            return None
+        total += _nbytes(t) // _extent(spec, mesh)
+    return total
+
+
+# ---------------------------------------------------------------------------
+# Cell builders: (fn, args, in_specs, out_specs, donate)
+# ---------------------------------------------------------------------------
+
+
+def _hint(mesh, model_size_hint):
+    if model_size_hint is not None:
+        return model_size_hint
+    return mesh.shape.get("model", 16) if mesh is not None else 16
+
+
+def _param_state_specs(cfg: ArchConfig, rules: ShardingRules, mesh, hint: int):
+    pspecs = T.param_specs(cfg, rules, mesh, model_size_hint=hint)
+    opt_specs = AdamWState(step=P(), master=pspecs, m=pspecs, v=pspecs)
+    return TrainState(params=pspecs, opt=opt_specs, step=P())
+
+
+def _batch_specs(batch_abs: dict, rules: ShardingRules, mesh) -> dict:
+    return {k: logical_spec(tuple(v.shape), ("batch",) + (None,) * (v.ndim - 1),
+                            rules, mesh)
+            for k, v in batch_abs.items()}
+
+
+_REMAT_POLICY = "full"      # set by --remat-policy
+
+
+def build_train(cfg: ArchConfig, shape: ShapeConfig, mesh, rules: ShardingRules,
+                microbatches: int, model_size_hint: int | None = None):
+    """The AdamW train step. The state is `abstract_state`'s (on meta),
+    with host 0-dim step counters in place of its meta ones: their value
+    changes neither shapes nor work, and the schedule reads them."""
+    hint = _hint(mesh, model_size_hint)
+    tcfg = TrainConfig(microbatches=microbatches, remat_policy=_REMAT_POLICY)
+    state_abs = abstract_state(cfg, tcfg, model_size_hint=hint)
+    state_abs = state_abs._replace(
+        step=torch.zeros((), dtype=torch.int32),
+        opt=state_abs.opt._replace(step=torch.zeros((), dtype=torch.int32)))
+    batch_abs = input_specs(cfg, shape)
+    state_specs = _param_state_specs(cfg, rules, mesh, hint)
+    batch_specs = _batch_specs(batch_abs, rules, mesh)
+    fn = make_train_step(cfg, tcfg, rules)
+    return (fn, (state_abs, batch_abs), (state_specs, batch_specs),
+            (state_specs, None), (0,))
+
+
+def build_prefill(cfg: ArchConfig, shape: ShapeConfig, mesh, rules: ShardingRules,
+                  model_size_hint: int | None = None):
+    hint = _hint(mesh, model_size_hint)
+    params_abs = T.abstract_params(cfg, model_size_hint=hint)
+    batch_abs = input_specs(cfg, shape)
+    pspecs = T.param_specs(cfg, rules, mesh, model_size_hint=hint)
+    batch_specs = _batch_specs(batch_abs, rules, mesh)
+
+    def fn(params, batch):
+        logits, aux, z, cache = T.prefill(params, batch, cfg, rules)
+        return logits, cache
+
+    return fn, (params_abs, batch_abs), (pspecs, batch_specs), None, ()
+
+
+def build_decode(cfg: ArchConfig, shape: ShapeConfig, mesh, rules: ShardingRules,
+                 model_size_hint: int | None = None):
+    hint = _hint(mesh, model_size_hint)
+    params_abs = T.abstract_params(cfg, model_size_hint=hint)
+    cache_abs = T.abstract_cache(cfg, shape.global_batch, shape.seq_len)
+    tokens_abs = torch.empty((shape.global_batch,), dtype=torch.int32, device="meta")
+    pspecs = T.param_specs(cfg, rules, mesh, model_size_hint=hint)
+    cspecs = T.cache_specs(cfg, shape.global_batch, shape.seq_len, rules, mesh)
+    tspec = logical_spec(tuple(tokens_abs.shape), ("batch",), rules, mesh)
+
+    def fn(params, cache, tokens):
+        return T.decode_step(params, cache, tokens, cfg, rules)
+
+    return (fn, (params_abs, cache_abs, tokens_abs), (pspecs, cspecs, tspec), None, (1,))
+
+
+# ---------------------------------------------------------------------------
+# Cell runner
+# ---------------------------------------------------------------------------
+
+
+def _chips(mesh) -> int:
+    if mesh is None:
+        return 1
+    n = 1
+    for s in mesh.shape.values():
+        n *= s
+    return n
+
+
+def _trace(fn, args, mesh) -> dict:
+    """Run `fn(*args)` once under `mesh` inside the counting mode: its
+    outputs, the counter, the spec records, the collectives and the
+    kernels' booked work."""
+    reset_collective_bytes()
+    kernels.reset_booked()
+    counter = _Counter()
+    t0 = time.perf_counter()
+    with set_mesh(mesh), record_specs() as records, counter:
+        outs = fn(*args)
+    return {"outs": outs, "counter": counter, "records": records,
+            "trace_s": time.perf_counter() - t0, "moved": collective_bytes(),
+            "calls": collective_calls(), "booked": kernels.booked()}
+
+
+def _io_bytes(traced: dict, kind: str, mesh) -> tuple:
+    """(argument, output, alias) bytes a device holds for a traced cell:
+    each leaf's local shard under its spec (see the module docstring)."""
+    fn, args, in_specs, out_specs, donate = traced["built"]
+    arg_bytes = sum(_shard_bytes(a, s, mesh) for a, s in zip(args, in_specs))
+    outs = traced["outs"]
+    if kind == "train":
+        out_bytes = alias_bytes = _shard_bytes(outs[0], out_specs[0], mesh)
+    elif kind == "decode":
+        alias_bytes = _shard_bytes(outs[1], in_specs[1], mesh)
+        logits = _recorded_bytes(outs[0], traced["records"], mesh)
+        out_bytes = None if logits is None else logits + alias_bytes
+    else:
+        alias_bytes = 0
+        out_bytes = _recorded_bytes(outs, traced["records"], mesh)
+    return arg_bytes, out_bytes, alias_bytes
+
+
+def _trace_cell(cfg: ArchConfig, shape: ShapeConfig, mesh, rules: ShardingRules,
+                microbatches: int, *, model_size_hint: int | None = None) -> dict:
+    """Build one configuration and run it once on meta tensors (the
+    counterpart of `_compile_cell`): `_trace`'s dict plus "built"."""
+    if shape.kind == "train":
+        built = build_train(cfg, shape, mesh, rules, microbatches, model_size_hint)
+    elif shape.kind == "prefill":
+        built = build_prefill(cfg, shape, mesh, rules, model_size_hint)
+    else:
+        built = build_decode(cfg, shape, mesh, rules, model_size_hint)
+    fn, args = built[0], built[1]
+    traced = _trace(fn, args, mesh)
+    traced["built"] = built
+    return traced
+
+
+def _measure(traced: dict) -> dict:
+    """Whole-program counts of a traced run (global, not ÷ chips)."""
+    c = traced["counter"]
+    booked = traced["booked"]
+    kflops = sum(b["flops"] for b in booked.values())
+    kbytes = sum(b["bytes"] for b in booked.values())
+    return dict(flops=c.flops + kflops, flops_aten=c.flops, flops_kernels=kflops,
+                bytes_accessed=c.bytes + kbytes, coll_bytes=sum(traced["moved"].values()),
+                moved=traced["moved"], calls=traced["calls"], booked=booked,
+                temp_bytes_global=c.peak, aten_ops=c.ops, trace_s=traced["trace_s"])
+
+
+def _extrapolate(f1: float, f2: float, n_layers: int) -> float:
+    """Linear in depth from probes at L ∈ {1, 2}: f1 + (L - 1)·max(f2 - f1,
+    0). The reference needs it because its compiler counts a loop body
+    once; the port's eager run counts every layer, so here it is a
+    cross-check. The delta is clamped at 0 as the reference's is."""
+    c = max(f2 - f1, 0.0)
+    return f1 + (n_layers - 1) * c
+
+
+def _per_device(m: dict, chips: int) -> dict:
+    return dict(flops=m["flops"] / chips, flops_global=m["flops"],
+                bytes_accessed=m["bytes_accessed"] / chips,
+                coll_bytes=m["coll_bytes"] / chips)
+
+
+def _variant_effect(base: ArchConfig, cfg: ArchConfig) -> str:
+    changed = [f.name for f in dataclasses.fields(cfg)
+               if getattr(cfg, f.name) != getattr(base, f.name)]
+    if not changed:
+        return "none"
+    unread = [f for f in changed if f in _UNREAD_FIELDS]
+    read = [f for f in changed if f not in _UNREAD_FIELDS]
+    parts = []
+    if read:
+        parts.append("changes " + ", ".join(read))
+    if unread:
+        parts.append(", ".join(unread) + " change nothing in the port: the flash "
+                     "attention kernel tiles itself")
+    return "; ".join(parts)
+
+
+def _mesh_label(multi_pod: bool) -> str:
+    return "2x16x16" if multi_pod else "16x16"
+
+
+def run_cell(arch_name: str, shape_name: str, *, multi_pod: bool,
+             rules_name: str = "default", variant: str = "base",
+             microbatches: int = 8, verbose: bool = True) -> dict:
+    base = get_arch(arch_name)
+    cfg = CFG_VARIANTS[variant](base)
+    shape = SHAPES[shape_name]
+    mesh_label = _mesh_label(multi_pod)
+    rec: dict = dict(arch=arch_name, shape=shape_name, mesh=mesh_label,
+                     rules=rules_name, variant=variant, kind=shape.kind,
+                     microbatches=microbatches if shape.kind == "train" else None)
+    runnable, reason = cell_status(cfg, shape)
+    if not runnable:
+        rec.update(runnable=False, skip_reason=reason)
+        return rec
+
+    mesh = make_production_mesh(multi_pod=multi_pod, devices=["meta"])
+    rules = RULES_VARIANTS[rules_name]
+    chips = _chips(mesh)
+    rec.update(runnable=True, chips=chips)
+    launches_before = kernels.launch_counts()
+
+    # 1) the deliverable: the FULL config runs once
+    traced = _trace_cell(cfg, shape, mesh, rules, microbatches)
+    full = _measure(traced)
+    arg_bytes, out_bytes, alias_bytes = _io_bytes(traced, shape.kind, mesh)
+    del traced
+
+    # 2) the cross-check: probes at L ∈ {1, 2}, one microbatch
+    probes = {}
+    with unroll_scans():
+        for n_layers in (1, 2):
+            probes[f"L{n_layers}"] = _measure(_trace_cell(
+                dataclasses.replace(cfg, n_layers=n_layers), shape, mesh, rules, 1))
+
+    def extrap(key):
+        return _extrapolate(probes["L1"][key], probes["L2"][key], cfg.n_layers)
+
+    raw = _per_device(full, chips)
+    rec.update(
+        trace_s=round(full["trace_s"], 2),
+        per_device=dict(argument_bytes=arg_bytes, output_bytes=out_bytes,
+                        temp_bytes=None, alias_bytes=alias_bytes),
+        temp_bytes_global=full["temp_bytes_global"],
+        cost_raw=raw, cost=dict(raw),
+        cost_extrapolated=dict(flops=extrap("flops") / chips,
+                               flops_global=extrap("flops"),
+                               bytes_accessed=extrap("bytes_accessed") / chips,
+                               coll_bytes=extrap("coll_bytes") / chips),
+        probes={k: {key: v[key] for key in ("flops", "flops_aten", "flops_kernels",
+                                              "bytes_accessed", "coll_bytes")}
+                for k, v in probes.items()},
+        flops_aten_global=full["flops_aten"], flops_kernels_global=full["flops_kernels"],
+        kernels_booked=full["booked"],
+        collectives_once=collective_stats(full["moved"], full["calls"], chips),
+        collectives_port=dict(bytes=full["moved"], calls=full["calls"]),
+        coll_scope="port regions", method=METHOD,
+        variant_effect=_variant_effect(base, cfg),
+        launches_moved=kernels.launch_counts() != launches_before,
+        aten_ops=full["aten_ops"],
+    )
+    if verbose:
+        print(f"[{arch_name} × {shape_name} × {mesh_label} × {rules_name} × {variant}] "
+              f"trace {rec['trace_s']}s  arg/dev {arg_bytes / 2**30:.2f}GiB  "
+              f"temp(global) {rec['temp_bytes_global'] / 2**30:.1f}GiB  "
+              f"flops/dev {raw['flops']:.3e}  coll/dev {raw['coll_bytes'] / 2**20:.1f}MiB  "
+              f"bytes_accessed/dev {raw['bytes_accessed'] / 2**30:.1f}GiB", flush=True)
+    return rec
+
+
+def _trace_solver(n: int, block_size: int, mesh, *, engine: str = "einsum",
+                  dtype: str = "float32", algo: str = "spin") -> dict:
+    """The inversion program on a (grid, grid, bs, bs) grid of meta blocks:
+    `algo="spin"` lays it out on `mesh` (`ShardedBlockMatrix`) and runs
+    `inverse_program` under `engine` with the `linalg` leaf, the
+    reference's choices; `algo="lu"` runs `core.lu_inverse.lu_inverse` on
+    the global `BlockMatrix`, which has no port collectives. `_trace`'s
+    dict plus "arg", the input laid out on `mesh` (whose local shard is
+    the argument a device holds either way)."""
+    from ..core.blockmatrix import BlockMatrix
+    from ..core.lu_inverse import lu_inverse
+    from ..core.multiply import multiply_engine
+    from ..parallel.sharded_blockmatrix import ShardedBlockMatrix, inverse_program
+
+    grid = n // block_size
+    blocks = torch.empty((grid, grid, block_size, block_size),
+                         dtype=getattr(torch, dtype), device="meta")
+    a = ShardedBlockMatrix.from_blockmatrix(BlockMatrix(blocks), mesh=mesh)
+    if algo == "spin":
+        def invert(a):
+            return inverse_program(a, leaf_solver="linalg", engine=engine)
+    else:
+        def invert(a):
+            with multiply_engine(engine):
+                return lu_inverse(BlockMatrix(blocks))
+    traced = _trace(invert, (a,), mesh)
+    traced["arg"] = a
+    return traced
+
+
+def run_solver_cell(n: int, block_size: int, *, multi_pod: bool,
+                    engine: str = "einsum", dtype: str = "float32",
+                    algo: str = "spin", out_dir: str | None = None,
+                    verbose: bool = True) -> dict:
+    """Dry-run the paper's technique itself: the inversion on the
+    production mesh of meta devices. No layer loop, so no extrapolation.
+    The argument and output bytes are the (data, model) layout's, as the
+    reference's in and out shardings give them; `algo="lu"` computes on
+    the global grid and moves nothing between coordinates."""
+    mesh = make_production_mesh(multi_pod=multi_pod, devices=["meta"])
+    mesh_label = _mesh_label(multi_pod)
+    grid = n // block_size
+    chips = _chips(mesh)
+    rec = dict(arch=f"solver-{algo}", shape=f"n{n}_b{grid}_{dtype}_{engine}",
+               mesh=mesh_label, rules=engine, kind="solver", runnable=True,
+               chips=chips, n=n, grid=grid, block_size=block_size)
+    launches_before = kernels.launch_counts()
+    traced = _trace_solver(n, block_size, mesh, engine=engine, dtype=dtype, algo=algo)
+    m = _measure(traced)
+    a = traced["arg"]
+    local = _nbytes(a.dist.shards[mesh.coords()[0]])
+    raw = _per_device(m, chips)
+    rec.update(
+        trace_s=round(m["trace_s"], 2),
+        per_device=dict(argument_bytes=local, output_bytes=local, temp_bytes=None,
+                        alias_bytes=0),
+        temp_bytes_global=m["temp_bytes_global"],
+        cost=raw, cost_raw=dict(raw),
+        flops_aten_global=m["flops_aten"], flops_kernels_global=m["flops_kernels"],
+        collectives_once=collective_stats(m["moved"], m["calls"], chips),
+        collectives_port=dict(bytes=m["moved"], calls=m["calls"]),
+        coll_scope="port regions" if algo == "spin" else "none: the global grid",
+        method=METHOD, launches_moved=kernels.launch_counts() != launches_before,
+        aten_ops=m["aten_ops"],
+    )
+    if verbose:
+        print(f"[solver-{algo} n={n} grid={grid} {dtype} {engine} × {mesh_label}] "
+              f"trace {rec['trace_s']}s  flops/dev {raw['flops']:.3e}  "
+              f"coll/dev {raw['coll_bytes'] / 2**20:.1f}MiB", flush=True)
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+        label = f"solver-{algo}__{rec['shape']}__{mesh_label}"
+        with open(os.path.join(out_dir, label + ".json"), "w") as f:
+            json.dump(rec, f, indent=1)
+    return rec
+
+
+def main(argv: list[str] | None = None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--solver", action="store_true",
+                    help="dry-run the SPIN solver itself instead of LM cells")
+    ap.add_argument("--solver-n", type=int, default=65536)
+    ap.add_argument("--solver-block", type=int, default=4096)
+    ap.add_argument("--solver-engine", default="einsum",
+                    choices=["einsum", "allgather", "ring"])
+    ap.add_argument("--solver-dtype", default="float32",
+                    choices=["float32", "bfloat16"])
+    ap.add_argument("--solver-algo", default="spin", choices=["spin", "lu"])
+    ap.add_argument("--arch", default="all", help="arch id or 'all' (see configs/)")
+    ap.add_argument("--shape", default="all", help="shape id or 'all'")
+    ap.add_argument("--mesh", default="both", choices=["single", "multi", "both"])
+    ap.add_argument("--rules", default="default", choices=sorted(RULES_VARIANTS))
+    ap.add_argument("--variant", default="base", choices=sorted(CFG_VARIANTS))
+    ap.add_argument("--remat-policy", default="full", choices=["full", "dots"])
+    ap.add_argument("--microbatches", type=int, default=8)
+    ap.add_argument("--out", default="experiments/dryrun_torch")
+    args = ap.parse_args(argv)
+
+    global _REMAT_POLICY
+    _REMAT_POLICY = args.remat_policy
+    meshes = {"single": [False], "multi": [True], "both": [False, True]}[args.mesh]
+    t_grid = time.perf_counter()
+
+    if args.solver:
+        for mp in meshes:
+            run_solver_cell(args.solver_n, args.solver_block, multi_pod=mp,
+                            engine=args.solver_engine, dtype=args.solver_dtype,
+                            algo=args.solver_algo, out_dir=args.out)
+        print(f"grid_s {time.perf_counter() - t_grid:.1f}")
+        return
+
+    archs = list_archs() if args.arch == "all" else [args.arch]
+    shapes = list(SHAPES) if args.shape == "all" else [args.shape]
+    os.makedirs(args.out, exist_ok=True)
+    failures = []
+    for arch in archs:
+        for shape in shapes:
+            for mp in meshes:
+                label = f"{arch}__{shape}__{_mesh_label(mp)}__{args.rules}"
+                if args.variant != "base":
+                    label += f"__{args.variant}"
+                path = os.path.join(args.out, label + ".json")
+                try:
+                    rec = run_cell(arch, shape, multi_pod=mp, rules_name=args.rules,
+                                   variant=args.variant,
+                                   microbatches=args.microbatches)
+                except Exception as e:  # noqa: BLE001 — record, keep going
+                    rec = dict(arch=arch, shape=shape, mesh=_mesh_label(mp),
+                               rules=args.rules, runnable=True,
+                               error=f"{type(e).__name__}: {e}")
+                    failures.append(label)
+                    print(f"[{label}] FAILED: {e}")
+                    traceback.print_exc()
+                with open(path, "w") as f:
+                    json.dump(rec, f, indent=1)
+    print(f"grid_s {time.perf_counter() - t_grid:.1f}")
+    if failures:
+        print(f"\n{len(failures)} FAILED cells: {failures}")
+        raise SystemExit(1)
+    print("\nall requested cells ran on the meta device")
+
+
+if __name__ == "__main__":
+    main()

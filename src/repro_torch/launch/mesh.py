@@ -12,6 +12,15 @@ and can be measured on one card. A four-card machine uses ``cuda:0..3``.
 `current_mesh()` reads it (None outside any), the counterparts of the JAX
 package's `compat.set_mesh` and `get_abstract_mesh`.
 
+The production meshes are the reference's: `make_mesh_shape` gives
+(16, 16) over ("data", "model"), one pod of 256 chips, or (2, 16, 16)
+over ("pod", "data", "model"), 512 chips in two pods whose `pod` axis is
+pure data parallelism. `make_production_mesh` lays those coordinates over
+`devices`, cycled: this process's cards by default (raising without
+one), ``["cpu"]`` in the tests, ``["meta"]`` in the dry run
+(`launch.dryrun`), which runs each cell's step on tensors with no storage.
+A mesh of ``meta`` devices is built only where a caller names them.
+
 Multi-process: `init_distributed()` joins a `torch.distributed` process
 group (coordinator and process id from the arguments or the
 SPIN_COORDINATOR / SPIN_NUM_PROCS / SPIN_PROC_ID variables), and
@@ -34,6 +43,7 @@ import torch
 from ..device import resolve_device
 
 __all__ = ["Mesh", "set_mesh", "current_mesh", "make_worker_mesh",
+           "make_mesh_shape", "make_production_mesh",
            "WorkerInfo", "init_distributed", "worker_info",
            "local_worker_ranks"]
 
@@ -60,7 +70,7 @@ class Mesh:
         if len(types) > 1:
             raise ValueError(f"a mesh holds one kind of device, got {types}")
         for c, d in self._devices.items():
-            resolve_device(d)          # a cuda mesh needs the card
+            resolve_device(d, allow_meta=True)   # a cuda mesh needs the card
             if d.type == "cuda" and d.index is None:
                 # the card a tensor made on "cuda" reports: compare equal to it
                 self._devices[c] = torch.device("cuda", torch.cuda.current_device())
@@ -196,6 +206,32 @@ def make_worker_mesh(shape: tuple[int, ...] | None = None,
                 for i in range(shape[level])]
 
     return Mesh(build(0, 0), axes)
+
+
+def make_mesh_shape(*, multi_pod: bool = False):
+    """The production mesh's (shape, axis names): (16, 16) over (data,
+    model), or (2, 16, 16) over (pod, data, model)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return shape, axes
+
+
+def make_production_mesh(*, multi_pod: bool = False, devices=None) -> Mesh:
+    """The production mesh, its 256 or 512 coordinates laid over `devices`
+    in turn (default: every card of this process; raises without one).
+    ``devices=["meta"]`` is the dry run's mesh."""
+    shape, axes = make_mesh_shape(multi_pod=multi_pod)
+    if devices is None:
+        resolve_device("cuda")
+        devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+    devices = list(devices)
+    if not devices:
+        raise ValueError("make_production_mesh: no devices")
+    n = 1
+    for s in shape:
+        n *= s
+    return make_worker_mesh(shape, axes, devices=[devices[i % len(devices)]
+                                                  for i in range(n)])
 
 
 # ---------------------------------------------------------------------------

@@ -14,10 +14,13 @@ cpu`. Every family trains on the card, hymba's sliding window and
 hubert's head dim 80 included. `--layers N` keeps the config's first N
 layers at full width, for a config whose optimizer state does not fit one
 card whole (phi-3-vision-4.2b, qwen2-moe-a2.7b). `--mesh single|multi`
-needs the production mesh (ROADMAP A item 4, the dry run), which the port
-does not have yet: it raises. A repeated-device mesh of one card runs
-through the library (`set_mesh(make_worker_mesh((2, 4), devices=["cuda:0"]
-* 8))` around `Trainer(..., rules=DEFAULT_RULES)`).
+trains under the production mesh (`launch.mesh.make_production_mesh`:
+16 x 16, or 2 x 16 x 16) laid over `--device` (its 256 or 512 coordinates
+on that one device), with MoE experts padded for a 16-way model axis
+(model_size_hint 16), as the reference's launcher does; the embedding
+and MoE run their per-coordinate programs there. A smaller mesh of one
+card runs through the library (`set_mesh(make_worker_mesh((2, 4),
+devices=["cuda:0"] * 8))` around `Trainer(..., rules=DEFAULT_RULES)`).
 """
 
 from __future__ import annotations
@@ -49,14 +52,10 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    if args.mesh != "none":
-        raise ValueError(f"--mesh {args.mesh} needs the production mesh "
-                         "(make_production_mesh, 16x16 or 2x16x16 devices), which "
-                         "comes with the port of the dry run, ROADMAP A item 4")
-
     from repro_torch.configs import SHAPES, get_arch
     from repro_torch.data.synthetic import TokenStream
     from repro_torch.device import resolve_device
+    from repro_torch.launch.mesh import make_production_mesh, set_mesh
     from repro_torch.runtime.trainer import TrainConfig, Trainer, init_state
 
     cfg = get_arch(args.arch)
@@ -72,18 +71,23 @@ def main(argv: list[str] | None = None) -> dict:
         batch, seq = sh.global_batch, sh.seq_len
     device = resolve_device(args.device)
 
+    mesh = (make_production_mesh(multi_pod=args.mesh == "multi", devices=[device])
+            if args.mesh != "none" else None)
+
     tcfg = TrainConfig(microbatches=args.microbatches, optimizer=args.optimizer,
                        total_steps=max(args.steps, 100))
-    state = init_state(cfg, tcfg, torch.Generator(device=device).manual_seed(0),
-                       device, model_size_hint=1)
-    stream = TokenStream(cfg, batch, seq, seed=0, device=str(device))
-    trainer = Trainer(cfg, tcfg, stream, ckpt_dir=args.ckpt_dir,
-                      ckpt_every=args.ckpt_every)
-    state = trainer.maybe_restore(state)
-    state, logs = trainer.run(state, args.steps, log_every=10)
+    with set_mesh(mesh):
+        state = init_state(cfg, tcfg, torch.Generator(device=device).manual_seed(0),
+                           device, model_size_hint=16 if mesh is not None else 1)
+        stream = TokenStream(cfg, batch, seq, seed=0, device=str(device))
+        trainer = Trainer(cfg, tcfg, stream, ckpt_dir=args.ckpt_dir,
+                          ckpt_every=args.ckpt_every)
+        state = trainer.maybe_restore(state)
+        state, logs = trainer.run(state, args.steps, log_every=10)
     print(f"done: step {int(state.step)} loss {logs[-1]['loss']:.4f}; "
           f"straggler events: {len(trainer.straggler_events)}")
     return {"arch": cfg.name, "layers": cfg.n_layers, "device": str(device),
+            "mesh": mesh.descriptor() if mesh is not None else None,
             "steps": int(state.step), "loss": logs[-1]["loss"], "logs": logs}
 
 

@@ -6,7 +6,7 @@ its recursion (`sharded_blockmatrix`), the LM's logical-axis rules
 heartbeats, retries, background tasks and coded panel solves
 (`straggler`)."""
 
-from .collectives import (DistArray, collective_bytes,
+from .collectives import (DistArray, collective_bytes, collective_calls,
                           reset_collective_bytes)
 from .sharded_blockmatrix import (ShardedBlockMatrix, SpecRecord,
                                   assert_mesh_resident, grid_spec,
@@ -23,7 +23,7 @@ from .straggler import (FAULT_PLAN_ENV, BackgroundTask, CodedConfig,
                         coded_inverse, generator_is_mds, make_generator,
                         retry_with_backoff, start_background)
 
-__all__ = ["DistArray", "collective_bytes", "reset_collective_bytes",
+__all__ = ["DistArray", "collective_bytes", "collective_calls", "reset_collective_bytes",
            "ShardedBlockMatrix", "SpecRecord", "assert_mesh_resident",
            "grid_spec", "panel_spec", "mesh_fingerprint", "record_specs",
            "sharded_spin_inverse", "sharded_spin_solve",

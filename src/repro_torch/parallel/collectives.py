@@ -43,11 +43,20 @@ backward is the transposed collective (all_to_all with its dims swapped,
 a reduce-scatter, a psum), so a training step differentiates through a
 region. Each counts, forward and backward, the bytes a coordinate takes
 from another under its own kind: an all_to_all the chunks it receives, an
-all_gather the pieces, a psum / pmean / pmax the inputs read by the
-group's first coordinate plus the result handed back to the others. No
-threads: autograd and the ambient mesh do not cross into them. Each
-collective runs inside a profiler range "collective:<kind>" (its backward
-too), which `profile_lm --train --mesh` reads.
+all_gather the pieces, its backward ("reduce_scatter") the gradient
+pieces, a psum / pmean / pmax the inputs read by the group's first
+coordinate plus the result handed back to the others. No threads:
+autograd and the ambient mesh do not cross into them. Each collective
+runs inside a profiler range "collective:<kind>" (its backward too, the
+all_gather's under "collective:all_gather"), which `profile_lm --train
+--mesh` reads.
+
+`collective_calls()` counts the operations by the same kinds: one a call
+of a per-coordinate collective over the whole mesh, and one a backward of
+it; one a `fetch` or ring pass that took bytes from another coordinate.
+A piece that already lies on its destination's device is used as it is
+(`_on`), which costs the host nothing on a mesh of one device; the bytes
+it would cross between coordinates are counted all the same.
 """
 
 from __future__ import annotations
@@ -66,15 +75,16 @@ __all__ = ["DistArray", "Region", "grid_spec", "panel_spec", "region_of",
            "fetch", "take", "assemble", "distribute", "from_replicas", "zip_map", "once_per_device",
            "summa", "ring", "grid_to_panel", "panel_to_grid", "row_apply",
            "map_regions",
-           "gather", "relayout", "collective_bytes",
+           "gather", "relayout", "collective_bytes", "collective_calls",
            "reset_collective_bytes", "split", "join", "region", "all_to_all",
            "all_gather", "psum", "pmean", "pmax", "axis_index", "axis_size"]
 
 Region = tuple[tuple[int, int], ...]          # (lo, hi) a dimension
 
-_BYTES: dict[str, int] = {"gather": 0, "ring": 0, "reshard": 0,
-                          "to_dense": 0, "all_to_all": 0, "all_gather": 0,
-                          "psum": 0, "pmean": 0, "pmax": 0}
+_KINDS = ("gather", "ring", "reshard", "to_dense", "all_to_all", "all_gather",
+          "reduce_scatter", "psum", "pmean", "pmax")
+_BYTES: dict[str, int] = dict.fromkeys(_KINDS, 0)
+_CALLS: dict[str, int] = dict.fromkeys(_KINDS, 0)
 _LOCK = threading.Lock()
 
 
@@ -84,15 +94,32 @@ def collective_bytes() -> dict[str, int]:
         return dict(_BYTES)
 
 
-def reset_collective_bytes() -> None:
+def collective_calls() -> dict[str, int]:
+    """Collective operations since the last reset, by the same kinds."""
     with _LOCK:
-        for k in _BYTES:
-            _BYTES[k] = 0
+        return dict(_CALLS)
+
+
+def reset_collective_bytes() -> None:
+    """Zero the bytes and the calls."""
+    with _LOCK:
+        for k in _KINDS:
+            _BYTES[k] = _CALLS[k] = 0
 
 
 def _count(kind: str, nbytes: int) -> None:
     with _LOCK:
         _BYTES[kind] += nbytes
+
+
+def _call(kind: str) -> None:
+    with _LOCK:
+        _CALLS[kind] += 1
+
+
+def _on(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """`t` on `device`: itself where it lies there already."""
+    return t if t.device == device else t.to(device)
 
 
 # ---------------------------------------------------------------------------
@@ -264,6 +291,7 @@ def fetch(x: DistArray, region: Region, coord: tuple[int, ...], kind: str,
         return x.shards[coord][_slices(region, own)]
     if out is None:
         out = _buffer(_sizes(region), x.dtype, dev)
+    moved = False
     for tile, holders in x.tiles().items():
         piece = _intersect(tile, region)
         if piece is None:
@@ -277,6 +305,9 @@ def fetch(x: DistArray, region: Region, coord: tuple[int, ...], kind: str,
         out[_slices(piece, region)].copy_(part, non_blocking=True)
         if src != coord:
             _count(kind, part.numel() * part.element_size())
+            moved = True
+    if moved:
+        _call(kind)
     return out
 
 
@@ -470,6 +501,7 @@ def _send(panel: torch.Tensor, dst: torch.device):
     """
     nbytes = panel.numel() * panel.element_size()
     _count("ring", nbytes)
+    _call("ring")
     if panel.device.type != "cuda":
         return panel.to(dst, copy=True), None
     side = _side_stream(dst)
@@ -665,6 +697,21 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
+class _Once:
+    """Counts one call of a collective's backward over the whole mesh: the
+    groups' autograd Functions share it, and the first backward books it."""
+
+    __slots__ = ("kind", "done")
+
+    def __init__(self, kind: str):
+        self.kind, self.done = kind, False
+
+    def backward(self) -> None:
+        if not self.done:
+            self.done = True
+            _call(self.kind)
+
+
 def _zeros_for(gs, shapes, dtypes, devices):
     return [torch.zeros(s, dtype=d, device=dev) if g is None else g
             for g, s, d, dev in zip(gs, shapes, dtypes, devices)]
@@ -684,24 +731,26 @@ def _all_to_all(xs, split_dim: int, concat_dim: int, devices) -> list:
         for j in range(n):
             if j != i:
                 _count("all_to_all", _nbytes(chunks[j][i]))
-            parts.append(chunks[j][i].to(devices[i]))
+            parts.append(_on(chunks[j][i], devices[i]))
         outs.append(torch.cat(parts, concat_dim))
     return outs
 
 
 class _AllToAll(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, split_dim, concat_dim, devices, *xs):
+    def forward(ctx, once, split_dim, concat_dim, devices, *xs):
         outs = _all_to_all(xs, split_dim, concat_dim, devices)
-        ctx.args = (split_dim, concat_dim, devices,
+        ctx.args = (once, split_dim, concat_dim, devices,
                     [o.shape for o in outs], [o.dtype for o in outs])
         return tuple(outs)
 
     @staticmethod
     def backward(ctx, *gs):
-        split_dim, concat_dim, devices, shapes, dtypes = ctx.args
+        once, split_dim, concat_dim, devices, shapes, dtypes = ctx.args
+        once.backward()
         gs = _zeros_for(gs, shapes, dtypes, devices)
-        return (None, None, None, *_all_to_all(gs, concat_dim, split_dim, devices))
+        return (None, None, None, None,
+                *_all_to_all(gs, concat_dim, split_dim, devices))
 
 
 @record_function("collective:all_gather")
@@ -711,21 +760,22 @@ def _all_gather(xs, dim: int, devices) -> list:
         for j, x in enumerate(xs):
             if j != i:
                 _count("all_gather", _nbytes(x))
-        outs.append(torch.cat([x.to(devices[i]) for x in xs], dim))
+        outs.append(torch.cat([_on(x, devices[i]) for x in xs], dim))
     return outs
 
 
 class _AllGather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, dim, devices, *xs):
-        ctx.args = (dim, devices, [x.shape[dim] for x in xs])
+    def forward(ctx, once, dim, devices, *xs):
+        ctx.args = (once, dim, devices, [x.shape[dim] for x in xs])
         return tuple(_all_gather(xs, dim, devices))
 
     @staticmethod
     @record_function("collective:all_gather")
     def backward(ctx, *gs):
         # the transpose of a tiled all-gather: a reduce-scatter
-        dim, devices, sizes = ctx.args
+        once, dim, devices, sizes = ctx.args
+        once.backward()
         out, lo = [], 0
         for j, size in enumerate(sizes):
             acc = None
@@ -734,12 +784,12 @@ class _AllGather(torch.autograd.Function):
                     continue
                 piece = g.narrow(dim, lo, size)
                 if i != j:
-                    _count("all_gather", _nbytes(piece))
-                piece = piece.to(devices[j])
+                    _count("reduce_scatter", _nbytes(piece))
+                piece = _on(piece, devices[j])
                 acc = piece.clone() if acc is None else acc.add_(piece)
             out.append(acc)
             lo += size
-        return (None, None, *out)
+        return (None, None, None, *out)
 
 
 def _sum_to(xs, devices, kind: str):
@@ -748,7 +798,7 @@ def _sum_to(xs, devices, kind: str):
     total = xs[0]
     for x in xs[1:]:
         _count(kind, _nbytes(x))
-        total = total + x.to(devices[0])
+        total = total + _on(x, devices[0])
     outs = [total]
     for dev in devices[1:]:
         _count(kind, _nbytes(total))
@@ -758,8 +808,8 @@ def _sum_to(xs, devices, kind: str):
 
 class _Psum(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, kind, devices, *xs):
-        ctx.args = (kind, devices)
+    def forward(ctx, once, kind, devices, *xs):
+        ctx.args = (once, kind, devices)
         with record_function(f"collective:{kind}"):
             return tuple(_sum_to(list(xs), devices, kind))
 
@@ -767,10 +817,11 @@ class _Psum(torch.autograd.Function):
     def backward(ctx, *gs):
         # every output is the sum of every input: each input's gradient is
         # the sum of the outputs' gradients
-        kind, devices = ctx.args
+        once, kind, devices = ctx.args
         live = [(g, devices[i]) for i, g in enumerate(gs) if g is not None]
         if not live:
-            return (None, None, *([None] * len(devices)))
+            return (None, None, None, *([None] * len(devices)))
+        once.backward()
         order = [d for _, d in live]
         with record_function(f"collective:{kind}"):
             total = _sum_to([g for g, _ in live], order, kind)[0]
@@ -778,20 +829,29 @@ class _Psum(torch.autograd.Function):
             for dev in devices:
                 if dev != order[0]:
                     _count(kind, _nbytes(total))
-                out.append(total.to(dev))
-        return (None, None, *out)
+                out.append(_on(total, dev))
+        return (None, None, None, *out)
 
 
-def _by_group(xs: dict, axis, mesh: Mesh | None, run) -> dict:
+def _by_group(xs: dict, axis, mesh: Mesh | None, run, kind: str,
+              backward_kind: str | None = None) -> dict:
+    """`run(devices, tensors, once)` on each group of the collective over
+    `axis`; one call of `kind` is booked when a group has more than one
+    coordinate, and `once` books one of `backward_kind` (default `kind`)
+    at the first group's backward."""
     mesh = _the_mesh(mesh)
     _check_coords(xs, mesh)
-    out = {}
+    once = _Once(backward_kind or kind)
+    out, called = {}, False
     for group in _groups(mesh, axis):
         if len(group) == 1:
             out[group[0]] = xs[group[0]]
             continue
+        called = True
         devices = tuple(mesh.device(c) for c in group)
-        out.update(zip(group, run(devices, [xs[c] for c in group])))
+        out.update(zip(group, run(devices, [xs[c] for c in group], once)))
+    if called:
+        _call(kind)
     return {c: out[c] for c in mesh.coords()}
 
 
@@ -801,18 +861,21 @@ def all_to_all(xs: dict, axis, split_dim: int, concat_dim: int,
     into n chunks along `split_dim`, sends chunk i to the group's i-th
     coordinate, and concatenates what it receives along `concat_dim` in
     the senders' order."""
-    return _by_group(xs, axis, mesh, lambda devs, ts: _AllToAll.apply(
-        split_dim, concat_dim, devs, *ts))
+    return _by_group(xs, axis, mesh, lambda devs, ts, once: _AllToAll.apply(
+        once, split_dim, concat_dim, devs, *ts), "all_to_all")
 
 
 def all_gather(xs: dict, axis, dim: int, mesh: Mesh | None = None) -> dict:
     """`jax.lax.all_gather(..., tiled=True)` over `axis`: every coordinate
     gets the group's tensors concatenated along `dim`, a copy each."""
-    return _by_group(xs, axis, mesh, lambda devs, ts: _AllGather.apply(dim, devs, *ts))
+    return _by_group(xs, axis, mesh,
+                     lambda devs, ts, once: _AllGather.apply(once, dim, devs, *ts),
+                     "all_gather", "reduce_scatter")
 
 
 def _sum(xs: dict, axis, mesh: Mesh | None, kind: str) -> dict:
-    return _by_group(xs, axis, mesh, lambda devs, ts: _Psum.apply(kind, devs, *ts))
+    return _by_group(xs, axis, mesh,
+                     lambda devs, ts, once: _Psum.apply(once, kind, devs, *ts), kind)
 
 
 def psum(xs: dict, axis, mesh: Mesh | None = None) -> dict:
@@ -828,17 +891,17 @@ def pmean(xs: dict, axis, mesh: Mesh | None = None) -> dict:
 
 def pmax(xs: dict, axis, mesh: Mesh | None = None) -> dict:
     """`jax.lax.pmax` over `axis` (no gradient: it picks a scale)."""
-    def run(devices, ts):
+    def run(devices, ts, once):
         with torch.no_grad(), record_function("collective:pmax"):
             for t in ts[1:]:
                 _count("pmax", _nbytes(t))
-            top = torch.stack([t.to(devices[0]) for t in ts]).amax(0)
+            top = torch.stack([_on(t, devices[0]) for t in ts]).amax(0)
             outs = [top]
             for dev in devices[1:]:
                 _count("pmax", _nbytes(top))
                 outs.append(top.to(dev, copy=True))
             return outs
-    return _by_group(xs, axis, mesh, run)
+    return _by_group(xs, axis, mesh, run, "pmax")
 
 
 def _check_spec(shape, spec, mesh: Mesh) -> None:
@@ -855,13 +918,15 @@ class _Split(torch.autograd.Function):
     def forward(ctx, x, spec, mesh):
         whole = _whole(x.shape)
         regions = [region_of(x.shape, spec, mesh, c) for c in mesh.coords()]
-        outs = []
+        outs, moved = [], False
         for c, r in zip(mesh.coords(), regions):
             piece, dev = x[_slices(r, whole)], mesh.device(c)
             if piece.device != dev:
                 _count("reshard", _nbytes(piece))
-                piece = piece.to(dev)
+                piece, moved = piece.to(dev), True
             outs.append(piece)
+        if moved:
+            _call("reshard")
         ctx.args = (x.shape, x.dtype, x.device, regions)
         return tuple(outs)
 
@@ -872,7 +937,7 @@ class _Split(torch.autograd.Function):
         g = torch.zeros(shape, dtype=dtype, device=device)
         for r, gr in zip(regions, gs):
             if gr is not None:
-                g[_slices(r, whole)] += gr.to(device)
+                g[_slices(r, whole)] += _on(gr, device)
         return g, None, None
 
 
@@ -894,7 +959,7 @@ class _Join(torch.autograd.Function):
         shape = [n * _extent(mesh, ax) for n, ax in zip(first.shape, spec)]
         whole = _whole(shape)
         out = torch.empty(shape, dtype=first.dtype, device=home)
-        seen, holders = set(), []
+        seen, holders, moved = set(), [], False
         for c, x in zip(coords, xs):
             r = region_of(shape, spec, mesh, c)
             holders.append(r not in seen)
@@ -903,7 +968,10 @@ class _Join(torch.autograd.Function):
             seen.add(r)
             if x.device != home:
                 _count("reshard", _nbytes(x))
+                moved = True
             out[_slices(r, whole)].copy_(x)
+        if moved:
+            _call("reshard")
         ctx.args = (spec, mesh, shape, holders)
         return out
 
@@ -914,7 +982,7 @@ class _Join(torch.autograd.Function):
         out = []
         for c, first in zip(mesh.coords(), holders):
             r = region_of(shape, spec, mesh, c)
-            out.append(g[_slices(r, whole)].to(mesh.device(c)) if first else None)
+            out.append(_on(g[_slices(r, whole)], mesh.device(c)) if first else None)
         return (None, None, *out)
 
 

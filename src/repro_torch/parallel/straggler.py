@@ -45,6 +45,7 @@ from typing import Any, Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from .. import threads as _threads
 from ..obs import flight as _flight
 from ..obs.registry import default_registry as _default_registry
 from ..obs.trace import TRACER as _TRACER
@@ -276,8 +277,7 @@ class BackgroundTask:
             finally:
                 self._done.set()
 
-        self._thread = threading.Thread(target=_run, daemon=True)
-        self._thread.start()
+        self._thread = _threads.start(_run, name="background-task")
 
     @property
     def done(self) -> bool:
@@ -480,7 +480,8 @@ class WorkerPool:
     """One daemon thread per logical worker, with scripted faults,
     heartbeat/deadline tracking, retry with exponential backoff, and early
     return on a decodable quorum: a straggler left running never blocks
-    the caller or process exit."""
+    the caller, and the exit hook of `repro_torch.threads` lets it finish
+    before the process exits."""
 
     def __init__(self, workers: int, *, fault_plan: FaultPlan | None = None,
                  deadline_factor: float = 10.0, min_deadline_s: float = 0.05,
@@ -541,11 +542,8 @@ class WorkerPool:
                     errors[rank] = e
                     attempts[rank] = self.retries + 1
 
-        threads = [threading.Thread(target=_worker, args=(r,), daemon=True,
-                                    name=f"{WORKER_THREAD_PREFIX}{r}")
-                   for r in range(w)]
-        for t in threads:
-            t.start()
+        for r in range(w):
+            _threads.start(_worker, args=(r,), name=f"{WORKER_THREAD_PREFIX}{r}")
         while True:
             with lock:
                 done = set(results)

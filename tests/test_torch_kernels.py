@@ -666,6 +666,9 @@ def test_port_imports_neither_jax_nor_the_reference():
         "eng = ServingEngine(cfg, p, slots=1, max_len=16)\n"
         "eng.submit(Request(uid=0, prompt=[1, 2], max_new_tokens=2))\n"
         "eng.run_until_done()\n"
+        "from repro_torch.launch import dryrun\n"
+        "rec = dryrun.run_solver_cell(1024, 64, multi_pod=False, verbose=False)\n"
+        "assert rec['per_device']['argument_bytes'] == 1024 * 1024 * 4 // 256, rec\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"

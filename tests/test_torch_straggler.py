@@ -132,3 +132,36 @@ def test_background_task_result_error_and_deadline():
     assert not slow.done                               # ...but keeps running
     gate.set()
     assert slow.wait(30.0) == "landed" and slow.done
+
+
+def test_port_threads_are_joined_at_exit():
+    """A port thread still running when the interpreter exits is joined by
+    the exit hook (`repro_torch.threads`), not torn down mid-call."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    code = ("import time\n"
+            "from repro_torch import threads\n"
+            "done = []\n"
+            "threads.start(lambda: (time.sleep(0.5), done.append(1),"
+            " print('worker finished', flush=True)), name='late-worker')\n"
+            "print('main exits', flush=True)\n")
+    root = Path(__file__).resolve().parents[1]
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env={"PYTHONPATH": str(root / "src"), "PATH": "/usr/bin:/bin"},
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.splitlines() == ["main exits", "worker finished"]
+    assert "joining 1 live thread(s) at exit: ['late-worker']" in out.stderr
+
+
+def test_join_all_waits_for_port_threads():
+    import time
+
+    from repro_torch import threads
+
+    t = threads.start(lambda: time.sleep(0.2), name="short-worker")
+    assert t in threads.live() and t.daemon
+    assert threads.join_all(timeout=30) == []
+    assert not t.is_alive()

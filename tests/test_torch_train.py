@@ -346,8 +346,10 @@ def test_launchers_smoke(tmp_path):
         capture_output=True, text=True, timeout=300, env=env)
     assert r.returncode == 0, r.stderr[-500:]
     assert "tok/s" in r.stdout
+    # the production mesh, laid over the CPU
     r = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.train", "--arch", "olmo-1b",
          "--reduced", "--device", "cpu", "--steps", "1", "--mesh", "single"],
         capture_output=True, text=True, timeout=300, env=env)
-    assert r.returncode != 0 and "production mesh" in r.stderr
+    assert r.returncode == 0, r.stderr[-500:]
+    assert "done: step 1" in r.stdout
