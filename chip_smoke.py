@@ -238,10 +238,27 @@ Phases, each of which fails the run (non-zero exit) on any fault:
      production cell, `run_cell("olmo-1b", "train_4k")` on the 16 x 16
      mesh, its record and trace seconds; no kernel launches in the
      phase; `phase_s["20"]` printed;
- 21. one JSON line with every path's times and residual, and one with
-     every kernel's launches, error and times (the GEMM's, blocked
+ 21. the examples' twins (examples_torch/), each `main(argv)` called in
+     this process on the card at the main path's sizes, with a plan file
+     of the phase's own and the cache freed between runs: quickstart at
+     n = 16384 planned and at bs 1024, both under `multiply_engine("cuda")`;
+     ridge_regression of 65536 samples x 16384 features against 256
+     targets and by `--inverse`, under "cuda"; invert_at_scale at n =
+     16384, bs 1024 on its 4 x 4 mesh of the card under cuda, ring and
+     allgather, and `--sharded` under cuda; serve_inverse of 32768 x 8192,
+     32 requests, dense and `--sharded` (its 4 x 2 mesh); serve on reduced
+     olmo-1b and hymba-1.5b; train_lm on olmo-1b at full width and depth
+     (3 steps of 8 x 256), on the 100m scale (50 steps; the final loss
+     below the first) and on the 10m scale with SPIN-Shampoo (20 steps).
+     Each run's own lines, its wall time, kernel launches and peak memory
+     are printed; the twins' asserts hold, B1 and B2 launch in the SPIN
+     runs under the kernel engine, B3 where a plan's leaf is `cuda`, and
+     B6 and B6-bwd in olmo-1b's training; `phase_s["21"]` printed;
+ 22. one JSON line with every path's times and residual (the examples'
+     wall, launches and peak memory under "examples"), and one with every
+     kernel's launches, error and times (the GEMM's, blocked
      Gauss-Jordan's and triangular solve's launches on every path beside
-     them).
+     them, the examples' runs included).
 
 The last line is {"ok": true, "device": {...}}. The script imports only
 the PyTorch port; it exits non-zero without a result when CUDA is missing
@@ -395,6 +412,40 @@ U_F32 = 2.0 ** -24                # f32 unit roundoff
 # inverse's residual by elimination, with c = 4 over the 1.3 measured at
 # n = 256, κ = 8e3 for both packages (tests/test_torch_optim.py).
 REFRESH_RESIDUAL_C = 4.0
+# Phase 21: the examples' twins (examples_torch/), called in-process at the
+# main path's sizes: (label, script, arguments, the multiply engine set
+# around the call or None, the kernels that must launch). quickstart takes
+# the engine ambient as the reference does; invert_at_scale and
+# serve_inverse choose their own. The serve runs decode a reduced model
+# (the example always reduces it; full width is phase 17's).
+_SCALE = ["--n", str(N), "--block", str(BLOCK_SIZE)]
+_RIDGE = ["--samples", "65536", "--features", str(N)]
+_SERVE_INV = ["--samples", "32768", "--features", "8192", "--requests", "32"]
+EXAMPLE_RUNS = (
+    ("quickstart_planned", "quickstart", ["--n", str(N)], "cuda",
+     ("matmul", "schur_update")),
+    ("quickstart_bs1024", "quickstart", _SCALE, "cuda", ("matmul", "schur_update")),
+    ("ridge_multi_target", "ridge_regression", _RIDGE + ["--multi-target", "256"], "cuda",
+     ("matmul",)),
+    ("ridge_inverse", "ridge_regression", _RIDGE + ["--inverse"], "cuda",
+     ("matmul", "schur_update")),
+    ("invert_at_scale_cuda", "invert_at_scale", _SCALE + ["--engine", "cuda"], None,
+     ("matmul", "schur_update")),
+    ("invert_at_scale_ring", "invert_at_scale", _SCALE + ["--engine", "ring"], None, ()),
+    ("invert_at_scale_allgather", "invert_at_scale", _SCALE + ["--engine", "allgather"],
+     None, ()),
+    ("invert_at_scale_sharded_cuda", "invert_at_scale",
+     _SCALE + ["--sharded", "--engine", "cuda"], None, ("matmul", "schur_update")),
+    ("serve_inverse", "serve_inverse", _SERVE_INV, None, ("matmul", "schur_update")),
+    ("serve_inverse_sharded", "serve_inverse", _SERVE_INV + ["--sharded"], None, ()),
+    ("serve_olmo", "serve", ["--arch", "olmo-1b"], None, ()),
+    ("serve_hymba", "serve", ["--arch", "hymba-1.5b"], None, ()),
+    ("train_olmo", "train_lm", ["--arch", "olmo-1b", "--steps", "3"], None,
+     ("flash_attention", "flash_attention_bwd")),
+    ("train_100m", "train_lm", ["--scale", "100m", "--steps", "50"], None, ()),
+    ("train_10m_shampoo", "train_lm",
+     ["--scale", "10m", "--optimizer", "spin_shampoo", "--steps", "20"], None, ()),
+)
 
 
 class SmokeFailure(RuntimeError):
@@ -3150,6 +3201,72 @@ def run_dryrun(torch, sharded: dict, mesh: dict, train_adamw: dict) -> dict:
     return out
 
 
+def _example(name: str):
+    """The examples_torch/ twin `name`, imported from this checkout."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f"examples_torch_{name}", ROOT / "examples_torch" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _jsonable(out: dict) -> dict:
+    """A twin's returned numbers, without its tensors and step logs."""
+    return {k: v for k, v in out.items()
+            if k != "logs" and isinstance(v, (int, float, str, dict, list))}
+
+
+def run_examples(torch) -> dict:
+    """Phase 21: each twin's `main(argv)` on the card, one after another,
+    the cache freed between runs; its wall time, kernel launches and peak
+    memory. A twin's own assert or any fault raises."""
+    from contextlib import nullcontext
+
+    from repro_torch import kernels
+    from repro_torch.core import multiply_engine
+
+    runs = {}
+    for label, script, argv, engine, must_launch in EXAMPLE_RUNS:
+        main = _example(script).main
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        print(f"example {label}: {script}.py {' '.join(argv)}"
+              f"{f' under multiply_engine({engine!r})' if engine else ''}", flush=True)
+        t0 = time.perf_counter()
+        with multiply_engine(engine) if engine else nullcontext():
+            out = main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"example {label}: wall_s={wall!r} launches={launches} peak_gib={peak!r}",
+              flush=True)
+        for name in must_launch:
+            require(launches[name] > 0, f"example {label}: {name} never launched")
+        runs[label] = {"script": script, "argv": argv, "engine": engine, "wall_s": wall,
+                       "launches": launches, "peak_gib": peak, "out": _jsonable(out)}
+        del out
+    # B3 where a plan put the blocked leaf on the path; the sharded service
+    # launches B1/B2 when its plan's engine is the kernel engine.
+    for label in ("quickstart_planned", "serve_inverse", "serve_inverse_sharded"):
+        run = runs[label]
+        if run["out"].get("leaf") == "cuda":
+            require(run["launches"]["blocked_gauss_jordan"] > 0,
+                    f"example {label}: the plan's cuda leaf never launched")
+        if run["out"].get("engine") == "cuda":
+            require(run["launches"]["matmul"] > 0 and run["launches"]["schur_update"] > 0,
+                    f"example {label}: the plan's cuda engine launched no GEMM")
+    t100 = runs["train_100m"]["out"]
+    require(t100["final_loss"] < t100["start_loss"],
+            f"example train_100m: loss {t100['start_loss']} -> {t100['final_loss']}")
+    return runs
+
+
 def _leaves(tree: dict):
     for v in tree.values():
         yield from (_leaves(v) if isinstance(v, dict) else (v,))
@@ -3416,6 +3533,20 @@ def main() -> int:
     phase_s["20"] = time.perf_counter() - t0
     print(f"phase_s {json.dumps(phase_s)}", flush=True)
 
+    # 21. the examples' twins at the main path's sizes, with a plan file of
+    # their own
+    t0 = time.perf_counter()
+    outer_plans = os.environ["SPIN_PLAN_CACHE"]
+    example_plans = tempfile.mkdtemp(prefix="chip_smoke_example_plans_")
+    os.environ["SPIN_PLAN_CACHE"] = os.path.join(example_plans, "plans.json")
+    try:
+        examples = run_examples(torch)
+    finally:
+        os.environ["SPIN_PLAN_CACHE"] = outer_plans
+        shutil.rmtree(example_plans, ignore_errors=True)
+    phase_s["21"] = time.perf_counter() - t0
+    print(f"phase_s {json.dumps(phase_s)}", flush=True)
+
     print(json.dumps({"paths": {
         "spin": {"n": n, "block_size": bs, "ms": spin["ms"], "residual": spin["residual"]},
         "lu": {"n": n, "block_size": bs, "ms": lu["ms"], "residual": lu["residual"],
@@ -3451,10 +3582,10 @@ def main() -> int:
         "lm_serve": lm["lm_serve"], "lm_families": families, "sharded": sharded,
         "train_adamw": train_adamw, "train_shampoo": train_shampoo,
         "train_families": train_families, "mesh": mesh, "dry_run": dry_run,
-        "phase_s": phase_s},
+        "examples": examples, "phase_s": phase_s},
         "card": card}), flush=True)
 
-    # 21. the kernels line
+    # 22. the kernels line
     rows = []
     gemm_body = "gemm_tc: pack pre-pass, then 3xTF32 wgmma on a TMA ring (f32)"
     report["schur_update"]["body"] = report["matmul"]["body"] = gemm_body
@@ -3518,6 +3649,8 @@ def main() -> int:
                               *fa.flash_attention_bwd_kernels(torch.bfloat16).values()],
                 "f32": ["flash_bwd_delta",
                         *fa.flash_attention_bwd_kernels(torch.float32).values()]}
+        r.setdefault("launches_by_path", {}).update(
+            {f"example_{label}": run["launches"][name] for label, run in examples.items()})
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": path["launches"][name], **r})
     print(json.dumps({"kernels": rows}), flush=True)

@@ -693,9 +693,40 @@ def test_port_sources_have_no_jax_reference_or_spin_names():
     spin_names = re.compile(r"SPIN_[A-Z0-9_]*")
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
+    twins = sorted((ROOT / "examples_torch").glob("*.py"))
+    assert [p.name for p in twins] == sorted(p.name for p in EXAMPLE_TWINS)
+    files += twins
     assert len(files) > 10
     for path in files:
         text = path.read_text()
         for pat in forbidden:
             assert not pat.search(text), f"{path}: {pat.pattern}"
         assert set(spin_names.findall(text)) <= knobs, path
+    for path in twins:
+        assert "XLA_FLAGS" not in path.read_text(), path
+
+
+# The examples' twins, with the least arguments each takes.
+EXAMPLE_TWINS = {ROOT / "examples_torch" / f"{name}.py": args for name, args in (
+    ("quickstart", ["--n", "64", "--block", "32"]),
+    ("ridge_regression", ["--samples", "128", "--features", "64", "--block", "32"]),
+    ("invert_at_scale", ["--n", "64", "--block", "32", "--engine", "einsum"]),
+    ("serve_inverse", ["--samples", "128", "--features", "64", "--requests", "2"]),
+    ("serve", ["--batch", "1", "--prompt-len", "2", "--tokens", "2"]),
+    ("train_lm", ["--scale", "10m", "--steps", "1", "--batch", "2", "--seq", "8"]))}
+
+
+@pytest.mark.parametrize("path", sorted(EXAMPLE_TWINS), ids=lambda p: p.stem)
+def test_example_twins_need_the_card_unless_told_cpu(path, monkeypatch, capsys):
+    """Without `--device` a twin runs on the card, so on a box without one
+    it raises before it draws or prints anything; it never falls back to
+    the CPU."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(f"twin_{path.stem}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mod.main(EXAMPLE_TWINS[path])
+    assert capsys.readouterr().out == ""
