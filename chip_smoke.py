@@ -254,11 +254,39 @@ Phases, each of which fails the run (non-zero exit) on any fault:
      are printed; the twins' asserts hold, B1 and B2 launch in the SPIN
      runs under the kernel engine, B3 where a plan's leaf is `cuda`, and
      B6 and B6-bwd in olmo-1b's training; `phase_s["21"]` printed;
- 22. one JSON line with every path's times and residual (the examples'
-     wall, launches and peak memory under "examples"), and one with every
-     kernel's launches, error and times (the GEMM's, blocked
-     Gauss-Jordan's and triangular solve's launches on every path beside
-     them, the examples' runs included).
+ 22. a mesh that spans processes (`launch.procs.run_ranks`): ranks of
+     their own, each `python3 chip_smoke.py --rank-case <case> <dir>` on
+     cuda:0 under gloo (SPIN_COORDINATOR=127.0.0.1:<free port>,
+     SPIN_NUM_PROCS, SPIN_PROC_ID; NCCL refuses two ranks on one card),
+     every wait of a group bounded and every spawn killed at its deadline.
+     Four ranks: (a) the 2×2 inversion of phase 4's matrix
+     (`spin_inverse_sharded(engine="cuda", leaf_solver="cuda")`, a
+     coordinate a rank; a warm-up, 2 timed calls and one traced) bitwise
+     phase 14's result on every rank, the residual ≤ 1e-3, B2 / B1 / B3
+     launched on every rank and summed to phase 14's 144 / 72 / 16, the
+     bytes by kind summed to phase 14's ("to_dense" once a rank,
+     "replicate" apart), wall and exchange ms, the traced idle share and
+     peak GiB of each rank; (b) the 2×2 solve of the 256 right-hand sides
+     bitwise phase 14's (44 B2, 32 B5 in sum, B5 on every rank); (c)
+     qwen2-moe's EP MoE block at full width on (data 2, model 4), two
+     coordinates a rank, forward and backward bitwise the single process's
+     mesh of phase 19 (computed in this phase), the bytes of each pass
+     summed to its and the forward's to phase 19's; (d) the sharded lookup
+     bitwise `F.embedding` and `compressed_psum` over a `pod` mesh of a
+     coordinate a rank bitwise the single process's, bytes summed to phase
+     19's. Two ranks: (a) with two coordinates a rank; (e) two AdamW steps
+     of qwen2-moe through `launch.train`'s multi-process entry (`--mesh
+     2x4 --backend gloo`, 4 microbatches of 2 x 2048), cut to one layer
+     (a rank holds the whole state,
+     `abstract_state`'s bytes printed: four ranks fit one card at no
+     depth), the same losses and parameter digests on both ranks, B6 and
+     B6-bwd launched as phase 18b's step; `phase_s["22"]` printed;
+ 23. one JSON line with every path's times and residual (the examples'
+     wall, launches and peak memory under "examples", phase 22's ranks
+     under "processes"), and one with every kernel's launches, error and
+     times (the GEMM's, blocked Gauss-Jordan's and triangular solve's
+     launches on every path beside them, the examples' runs and phase
+     22's ranks, each rank's and their sum, included).
 
 The last line is {"ok": true, "device": {...}}. The script imports only
 the PyTorch port; it exits non-zero without a result when CUDA is missing
@@ -407,6 +435,17 @@ MESH_MOE_RTOL = 2e-2
 MESH_ROUTE_FLIP_MAX = 0.01
 MESH_Z_RTOL = 1e-3
 MESH_PSUM_RTOL = 0.05             # compressed_psum (tests/test_distributed.py:154)
+# Phase 22: a mesh that spans processes, every rank on cuda:0 under gloo.
+PROC_GROUP_TIMEOUT_S = 300.0      # every wait of a rank's process group
+PROC_SPAWN_S = 600.0              # a spawn's ranks, start to finish (then all killed)
+PROC_TIMED_CALLS = 2              # timed 2x2 inversions a rank, after one warm-up
+# (e): a rank holds qwen2-moe's whole AdamW state (16.0 GiB at one layer
+# before gradients and activations, 23.9 at two: `abstract_state`), so
+# four ranks fit one 80 GB card at no depth; two ranks at one layer do.
+PROC_TRAIN_PROCS, PROC_TRAIN_LAYERS, PROC_TRAIN_STEPS = 2, 1, 2
+# and 4 microbatches of 2 x 2048 (the f32 logits of 4 x 2048, 4.6 GiB,
+# did not fit beside two ranks' state)
+PROC_TRAIN_MICRO = 4
 U_F32 = 2.0 ** -24                # f32 unit roundoff
 # The refresh residual's bound: c·n·u·κ, the first-order bound on an
 # inverse's residual by elimination, with c = 4 over the 1.3 measured at
@@ -1859,7 +1898,7 @@ def sharded_solve_launches(grid: int, bs: int, data: int) -> dict:
             "blocked_gauss_jordan": 0, "gauss_jordan": 0}
 
 
-def run_sharded(torch, a) -> dict:
+def run_sharded(torch, a, keep: str) -> dict:
     """Phase 14: the sharded placement on the phase-4 matrix. The 1×1 mesh
     bitwise the dense inverse with its launches; a 2×2 mesh of the one card
     under the cuda, allgather and ring engines (residual, deviation from the
@@ -1867,7 +1906,9 @@ def run_sharded(torch, a) -> dict:
     coordinates, peak memory, the spec ledger); the sharded solve of the 256
     right-hand sides; the planned sharded inversion recalled from the plan
     file; then at n = SERVICE_SIDE_N, `SpinService` with sharded=True
-    against a dense tenant, and the coded inversion with a straggler."""
+    against a dense tenant, and the coded inversion with a straggler. The
+    matrix, the right-hand sides and the cuda engine's 2×2 inverse and
+    solve go to files in `keep`, for phase 22."""
     import threading
 
     import numpy as np
@@ -1943,6 +1984,8 @@ def run_sharded(torch, a) -> dict:
         run["max_dev_from_dense"] = float((x - x_dense).abs().max())
         require(run["op_counts"] == verify.expected_spin_counts(grid).as_dict(),
                 f"sharded_2x2_{engine}: op counts {run['op_counts']}")
+        if engine == "cuda":
+            torch.save(x, os.path.join(keep, "x14.pt"))
         print(f"path sharded_2x2_{engine}: max_dev_from_dense={run['max_dev_from_dense']!r}",
               flush=True)
         out["mesh"][f"2x2_{engine}"] = run
@@ -1958,6 +2001,8 @@ def run_sharded(torch, a) -> dict:
                                                   engine="cuda"),
                        expect=sharded_solve_launches(grid, bs, 2), b=rhs)
     out["solve_2x2"] = run
+    for name, t in (("a.pt", a), ("rhs.pt", rhs), ("xs14.pt", x)):
+        torch.save(t, os.path.join(keep, name))
     del x, rhs
 
     # 4. the planned sharded inversion under the 2×2 mesh, and its recall
@@ -3272,7 +3317,499 @@ def _leaves(tree: dict):
         yield from (_leaves(v) if isinstance(v, dict) else (v,))
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# Phase 22: a mesh that spans processes. Each rank is a child `python3
+# chip_smoke.py --rank-case <case> <dir>` on cuda:0 under gloo (NCCL
+# refuses two ranks on one card); `launch.procs.run_ranks` starts them with
+# SPIN_COORDINATOR=127.0.0.1:<free port>, SPIN_NUM_PROCS and SPIN_PROC_ID,
+# and kills them all at the first failure or at its deadline.
+# ---------------------------------------------------------------------------
+
+
+def _digest(torch, t) -> int:
+    """A 64-bit hash of a tensor's bytes, computed on its device: equal
+    tensors give equal digests (two ranks' parameters are compared so)."""
+    w = t.detach().contiguous().reshape(-1).view(torch.uint8)
+    w = torch.cat([w, w.new_zeros((-w.numel()) % 4)]).view(torch.int32)
+    total = 0
+    for lo in range(0, w.numel(), 1 << 26):
+        part = w[lo:lo + (1 << 26)].to(torch.int64)
+        idx = torch.arange(lo, lo + part.numel(), device=w.device, dtype=torch.int64)
+        total = (total + int((part * (idx * 2654435761 + 97)).sum())) % (1 << 64)
+    return total
+
+
+def _moe_block(torch, dev):
+    """Phase 19's MoE block at full width (its params, its bf16 input) and
+    a seeded f32 output cotangent: (cfg, params, x, ct)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.layers import init_tree
+
+    cfg = get_arch(MESH_ARCH)
+    params = init_tree(moe_mod.moe_params(cfg, MESH_HINT),
+                       torch.Generator(device=dev).manual_seed(SEED), dev)
+    x = torch.randn((LM_BATCH, LM_SEQ, cfg.d_model), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(SEED + 1)
+                    ).to(torch.bfloat16)
+    ct = torch.randn((LM_BATCH, LM_SEQ, cfg.d_model), device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(SEED + 4))
+    return cfg, params, x, ct
+
+
+def _moe_fwd_bwd(torch, mesh, cfg, params, x, ct) -> dict:
+    """Phase 22 (c): the EP MoE block's forward and backward on `mesh`:
+    outputs, gradients, and the bytes and calls of each pass."""
+    from repro_torch.launch.mesh import set_mesh
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.parallel import collectives as col
+
+    ps = {k: ({kk: vv.detach().requires_grad_() for kk, vv in v.items()}
+              if isinstance(v, dict) else v.detach().requires_grad_())
+          for k, v in params.items()}
+    xg = x.detach().requires_grad_()
+    col.reset_collective_bytes()
+    with set_mesh(mesh):
+        y, aux, z = moe_mod.moe_apply(ps, xg, cfg)
+    fwd = (col.collective_bytes(), col.collective_calls())
+    col.reset_collective_bytes()
+    with col.backward_context(mesh):
+        ((y.float() * ct).sum() + aux + z).backward()
+    bwd = (col.collective_bytes(), col.collective_calls())
+    grads = {"x": xg.grad, **{k: v.grad for k, v in ps.items() if k != "shared"},
+             **{f"shared_{k}": v.grad for k, v in ps.get("shared", {}).items()}}
+    return {"y": y.detach(), "aux": aux.detach(), "z": z.detach(), "grads": grads,
+            "fwd": fwd, "bwd": bwd}
+
+
+def _psum_input(torch, dev):
+    """Phase 19's compressed_psum input: one expert's gradient a coordinate."""
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch(MESH_ARCH)
+    n = cfg.d_model * cfg.moe.d_ff_expert
+    return 1e-3 * torch.randn((4, n), device=dev,
+                              generator=torch.Generator(device=dev).manual_seed(SEED + 3))
+
+
+def _rank_inverse(torch, keep: str, per_rank: int, tag: str) -> dict:
+    """Phase 22 (a) in a rank: the 2x2 inversion of phase 4's matrix, a
+    warm-up and PROC_TIMED_CALLS timed calls, then one traced."""
+    import torch.distributed as dist
+    from repro_torch import kernels
+    from repro_torch.core import spin_inverse_sharded, verify
+    from repro_torch.launch.mesh import make_worker_mesh, set_mesh, worker_info
+    from repro_torch.parallel import collectives as col
+    from repro_torch.parallel import transport
+    from repro_torch.profile_spin import device_breakdown
+
+    rank = worker_info().process_index
+    a = torch.load(os.path.join(keep, "a.pt"), map_location="cuda")
+    mesh = make_worker_mesh((2, 2), devices=["cuda:0"] * per_rank)
+
+    def call():
+        with set_mesh(mesh):
+            return spin_inverse_sharded(a, BLOCK_SIZE, leaf_solver="cuda", engine="cuda")
+
+    call()
+    torch.cuda.synchronize()
+    runs = []
+    for i in range(PROC_TIMED_CALLS):
+        dist.barrier()
+        kernels.reset_launch_counts()
+        col.reset_collective_bytes()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        x = call()
+        torch.cuda.synchronize()
+        runs.append({"wall_ms": (time.perf_counter() - t0) * 1e3,
+                     "exchange_ms": transport.exchange_seconds() * 1e3,
+                     "launches": kernels.launch_counts(), "bytes": col.collective_bytes(),
+                     "calls": col.collective_calls(),
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
+        if i + 1 < PROC_TIMED_CALLS:
+            del x
+    ref = torch.load(os.path.join(keep, "x14.pt"), map_location="cuda")
+    out = {"rank": rank, "runs": runs, "bitwise": bool(torch.equal(x, ref)),
+           "max_abs_dev": float((x - ref).abs().max()),
+           "residual": verify.inverse_residual(a, x) if rank == 0 else None,
+           "finite": bool(torch.isfinite(x).all())}
+    del x, ref
+    dist.barrier()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        with torch.profiler.record_function("processes_call"):
+            call()
+            torch.cuda.synchronize()
+    path = os.path.join(keep, f"trace_{tag}_rank{rank}.json")
+    prof.export_chrome_trace(path)
+    try:
+        with open(path) as f:
+            report = device_breakdown(json.load(f), "processes_call")
+        out["traced"] = {k: report[k] for k in ("span_ms", "busy_ms", "idle_share")}
+    except ValueError as err:        # no device events in the trace: not measured
+        out["traced"] = {"not_measured": str(err)}
+    os.remove(path)
+    del a
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _rank_solve(torch, keep: str) -> dict:
+    """Phase 22 (b) in a rank: the 2x2 solve of 256 right-hand sides."""
+    from repro_torch import kernels
+    from repro_torch.core import spin_solve_sharded, verify
+    from repro_torch.launch.mesh import make_worker_mesh, set_mesh, worker_info
+    from repro_torch.parallel import collectives as col
+
+    a = torch.load(os.path.join(keep, "a.pt"), map_location="cuda")
+    rhs = torch.load(os.path.join(keep, "rhs.pt"), map_location="cuda")
+    mesh = make_worker_mesh((2, 2), devices=["cuda:0"])
+
+    def call():
+        with set_mesh(mesh):
+            return spin_solve_sharded(a, rhs, BLOCK_SIZE, leaf_solver="cuda", engine="cuda")
+
+    call()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    col.reset_collective_bytes()
+    t0 = time.perf_counter()
+    x = call()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    ref = torch.load(os.path.join(keep, "xs14.pt"), map_location="cuda")
+    rank = worker_info().process_index
+    out = {"rank": rank, "wall_ms": wall, "launches": kernels.launch_counts(),
+           "bytes": col.collective_bytes(), "calls": col.collective_calls(),
+           "bitwise": bool(torch.equal(x, ref)), "max_abs_dev": float((x - ref).abs().max()),
+           "residual": verify.solve_residual(a, x, rhs) if rank == 0 else None}
+    del a, rhs, x, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _rank_mesh_lm(torch, keep: str) -> dict:
+    """Phase 22 (c) and (d) in a rank: the EP MoE block forward and
+    backward on (data 2, model 4), two coordinates a rank; the sharded
+    lookup; compressed_psum over a `pod` mesh of one coordinate a rank."""
+    import torch.nn.functional as F
+    from repro_torch.launch.mesh import make_worker_mesh, set_mesh
+    from repro_torch.models.embedding import embed_lookup
+    from repro_torch.parallel import collectives as col
+    from repro_torch.parallel.compression import compressed_psum
+
+    dev = torch.device("cuda")
+    mesh = make_worker_mesh(MESH_SHAPE, devices=["cuda:0"] * 2)
+    cfg, params, x, ct = _moe_block(torch, dev)
+    _moe_fwd_bwd(torch, mesh, cfg, params, x, ct)              # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    got = _moe_fwd_bwd(torch, mesh, cfg, params, x, ct)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    ref = torch.load(os.path.join(keep, "moe_ref.pt"), map_location="cuda")
+    same = {k: bool(torch.equal(got[k], ref[k])) for k in ("y", "aux", "z")}
+    same.update({f"grad_{k}": bool(torch.equal(g, ref["grads"][k]))
+                 for k, g in got["grads"].items()})
+    dev_max = max(float((got["y"].float() - ref["y"].float()).abs().max()), *(
+        float((g.float() - ref["grads"][k].float()).abs().max())
+        for k, g in got["grads"].items()))
+    moe = {"ms": ms, "equal": same, "max_abs_dev": dev_max,
+           "fwd_bytes": got["fwd"][0], "bwd_bytes": got["bwd"][0],
+           "fwd_calls": got["fwd"][1], "bwd_calls": got["bwd"][1],
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    del got, ref, params, x, ct
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    table = (0.02 * torch.randn((cfg.vocab, cfg.d_model), generator=g, device=dev)
+             ).to(torch.bfloat16)
+    toks = torch.randint(0, cfg.vocab, (TRAIN_BATCH // TRAIN_MICRO, TRAIN_SEQ), generator=g,
+                         device=dev)
+    with torch.inference_mode():
+        col.reset_collective_bytes()
+        with set_mesh(mesh):
+            e = embed_lookup(table, toks)
+        embed = {"bitwise": bool(torch.equal(e, F.embedding(toks, table))),
+                 "bytes": col.collective_bytes()}
+    del table, toks, e
+
+    pod = make_worker_mesh((4,), ("pod",), devices=["cuda:0"])
+    xp = _psum_input(torch, dev)
+    col.reset_collective_bytes()
+    sums = compressed_psum(col.split(xp, ("pod", None), pod), "pod", pod)
+    psum_bytes = col.collective_bytes()
+    ref = torch.load(os.path.join(keep, "psum_ref.pt"), map_location="cuda")
+    exact = xp.double().sum(0)
+    psum = {"bytes": psum_bytes,
+            "bitwise": all(bool(torch.equal(sums[c], ref)) for c in pod.local_coords()),
+            "rel_err": max(float((sums[c].double() - exact).abs().max())
+                           / float(exact.abs().max()) for c in pod.local_coords())}
+    return {"moe": moe, "embed": embed, "psum": psum}
+
+
+def _rank_train(torch) -> dict:
+    """Phase 22 (e) in a rank: AdamW steps of qwen2-moe through
+    `launch.train`'s multi-process entry (its own `init_distributed`)."""
+    from repro_torch import kernels
+    from repro_torch.launch import train as train_mod
+    from repro_torch.tree import leaves
+
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    res = train_mod.main(["--arch", MESH_ARCH, "--layers", str(PROC_TRAIN_LAYERS),
+                          "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+                          "--steps", str(PROC_TRAIN_STEPS), "--microbatches",
+                          str(PROC_TRAIN_MICRO), "--mesh", f"{MESH_SHAPE[0]}x{MESH_SHAPE[1]}",
+                          "--backend", "gloo"])
+    torch.cuda.synchronize()
+    out = {"losses": [log["loss"] for log in res["logs"]],
+           "step_ms": [log["dt"] * 1e3 for log in res["logs"]],
+           "launches": kernels.launch_counts(), "mesh": res["mesh"],
+           "processes": res["processes"],
+           "digests": [_digest(torch, p) for p in leaves(res["state"].params)],
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _rank_case(torch, case: str, keep: str) -> dict:
+    """What one rank of a phase-22 spawn runs: "four" (4 ranks: (a) with a
+    coordinate a rank, (b), (c), (d)) or "two" (2 ranks: (a) with two
+    coordinates a rank, then (e))."""
+    t0 = time.perf_counter()
+    if case == "four":
+        out = {"inverse": _rank_inverse(torch, keep, 1, "four"),
+               "solve": _rank_solve(torch, keep), "lm": _rank_mesh_lm(torch, keep)}
+    else:
+        out = {"inverse": _rank_inverse(torch, keep, 2, "two"), "train": _rank_train(torch)}
+    out["rank_s"] = time.perf_counter() - t0
+    return out
+
+
+def _rank_child(case: str, keep: str) -> int:
+    """The `--rank-case` entry: one rank of a phase-22 spawn."""
+    import torch
+
+    sys.path.insert(0, str(SRC))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.launch.procs import rank_main
+
+    rank_main(lambda: _rank_case(torch, case, keep), backend="gloo",
+              timeout_s=PROC_GROUP_TIMEOUT_S)
+    return 0
+
+
+def _processes_summary(out: dict) -> dict:
+    """Phase 22's numbers for the paths line: each rank's, without the
+    parameter digests."""
+    summary = {"state_gib_by_layers": out["state_gib_by_layers"],
+               "parent_gib": out["parent_gib"]}
+    for case in ("four", "two"):
+        ranks = []
+        for r in out[case]["ranks"]:
+            r = dict(r)
+            if "train" in r:
+                r["train"] = {k: v for k, v in r["train"].items() if k != "digests"}
+            ranks.append(r)
+        summary[case] = {"wall_s": out[case]["wall_s"], "ranks": ranks}
+    return summary
+
+
+def _launches_by_rank(out: dict, name: str) -> dict:
+    """A kernel's launches on phase 22's paths, each rank's and their sum."""
+    paths = {}
+    for case in ("four", "two"):
+        ranks = out[case]["ranks"]
+        got = {f"processes_inverse_{case}": [r["inverse"]["runs"][0]["launches"][name]
+                                             for r in ranks]}
+        if case == "four":
+            got["processes_solve_four"] = [r["solve"]["launches"][name] for r in ranks]
+        else:
+            got["processes_train_two"] = [r["train"]["launches"][name] for r in ranks]
+        for path, per in got.items():
+            paths[f"{path}_by_rank"] = per
+            paths[f"{path}_sum"] = sum(per)
+    return paths
+
+
+def _sum_ranks(dicts: list) -> dict:
+    return {k: sum(d[k] for d in dicts) for k in dicts[0]}
+
+
+def _without(d: dict, *kinds) -> dict:
+    return {k: v for k, v in d.items() if k not in kinds}
+
+
+def run_processes(torch, keep: str, sharded: dict, mesh19: dict) -> dict:
+    """Phase 22: a mesh that spans processes, on the one card, against the
+    single process's mesh of phases 14 and 19."""
+    import numpy as np
+    from repro_torch.launch.mesh import make_worker_mesh
+    from repro_torch.launch.procs import free_port, run_ranks
+    from repro_torch.parallel import collectives as col
+    from repro_torch.parallel.compression import compressed_psum
+    from repro_torch.runtime.trainer import TrainConfig, abstract_state
+    from repro_torch.tree import leaves
+
+    dev = torch.device("cuda")
+    grid = N // BLOCK_SIZE
+    # the single process's references of (c) and (d), on the phase-19 mesh
+    cfg, params, x, ct = _moe_block(torch, dev)
+    ref = _moe_fwd_bwd(torch, make_worker_mesh(MESH_SHAPE, devices=["cuda:0"] * 8),
+                       cfg, params, x, ct)
+    torch.save({k: ref[k] for k in ("y", "aux", "z", "grads")},
+               os.path.join(keep, "moe_ref.pt"))
+    moe_ref_counts = {"fwd": ref["fwd"], "bwd": ref["bwd"]}
+    del ref, params, x, ct
+    pod = make_worker_mesh((4,), ("pod",), devices=["cuda:0"] * 4)
+    xp = _psum_input(torch, dev)
+    torch.save(compressed_psum(col.split(xp, ("pod", None), pod), "pod", pod)[(0,)],
+               os.path.join(keep, "psum_ref.pt"))
+    del xp
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e)'s cut: the state each rank holds whole, from its meta twin
+    state_gib = {}
+    for layers in (1, 2):
+        st = abstract_state(dataclasses.replace(cfg, n_layers=layers),
+                            TrainConfig(optimizer="adamw"), MESH_HINT)
+        state_gib[layers] = sum(t.numel() * t.element_size()
+                                for t in leaves((st.params, st.opt))
+                                if isinstance(t, torch.Tensor)) / 2 ** 30
+    print(f"processes: (e) qwen2-moe depth cut to {PROC_TRAIN_LAYERS} layer over "
+          f"{PROC_TRAIN_PROCS} processes: a rank holds the whole AdamW state "
+          f"({state_gib[1]!r} GiB at 1 layer, {state_gib[2]!r} at 2, before gradients "
+          "and activations), so four ranks do not fit one 80 GB card at any depth "
+          "(first_depth_that_fits)", flush=True)
+
+    argv = [sys.executable, str(Path(__file__).resolve()), "--rank-case"]
+    out = {"state_gib_by_layers": state_gib,
+           "parent_gib": torch.cuda.memory_reserved() / 2 ** 30}
+    # two ranks' state and steps nearly fill the card: the allocator grows
+    # segments in place rather than leaving GiBs reserved between them
+    env = {**os.environ, "PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}
+    for case, nprocs in (("four", 4), ("two", 2)):
+        t0 = time.perf_counter()
+        ranks = run_ranks(argv + [case, keep], nprocs, timeout_s=PROC_SPAWN_S,
+                          coordinator=f"127.0.0.1:{free_port()}", env=env)
+        out[case] = {"wall_s": time.perf_counter() - t0, "ranks": ranks}
+        print(f"processes {case}: {nprocs} ranks in {out[case]['wall_s']!r} s; "
+              f"{json.dumps(ranks, default=str)}", flush=True)
+
+    # (a) both ways: bitwise phase 14 on every rank, the residual, launches
+    # and bytes summed over the ranks equal to phase 14's (to_dense once a
+    # rank; "replicate" is what a rank receives of another's result)
+    want_launches = sharded_spin_launches(grid, (2, 2))
+    p14 = sharded["mesh"]["2x2_cuda"]
+    for case, nprocs in (("four", 4), ("two", 2)):
+        runs = [r["inverse"] for r in out[case]["ranks"]]
+        tag = f"processes_inverse_{case}"
+        require(all(r["bitwise"] and r["finite"] for r in runs),
+                f"{tag}: differs from phase 14's 2x2 result: "
+                f"{[r['max_abs_dev'] for r in runs]}")
+        require(runs[0]["residual"] <= RESIDUAL_BOUND, f"{tag}: residual {runs[0]['residual']}")
+        for i in range(PROC_TIMED_CALLS):
+            launches = _sum_ranks([r["runs"][i]["launches"] for r in runs])
+            for kern, want in want_launches.items():
+                require(launches[kern] == want,
+                        f"{tag}: {kern} launched {launches[kern]} times in sum, want {want}")
+            require(all(r["runs"][i]["launches"]["matmul"] > 0
+                        and r["runs"][i]["launches"]["schur_update"] > 0
+                        and r["runs"][i]["launches"]["blocked_gauss_jordan"] > 0 for r in runs),
+                    f"{tag}: B1, B2 and B3 do not launch on every rank")
+            moved = _sum_ranks([r["runs"][i]["bytes"] for r in runs])
+            require(moved["to_dense"] == nprocs * p14["bytes"]["to_dense"]
+                    and _without(moved, "to_dense", "replicate")
+                    == _without(p14["bytes"], "to_dense", "replicate"),
+                    f"{tag}: bytes {moved} in sum against phase 14's {p14['bytes']}")
+        print(f"path {tag}: wall_ms={[[r['runs'][i]['wall_ms'] for i in range(PROC_TIMED_CALLS)] for r in runs]!r} "
+              f"exchange_ms={[[r['runs'][i]['exchange_ms'] for i in range(PROC_TIMED_CALLS)] for r in runs]!r} "
+              f"traced={[r['traced'] for r in runs]} "
+              f"peak_gib={[r['runs'][0]['peak_gib'] for r in runs]!r} "
+              f"residual={runs[0]['residual']!r} launches_by_rank="
+              f"{[r['runs'][0]['launches'] for r in runs]} bytes_summed={moved}", flush=True)
+
+    # (b) the solve over 4 ranks
+    runs = [r["solve"] for r in out["four"]["ranks"]]
+    want = sharded_solve_launches(grid, BLOCK_SIZE, 2)
+    launches = _sum_ranks([r["launches"] for r in runs])
+    require(all(r["bitwise"] for r in runs),
+            f"processes_solve: differs from phase 14's: {[r['max_abs_dev'] for r in runs]}")
+    require(runs[0]["residual"] <= RESIDUAL_BOUND, f"processes_solve: residual {runs[0]['residual']}")
+    for kern in ("matmul", "triangular_solve"):
+        require(launches[kern] == want[kern],
+                f"processes_solve: {kern} launched {launches[kern]} in sum, want {want[kern]}")
+    require(all(r["launches"]["triangular_solve"] > 0 for r in runs),
+            "processes_solve: B5 does not launch on every rank")
+    moved = _sum_ranks([r["bytes"] for r in runs])
+    p14s = sharded["solve_2x2"]["bytes"]
+    require(moved["to_dense"] == 4 * p14s["to_dense"]
+            and _without(moved, "to_dense", "replicate") == _without(p14s, "to_dense", "replicate"),
+            f"processes_solve: bytes {moved} in sum against phase 14's {p14s}")
+    print(f"path processes_solve: wall_ms={[r['wall_ms'] for r in runs]!r} "
+          f"residual={runs[0]['residual']!r} launches_by_rank={[r['launches'] for r in runs]} "
+          f"bytes_summed={moved}", flush=True)
+
+    # (c) and (d): bitwise the single process's, bytes summed equal
+    lm = [r["lm"] for r in out["four"]["ranks"]]
+    require(all(all(r["moe"]["equal"].values()) for r in lm),
+            f"processes_moe: differs from the single process's: "
+            f"{[r['moe']['max_abs_dev'] for r in lm]}")
+    for pas in ("fwd", "bwd"):
+        moved = _sum_ranks([r["moe"][f"{pas}_bytes"] for r in lm])
+        require(_without(moved, "replicate") == _without(moe_ref_counts[pas][0], "replicate"),
+                f"processes_moe: {pas} bytes {moved} in sum against {moe_ref_counts[pas][0]}")
+    fwd = _sum_ranks([r["moe"]["fwd_bytes"] for r in lm])
+    p19 = mesh19["moe"]["default"]["collective_bytes"]
+    require(_without(fwd, "replicate") == _without(p19, "replicate"),
+            f"processes_moe: forward bytes {fwd} against phase 19's {p19}")
+    require(all(r["embed"]["bitwise"] for r in lm), "processes_embed: differs from F.embedding")
+    emb = _sum_ranks([r["embed"]["bytes"] for r in lm])
+    require(_without(emb, "replicate") == _without(mesh19["embed"]["collective_bytes"],
+                                                   "replicate"),
+            f"processes_embed: bytes {emb} against phase 19's")
+    require(all(r["psum"]["bitwise"] and r["psum"]["rel_err"] <= MESH_PSUM_RTOL for r in lm),
+            f"processes_psum: {[r['psum'] for r in lm]}")
+    ps = _sum_ranks([r["psum"]["bytes"] for r in lm])
+    p19 = mesh19["compressed_psum"]["bytes"]
+    require({k: v for k, v in ps.items() if v} == p19,
+            f"processes_psum: bytes {ps} against phase 19's {p19}")
+    print(f"path processes_moe: ms={[r['moe']['ms'] for r in lm]!r} "
+          f"peak_gib={[r['moe']['peak_gib'] for r in lm]!r} fwd_bytes_summed={fwd} "
+          f"replicate_fwd={[r['moe']['fwd_bytes']['replicate'] for r in lm]} "
+          f"replicate_bwd={[r['moe']['bwd_bytes']['replicate'] for r in lm]}", flush=True)
+
+    # (e): the same losses and parameters on both ranks, B6 and B6-bwd
+    tr = [r["train"] for r in out["two"]["ranks"]]
+    require(all(np.isfinite(t["losses"]).all() for t in tr), f"processes_train: {tr}")
+    require(tr[0]["losses"] == tr[1]["losses"] and tr[0]["digests"] == tr[1]["digests"],
+            "processes_train: the ranks' losses or parameters differ")
+    # B6 twice a layer and microbatch a step (forward, the remat's
+    # recompute), B6-bwd once, no other kernel of the port
+    per_step = {"flash_attention": 2 * PROC_TRAIN_LAYERS * PROC_TRAIN_MICRO,
+                "flash_attention_bwd": PROC_TRAIN_LAYERS * PROC_TRAIN_MICRO}
+    for t in tr:
+        for kern, n in t["launches"].items():
+            require(n == PROC_TRAIN_STEPS * per_step.get(kern, 0),
+                    f"processes_train: {kern} launched {n} times in {PROC_TRAIN_STEPS} steps")
+    print(f"path processes_train: {MESH_ARCH} layers={PROC_TRAIN_LAYERS} "
+          f"processes={PROC_TRAIN_PROCS} mesh={tr[0]['mesh']} losses={tr[0]['losses']!r} "
+          f"step_ms={[t['step_ms'] for t in tr]!r} peak_gib={[t['peak_gib'] for t in tr]!r} "
+          f"launches={tr[0]['launches']}", flush=True)
+    return out
+
+
+def main(proc_dir: str) -> int:
     import numpy as np
     import torch
 
@@ -3464,7 +4001,7 @@ def main() -> int:
     # 14. the sharded placement on the same matrix: 1×1 and 2×2 meshes of
     # the card, the sharded solve, the planned sharded inversion, the
     # sharded service and the coded inversion
-    sharded = run_sharded(torch, a)
+    sharded = run_sharded(torch, a, proc_dir)
     del a
     gc.collect()
     torch.cuda.empty_cache()
@@ -3547,6 +4084,14 @@ def main() -> int:
     phase_s["21"] = time.perf_counter() - t0
     print(f"phase_s {json.dumps(phase_s)}", flush=True)
 
+    # 22. a mesh that spans processes: ranks of their own on the card
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    processes = run_processes(torch, proc_dir, sharded, mesh)
+    phase_s["22"] = time.perf_counter() - t0
+    print(f"phase_s {json.dumps(phase_s)}", flush=True)
+
     print(json.dumps({"paths": {
         "spin": {"n": n, "block_size": bs, "ms": spin["ms"], "residual": spin["residual"]},
         "lu": {"n": n, "block_size": bs, "ms": lu["ms"], "residual": lu["residual"],
@@ -3582,10 +4127,11 @@ def main() -> int:
         "lm_serve": lm["lm_serve"], "lm_families": families, "sharded": sharded,
         "train_adamw": train_adamw, "train_shampoo": train_shampoo,
         "train_families": train_families, "mesh": mesh, "dry_run": dry_run,
-        "examples": examples, "phase_s": phase_s},
+        "examples": examples, "processes": _processes_summary(processes),
+        "phase_s": phase_s},
         "card": card}), flush=True)
 
-    # 22. the kernels line
+    # 23. the kernels line
     rows = []
     gemm_body = "gemm_tc: pack pre-pass, then 3xTF32 wgmma on a TMA ring (f32)"
     report["schur_update"]["body"] = report["matmul"]["body"] = gemm_body
@@ -3651,6 +4197,7 @@ def main() -> int:
                         *fa.flash_attention_bwd_kernels(torch.float32).values()]}
         r.setdefault("launches_by_path", {}).update(
             {f"example_{label}": run["launches"][name] for label, run in examples.items()})
+        r["launches_by_path"].update(_launches_by_rank(processes, name))
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": path["launches"][name], **r})
     print(json.dumps({"kernels": rows}), flush=True)
@@ -3661,12 +4208,18 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank-case"]:      # one rank of phase 22
+        sys.exit(_rank_child(sys.argv[2], sys.argv[3]))
     # The planner's plan file lies in a directory of this run's own, so that
-    # no plan of an earlier run is recalled; it is removed at the end.
+    # no plan of an earlier run is recalled; phase 22's files (phase 4's
+    # matrix, phase 14's results, the ranks' references) in another; both
+    # are removed at the end.
     plan_dir = tempfile.mkdtemp(prefix="chip_smoke_plans_")
+    proc_dir = tempfile.mkdtemp(prefix="chip_smoke_processes_")
     os.environ["SPIN_PLAN_CACHE"] = os.path.join(plan_dir, "plans.json")
     try:
-        code = main()
+        code = main(proc_dir)
     finally:
         shutil.rmtree(plan_dir, ignore_errors=True)
+        shutil.rmtree(proc_dir, ignore_errors=True)
     sys.exit(code)

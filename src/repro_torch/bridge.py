@@ -67,7 +67,7 @@ def sharded_from_numpy(blocks, mesh=None,
 
     mesh = mesh if mesh is not None else current_mesh()
     if device is None:
-        device = (mesh.device(mesh.coords()[0]) if mesh is not None
+        device = (mesh.local_device() if mesh is not None
                   else DEFAULT_DEVICE)
     bm = blockmatrix_from_numpy(blocks, device)
     return ShardedBlockMatrix.from_blockmatrix(bm, axes, mesh=mesh)

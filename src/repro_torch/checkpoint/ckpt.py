@@ -162,7 +162,7 @@ def restore(directory: str, step: int, template,
         if len(specs) != len(flat):
             raise ValueError(f"shardings has {len(specs)} leaves, the state {len(flat)}")
         state = unflatten(template, [
-            distribute(torch.as_tensor(t).to(sh.mesh.device(sh.mesh.coords()[0])),
+            distribute(torch.as_tensor(t).to(sh.mesh.local_device()),
                        sh.spec, sh.mesh)
             for t, sh in zip(flat, specs)])
     return state, meta.get("extra", {})

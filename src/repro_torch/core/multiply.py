@@ -160,7 +160,8 @@ def multiply_dist(a, b, engine: str | None = None,
     local = _local_product(engine)
     if mesh_axes is None:
         spec = col.grid_spec(a.shape[0], b.shape[1], mesh, axes)
-        return col.once_per_device(local, [a, b], spec, mesh)
+        return col.once_per_device(local, [a, b], spec, mesh,
+                                   shape=(a.shape[0], b.shape[1]) + a.shape[2:])
     if engine == "ring":
         return col.ring(a, b, mesh_axes, matmul_blocks_einsum)
     return col.summa(a, b, mesh_axes, local)
@@ -195,7 +196,7 @@ def schur_update_dist(c, a, b, *, negate_c: bool, engine: str | None = None,
         mesh_axes = _mesh_axes_for(mesh, a.shape[:2], b.shape[:2],
                                    c.shape[:2])
         if mesh_axes is None:
-            return col.once_per_device(fused, [c, a, b], c.spec, mesh)
+            return col.once_per_device(fused, [c, a, b], c.spec, mesh, shape=c.shape)
         return col.summa(a, b, mesh_axes, fused, c=c)
     prod = multiply_dist(a, b, engine, axes)
     c = col.relayout(c, prod.spec)

@@ -100,6 +100,12 @@ def _leaf_solve(block: torch.Tensor, rhs: torch.Tensor, solver: str) -> torch.Te
     kernel twice) solve without an inverse; the others apply their leaf
     inverse to the right-hand side."""
     _bump("leaf_solves")
+    return _leaf_solve_raw(block, rhs, solver)
+
+
+def _leaf_solve_raw(block: torch.Tensor, rhs: torch.Tensor, solver: str) -> torch.Tensor:
+    """`_leaf_solve`, booking nothing: the sharded solve books the leaf
+    in every process and runs it where its first holder lies."""
     f32 = block.float()
     r32 = rhs.float()
     if solver == "linalg":

@@ -252,7 +252,7 @@ def _sharded_device(device) -> torch.device:
 
     mesh = current_mesh()
     if mesh is not None and mesh.axes:
-        dev = mesh.device(mesh.coords()[0])
+        dev = mesh.local_device()
         if device is not None and torch.device(device).type != dev.type:
             raise ValueError(f"device={device!r} conflicts with the ambient "
                              f"mesh {mesh}")

@@ -176,6 +176,9 @@ def _smw_inverse_sharded(inv, u: torch.Tensor, v: torch.Tensor):
     from ..parallel import collectives as col
 
     sbm = _sbm()
+    if inv.dist.mesh.spans_processes:
+        raise NotImplementedError("the SMW update's sharded branch runs on one "
+                                  "process's mesh")
     a = inv.constrain("smw_input")
     mesh, axes = a.dist.mesh, a.axes
     layout = sbm._panel_layout(a.n, mesh, axes)

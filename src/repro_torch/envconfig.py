@@ -61,8 +61,8 @@ _ROWS = (
            "Override a resolved policy's residual tolerance.",
            "repro_torch.core.precision"),
     EnvVar("SPIN_COORDINATOR", "str", None,
-           "host:port of process 0 for a multi-process run; unset = single "
-           "process.", "repro_torch.launch.mesh"),
+           "host:port of process 0 (or an init URL such as file:///path) for a "
+           "multi-process run; unset = single process.", "repro_torch.launch.mesh"),
     EnvVar("SPIN_NUM_PROCS", "int", "1",
            "Number of processes under SPIN_COORDINATOR.", "repro_torch.launch.mesh"),
     EnvVar("SPIN_PROC_ID", "int", "0",

@@ -47,7 +47,7 @@ What each record key means in the port:
 * ``cost.coll_bytes`` and ``collectives_once``: the port's own
   collectives (`parallel.collective_bytes()` and `collective_calls()`),
   bytes ÷ chips, mapped onto the reference's five names: all_gather,
-  gather and to_dense -> all-gather; psum, pmean and pmax -> all-reduce;
+  gather, to_dense and replicate (0 in one process) -> all-gather; psum, pmean and pmax -> all-reduce;
   all_to_all and reshard -> all-to-all; ring -> collective-permute; the
   all_gather's backward (reduce_scatter) -> reduce-scatter. The port runs
   one global-view program: the collectives its compiler-free layout
@@ -157,7 +157,8 @@ _KIND_NAMES = {"all_gather": "all-gather", "gather": "all-gather",
                "to_dense": "all-gather", "psum": "all-reduce",
                "pmean": "all-reduce", "pmax": "all-reduce",
                "all_to_all": "all-to-all", "reshard": "all-to-all",
-               "ring": "collective-permute", "reduce_scatter": "reduce-scatter"}
+               "ring": "collective-permute", "reduce_scatter": "reduce-scatter",
+               "replicate": "all-gather"}
 
 # Config fields the port reads nowhere: the reference scan's tile sizes.
 _UNREAD_FIELDS = ("attn_q_chunk", "attn_kv_chunk")

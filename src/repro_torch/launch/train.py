@@ -18,9 +18,28 @@ trains under the production mesh (`launch.mesh.make_production_mesh`:
 16 x 16, or 2 x 16 x 16) laid over `--device` (its 256 or 512 coordinates
 on that one device), with MoE experts padded for a 16-way model axis
 (model_size_hint 16), as the reference's launcher does; the embedding
-and MoE run their per-coordinate programs there. A smaller mesh of one
-card runs through the library (`set_mesh(make_worker_mesh((2, 4),
-devices=["cuda:0"] * 8))` around `Trainer(..., rules=DEFAULT_RULES)`).
+and MoE run their per-coordinate programs there. `--mesh DxM` (e.g.
+`2x4`) trains under a (data D, model M) mesh of `--device`, with the same
+padding. A smaller mesh of one card also runs through the library
+(`set_mesh(make_worker_mesh((2, 4), devices=["cuda:0"] * 8))` around
+`Trainer(..., rules=DEFAULT_RULES)`).
+
+Across processes: with SPIN_COORDINATOR set and SPIN_NUM_PROCS > 1 every
+process runs this launcher (SPIN_PROC_ID its rank) and joins the group
+over `--backend` (gloo, or nccl for one process a card), as the
+reference's joins its cluster under JAX_COORDINATOR; `--mesh` then lays
+the mesh over every process's devices, process p holding the p-th
+contiguous block of coordinates (each process names `--device`, repeated
+to its share). Outside the per-coordinate programs the step runs
+replicated on each process's device: every process draws the same batch
+and holds the whole state, and the regions' outputs and input gradients
+reach every process, so every rank's loss and parameters are the same.
+Only process 0 prints the step lines and writes checkpoints.
+
+    SPIN_COORDINATOR=127.0.0.1:29500 SPIN_NUM_PROCS=2 SPIN_PROC_ID=<rank> \
+        PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-moe-a2.7b \
+        --reduced --device cpu --mesh 2x2 --steps 3 --batch 2 --seq 32 \
+        --microbatches 1 --backend gloo
 """
 
 from __future__ import annotations
@@ -46,17 +65,23 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--microbatches", type=int, default=2)
     ap.add_argument("--optimizer", default="adamw",
                     choices=["adamw", "spin_shampoo"])
-    ap.add_argument("--mesh", default="none", choices=["none", "single", "multi"])
+    ap.add_argument("--mesh", default="none",
+                    help="none, single (16 x 16), multi (2 x 16 x 16) or DxM")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=100)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--backend", default="gloo", choices=["gloo", "nccl"],
+                    help="the transfers' backend when SPIN_NUM_PROCS > 1")
     args = ap.parse_args(argv)
 
     from repro_torch.configs import SHAPES, get_arch
     from repro_torch.data.synthetic import TokenStream
     from repro_torch.device import resolve_device
-    from repro_torch.launch.mesh import make_production_mesh, set_mesh
+    from repro_torch.launch.mesh import (init_distributed, make_production_mesh,
+                                         make_worker_mesh, set_mesh)
     from repro_torch.runtime.trainer import TrainConfig, Trainer, init_state
+
+    info = init_distributed(backend=args.backend)   # a no-op for one process
 
     cfg = get_arch(args.arch)
     if args.reduced:
@@ -71,8 +96,18 @@ def main(argv: list[str] | None = None) -> dict:
         batch, seq = sh.global_batch, sh.seq_len
     device = resolve_device(args.device)
 
-    mesh = (make_production_mesh(multi_pod=args.mesh == "multi", devices=[device])
-            if args.mesh != "none" else None)
+    if args.mesh in ("single", "multi"):
+        mesh = make_production_mesh(multi_pod=args.mesh == "multi", devices=[device])
+    elif args.mesh != "none":
+        shape = tuple(int(k) for k in args.mesh.split("x"))
+        if len(shape) != 2 or (shape[0] * shape[1]) % info.process_count:
+            raise ValueError(f"--mesh {args.mesh}: want DxM over "
+                             f"{info.process_count} process(es)")
+        mesh = make_worker_mesh(shape, ("data", "model"),
+                                devices=[device] * (shape[0] * shape[1]
+                                                    // info.process_count))
+    else:
+        mesh = None
 
     tcfg = TrainConfig(microbatches=args.microbatches, optimizer=args.optimizer,
                        total_steps=max(args.steps, 100))
@@ -84,11 +119,14 @@ def main(argv: list[str] | None = None) -> dict:
                           ckpt_every=args.ckpt_every)
         state = trainer.maybe_restore(state)
         state, logs = trainer.run(state, args.steps, log_every=10)
-    print(f"done: step {int(state.step)} loss {logs[-1]['loss']:.4f}; "
-          f"straggler events: {len(trainer.straggler_events)}")
+    if info.is_coordinator:
+        print(f"done: step {int(state.step)} loss {logs[-1]['loss']:.4f}; "
+              f"straggler events: {len(trainer.straggler_events)}")
     return {"arch": cfg.name, "layers": cfg.n_layers, "device": str(device),
             "mesh": mesh.descriptor() if mesh is not None else None,
-            "steps": int(state.step), "loss": logs[-1]["loss"], "logs": logs}
+            "processes": info.process_count,
+            "steps": int(state.step), "loss": logs[-1]["loss"], "logs": logs,
+            "state": state}
 
 
 if __name__ == "__main__":

@@ -57,11 +57,43 @@ it; one a `fetch` or ring pass that took bytes from another coordinate.
 A piece that already lies on its destination's device is used as it is
 (`_on`), which costs the host nothing on a mesh of one device; the bytes
 it would cross between coordinates are counted all the same.
+
+A mesh that spans processes (`launch.mesh.init_distributed`) runs the same
+program in every process. A `DistArray` holds the shards of this
+process's coordinates only, and every process walks every coordinate's
+plan: where a coordinate is another process's, its `fetch` only sends
+what this process holds of the pieces it needs, and a copy between
+coordinates of two processes is one matched transfer
+(`parallel.transport`). A region that places of several processes hold
+(a replicated value) is made once, by the process of its first holder
+in coordinate order, as one process would make it; the others receive it
+("replicate"). The work a single process does once a device (the
+leaves, the grid-1 products, a solve's panel products) runs once, on one
+process, the processes taking each kind of it in turn, and the others
+receive the result.
+The per-coordinate programs hold every coordinate in their dicts: a
+coordinate of another process as a *ghost*, a tensor on ``meta`` with its
+shape and dtype, so every process runs every coordinate's program (the
+ghosts at no cost) and every collective, forward and backward, and the
+autograd graph is the same in every process. `join` hands the whole
+output to every process, and `split`'s backward the whole gradient,
+both counted as "replicate". A backward through such a region runs its
+nodes in one thread (`backward_context`), so that every process meets
+the collectives in one order.
+
+Counting is by the destination: a process books the bytes and the
+operations its own coordinates take from others (one process books a
+call over the whole mesh). Summed over the processes, every kind but
+"replicate" equals the count of a single process's mesh of the same
+shape on one device, and "to_dense" that count once a process, since
+every process gets the whole result; `summed_counts()` sums over them.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
+import itertools
 import threading
 from typing import Callable, Sequence
 
@@ -70,19 +102,21 @@ from torch.autograd.profiler import record_function
 
 from ..core.blockmatrix import suspend_counts
 from ..launch.mesh import Mesh, current_mesh
+from . import transport
 
 __all__ = ["DistArray", "Region", "grid_spec", "panel_spec", "region_of",
-           "fetch", "take", "assemble", "distribute", "from_replicas", "zip_map", "once_per_device",
+           "fetch", "take", "assemble", "distribute", "zip_map", "once_per_device",
            "summa", "ring", "grid_to_panel", "panel_to_grid", "row_apply",
            "map_regions",
            "gather", "relayout", "collective_bytes", "collective_calls",
-           "reset_collective_bytes", "split", "join", "region", "all_to_all",
-           "all_gather", "psum", "pmean", "pmax", "axis_index", "axis_size"]
+           "reset_collective_bytes", "summed_counts", "split", "join", "region",
+           "all_to_all", "all_gather", "psum", "pmean", "pmax", "axis_index",
+           "axis_size", "backward_context"]
 
 Region = tuple[tuple[int, int], ...]          # (lo, hi) a dimension
 
 _KINDS = ("gather", "ring", "reshard", "to_dense", "all_to_all", "all_gather",
-          "reduce_scatter", "psum", "pmean", "pmax")
+          "reduce_scatter", "psum", "pmean", "pmax", "replicate")
 _BYTES: dict[str, int] = dict.fromkeys(_KINDS, 0)
 _CALLS: dict[str, int] = dict.fromkeys(_KINDS, 0)
 _LOCK = threading.Lock()
@@ -101,10 +135,27 @@ def collective_calls() -> dict[str, int]:
 
 
 def reset_collective_bytes() -> None:
-    """Zero the bytes and the calls."""
+    """Zero the bytes and the calls (and the transfers' host seconds)."""
     with _LOCK:
         for k in _KINDS:
             _BYTES[k] = _CALLS[k] = 0
+    transport.reset_stats()
+
+
+def summed_counts() -> tuple[dict[str, int], dict[str, int]]:
+    """(bytes, calls) by kind summed over the processes of the group: a
+    collective, every process calls it. One process: its own counts."""
+    import torch.distributed as dist
+
+    moved, calls = collective_bytes(), collective_calls()
+    if not (dist.is_available() and dist.is_initialized()):
+        return moved, calls
+    t = torch.tensor([moved[k] for k in _KINDS] + [calls[k] for k in _KINDS],
+                     dtype=torch.int64)
+    dist.all_reduce(t)
+    v = t.tolist()
+    n = len(_KINDS)
+    return dict(zip(_KINDS, v[:n])), dict(zip(_KINDS, v[n:]))
 
 
 def _count(kind: str, nbytes: int) -> None:
@@ -120,6 +171,42 @@ def _call(kind: str) -> None:
 def _on(t: torch.Tensor, device: torch.device) -> torch.Tensor:
     """`t` on `device`: itself where it lies there already."""
     return t if t.device == device else t.to(device)
+
+
+def _ghost(shape, dtype: torch.dtype) -> torch.Tensor:
+    """A coordinate of another process in a per-coordinate program: its
+    shape and dtype, no storage."""
+    return torch.empty(tuple(shape), dtype=dtype, device="meta")
+
+
+def _exchanging(fn):
+    """`fn` posts transfers: its sends are waited on when it ends."""
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        with transport.exchange():
+            return fn(*args, **kwargs)
+    return run
+
+
+def _move(t: torch.Tensor, mesh: Mesh, src, dst, *, copy: bool = False
+          ) -> torch.Tensor:
+    """`t`, held at coordinate `src` (a ghost where `src` is another
+    process's), at coordinate `dst`: a tensor where `dst` is this
+    process's, else a ghost. Between two processes, one matched transfer;
+    inside one, `_on` (a copy with copy=True)."""
+    ps, pd = mesh.process(src), mesh.process(dst)
+    if ps == pd:
+        if not mesh.is_local(dst):
+            return t
+        dev = mesh.device(dst)
+        return t.to(dev, copy=True) if copy else _on(t, dev)
+    tag = transport.next_tag()
+    if mesh.is_local(src):
+        transport.send(t, pd, tag)
+        return _ghost(t.shape, t.dtype)
+    if mesh.is_local(dst):
+        return transport.recv(t.shape, t.dtype, ps, tag, mesh.device(dst))
+    return t
 
 
 # ---------------------------------------------------------------------------
@@ -224,9 +311,10 @@ def _shift(region: Region, offset: Sequence[int]) -> Region:
 class DistArray:
     """A global array of `shape` laid out over `mesh` by `spec`.
 
-    `shards` maps every mesh coordinate to its local tensor. Build one with
-    `distribute`, `from_replicas`, `take` or `assemble`; the constructor
-    does not check the shards against the layout.
+    `shards` maps each of this process's mesh coordinates to its local
+    tensor (every coordinate in a single process). Build one with
+    `distribute`, `take` or `assemble`; the constructor does not check the
+    shards against the layout.
     """
 
     __slots__ = ("shape", "spec", "mesh", "shards", "_tiles")
@@ -245,7 +333,7 @@ class DistArray:
 
     @property
     def device(self) -> torch.device:
-        return self.mesh.device(self.mesh.coords()[0])
+        return self.mesh.local_device()
 
     def region(self, coord: tuple[int, ...]) -> Region:
         return region_of(self.shape, self.spec, self.mesh, coord)
@@ -275,53 +363,117 @@ def _buffer(shape: tuple[int, ...], dtype: torch.dtype, device: torch.device,
     return alloc(shape, dtype=dtype, device=device)
 
 
+_ELSEWHERE = object()   # `fetch(out=...)`: the buffer lies in another process
+
+
+def _holder(mesh: Mesh, holders: list, coord) -> tuple:
+    """The coordinate a piece is taken from: `coord` itself, else a holder
+    at its place, else one in its process, else the first holder."""
+    if coord in holders:
+        return coord
+    place = mesh.place(coord)
+    for h in holders:
+        if mesh.place(h) == place:
+            return h
+    for h in holders:
+        if mesh.process(h) == place[0]:
+            return h
+    return holders[0]
+
+
+@_exchanging
 def fetch(x: DistArray, region: Region, coord: tuple[int, ...], kind: str,
-          out: torch.Tensor | None = None) -> torch.Tensor:
+          out: torch.Tensor | None = None) -> torch.Tensor | None:
     """`region` of `x`, on coordinate `coord`'s device.
 
     A view of the coordinate's own shard when the region lies inside it;
     otherwise (or when `out` is given) the pieces are copied into `out` (a
-    fresh buffer by default) from the holders of each piece: the
-    coordinate itself, else a holder on the same device, else the first
-    holder. Bytes from other coordinates are counted under `kind`.
+    fresh buffer by default) from the holders of each piece (`_holder`).
+    Bytes from other coordinates are counted under `kind`. Where `coord`
+    is another process's, this process sends the pieces it holds and
+    returns None (`out=_ELSEWHERE` stands for that process's buffer).
     """
-    dev = x.mesh.device(coord)
+    mesh = x.mesh
     own = x.region(coord)
+    here = mesh.is_local(coord) and out is not _ELSEWHERE
     if out is None and _contains(own, region):
-        return x.shards[coord][_slices(region, own)]
-    if out is None:
-        out = _buffer(_sizes(region), x.dtype, dev)
+        return x.shards[coord][_slices(region, own)] if here else None
+    if here and out is None:
+        out = _buffer(_sizes(region), x.dtype, mesh.device(coord))
     moved = False
     for tile, holders in x.tiles().items():
         piece = _intersect(tile, region)
         if piece is None:
             continue
-        if coord in holders:
-            src = coord
-        else:
-            src = next((h for h in holders if x.mesh.device(h) == dev),
-                       holders[0])
-        part = x.shards[src][_slices(piece, tile)]
-        out[_slices(piece, region)].copy_(part, non_blocking=True)
-        if src != coord:
-            _count(kind, part.numel() * part.element_size())
-            moved = True
+        src = _holder(mesh, holders, coord)
+        remote = mesh.process(src) != mesh.process(coord)
+        tag = transport.next_tag() if remote else None
+        if here:
+            dst = out[_slices(piece, region)]
+            if remote:
+                dst.copy_(transport.recv(_sizes(piece), x.dtype, mesh.process(src), tag,
+                                         dst.device), non_blocking=True)
+            else:
+                dst.copy_(x.shards[src][_slices(piece, tile)], non_blocking=True)
+            if src != coord:
+                _count(kind, dst.numel() * dst.element_size())
+                moved = True
+        elif remote and mesh.is_local(src):
+            transport.send(x.shards[src][_slices(piece, tile)], mesh.process(coord), tag)
     if moved:
         _call(kind)
-    return out
+    return out if here else None
 
 
-def _layout(mesh: Mesh, shape, spec, make) -> DistArray:
+@_exchanging
+def _layout(mesh: Mesh, shape, spec, make, dtype: torch.dtype | None = None, *,
+            everywhere: bool = False,
+            source: Callable[[Region], tuple[int, ...]] | None = None
+            ) -> DistArray:
     """Build a DistArray coordinate by coordinate; `make(coord, region)`
-    runs once per distinct (device, region), so replicas share a tensor."""
-    shards, cache = {}, {}
+    runs once per distinct (place, region), so replicas at one place
+    share a tensor.
+
+    Across processes a region is made by the process of its first holder
+    (in coordinate order), or of the coordinate `source(region)` names
+    (where one piece of work serves several regions); for a coordinate of
+    another process `make` runs its fetches only (they send) and returns
+    None. A coordinate of a later process receives the region from that
+    coordinate ("replicate"; of `dtype`). everywhere=True: every process
+    makes its own coordinates' regions (what `make` reads is in every
+    process) and nothing moves.
+    """
+    shards, cache, first = {}, {}, {}
     for c in mesh.coords():
         r = region_of(shape, spec, mesh, c)
-        key = (mesh.device(c), r)
+        key = (mesh.place(c), r)
         if key not in cache:
-            cache[key] = make(c, r)
-        shards[c] = cache[key]
+            src = source(r) if source is not None else first.setdefault(r, c)
+            if everywhere:
+                cache[key] = make(c, r) if mesh.is_local(c) else None
+            elif mesh.process(src) == mesh.process(c):
+                cache[key] = make(c, r)
+            else:
+                skey = (mesh.place(src), r)
+                if skey not in cache:             # `source` need not hold r
+                    cache[skey] = make(src, r)
+                cache[key] = _replica(cache[skey], mesh, src, c, _sizes(r), dtype)
+        if mesh.is_local(c):
+            shards[c] = cache[key]
     return DistArray(shape, spec, mesh, shards)
+
+
+def _replica(t, mesh: Mesh, src, dst, shape, dtype) -> torch.Tensor | None:
+    """A region made at `src`, received at `dst` of another process
+    ("replicate"); None where `dst` is not this process's."""
+    if mesh.is_local(src) and t.dtype != dtype:
+        raise TypeError(f"a replicated region of {t.dtype}, declared {dtype}")
+    out = _move(t if mesh.is_local(src) else _ghost(shape, dtype), mesh, src, dst)
+    if not mesh.is_local(dst):
+        return None
+    _count("replicate", out.numel() * out.element_size())
+    _call("replicate")
+    return out
 
 
 def take(x: DistArray, region: Region, spec: Sequence[str | None]
@@ -329,7 +481,7 @@ def take(x: DistArray, region: Region, spec: Sequence[str | None]
     """The sub-array `region` of `x`, laid out anew by `spec`."""
     offset = [lo for lo, _ in region]
     return _layout(x.mesh, _sizes(region), spec,
-                   lambda c, r: fetch(x, _shift(r, offset), c, "reshard"))
+                   lambda c, r: fetch(x, _shift(r, offset), c, "reshard"), x.dtype)
 
 
 def relayout(x: DistArray, spec: Sequence[str | None]) -> DistArray:
@@ -352,21 +504,24 @@ def assemble(parts: Sequence[tuple[Sequence[int], DistArray]],
         for box, off, p in boxes:
             if _contains(box, r):
                 return fetch(p, _shift(r, [-o for o in off]), c, "reshard")
-        out = _buffer(_sizes(r), dtype, mesh.device(c), zero_fill)
+        here = mesh.is_local(c)
+        out = _buffer(_sizes(r), dtype, mesh.device(c), zero_fill) if here else None
         for box, off, p in boxes:
             piece = _intersect(box, r)
             if piece is not None:
                 fetch(p, _shift(piece, [-o for o in off]), c, "reshard",
-                      out=out[_slices(piece, r)])
+                      out=out[_slices(piece, r)] if here else _ELSEWHERE)
         return out
 
-    return _layout(mesh, shape, spec, make)
+    return _layout(mesh, shape, spec, make, dtype)
 
 
 def distribute(t: torch.Tensor, spec: Sequence[str | None],
                mesh: Mesh) -> DistArray:
     """Lay a global tensor out over `mesh`: views of it on its own device,
-    copies on the others. A dimension its axes do not divide raises."""
+    copies on the others. A dimension its axes do not divide raises.
+    Across processes every process holds `t` and slices its own
+    coordinates' shards: nothing moves."""
     _check_spec(t.shape, spec, mesh)
     whole = _whole(t.shape)
 
@@ -375,25 +530,17 @@ def distribute(t: torch.Tensor, spec: Sequence[str | None],
         dev = mesh.device(c)
         return piece if piece.device == dev else piece.to(dev)
 
-    return _layout(mesh, t.shape, spec, make)
+    return _layout(mesh, t.shape, spec, make, everywhere=True)
 
 
-def from_replicas(full: dict[torch.device, torch.Tensor],
-                  spec: Sequence[str | None], mesh: Mesh) -> DistArray:
-    """Lay out a value computed whole on every distinct device: each
-    coordinate views its part of its device's copy."""
-    shape = next(iter(full.values())).shape
-    whole = _whole(shape)
-    return _layout(mesh, shape, spec,
-                   lambda c, r: full[mesh.device(c)][_slices(r, whole)])
-
-
+@_exchanging
 def zip_map(fn: Callable[..., torch.Tensor], *xs: DistArray,
             whole: Sequence[DistArray] = ()) -> DistArray:
     """Apply `fn` shard by shard to arrays of one layout (equal extents
     along the split dimensions); shards shared by replicas are computed
     once. Each array of `whole` is passed in full after the shards,
-    gathered once a device."""
+    gathered once a place (at the places of the first process; the other
+    processes receive it, "replicate")."""
     first = xs[0]
     for x in xs[1:]:
         if x.spec != first.spec or any(
@@ -401,12 +548,23 @@ def zip_map(fn: Callable[..., torch.Tensor], *xs: DistArray,
                 if ax is not None):
             raise ValueError(f"layouts differ: {first.shape}/{first.spec} vs "
                              f"{x.shape}/{x.spec}")
-    shards, cache, fulls = {}, {}, {}
-    for c in first.mesh.coords():
-        dev = first.mesh.device(c)
-        if whole and dev not in fulls:
-            fulls[dev] = [fetch(w, _whole(w.shape), c, "gather") for w in whole]
-        args = [x.shards[c] for x in xs] + fulls.get(dev, [])
+    mesh = first.mesh
+    fulls = {}
+    if whole:
+        c0 = mesh.coords()[0]
+        for c in mesh.coords():
+            place = mesh.place(c)
+            if place in fulls:
+                continue
+            if mesh.process(c) == mesh.process(c0):
+                fulls[place] = [fetch(w, _whole(w.shape), c, "gather") for w in whole]
+            else:
+                fulls[place] = [
+                    _replica(f, mesh, c0, c, w.shape, w.dtype)
+                    for f, w in zip(fulls[mesh.place(c0)] or [None] * len(whole), whole)]
+    shards, cache = {}, {}
+    for c in mesh.local_coords():
+        args = [x.shards[c] for x in xs] + fulls.get(mesh.place(c), [])
         key = tuple(id(a) for a in args)
         if key not in cache:
             cache[key] = fn(*args)
@@ -417,35 +575,80 @@ def zip_map(fn: Callable[..., torch.Tensor], *xs: DistArray,
 def _rebuild(like: DistArray, shards: dict) -> DistArray:
     # The global shape follows from a shard's shape and the layout (`fn`
     # may change the extent of a dimension the layout leaves whole).
-    c0 = like.mesh.coords()[0]
-    local = shards[c0].shape
+    local = shards[like.mesh.local_coords()[0]].shape
     shape = []
     for n, ax in zip(local, like.spec):
         shape.append(n * _extent(like.mesh, ax))
     return DistArray(shape, like.spec, like.mesh, shards)
 
 
+# Replicated work across processes goes to them in turn, each kind of work
+# (a leaf, a product, a panel apply: the function's name) on its own turn:
+# every process makes the calls in one order, so the k-th call of a kind
+# picks the same process everywhere.
+_TURNS: dict[str, itertools.count] = {}
+
+
+def _turn(kind: str, n: int) -> int:
+    with _LOCK:
+        counter = _TURNS.setdefault(kind, itertools.count())
+        return next(counter) % n
+
+
+@_exchanging
 def once_per_device(fn: Callable[..., torch.Tensor], xs: Sequence[DistArray],
-                    spec: Sequence[str | None], mesh: Mesh) -> DistArray:
+                    spec: Sequence[str | None], mesh: Mesh, *,
+                    shape: Sequence[int] | None = None,
+                    dtype: torch.dtype | None = None) -> DistArray:
     """Run `fn` on the whole operands once on each distinct device and lay
     the result out by `spec`: the mesh's replicated work, computed once a
-    device. Op counts are booked by the first device's run only."""
+    device. Op counts are booked by the first device's run only. Across
+    processes it runs at the places of one process, the processes taking
+    the calls in turn (a leaf's kernel runs once, on one rank), and the
+    others receive their parts of the result ("replicate"): they learn
+    its `shape` and `dtype` (default the first operand's) from the
+    arguments, which a mesh that spans processes needs."""
+    procs = mesh.processes
+    maker = procs[_turn(fn.__qualname__, len(procs))] if len(procs) > 1 else procs[0]
     full = {}
-    for i, dev in enumerate(mesh.distinct_devices):
-        c = mesh.home(dev)
+    for place in mesh.places():
+        if place[0] != maker:
+            continue
+        c = mesh.home(place)
         args = [fetch(x, _whole(x.shape), c, "gather") for x in xs]
-        with (contextlib.nullcontext() if i == 0 else suspend_counts()):
-            full[dev] = fn(*args)
-    return from_replicas(full, spec, mesh)
+        if mesh.is_local(c):
+            with (contextlib.nullcontext() if not full else suspend_counts()):
+                full[place] = fn(*args)
+    if shape is None:
+        if mesh.spans_processes:
+            raise ValueError("once_per_device on a mesh that spans processes needs "
+                             "the result's shape")
+        shape = next(iter(full.values())).shape
+    whole = _whole(shape)
+    home = next(c for c in mesh.coords() if mesh.process(c) == maker)
+    return _layout(mesh, tuple(shape), spec,
+                   lambda c, r: full[mesh.place(c)][_slices(r, whole)]
+                   if mesh.is_local(c) else None,
+                   dtype or xs[0].dtype, source=lambda r: home)
 
 
+@_exchanging
 def gather(x: DistArray, device: torch.device | None = None) -> torch.Tensor:
     """The whole array as one tensor on `device` (default: the mesh's first
-    device)."""
+    device of this process). Across processes every process gets it,
+    assembled at its first coordinate ("to_dense" once a process)."""
     device = x.device if device is None else torch.device(device)
-    coords = x.mesh.coords()
-    c = next((c for c in coords if x.mesh.device(c) == device), coords[0])
-    out = fetch(x, _whole(x.shape), c, "to_dense")
+    mesh = x.mesh
+    if mesh.spans_processes:
+        out = None
+        for p in mesh.processes:
+            c = next(c for c in mesh.coords() if mesh.process(c) == p)
+            got = fetch(x, _whole(x.shape), c, "to_dense")
+            out = got if got is not None else out
+    else:
+        coords = mesh.coords()
+        c = next((c for c in coords if mesh.device(c) == device), coords[0])
+        out = fetch(x, _whole(x.shape), c, "to_dense")
     return out if out.device == device else out.to(device)
 
 
@@ -473,11 +676,13 @@ def summa(a: DistArray, b: DistArray, axes: tuple[str, str],
     def make(coord, r):
         a_panel = fetch(a, (r[0], (0, a.shape[1])) + r[2:], coord, "gather")
         b_panel = fetch(b, ((0, b.shape[0]), r[1]) + r[2:], coord, "gather")
+        if not mesh.is_local(coord):
+            return None
         if c is None:
             return local(a_panel, b_panel)
         return local(c.shards[coord], a_panel, b_panel)
 
-    return _layout(mesh, out_shape, spec, make)
+    return _layout(mesh, out_shape, spec, make, a.dtype)
 
 
 _SIDE_STREAMS: dict[torch.device, "torch.cuda.Stream"] = {}
@@ -525,6 +730,33 @@ def _receive(buf: torch.Tensor, event) -> torch.Tensor:
     return buf
 
 
+def _pass(panel, mesh: Mesh, src, dst, shape, dtype):
+    """Start passing `panel` from coordinate `src` to `dst`; returns a
+    callable that finishes the pass and gives the panel at `dst`, or None
+    where `dst` is another process's. Inside a process it is `_send`'s
+    copy; between two, a matched transfer (its receive posted now,
+    waited on by the callable)."""
+    ps, pd = mesh.process(src), mesh.process(dst)
+    if ps == pd:
+        if not mesh.is_local(dst):
+            return None
+        buf, event = _send(panel, mesh.device(dst))
+        return lambda: _receive(buf, event)
+    tag = transport.next_tag()
+    if mesh.is_local(src):
+        transport.send(panel, pd, tag)
+        return None
+    if not mesh.is_local(dst):
+        return None
+    n = 1
+    for k in shape:
+        n *= k
+    _count("ring", n * torch.empty((), dtype=dtype).element_size())
+    _call("ring")
+    return transport.post_recv(shape, dtype, ps, tag, mesh.device(dst)).wait
+
+
+@_exchanging
 def ring(a: DistArray, b: DistArray, axes: tuple[str, str],
          local: Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
          ) -> DistArray:
@@ -535,7 +767,10 @@ def ring(a: DistArray, b: DistArray, axes: tuple[str, str],
     multiplies it against the matching k-columns of its A panel, and
     forwards it to rank i + 1: the forward is issued before the product,
     so the copy overlaps it (double buffering: the panel in use and the
-    one in flight).
+    one in flight). Between processes the forward is a matched transfer,
+    whose receive is waited on after the product; gloo stages a card's
+    panel on the host before the product is issued, so the overlap is lost
+    there.
     """
     data_axis, model_axis = axes
     spec = (data_axis, model_axis, None, None)
@@ -545,7 +780,7 @@ def ring(a: DistArray, b: DistArray, axes: tuple[str, str],
     if n_data == 1:
         return summa(a, b, axes, local)
     di = mesh.axis_index(data_axis)
-    coords = mesh.coords()
+    coords, mine = mesh.coords(), mesh.local_coords()
     bk = b.shape[0] // n_data
 
     def nxt(c):
@@ -556,21 +791,24 @@ def ring(a: DistArray, b: DistArray, axes: tuple[str, str],
     a_rows, acc = {}, {}
     for c in coords:
         r = a.region(c)
-        a_rows[c] = fetch(a, (r[0], (0, a.shape[1])) + r[2:], c, "gather")
-        br = b.region(c)
-        acc[c] = torch.zeros((r[0][1] - r[0][0], br[1][1] - br[1][0])
-                             + a.shape[2:], dtype=a.dtype,
-                             device=mesh.device(c))
-    panels = {c: b.shards[c] for c in coords}
+        row = fetch(a, (r[0], (0, a.shape[1])) + r[2:], c, "gather")
+        if mesh.is_local(c):
+            a_rows[c] = row
+            br = b.region(c)
+            acc[c] = torch.zeros((r[0][1] - r[0][0], br[1][1] - br[1][0])
+                                 + a.shape[2:], dtype=a.dtype,
+                                 device=mesh.device(c))
+    panels = {c: b.shards[c] for c in mine}
+    pshape = _sizes(b.region(coords[0]))
     for t in range(n_data):
-        sends = ({nxt(c): _send(panels[c], mesh.device(nxt(c)))
-                  for c in coords} if t < n_data - 1 else None)
-        for c in coords:
+        passes = ({nxt(c): _pass(panels.get(c), mesh, c, nxt(c), pshape, b.dtype)
+                   for c in coords} if t < n_data - 1 else None)
+        for c in mine:
             src = (c[di] - t) % n_data
             a_cols = a_rows[c][:, src * bk:(src + 1) * bk]
             acc[c] = acc[c] + local(a_cols, panels[c])
-        if sends is not None:
-            panels = {c: _receive(*sends[c]) for c in coords}
+        if passes is not None:
+            panels = {c: passes[c]() for c in mine}
     return DistArray((a.shape[0], b.shape[1]) + a.shape[2:], spec, mesh, acc)
 
 
@@ -593,12 +831,14 @@ def grid_to_panel(g: DistArray, spec: Sequence[str | None]) -> DistArray:
         (r0, r1), (c0, c1) = r
         br, bc = _block_span(r0, r1, bs), _block_span(c0, c1, bs)
         blocks = fetch(g, (br, bc, (0, bs), (0, bs)), c, "reshard")
+        if blocks is None:
+            return None
         nb_r, nb_c = blocks.shape[0], blocks.shape[1]
         dense = blocks.permute(0, 2, 1, 3).reshape(nb_r * bs, nb_c * bs)
         return dense[r0 - br[0] * bs:r1 - br[0] * bs,
                      c0 - bc[0] * bs:c1 - bc[0] * bs]
 
-    return _layout(g.mesh, shape, spec, make)
+    return _layout(g.mesh, shape, spec, make, g.dtype)
 
 
 def panel_to_grid(p: DistArray, bs: int, spec: Sequence[str | None]
@@ -610,9 +850,11 @@ def panel_to_grid(p: DistArray, bs: int, spec: Sequence[str | None]
         (g0, g1), (h0, h1) = r[0], r[1]
         dense = fetch(p, ((g0 * bs, g1 * bs), (h0 * bs, h1 * bs)), c,
                       "reshard")
+        if dense is None:
+            return None
         return dense.reshape(g1 - g0, bs, h1 - h0, bs).permute(0, 2, 1, 3)
 
-    return _layout(p.mesh, shape, spec, make)
+    return _layout(p.mesh, shape, spec, make, p.dtype)
 
 
 def row_apply(a: DistArray, x: DistArray, spec: Sequence[str | None],
@@ -621,8 +863,8 @@ def row_apply(a: DistArray, x: DistArray, spec: Sequence[str | None],
     """A·X for a block grid A and a dense panel X, laid out by `spec` (rows
     over `data`): each row shard gathers A's block rows it covers (its
     block columns with by_cols=True, for Aᵀ·X) and the whole of X, and
-    runs `fn(blocks, x)`. A product over whole block rows is computed once
-    a device and sliced by the shards inside it."""
+    runs `fn(blocks, x)` (of X's dtype). A product over whole block rows
+    is computed once a place and sliced by the shards inside it."""
     bs = a.shape[2]
     shape = ((a.shape[1] if by_cols else a.shape[0]) * bs, x.shape[1])
     products: dict = {}
@@ -630,22 +872,36 @@ def row_apply(a: DistArray, x: DistArray, spec: Sequence[str | None],
     def make(c, r):
         (r0, r1), _ = r
         br = _block_span(r0, r1, bs)
-        key = (a.mesh.device(c), br)
+        key = (a.mesh.place(c), br)
         if key not in products:
             span = ((0, a.shape[0]), br) if by_cols else (br, (0, a.shape[1]))
             blocks = fetch(a, span + ((0, bs), (0, bs)), c, "gather")
             xf = fetch(x, _whole(x.shape), c, "gather")
-            products[key] = fn(blocks, xf)
+            products[key] = fn(blocks, xf) if a.mesh.is_local(c) else None
+        if products[key] is None:
+            return None
         return products[key][r0 - br[0] * bs:r1 - br[0] * bs]
 
-    return _layout(a.mesh, shape, spec, make)
+    # across processes a product is made at one of the shards that need
+    # it, in turn, and the shards of other processes receive their rows
+    needers: dict = {}
+    for c in a.mesh.coords():
+        (r0, r1), _ = region_of(shape, spec, a.mesh, c)
+        needers.setdefault(_block_span(r0, r1, bs), []).append(c)
+    makers = {span: cs[_turn("row_apply", len(cs))] if a.mesh.spans_processes else cs[0]
+              for span, cs in needers.items()}
+    return _layout(a.mesh, shape, spec, make, x.dtype,
+                   source=lambda r: makers[_block_span(*r[0], bs)])
 
 
 def map_regions(x: DistArray,
                 fn: Callable[[torch.Tensor, Region, tuple[int, ...]],
                              torch.Tensor]) -> DistArray:
     """A new array of x's layout from `fn(shard, region, coord)`, run once
-    per distinct (device, region)."""
+    per distinct (device, region); on one process's mesh only."""
+    if x.mesh.spans_processes:
+        raise NotImplementedError("map_regions runs on one process's mesh: `fn` reads "
+                                  "the shard of every coordinate")
     return _layout(x.mesh, x.shape, x.spec,
                    lambda c, r: fn(x.shards[c], r, c))
 
@@ -699,26 +955,52 @@ def _nbytes(t: torch.Tensor) -> int:
 
 class _Once:
     """Counts one call of a collective's backward over the whole mesh: the
-    groups' autograd Functions share it, and the first backward books it."""
+    groups' autograd Functions share it, and the first backward books it
+    (in the process that books the forward's call)."""
 
-    __slots__ = ("kind", "done")
+    __slots__ = ("kind", "done", "books", "mesh")
 
-    def __init__(self, kind: str):
-        self.kind, self.done = kind, False
+    def __init__(self, kind: str, books: bool, mesh: Mesh):
+        self.kind, self.done, self.books, self.mesh = kind, False, books, mesh
 
     def backward(self) -> None:
+        if (self.mesh.spans_processes and torch._C._is_multithreading_enabled()
+                and any(self.mesh.device(c).type == "cuda"
+                        for c in self.mesh.local_coords())):
+            raise RuntimeError(
+                "a backward through per-coordinate collectives of a mesh that spans "
+                "processes runs under collectives.backward_context(): autograd's "
+                "device threads would meet the collectives in another order in each "
+                "process")
         if not self.done:
             self.done = True
-            _call(self.kind)
+            if self.books:
+                _call(self.kind)
 
 
-def _zeros_for(gs, shapes, dtypes, devices):
-    return [torch.zeros(s, dtype=d, device=dev) if g is None else g
-            for g, s, d, dev in zip(gs, shapes, dtypes, devices)]
+def backward_context(mesh: Mesh | None = None):
+    """The context for a backward through per-coordinate collectives of
+    `mesh` (default: the ambient one). Where it spans processes autograd
+    runs every node in the calling thread, in the same order in every
+    process (its device threads would take the nodes of this process's
+    tensors and of the ghosts apart); else nothing."""
+    mesh = mesh if mesh is not None else current_mesh()
+    if mesh is not None and mesh.spans_processes:
+        return torch.autograd.set_multithreading_enabled(False)
+    return contextlib.nullcontext()
+
+
+def _dev(mesh: Mesh, c) -> torch.device:
+    return mesh.device(c) if mesh.is_local(c) else torch.device("meta")
+
+
+def _zeros_for(gs, shapes, dtypes, mesh, group):
+    return [torch.zeros(s, dtype=d, device=_dev(mesh, c)) if g is None else g
+            for g, s, d, c in zip(gs, shapes, dtypes, group)]
 
 
 @record_function("collective:all_to_all")
-def _all_to_all(xs, split_dim: int, concat_dim: int, devices) -> list:
+def _all_to_all(xs, split_dim: int, concat_dim: int, mesh: Mesh, group) -> list:
     n = len(xs)
     for x in xs:
         if x.shape[split_dim] % n:
@@ -726,131 +1008,146 @@ def _all_to_all(xs, split_dim: int, concat_dim: int, devices) -> list:
                              f"not split {n} ways")
     chunks = [torch.tensor_split(x, n, dim=split_dim) for x in xs]
     outs = []
-    for i in range(n):
+    for i, ci in enumerate(group):
         parts = []
-        for j in range(n):
-            if j != i:
+        for j, cj in enumerate(group):
+            if j != i and mesh.is_local(ci):
                 _count("all_to_all", _nbytes(chunks[j][i]))
-            parts.append(_on(chunks[j][i], devices[i]))
+            parts.append(_move(chunks[j][i], mesh, cj, ci))
         outs.append(torch.cat(parts, concat_dim))
     return outs
 
 
 class _AllToAll(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, once, split_dim, concat_dim, devices, *xs):
-        outs = _all_to_all(xs, split_dim, concat_dim, devices)
-        ctx.args = (once, split_dim, concat_dim, devices,
+    def forward(ctx, once, split_dim, concat_dim, mesh, group, *xs):
+        outs = _all_to_all(xs, split_dim, concat_dim, mesh, group)
+        ctx.args = (once, split_dim, concat_dim, mesh, group,
                     [o.shape for o in outs], [o.dtype for o in outs])
         return tuple(outs)
 
     @staticmethod
     def backward(ctx, *gs):
-        once, split_dim, concat_dim, devices, shapes, dtypes = ctx.args
+        once, split_dim, concat_dim, mesh, group, shapes, dtypes = ctx.args
         once.backward()
-        gs = _zeros_for(gs, shapes, dtypes, devices)
-        return (None, None, None, None,
-                *_all_to_all(gs, concat_dim, split_dim, devices))
+        gs = _zeros_for(gs, shapes, dtypes, mesh, group)
+        with transport.exchange():
+            back = _all_to_all(gs, concat_dim, split_dim, mesh, group)
+        return (None, None, None, None, None, *back)
 
 
 @record_function("collective:all_gather")
-def _all_gather(xs, dim: int, devices) -> list:
+def _all_gather(xs, dim: int, mesh: Mesh, group) -> list:
     outs = []
-    for i in range(len(xs)):
-        for j, x in enumerate(xs):
-            if j != i:
-                _count("all_gather", _nbytes(x))
-        outs.append(torch.cat([_on(x, devices[i]) for x in xs], dim))
+    for i, ci in enumerate(group):
+        if mesh.is_local(ci):
+            for j, x in enumerate(xs):
+                if j != i:
+                    _count("all_gather", _nbytes(x))
+        outs.append(torch.cat([_move(x, mesh, cj, ci) for cj, x in zip(group, xs)], dim))
     return outs
 
 
 class _AllGather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, once, dim, devices, *xs):
-        ctx.args = (once, dim, devices, [x.shape[dim] for x in xs])
-        return tuple(_all_gather(xs, dim, devices))
+    def forward(ctx, once, dim, mesh, group, *xs):
+        ctx.args = (once, dim, mesh, group, [x.shape[dim] for x in xs])
+        return tuple(_all_gather(xs, dim, mesh, group))
 
     @staticmethod
     @record_function("collective:all_gather")
     def backward(ctx, *gs):
         # the transpose of a tiled all-gather: a reduce-scatter
-        once, dim, devices, sizes = ctx.args
+        once, dim, mesh, group, sizes = ctx.args
         once.backward()
         out, lo = [], 0
-        for j, size in enumerate(sizes):
-            acc = None
-            for i, g in enumerate(gs):
-                if g is None:
-                    continue
-                piece = g.narrow(dim, lo, size)
-                if i != j:
-                    _count("reduce_scatter", _nbytes(piece))
-                piece = _on(piece, devices[j])
-                acc = piece.clone() if acc is None else acc.add_(piece)
-            out.append(acc)
-            lo += size
-        return (None, None, None, *out)
+        with transport.exchange():
+            for j, (cj, size) in enumerate(zip(group, sizes)):
+                acc = None
+                for i, (ci, g) in enumerate(zip(group, gs)):
+                    if g is None:
+                        continue
+                    piece = g.narrow(dim, lo, size)
+                    if i != j and mesh.is_local(cj):
+                        _count("reduce_scatter", _nbytes(piece))
+                    piece = _move(piece, mesh, ci, cj)
+                    acc = piece.clone() if acc is None else acc.add_(piece)
+                out.append(acc)
+                lo += size
+        return (None, None, None, None, *out)
 
 
-def _sum_to(xs, devices, kind: str):
-    """Σ xs in group order on the first device, handed back to every
-    coordinate (a copy each; the first keeps the sum)."""
+def _reduce(xs, mesh: Mesh, group, kind: str):
+    """Σ xs in group order, at the group's first coordinate."""
+    c0 = group[0]
     total = xs[0]
-    for x in xs[1:]:
-        _count(kind, _nbytes(x))
-        total = total + _on(x, devices[0])
+    for c, x in zip(group[1:], xs[1:]):
+        if mesh.is_local(c0):
+            _count(kind, _nbytes(x))
+        total = total + _move(x, mesh, c, c0)
+    return total
+
+
+def _sum_to(xs, mesh: Mesh, group, kind: str):
+    """Σ xs in group order on the first coordinate, handed back to every
+    coordinate (a copy each; the first keeps the sum)."""
+    total = _reduce(xs, mesh, group, kind)
     outs = [total]
-    for dev in devices[1:]:
-        _count(kind, _nbytes(total))
-        outs.append(total.to(dev, copy=True))
+    for c in group[1:]:
+        if mesh.is_local(c):
+            _count(kind, _nbytes(total))
+        outs.append(_move(total, mesh, group[0], c, copy=True))
     return outs
 
 
 class _Psum(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, once, kind, devices, *xs):
-        ctx.args = (once, kind, devices)
+    def forward(ctx, once, kind, mesh, group, *xs):
+        ctx.args = (once, kind, mesh, group)
         with record_function(f"collective:{kind}"):
-            return tuple(_sum_to(list(xs), devices, kind))
+            return tuple(_sum_to(list(xs), mesh, group, kind))
 
     @staticmethod
     def backward(ctx, *gs):
         # every output is the sum of every input: each input's gradient is
         # the sum of the outputs' gradients
-        once, kind, devices = ctx.args
-        live = [(g, devices[i]) for i, g in enumerate(gs) if g is not None]
+        once, kind, mesh, group = ctx.args
+        live = [i for i, g in enumerate(gs) if g is not None]
         if not live:
-            return (None, None, None, *([None] * len(devices)))
+            return (None, None, None, None, *([None] * len(group)))
         once.backward()
-        order = [d for _, d in live]
-        with record_function(f"collective:{kind}"):
-            total = _sum_to([g for g, _ in live], order, kind)[0]
-            out = []
-            for dev in devices:
-                if dev != order[0]:
+        order = [group[i] for i in live]
+        out = []
+        with record_function(f"collective:{kind}"), transport.exchange():
+            total = _reduce([gs[i] for i in live], mesh, order, kind)
+            for c in group:
+                if c != order[0] and mesh.is_local(c):
                     _count(kind, _nbytes(total))
-                out.append(_on(total, dev))
-        return (None, None, None, *out)
+                out.append(_move(total, mesh, order[0], c))
+        return (None, None, None, None, *out)
 
 
+@_exchanging
 def _by_group(xs: dict, axis, mesh: Mesh | None, run, kind: str,
               backward_kind: str | None = None) -> dict:
-    """`run(devices, tensors, once)` on each group of the collective over
-    `axis`; one call of `kind` is booked when a group has more than one
-    coordinate, and `once` books one of `backward_kind` (default `kind`)
+    """`run(mesh, group, tensors, once)` on each group of the collective
+    over `axis`; one call of `kind` is booked when a group has more than
+    one coordinate (by the process of the first such group's first
+    coordinate), and `once` books one of `backward_kind` (default `kind`)
     at the first group's backward."""
     mesh = _the_mesh(mesh)
     _check_coords(xs, mesh)
-    once = _Once(backward_kind or kind)
-    out, called = {}, False
-    for group in _groups(mesh, axis):
+    groups = _groups(mesh, axis)
+    joined = [g for g in groups if len(g) > 1]
+    books = bool(joined) and mesh.is_local(joined[0][0])
+    once = _Once(backward_kind or kind, books, mesh)
+    out = {}
+    for group in groups:
         if len(group) == 1:
             out[group[0]] = xs[group[0]]
             continue
-        called = True
-        devices = tuple(mesh.device(c) for c in group)
-        out.update(zip(group, run(devices, [xs[c] for c in group], once)))
-    if called:
+        out.update(zip(group, run(mesh, tuple(group), [xs[c] for c in group], once)))
+    if books:
         _call(kind)
     return {c: out[c] for c in mesh.coords()}
 
@@ -861,21 +1158,21 @@ def all_to_all(xs: dict, axis, split_dim: int, concat_dim: int,
     into n chunks along `split_dim`, sends chunk i to the group's i-th
     coordinate, and concatenates what it receives along `concat_dim` in
     the senders' order."""
-    return _by_group(xs, axis, mesh, lambda devs, ts, once: _AllToAll.apply(
-        once, split_dim, concat_dim, devs, *ts), "all_to_all")
+    return _by_group(xs, axis, mesh, lambda m, g, ts, once: _AllToAll.apply(
+        once, split_dim, concat_dim, m, g, *ts), "all_to_all")
 
 
 def all_gather(xs: dict, axis, dim: int, mesh: Mesh | None = None) -> dict:
     """`jax.lax.all_gather(..., tiled=True)` over `axis`: every coordinate
     gets the group's tensors concatenated along `dim`, a copy each."""
     return _by_group(xs, axis, mesh,
-                     lambda devs, ts, once: _AllGather.apply(once, dim, devs, *ts),
+                     lambda m, g, ts, once: _AllGather.apply(once, dim, m, g, *ts),
                      "all_gather", "reduce_scatter")
 
 
 def _sum(xs: dict, axis, mesh: Mesh | None, kind: str) -> dict:
     return _by_group(xs, axis, mesh,
-                     lambda devs, ts, once: _Psum.apply(once, kind, devs, *ts), kind)
+                     lambda m, g, ts, once: _Psum.apply(once, kind, m, g, *ts), kind)
 
 
 def psum(xs: dict, axis, mesh: Mesh | None = None) -> dict:
@@ -891,15 +1188,20 @@ def pmean(xs: dict, axis, mesh: Mesh | None = None) -> dict:
 
 def pmax(xs: dict, axis, mesh: Mesh | None = None) -> dict:
     """`jax.lax.pmax` over `axis` (no gradient: it picks a scale)."""
-    def run(devices, ts, once):
+    def run(mesh, group, ts, once):
+        c0 = group[0]
         with torch.no_grad(), record_function("collective:pmax"):
-            for t in ts[1:]:
-                _count("pmax", _nbytes(t))
-            top = torch.stack([_on(t, devices[0]) for t in ts]).amax(0)
+            moved = [ts[0]]
+            for c, t in zip(group[1:], ts[1:]):
+                if mesh.is_local(c0):
+                    _count("pmax", _nbytes(t))
+                moved.append(_move(t, mesh, c, c0))
+            top = torch.stack(moved).amax(0)
             outs = [top]
-            for dev in devices[1:]:
-                _count("pmax", _nbytes(top))
-                outs.append(top.to(dev, copy=True))
+            for c in group[1:]:
+                if mesh.is_local(c):
+                    _count("pmax", _nbytes(top))
+                outs.append(_move(top, mesh, c0, c, copy=True))
             return outs
     return _by_group(xs, axis, mesh, run, "pmax")
 
@@ -913,6 +1215,26 @@ def _check_spec(shape, spec, mesh: Mesh) -> None:
                              f"{ax} ({_extent(mesh, ax)} ways) on {mesh.descriptor()}")
 
 
+def _to_every_process(t: torch.Tensor, mesh: Mesh, c, device: torch.device
+                      ) -> torch.Tensor:
+    """`t`, coordinate `c`'s tensor (a ghost where `c` is another
+    process's), in every process of the mesh: its process sends it to the
+    others, which receive it on `device` ("replicate")."""
+    owner = mesh.process(c)
+    out = t
+    for p in mesh.processes:
+        if p == owner:
+            continue
+        tag = transport.next_tag()
+        if mesh.is_local(c):
+            transport.send(t, p, tag)
+        elif p == mesh.rank:
+            out = transport.recv(t.shape, t.dtype, owner, tag, device)
+            _count("replicate", _nbytes(out))
+            _call("replicate")
+    return out
+
+
 class _Split(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, spec, mesh):
@@ -920,6 +1242,9 @@ class _Split(torch.autograd.Function):
         regions = [region_of(x.shape, spec, mesh, c) for c in mesh.coords()]
         outs, moved = [], False
         for c, r in zip(mesh.coords(), regions):
+            if not mesh.is_local(c):
+                outs.append(_ghost(_sizes(r), x.dtype))
+                continue
             piece, dev = x[_slices(r, whole)], mesh.device(c)
             if piece.device != dev:
                 _count("reshard", _nbytes(piece))
@@ -927,25 +1252,32 @@ class _Split(torch.autograd.Function):
             outs.append(piece)
         if moved:
             _call("reshard")
-        ctx.args = (x.shape, x.dtype, x.device, regions)
+        ctx.args = (x.shape, x.dtype, x.device, regions, mesh)
         return tuple(outs)
 
     @staticmethod
     def backward(ctx, *gs):
-        shape, dtype, device, regions = ctx.args
+        # the sum of the shards' gradients, in coordinate order, in every
+        # process: x is the same in every process
+        shape, dtype, device, regions, mesh = ctx.args
         whole = _whole(shape)
         g = torch.zeros(shape, dtype=dtype, device=device)
-        for r, gr in zip(regions, gs):
-            if gr is not None:
+        with transport.exchange():
+            for c, r, gr in zip(mesh.coords(), regions, gs):
+                if gr is None:
+                    continue
+                if mesh.spans_processes:
+                    gr = _to_every_process(gr, mesh, c, device)
                 g[_slices(r, whole)] += _on(gr, device)
         return g, None, None
 
 
 def split(x: torch.Tensor, spec: Sequence, mesh: Mesh) -> dict:
     """Each coordinate's shard of the global `x` under `spec`, on its
-    device (a view where it lies there already). A dimension that its axes
-    do not divide raises, as `shard_map` does. Differentiable: the
-    backward sums the shards' gradients into one tensor of x's shape."""
+    device (a view where it lies there already; a ghost where the
+    coordinate is another process's). A dimension that its axes do not
+    divide raises, as `shard_map` does. Differentiable: the backward sums
+    the shards' gradients into one tensor of x's shape."""
     _check_spec(x.shape, spec, mesh)
     return dict(zip(mesh.coords(), _Split.apply(x, tuple(spec), mesh)))
 
@@ -954,22 +1286,25 @@ class _Join(torch.autograd.Function):
     @staticmethod
     def forward(ctx, spec, mesh, *xs):
         coords = mesh.coords()
-        home = mesh.device(coords[0])
+        home = mesh.local_device()
         first = xs[0]
         shape = [n * _extent(mesh, ax) for n, ax in zip(first.shape, spec)]
         whole = _whole(shape)
         out = torch.empty(shape, dtype=first.dtype, device=home)
         seen, holders, moved = set(), [], False
-        for c, x in zip(coords, xs):
-            r = region_of(shape, spec, mesh, c)
-            holders.append(r not in seen)
-            if r in seen:
-                continue
-            seen.add(r)
-            if x.device != home:
-                _count("reshard", _nbytes(x))
-                moved = True
-            out[_slices(r, whole)].copy_(x)
+        with transport.exchange():
+            for c, x in zip(coords, xs):
+                r = region_of(shape, spec, mesh, c)
+                holders.append(r not in seen)
+                if r in seen:
+                    continue
+                seen.add(r)
+                if mesh.is_local(c) and x.device != home:
+                    _count("reshard", _nbytes(x))
+                    moved = True
+                if mesh.spans_processes:
+                    x = _to_every_process(x, mesh, c, home)
+                out[_slices(r, whole)].copy_(x)
         if moved:
             _call("reshard")
         ctx.args = (spec, mesh, shape, holders)
@@ -982,14 +1317,20 @@ class _Join(torch.autograd.Function):
         out = []
         for c, first in zip(mesh.coords(), holders):
             r = region_of(shape, spec, mesh, c)
-            out.append(_on(g[_slices(r, whole)], mesh.device(c)) if first else None)
+            if not first:
+                out.append(None)
+            elif mesh.is_local(c):
+                out.append(_on(g[_slices(r, whole)], mesh.device(c)))
+            else:
+                out.append(_ghost(_sizes(r), g.dtype))
         return (None, None, *out)
 
 
 def join(xs: dict, spec: Sequence, mesh: Mesh) -> torch.Tensor:
     """The global tensor whose shards under `spec` are `xs`, on the mesh's
-    home device; a region several coordinates hold is taken from the first
-    (the reference's out_specs, unchecked)."""
+    home device (this process's first coordinate's), in every process; a
+    region several coordinates hold is taken from the first (the
+    reference's out_specs, unchecked)."""
     _check_coords(xs, mesh)
     return _Join.apply(tuple(spec), mesh, *[xs[c] for c in mesh.coords()])
 

@@ -147,14 +147,17 @@ def assert_mesh_resident(records: list[SpecRecord],
 
 def mesh_fingerprint(mesh: Mesh | None = None, *, devices: bool = False) -> str:
     """Canonical string for a mesh (default: the ambient one), e.g.
-    "data2:model2" ("" = none); devices=True appends the devices."""
+    "data2:model2" ("" = none); devices=True appends the devices, each
+    after its process ("p1/cuda:0") where the mesh spans processes."""
     if mesh is None:
         mesh = current_mesh()
     if mesh is None or not mesh.axes:
         return ""
     fp = mesh.descriptor()
     if devices:
-        fp += "@" + ",".join(str(mesh.device(c)) for c in mesh.coords())
+        fp += "@" + ",".join(
+            f"p{mesh.process(c)}/{mesh.device(c)}" if mesh.spans_processes
+            else str(mesh.device(c)) for c in mesh.coords())
     return fp
 
 
@@ -210,7 +213,7 @@ class ShardedBlockMatrix:
     """A block grid laid out over a mesh, with the paper's method API.
 
     Holds the global layout (grid, block size, the spec of `grid_spec`)
-    and one local tensor per mesh coordinate (`shards`). The mesh is the
+    and one local tensor per mesh coordinate of this process (`shards`). The mesh is the
     ambient one when the matrix is built (`from_dense`,
     `from_blockmatrix`) and stays with the matrix: its operations run on
     its own mesh wherever they are called. Off the mesh (`mesh` None) it
@@ -242,7 +245,7 @@ class ShardedBlockMatrix:
 
     @property
     def device(self) -> torch.device:
-        """The device of the mesh's first coordinate."""
+        """The device of this process's first coordinate of the mesh."""
         return self.dist.device
 
     @property
@@ -256,6 +259,7 @@ class ShardedBlockMatrix:
 
     @property
     def shards(self) -> dict[tuple[int, ...], torch.Tensor]:
+        """This process's coordinates' local tensors."""
         return self.dist.shards
 
     def _wrap(self, dist: DistArray, op: str) -> "ShardedBlockMatrix":
@@ -291,7 +295,8 @@ class ShardedBlockMatrix:
         return cls(dist, axes).constrain(op)
 
     def to_blockmatrix(self, device=None) -> BlockMatrix:
-        """The whole grid on `device` (default: the mesh's first device)."""
+        """The whole grid on `device` (default: this process's first device
+        of the mesh), in every process."""
         return BlockMatrix(col.gather(self.dist, device))
 
     def to_dense(self, device=None) -> torch.Tensor:
@@ -390,7 +395,8 @@ class ShardedBlockMatrix:
         _bump("leaf_inversions")
         fn = LEAF_SOLVERS[solver]
         inv = col.once_per_device(lambda blk: fn(blk[0, 0])[None, None],
-                                  [self.dist], self.dist.spec, self.dist.mesh)
+                                  [self.dist], self.dist.spec, self.dist.mesh,
+                                  shape=self.dist.shape)
         return self._wrap(inv, "leaf_inverse")
 
     def __repr__(self) -> str:
@@ -467,13 +473,15 @@ def _sharded_solve(a: ShardedBlockMatrix, b: DistArray,
                    leaf_solver: str) -> DistArray:
     """The inverse-free Schur recursion of `core.solve._solve` with every
     panel split by rows over `data` between levels."""
-    from ..core.solve import _leaf_solve
+    from ..core.solve import _leaf_solve_raw
 
     mesh = a.dist.mesh
     if a.grid == 1:
+        _bump("leaf_solves")
         x = col.once_per_device(
-            lambda blk, r: _leaf_solve(blk[0, 0], r, leaf_solver),
-            [a.dist, b], _panel_layout(b.shape[0], mesh, a.axes), mesh)
+            lambda blk, r: _leaf_solve_raw(blk[0, 0], r, leaf_solver),
+            [a.dist, b], _panel_layout(b.shape[0], mesh, a.axes), mesh,
+            shape=b.shape, dtype=b.dtype)
         return _constrain_panel(x, "leaf_solve", a.axes)
 
     bs = a.block_size
@@ -532,6 +540,7 @@ def sharded_spin_solve(a: ShardedBlockMatrix, b: torch.Tensor, *,
     vector = b.ndim == 1
     rhs = b[:, None] if vector else b
     mesh = a.dist.mesh
+    # every process holds b: each lays out its own coordinates' rows
     panel = col.distribute(rhs, _panel_layout(a.n, mesh, a.axes), mesh)
     x = _sharded_solve(a, _constrain_panel(panel, "solve_rhs", a.axes),
                        leaf_solver)

@@ -697,6 +697,10 @@ def coded_inverse(a, config: CodedConfig | None = None, *,
     # Worker threads start with no ambient mesh or engine: carry the
     # caller's into each.
     mesh = current_mesh()
+    if mesh is not None and mesh.spans_processes:
+        raise NotImplementedError(
+            "the coded pool's worker threads post transfers in no fixed order: a mesh "
+            "that spans processes is driven from one thread")
     engine = engine or current_engine()
     cuda = dev.type == "cuda"
     ready = None

@@ -97,7 +97,7 @@ def _mesh_device_count() -> int:
     from ..launch.mesh import current_mesh
 
     mesh = current_mesh()
-    return len(mesh.distinct_devices) if mesh is not None else 1
+    return len(mesh.places()) if mesh is not None else 1
 
 
 def signature_for(kind: str, n: int, dtype=torch.float32, *,

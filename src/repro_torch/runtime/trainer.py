@@ -14,8 +14,13 @@ sharded model: `rules` reaches `loss_fn`, the `shard` sites record their
 layouts, and the embedding and MoE run per coordinate (expert-parallel
 MoE, FSDP's gathers). `abstract_state` is the state on the `meta` device.
 
+Across processes (a mesh that spans them) every process runs the step on
+the same batch and holds the whole state; the backward runs under
+`collectives.backward_context`, in one thread.
+
 `Trainer` adds the operational layer: checkpoint / restart, a step-time
-watchdog (EWMA), and a restartable data stream. The optimizer state is
+watchdog (EWMA), and a restartable data stream; only process 0 prints
+and writes checkpoints. The optimizer state is
 updated in place, as the reference's jitted step donates it: a state
 passed to the step is consumed.
 """
@@ -30,9 +35,11 @@ import torch
 
 from ..configs.registry import ArchConfig
 from ..device import DEFAULT_DEVICE
+from ..launch.mesh import worker_info
 from ..models import transformer as T
 from ..optim import (AdamWConfig, SpinShampooConfig, adamw_init, adamw_update,
                      schedule, spin_shampoo_init, spin_shampoo_update)
+from ..parallel import collectives as col
 from ..parallel.sharding import DEFAULT_RULES, ShardingRules
 from ..tree import leaves, tree_map, unflatten
 
@@ -114,9 +121,12 @@ def make_train_step(cfg: ArchConfig, tcfg: TrainConfig,
             loss, parts = T.loss_fn(unflatten(state.params, ps), mb, cfg, rules,
                                     remat=tcfg.remat, remat_policy=tcfg.remat_policy)
             # a leaf the family does not read (audio's token table) gets a zero gradient
-            for a, g in zip(acc, torch.autograd.grad(loss, ps, allow_unused=True)):
+            with col.backward_context():
+                grads_mb = torch.autograd.grad(loss, ps, allow_unused=True)
+            for a, g in zip(acc, grads_mb):
                 if g is not None:
                     a.add_(g.float())
+            del grads_mb            # not alive through the next microbatch
             for k, v in (("loss", loss), ("aux", parts["aux"]), ("z", parts["z"])):
                 sums[k] += v.detach()
         grads = unflatten(state.params,
@@ -186,12 +196,13 @@ class Trainer:
             self._watch(dt, step)
             metrics.update(step=step, dt=dt)
             logs.append(metrics)
-            if log_every and i % log_every == 0:
+            if log_every and i % log_every == 0 and worker_info().is_coordinator:
                 moe = (f" aux {metrics['aux']:.4f} z {metrics['z']:.4f}"
                        if self.cfg.moe is not None else "")
                 print(f"step {step:5d} loss {metrics['loss']:.4f}{moe} "
                       f"gnorm {metrics['grad_norm']:.3f} {dt*1e3:.0f}ms")
-            if self.ckpt_dir and step % self.ckpt_every == 0:
+            if (self.ckpt_dir and step % self.ckpt_every == 0
+                    and worker_info().is_coordinator):
                 from ..checkpoint.ckpt import save
                 save(self.ckpt_dir, step, state,
                      extra={"stream": self.stream.state_dict()})

@@ -1,0 +1,196 @@
+"""The per-coordinate collectives, expert-parallel MoE, the sharded lookup,
+`compressed_psum` and a training run on a mesh that spans processes, on
+the CPU, against a single process's mesh and the JAX package.
+
+As `tests/test_torch_multiprocess.py`: each case starts its ranks once
+(gloo, every wait bounded, the spawn by SPAWN_S), the ranks run
+`torch_multiprocess_ranks` (PyTorch port only), and the same function
+runs here on one process's mesh of the same shape. Every process runs
+every coordinate's program (another process's coordinates as ghosts on
+`meta`) and every collective, forward and backward, so results are held
+bitwise: every rank's outputs and gradients equal the single process's.
+Bytes and calls by kind summed over the ranks equal the single
+process's but "replicate" (the joined outputs and the split inputs'
+gradients, which every process receives whole).
+
+Against the JAX package (in this process, mesh-free: its mesh tests raise
+under jax 0.9.0, and its EP with shared experts mixes tokens, ROADMAP
+§C): reduced qwen2-moe's MoE block at capacity factor 8 (no drop, so EP
+is the mesh-free block), f32, output and z within OUT_RTOL and gradients
+within GRAD_RTOL of the largest entry, `tests/test_torch_moe_ep.py`'s
+bounds; the lookup bitwise and its gradient within GRAD_RTOL. The
+compressed sum lies within PSUM_RTOL of the exact one (the reference
+test's 5 %). The training run: `launch.train.main` over 2 processes with
+`--mesh 2x2` (reduced qwen2-moe, 3 steps), every rank's losses and
+parameters equal to one process's run.
+"""
+
+import dataclasses
+import json
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import torch_multiprocess_ranks as ranks
+from repro.configs import get_arch as j_get_arch
+from repro.models import embedding as j_embedding
+from repro.models import moe as j_moe
+from repro_torch.launch.procs import run_ranks
+
+SPAWN_S = 180.0                    # a spawn's ranks, start to finish
+CHILD = str(Path(__file__).with_name("torch_multiprocess_ranks.py"))
+OUT_RTOL = 1e-5
+GRAD_RTOL = 1e-4
+PSUM_RTOL = 0.05
+REGION_CASES = [pytest.param(((2, 2), 4), id="2x2-over-4"),
+                pytest.param(((4, 2), 4), id="4x2-over-4")]
+REGION_RUNS = [f"{name}_{axis}" for axis in ranks.REGION_AXES
+               for name in ("all_to_all", "all_gather", "psum", "pmean", "pmax")]
+LM_SHAPE, LM_PROCS = (2, 4), 4
+TRAIN_ARGV = ["--arch", "qwen2-moe-a2.7b", "--reduced", "--device", "cpu", "--mesh", "2x2",
+              "--steps", "3", "--batch", "2", "--seq", "32", "--microbatches", "1"]
+
+
+def spawn(case: str, nprocs: int, **kwargs) -> list:
+    return run_ranks([sys.executable, CHILD, case, json.dumps(kwargs)], nprocs,
+                     timeout_s=SPAWN_S)
+
+
+def _summed(got: list, what: str) -> dict:
+    return {k: sum(rank[what][k] for rank in got) for k in got[0][what]}
+
+
+def _assert_sums(got: list, ref: dict) -> None:
+    for idx, what in enumerate(("bytes", "calls")):
+        summed = _summed(got, what)
+        assert {k: v for k, v in summed.items() if k != "replicate"} == \
+            {k: v for k, v in ref[what].items() if k != "replicate"}, what
+        assert ref[what]["replicate"] == 0
+        assert all(rank["summed"][idx] == summed for rank in got)
+
+
+@pytest.fixture(scope="module", params=REGION_CASES)
+def region_run(request):
+    shape, nprocs = request.param
+    total = shape[0] * shape[1]
+    return (spawn("regions", nprocs, shape=list(shape), devices=total // nprocs),
+            ranks.run_here("regions", shape=list(shape), devices=total))
+
+
+@pytest.mark.parametrize("run", REGION_RUNS)
+def test_collectives_forward_and_backward_are_the_single_process_bits(region_run, run):
+    got, ref = region_run
+    for rank in got:
+        assert torch.equal(rank[run]["y"], ref[run]["y"])
+        if run.startswith("pmax"):
+            assert rank[run]["grad"] is None
+        else:
+            assert torch.equal(rank[run]["grad"], ref[run]["grad"])
+    _assert_sums([rank[run] for rank in got], ref[run])
+
+
+@pytest.fixture(scope="module")
+def lm_run():
+    total = LM_SHAPE[0] * LM_SHAPE[1]
+    return (spawn("lm", LM_PROCS, shape=list(LM_SHAPE), devices=total // LM_PROCS),
+            ranks.run_here("lm", shape=list(LM_SHAPE), devices=total))
+
+
+def _rel(got: torch.Tensor, want: np.ndarray) -> float:
+    return float(np.abs(got.detach().numpy() - want).max() / np.abs(want).max())
+
+
+@pytest.fixture(scope="module")
+def jax_moe():
+    """The reference's mesh-free MoE block and its gradients on the ranks'
+    inputs (the port's seeded init, handed over as numpy)."""
+    import repro_torch.configs as cfgs
+    from repro_torch.models import moe
+    from repro_torch.models.layers import init_tree
+
+    base = cfgs.get_arch("qwen2-moe-a2.7b").reduced()
+    cfg = dataclasses.replace(base, moe=dataclasses.replace(base.moe, capacity_factor=8.0))
+    params = init_tree(moe.moe_params(cfg, 4), torch.Generator().manual_seed(7), "cpu")
+    jp = jax.tree.map(lambda t: jnp.asarray(t.float().numpy()), params)
+    x = jnp.asarray(ranks._normal((4, 16, cfg.d_model), 7).numpy())
+    ct = jnp.asarray(ranks._normal((4, 16, cfg.d_model), 8).numpy())
+    jbase = j_get_arch("qwen2-moe-a2.7b").reduced()
+    jcfg = dataclasses.replace(jbase, moe=dataclasses.replace(jbase.moe, capacity_factor=8.0))
+
+    def loss(p, x):
+        out, _, z = j_moe.moe_apply(p, x, jcfg)
+        return jnp.sum(out.astype(jnp.float32) * ct) + z
+
+    out, _, z = j_moe.moe_apply(jp, x, jcfg)
+    gp, gx = jax.grad(loss, argnums=(0, 1))(jp, x)
+    grads = {"x": gx, **{k: gp[k] for k in ("router", "wi", "wg", "wo")},
+             **{f"shared_{k}": v for k, v in gp["shared"].items()}}
+    return np.asarray(out), float(z), {k: np.asarray(v) for k, v in grads.items()}
+
+
+def test_ep_moe_block_is_the_single_process_bits(lm_run):
+    got, ref = lm_run
+    want = ref["moe"]
+    for rank in got:
+        for key in ("y", "aux", "z"):
+            assert torch.equal(rank["moe"][key], want[key]), key
+        assert rank["moe"]["grads"].keys() == want["grads"].keys()
+        for key, g in rank["moe"]["grads"].items():
+            assert torch.equal(g, want["grads"][key]), key
+    _assert_sums([rank["moe"] for rank in got], want)
+    assert _summed([rank["moe"] for rank in got], "bytes")["all_to_all"] > 0
+
+
+def test_ep_moe_block_holds_the_reference(lm_run, jax_moe):
+    out, z, grads = jax_moe
+    moe = lm_run[0][0]["moe"]
+    assert _rel(moe["y"], out) <= OUT_RTOL
+    assert abs(float(moe["z"]) - z) <= OUT_RTOL * abs(z)
+    for key, want in grads.items():
+        assert _rel(moe["grads"][key], want) <= GRAD_RTOL, key
+
+
+def test_sharded_lookup_is_the_single_process_bits_and_the_references(lm_run):
+    got, ref = lm_run
+    for rank in got:
+        assert torch.equal(rank["embed"]["y"], ref["embed"]["y"])
+        assert torch.equal(rank["embed"]["grad"], ref["embed"]["grad"])
+    _assert_sums([rank["embed"] for rank in got], ref["embed"])
+    table = ranks._normal((ref["embed"]["grad"].shape), 9).numpy() * 0.02
+    toks = np.random.default_rng(10).integers(0, table.shape[0], (4, 16))
+    w = ranks._normal(tuple(ref["embed"]["y"].shape), 11).numpy()
+    want = np.asarray(j_embedding.embed_lookup(jnp.asarray(table), jnp.asarray(toks)))
+    assert np.array_equal(got[0]["embed"]["y"].numpy(), want)
+    gt = jax.grad(lambda t: jnp.sum(j_embedding.embed_lookup(t, jnp.asarray(toks)) * w))(
+        jnp.asarray(table))
+    assert _rel(got[0]["embed"]["grad"], np.asarray(gt)) <= GRAD_RTOL
+
+
+def test_compressed_psum_is_the_single_process_bits(lm_run):
+    got, ref = lm_run
+    exact = ref["psum"]["exact"]
+    for rank in got:
+        for c, s in rank["psum"]["sum"].items():
+            assert torch.equal(s, ref["psum"]["sum"][c])
+            rel = float((s.double() - exact).abs().max() / exact.abs().max())
+            assert rel <= PSUM_RTOL
+    assert sorted(c for rank in got for c in rank["psum"]["sum"]) == \
+        sorted(ref["psum"]["sum"])
+    _assert_sums([rank["psum"] for rank in got], ref["psum"])
+
+
+def test_training_across_processes_is_the_single_process_run():
+    got = spawn("train", 2, argv=TRAIN_ARGV)
+    ref = ranks.run_here("train", argv=TRAIN_ARGV)
+    assert ref["processes"] == 1 and ref["mesh"] == "data2:model2"
+    for rank in got:
+        assert rank["processes"] == 2 and rank["mesh"] == "data2:model2"
+        assert rank["losses"] == ref["losses"]
+        assert len(rank["params"]) == len(ref["params"])
+        assert all(torch.equal(p, q) for p, q in zip(rank["params"], ref["params"]))
+    assert all(np.isfinite(ref["losses"]))

@@ -1,0 +1,242 @@
+"""Rank programs of the multi-process tests: PyTorch port only, no JAX.
+
+    python tests/torch_multiprocess_ranks.py <case> '<json kwargs>'
+
+runs `CASES[case](**kwargs)` under `repro_torch.launch.procs.rank_main`
+(gloo, every wait bounded) in each rank that `run_ranks` starts. The
+same functions run in the test process on a single process's mesh (no
+`init_distributed`): `make_worker_mesh(shape, devices=["cpu"] * k)` is
+then the whole mesh, while in a rank `k` names the rank's own
+coordinates. Every case runs one torch thread, so a product's bits do
+not depend on how many cores a process was given.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import sys
+
+import numpy as np
+import torch
+
+SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src")
+if SRC not in sys.path:
+    sys.path.insert(0, SRC)
+
+from repro_torch.core import (count_ops, spin_inverse_sharded, spin_solve_sharded,  # noqa: E402
+                              testing)
+from repro_torch.launch.mesh import make_worker_mesh, set_mesh  # noqa: E402
+from repro_torch.parallel import collectives as col  # noqa: E402
+from repro_torch.parallel import ShardedBlockMatrix, record_specs  # noqa: E402
+
+GROUP_TIMEOUT_S = 60.0            # every wait of a rank's process group
+SPIN_RUNS = (("allgather", "linalg"), ("ring", "linalg"), ("cuda", "cuda"))
+
+
+def _counts() -> dict:
+    return {"bytes": col.collective_bytes(), "calls": col.collective_calls(),
+            "summed": col.summed_counts()}
+
+
+def _specs(records) -> list:
+    return [(r.op, r.kind, r.shape, r.spec, r.axes, r.mesh_axes) for r in records]
+
+
+def _spd(n: int, seed: int) -> torch.Tensor:
+    return testing.make_spd(n, np.random.default_rng([seed, n]), device="cpu")
+
+
+def _normal(shape, seed: int) -> torch.Tensor:
+    return torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        shape).astype(np.float32))
+
+
+def spin(shape, devices: int, n: int = 256, bs: int = 32, rhs: int = 8,
+         seed: int = 3) -> dict:
+    """spin_inverse_sharded and spin_solve_sharded under each engine (a
+    dense operand in, the dense result out in every process), with the
+    op counts, the spec ledger and the bytes and calls by kind; and a
+    ShardedBlockMatrix in and out, holding this process's shards only."""
+    from repro_torch.launch.mesh import worker_info
+    from repro_torch.parallel import mesh_fingerprint
+
+    mesh = make_worker_mesh(tuple(shape), devices=["cpu"] * devices)
+    a, b = _spd(n, seed), _normal((n, rhs), seed + 1)
+    info = worker_info()
+    out = {"local": mesh.local_coords(), "fingerprint": mesh_fingerprint(mesh, devices=True),
+           "info": [info.process_index, info.process_count, info.local_device_count,
+                    info.global_device_count]}
+    for engine, leaf in SPIN_RUNS:
+        for kind in ("inverse", "solve"):
+            col.reset_collective_bytes()
+            with set_mesh(mesh), record_specs() as recs, count_ops() as ops:
+                x = (spin_inverse_sharded(a, bs, engine=engine, leaf_solver=leaf)
+                     if kind == "inverse" else
+                     spin_solve_sharded(a, b, bs, engine=engine, leaf_solver=leaf))
+            out[f"{kind}_{engine}"] = {"x": x, "ops": ops.as_dict(),
+                                       "specs": _specs(recs), **_counts()}
+    with set_mesh(mesh):
+        sa = ShardedBlockMatrix.from_dense(a, bs)
+        sx = spin_inverse_sharded(sa, engine="cuda", leaf_solver="cuda")
+        out["sharded"] = {"in": sorted(sa.shards), "out": sorted(sx.shards),
+                          "x": sx.to_dense()}
+    return out
+
+
+# one axis and a tuple of axes, for each collective
+REGION_AXES = ("data", "model", ("data", "model"))
+
+
+def regions(shape, devices: int, seed: int = 5) -> dict:
+    """all_to_all, all_gather, psum, pmean and pmax over each of
+    REGION_AXES, forward and backward: a global input split by rows over
+    both axes, the collective, the outputs joined by rows, and the
+    gradient of a fixed linear loss back to the input."""
+    mesh = make_worker_mesh(tuple(shape), devices=["cpu"] * devices)
+    k = len(mesh.coords())
+    spec = (("data", "model"), None, None)
+    out = {}
+    for axis in REGION_AXES:
+        size = col.axis_size(axis, mesh)
+        for name in ("all_to_all", "all_gather", "psum", "pmean", "pmax"):
+            x = _normal((k * 2, 8, 3), seed).requires_grad_()
+            col.reset_collective_bytes()
+            xs = col.split(x, spec, mesh)
+            if name == "all_to_all":
+                ys = col.all_to_all(xs, axis, 1, 0, mesh)
+            elif name == "all_gather":
+                ys = col.all_gather(xs, axis, 0, mesh)
+            else:
+                ys = getattr(col, name)(xs, axis, mesh)
+            y = col.join(ys, spec, mesh)
+            grad = None
+            if name != "pmax":
+                w = _normal(tuple(y.shape), seed + 1)
+                with col.backward_context(mesh):
+                    (y * w).sum().backward()
+                grad = x.grad
+            out[f"{name}_{axis}"] = {"size": size, "y": y.detach(), "grad": grad,
+                                     **_counts()}
+    return out
+
+
+def lm(shape, devices: int, seed: int = 7) -> dict:
+    """Reduced qwen2-moe's MoE block (f32, capacity factor 8: no drop)
+    expert-parallel, forward and backward (the loss takes the output and
+    z; EP's aux is a mean over groups, not the mesh-free one); the sharded
+    embedding lookup and its backward; and compressed_psum over a `pod`
+    mesh of one coordinate a device."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import moe
+    from repro_torch.models.embedding import embed_lookup
+    from repro_torch.models.layers import init_tree
+    from repro_torch.parallel.compression import compressed_psum
+
+    mesh = make_worker_mesh(tuple(shape), devices=["cpu"] * devices)
+    base = get_arch("qwen2-moe-a2.7b").reduced()
+    cfg = dataclasses.replace(base, moe=dataclasses.replace(base.moe, capacity_factor=8.0))
+    params = init_tree(moe.moe_params(cfg, 4), torch.Generator().manual_seed(seed), "cpu")
+    params = {k: ({kk: vv.float().requires_grad_() for kk, vv in v.items()}
+                  if isinstance(v, dict) else v.float().requires_grad_())
+              for k, v in params.items()}
+    x = _normal((4, 16, cfg.d_model), seed).requires_grad_()
+    ct = _normal((4, 16, cfg.d_model), seed + 1)
+    col.reset_collective_bytes()
+    with set_mesh(mesh):
+        y, aux, z = moe.moe_apply(params, x, cfg)
+        loss = (y * ct).sum() + z
+    with col.backward_context(mesh):
+        loss.backward()
+    flat = {"x": x.grad, **{k: v.grad for k, v in params.items() if k != "shared"},
+            **{f"shared_{k}": v.grad for k, v in params.get("shared", {}).items()}}
+    out = {"moe": {"y": y.detach(), "aux": aux.detach(), "z": z.detach(),
+                   "grads": flat, **_counts()}}
+
+    table = (0.02 * _normal((cfg.vocab, cfg.d_model), seed + 2)).requires_grad_()
+    toks = torch.from_numpy(np.random.default_rng(seed + 3).integers(
+        0, cfg.vocab, (4, 16)))
+    col.reset_collective_bytes()
+    with set_mesh(mesh):
+        e = embed_lookup(table, toks)
+    with col.backward_context(mesh):
+        (e * _normal(tuple(e.shape), seed + 4)).sum().backward()
+    out["embed"] = {"y": e.detach(), "grad": table.grad, **_counts()}
+
+    pod = make_worker_mesh((len(mesh.coords()),), ("pod",), devices=["cpu"] * devices)
+    g = 1e-3 * _normal((len(pod.coords()), 64, 48), seed + 5)
+    col.reset_collective_bytes()
+    got = compressed_psum(col.split(g, ("pod", None, None), pod), "pod", pod)
+    out["psum"] = {"sum": {str(c): got[c] for c in pod.local_coords()},
+                   "exact": g.double().sum(0), **_counts()}
+    return out
+
+
+def train(argv: list) -> dict:
+    """`launch.train.main(argv)`: it joins the group itself."""
+    from repro_torch.launch import train as train_mod
+    from repro_torch.tree import leaves
+
+    res = train_mod.main(list(argv))
+    return {"losses": [log["loss"] for log in res["logs"]],
+            "params": [p.detach() for p in leaves(res["state"].params)],
+            "mesh": res["mesh"], "processes": res["processes"]}
+
+
+def fail_early() -> dict:
+    """Rank 1 raises before any collective."""
+    from repro_torch.launch.mesh import worker_info
+
+    if worker_info().process_index == 1:
+        raise RuntimeError("rank 1 fails on purpose")
+    return {"ok": True}
+
+
+def fail_mid_collective() -> dict:
+    """Rank 1 raises between two collectives; rank 0 waits in the second."""
+    from repro_torch.launch.mesh import worker_info
+
+    mesh = make_worker_mesh((2,), ("data",), devices=["cpu"])
+    xs = col.split(torch.ones(2, 3), ("data", None), mesh)
+    col.psum(xs, "data", mesh)
+    if worker_info().process_index == 1:
+        raise RuntimeError("rank 1 fails between two collectives")
+    col.psum(xs, "data", mesh)
+    return {"ok": True}
+
+
+def skip_collective() -> dict:
+    """Rank 1 returns without the second collective: rank 0 waits on it."""
+    from repro_torch.launch.mesh import worker_info
+
+    mesh = make_worker_mesh((2,), ("data",), devices=["cpu"])
+    xs = col.split(torch.ones(2, 3), ("data", None), mesh)
+    col.psum(xs, "data", mesh)
+    if worker_info().process_index == 0:
+        col.psum(xs, "data", mesh)
+    return {"ok": True}
+
+
+CASES = {"spin": spin, "regions": regions, "lm": lm, "train": train,
+         "fail_early": fail_early, "fail_mid_collective": fail_mid_collective,
+         "skip_collective": skip_collective}
+
+
+def run_here(case: str, **kwargs) -> dict:
+    """`CASES[case]` in this process, on one torch thread."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        return CASES[case](**kwargs)
+    finally:
+        torch.set_num_threads(threads)
+
+
+if __name__ == "__main__":
+    from repro_torch.launch.procs import rank_main
+
+    case, kwargs = sys.argv[1], json.loads(sys.argv[2])
+    rank_main(lambda: run_here(case, **kwargs),
+              backend=None if case == "train" else "gloo", timeout_s=GROUP_TIMEOUT_S)
