@@ -281,12 +281,34 @@ Phases, each of which fails the run (non-zero exit) on any fault:
      `abstract_state`'s bytes printed: four ranks fit one card at no
      depth), the same losses and parameter digests on both ranks, B6 and
      B6-bwd launched as phase 18b's step; `phase_s["22"]` printed;
- 23. one JSON line with every path's times and residual (the examples'
+ 23. the partitioned dense step: olmo-1b at full width and depth on an
+     AdamW state laid out by the reference's specs
+     (`runtime.trainer.state_shardings`) over (data 2, model 4) of
+     cuda:0, each coordinate holding and computing only its shards
+     (FSDP's gathers, attention and the MLP on its heads and ffn columns,
+     a vocabulary-parallel loss), 8 x 2048 tokens in 2 microbatches, full
+     remat: the first step's loss and grad norm within 2e-3 of a
+     mesh-free step on the same weights and batch, B6 launched 512 and
+     B6-bwd 256 times a step and no other kernel, the bytes and calls of
+     each collective kind equal to the analytic count
+     (`launch.dryrun.partitioned_step_collectives`); a warm-up and 3
+     timed steps (ms, tokens/s, peak GiB), every state leaf still a
+     DistArray of its spec; B6 and B6-bwd against their plain versions at
+     a coordinate's shape (2, 4, 2048, 128), bf16, causal, timed beside
+     their bounds, plain versions and SDPA. Then two ranks of their own
+     (`python3 chip_smoke.py --rank-case partition <dir>`, gloo on
+     cuda:0, process p holding data row p) run 2 steps of olmo-1b cut to
+     2 layers: both ranks' losses and parameter digests equal the single
+     process's run at that depth, each rank's state GiB beside the single
+     process's, wall and exchange ms a step, peak GiB a rank;
+     `phase_s["23"]` printed;
+ 24. one JSON line with every path's times and residual (the examples'
      wall, launches and peak memory under "examples", phase 22's ranks
-     under "processes"), and one with every kernel's launches, error and
-     times (the GEMM's, blocked Gauss-Jordan's and triangular solve's
-     launches on every path beside them, the examples' runs and phase
-     22's ranks, each rank's and their sum, included).
+     under "processes", phase 23's under "partition"), and one with every
+     kernel's launches, error and times (the GEMM's, blocked
+     Gauss-Jordan's and triangular solve's launches on every path beside
+     them, the examples' runs and phase 22's ranks, each rank's and their
+     sum, included, and B6's and B6-bwd's at a coordinate of phase 23).
 
 The last line is {"ok": true, "device": {...}}. The script imports only
 the PyTorch port; it exits non-zero without a result when CUDA is missing
@@ -446,6 +468,15 @@ PROC_TRAIN_PROCS, PROC_TRAIN_LAYERS, PROC_TRAIN_STEPS = 2, 1, 2
 # and 4 microbatches of 2 x 2048 (the f32 logits of 4 x 2048, 4.6 GiB,
 # did not fit beside two ranks' state)
 PROC_TRAIN_MICRO = 4
+# Phase 23: the partitioned dense step. olmo-1b at full width and depth on
+# a laid-out AdamW state under (data 2, model 4) of cuda:0, each coordinate
+# holding and computing its own shards; then two ranks of their own on the
+# card, process p holding data row p, olmo cut to 2 layers.
+PART_SHAPE = (2, 4)
+PART_ARCH = "olmo-1b"
+PART_STEPS = 3                    # timed steps after one warm-up
+PART_RTOL = 2e-3                  # the first step's loss and grad norm against mesh-free
+PART_PROCS, PART_PROC_LAYERS, PART_PROC_STEPS = 2, 2, 2
 U_F32 = 2.0 ** -24                # f32 unit roundoff
 # The refresh residual's bound: c·n·u·κ, the first-order bound on an
 # inverse's residual by elimination, with c = 4 over the 1.3 measured at
@@ -3583,9 +3614,17 @@ def _rank_train(torch) -> dict:
 def _rank_case(torch, case: str, keep: str) -> dict:
     """What one rank of a phase-22 spawn runs: "four" (4 ranks: (a) with a
     coordinate a rank, (b), (c), (d)) or "two" (2 ranks: (a) with two
-    coordinates a rank, then (e))."""
+    coordinates a rank, then (e)); or of phase 23's: "partition" (2
+    ranks, the partitioned steps, (b))."""
     t0 = time.perf_counter()
-    if case == "four":
+    if case == "partition":                   # phase 23 (b)
+        from repro_torch.launch.mesh import make_worker_mesh
+
+        n = PART_SHAPE[0] * PART_SHAPE[1] // PART_PROCS
+        out = _partition_steps(torch, _partition_cfg(PART_PROC_LAYERS),
+                               make_worker_mesh(PART_SHAPE, devices=["cuda:0"] * n),
+                               PART_PROC_STEPS)
+    elif case == "four":
         out = {"inverse": _rank_inverse(torch, keep, 1, "four"),
                "solve": _rank_solve(torch, keep), "lm": _rank_mesh_lm(torch, keep)}
     else:
@@ -3807,6 +3846,253 @@ def run_processes(torch, keep: str, sharded: dict, mesh19: dict) -> dict:
           f"step_ms={[t['step_ms'] for t in tr]!r} peak_gib={[t['peak_gib'] for t in tr]!r} "
           f"launches={tr[0]['launches']}", flush=True)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 23: the partitioned dense step (a laid-out state, per coordinate)
+# ---------------------------------------------------------------------------
+
+
+def _partition_cfg(layers: int | None = None):
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch(PART_ARCH)
+    return dataclasses.replace(cfg, n_layers=layers or cfg.n_layers)
+
+
+def _held_gib(torch, state) -> float:
+    """GiB of the distinct storages behind this process's shards of a
+    laid-out state."""
+    from repro_torch.tree import leaves
+
+    seen = {}
+    for x in leaves(state):
+        for t in x.shards.values():
+            seen[t.untyped_storage().data_ptr()] = t.untyped_storage().nbytes()
+    return sum(seen.values()) / 2 ** 30
+
+
+def _partition_steps(torch, cfg, mesh, steps: int) -> dict:
+    """`steps` AdamW steps of `cfg` on phase 18's seeded state laid out by
+    the reference's specs over `mesh` (in one process, or this process's
+    part of a mesh that spans processes), 8 x 2048 tokens in 2
+    microbatches: losses, each step's wall and exchange ms, the state's
+    GiB, peak GiB, and a digest of every parameter gathered whole."""
+    from repro_torch import kernels
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.parallel import transport
+    from repro_torch.parallel.collectives import gather
+    from repro_torch.parallel.sharding import lay_out
+    from repro_torch.runtime.trainer import (TrainConfig, init_state, make_train_step,
+                                             state_shardings)
+    from repro_torch.tree import leaves
+
+    dev = torch.device("cuda")
+    tcfg = TrainConfig(microbatches=TRAIN_MICRO, optimizer="adamw", warmup=1)
+    gc.collect()
+    torch.cuda.empty_cache()
+    whole = init_state(cfg, tcfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    state = lay_out(whole, state_shardings(cfg, tcfg, mesh))
+    del whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = _held_gib(torch, state)
+    stream = TokenStream(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=SEED, device=str(dev))
+    step = make_train_step(cfg, tcfg)
+    kernels.reset_launch_counts()
+    out = {"losses": [], "grad_norms": [], "wall_ms": [], "exchange_ms": []}
+    for _ in range(steps):
+        transport.reset_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, stream.next())
+        loss = float(m["loss"])
+        out["wall_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["exchange_ms"].append(transport.exchange_seconds() * 1e3)
+        out["losses"].append(loss)
+        out["grad_norms"].append(float(m["grad_norm"]))
+    out["launches"] = kernels.launch_counts()
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out["state_gib"] = held
+    out["digests"] = [_digest(torch, gather(p)) for p in leaves(state.params)]
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_flash_partitioned(torch, b: int, h: int, s: int, hd: int) -> dict:
+    """Phase 23: B6 and B6-bwd against their plain versions at a
+    coordinate's shape of the partitioned step (B_loc, H_loc, S, hd), bf16,
+    causal, made in the model's (B, S, H, hd) layout; each timed beside its
+    bound, its plain version and SDPA (forward, backward)."""
+    from repro_torch.kernels.flash_attention import kernel as fa, ref as fa_ref
+    import numpy as np
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng([SEED, 23])
+
+    def one():
+        x = rng.standard_normal((b, s, h, hd), dtype=np.float32)
+        return torch.from_numpy(x).to(dev, torch.bfloat16).transpose(1, 2)
+
+    q, k, v, do = one(), one(), one(), one()
+    got = fa.flash_attention_cuda(q, k, v, causal=True)
+    err = max_abs(got, fa_ref.attention_ref(q, k, v, causal=True))
+    require(bool(torch.isfinite(got.float()).all()) and err <= FLASH_TOL["bfloat16"],
+            f"partition flash_attention: max_abs_err {err}")
+    bound, by = flash_bound_ms(b, h, h, s, s, hd, True, 2, PEAK_BF16_FLOPS)
+    fwd = {"ms": time_ms(lambda: fa.flash_attention_cuda(q, k, v, causal=True), 10),
+           "plain_ms": time_ms(lambda: fa_ref.attention_ref(q, k, v, causal=True), 2),
+           "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+               q, k, v, is_causal=True), 10),
+           "bound_ms": bound, "bound_by": by, "max_abs_err": err}
+    out, lse = fa._forward(q, k, v, True, want_lse=True)
+    grads = fa.flash_attention_bwd_cuda(q, k, v, out, do, lse, causal=True)
+    want = fa_ref.attention_bwd_ref(q, k, v, do, causal=True)
+    errs = [max_abs(g, w) for g, w in zip(grads, want)]
+    rel = max(e / float(w.float().abs().max()) for e, w in zip(errs, want))
+    require(all(bool(torch.isfinite(g.float()).all()) for g in grads)
+            and rel <= FLASH_BWD_TOL["bfloat16"],
+            f"partition flash_attention_bwd: rel err {rel}")
+    del grads, want
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    lib_out = F.scaled_dot_product_attention(*leaves, is_causal=True)
+    bound, by = flash_bwd_bound_ms(b, h, h, s, hd, True, 2, PEAK_BF16_FLOPS)
+    bwd = {"ms": time_ms(lambda: fa.flash_attention_bwd_cuda(q, k, v, out, do, lse,
+                                                             causal=True), 20),
+           "plain_ms": time_ms(lambda: fa_ref.attention_bwd_ref(q, k, v, do, causal=True), 1),
+           "library_ms": time_ms(lambda: torch.autograd.grad(lib_out, leaves, do,
+                                                             retain_graph=True), 20),
+           "bound_ms": bound, "bound_by": by, "max_abs_err": max(errs), "rel_err": rel}
+    shape = f"B={b} H={h} KV={h} S={s} hd={hd} causal bf16 (a coordinate of the partitioned step)"
+    print(f"time flash_attention partition: {fwd} {shape}", flush=True)
+    print(f"time flash_attention_bwd partition: {bwd} {shape}", flush=True)
+    del q, k, v, do, out, lse, lib_out, leaves
+    torch.cuda.empty_cache()
+    return {"flash_attention": {**fwd, "shape": shape},
+            "flash_attention_bwd": {**bwd, "shape": shape}}
+
+
+def run_partition(torch, keep: str) -> dict:
+    """Phase 23: (a) olmo-1b's partitioned AdamW step on (data 2, model 4)
+    of cuda:0 against a mesh-free step on the same weights and batch, its
+    launches, bytes and calls by collective kind, times and memory; (b)
+    two ranks on the card against the single process (module docstring)."""
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.launch.dryrun import partitioned_step_collectives
+    from repro_torch.launch.mesh import make_worker_mesh
+    from repro_torch.launch.procs import free_port, run_ranks
+    from repro_torch.parallel import collective_bytes, collective_calls, reset_collective_bytes
+    from repro_torch.parallel.collectives import DistArray
+    from repro_torch.parallel.sharding import lay_out
+    from repro_torch.runtime.trainer import (TrainConfig, init_state, make_train_step,
+                                             state_shardings)
+    from repro_torch.tree import leaves
+
+    dev = torch.device("cuda")
+    cfg = _partition_cfg()
+    n_coords = PART_SHAPE[0] * PART_SHAPE[1]
+    mesh = make_worker_mesh(PART_SHAPE, devices=["cuda:0"] * n_coords)
+    tcfg = TrainConfig(microbatches=TRAIN_MICRO, optimizer="adamw", warmup=1)
+    gc.collect()
+    torch.cuda.empty_cache()
+    whole = init_state(cfg, tcfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    shardings = state_shardings(cfg, tcfg, mesh)
+    state = lay_out(whole, shardings)
+    stream = TokenStream(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=SEED, device=str(dev))
+    first = stream.next()
+    # the mesh-free step on the same weights and batch (it consumes `whole`)
+    whole, free, free_ms = _timed_step(torch, make_train_step(cfg, tcfg), whole, first)
+    del whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    step = make_train_step(cfg, tcfg)
+    kernels.reset_launch_counts()
+    reset_collective_bytes()
+    state, m1, ms1 = _timed_step(torch, step, state, first)
+    launches = kernels.launch_counts()
+    moved, calls = collective_bytes(), collective_calls()
+    print(f"path partition_first_step: loss={m1['loss']!r} mesh_free_loss={free['loss']!r} "
+          f"grad_norm={m1['grad_norm']!r} mesh_free_grad_norm={free['grad_norm']!r} "
+          f"ms={ms1!r} mesh_free_ms={free_ms!r} launches={launches} bytes={moved} "
+          f"calls={calls}", flush=True)
+    for key in ("loss", "grad_norm"):
+        require(np.isfinite(m1[key]) and abs(m1[key] - free[key]) <= PART_RTOL * abs(free[key]),
+                f"partition: {key} {m1[key]} against mesh-free {free[key]}")
+    per_step = {"flash_attention": 2 * cfg.n_layers * TRAIN_MICRO * n_coords,
+                "flash_attention_bwd": cfg.n_layers * TRAIN_MICRO * n_coords}
+    for kern, n in launches.items():
+        require(n == per_step.get(kern, 0),
+                f"partition: {kern} launched {n} times, want {per_step.get(kern, 0)}")
+    want_moved, want_calls = partitioned_step_collectives(cfg, PART_SHAPE, "default",
+                                                          TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO)
+    require({k: moved[k] for k in want_moved} == want_moved
+            and all(v == 0 for k, v in moved.items() if k not in want_moved),
+            f"partition: bytes {moved}, want {want_moved}")
+    require({k: calls[k] for k in want_calls} == want_calls,
+            f"partition: calls {calls}, want {want_calls}")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state, _, warm_ms = _timed_step(torch, step, state, stream.next())
+    steps = []
+    for _ in range(PART_STEPS):
+        retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+        state, m, ms = _timed_step(torch, step, state, stream.next())
+        steps.append({"ms": ms, "loss": m["loss"], "grad_norm": m["grad_norm"],
+                      "alloc_retries": torch.cuda.memory_stats().get("num_alloc_retries", 0)
+                      - retries})
+        require(np.isfinite(m["loss"]), f"partition: loss {m['loss']}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for x, sh in zip(leaves(state), leaves(shardings)):
+        require(isinstance(x, DistArray) and x.spec == tuple(sh.spec) and x.mesh is mesh,
+                "partition: a state leaf is no longer laid out by its spec")
+    held = _held_gib(torch, state)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    ms = [st["ms"] for st in steps]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    a = {"arch": cfg.name, "layers": cfg.n_layers, "mesh": mesh.descriptor(),
+         "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "microbatches": TRAIN_MICRO,
+         "first_step": {"loss": m1["loss"], "grad_norm": m1["grad_norm"], "ms": ms1,
+                        "mesh_free_loss": free["loss"],
+                        "mesh_free_grad_norm": free["grad_norm"],
+                        "mesh_free_ms": free_ms},
+         "warmup_ms": warm_ms, "ms": ms, "tokens_per_s": tokens / (min(ms) / 1e3),
+         "steps": steps, "peak_gib": peak, "state_gib": held, "launches": launches,
+         "collective_bytes": moved, "collective_calls": calls}
+    print(f"path partition_train: {json.dumps(a)}", flush=True)
+    a["kernels"] = check_flash_partitioned(
+        torch, TRAIN_BATCH // TRAIN_MICRO // PART_SHAPE[0], cfg.n_heads // PART_SHAPE[1],
+        TRAIN_SEQ, cfg.head_dim)
+
+    # (b) two ranks on the card against the single process at 2 layers
+    small = _partition_cfg(PART_PROC_LAYERS)
+    single = _partition_steps(torch, small, mesh, PART_PROC_STEPS)
+    t0 = time.perf_counter()
+    env = {**os.environ, "PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}
+    ranks = run_ranks([sys.executable, str(Path(__file__).resolve()), "--rank-case",
+                       "partition", keep], PART_PROCS, timeout_s=PROC_SPAWN_S,
+                      coordinator=f"127.0.0.1:{free_port()}", env=env)
+    wall_s = time.perf_counter() - t0
+    for r in ranks:
+        require(r["losses"] == single["losses"] and r["digests"] == single["digests"],
+                f"partition ranks: losses {r['losses']} against the single process's "
+                f"{single['losses']}, or the parameters differ")
+        require(r["launches"]["flash_attention"] * PART_PROCS
+                == single["launches"]["flash_attention"],
+                f"partition ranks: B6 {r['launches']} against {single['launches']}")
+    b = {"processes": PART_PROCS, "layers": small.n_layers, "spawn_s": wall_s,
+         "single": {k: v for k, v in single.items() if k != "digests"},
+         "ranks": [{k: v for k, v in r.items() if k != "digests"} for r in ranks]}
+    print(f"path partition_ranks: {json.dumps(b)}", flush=True)
+    return {"train": a, "ranks": b}
 
 
 def main(proc_dir: str) -> int:
@@ -4092,6 +4378,15 @@ def main(proc_dir: str) -> int:
     phase_s["22"] = time.perf_counter() - t0
     print(f"phase_s {json.dumps(phase_s)}", flush=True)
 
+    # 23. the partitioned dense step: a laid-out state, per coordinate; and
+    # two ranks of their own
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    partition = run_partition(torch, proc_dir)
+    phase_s["23"] = time.perf_counter() - t0
+    print(f"phase_s {json.dumps(phase_s)}", flush=True)
+
     print(json.dumps({"paths": {
         "spin": {"n": n, "block_size": bs, "ms": spin["ms"], "residual": spin["residual"]},
         "lu": {"n": n, "block_size": bs, "ms": lu["ms"], "residual": lu["residual"],
@@ -4128,10 +4423,10 @@ def main(proc_dir: str) -> int:
         "train_adamw": train_adamw, "train_shampoo": train_shampoo,
         "train_families": train_families, "mesh": mesh, "dry_run": dry_run,
         "examples": examples, "processes": _processes_summary(processes),
-        "phase_s": phase_s},
+        "partition": partition, "phase_s": phase_s},
         "card": card}), flush=True)
 
-    # 23. the kernels line
+    # 24. the kernels line
     rows = []
     gemm_body = "gemm_tc: pack pre-pass, then 3xTF32 wgmma on a TMA ring (f32)"
     report["schur_update"]["body"] = report["matmul"]["body"] = gemm_body
@@ -4180,7 +4475,9 @@ def main(proc_dir: str) -> int:
                 "train_shampoo_step1": train_shampoo["launches_step1"][name],
                 **{f"train_{arch}_step": run["launches"][name]
                    for arch, run in train_families.items()},
-                "train_mesh_step": mesh["train"]["launches"][name]}
+                "train_mesh_step": mesh["train"]["launches"][name],
+                "train_partitioned_step": partition["train"]["launches"][name]}
+            r["partitioned_coordinate"] = partition["train"]["kernels"][name]
         if name in ("matmul", "schur_update", "blocked_gauss_jordan"):
             r["launches_by_path"]["train_shampoo_refresh"] = \
                 train_shampoo["refresh_launches"][name]
@@ -4189,7 +4486,9 @@ def main(proc_dir: str) -> int:
                 "train_adamw_step": train_adamw["launches"][name],
                 **{f"train_{arch}_step": run["launches"][name]
                    for arch, run in train_families.items()},
-                "train_mesh_step": mesh["train"]["launches"][name]}
+                "train_mesh_step": mesh["train"]["launches"][name],
+                "train_partitioned_step": partition["train"]["launches"][name]}
+            r["partitioned_coordinate"] = partition["train"]["kernels"][name]
             r["kernels_by_dtype"] = {
                 "bf16, f16": ["flash_bwd_delta",
                               *fa.flash_attention_bwd_kernels(torch.bfloat16).values()],
@@ -4208,7 +4507,7 @@ def main(proc_dir: str) -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--rank-case"]:      # one rank of phase 22
+    if sys.argv[1:2] == ["--rank-case"]:      # one rank of phase 22 or 23
         sys.exit(_rank_child(sys.argv[2], sys.argv[3]))
     # The planner's plan file lies in a directory of this run's own, so that
     # no plan of an earlier run is recalled; phase 22's files (phase 4's

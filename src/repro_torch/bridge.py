@@ -146,16 +146,27 @@ def _opt_from_numpy(opt, device: torch.device):
     return SpinShampooState(step, lists["master"], factors, lists["m"], lists["v"])
 
 
-def train_state_from_numpy(state, device: str | torch.device = DEFAULT_DEVICE):
+def train_state_from_numpy(state, device: str | torch.device = DEFAULT_DEVICE,
+                           shardings=None):
     """The JAX package's TrainState as numpy (`jax.tree.map(np.asarray,
     state)`, AdamW or SPIN-Shampoo; None factors stay None) -> the port's,
-    same bits; the step counters go to the host, as the port keeps them."""
+    same bits; the step counters go to the host, as the port keeps them.
+    With `shardings` (a TrainState of `NamedSharding`s, e.g.
+    `runtime.trainer.state_shardings`, the reference's
+    `_param_state_specs`) every leaf is then laid out by its own
+    (`parallel.sharding.lay_out`): the laid-out state the partitioned step
+    takes."""
     from .runtime.trainer import TrainState
 
     device = resolve_device(device)
-    return TrainState(lm_params_from_numpy(state.params, device),
-                      _opt_from_numpy(state.opt, device),
-                      to_torch(state.step, "cpu").to(torch.int32))
+    out = TrainState(lm_params_from_numpy(state.params, device),
+                     _opt_from_numpy(state.opt, device),
+                     to_torch(state.step, "cpu").to(torch.int32))
+    if shardings is None:
+        return out
+    from .parallel.sharding import lay_out
+
+    return lay_out(out, shardings)
 
 
 def train_state_to_numpy(state):

@@ -69,7 +69,7 @@ def _flatten(tree) -> dict[str, np.ndarray]:
     return out
 
 
-def _unflatten_into(template, blobs: dict[str, np.ndarray]):
+def _unflatten_into(template, blobs: dict[str, np.ndarray], on_host: bool = False):
     from ..parallel.collectives import DistArray
 
     vals = []
@@ -80,7 +80,7 @@ def _unflatten_into(template, blobs: dict[str, np.ndarray]):
             t = torch.from_numpy(np.array(blobs["BF16:" + key])).view(torch.bfloat16)
         else:
             raise KeyError(f"checkpoint missing leaf {key!r}")
-        if isinstance(leaf, (torch.Tensor, DistArray)):
+        if isinstance(leaf, (torch.Tensor, DistArray)) and not on_host:
             t = t.to(leaf.device)
         vals.append(t)
     return unflatten(template, vals)
@@ -147,22 +147,16 @@ def restore(directory: str, step: int, template,
     leaf's device (the host for a non-tensor), at the dtype saved. With
     `shardings` (a matching pytree of NamedSharding), each leaf is laid
     out by its sharding instead: a DistArray on that mesh, whose shards
-    lie on the mesh's devices."""
+    lie on the mesh's devices (each process copies only its own
+    coordinates' regions there, from the host)."""
     path = os.path.join(directory, f"step_{step}")
     with np.load(os.path.join(path, "leaves.npz"), allow_pickle=False) as f:
         blobs = dict(f)
     with open(os.path.join(path, "meta.json")) as f:
         meta = json.load(f)
-    state = _unflatten_into(template, blobs)
+    state = _unflatten_into(template, blobs, on_host=shardings is not None)
     if shardings is not None:
-        from ..parallel.collectives import distribute
+        from ..parallel.sharding import lay_out
 
-        flat = leaves(state)
-        specs = leaves(shardings)
-        if len(specs) != len(flat):
-            raise ValueError(f"shardings has {len(specs)} leaves, the state {len(flat)}")
-        state = unflatten(template, [
-            distribute(torch.as_tensor(t).to(sh.mesh.local_device()),
-                       sh.spec, sh.mesh)
-            for t, sh in zip(flat, specs)])
+        state = lay_out(state, shardings)
     return state, meta.get("extra", {})

@@ -100,7 +100,8 @@ from ..parallel.sharding import (DEFAULT_RULES, PartitionSpec as P, ShardingRule
 from ..runtime.trainer import TrainConfig, TrainState, abstract_state, make_train_step
 from .mesh import make_production_mesh, set_mesh
 
-__all__ = ["RULES_VARIANTS", "CFG_VARIANTS", "collective_stats", "build_train",
+__all__ = ["RULES_VARIANTS", "CFG_VARIANTS", "collective_stats",
+           "partitioned_step_collectives", "build_train",
            "build_prefill", "build_decode", "run_cell", "run_solver_cell", "main"]
 
 # Named sharding-rule variants (the reference's hillclimb knobs).
@@ -186,6 +187,87 @@ def collective_stats(moved: dict, calls: dict, chips: int = 1) -> dict:
     stats["total_operand_bytes"] = sum(
         v["operand_bytes"] for k, v in stats.items() if isinstance(v, dict))
     return stats
+
+
+def partitioned_step_collectives(cfg: ArchConfig, shape: tuple[int, int], rules: str,
+                                 batch: int, seq: int, microbatches: int
+                                 ) -> tuple[dict, dict]:
+    """Bytes and calls of each collective kind (all_gather,
+    reduce_scatter, psum, pmax) in one partitioned step of a dense
+    `cfg` on a (data, model) mesh of `shape` under the `default` or
+    `dp_only` rules, from the shapes: what `collective_bytes()` and
+    `collective_calls()` count for `runtime.trainer.make_train_step` on a
+    laid-out state with full remat.
+
+    Every coordinate receives (n - 1) shards of an all-gather over n
+    coordinates, and as many gradient pieces in its reduce-scatter; a psum
+    over n brings (n - 1) inputs to the group's first coordinate and
+    hands the sum back to the other n - 1. A microbatch runs the lookup
+    and the head once; each layer's weight gathers and its attention
+    psum twice (the forward, and the remat's recompute), its MLP psum
+    once (the recompute stops at the last tensor the layer saves, the
+    `wo` product's operands); every gather's reduce-scatter and every
+    psum's transpose once, the loss's too: autograd hands an output that
+    no loss reads a zero cotangent, so every group's transpose moves its
+    bytes. The token count carries no gradient. A region held by every
+    coordinate (rmsnorm scales) sums its n gradients ("psum").
+    """
+    if rules not in ("default", "dp_only"):
+        raise ValueError(f"no count for the rules {rules!r}: default or dp_only")
+    d_n, m_n = shape
+    n = d_n * m_n
+    L, d, h, kv, hd, f, v = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                             cfg.head_dim, cfg.d_ff, cfg.vocab)
+    bf, f32 = 2, 4
+    rows = batch // microbatches // d_n           # a coordinate's rows of a microbatch
+    x = rows * seq * d * bf                       # an activation (B_loc, S, d)
+    row = rows * seq * f32                        # an f32 value a position
+    moved = dict.fromkeys(("all_gather", "reduce_scatter", "psum", "pmax"), 0)
+    calls = dict.fromkeys(moved, 0)
+
+    def gather(shard, size, passes):              # and its reduce-scatter
+        moved["all_gather"] += passes * n * (size - 1) * shard
+        moved["reduce_scatter"] += n * (size - 1) * shard
+        calls["all_gather"] += passes
+        calls["reduce_scatter"] += 1
+
+    def psum(nbytes, size, passes, back=True):    # and its transpose
+        moved["psum"] += (passes + back) * (n // size) * 2 * (size - 1) * nbytes
+        calls["psum"] += passes + back
+
+    if rules == "default":
+        gather(v // m_n * d // d_n * bf, d_n, 1)               # the lookup's table
+        psum(x, m_n, 1)                                        # the lookup's sum
+        for _ in range(L):
+            for cols in (h * hd, kv * hd, kv * hd):            # wq, wk, wv: FSDP
+                gather(d // d_n * cols // m_n * bf, d_n, 2)
+            if kv % m_n:                                       # the KV heads stay whole
+                for _ in range(2):
+                    gather(d * kv * hd // m_n * bf, m_n, 2)
+            gather(h * hd // m_n * d // d_n * bf, d_n, 2)      # attention's wo
+            psum(x, m_n, 2)
+            for _ in range(3):                                 # wi, wg, wo
+                gather(d // d_n * f // m_n * bf, d_n, 2)
+            psum(x, m_n, 1)
+        gather(v // m_n * d // d_n * bf, d_n, 1)               # the head (tied or lm_head)
+        moved["pmax"] += (n // m_n) * 2 * (m_n - 1) * row
+        calls["pmax"] += 1
+        psum(row, m_n, 1)                                      # the sum of exponentials
+        psum(row, m_n, 1)                                      # the label's logit
+    else:                                                      # dp_only: FSDP over both
+        gather(v * d // n * bf, n, 1)
+        for _ in range(L):
+            for cols in (h * hd, kv * hd, kv * hd, h * hd, f, f, f):
+                gather(d // n * cols * bf, n, 2)
+        gather(v * d // n * bf, n, 1)
+    psum(f32, d_n, 1)                                          # the loss sum
+    psum(f32, d_n, 1, back=False)                              # the token count
+    if cfg.norm == "rmsnorm":                                  # replicated: sum the gradients
+        for size in (L * d, L * d, d):
+            moved["psum"] += 2 * (n - 1) * size * bf
+            calls["psum"] += 1
+    return ({k: microbatches * val for k, val in moved.items()},
+            {k: microbatches * val for k, val in calls.items()})
 
 
 # ---------------------------------------------------------------------------

@@ -12,6 +12,11 @@ backward is the B6-bwd kernel, which walks the same band; on the CPU
 autograd differentiates the plain version. Decode stays plain PyTorch,
 as in the reference: one query token against the (B, S, KV, hd) cache,
 which rolls (slot pos % S) when it is no longer than the window.
+
+`attn_apply_laid_out` is the attention of the partitioned program
+(`parallel.sharding.Program`): each coordinate projects its rows onto its
+own heads, attends over them (B6 and B6-bwd on the card at B_loc x
+H_loc) and sums its part of the output projection over the heads' axis.
 """
 
 from __future__ import annotations
@@ -22,10 +27,12 @@ import torch
 
 from ..configs.registry import ArchConfig
 from ..kernels.flash_attention.ops import flash_attention
-from ..parallel.sharding import DEFAULT_RULES, ShardingRules, shard
-from .layers import ParamDef, rotary
+from ..kernels.flash_attention.ref import attention_ref
+from ..parallel import collectives as col
+from ..parallel.sharding import DEFAULT_RULES, Program, ShardingRules, shard
+from .layers import ParamDef, gathered, rotary
 
-__all__ = ["attn_params", "attn_apply", "attn_decode"]
+__all__ = ["attn_params", "attn_apply", "attn_apply_laid_out", "attn_decode"]
 
 NEG_INF = -1e30
 
@@ -82,6 +89,71 @@ def attn_apply(params: dict, x: torch.Tensor, cfg: ArchConfig,
     out = shard(out, "batch", "seq", "heads", None, rules=rules)
     y = torch.matmul(out.reshape(b, s, -1), params["wo"])
     return (y, k, v) if want_kv else y
+
+
+def _kv_for_heads(k: torch.Tensor, v: torch.Tensor, first: int, n_heads: int,
+                  group: int):
+    """The KV heads that query heads first .. first + n_heads - 1 read
+    (global head g reads KV head g // group), from the whole (B, S, KV,
+    hd) k and v: a slice where each of them serves an equal run of those
+    heads in order (GQA inside the slice), else one KV head a query head."""
+    idx = [(first + h) // group for h in range(n_heads)]
+    lo, n = idx[0], idx[-1] - idx[0] + 1
+    if n_heads % n == 0 and idx == [lo + h // (n_heads // n) for h in range(n_heads)]:
+        return k[:, :, lo:lo + n], v[:, :, lo:lo + n]
+    sel = torch.tensor(idx, device=k.device)
+    return k.index_select(2, sel), v.index_select(2, sel)
+
+
+def attn_apply_laid_out(params: dict, x: dict, cfg: ArchConfig, prog: Program) -> dict:
+    """`attn_apply` in the partitioned program: `params` laid out
+    (DistArrays), `x` each coordinate's rows (B_loc, S, d). wq, wk, wv
+    and wo are gathered whole along d (FSDP); a coordinate keeps the
+    query heads and KV heads its layout gives it (the resolved specs of
+    the reference's `shard` sites on q and k), KV heads that do not split
+    with the query heads staying whole, so that each local query head
+    reads its global KV head (m·H/M + h reads KV head (m·H/M + h) //
+    (H/KV)). Rotary runs on the local heads, then attention: on the card
+    B6 at (B_loc, H_loc, S, hd) (B6-bwd in the backward); on the CPU its
+    plain version, for the other processes' coordinates too, so that
+    every process records the same graph. The output projection's partial
+    sums are summed over the heads' axis (`psum`)."""
+    mesh = prog.mesh
+    n_h, n_kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q_shape, k_shape = (prog.batch, prog.seq, n_h, hd), (prog.batch, prog.seq, n_kv, hd)
+    h_ax = prog.spec(q_shape, ("batch", "seq", "heads", None))[2]
+    kv_ax = prog.spec(k_shape, ("batch", "seq", "kv_heads", None))[2]
+    h_loc = n_h // col.axis_size(h_ax, mesh) if h_ax else n_h
+    kv_loc = n_kv // col.axis_size(kv_ax, mesh) if kv_ax else n_kv
+    w = {name: gathered(params[name], (None, ax))
+         for name, ax in (("wq", h_ax), ("wk", kv_ax), ("wv", kv_ax))}
+    q, k, v = {}, {}, {}
+    for c, t in x.items():
+        pos = torch.arange(t.shape[1], device=t.device).expand(t.shape[0], t.shape[1])
+        q[c] = rotary(_split_heads(torch.matmul(t, w["wq"][c]), h_loc), pos, cfg.rope_theta)
+        k[c] = rotary(_split_heads(torch.matmul(t, w["wk"][c]), kv_loc), pos, cfg.rope_theta)
+        v[c] = _split_heads(torch.matmul(t, w["wv"][c]), kv_loc)
+    del w
+    q = prog.shard(q, q_shape, "batch", "seq", "heads", None)
+    k = prog.shard(k, k_shape, "batch", "seq", "kv_heads", None)
+    if kv_ax is not None and kv_ax != h_ax:
+        raise ValueError(f"kv_heads over {kv_ax!r} with heads over {h_ax!r}: the "
+                         "partitioned program splits KV heads with the query heads only")
+    first = col.axis_index(h_ax, mesh) if h_ax and not kv_ax else None
+    attend = attention_ref if mesh.local_device().type == "cpu" else flash_attention
+    out = {}
+    for c in x:
+        kc, vc = k[c], v[c]
+        if first is not None:
+            kc, vc = _kv_for_heads(kc, vc, first[c] * h_loc, h_loc, n_h // n_kv)
+        out[c] = attend(q[c].transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2),
+                        causal=cfg.causal, window=cfg.sliding_window).transpose(1, 2)
+    del q, k, v
+    out = prog.shard(out, q_shape, "batch", "seq", "heads", None)
+    wo = gathered(params["wo"], (h_ax, None))
+    y = {c: torch.matmul(t.reshape(t.shape[0], t.shape[1], -1), wo[c])
+         for c, t in out.items()}
+    return col.psum(y, h_ax, mesh) if h_ax else y
 
 
 def attn_decode(params: dict, x: torch.Tensor, cache_k: torch.Tensor,

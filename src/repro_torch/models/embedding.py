@@ -13,6 +13,12 @@ read row 0 and are zeroed), and the partial embeddings are summed with
 id's row and the others add zeros, so the result is the mesh-free
 lookup's bits. The backward is the local gather's scatter-add and the
 all-gather's reduce-scatter.
+
+`embed_lookup_laid_out` runs the same body in the partitioned program on
+a table already laid out (its own spec: `vocab` over `model`, `embed_w`
+over `data` under the default rules) and each coordinate's token rows;
+its output stays per coordinate, (B_loc, S, d), whole over the vocab's
+axis.
 """
 
 from __future__ import annotations
@@ -26,7 +32,7 @@ from ..launch.mesh import current_mesh
 from ..parallel import collectives as col
 from ..parallel.sharding import PartitionSpec as P
 
-__all__ = ["embed_lookup"]
+__all__ = ["embed_lookup", "embed_lookup_laid_out"]
 
 
 def _lookup(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
@@ -78,3 +84,13 @@ def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
 
     return col.region(body, mesh, (P(model_axis, data_axis), tok_spec),
                       (out_spec,))(embed, tokens)[0]
+
+
+def embed_lookup_laid_out(embed: col.DistArray, tokens: dict) -> dict:
+    """The lookup of each coordinate's `tokens` (B_loc, S) in the laid-out
+    (V, d) table: its width gathered over the axes that split it, its
+    vocabulary rows looked up where the coordinate holds them, summed over
+    the vocabulary's axes (`_local_lookup`)."""
+    vocab_axis, width_axis = embed.spec
+    return _local_lookup(embed.mesh, col.per_coord(embed), tokens,
+                         model_axis=vocab_axis, data_axis=width_axis)[0]

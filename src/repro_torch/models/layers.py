@@ -4,6 +4,8 @@ The port of `repro.models.layers`. Norms, rotary angles and the MLP's
 activation run in f32 and cast back, as the reference does; the
 projections stay `torch.matmul` in the activation dtype (bf16 operands,
 f32 accumulation on the card), as the reference leaves them to XLA.
+`mlp_apply_laid_out` is the MLP of the partitioned program
+(`parallel.sharding.Program`).
 """
 
 from __future__ import annotations
@@ -15,11 +17,12 @@ import torch
 import torch.nn.functional as F
 
 from ..device import DEFAULT_DEVICE, resolve_device
-from ..parallel.sharding import DEFAULT_RULES, ShardingRules, logical_spec, shard
+from ..parallel import collectives as col
+from ..parallel.sharding import DEFAULT_RULES, Program, ShardingRules, logical_spec, shard
 
 __all__ = ["ParamDef", "init_tree", "abstract_tree", "spec_tree", "norm_apply",
-           "norm_params", "rotary", "mlp_params", "mlp_apply", "DTYPE",
-           "PARAM_DTYPE", "map_defs"]
+           "norm_params", "rotary", "mlp_params", "mlp_apply", "mlp_apply_laid_out",
+           "gathered", "DTYPE", "PARAM_DTYPE", "map_defs"]
 
 DTYPE = torch.bfloat16        # activation dtype
 PARAM_DTYPE = torch.bfloat16  # stored parameter dtype
@@ -146,3 +149,39 @@ def mlp_apply(params: dict, x: torch.Tensor, activation: str,
         h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
     h = shard(h, "batch", "seq", "ffn", rules=rules)
     return torch.matmul(h, params["wo"])
+
+
+def gathered(w: col.DistArray, want) -> dict:
+    """A laid-out weight at every coordinate under the spec `want`: its
+    shards all-gathered over the axes its own spec adds (FSDP's gathers,
+    whose backward is the reduce-scatter), cut where `want` splits a dim
+    the weight holds whole."""
+    return col.to_spec(col.per_coord(w), w.spec, want, w.mesh)
+
+
+def mlp_apply_laid_out(params: dict, x: dict, activation: str, prog: Program) -> dict:
+    """`mlp_apply` in the partitioned program: `params` laid out
+    (DistArrays), `x` a coordinate's rows (B_loc, S, d). `wi` and `wg`
+    are gathered whole along d and keep the coordinate's `ffn` columns,
+    SwiGLU runs in f32 on them, `wo` is gathered whole along d and keeps
+    the same rows, and the partial products are summed over the `ffn`
+    axis (`psum`: Megatron's row-parallel sum). Each phase runs over every
+    coordinate before the next."""
+    f = params["wi"].shape[1]
+    hshape = (prog.batch, prog.seq, f)
+    f_ax = prog.spec(hshape, ("batch", "seq", "ffn"))[2]
+    wi = gathered(params["wi"], (None, f_ax))
+    h = {c: torch.matmul(t, wi[c]) for c, t in x.items()}
+    del wi
+    if activation == "swiglu":
+        wg = gathered(params["wg"], (None, f_ax))
+        g = {c: torch.matmul(t, wg[c]) for c, t in x.items()}
+        del wg
+        h = {c: F.silu(g[c].float()).to(x[c].dtype) * t for c, t in h.items()}
+        del g
+    else:
+        h = {c: F.gelu(t.float(), approximate="tanh").to(x[c].dtype) for c, t in h.items()}
+    h = prog.shard(h, hshape, "batch", "seq", "ffn")
+    wo = gathered(params["wo"], (f_ax, None))
+    y = {c: torch.matmul(t, wo[c]) for c, t in h.items()}
+    return col.psum(y, f_ax, prog.mesh) if f_ax else y

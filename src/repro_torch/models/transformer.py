@@ -30,6 +30,24 @@ training forward carries the mesh into each checkpointed layer, since
 its recompute runs on autograd's worker thread on the card, where the
 ambient mesh is not set.
 
+On a laid-out state (parameters that are `parallel.collectives.DistArray`s,
+as `checkpoint.ckpt.restore(shardings=)` or `parallel.sharding.lay_out`
+give them by `param_specs`) `forward` and `loss_fn` run the partitioned
+program, the counterpart of the reference's `jax.jit(...,
+in_shardings=...)` under its rules (`parallel.sharding.Program`): the
+batch is laid out by its rows over the batch axes, and each coordinate
+holds and computes only its own shards. The embedding and the layers'
+weights are gathered along their FSDP dimension as a layer needs them
+(`layers.gathered`), attention and the MLP run on the coordinate's heads
+and ffn columns and sum their output projections over that axis, the
+head makes the coordinate's vocabulary columns of the f32 logits, and
+the cross-entropy is vocabulary-parallel: the row max a `pmax` of
+detached logits, the sum of exponentials and the label's logit `psum`s
+over the vocabulary's axis, the loss and token sums `psum`s over the
+batch axes. Nothing is made whole but the joined results: the loss, and
+`forward`'s logits. The dense family only; the other bodies, the prefill
+cache and decode raise NotImplementedError (ROADMAP A).
+
 Entry points:
   param_defs / init_params / abstract_params / param_specs
   forward(...)            logits, MoE aux losses (+ prefill cache)
@@ -49,16 +67,19 @@ from torch.utils import checkpoint as torch_checkpoint
 from ..configs.registry import ArchConfig
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..launch.mesh import current_mesh, set_mesh
-from ..parallel.sharding import DEFAULT_RULES, ShardingRules, logical_spec, shard
+from ..parallel import collectives as col
+from ..parallel.collectives import DistArray
+from ..parallel.sharding import DEFAULT_RULES, Program, ShardingRules, logical_spec, shard
 from ..tree import leaves
 from . import attention, moe as moe_mod, ssm as ssm_mod
-from .embedding import embed_lookup
-from .layers import (DTYPE, ParamDef, abstract_tree, init_tree, map_defs, mlp_apply,
-                     mlp_params, norm_apply, norm_params, spec_tree)
+from .embedding import embed_lookup, embed_lookup_laid_out
+from .layers import (DTYPE, ParamDef, abstract_tree, gathered, init_tree, map_defs,
+                     mlp_apply, mlp_apply_laid_out, mlp_params, norm_apply, norm_params,
+                     spec_tree)
 
 __all__ = ["param_defs", "init_params", "abstract_params", "param_specs",
            "forward", "loss_fn", "prefill", "init_cache", "abstract_cache",
-           "cache_specs", "decode_step", "REMAT_POLICIES"]
+           "cache_specs", "decode_step", "is_laid_out", "REMAT_POLICIES"]
 
 
 # ---------------------------------------------------------------------------
@@ -175,8 +196,10 @@ def _unstack(tree: dict, n: int) -> list[dict]:
     return out
 
 
-def _zero(x: torch.Tensor) -> torch.Tensor:
-    return torch.zeros((), dtype=torch.float32, device=x.device)
+def _zero(x) -> torch.Tensor:
+    """A 0-dim f32 zero on `x`'s device (or on the device `x`)."""
+    return torch.zeros((), dtype=torch.float32,
+                       device=x.device if isinstance(x, torch.Tensor) else x)
 
 
 def _layer_fwd(cfg: ArchConfig, lp: dict, x: torch.Tensor, positions: torch.Tensor,
@@ -243,7 +266,9 @@ def _embed_inputs(params: dict, batch: dict, cfg: ArchConfig,
 
 
 def _tracks_grad(params: dict) -> bool:
-    return torch.is_grad_enabled() and any(t.requires_grad for t in leaves(params))
+    return torch.is_grad_enabled() and any(
+        any(s.requires_grad for s in t.shards.values()) if isinstance(t, DistArray)
+        else t.requires_grad for t in leaves(params))
 
 
 def _train_forward(params: dict, batch: dict, cfg: ArchConfig, rules: ShardingRules,
@@ -284,7 +309,21 @@ def forward(params: dict, batch: dict, cfg: ArchConfig,
     With autograd recording and a parameter requiring grad this is the
     training forward (see the module docstring); `remat` and
     `remat_policy` ("full" | "dots") choose what the backward recomputes.
-    Otherwise it runs under `torch.inference_mode()`."""
+    Otherwise it runs under `torch.inference_mode()`.
+
+    On laid-out parameters it runs the partitioned program and returns
+    the logits joined whole (training when autograd records and the
+    parameters' shards require grad, as `laid_out_region` enters them)."""
+    if is_laid_out(params):
+        if want_cache:
+            raise NotImplementedError(f"prefill on a laid-out state: {_PREFILL_NEXT}")
+        train = _tracks_grad(params)
+        with torch.set_grad_enabled(train):
+            prog, parts = _program(params, batch, cfg, rules)
+            logits, spec = _forward_laid_out(params, parts["tokens"], cfg, prog,
+                                             remat and train, remat_policy)
+            zero = _zero(prog.mesh.local_device())
+            return col.join(logits, spec, prog.mesh), zero, zero, None
     if _tracks_grad(params):
         if want_cache:
             raise ValueError("the prefill cache comes from the inference "
@@ -317,7 +356,12 @@ def loss_fn(params: dict, batch: dict, cfg: ArchConfig,
     ce + aux_weight·aux + z_weight·z, {"ce", "aux", "z", "tokens"}), 0-dim
     f32 tensors. The log-likelihood is picked by `gather`, one index a row,
     so its backward writes each entry once: on the card the gradient has
-    the same bits on every run."""
+    the same bits on every run. On laid-out parameters the partitioned
+    program computes it vocabulary-parallel (module docstring) and every
+    value comes back joined."""
+    if is_laid_out(params):
+        return _loss_laid_out(params, batch, cfg, rules, aux_weight, z_weight, remat,
+                              remat_policy)
     logits, aux, z, _ = forward(params, batch, cfg, rules, remat=remat,
                                 remat_policy=remat_policy)
     labels = batch["labels"]
@@ -414,6 +458,8 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
     new_cache). The cache's k, v and SSM state are written in place (the
     reference's jitted callers donate them); new_cache shares them and has
     pos + 1."""
+    if is_laid_out(params):
+        raise NotImplementedError(f"decode on a laid-out state: {_PREFILL_NEXT}")
     with torch.inference_mode():
         pos = cache["pos"]
         x = embed_lookup(params["embed"], tokens[:, None]).to(DTYPE)
@@ -451,3 +497,160 @@ def _ssm_decode(lp: dict, h: torch.Tensor, cache: dict, i: int,
     cache["ssm_h"][i] = st.h
     cache["ssm_conv"][i] = st.conv
     return out
+
+
+# ---------------------------------------------------------------------------
+# The partitioned program: a laid-out state, per coordinate
+# ---------------------------------------------------------------------------
+
+_PREFILL_NEXT = ("ROADMAP A item 5 (partitioned prefill, its cache laid out by "
+                 "cache_specs, and decode over a sequence-split cache)")
+_BODIES_NEXT = "ROADMAP A item 6 (the MoE, SSM, hybrid, audio and VLM bodies)"
+
+
+def is_laid_out(params) -> bool:
+    """True when the parameters are laid out over a mesh (DistArray leaves)."""
+    return any(isinstance(t, DistArray) for t in leaves(params))
+
+
+def _program(params: dict, batch: dict, cfg: ArchConfig, rules: ShardingRules):
+    """The program's frame, and each batch entry's rows at every
+    coordinate: laid out by the batch specs (a whole tensor is cut where
+    it lies; a laid-out one keeps its layout, or moves to it)."""
+    if cfg.family != "dense":
+        raise NotImplementedError(f"the {cfg.family} body on a laid-out state: {_BODIES_NEXT}")
+    mesh = next(t for t in leaves(params) if isinstance(t, DistArray)).mesh
+    parts = {}
+    for key, v in batch.items():
+        spec = logical_spec(tuple(v.shape), ("batch",) + (None,) * (len(v.shape) - 1),
+                            rules, mesh)
+        if isinstance(v, DistArray):
+            v = col.relayout(v, spec)
+        else:
+            v = col.distribute(v.to(mesh.local_device()), spec, mesh)
+        parts[key] = col.per_coord(v)
+    b, s = batch["tokens"].shape
+    return Program(mesh, rules, b, s), parts
+
+
+def _unstack_laid_out(tree: dict, n: int) -> list[dict]:
+    """The stacked (L, ...) laid-out parameters as L per-layer trees of
+    DistArrays, each coordinate's shard `unbind`-ed (whose backward stacks
+    the L gradients once)."""
+    out: list[dict] = [{} for _ in range(n)]
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            parts = _unstack_laid_out(v, n)
+        else:
+            if v.spec[0] is not None:
+                raise ValueError(f"the partitioned program does not realise the logical "
+                                 f"axis 'layers' over {v.spec[0]!r}")
+            mesh = v.mesh
+            cut = {c: torch.unbind(t) for c, t in col.per_coord(v).items()}
+            parts = [DistArray(v.shape[1:], v.spec[1:], mesh,
+                               {c: cut[c][i] for c in mesh.local_coords()},
+                               {c: t[i] for c, t in cut.items() if not mesh.is_local(c)}
+                               or None) for i in range(n)]
+        for i in range(n):
+            out[i][k] = parts[i]
+    return out
+
+
+def _norm_laid_out(cfg: ArchConfig, params: dict, name: str, x: dict) -> dict:
+    p = {k: col.per_coord(v) for k, v in params.get(name, {}).items()}
+    return {c: norm_apply(cfg.norm, {k: v[c] for k, v in p.items()}, t)
+            for c, t in x.items()}
+
+
+def _layer_laid_out(cfg: ArchConfig, prog: Program, lp: dict, x: dict) -> dict:
+    """One dense layer of the partitioned program; every phase runs over
+    every coordinate before the next."""
+    h = _norm_laid_out(cfg, lp, "attn_norm", x)
+    a = attention.attn_apply_laid_out(lp["attn"], h, cfg, prog)
+    x = {c: t + a[c] for c, t in x.items()}
+    del a, h
+    h = _norm_laid_out(cfg, lp, "mlp_norm", x)
+    m = mlp_apply_laid_out(lp["mlp"], h, cfg.activation, prog)
+    x = {c: t + m[c] for c, t in x.items()}
+    return prog.shard(x, (prog.batch, prog.seq, cfg.d_model), "batch", "seq", "embed")
+
+
+def _forward_laid_out(params: dict, tokens: dict, cfg: ArchConfig, prog: Program,
+                      remat: bool, remat_policy: str):
+    """Each coordinate's f32 logits (B_loc, S, V_loc) and their spec. With
+    remat each layer runs under `torch.utils.checkpoint`: the recompute
+    gathers its weights again, as the reference's remat does."""
+    if remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat_policy {remat_policy!r}; want one of "
+                         f"{REMAT_POLICIES}")
+    xshape = (prog.batch, prog.seq, cfg.d_model)
+    x = {c: t.to(DTYPE) for c, t in embed_lookup_laid_out(params["embed"], tokens).items()}
+    x = prog.shard(x, xshape, "batch", "seq", "embed")
+    context_fn = torch_checkpoint.noop_context_fn
+    if remat_policy == "dots":
+        context_fn = functools.partial(
+            torch_checkpoint.create_selective_checkpoint_contexts, _dots_policy)
+    for lp in _unstack_laid_out(params["layers"], cfg.n_layers):
+        if remat:
+            x = torch_checkpoint.checkpoint(_layer_laid_out, cfg, prog, lp, x,
+                                            use_reentrant=False, context_fn=context_fn)
+        else:
+            x = _layer_laid_out(cfg, prog, lp, x)
+    x = _norm_laid_out(cfg, params, "final_norm", x)
+    lshape = (prog.batch, prog.seq, cfg.vocab)
+    spec = prog.spec(lshape, ("batch", "seq", "vocab"))
+    if cfg.tie_embeddings:
+        table = gathered(params["embed"], (spec[2], None))
+        logits = {c: torch.matmul(t.float(), table[c].float().T) for c, t in x.items()}
+    else:
+        head = gathered(params["lm_head"], (None, spec[2]))
+        logits = {c: torch.matmul(t.float(), head[c].float()) for c, t in x.items()}
+    return prog.shard(logits, lshape, "batch", "seq", "vocab"), spec
+
+
+def _loss_laid_out(params: dict, batch: dict, cfg: ArchConfig, rules: ShardingRules,
+                   aux_weight: float, z_weight: float, remat: bool, remat_policy: str):
+    """`loss_fn` in the partitioned program: the vocabulary-parallel
+    cross-entropy, in f32. The loss and metrics come back joined (0-dim,
+    in every process); the backward starts at the first coordinate's
+    loss, so every value replicated over an axis carries its cotangent as
+    partial sums over the replicas, which the collectives' transposes
+    (a psum's psum, an all-gather's reduce-scatter) sum."""
+    prog, parts = _program(params, batch, cfg, rules)
+    mesh = prog.mesh
+    logits, spec = _forward_laid_out(params, parts["tokens"], cfg, prog,
+                                     remat and _tracks_grad(params), remat_policy)
+    b_ax, v_ax = spec[0], spec[2]
+    with torch.no_grad():
+        top = {c: t.amax(-1) for c, t in logits.items()}
+    if v_ax:
+        top = col.pmax(top, v_ax, mesh)
+    sumexp = {c: torch.exp(t - top[c][..., None]).sum(-1) for c, t in logits.items()}
+    v_loc = cfg.vocab // col.axis_size(v_ax, mesh) if v_ax else cfg.vocab
+    first = col.axis_index(v_ax, mesh) if v_ax else None
+    labels = parts["labels"]
+    picked = {}
+    for c, t in logits.items():
+        rel = labels[c].long() - (first[c] * v_loc if first else 0)
+        ok = (rel >= 0) & (rel < v_loc)
+        got = torch.gather(t, -1, rel.clamp(0, v_loc - 1)[..., None])[..., 0]
+        picked[c] = torch.where(ok, got, 0.0)
+    del logits
+    if v_ax:
+        sumexp, picked = col.psum(sumexp, v_ax, mesh), col.psum(picked, v_ax, mesh)
+    sums, counts = {}, {}
+    for c, lab in labels.items():
+        mask = lab >= 0
+        token_ll = picked[c] - (top[c] + torch.log(sumexp[c]))
+        sums[c] = -torch.where(mask, token_ll, 0.0).sum()
+        counts[c] = mask.sum().to(torch.float32)
+    if b_ax:
+        sums, counts = col.psum(sums, b_ax, mesh), col.psum(counts, b_ax, mesh)
+    ce = {c: t / counts[c].clamp(min=1) for c, t in sums.items()}
+    total = {}
+    for c, t in ce.items():
+        zero = _zero(t)
+        total[c] = t + aux_weight * zero + z_weight * zero
+    zero = _zero(mesh.local_device())
+    return col.join(total, (), mesh), {"ce": col.join(ce, (), mesh), "aux": zero, "z": zero,
+                                       "tokens": col.join(counts, (), mesh)}

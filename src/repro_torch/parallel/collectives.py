@@ -111,7 +111,8 @@ __all__ = ["DistArray", "Region", "grid_spec", "panel_spec", "region_of",
            "gather", "relayout", "collective_bytes", "collective_calls",
            "reset_collective_bytes", "summed_counts", "split", "join", "region",
            "all_to_all", "all_gather", "psum", "pmean", "pmax", "axis_index",
-           "axis_size", "backward_context"]
+           "axis_size", "backward_context", "enter", "per_coord", "laid_out_region",
+           "grads", "to_spec", "region_values"]
 
 Region = tuple[tuple[int, int], ...]          # (lo, hi) a dimension
 
@@ -314,17 +315,20 @@ class DistArray:
     `shards` maps each of this process's mesh coordinates to its local
     tensor (every coordinate in a single process). Build one with
     `distribute`, `take` or `assemble`; the constructor does not check the
-    shards against the layout.
+    shards against the layout. `ghosts` (set by `enter`) holds the other
+    processes' coordinates as autograd leaves on ``meta``.
     """
 
-    __slots__ = ("shape", "spec", "mesh", "shards", "_tiles")
+    __slots__ = ("shape", "spec", "mesh", "shards", "ghosts", "_tiles")
 
     def __init__(self, shape: Sequence[int], spec: Sequence[str | None],
-                 mesh: Mesh, shards: dict[tuple[int, ...], torch.Tensor]):
+                 mesh: Mesh, shards: dict[tuple[int, ...], torch.Tensor],
+                 ghosts: dict[tuple[int, ...], torch.Tensor] | None = None):
         self.shape = tuple(int(s) for s in shape)
         self.spec = tuple(spec)
         self.mesh = mesh
         self.shards = shards
+        self.ghosts = ghosts
         self._tiles = None
 
     @property
@@ -1352,3 +1356,171 @@ def region(fn: Callable, mesh: Mesh, in_specs: Sequence, out_specs: Sequence):
         return tuple(join(o, s, mesh) for o, s in zip(outs, out_specs))
 
     return run
+
+
+# ---------------------------------------------------------------------------
+# Per-coordinate programs over laid-out arrays: the partitioned step
+# ---------------------------------------------------------------------------
+
+
+def enter(x: DistArray, *, grad: bool = False) -> DistArray:
+    """`x` entering a per-coordinate program: the same layout, each of this
+    process's coordinates holding its shard as a leaf of its own (a
+    detached view, requiring grad with grad=True), also where several
+    coordinates share one tensor, and every other process's coordinate a
+    ghost on ``meta`` that requires grad alike, so that every process
+    records the same autograd graph."""
+    mesh = x.mesh
+    shards, ghosts = {}, {}
+    for c in mesh.coords():
+        if mesh.is_local(c):
+            shards[c] = x.shards[c].detach().requires_grad_(grad)
+        else:
+            ghosts[c] = _ghost(_sizes(x.region(c)), x.dtype).requires_grad_(grad)
+    return DistArray(x.shape, x.spec, mesh, shards, ghosts or None)
+
+
+def per_coord(x: DistArray) -> dict:
+    """Every coordinate's tensor of `x`, in coordinate order: this
+    process's shards, the other processes' coordinates as ghosts (those of
+    `enter`, else fresh ones)."""
+    mesh = x.mesh
+    out = {}
+    for c in mesh.coords():
+        if mesh.is_local(c):
+            out[c] = x.shards[c]
+        elif x.ghosts is not None:
+            out[c] = x.ghosts[c]
+        else:
+            out[c] = _ghost(_sizes(x.region(c)), x.dtype)
+    return out
+
+
+def laid_out_region(fn: Callable):
+    """`region` for arguments already laid out over a mesh: the returned
+    callable enters every DistArray leaf of its arguments (`enter`; a
+    floating leaf requires grad) and calls `fn` with the entered trees,
+    whose body reads each coordinate's shard (`per_coord`). Nothing is
+    split and nothing joined: it returns fn's outputs as they are, with
+    the entered arguments, from which `grads` takes a scalar joined from
+    the body's outputs back to each coordinate's shard."""
+    from ..tree import tree_map
+
+    def run(*args):
+        entered = tuple(tree_map(lambda x: enter(x, grad=x.dtype.is_floating_point)
+                                 if isinstance(x, DistArray) else x, a) for a in args)
+        return fn(*entered), entered
+
+    return run
+
+
+def grads(loss: torch.Tensor, tree):
+    """The gradient of the scalar `loss` (a joined output) with respect to
+    every DistArray leaf of `tree` (entered with grad), as DistArrays of
+    the same layouts; another leaf gets None, a shard the loss does not
+    reach zeros. The backward runs under `backward_context`, every
+    coordinate's leaf (ghosts too) an input. A region that several
+    coordinates hold gets the sum of their gradients, each of which covers
+    only its own coordinate's use: summed in coordinate order at its
+    first holder, which hands the sum back to the others ("psum", one
+    call a leaf)."""
+    from ..tree import leaves, unflatten
+
+    flat = leaves(tree)
+    dists = [x for x in flat if isinstance(x, DistArray)]
+    inputs = [t for x in dists for t in per_coord(x).values()]
+    with backward_context(dists[0].mesh):
+        gs = iter(torch.autograd.grad(loss, inputs, allow_unused=True))
+    out = []
+    for x in flat:
+        if isinstance(x, DistArray):
+            out.append(_sum_holders(x, {c: next(gs) for c in x.mesh.coords()}))
+        else:
+            out.append(None)
+    return unflatten(tree, out)
+
+
+@_exchanging
+def _sum_holders(x: DistArray, g: dict) -> DistArray:
+    """The DistArray of x's layout whose region is the sum of its
+    holders' gradients `g` (None: zeros), one tensor a place."""
+    mesh = x.mesh
+    shards, booker = {}, None
+    with torch.no_grad():
+        for tile, holders in x.tiles().items():
+            parts = [g[c] if g[c] is not None else
+                     torch.zeros(_sizes(tile), dtype=x.dtype, device=_dev(mesh, c))
+                     for c in holders]
+            if len(holders) == 1:
+                if mesh.is_local(holders[0]):
+                    shards[holders[0]] = parts[0]
+                continue
+            booker = booker or holders[0]
+            h0 = holders[0]
+            total = _reduce(parts, mesh, holders, "psum")
+            at = {mesh.place(h0): total}
+            for c in holders[1:]:
+                if mesh.is_local(c):
+                    _count("psum", _nbytes(total))
+                if mesh.place(c) not in at:
+                    at[mesh.place(c)] = _move(total, mesh, h0, c, copy=True)
+            for c in holders:
+                if mesh.is_local(c):
+                    shards[c] = at[mesh.place(c)]
+    if booker is not None and mesh.is_local(booker):
+        _call("psum")
+    return DistArray(x.shape, x.spec, mesh, shards)
+
+
+def to_spec(xs: dict, have: Sequence, want: Sequence, mesh: Mesh) -> dict:
+    """Per-coordinate tensors laid out by the spec `have`, laid out by
+    `want`, dim by dim: a dim that `have` splits over other axes than
+    `want` is all-gathered over them (its backward the reduce-scatter),
+    then a dim that `want` splits is cut to the coordinate's part."""
+    for dim, (h, w) in enumerate(zip(have, want)):
+        h, w = _names(h), _names(w)
+        if h == w:
+            continue
+        if h:
+            xs = all_gather(xs, h, dim, mesh)
+        if w:
+            n = _extent(mesh, w)
+            xs = {c: t.narrow(dim, _position(mesh, w, c) * (t.shape[dim] // n),
+                              t.shape[dim] // n) for c, t in xs.items()}
+    return xs
+
+
+@_exchanging
+def region_values(xs: Sequence[DistArray], fn: Callable[[torch.Tensor], torch.Tensor]
+                  ) -> list[torch.Tensor]:
+    """`fn(shard)`, a 0-dim f32 tensor, of each distinct region of each
+    array, in plan order (array by array, region by region in `tiles()`
+    order), made once, at the region's first holder, and known to every
+    process: each process sends the values its coordinates made to every
+    other in one exchange ("replicate"). The values lie on this process's
+    first device."""
+    mesh = xs[0].mesh
+    device = mesh.local_device()
+    plan = [(x, holders[0]) for x in xs for holders in x.tiles().values()]
+    mine = [_on(fn(x.shards[h]), device) for x, h in plan if mesh.is_local(h)]
+    if not mesh.spans_processes:
+        return mine
+    made = {p: [i for i, (_, h) in enumerate(plan) if mesh.process(h) == p]
+            for p in mesh.processes}
+    got = {mesh.rank: torch.stack(mine) if mine else None}
+    for p in mesh.processes:
+        for q in mesh.processes:
+            if p == q or not made[p]:
+                continue
+            tag = transport.next_tag()
+            if p == mesh.rank:
+                transport.send(got[p], q, tag)
+            elif q == mesh.rank:
+                got[p] = transport.recv((len(made[p]),), torch.float32, p, tag, device)
+                _count("replicate", _nbytes(got[p]))
+                _call("replicate")
+    out = [None] * len(plan)
+    for p, idx in made.items():
+        for j, i in enumerate(idx):
+            out[i] = got[p][j]
+    return out

@@ -14,16 +14,23 @@ a test compares it with ``tuple(jax_spec)``. `named_sharding` pairs it
 with a mesh (`NamedSharding`), the layout `collectives.distribute` and
 `checkpoint.ckpt.restore(shardings=)` take.
 
-`shard(x, *logical)` is the reference's `with_sharding_constraint`. The
-port runs one process with a global view: a tensor stays whole on the
-mesh's home device, so the constraint moves nothing and `shard` returns
-`x` itself. Under an ambient mesh it resolves the spec (checking the
-rank) and records it in the layout ledger that
-`sharded_blockmatrix.record_specs()` opens, as a `SpecRecord` with
-op "shard", kind "logical" and the logical names in `axes`. Without a
-mesh it costs one context-variable read. Only the reference's `shard_map`
-regions (MoE dispatch, the embedding lookup, `compressed_psum`) change
-numbers under a mesh; they run per coordinate (`collectives.region`).
+`shard(x, *logical)` is the reference's `with_sharding_constraint`. On a
+whole tensor (the global view: under a mesh the activations stay whole
+on the mesh's home device) the constraint moves nothing and `shard`
+returns `x` itself. Under an ambient mesh it resolves the spec (checking
+the rank) and records it in the layout ledger that
+`sharded_blockmatrix.record_specs()` opens, as a `SpecRecord` with op
+"shard", kind "logical" and the logical names in `axes`. Without a mesh
+it costs one context-variable read.
+
+Inside the partitioned program (`Program`: a laid-out state, each
+coordinate computing on its own shards) `Program.shard` takes the
+per-coordinate dict and the global shape and is a check: each
+coordinate's tensor must be the global shape cut by the resolved spec,
+which it records as above. A rules set that maps an activation axis the program does not
+split (`seq` for Megatron's sequence parallelism, `ssm_chunk`, `embed`)
+to a mesh axis raises ValueError naming that axis. `lay_out` places a
+tree by a tree of `NamedSharding`s.
 """
 
 from __future__ import annotations
@@ -34,10 +41,12 @@ from typing import Optional, Union
 import torch
 
 from ..launch.mesh import Mesh, current_mesh
+from .collectives import _sizes, distribute, region_of
 from .sharded_blockmatrix import _record
 
 __all__ = ["ShardingRules", "DEFAULT_RULES", "PartitionSpec", "NamedSharding",
-           "logical_spec", "shard", "named_sharding", "mesh_axis_size"]
+           "logical_spec", "shard", "named_sharding", "mesh_axis_size", "Program",
+           "REALISED", "lay_out"]
 
 AxisRule = Union[None, str, tuple[str, ...]]
 
@@ -127,6 +136,11 @@ def logical_spec(shape: tuple[int, ...], logical: tuple[Optional[str], ...],
                            for d, name in zip(shape, logical)])
 
 
+# The logical axes the partitioned program splits: the batch rows, the
+# heads, the ffn and vocab columns, and the weights' FSDP dimension.
+REALISED = ("batch", "heads", "kv_heads", "ffn", "vocab", "embed_w")
+
+
 def shard(x: torch.Tensor, *logical: Optional[str],
           rules: ShardingRules = DEFAULT_RULES) -> torch.Tensor:
     """The reference's sharding constraint: `x` itself, its resolved spec
@@ -150,3 +164,61 @@ def mesh_axis_size(name: str) -> int:
     if mesh is None or name not in mesh.shape:
         return 1
     return mesh.shape[name]
+
+
+def _check_parts(xs: dict, shape, logical, rules: ShardingRules, mesh: Mesh) -> dict:
+    spec = logical_spec(tuple(shape), logical, rules, mesh)
+    for name, entry in zip(logical, spec):
+        if entry is not None and name not in REALISED:
+            raise ValueError(f"the partitioned program does not realise the logical axis "
+                             f"{name!r} over {entry!r}: it splits only {REALISED}")
+    _record("shard", "logical", shape, spec, tuple(logical), mesh)
+    for c, t in xs.items():
+        want = _sizes(region_of(shape, spec, mesh, c))
+        if tuple(t.shape) != want:
+            raise ValueError(f"shard {logical}: coordinate {c} holds {tuple(t.shape)}, "
+                             f"where {spec} cuts {tuple(shape)} to {want}")
+    return xs
+
+
+@dataclasses.dataclass(frozen=True)
+class Program:
+    """The frame of a partitioned program: its mesh, its rules, and the
+    global (batch, seq) extent of its activations."""
+    mesh: Mesh
+    rules: ShardingRules
+    batch: int
+    seq: int
+
+    def spec(self, shape: tuple[int, ...], logical) -> PartitionSpec:
+        return logical_spec(tuple(shape), tuple(logical), self.rules, self.mesh)
+
+    def shard(self, xs: dict, shape: tuple[int, ...], *logical) -> dict:
+        """The sharding constraint inside the program: each coordinate's
+        tensor of `xs` must be the global `shape` cut by the resolved spec
+        (recorded as `shard` records it); a spec that splits an axis the
+        program does not realise raises ValueError naming it."""
+        return _check_parts(xs, tuple(shape), logical, self.rules, self.mesh)
+
+
+def lay_out(tree, shardings):
+    """Each tensor leaf of `tree` laid out by the matching `NamedSharding`
+    of `shardings` (a tree of the same structure): a DistArray on that
+    sharding's mesh whose shards own their memory (a copy of each distinct
+    region a place, so the whole leaf can be freed: a process holds only
+    its own coordinates' regions). A leaf on the host is copied region by
+    region to the mesh's devices: no whole leaf reaches them."""
+    from ..tree import leaves, unflatten
+    from .collectives import zip_map
+
+    flat, specs = leaves(tree), leaves(shardings)
+    if len(specs) != len(flat):
+        raise ValueError(f"shardings has {len(specs)} leaves, the tree {len(flat)}")
+    out = []
+    for t, sh in zip(flat, specs):
+        t = torch.as_tensor(t)
+        laid = distribute(t, sh.spec, sh.mesh)
+        # a region on t's own device is a view of t; on another, a copy
+        out.append(zip_map(lambda s: s.clone(memory_format=torch.contiguous_format)
+                           if s.device == t.device else s, laid))
+    return unflatten(tree, out)

@@ -14,13 +14,29 @@ sharded model: `rules` reaches `loss_fn`, the `shard` sites record their
 layouts, and the embedding and MoE run per coordinate (expert-parallel
 MoE, FSDP's gathers). `abstract_state` is the state on the `meta` device.
 
-Across processes (a mesh that spans them) every process runs the step on
-the same batch and holds the whole state; the backward runs under
-`collectives.backward_context`, in one thread.
+On a laid-out state (DistArray leaves: `state_shardings` gives the
+reference's layouts, `parallel.sharding.lay_out` or
+`checkpoint.ckpt.restore(shardings=)` apply them) the step is the
+partitioned program, the counterpart of the reference's
+`jax.jit(make_train_step, in_shardings=..., out_shardings=...)`: each
+microbatch (rows [i·B/nm, (i+1)·B/nm) of the global batch, laid out by
+the batch specs) runs `loss_fn` per coordinate inside
+`collectives.laid_out_region`, the gradients come back laid out
+(`collectives.grads`), the f32 sums are kept shard by shard, and AdamW
+updates shard by shard. Across processes a process then holds only its
+own coordinates' shards. The metrics come back as 0-dim tensors, the
+same in every process. SPIN-Shampoo on a laid-out state raises
+NotImplementedError: its Gram factors need the whole gradient.
+
+Across processes with a whole state (a mesh that spans them) every
+process runs the step on the same batch and holds the whole state; the
+backward runs under `collectives.backward_context`, in one thread.
 
 `Trainer` adds the operational layer: checkpoint / restart, a step-time
 watchdog (EWMA), and a restartable data stream; only process 0 prints
-and writes checkpoints. The optimizer state is
+and writes checkpoints (a laid-out state is gathered to the host first,
+in every process, and restored into the template's layouts). The optimizer
+state is
 updated in place, as the reference's jitted step donates it: a state
 passed to the step is consumed.
 """
@@ -37,14 +53,20 @@ from ..configs.registry import ArchConfig
 from ..device import DEFAULT_DEVICE
 from ..launch.mesh import worker_info
 from ..models import transformer as T
-from ..optim import (AdamWConfig, SpinShampooConfig, adamw_init, adamw_update,
-                     schedule, spin_shampoo_init, spin_shampoo_update)
+from ..optim import (AdamWConfig, AdamWState, SpinShampooConfig, adamw_init,
+                     adamw_update, schedule, spin_shampoo_init, spin_shampoo_update)
+from ..optim.adamw import next_step, step_count
 from ..parallel import collectives as col
-from ..parallel.sharding import DEFAULT_RULES, ShardingRules
+from ..parallel.collectives import DistArray
+from ..parallel.sharding import (DEFAULT_RULES, NamedSharding, PartitionSpec, ShardingRules,
+                                 logical_spec)
 from ..tree import leaves, tree_map, unflatten
 
 __all__ = ["TrainConfig", "TrainState", "make_train_step", "init_state",
-           "abstract_state", "Trainer"]
+           "abstract_state", "state_shardings", "Trainer"]
+
+_SHAMPOO_NEXT = ("SPIN-Shampoo on a laid-out state: its Gram factors need the whole "
+                 "gradient (ROADMAP A item 7)")
 
 OPTIMIZERS = ("adamw", "spin_shampoo")
 
@@ -100,15 +122,82 @@ def abstract_state(cfg: ArchConfig, tcfg: TrainConfig,
                       torch.empty((), dtype=torch.int32, device="meta"))
 
 
+def state_shardings(cfg: ArchConfig, tcfg: TrainConfig, mesh,
+                    rules: ShardingRules = DEFAULT_RULES,
+                    model_size_hint: int = 16) -> TrainState:
+    """The AdamW training state's layouts on `mesh`, the reference's
+    `_param_state_specs`: the parameters and AdamW's master, m and v by
+    `param_specs`, the step counters whole; a TrainState of
+    `NamedSharding`s (for `parallel.sharding.lay_out`, `restore`)."""
+    if tcfg.optimizer != "adamw":
+        raise NotImplementedError(_SHAMPOO_NEXT)
+    specs = T.param_specs(cfg, rules, mesh, model_size_hint)
+
+    def named(tree):
+        return {k: named(v) if isinstance(v, dict) else NamedSharding(mesh, v)
+                for k, v in tree.items()}
+
+    whole = NamedSharding(mesh, PartitionSpec())
+    return TrainState(named(specs), AdamWState(whole, named(specs), named(specs),
+                                               named(specs)), whole)
+
+
+def _microbatch(v, i: int, nm: int, rules: ShardingRules, mesh):
+    """Rows [i·B/nm, (i+1)·B/nm) of a batch entry; a laid-out entry's rows
+    are laid out anew by the batch specs (moving rows between
+    coordinates, "reshard")."""
+    rows = v.shape[0] // nm
+    if not isinstance(v, DistArray):
+        return v.reshape(nm, rows, *v.shape[1:])[i]
+    region = ((i * rows, (i + 1) * rows),) + tuple((0, n) for n in v.shape[1:])
+    shape = (rows, *v.shape[1:])
+    return col.take(v, region, logical_spec(shape, ("batch",) + (None,) * (len(shape) - 1),
+                                            rules, mesh))
+
+
 def make_train_step(cfg: ArchConfig, tcfg: TrainConfig,
                     rules: ShardingRules = DEFAULT_RULES
                     ) -> Callable[[TrainState, dict], tuple[TrainState, dict]]:
     """The step function; `rules` goes to `loss_fn` (it acts under an
-    ambient mesh)."""
+    ambient mesh, and lays out the partitioned program on a laid-out
+    state)."""
     _check_optimizer(tcfg)
     nm = tcfg.microbatches
 
+    def laid_out_step(state: TrainState, batch: dict):
+        if tcfg.optimizer != "adamw":
+            raise NotImplementedError(_SHAMPOO_NEXT)
+        flat = leaves(state.params)
+        mesh = flat[0].mesh
+        zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)  # noqa: E731
+        acc = [col.zip_map(zeros, p) for p in flat]
+        sums = {k: torch.zeros((), dtype=torch.float32, device=mesh.local_device())
+                for k in ("loss", "aux", "z")}
+        for i in range(nm):
+            mb = {k: _microbatch(v, i, nm, rules, mesh) for k, v in batch.items()}
+            (loss, parts), (entered,) = col.laid_out_region(
+                lambda p: T.loss_fn(p, mb, cfg, rules, remat=tcfg.remat,
+                                    remat_policy=tcfg.remat_policy))(state.params)
+            grads_mb = col.grads(loss, entered)
+            for a, g in zip(acc, leaves(grads_mb)):
+                col.zip_map(lambda x, y: x.add_(y.float()), a, g)
+            del grads_mb, entered       # not alive through the next microbatch
+            for k, v in (("loss", loss), ("aux", parts["aux"]), ("z", parts["z"])):
+                sums[k] += v.detach()
+        grads = unflatten(state.params, [
+            col.zip_map(lambda a, p: a.div_(nm).to(p.dtype), a, p) for a, p in zip(acc, flat)])
+        del acc
+        lr_scale = schedule.cosine_with_warmup(
+            step_count(state.step), warmup=tcfg.warmup, total=tcfg.total_steps)
+        new_params, new_opt, gnorm = adamw_update(tcfg.adamw, grads, state.opt, lr_scale)
+        new_state = TrainState(new_params, new_opt,
+                               next_step(state.step, step_count(state.step) + 1))
+        return new_state, {"loss": sums["loss"] / nm, "aux": sums["aux"] / nm,
+                           "z": sums["z"] / nm, "grad_norm": gnorm, "lr_scale": lr_scale}
+
     def train_step(state: TrainState, batch: dict):
+        if T.is_laid_out(state.params):
+            return laid_out_step(state, batch)
         flat = leaves(state.params)
         acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
                for p in flat]
@@ -167,7 +256,14 @@ class Trainer:
         step = latest_step(self.ckpt_dir)
         if step is None:
             return state
-        state, extra = restore(self.ckpt_dir, step, state)
+        flat = leaves(state)
+        shardings = None
+        if flat and all(isinstance(t, DistArray) for t in flat):
+            # a laid-out state comes back in the template's layouts, each
+            # process copying only its own regions to the card
+            shardings = unflatten(state, [NamedSharding(t.mesh, PartitionSpec(*t.spec))
+                                          for t in flat])
+        state, extra = restore(self.ckpt_dir, step, state, shardings=shardings)
         if "stream" in extra:
             self.stream.load_state_dict(extra["stream"])
         return state
@@ -192,7 +288,7 @@ class Trainer:
             state, metrics = self.step_fn(state, batch)
             metrics = {k: float(v) for k, v in metrics.items()}  # waits for the step
             dt = time.perf_counter() - t0
-            step = int(state.step)
+            step = step_count(state.step)
             self._watch(dt, step)
             metrics.update(step=step, dt=dt)
             logs.append(metrics)
@@ -201,9 +297,15 @@ class Trainer:
                        if self.cfg.moe is not None else "")
                 print(f"step {step:5d} loss {metrics['loss']:.4f}{moe} "
                       f"gnorm {metrics['grad_norm']:.3f} {dt*1e3:.0f}ms")
-            if (self.ckpt_dir and step % self.ckpt_every == 0
-                    and worker_info().is_coordinator):
+            if self.ckpt_dir and step % self.ckpt_every == 0:
                 from ..checkpoint.ckpt import save
-                save(self.ckpt_dir, step, state,
-                     extra={"stream": self.stream.state_dict()})
+
+                # a laid-out state is gathered to the host, leaf by leaf, in
+                # every process (a collective)
+                whole = tree_map(lambda x: col.gather(x, device="cpu")
+                                 if isinstance(x, DistArray) else x, state)
+                if worker_info().is_coordinator:
+                    save(self.ckpt_dir, step, whole,
+                         extra={"stream": self.stream.state_dict()})
+                del whole
         return state, logs

@@ -3,7 +3,8 @@
 The training state is dicts, lists and NamedTuples of tensors, as the
 reference's pytrees are. These helpers flatten them as `jax.tree` does:
 dict keys sorted, list and tuple items in order, NamedTuple fields in
-declaration order, None an empty subtree. `leaves_with_path` names each
+declaration order, None an empty subtree. Anything else is a leaf: a
+tensor, or a `parallel.collectives.DistArray` (a laid-out state's leaf). `leaves_with_path` names each
 leaf as the reference's checkpoint does: a dict key as itself, a list
 index as its number, a NamedTuple field as ``.field``, joined by ``|``.
 """

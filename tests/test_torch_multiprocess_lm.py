@@ -22,7 +22,14 @@ bounds; the lookup bitwise and its gradient within GRAD_RTOL. The
 compressed sum lies within PSUM_RTOL of the exact one (the reference
 test's 5 %). The training run: `launch.train.main` over 2 processes with
 `--mesh 2x2` (reduced qwen2-moe, 3 steps), every rank's losses and
-parameters equal to one process's run.
+parameters equal to one process's run. The partitioned step (a state
+laid out by the reference's specs, a process holding and computing only
+its own coordinates' shards): two AdamW steps of reduced olmo-1b on
+(2, 4) over 2 processes and of reduced granite-8b (replicated norm
+scales) on (4, 2) over 4, every rank's losses, grad norms and gathered
+parameters the single process's bits, the bytes and calls summed over
+the ranks its counts, and a rank's state bytes those of its own
+coordinates' regions.
 """
 
 import dataclasses
@@ -194,3 +201,39 @@ def test_training_across_processes_is_the_single_process_run():
         assert len(rank["params"]) == len(ref["params"])
         assert all(torch.equal(p, q) for p, q in zip(rank["params"], ref["params"]))
     assert all(np.isfinite(ref["losses"]))
+
+
+PARTITION_CASES = [pytest.param(("olmo-1b", (2, 4), 2), id="olmo-2x4-over-2"),
+                   pytest.param(("granite-8b", (4, 2), 4), id="granite-4x2-over-4")]
+
+
+@pytest.fixture(scope="module", params=PARTITION_CASES)
+def partition_run(request):
+    name, shape, nprocs = request.param
+    total = shape[0] * shape[1]
+    return (nprocs, spawn("partition", nprocs, shape=list(shape), devices=total // nprocs,
+                          name=name),
+            ranks.run_here("partition", shape=list(shape), devices=total, name=name))
+
+
+def test_partitioned_step_across_processes_is_the_single_process_bits(partition_run):
+    nprocs, got, ref = partition_run
+    assert all(np.isfinite(ref["losses"]))
+    assert sorted(c for rank in got for c in rank["local"]) == sorted(ref["local"])
+    for rank in got:
+        assert rank["losses"] == ref["losses"] and rank["grad_norms"] == ref["grad_norms"]
+        assert len(rank["params"]) == len(ref["params"])
+        assert all(torch.equal(p, q) for p, q in zip(rank["params"], ref["params"]))
+    _assert_sums(got, ref)
+    assert _summed(got, "bytes")["all_gather"] > 0
+
+
+def test_a_rank_holds_only_its_coordinates_shards(partition_run):
+    nprocs, got, ref = partition_run
+    assert ref["held"] == ref["own"]
+    for rank in got:
+        assert rank["held"] == rank["own"]
+        # the replicated regions (the step counters, granite's norm
+        # scales) are held once a process; the rest splits over them
+        assert rank["held"] * nprocs < 1.01 * ref["held"]
+    assert sum(rank["held"] for rank in got) >= ref["held"]

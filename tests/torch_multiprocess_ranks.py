@@ -185,6 +185,71 @@ def train(argv: list) -> dict:
             "mesh": res["mesh"], "processes": res["processes"]}
 
 
+def _held_bytes(tree) -> int:
+    """The bytes of the distinct storages behind this process's shards of
+    every laid-out leaf of `tree`."""
+    from repro_torch.tree import leaves
+
+    seen = {}
+    for x in leaves(tree):
+        for t in x.shards.values():
+            seen[t.untyped_storage().data_ptr()] = t.untyped_storage().nbytes()
+    return sum(seen.values())
+
+
+def _own_bytes(tree) -> int:
+    """The bytes of this process's coordinates' regions of every laid-out
+    leaf of `tree`, each distinct region of a place once."""
+    from repro_torch.tree import leaves
+
+    total = 0
+    for x in leaves(tree):
+        regions = {(x.mesh.place(c), x.region(c)) for c in x.mesh.local_coords()}
+        for _, r in regions:
+            n = 1
+            for lo, hi in r:
+                n *= hi - lo
+            total += n * x.shards[x.mesh.local_coords()[0]].element_size()
+    return total
+
+
+def partition(shape, devices: int, name: str = "olmo-1b", steps: int = 2,
+              seed: int = 3) -> dict:
+    """Two AdamW steps of reduced `name` on a state laid out by the default
+    rules' specs over `shape` (the partitioned step: a process holds and
+    computes only its own coordinates' shards), 8 x 32 tokens in 2
+    microbatches: the losses and grad norms, the bytes and calls by kind
+    of the steps, the state bytes held beside its coordinates' regions,
+    and every parameter gathered whole."""
+    from repro_torch.configs import get_arch
+    from repro_torch.parallel.sharding import lay_out
+    from repro_torch.runtime.trainer import (TrainConfig, init_state, make_train_step,
+                                             state_shardings)
+    from repro_torch.tree import leaves
+
+    mesh = make_worker_mesh(tuple(shape), devices=["cpu"] * devices)
+    cfg = get_arch(name).reduced()
+    tcfg = TrainConfig(microbatches=2, warmup=1, total_steps=100)
+    whole = init_state(cfg, tcfg, torch.Generator().manual_seed(seed), "cpu", 4)
+    state = lay_out(whole, state_shardings(cfg, tcfg, mesh, model_size_hint=4))
+    del whole
+    rng = np.random.default_rng(seed)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (8, 32)))
+    batch = {"tokens": tokens, "labels": tokens}
+    step = make_train_step(cfg, tcfg)
+    col.reset_collective_bytes()
+    losses, norms = [], []
+    for _ in range(steps):
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+    out = {"losses": losses, "grad_norms": norms, **_counts(),
+           "held": _held_bytes(state), "own": _own_bytes(state),
+           "local": mesh.local_coords()}
+    out["params"] = [col.gather(p) for p in leaves(state.params)]
+    return out
+
+
 def fail_early() -> dict:
     """Rank 1 raises before any collective."""
     from repro_torch.launch.mesh import worker_info
@@ -219,7 +284,7 @@ def skip_collective() -> dict:
     return {"ok": True}
 
 
-CASES = {"spin": spin, "regions": regions, "lm": lm, "train": train,
+CASES = {"spin": spin, "regions": regions, "lm": lm, "train": train, "partition": partition,
          "fail_early": fail_early, "fail_mid_collective": fail_mid_collective,
          "skip_collective": skip_collective}
 
