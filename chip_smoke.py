@@ -302,13 +302,36 @@ Phases, each of which fails the run (non-zero exit) on any fault:
      process's run at that depth, each rank's state GiB beside the single
      process's, wall and exchange ms a step, peak GiB a rank;
      `phase_s["23"]` printed;
- 24. one JSON line with every path's times and residual (the examples'
+ 24. partitioned prefill and decode: olmo-1b at full width and depth,
+     its parameters laid out by `param_specs` over (data 2, model 4) of
+     cuda:0: a prefill of 8 x 2048 (its cache laid out by `cache_specs`,
+     B6 launched 128 times: a layer and coordinate, at (4, 4, 2048, 128)),
+     the cache padded to 4096 (`pad_cache`: a coordinate holds 1024
+     positions of 4 rows, 1/8 of it), a warm-up and 16 timed decode
+     steps, each fed the mesh-free run's token; the prefill's and every
+     step's logits within phase 17's bound (0.5) of a mesh-free prefill
+     and decode on the same weights, the argmax equal where the mesh-free
+     top-2 margin exceeds it, printed beside the error of the mesh-free
+     path on weights moved by about one bf16 ulp and of a `dp_only`
+     prefill (no partial sums), and the prompt cache's error layer by
+     layer; one layer's decode attention at full width (one slice wholly
+     masked) within 2^-5 of `attn_decode`'s; the bytes and calls by
+     collective kind equal to `launch.dryrun.partitioned_serve_collectives`,
+     no kernel in decode; prefill ms, decode ms a step, tokens/s and peak
+     GiB beside the mesh-free run's; B6 against its plain version at the
+     coordinate's shape. Then two ranks of their own (`python3 chip_smoke.py
+     --rank-case serve <dir>`, process p holding data row p) run a
+     prefill and 4 decode steps of olmo cut to 2 layers: their logits and
+     cache digests equal the single process's, each rank holding half its
+     cache bytes; `phase_s["24"]` printed;
+ 25. one JSON line with every path's times and residual (the examples'
      wall, launches and peak memory under "examples", phase 22's ranks
-     under "processes", phase 23's under "partition"), and one with every
-     kernel's launches, error and times (the GEMM's, blocked
-     Gauss-Jordan's and triangular solve's launches on every path beside
-     them, the examples' runs and phase 22's ranks, each rank's and their
-     sum, included, and B6's and B6-bwd's at a coordinate of phase 23).
+     under "processes", phase 23's under "partition", phase 24's under
+     "serve_partition"), and one with every kernel's launches, error and
+     times (the GEMM's, blocked Gauss-Jordan's and triangular solve's
+     launches on every path beside them, the examples' runs and phase
+     22's ranks, each rank's and their sum, included, and B6's and
+     B6-bwd's at a coordinate of phases 23 and 24).
 
 The last line is {"ok": true, "device": {...}}. The script imports only
 the PyTorch port; it exits non-zero without a result when CUDA is missing
@@ -477,6 +500,26 @@ PART_ARCH = "olmo-1b"
 PART_STEPS = 3                    # timed steps after one warm-up
 PART_RTOL = 2e-3                  # the first step's loss and grad norm against mesh-free
 PART_PROCS, PART_PROC_LAYERS, PART_PROC_STEPS = 2, 2, 2
+# Phase 24: partitioned prefill and decode. olmo-1b at full width and depth,
+# its parameters laid out by `param_specs` over (data 2, model 4) of cuda:0:
+# a prefill of 8 x 2048 (B6 at a coordinate's (4, 4, 2048, 128)), the cache
+# padded to 4096 (a coordinate holds 1024 positions of 4 rows), a warm-up
+# step and 16 timed decode steps, each fed the mesh-free run's token
+# (teacher forcing: a near-tie cannot make the two runs part). Then two
+# ranks of their own, process p holding data row p, olmo cut to 2 layers.
+SERVE_SHAPE = (2, 4)                 # the model is phase 23's (`_partition_cfg`)
+SERVE_BATCH, SERVE_PROMPT, SERVE_CACHE = 8, 2048, 4096
+SERVE_STEPS = 16                  # timed decode steps after one warm-up
+# The logits against mesh-free: the bound of two orders of the same
+# full-width bf16 logits (phase 17's LM_CONSISTENCY_BOUND): the default
+# layout sums the output projections' bf16 partial products over `model`,
+# which the mesh-free product rounds once (PERF.md, PR 30). A token must
+# agree where the mesh-free top-2 margin exceeds it.
+SERVE_BOUND = LM_CONSISTENCY_BOUND
+# one layer's decode attention: the laid-out forward's bound in
+# tests/test_torch_partition.py (2^-5 of the largest entry)
+SERVE_LAYER_RTOL = 2.0 ** -5
+SERVE_PROCS, SERVE_PROC_LAYERS, SERVE_PROC_STEPS = 2, 2, 4
 U_F32 = 2.0 ** -24                # f32 unit roundoff
 # The refresh residual's bound: c·n·u·κ, the first-order bound on an
 # inverse's residual by elimination, with c = 4 over the 1.3 measured at
@@ -3614,10 +3657,17 @@ def _rank_train(torch) -> dict:
 def _rank_case(torch, case: str, keep: str) -> dict:
     """What one rank of a phase-22 spawn runs: "four" (4 ranks: (a) with a
     coordinate a rank, (b), (c), (d)) or "two" (2 ranks: (a) with two
-    coordinates a rank, then (e)); or of phase 23's: "partition" (2
-    ranks, the partitioned steps, (b))."""
+    coordinates a rank, then (e)); of phase 23's: "partition" (2 ranks,
+    the partitioned steps, (b)); or of phase 24's: "serve" (2 ranks,
+    partitioned prefill and decode, (b))."""
     t0 = time.perf_counter()
-    if case == "partition":                   # phase 23 (b)
+    if case == "serve":                       # phase 24 (b)
+        from repro_torch.launch.mesh import make_worker_mesh
+
+        n = SERVE_SHAPE[0] * SERVE_SHAPE[1] // SERVE_PROCS
+        out = _serve_digests(torch, _partition_cfg(SERVE_PROC_LAYERS),
+                             make_worker_mesh(SERVE_SHAPE, devices=["cuda:0"] * n))
+    elif case == "partition":                 # phase 23 (b)
         from repro_torch.launch.mesh import make_worker_mesh
 
         n = PART_SHAPE[0] * PART_SHAPE[1] // PART_PROCS
@@ -3922,11 +3972,14 @@ def _partition_steps(torch, cfg, mesh, steps: int) -> dict:
     return out
 
 
-def check_flash_partitioned(torch, b: int, h: int, s: int, hd: int) -> dict:
-    """Phase 23: B6 and B6-bwd against their plain versions at a
-    coordinate's shape of the partitioned step (B_loc, H_loc, S, hd), bf16,
-    causal, made in the model's (B, S, H, hd) layout; each timed beside its
-    bound, its plain version and SDPA (forward, backward)."""
+def check_flash_partitioned(torch, b: int, h: int, s: int, hd: int,
+                            what: str = "the partitioned step",
+                            backward: bool = True) -> dict:
+    """Phases 23 and 24: B6 (and B6-bwd with `backward`) against their
+    plain versions at a coordinate's shape of `what` (B_loc, H_loc, S,
+    hd), bf16, causal, made in the model's (B, S, H, hd) layout; each
+    timed beside its bound, its plain version and SDPA (forward,
+    backward)."""
     from repro_torch.kernels.flash_attention import kernel as fa, ref as fa_ref
     import numpy as np
     import torch.nn.functional as F
@@ -3949,6 +4002,12 @@ def check_flash_partitioned(torch, b: int, h: int, s: int, hd: int) -> dict:
            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
                q, k, v, is_causal=True), 10),
            "bound_ms": bound, "bound_by": by, "max_abs_err": err}
+    shape = f"B={b} H={h} KV={h} S={s} hd={hd} causal bf16 (a coordinate of {what})"
+    print(f"time flash_attention {what}: {fwd} {shape}", flush=True)
+    if not backward:
+        del q, k, v, do
+        torch.cuda.empty_cache()
+        return {"flash_attention": {**fwd, "shape": shape}}
     out, lse = fa._forward(q, k, v, True, want_lse=True)
     grads = fa.flash_attention_bwd_cuda(q, k, v, out, do, lse, causal=True)
     want = fa_ref.attention_bwd_ref(q, k, v, do, causal=True)
@@ -3967,9 +4026,7 @@ def check_flash_partitioned(torch, b: int, h: int, s: int, hd: int) -> dict:
            "library_ms": time_ms(lambda: torch.autograd.grad(lib_out, leaves, do,
                                                              retain_graph=True), 20),
            "bound_ms": bound, "bound_by": by, "max_abs_err": max(errs), "rel_err": rel}
-    shape = f"B={b} H={h} KV={h} S={s} hd={hd} causal bf16 (a coordinate of the partitioned step)"
-    print(f"time flash_attention partition: {fwd} {shape}", flush=True)
-    print(f"time flash_attention_bwd partition: {bwd} {shape}", flush=True)
+    print(f"time flash_attention_bwd {what}: {bwd} {shape}", flush=True)
     del q, k, v, do, out, lse, lib_out, leaves
     torch.cuda.empty_cache()
     return {"flash_attention": {**fwd, "shape": shape},
@@ -4093,6 +4150,347 @@ def run_partition(torch, keep: str) -> dict:
          "ranks": [{k: v for k, v in r.items() if k != "digests"} for r in ranks]}
     print(f"path partition_ranks: {json.dumps(b)}", flush=True)
     return {"train": a, "ranks": b}
+
+
+# ---------------------------------------------------------------------------
+# Phase 24: partitioned prefill and decode (laid-out parameters, per coordinate)
+# ---------------------------------------------------------------------------
+
+
+def _laid_out_params(torch, cfg, mesh):
+    """Phase 18's seeded weights of `cfg`, whole on the card, and laid out
+    by `param_specs` over `mesh` (a copy of each of this process's
+    regions)."""
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel.sharding import lay_out
+
+    dev = torch.device("cuda")
+    whole = T.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    return whole, lay_out(whole, _shardings(T.param_specs(cfg, mesh=mesh), mesh))
+
+
+def _serve_laid_out(torch, cfg, params, prompts, fed=None, steps: int = 0) -> dict:
+    """On laid-out `params`: a prefill of `prompts` (its logits, launches,
+    bytes and calls by kind, wall ms), the cache padded to SERVE_CACHE,
+    then one decode step a token of `fed` (or `steps` steps fed their own
+    argmax), each step's logits, bytes, calls and wall ms; the cache's
+    GiB held after each phase, its leaves' specs and shard shapes, and the
+    final cache's digests."""
+    from repro_torch import kernels
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel import collective_bytes, collective_calls, reset_collective_bytes
+    from repro_torch.parallel import transport
+    from repro_torch.parallel.collectives import gather
+
+    def counted(fn):
+        kernels.reset_launch_counts()
+        reset_collective_bytes()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        return got, {"ms": (time.perf_counter() - t0) * 1e3,
+                     "exchange_ms": transport.exchange_seconds() * 1e3,
+                     "launches": kernels.launch_counts(), "bytes": collective_bytes(),
+                     "calls": collective_calls()}
+
+    (logits, _, _, cache), prefill = counted(lambda: T.prefill(params, {"tokens": prompts},
+                                                                cfg))
+    out = {"prefill": prefill, "prefill_logits": logits, "held_gib": [_held_gib(torch, cache)]}
+    cache = T.pad_cache(cache, cfg, SERVE_CACHE)
+    out["held_gib"].append(_held_gib(torch, cache))
+    tok = torch.argmax(logits[:, -1], -1)
+    del logits
+    out["steps"], out["step_logits"] = [], []
+    for i in range(len(fed) if fed is not None else steps):
+        tok = fed[i] if fed is not None else tok
+        (lg, cache), step = counted(lambda: T.decode_step(params, cache, tok, cfg))
+        out["steps"].append(step)
+        out["step_logits"].append(lg)
+        tok = torch.argmax(lg, -1)
+    out["held_gib"].append(_held_gib(torch, cache))
+    out["cache"] = {k: (x.spec, {c: tuple(t.shape) for c, t in x.shards.items()})
+                    for k, x in cache.items()}
+    out["cache_digests"] = {k: _digest(torch, gather(x)) for k, x in cache.items()}
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    del cache
+    return out
+
+
+def _serve_digests(torch, cfg, mesh) -> dict:
+    """Phase 24 (b)'s run: the prefill and SERVE_PROC_STEPS steps fed their
+    argmax, its logits as digests."""
+    import numpy as np
+
+    whole, params = _laid_out_params(torch, cfg, mesh)
+    del whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    prompts = torch.from_numpy(np.random.default_rng([SEED, 24]).integers(
+        0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT))).cuda()
+    out = _serve_laid_out(torch, cfg, params, prompts, steps=SERVE_PROC_STEPS)
+    out["logit_digests"] = [_digest(torch, t) for t in
+                            [out.pop("prefill_logits")] + out.pop("step_logits")]
+    out.pop("cache")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _logit_errs(got, want) -> tuple[float, float]:
+    """(max abs, rms) of got - want."""
+    d = got.float() - want.float()
+    return float(d.abs().max()), float(d.square().mean().sqrt())
+
+
+def _clear_agree(got, want) -> tuple[int, int]:
+    """(argmax agreements, positions) over the positions where `want`'s
+    top-2 margin exceeds SERVE_BOUND (phase 17's rule)."""
+    top2 = want.float().topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > SERVE_BOUND
+    same = got.argmax(-1) == want.argmax(-1)
+    return int(same[clear].sum()), int(clear.sum())
+
+
+def _nudged(torch, tree, gen=None):
+    """`tree`'s weights each times 1 ± 2^-7 (random signs, seeded): about
+    one bf16 ulp."""
+    gen = gen or torch.Generator(device="cuda").manual_seed(SEED + 1)
+    if isinstance(tree, dict):
+        return {k: _nudged(torch, v, gen) for k, v in tree.items()}
+    sign = torch.randint(0, 2, tree.shape, device=tree.device, generator=gen) * 2 - 1
+    return (tree.float() * (1 + sign * 2.0 ** -7)).to(tree.dtype)
+
+
+def check_decode_attention_laid_out(torch, cfg, mesh) -> dict:
+    """Phase 24: one layer's `attn_decode_laid_out` at `cfg`'s width on
+    `mesh` against `attn_decode` on the same inputs: SERVE_BATCH rows at
+    position SERVE_PROMPT of a SERVE_CACHE-slot cache (the slices past it
+    wholly masked), the output within SERVE_LAYER_RTOL of its largest entry
+    and finite, the written cache within the same of the mesh-free one."""
+    import numpy as np
+    from repro_torch.models import attention, transformer as T
+    from repro_torch.parallel import NamedSharding
+    from repro_torch.parallel import collectives as col
+    from repro_torch.parallel.sharding import DEFAULT_RULES, Program, lay_out
+
+    rng = np.random.default_rng([SEED, 241])
+
+    def draw(shape, scale=1.0):
+        x = scale * rng.standard_normal(shape, dtype=np.float32)
+        return torch.from_numpy(x).cuda().to(torch.bfloat16)
+
+    b, n = SERVE_BATCH, SERVE_CACHE
+    stacked = T.param_specs(cfg, mesh=mesh)["layers"]["attn"]
+    params = {k: draw(d.shape, 0.02) for k, d in attention.attn_params(cfg).items()}
+    laid = lay_out(params, {k: NamedSharding(mesh, tuple(stacked[k])[1:]) for k in params})
+    x = draw((b, 1, cfg.d_model))
+    ck, cv = (draw((b, n, cfg.n_kv_heads, cfg.head_dim)) for _ in range(2))
+    pos = torch.full((b,), SERVE_PROMPT, dtype=torch.int32, device="cuda")
+    spec = T.cache_specs(cfg, b, n, mesh=mesh)["k"][1:]
+    with torch.inference_mode():
+        k_laid, v_laid = col.distribute(ck.clone(), spec, mesh), col.distribute(cv.clone(),
+                                                                                spec, mesh)
+        got = col.join(attention.attn_decode_laid_out(
+            laid, col.split(x, ("data", None, None), mesh), k_laid, v_laid,
+            col.split(pos, ("data",), mesh), cfg, Program(mesh, DEFAULT_RULES, b, 1)),
+            ("data", None, None), mesh)
+        want, wk, wv = attention.attn_decode(params, x, ck, cv, pos, cfg)
+    scale = float(want.float().abs().max())
+    out = {"rel_err": max_abs(got, want) / scale,
+           "cache_rel_err": max(max_abs(col.gather(k_laid), wk) / float(wk.float().abs().max()),
+                                max_abs(col.gather(v_laid), wv) / float(wv.float().abs().max())),
+           "masked_slices": sum(1 for lo in range(0, n, n // SERVE_SHAPE[1]) if lo > SERVE_PROMPT)}
+    print(f"path serve_partition_layer: {json.dumps(out)}", flush=True)
+    require(bool(torch.isfinite(got.float()).all()) and out["rel_err"] <= SERVE_LAYER_RTOL
+            and out["cache_rel_err"] <= SERVE_LAYER_RTOL,
+            f"serve partition: decode attention at full width {out}")
+    return out
+
+
+def run_serve_partition(torch, keep: str) -> dict:
+    """Phase 24: (a) olmo-1b's partitioned prefill and decode on (data 2,
+    model 4) of cuda:0 against the mesh-free path on the same weights and
+    tokens: logits, launches, bytes and calls by collective kind, the
+    cache's layout, times and memory; B6 at a coordinate's shape; (b) two
+    ranks on the card against the single process (module docstring)."""
+    import numpy as np
+    import torch.nn.functional as F
+    from repro_torch.launch.dryrun import RULES_VARIANTS, partitioned_serve_collectives
+    from repro_torch.launch.mesh import make_worker_mesh
+    from repro_torch.launch.procs import free_port, run_ranks
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel.collectives import gather
+    from repro_torch.parallel.sharding import lay_out
+
+    cfg = _partition_cfg()
+    n_coords = SERVE_SHAPE[0] * SERVE_SHAPE[1]
+    mesh = make_worker_mesh(SERVE_SHAPE, devices=["cuda:0"] * n_coords)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    whole, params = _laid_out_params(torch, cfg, mesh)
+    prompts = torch.from_numpy(np.random.default_rng([SEED, 24]).integers(
+        0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT))).cuda()
+    batch = {"tokens": prompts}
+
+    # the mesh-free path: prefill (a warm-up, then timed), the cache padded,
+    # a warm-up step and SERVE_STEPS steps fed their argmax; its peak beside
+    # the laid-out run's (both with the other's weights alive)
+    T.prefill(whole, batch, cfg)
+    (free_logits, _, _, cache), free_prefill_ms = timed(torch, lambda: T.prefill(whole, batch,
+                                                                                cfg))
+    pad = (0, 0, 0, 0, 0, SERVE_CACHE - SERVE_PROMPT)
+    cache = {"k": F.pad(cache["k"], pad), "v": F.pad(cache["v"], pad), "pos": cache["pos"]}
+    tok = torch.argmax(free_logits[:, -1], -1)
+    fed, free_steps, free_ms = [], [], []
+    for _ in range(1 + SERVE_STEPS):
+        fed.append(tok)
+        (lg, cache), ms = timed(torch, lambda: T.decode_step(whole, cache, tok, cfg))
+        free_steps.append(lg)
+        free_ms.append(ms)
+        tok = torch.argmax(lg, -1)
+    free_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    # the laid-out prompt caches layer by layer against the mesh-free one
+    # (the padded cache's first SERVE_PROMPT slots, which decode leaves),
+    # under the default rules (the warm-up of the counted run below) and
+    # under dp_only (no partial sums: FSDP over both axes), with dp_only's
+    # prefill logits
+    layer_errs = {}
+    for rname, laid in (("default", params), ("dp_only", None)):
+        rules = RULES_VARIANTS[rname]
+        if laid is None:
+            laid = lay_out(whole, _shardings(T.param_specs(cfg, rules, mesh), mesh))
+        logits, _, _, prompt = T.prefill(laid, batch, cfg, rules)
+        if rname == "dp_only":
+            dp_only_err = _logit_errs(logits, free_logits)
+        del logits, laid
+        layer_errs[rname] = {k: [max_abs(t, w[:, :SERVE_PROMPT]) for t, w in
+                                 zip(gather(prompt[k]), cache[k])] for k in ("k", "v")}
+        del prompt
+        gc.collect()
+        torch.cuda.empty_cache()
+    # the floor: the mesh-free path on the weights moved by about one bf16
+    # ulp (each entry times 1 ± 2^-7), fed the same tokens
+    del cache
+    nudged = _nudged(torch, whole)
+    lg, _, _, cache = T.prefill(nudged, batch, cfg)
+    floor = [_logit_errs(lg, free_logits)]
+    cache = {"k": F.pad(cache["k"], pad), "v": F.pad(cache["v"], pad), "pos": cache["pos"]}
+    for tok, want in zip(fed, free_steps):
+        lg, cache = T.decode_step(nudged, cache, tok, cfg)
+        floor.append(_logit_errs(lg, want))
+    del cache, whole, nudged, lg
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the partitioned path: the counted and timed run
+    torch.cuda.reset_peak_memory_stats()
+    run = _serve_laid_out(torch, cfg, params, prompts, fed)
+    pairs = [(run.pop("prefill_logits"), free_logits)] + list(zip(run.pop("step_logits"),
+                                                                   free_steps))
+    errs = [_logit_errs(got, want) for got, want in pairs]
+    agree = [_clear_agree(got, want) for got, want in pairs]
+    del pairs, free_logits, free_steps
+    pre = run["prefill"]
+    ms = [st["ms"] for st in run["steps"][1:]]
+    tokens_per_s = SERVE_BATCH / (sum(ms) / len(ms) / 1e3)
+    print(f"path serve_partition_prefill: err={errs[0]!r} floor={floor[0]!r} "
+          f"dp_only_err={dp_only_err!r} ms={pre['ms']!r} mesh_free_ms={free_prefill_ms!r} "
+          f"launches={pre['launches']} bytes={pre['bytes']} calls={pre['calls']}", flush=True)
+    print(f"path serve_partition_cache_layers: {json.dumps(layer_errs)}", flush=True)
+    print(f"path serve_partition_decode: errs={errs[1:]!r} floor={floor[1:]!r} "
+          f"clear_agree={agree!r} ms={ms!r} mesh_free_ms={free_ms[1:]!r} "
+          f"tokens_per_s={tokens_per_s!r} "
+          f"mesh_free_tokens_per_s={SERVE_BATCH / (sum(free_ms[1:]) / SERVE_STEPS / 1e3)!r} "
+          f"peak_gib={run['peak_gib']!r} mesh_free_peak_gib={free_peak!r}", flush=True)
+    require(all(e[0] <= SERVE_BOUND for e in errs) and dp_only_err[0] <= SERVE_BOUND,
+            f"serve partition: logits {errs}, dp_only {dp_only_err} against mesh-free "
+            f"(bound {SERVE_BOUND})")
+    require(all(a == n for a, n in agree),
+            f"serve partition: a token differs where the top-2 margin exceeds "
+            f"{SERVE_BOUND}: {agree}")
+    layer = check_decode_attention_laid_out(torch, cfg, mesh)
+    want = partitioned_serve_collectives(cfg, SERVE_SHAPE, "default", SERVE_BATCH,
+                                         SERVE_PROMPT, SERVE_CACHE)
+    for phase, got in [("prefill", pre)] + [("decode", st) for st in run["steps"]]:
+        want_moved, want_calls = want[phase]
+        require({k: got["bytes"][k] for k in want_moved} == want_moved
+                and all(v == 0 for k, v in got["bytes"].items() if k not in want_moved),
+                f"serve partition {phase}: bytes {got['bytes']}, want {want_moved}")
+        require({k: got["calls"][k] for k in want_calls} == want_calls,
+                f"serve partition {phase}: calls {got['calls']}, want {want_calls}")
+        n_b6 = cfg.n_layers * n_coords if phase == "prefill" else 0
+        for kern, n in got["launches"].items():
+            require(n == (n_b6 if kern == "flash_attention" else 0),
+                    f"serve partition {phase}: {kern} launched {n} times")
+    specs = T.cache_specs(cfg, SERVE_BATCH, SERVE_CACHE, mesh=mesh)
+    full = T.abstract_cache(cfg, SERVE_BATCH, SERVE_CACHE)
+    for key, (spec, shapes) in run["cache"].items():
+        require(spec == tuple(specs[key]), f"serve partition: cache {key} laid out {spec}")
+        require(key == "pos" or all(int(np.prod(sh)) * n_coords == full[key].numel()
+                                    for sh in shapes.values()),
+                f"serve partition: cache {key} regions {shapes}, not 1/{n_coords} each")
+    # one process holds every coordinate: its regions add up to the cache,
+    # with no whole leaf alive behind them
+    gib = {"cache_gib": run["held_gib"], "whole_cache_gib": sum(
+        t.numel() * t.element_size() for t in full.values()) / 2 ** 30}
+    require(all(abs(g - gib["whole_cache_gib"]) <= 1e-9 for g in run["held_gib"][1:]),
+            f"serve partition: the cache holds {run['held_gib']} GiB")
+    a = {"arch": cfg.name, "layers": cfg.n_layers, "mesh": mesh.descriptor(),
+         "batch": SERVE_BATCH, "prompt": SERVE_PROMPT, "cache_len": SERVE_CACHE,
+         "prefill": {**pre, "err": errs[0], "floor": floor[0], "dp_only_err": dp_only_err,
+                     "mesh_free_ms": free_prefill_ms,
+                     "tokens_per_s": SERVE_BATCH * SERVE_PROMPT / (pre["ms"] / 1e3),
+                     "mesh_free_tokens_per_s": SERVE_BATCH * SERVE_PROMPT
+                     / (free_prefill_ms / 1e3)},
+         "decode": {"ms": ms, "warmup_ms": run["steps"][0]["ms"],
+                    "exchange_ms": [st["exchange_ms"] for st in run["steps"][1:]],
+                    "errs": errs[1:], "floor": floor[1:], "tokens_per_s": tokens_per_s,
+                    "mesh_free_ms": free_ms[1:], "mesh_free_warmup_ms": free_ms[0],
+                    "bytes": run["steps"][1]["bytes"], "calls": run["steps"][1]["calls"]},
+         "clear_agree": agree, "cache_layer_errs": layer_errs, "layer": layer,
+         "peak_gib": run["peak_gib"], "mesh_free_peak_gib": free_peak, **gib}
+    print(f"path serve_partition: {json.dumps(a)}", flush=True)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    a["kernels"] = check_flash_partitioned(
+        torch, SERVE_BATCH // SERVE_SHAPE[0], cfg.n_heads // SERVE_SHAPE[1], SERVE_PROMPT,
+        cfg.head_dim, what="the partitioned prefill", backward=False)
+    a["launches"] = run["prefill"]["launches"]
+
+    # (b) two ranks on the card against the single process at 2 layers
+    small = _partition_cfg(SERVE_PROC_LAYERS)
+    single = _serve_digests(torch, small, mesh)
+    t0 = time.perf_counter()
+    env = {**os.environ, "PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}
+    ranks = run_ranks([sys.executable, str(Path(__file__).resolve()), "--rank-case",
+                       "serve", keep], SERVE_PROCS, timeout_s=PROC_SPAWN_S,
+                      coordinator=f"127.0.0.1:{free_port()}", env=env)
+    wall_s = time.perf_counter() - t0
+    for r in ranks:
+        require(r["logit_digests"] == single["logit_digests"]
+                and r["cache_digests"] == single["cache_digests"],
+                "serve partition ranks: the logits or the cache differ from the single "
+                "process's")
+        require(all(abs(g * SERVE_PROCS - w) <= 1e-6
+                    for g, w in zip(r["held_gib"], single["held_gib"])),
+                f"serve partition ranks: a rank holds {r['held_gib']} GiB of cache, the "
+                f"single process {single['held_gib']}")
+    def summary(r):
+        return {"prefill_ms": r["prefill"]["ms"], "prefill_exchange_ms": r["prefill"]["exchange_ms"],
+                "decode_ms": [st["ms"] for st in r["steps"]],
+                "decode_exchange_ms": [st["exchange_ms"] for st in r["steps"]],
+                "cache_gib": r["held_gib"], "peak_gib": r["peak_gib"]}
+
+    b = {"processes": SERVE_PROCS, "layers": small.n_layers, "spawn_s": wall_s,
+         "single": summary(single), "ranks": [summary(r) for r in ranks]}
+    print(f"path serve_partition_ranks: {json.dumps(b)}", flush=True)
+    return {"serve": a, "ranks": b}
 
 
 def main(proc_dir: str) -> int:
@@ -4387,6 +4785,15 @@ def main(proc_dir: str) -> int:
     phase_s["23"] = time.perf_counter() - t0
     print(f"phase_s {json.dumps(phase_s)}", flush=True)
 
+    # 24. partitioned prefill and decode: laid-out parameters, the cache laid
+    # out by cache_specs; and two ranks of their own
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve_partition = run_serve_partition(torch, proc_dir)
+    phase_s["24"] = time.perf_counter() - t0
+    print(f"phase_s {json.dumps(phase_s)}", flush=True)
+
     print(json.dumps({"paths": {
         "spin": {"n": n, "block_size": bs, "ms": spin["ms"], "residual": spin["residual"]},
         "lu": {"n": n, "block_size": bs, "ms": lu["ms"], "residual": lu["residual"],
@@ -4423,10 +4830,10 @@ def main(proc_dir: str) -> int:
         "train_adamw": train_adamw, "train_shampoo": train_shampoo,
         "train_families": train_families, "mesh": mesh, "dry_run": dry_run,
         "examples": examples, "processes": _processes_summary(processes),
-        "partition": partition, "phase_s": phase_s},
+        "partition": partition, "serve_partition": serve_partition, "phase_s": phase_s},
         "card": card}), flush=True)
 
-    # 24. the kernels line
+    # 25. the kernels line
     rows = []
     gemm_body = "gemm_tc: pack pre-pass, then 3xTF32 wgmma on a TMA ring (f32)"
     report["schur_update"]["body"] = report["matmul"]["body"] = gemm_body
@@ -4476,8 +4883,10 @@ def main(proc_dir: str) -> int:
                 **{f"train_{arch}_step": run["launches"][name]
                    for arch, run in train_families.items()},
                 "train_mesh_step": mesh["train"]["launches"][name],
-                "train_partitioned_step": partition["train"]["launches"][name]}
+                "train_partitioned_step": partition["train"]["launches"][name],
+                "partitioned_prefill": serve_partition["serve"]["launches"][name]}
             r["partitioned_coordinate"] = partition["train"]["kernels"][name]
+            r["partitioned_prefill_coordinate"] = serve_partition["serve"]["kernels"][name]
         if name in ("matmul", "schur_update", "blocked_gauss_jordan"):
             r["launches_by_path"]["train_shampoo_refresh"] = \
                 train_shampoo["refresh_launches"][name]
@@ -4507,7 +4916,7 @@ def main(proc_dir: str) -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--rank-case"]:      # one rank of phase 22 or 23
+    if sys.argv[1:2] == ["--rank-case"]:      # one rank of phase 22, 23 or 24
         sys.exit(_rank_child(sys.argv[2], sys.argv[3]))
     # The planner's plan file lies in a directory of this run's own, so that
     # no plan of an earlier run is recalled; phase 22's files (phase 4's

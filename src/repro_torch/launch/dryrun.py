@@ -101,7 +101,7 @@ from ..runtime.trainer import TrainConfig, TrainState, abstract_state, make_trai
 from .mesh import make_production_mesh, set_mesh
 
 __all__ = ["RULES_VARIANTS", "CFG_VARIANTS", "collective_stats",
-           "partitioned_step_collectives", "build_train",
+           "partitioned_step_collectives", "partitioned_serve_collectives", "build_train",
            "build_prefill", "build_decode", "run_cell", "run_solver_cell", "main"]
 
 # Named sharding-rule variants (the reference's hillclimb knobs).
@@ -189,6 +189,38 @@ def collective_stats(moved: dict, calls: dict, chips: int = 1) -> dict:
     return stats
 
 
+class _Tally:
+    """Bytes and calls by collective kind on a mesh of `n` coordinates, as
+    `collective_bytes()` and `collective_calls()` count them. Every
+    coordinate receives (size - 1) shards of an all-gather over `size`
+    coordinates (and as many gradient pieces in its reduce-scatter) or
+    (size - 1) chunks of an all_to_all; a psum or pmax over `size` brings
+    (size - 1) inputs to the group's first coordinate and hands the
+    result back to the other size - 1."""
+
+    def __init__(self, n: int, kinds: tuple[str, ...]):
+        self.n = n
+        self.moved = dict.fromkeys(kinds, 0)
+        self.calls = dict.fromkeys(kinds, 0)
+
+    def _add(self, kind: str, nbytes: int, calls: int) -> None:
+        self.moved[kind] += nbytes
+        self.calls[kind] += calls
+
+    def gather(self, shard: int, size: int, passes: int = 1, back: bool = False) -> None:
+        self._add("all_gather", passes * self.n * (size - 1) * shard, passes)
+        if back:
+            self._add("reduce_scatter", self.n * (size - 1) * shard, 1)
+
+    def all_to_all(self, chunk: int, size: int) -> None:
+        self._add("all_to_all", self.n * (size - 1) * chunk, 1)
+
+    def psum(self, nbytes: int, size: int, passes: int = 1, back: bool = False,
+             kind: str = "psum") -> None:
+        calls = passes + back
+        self._add(kind, calls * (self.n // size) * 2 * (size - 1) * nbytes, calls)
+
+
 def partitioned_step_collectives(cfg: ArchConfig, shape: tuple[int, int], rules: str,
                                  batch: int, seq: int, microbatches: int
                                  ) -> tuple[dict, dict]:
@@ -197,20 +229,18 @@ def partitioned_step_collectives(cfg: ArchConfig, shape: tuple[int, int], rules:
     `cfg` on a (data, model) mesh of `shape` under the `default` or
     `dp_only` rules, from the shapes: what `collective_bytes()` and
     `collective_calls()` count for `runtime.trainer.make_train_step` on a
-    laid-out state with full remat.
+    laid-out state with full remat (`_Tally` says what each collective
+    moves).
 
-    Every coordinate receives (n - 1) shards of an all-gather over n
-    coordinates, and as many gradient pieces in its reduce-scatter; a psum
-    over n brings (n - 1) inputs to the group's first coordinate and
-    hands the sum back to the other n - 1. A microbatch runs the lookup
-    and the head once; each layer's weight gathers and its attention
-    psum twice (the forward, and the remat's recompute), its MLP psum
-    once (the recompute stops at the last tensor the layer saves, the
-    `wo` product's operands); every gather's reduce-scatter and every
-    psum's transpose once, the loss's too: autograd hands an output that
-    no loss reads a zero cotangent, so every group's transpose moves its
-    bytes. The token count carries no gradient. A region held by every
-    coordinate (rmsnorm scales) sums its n gradients ("psum").
+    A microbatch runs the lookup and the head once; each layer's weight
+    gathers and its attention psum twice (the forward, and the remat's
+    recompute), its MLP psum once (the recompute stops at the last tensor
+    the layer saves, the `wo` product's operands); every gather's
+    reduce-scatter and every psum's transpose once, the loss's too:
+    autograd hands an output that no loss reads a zero cotangent, so
+    every group's transpose moves its bytes. The token count carries no
+    gradient. A region held by every coordinate (rmsnorm scales) sums its
+    n gradients ("psum").
     """
     if rules not in ("default", "dp_only"):
         raise ValueError(f"no count for the rules {rules!r}: default or dp_only")
@@ -222,52 +252,111 @@ def partitioned_step_collectives(cfg: ArchConfig, shape: tuple[int, int], rules:
     rows = batch // microbatches // d_n           # a coordinate's rows of a microbatch
     x = rows * seq * d * bf                       # an activation (B_loc, S, d)
     row = rows * seq * f32                        # an f32 value a position
-    moved = dict.fromkeys(("all_gather", "reduce_scatter", "psum", "pmax"), 0)
-    calls = dict.fromkeys(moved, 0)
-
-    def gather(shard, size, passes):              # and its reduce-scatter
-        moved["all_gather"] += passes * n * (size - 1) * shard
-        moved["reduce_scatter"] += n * (size - 1) * shard
-        calls["all_gather"] += passes
-        calls["reduce_scatter"] += 1
-
-    def psum(nbytes, size, passes, back=True):    # and its transpose
-        moved["psum"] += (passes + back) * (n // size) * 2 * (size - 1) * nbytes
-        calls["psum"] += passes + back
-
+    t = _Tally(n, ("all_gather", "reduce_scatter", "psum", "pmax"))
     if rules == "default":
-        gather(v // m_n * d // d_n * bf, d_n, 1)               # the lookup's table
-        psum(x, m_n, 1)                                        # the lookup's sum
+        t.gather(v // m_n * d // d_n * bf, d_n, 1, True)           # the lookup's table
+        t.psum(x, m_n, 1, True)                                    # the lookup's sum
         for _ in range(L):
-            for cols in (h * hd, kv * hd, kv * hd):            # wq, wk, wv: FSDP
-                gather(d // d_n * cols // m_n * bf, d_n, 2)
-            if kv % m_n:                                       # the KV heads stay whole
+            for cols in (h * hd, kv * hd, kv * hd):                # wq, wk, wv: FSDP
+                t.gather(d // d_n * cols // m_n * bf, d_n, 2, True)
+            if kv % m_n:                                           # the KV heads stay whole
                 for _ in range(2):
-                    gather(d * kv * hd // m_n * bf, m_n, 2)
-            gather(h * hd // m_n * d // d_n * bf, d_n, 2)      # attention's wo
-            psum(x, m_n, 2)
-            for _ in range(3):                                 # wi, wg, wo
-                gather(d // d_n * f // m_n * bf, d_n, 2)
-            psum(x, m_n, 1)
-        gather(v // m_n * d // d_n * bf, d_n, 1)               # the head (tied or lm_head)
-        moved["pmax"] += (n // m_n) * 2 * (m_n - 1) * row
-        calls["pmax"] += 1
-        psum(row, m_n, 1)                                      # the sum of exponentials
-        psum(row, m_n, 1)                                      # the label's logit
-    else:                                                      # dp_only: FSDP over both
-        gather(v * d // n * bf, n, 1)
+                    t.gather(d * kv * hd // m_n * bf, m_n, 2, True)
+            t.gather(h * hd // m_n * d // d_n * bf, d_n, 2, True)  # attention's wo
+            t.psum(x, m_n, 2, True)
+            for _ in range(3):                                     # wi, wg, wo
+                t.gather(d // d_n * f // m_n * bf, d_n, 2, True)
+            t.psum(x, m_n, 1, True)
+        t.gather(v // m_n * d // d_n * bf, d_n, 1, True)           # the head (tied or lm_head)
+        t.psum(row, m_n, kind="pmax")
+        t.psum(row, m_n, 1, True)                                  # the sum of exponentials
+        t.psum(row, m_n, 1, True)                                  # the label's logit
+    else:                                                          # dp_only: FSDP over both
+        t.gather(v * d // n * bf, n, 1, True)
         for _ in range(L):
             for cols in (h * hd, kv * hd, kv * hd, h * hd, f, f, f):
-                gather(d // n * cols * bf, n, 2)
-        gather(v * d // n * bf, n, 1)
-    psum(f32, d_n, 1)                                          # the loss sum
-    psum(f32, d_n, 1, back=False)                              # the token count
-    if cfg.norm == "rmsnorm":                                  # replicated: sum the gradients
+                t.gather(d // n * cols * bf, n, 2, True)
+        t.gather(v * d // n * bf, n, 1, True)
+    t.psum(f32, d_n, 1, True)                                      # the loss sum
+    t.psum(f32, d_n, 1)                                            # the token count
+    if cfg.norm == "rmsnorm":                                      # replicated: sum the gradients
         for size in (L * d, L * d, d):
-            moved["psum"] += 2 * (n - 1) * size * bf
-            calls["psum"] += 1
-    return ({k: microbatches * val for k, val in moved.items()},
-            {k: microbatches * val for k, val in calls.items()})
+            t.moved["psum"] += 2 * (n - 1) * size * bf
+            t.calls["psum"] += 1
+    return ({k: microbatches * val for k, val in t.moved.items()},
+            {k: microbatches * val for k, val in t.calls.items()})
+
+
+def partitioned_serve_collectives(cfg: ArchConfig, shape: tuple[int, int], rules: str,
+                                  batch: int, prompt: int, cache_len: int) -> dict:
+    """Bytes and calls of each collective kind (all_gather, all_to_all,
+    psum, pmax) in one partitioned `prefill` of `batch` x `prompt` tokens
+    and in one `decode_step` over a cache of `cache_len` slots, of a dense
+    `cfg` on a (data, model) mesh of `shape` under the `default` or
+    `dp_only` rules, from the shapes: {"prefill": (bytes, calls),
+    "decode": (bytes, calls)}, what `collective_bytes()` and
+    `collective_calls()` count for each on laid-out parameters (`_Tally`
+    says what each collective moves; no remat, no backward).
+
+    Both run the lookup, each layer's weight gathers and its two output
+    psums, and the head once, as the step's forward does. Where the KV
+    heads split over `model` and `model` divides the prompt, the prefill
+    moves each layer's k and v from the heads' axis to the cache's
+    sequence (`kv_seq`) by one all_to_all each. Where `model` divides
+    `cache_len` the decode cache is split along its sequence: each layer
+    all-gathers q over the heads' axis (and the new k and v where the KV
+    heads split), then combines the slices' softmax by a pmax of the
+    running max (B_loc, H) and one psum of the weighted (o, l) (B_loc, H,
+    hd + 1), both f32.
+    """
+    if rules not in ("default", "dp_only"):
+        raise ValueError(f"no count for the rules {rules!r}: default or dp_only")
+    d_n, m_n = shape
+    n = d_n * m_n
+    L, d, h, kv, hd, f, v = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                             cfg.head_dim, cfg.d_ff, cfg.vocab)
+    bf, f32 = 2, 4
+    rows = batch // d_n                           # a coordinate's rows
+    out = {}
+    for phase, seq in (("prefill", prompt), ("decode", 1)):
+        t = _Tally(n, ("all_gather", "all_to_all", "psum", "pmax"))
+        x = rows * seq * d * bf                   # an activation (B_loc, S, d)
+        if rules == "default":
+            t.gather(v // m_n * d // d_n * bf, d_n)                # the lookup's table
+            t.psum(x, m_n)                                         # the lookup's sum
+            for _ in range(L):
+                for cols in (h * hd, kv * hd, kv * hd):            # wq, wk, wv: FSDP
+                    t.gather(d // d_n * cols // m_n * bf, d_n)
+                if kv % m_n:                                       # the KV heads stay whole
+                    for _ in range(2):
+                        t.gather(d * kv * hd // m_n * bf, m_n)
+                if phase == "prefill" and not (kv % m_n or prompt % m_n):
+                    for _ in range(2):                             # k, v to kv_seq
+                        t.all_to_all(rows * (prompt // m_n) * (kv // m_n) * hd * bf, m_n)
+                if phase == "decode" and not cache_len % m_n:
+                    t.gather(rows * (h // m_n) * hd * bf, m_n)     # q to every coordinate
+                    if not kv % m_n:                               # the new k and v
+                        for _ in range(2):
+                            t.gather(rows * (kv // m_n) * hd * bf, m_n)
+                    t.psum(rows * h * f32, m_n, kind="pmax")
+                    t.psum(rows * h * (hd + 1) * f32, m_n)
+                t.gather(h * hd // m_n * d // d_n * bf, d_n)      # attention's wo
+                t.psum(x, m_n)
+                for _ in range(3):                                 # wi, wg, wo
+                    t.gather(d // d_n * f // m_n * bf, d_n)
+                t.psum(x, m_n)
+            t.gather(v // m_n * d // d_n * bf, d_n)                # the head
+        else:                                                      # dp_only: FSDP over both
+            t.gather(v * d // n * bf, n)
+            for _ in range(L):
+                for cols in (h * hd, kv * hd, kv * hd, h * hd, f, f, f):
+                    t.gather(d // n * cols * bf, n)
+                if phase == "decode" and not cache_len % m_n:
+                    t.psum(rows * h * f32, m_n, kind="pmax")
+                    t.psum(rows * h * (hd + 1) * f32, m_n)
+            t.gather(v * d // n * bf, n)
+        out[phase] = (t.moved, t.calls)
+    return out
 
 
 # ---------------------------------------------------------------------------

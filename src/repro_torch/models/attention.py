@@ -17,6 +17,11 @@ which rolls (slot pos % S) when it is no longer than the window.
 (`parallel.sharding.Program`): each coordinate projects its rows onto its
 own heads, attends over them (B6 and B6-bwd on the card at B_loc x
 H_loc) and sums its part of the output projection over the heads' axis.
+`attn_decode_laid_out` is its decode, plain PyTorch as `attn_decode`,
+over a cache laid out by `transformer.cache_specs`: where the cache is
+split along its sequence, each coordinate scores every query head against
+its slice and the slices' softmax combines over that axis (a pmax of the
+running max, one psum of the weighted sums).
 """
 
 from __future__ import annotations
@@ -32,7 +37,8 @@ from ..parallel import collectives as col
 from ..parallel.sharding import DEFAULT_RULES, Program, ShardingRules, shard
 from .layers import ParamDef, gathered, rotary
 
-__all__ = ["attn_params", "attn_apply", "attn_apply_laid_out", "attn_decode"]
+__all__ = ["attn_params", "attn_apply", "attn_apply_laid_out", "attn_decode",
+           "attn_decode_laid_out"]
 
 NEG_INF = -1e30
 
@@ -105,31 +111,24 @@ def _kv_for_heads(k: torch.Tensor, v: torch.Tensor, first: int, n_heads: int,
     return k.index_select(2, sel), v.index_select(2, sel)
 
 
-def attn_apply_laid_out(params: dict, x: dict, cfg: ArchConfig, prog: Program) -> dict:
-    """`attn_apply` in the partitioned program: `params` laid out
-    (DistArrays), `x` each coordinate's rows (B_loc, S, d). wq, wk, wv
-    and wo are gathered whole along d (FSDP); a coordinate keeps the
-    query heads and KV heads its layout gives it (the resolved specs of
-    the reference's `shard` sites on q and k), KV heads that do not split
-    with the query heads staying whole, so that each local query head
-    reads its global KV head (m·H/M + h reads KV head (m·H/M + h) //
-    (H/KV)). Rotary runs on the local heads, then attention: on the card
-    B6 at (B_loc, H_loc, S, hd) (B6-bwd in the backward); on the CPU its
-    plain version, for the other processes' coordinates too, so that
-    every process records the same graph. The output projection's partial
-    sums are summed over the heads' axis (`psum`)."""
-    mesh = prog.mesh
+def _project_laid_out(params: dict, x: dict, cfg: ArchConfig, prog: Program,
+                      positions: dict):
+    """Each coordinate's rotated q (B_loc, S, H_loc, hd), rotated k and plain
+    v (B_loc, S, KV_loc, hd) at `positions` (B_loc, S), and the heads' and
+    KV heads' mesh axes: wq, wk, wv gathered whole along d (FSDP), a
+    coordinate keeping the query heads and KV heads its layout gives it
+    (the resolved specs of the reference's `shard` sites on q and k)."""
     n_h, n_kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q_shape, k_shape = (prog.batch, prog.seq, n_h, hd), (prog.batch, prog.seq, n_kv, hd)
     h_ax = prog.spec(q_shape, ("batch", "seq", "heads", None))[2]
     kv_ax = prog.spec(k_shape, ("batch", "seq", "kv_heads", None))[2]
-    h_loc = n_h // col.axis_size(h_ax, mesh) if h_ax else n_h
-    kv_loc = n_kv // col.axis_size(kv_ax, mesh) if kv_ax else n_kv
+    h_loc = n_h // col.axis_size(h_ax, prog.mesh) if h_ax else n_h
+    kv_loc = n_kv // col.axis_size(kv_ax, prog.mesh) if kv_ax else n_kv
     w = {name: gathered(params[name], (None, ax))
          for name, ax in (("wq", h_ax), ("wk", kv_ax), ("wv", kv_ax))}
     q, k, v = {}, {}, {}
     for c, t in x.items():
-        pos = torch.arange(t.shape[1], device=t.device).expand(t.shape[0], t.shape[1])
+        pos = positions[c]
         q[c] = rotary(_split_heads(torch.matmul(t, w["wq"][c]), h_loc), pos, cfg.rope_theta)
         k[c] = rotary(_split_heads(torch.matmul(t, w["wk"][c]), kv_loc), pos, cfg.rope_theta)
         v[c] = _split_heads(torch.matmul(t, w["wv"][c]), kv_loc)
@@ -139,20 +138,155 @@ def attn_apply_laid_out(params: dict, x: dict, cfg: ArchConfig, prog: Program) -
     if kv_ax is not None and kv_ax != h_ax:
         raise ValueError(f"kv_heads over {kv_ax!r} with heads over {h_ax!r}: the "
                          "partitioned program splits KV heads with the query heads only")
+    return q, k, v, h_ax, kv_ax
+
+
+def attn_apply_laid_out(params: dict, x: dict, cfg: ArchConfig, prog: Program, *,
+                        want_kv: bool = False):
+    """`attn_apply` in the partitioned program: `params` laid out
+    (DistArrays), `x` each coordinate's rows (B_loc, S, d). q, k and v as
+    `_project_laid_out` makes them, KV heads that do not split with the
+    query heads staying whole, so that each local query head reads its
+    global KV head (m·H/M + h reads KV head (m·H/M + h) // (H/KV)).
+    Attention: on the card B6 at (B_loc, H_loc, S, hd) (B6-bwd in the
+    backward); on the CPU its plain version, for the other processes'
+    coordinates too, so that every process records the same graph. The
+    output projection's partial sums are summed over the heads' axis
+    (`psum`). With `want_kv` it also returns each coordinate's rotated k
+    and its v (B_loc, S, KV_loc, hd): the prefill cache."""
+    mesh = prog.mesh
+    b, s = prog.batch, prog.seq
+    positions = {c: torch.arange(s, device=t.device).expand(t.shape[0], s)
+                 for c, t in x.items()}
+    q, k, v, h_ax, kv_ax = _project_laid_out(params, x, cfg, prog, positions)
+    h_loc = cfg.n_heads // col.axis_size(h_ax, mesh) if h_ax else cfg.n_heads
     first = col.axis_index(h_ax, mesh) if h_ax and not kv_ax else None
     attend = attention_ref if mesh.local_device().type == "cpu" else flash_attention
     out = {}
     for c in x:
         kc, vc = k[c], v[c]
         if first is not None:
-            kc, vc = _kv_for_heads(kc, vc, first[c] * h_loc, h_loc, n_h // n_kv)
+            kc, vc = _kv_for_heads(kc, vc, first[c] * h_loc, h_loc, cfg.n_heads // cfg.n_kv_heads)
         out[c] = attend(q[c].transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2),
                         causal=cfg.causal, window=cfg.sliding_window).transpose(1, 2)
-    del q, k, v
-    out = prog.shard(out, q_shape, "batch", "seq", "heads", None)
+    del q
+    if not want_kv:
+        del k, v
+    out = prog.shard(out, (b, s, cfg.n_heads, cfg.head_dim), "batch", "seq", "heads", None)
     wo = gathered(params["wo"], (h_ax, None))
     y = {c: torch.matmul(t.reshape(t.shape[0], t.shape[1], -1), wo[c])
          for c, t in out.items()}
+    y = col.psum(y, h_ax, mesh) if h_ax else y
+    return (y, k, v) if want_kv else y
+
+
+def _write_row(cache: torch.Tensor, new: torch.Tensor, pos: torch.Tensor, lo: int) -> None:
+    """Write each row's new entry `new` (B, 1, KV, hd) into `cache` (B,
+    S_loc, KV, hd), the slots lo .. lo + S_loc - 1 of the sequence, at slot
+    pos - lo of the rows whose pos lies among them; the others keep theirs."""
+    s_loc = cache.shape[1]
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    rel = pos.long() - lo
+    slot = rel.clamp(0, s_loc - 1)
+    fits = ((rel >= 0) & (rel < s_loc))[:, None, None]
+    cache[rows, slot] = torch.where(fits, new[:, 0], cache[rows, slot])
+
+
+def _partial_softmax(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos: torch.Tensor,
+                     lo: int, s_max: int):
+    """One query token (B, 1, Hq, hd) against cache slots lo .. lo + S_loc -
+    1 (k, v: (B, S_loc, KVq, hd), Hq // KVq query heads a KV head), masked
+    by global slot index as `attn_decode` masks: the f32 running max m
+    (B, KVq, group), l = Σ exp(s - m) and o = Σ exp(s - m)·v (B, KVq,
+    group, hd). A slice whose slots all lie past pos scores NEG_INF
+    everywhere: finite, so its m - M underflows to a weight of exactly 0
+    where the slices combine (-inf would give NaN)."""
+    b, s_loc, n_kv, hd = k.shape
+    qg = q.reshape(b, n_kv, -1, hd).float()
+    s = torch.einsum("bgrd,bkgd->bgrk", qg, k.float()) * hd ** -0.5
+    idx = lo + torch.arange(s_loc, device=q.device)
+    valid = (idx[None] <= pos[:, None]) | (pos[:, None] >= s_max)
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    m = s.amax(-1)
+    e = torch.exp(s - m[..., None])
+    return m, e.sum(-1), torch.einsum("bgrk,bkgd->bgrd", e, v.float())
+
+
+def attn_decode_laid_out(params: dict, x: dict, cache_k: col.DistArray,
+                         cache_v: col.DistArray, pos: dict, cfg: ArchConfig,
+                         prog: Program) -> dict:
+    """`attn_decode` in the partitioned program: `params` laid out, `x`
+    each coordinate's rows (B_loc, 1, d), `cache_k` / `cache_v` one layer
+    of the cache (B, S_dec, KV, hd) laid out by `cache_specs` (written in
+    place), `pos` each coordinate's rows' positions (B_loc,).
+
+    q, k and v are projected as in `attn_apply_laid_out`, rotary at pos.
+    Where `kv_seq` splits the cache over an axis, a coordinate's slice of
+    the sequence holds every KV head, so every query head and the new k
+    and v of every KV head are all-gathered over the heads' axis; the
+    coordinate whose slice holds a row's slot writes it; each coordinate
+    scores every head against its slots (global slot indices, the
+    reference's mask), keeping the f32 max m_c, l_c = Σ exp(s - m_c) and
+    o_c = Σ exp(s - m_c)·v, and the slices combine over the sequence's
+    axis: M = pmax(m_c), then one psum of (o_c, l_c)·exp(m_c - M), o =
+    o / l. Where the cache is whole along the sequence (its KV heads laid
+    out as k's), the coordinate attends its own heads as `attn_decode`
+    does. Each coordinate then takes its own query heads of o and its rows
+    of wo, and the partial products are summed over the heads' axis."""
+    if cfg.sliding_window:
+        raise NotImplementedError("decode with a sliding window on a laid-out state: "
+                                  "ROADMAP A item 6")
+    mesh = prog.mesh
+    n_h, hd = cfg.n_heads, cfg.head_dim
+    s_max = cache_k.shape[1]
+    _, s_ax, kvh_ax, _ = cache_k.spec
+    q, k, v, h_ax, kv_ax = _project_laid_out(params, x, cfg, prog,
+                                             {c: p[:, None] for c, p in pos.items()})
+    h_loc = n_h // col.axis_size(h_ax, mesh) if h_ax else n_h
+    first = col.axis_index(h_ax, mesh) if h_ax else None
+    if s_ax is not None:
+        if kvh_ax is not None:
+            raise ValueError(f"a cache split over {s_ax!r} along its sequence and over "
+                             f"{kvh_ax!r} along its KV heads")
+        if h_ax:
+            q = col.all_gather(q, h_ax, 2, mesh)
+        if kv_ax:
+            k, v = col.all_gather(k, kv_ax, 2, mesh), col.all_gather(v, kv_ax, 2, mesh)
+        n = col.axis_size(s_ax, mesh)
+        lo = {c: i * (s_max // n) for c, i in col.axis_index(s_ax, mesh).items()}
+    elif kvh_ax != kv_ax:
+        raise ValueError(f"a cache with KV heads over {kvh_ax!r}, k's over {kv_ax!r}")
+    else:
+        lo = dict.fromkeys(x, 0)
+    ck, cv = col.per_coord(cache_k), col.per_coord(cache_v)
+    group = n_h // cfg.n_kv_heads
+    parts = {}
+    for c in x:
+        if mesh.is_local(c):
+            _write_row(ck[c], k[c], pos[c], lo[c])
+            _write_row(cv[c], v[c], pos[c], lo[c])
+        kc, vc = ck[c], cv[c]
+        if s_ax is None and h_ax and not kv_ax:
+            kc, vc = _kv_for_heads(kc, vc, first[c] * h_loc, h_loc, group)
+        parts[c] = _partial_softmax(q[c], kc, vc, pos[c], lo[c], s_max)
+    del q, k, v
+    if s_ax is None:
+        out = {c: o / l[..., None] for c, (_, l, o) in parts.items()}
+    else:
+        top = col.pmax({c: m for c, (m, _, _) in parts.items()}, s_ax, mesh)
+        summed = {}
+        for c, (m, l, o) in parts.items():
+            w = torch.exp(m - top[c])
+            summed[c] = torch.cat([o * w[..., None], (l * w)[..., None]], -1)
+        summed = col.psum(summed, s_ax, mesh)
+        out = {c: t[..., :hd] / t[..., hd:] for c, t in summed.items()}
+        if h_ax:
+            out = {c: t.reshape(t.shape[0], n_h, hd).narrow(1, first[c] * h_loc, h_loc)
+                   for c, t in out.items()}
+    out = {c: t.reshape(t.shape[0], 1, -1, hd).to(x[c].dtype) for c, t in out.items()}
+    out = prog.shard(out, (prog.batch, 1, n_h, hd), "batch", "seq", "heads", None)
+    wo = gathered(params["wo"], (h_ax, None))
+    y = {c: torch.matmul(t.reshape(t.shape[0], 1, -1), wo[c]) for c, t in out.items()}
     return col.psum(y, h_ax, mesh) if h_ax else y
 
 

@@ -44,16 +44,27 @@ head makes the coordinate's vocabulary columns of the f32 logits, and
 the cross-entropy is vocabulary-parallel: the row max a `pmax` of
 detached logits, the sum of exponentials and the label's logit `psum`s
 over the vocabulary's axis, the loss and token sums `psum`s over the
-batch axes. Nothing is made whole but the joined results: the loss, and
-`forward`'s logits. The dense family only; the other bodies, the prefill
-cache and decode raise NotImplementedError (ROADMAP A).
+batch axes. `prefill` on laid-out parameters is the counterpart of the
+reference's jitted `build_prefill`: its cache comes back laid out by
+`cache_specs(cfg, B, S)` (`kv_seq` over `model`, so a coordinate holds
+its rows and one slice of the sequence with every KV head), each layer's
+k and v moved there from the KV heads' axis by one all_to_all where the
+KV heads split with the query heads, cut where they are whole; where
+`model` does not divide S the cache lies as k does. `pad_cache` takes it
+to the decode length, region by region, as the reference's caller does.
+`decode_step` on laid-out parameters and that cache (`build_decode`)
+runs the lookup, each layer (`attention.attn_decode_laid_out`: the
+cache written in place, a softmax split over the `kv_seq` slices) and
+the head per coordinate. Nothing is made whole but the joined results:
+the loss, and the logits. The dense family only; the other bodies and a
+sliding window's cache raise NotImplementedError (ROADMAP A item 6).
 
 Entry points:
   param_defs / init_params / abstract_params / param_specs
   forward(...)            logits, MoE aux losses (+ prefill cache)
   loss_fn(...)            next-token CE (masked-frame CE for audio) + aux
   prefill(...)            forward with the cache
-  init_cache / abstract_cache / cache_specs / decode_step
+  init_cache / abstract_cache / cache_specs / pad_cache / decode_step
 """
 
 from __future__ import annotations
@@ -79,7 +90,7 @@ from .layers import (DTYPE, ParamDef, abstract_tree, gathered, init_tree, map_de
 
 __all__ = ["param_defs", "init_params", "abstract_params", "param_specs",
            "forward", "loss_fn", "prefill", "init_cache", "abstract_cache",
-           "cache_specs", "decode_step", "is_laid_out", "REMAT_POLICIES"]
+           "cache_specs", "pad_cache", "decode_step", "is_laid_out", "REMAT_POLICIES"]
 
 
 # ---------------------------------------------------------------------------
@@ -314,9 +325,12 @@ def forward(params: dict, batch: dict, cfg: ArchConfig,
     On laid-out parameters it runs the partitioned program and returns
     the logits joined whole (training when autograd records and the
     parameters' shards require grad, as `laid_out_region` enters them)."""
+    if want_cache and _tracks_grad(params):
+        raise ValueError("the prefill cache comes from the inference "
+                         "forward; call prefill without grad")
     if is_laid_out(params):
         if want_cache:
-            raise NotImplementedError(f"prefill on a laid-out state: {_PREFILL_NEXT}")
+            return _prefill_laid_out(params, batch, cfg, rules)
         train = _tracks_grad(params)
         with torch.set_grad_enabled(train):
             prog, parts = _program(params, batch, cfg, rules)
@@ -325,9 +339,6 @@ def forward(params: dict, batch: dict, cfg: ArchConfig,
             zero = _zero(prog.mesh.local_device())
             return col.join(logits, spec, prog.mesh), zero, zero, None
     if _tracks_grad(params):
-        if want_cache:
-            raise ValueError("the prefill cache comes from the inference "
-                             "forward; call prefill without grad")
         return _train_forward(params, batch, cfg, rules, remat, remat_policy)
     with torch.inference_mode():
         x, positions = _embed_inputs(params, batch, cfg, rules)
@@ -388,7 +399,13 @@ def prefill(params: dict, batch: dict, cfg: ArchConfig,
     cache covers the whole prompt, also where a sliding window makes
     `init_cache` roll: to decode past the prompt, pad its S axis to the
     decode length first (a cache no longer than the window rolls; a longer
-    one attends without the window, as in the reference)."""
+    one attends without the window, as in the reference).
+
+    On laid-out parameters (a dense config without a window) the logits
+    come back joined and the cache laid out by `cache_specs(cfg, B, S,
+    rules)`, DistArrays each coordinate of which holds only its region;
+    `pad_cache` takes it to the decode length, laid out by `cache_specs`
+    at that length, which `decode_step` then runs over."""
     return forward(params, batch, cfg, rules, want_cache=True)
 
 
@@ -452,14 +469,37 @@ def cache_specs(cfg: ArchConfig, batch: int, seq_len: int,
             for k, v in abstract_cache(cfg, batch, seq_len).items()}
 
 
+def pad_cache(cache: dict, cfg: ArchConfig, seq_len: int,
+              rules: ShardingRules = DEFAULT_RULES) -> dict:
+    """A laid-out prefill cache (`prefill` on laid-out parameters) at the
+    decode length `seq_len`, laid out by `cache_specs(cfg, B, seq_len,
+    rules)`: what the reference's caller builds with `init_cache(cfg, B,
+    seq_len)`, `.at[:, :, :S].set(...)` of the prompt's k and v, and a
+    placement by `cache_specs`. Each coordinate makes only its own region,
+    zero past the prompt, the prompt's entries copied in from the
+    coordinates that hold them (`col.assemble`, counted as "reshard"); pos
+    is kept."""
+    mesh = cache["k"].mesh
+    b, s = cache["k"].shape[1:3]
+    if seq_len < s:
+        raise ValueError(f"a decode length {seq_len} below the prompt's {s}")
+    specs = cache_specs(cfg, b, seq_len, rules, mesh)
+    shapes = abstract_cache(cfg, b, seq_len)
+    return {k: col.relayout(x, specs[k]) if k == "pos" else
+            col.assemble([((0,) * len(x.shape), x)], shapes[k].shape, specs[k], mesh,
+                         zero_fill=True)
+            for k, x in cache.items()}
+
+
 def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
                 cfg: ArchConfig, rules: ShardingRules = DEFAULT_RULES):
     """One decode step. tokens: (B,) ids. Returns (logits (B, V) f32,
     new_cache). The cache's k, v and SSM state are written in place (the
     reference's jitted callers donate them); new_cache shares them and has
-    pos + 1."""
+    pos + 1. On laid-out parameters the cache must be laid out by
+    `cache_specs` (as `pad_cache` gives it); the logits come back joined."""
     if is_laid_out(params):
-        raise NotImplementedError(f"decode on a laid-out state: {_PREFILL_NEXT}")
+        return _decode_laid_out(params, cache, tokens, cfg, rules)
     with torch.inference_mode():
         pos = cache["pos"]
         x = embed_lookup(params["embed"], tokens[:, None]).to(DTYPE)
@@ -503,8 +543,6 @@ def _ssm_decode(lp: dict, h: torch.Tensor, cache: dict, i: int,
 # The partitioned program: a laid-out state, per coordinate
 # ---------------------------------------------------------------------------
 
-_PREFILL_NEXT = ("ROADMAP A item 5 (partitioned prefill, its cache laid out by "
-                 "cache_specs, and decode over a sequence-split cache)")
 _BODIES_NEXT = "ROADMAP A item 6 (the MoE, SSM, hybrid, audio and VLM bodies)"
 
 
@@ -529,8 +567,8 @@ def _program(params: dict, batch: dict, cfg: ArchConfig, rules: ShardingRules):
         else:
             v = col.distribute(v.to(mesh.local_device()), spec, mesh)
         parts[key] = col.per_coord(v)
-    b, s = batch["tokens"].shape
-    return Program(mesh, rules, b, s), parts
+    shape = tuple(batch["tokens"].shape)        # (B, S), or decode's (B,)
+    return Program(mesh, rules, shape[0], shape[1] if len(shape) > 1 else 1), parts
 
 
 def _unstack_laid_out(tree: dict, n: int) -> list[dict]:
@@ -562,11 +600,14 @@ def _norm_laid_out(cfg: ArchConfig, params: dict, name: str, x: dict) -> dict:
             for c, t in x.items()}
 
 
-def _layer_laid_out(cfg: ArchConfig, prog: Program, lp: dict, x: dict) -> dict:
+def _layer_laid_out(cfg: ArchConfig, prog: Program, lp: dict, x: dict,
+                    attend=None) -> dict:
     """One dense layer of the partitioned program; every phase runs over
-    every coordinate before the next."""
+    every coordinate before the next. `attend(params, h)` is the
+    attention (default: `attn_apply_laid_out`)."""
     h = _norm_laid_out(cfg, lp, "attn_norm", x)
-    a = attention.attn_apply_laid_out(lp["attn"], h, cfg, prog)
+    a = (attend(lp["attn"], h) if attend is not None
+         else attention.attn_apply_laid_out(lp["attn"], h, cfg, prog))
     x = {c: t + a[c] for c, t in x.items()}
     del a, h
     h = _norm_laid_out(cfg, lp, "mlp_norm", x)
@@ -575,27 +616,15 @@ def _layer_laid_out(cfg: ArchConfig, prog: Program, lp: dict, x: dict) -> dict:
     return prog.shard(x, (prog.batch, prog.seq, cfg.d_model), "batch", "seq", "embed")
 
 
-def _forward_laid_out(params: dict, tokens: dict, cfg: ArchConfig, prog: Program,
-                      remat: bool, remat_policy: str):
-    """Each coordinate's f32 logits (B_loc, S, V_loc) and their spec. With
-    remat each layer runs under `torch.utils.checkpoint`: the recompute
-    gathers its weights again, as the reference's remat does."""
-    if remat_policy not in REMAT_POLICIES:
-        raise ValueError(f"unknown remat_policy {remat_policy!r}; want one of "
-                         f"{REMAT_POLICIES}")
-    xshape = (prog.batch, prog.seq, cfg.d_model)
+def _embed_laid_out(params: dict, tokens: dict, cfg: ArchConfig, prog: Program) -> dict:
+    """Each coordinate's token embeddings (B_loc, S, d) in DTYPE."""
     x = {c: t.to(DTYPE) for c, t in embed_lookup_laid_out(params["embed"], tokens).items()}
-    x = prog.shard(x, xshape, "batch", "seq", "embed")
-    context_fn = torch_checkpoint.noop_context_fn
-    if remat_policy == "dots":
-        context_fn = functools.partial(
-            torch_checkpoint.create_selective_checkpoint_contexts, _dots_policy)
-    for lp in _unstack_laid_out(params["layers"], cfg.n_layers):
-        if remat:
-            x = torch_checkpoint.checkpoint(_layer_laid_out, cfg, prog, lp, x,
-                                            use_reentrant=False, context_fn=context_fn)
-        else:
-            x = _layer_laid_out(cfg, prog, lp, x)
+    return prog.shard(x, (prog.batch, prog.seq, cfg.d_model), "batch", "seq", "embed")
+
+
+def _head_laid_out(params: dict, x: dict, cfg: ArchConfig, prog: Program):
+    """The final norm and the head on each coordinate's vocabulary columns:
+    its f32 logits (B_loc, S, V_loc), and their spec."""
     x = _norm_laid_out(cfg, params, "final_norm", x)
     lshape = (prog.batch, prog.seq, cfg.vocab)
     spec = prog.spec(lshape, ("batch", "seq", "vocab"))
@@ -606,6 +635,115 @@ def _forward_laid_out(params: dict, tokens: dict, cfg: ArchConfig, prog: Program
         head = gathered(params["lm_head"], (None, spec[2]))
         logits = {c: torch.matmul(t.float(), head[c].float()) for c, t in x.items()}
     return prog.shard(logits, lshape, "batch", "seq", "vocab"), spec
+
+
+def _forward_laid_out(params: dict, tokens: dict, cfg: ArchConfig, prog: Program,
+                      remat: bool, remat_policy: str, cache: dict | None = None):
+    """Each coordinate's f32 logits (B_loc, S, V_loc) and their spec. With
+    remat each layer runs under `torch.utils.checkpoint`: the recompute
+    gathers its weights again, as the reference's remat does. Given the
+    laid-out arrays of a prefill `cache`, each layer writes its k and v
+    into them (`_attend_and_cache`)."""
+    if remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat_policy {remat_policy!r}; want one of "
+                         f"{REMAT_POLICIES}")
+    x = _embed_laid_out(params, tokens, cfg, prog)
+    context_fn = torch_checkpoint.noop_context_fn
+    if remat_policy == "dots":
+        context_fn = functools.partial(
+            torch_checkpoint.create_selective_checkpoint_contexts, _dots_policy)
+    for i, lp in enumerate(_unstack_laid_out(params["layers"], cfg.n_layers)):
+        attend = (None if cache is None
+                  else functools.partial(_attend_and_cache, cfg, prog, cache, i))
+        if remat:
+            x = torch_checkpoint.checkpoint(_layer_laid_out, cfg, prog, lp, x, attend,
+                                            use_reentrant=False, context_fn=context_fn)
+        else:
+            x = _layer_laid_out(cfg, prog, lp, x, attend)
+    return _head_laid_out(params, x, cfg, prog)
+
+
+def _cache_layout(kv: dict, kv_ax, spec, prog: Program) -> dict:
+    """A layer's k or v at every coordinate, (B_loc, S, KV_loc, hd) as the
+    attention made it, in the cache's layout `spec` (its entries after the
+    layers'): moved from the KV heads' axis to the sequence's by one
+    all_to_all where the KV heads split; cut to the coordinate's part of
+    the sequence where they are whole; as it is where the sequence is
+    whole (the cache's KV heads then lie as k's)."""
+    _, s_ax, kvh_ax, _ = spec
+    if s_ax is None and kvh_ax == kv_ax:
+        return kv
+    if s_ax is None or kvh_ax is not None or kv_ax not in (None, s_ax):
+        raise ValueError(f"a cache laid out by {tuple(spec)} from k with its KV heads "
+                         f"over {kv_ax!r}")
+    if kv_ax is not None:
+        return col.all_to_all(kv, kv_ax, 1, 2, prog.mesh)
+    chunk = prog.seq // col.axis_size(s_ax, prog.mesh)
+    idx = col.axis_index(s_ax, prog.mesh)
+    return {c: t.narrow(1, idx[c] * chunk, chunk) for c, t in kv.items()}
+
+
+def _attend_and_cache(cfg: ArchConfig, prog: Program, cache: dict, i: int, params: dict,
+                      h: dict) -> dict:
+    """Layer i's attention, its k and v written into the prefill cache's
+    layer i at each of this process's coordinates."""
+    y, k, v = attention.attn_apply_laid_out(params, h, cfg, prog, want_kv=True)
+    shape = (prog.batch, prog.seq, cfg.n_kv_heads, cfg.head_dim)
+    kv_ax = prog.spec(shape, ("batch", "seq", "kv_heads", None))[2]
+    for key, parts in (("k", k), ("v", v)):
+        parts = prog.shard(_cache_layout(parts, kv_ax, cache[key].spec[1:], prog), shape,
+                           "batch", "kv_seq", "kv_heads", None)
+        for c in prog.mesh.local_coords():
+            cache[key].shards[c][i] = parts[c]
+    return y
+
+
+def _prefill_laid_out(params: dict, batch: dict, cfg: ArchConfig, rules: ShardingRules):
+    """`prefill` on laid-out parameters, under `torch.inference_mode()`:
+    the joined logits and the cache laid out by `cache_specs(cfg, B, S)`."""
+    with torch.inference_mode():
+        prog, parts = _program(params, batch, cfg, rules)
+        if cfg.sliding_window:
+            raise NotImplementedError(f"a sliding window's cache on a laid-out state: "
+                                      f"{_BODIES_NEXT}")
+        specs = cache_specs(cfg, prog.batch, prog.seq, rules, prog.mesh)
+        cache = {k: col.empty(t.shape, specs[k], prog.mesh, t.dtype)
+                 for k, t in abstract_cache(cfg, prog.batch, prog.seq).items()}
+        for t in cache["pos"].shards.values():
+            t.fill_(prog.seq)
+        logits, spec = _forward_laid_out(params, parts["tokens"], cfg, prog, False, "full",
+                                         cache)
+        zero = _zero(prog.mesh.local_device())
+        return col.join(logits, spec, prog.mesh), zero, zero, cache
+
+
+def _decode_laid_out(params: dict, cache: dict, tokens, cfg: ArchConfig,
+                     rules: ShardingRules):
+    """`decode_step` on laid-out parameters and a cache laid out by
+    `cache_specs`, under `torch.inference_mode()`: the lookup, each layer
+    (`attn_decode_laid_out`, writing the cache in place, and the MLP) and
+    the head per coordinate; the logits (B, V) joined, and the cache with
+    pos + 1."""
+    with torch.inference_mode():
+        prog, parts = _program(params, {"tokens": tokens}, cfg, rules)
+        mesh = prog.mesh
+        specs = cache_specs(cfg, prog.batch, cache["k"].shape[2], rules, mesh)
+        for key, x in cache.items():
+            if not isinstance(x, DistArray) or x.spec != tuple(specs[key]):
+                raise ValueError(f"the cache's {key!r} is not laid out by cache_specs: "
+                                 f"want {tuple(specs[key])}")
+        pos = col.per_coord(cache["pos"])
+        x = _embed_laid_out(params, {c: t[:, None] for c, t in parts["tokens"].items()},
+                            cfg, prog)
+        layers = zip(_unstack_laid_out(params["layers"], cfg.n_layers),
+                     _unstack_laid_out({"k": cache["k"], "v": cache["v"]}, cfg.n_layers))
+        for lp, kv in layers:
+            x = _layer_laid_out(cfg, prog, lp, x, functools.partial(
+                attention.attn_decode_laid_out, cache_k=kv["k"], cache_v=kv["v"], pos=pos,
+                cfg=cfg, prog=prog))
+        logits, spec = _head_laid_out(params, x, cfg, prog)
+        new_cache = {**cache, "pos": col.zip_map(lambda p: p + 1, cache["pos"])}
+        return col.join(logits, spec, mesh)[:, 0], new_cache
 
 
 def _loss_laid_out(params: dict, batch: dict, cfg: ArchConfig, rules: ShardingRules,

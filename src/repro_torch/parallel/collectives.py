@@ -105,8 +105,8 @@ from ..launch.mesh import Mesh, current_mesh
 from . import transport
 
 __all__ = ["DistArray", "Region", "grid_spec", "panel_spec", "region_of",
-           "fetch", "take", "assemble", "distribute", "zip_map", "once_per_device",
-           "summa", "ring", "grid_to_panel", "panel_to_grid", "row_apply",
+           "fetch", "take", "assemble", "distribute", "empty", "zip_map",
+           "once_per_device", "summa", "ring", "grid_to_panel", "panel_to_grid", "row_apply",
            "map_regions",
            "gather", "relayout", "collective_bytes", "collective_calls",
            "reset_collective_bytes", "summed_counts", "split", "join", "region",
@@ -535,6 +535,16 @@ def distribute(t: torch.Tensor, spec: Sequence[str | None],
         return piece if piece.device == dev else piece.to(dev)
 
     return _layout(mesh, t.shape, spec, make, everywhere=True)
+
+
+def empty(shape: Sequence[int], spec: Sequence[str | None], mesh: Mesh,
+          dtype: torch.dtype) -> DistArray:
+    """An uninitialised array laid out by `spec`: each process allocates
+    its own coordinates' regions, one tensor a distinct region a place."""
+    _check_spec(shape, spec, mesh)
+    return _layout(mesh, tuple(shape), spec,
+                   lambda c, r: torch.empty(_sizes(r), dtype=dtype, device=mesh.device(c)),
+                   everywhere=True)
 
 
 @_exchanging

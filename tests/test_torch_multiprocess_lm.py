@@ -29,7 +29,10 @@ its own coordinates' shards): two AdamW steps of reduced olmo-1b on
 scales) on (4, 2) over 4, every rank's losses, grad norms and gathered
 parameters the single process's bits, the bytes and calls summed over
 the ranks its counts, and a rank's state bytes those of its own
-coordinates' regions.
+coordinates' regions. Partitioned serving (a prefill of reduced olmo-1b
+on parameters laid out over (2, 4), the cache padded, 3 decode steps)
+over 2 processes: every rank's logits and final cache the single
+process's bits, and a rank's cache and parameter bytes its own regions'.
 """
 
 import dataclasses
@@ -237,3 +240,42 @@ def test_a_rank_holds_only_its_coordinates_shards(partition_run):
         # scales) are held once a process; the rest splits over them
         assert rank["held"] * nprocs < 1.01 * ref["held"]
     assert sum(rank["held"] for rank in got) >= ref["held"]
+
+
+SERVE_SHAPE, SERVE_PROCS = (2, 4), 2
+
+
+@pytest.fixture(scope="module")
+def serve_run():
+    total = SERVE_SHAPE[0] * SERVE_SHAPE[1]
+    return (spawn("serve", SERVE_PROCS, shape=list(SERVE_SHAPE), devices=total // SERVE_PROCS),
+            ranks.run_here("serve", shape=list(SERVE_SHAPE), devices=total))
+
+
+def test_partitioned_serving_across_processes_is_the_single_process_bits(serve_run):
+    """Prefill and 3 decode steps of reduced olmo-1b on parameters laid out
+    over (2, 4), process p holding data row p: every rank's logits and
+    final cache the single process's bits, the bytes and calls summed over
+    the ranks its counts."""
+    got, ref = serve_run
+    assert all(bool(torch.isfinite(lg).all()) for lg in ref["logits"])
+    assert sorted(c for rank in got for c in rank["local"]) == sorted(ref["local"])
+    for rank in got:
+        assert len(rank["logits"]) == len(ref["logits"]) == 4
+        assert all(torch.equal(a, b) for a, b in zip(rank["logits"], ref["logits"]))
+        assert rank["cache"].keys() == ref["cache"].keys()
+        assert all(torch.equal(rank["cache"][k], ref["cache"][k]) for k in ref["cache"])
+    _assert_sums(got, ref)
+    assert _summed(got, "bytes")["all_to_all"] > 0 and _summed(got, "bytes")["pmax"] > 0
+
+
+def test_a_rank_holds_only_its_cache_regions(serve_run):
+    """After the prefill, the move to the decode length and every step, a
+    rank's cache bytes are those of its own coordinates' regions: half of
+    the single process's; and its parameter bytes its own shards'."""
+    got, ref = serve_run
+    assert ref["held"] == ref["own"] and ref["params_held"] == ref["params_own"]
+    for rank in got:
+        assert rank["held"] == rank["own"] and rank["params_held"] == rank["params_own"]
+        assert all(h * SERVE_PROCS == r for h, r in zip(rank["held"], ref["held"]))
+        assert rank["params_held"] * SERVE_PROCS < 1.01 * ref["params_held"]

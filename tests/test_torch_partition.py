@@ -34,6 +34,8 @@ kind in one step equal `launch.dryrun.partitioned_step_collectives`,
 written from the shapes.
 """
 
+import dataclasses
+
 import jax
 import numpy as np
 import pytest
@@ -347,6 +349,8 @@ def test_spin_shampoo_on_a_laid_out_state_raises():
 
 
 def test_other_bodies_prefill_and_decode_on_a_laid_out_state_raise():
+    """The other families' bodies, their prefill and decode too, and a
+    dense config's sliding window (a rolling cache) are item 6's."""
     mesh = _mesh((2, 4))
     cfg = get_arch("qwen2-moe-a2.7b").reduced()
     params = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu", HINT)
@@ -354,13 +358,14 @@ def test_other_bodies_prefill_and_decode_on_a_laid_out_state_raise():
     laid = lay_out(params, _named(specs, mesh))
     with pytest.raises(NotImplementedError, match="item 6"):
         T.loss_fn(laid, _batch(cfg), cfg)
-    cfg = get_arch("olmo-1b").reduced()
-    params = _state("olmo-1b", mesh).params
-    with pytest.raises(NotImplementedError, match="item 5"):
-        T.prefill(params, _batch(cfg), cfg)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        T.decode_step(params, T.init_cache(cfg, B, S, "cpu"), torch.zeros(B, dtype=torch.long),
+    with pytest.raises(NotImplementedError, match="item 6"):
+        T.prefill(laid, _batch(cfg), cfg)
+    with pytest.raises(NotImplementedError, match="item 6"):
+        T.decode_step(laid, T.init_cache(cfg, B, S, "cpu"), torch.zeros(B, dtype=torch.long),
                       cfg)
+    cfg = dataclasses.replace(get_arch("olmo-1b").reduced(), sliding_window=S // 2)
+    with pytest.raises(NotImplementedError, match="item 6"):
+        T.prefill(_state("olmo-1b", mesh).params, _batch(cfg), cfg)
 
 
 def _named(specs: dict, mesh):

@@ -250,6 +250,49 @@ def partition(shape, devices: int, name: str = "olmo-1b", steps: int = 2,
     return out
 
 
+def serve(shape, devices: int, name: str = "olmo-1b", cache_len: int = 48, steps: int = 3,
+          seed: int = 3) -> dict:
+    """The partitioned serving path of reduced `name` on parameters laid out
+    by the default rules' specs over `shape`: a prefill of 8 x 32 tokens
+    (its cache laid out by `cache_specs`), the cache padded to `cache_len`
+    (`pad_cache`), then `steps` decode steps fed their argmax. Every
+    logits tensor, the final cache gathered whole, the bytes and calls by
+    kind, and after each phase the cache bytes held beside those of the
+    process's own regions (and the parameters' at the end)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel.sharding import NamedSharding, lay_out
+
+    def named(specs):
+        return {k: named(v) if isinstance(v, dict) else NamedSharding(mesh, v)
+                for k, v in specs.items()}
+
+    mesh = make_worker_mesh(tuple(shape), devices=["cpu"] * devices)
+    cfg = get_arch(name).reduced()
+    whole = T.init_params(cfg, torch.Generator().manual_seed(seed), "cpu")
+    params = lay_out(whole, named(T.param_specs(cfg, mesh=mesh)))
+    del whole
+    tokens = torch.from_numpy(np.random.default_rng(seed).integers(0, cfg.vocab, (8, 32)))
+    col.reset_collective_bytes()
+    logits, _, _, cache = T.prefill(params, {"tokens": tokens}, cfg)
+    out = {"logits": [logits], "held": [_held_bytes(cache)], "own": [_own_bytes(cache)]}
+    cache = T.pad_cache(cache, cfg, cache_len)
+    tok = torch.argmax(logits[:, -1], -1)
+    for _ in range(steps):
+        out["held"].append(_held_bytes(cache))
+        out["own"].append(_own_bytes(cache))
+        lg, cache = T.decode_step(params, cache, tok, cfg)
+        out["logits"].append(lg)
+        tok = torch.argmax(lg, -1)
+    out["held"].append(_held_bytes(cache))
+    out["own"].append(_own_bytes(cache))
+    out["params_held"], out["params_own"] = _held_bytes(params), _own_bytes(params)
+    out.update(_counts())
+    out["cache"] = {k: col.gather(v) for k, v in cache.items()}
+    out["local"] = mesh.local_coords()
+    return out
+
+
 def fail_early() -> dict:
     """Rank 1 raises before any collective."""
     from repro_torch.launch.mesh import worker_info
@@ -285,7 +328,7 @@ def skip_collective() -> dict:
 
 
 CASES = {"spin": spin, "regions": regions, "lm": lm, "train": train, "partition": partition,
-         "fail_early": fail_early, "fail_mid_collective": fail_mid_collective,
+         "serve": serve, "fail_early": fail_early, "fail_mid_collective": fail_mid_collective,
          "skip_collective": skip_collective}
 
 
