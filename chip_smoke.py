@@ -324,14 +324,48 @@ Phases, each of which fails the run (non-zero exit) on any fault:
      prefill and 4 decode steps of olmo cut to 2 layers: their logits and
      cache digests equal the single process's, each rank holding half its
      cache bytes; `phase_s["24"]` printed;
- 25. one JSON line with every path's times and residual (the examples'
+ 25. the partitioned MoE: qwen2-moe-a2.7b at full width on phase 19's
+     mesh (data 2, model 4) of cuda:0, 16 experts a model shard, the
+     experts laid out by `param_specs` and dispatched expert-parallel by
+     `models.moe.moe_apply_laid_out`: (a) the block alone (B 4 x S 2048)
+     against the region path `moe_apply` under the same mesh on the same
+     bits: out, aux and z bitwise, every gradient within 2^-5 of its
+     largest entry, the forward's and backward's bytes and calls equal to
+     `launch.dryrun.moe_block_collectives`; (b) the AdamW step cut to 4
+     layers, 8 x 2048 tokens in 2 microbatches, full remat, against phase
+     19's global-view mesh step on the same weights and first batch (run
+     first on the whole state and freed): the loss within 2e-3, the grad
+     norm's gap and each layer's share of routes alike printed, B6 32 x L
+     and B6-bwd 16 x L launches a step and no other kernel, bytes and calls
+     equal to `partitioned_step_collectives`, a warm-up and 3 timed steps
+     (ms, tokens/s, peak GiB) beside the mesh step's, every state leaf
+     still a DistArray of its spec; (c) prefill and decode at full depth
+     (24 layers), its parameters laid out by `param_specs`, against the
+     global view under the same mesh (run first, its logits and routes kept
+     on the host, then freed): a prefill of 4 x 2048, `pad_cache` to 4096,
+     a warm-up and 16 decode steps fed the reference run's tokens, the
+     logits within phase 17's bound (0.5) on the tokens routed alike at
+     every layer (the first layer's share at least 0.9, decode's pooled
+     over its steps), the argmax equal there where the top-2 margin exceeds
+     it, B6 8 x L launches a prefill and none in decode, bytes and calls
+     equal to `partitioned_serve_collectives`, prefill ms, decode ms a step
+     and peak GiB beside the reference's; (d) two ranks of their own
+     (`python3 chip_smoke.py --rank-case moe <dir>`, process p holding data
+     row p) run 2 steps of qwen2-moe cut to 1 layer, then a prefill of
+     4 x 512 and 4 decode steps over a 1024-slot cache: losses, parameter,
+     logit and cache digests equal the single process's, each rank holding
+     its own regions of the state and half the cache; B6 and B6-bwd against
+     their plain versions at a coordinate's shape (2, 4, 2048, 128);
+     `phase_s["25"]` and the script's total seconds printed;
+ 26. one JSON line with every path's times and residual (the examples'
      wall, launches and peak memory under "examples", phase 22's ranks
      under "processes", phase 23's under "partition", phase 24's under
-     "serve_partition"), and one with every kernel's launches, error and
-     times (the GEMM's, blocked Gauss-Jordan's and triangular solve's
-     launches on every path beside them, the examples' runs and phase
-     22's ranks, each rank's and their sum, included, and B6's and
-     B6-bwd's at a coordinate of phases 23 and 24).
+     "serve_partition", phase 25's under "partition_moe"), and one with
+     every kernel's launches, error and times (the GEMM's, blocked
+     Gauss-Jordan's and triangular solve's launches on every path beside
+     them, the examples' runs and phase 22's ranks, each rank's and their
+     sum, included, and B6's and B6-bwd's at a coordinate of phases 23, 24
+     and 25).
 
 The last line is {"ok": true, "device": {...}}. The script imports only
 the PyTorch port; it exits non-zero without a result when CUDA is missing
@@ -520,6 +554,23 @@ SERVE_BOUND = LM_CONSISTENCY_BOUND
 # tests/test_torch_partition.py (2^-5 of the largest entry)
 SERVE_LAYER_RTOL = 2.0 ** -5
 SERVE_PROCS, SERVE_PROC_LAYERS, SERVE_PROC_STEPS = 2, 2, 4
+# Phase 25: the partitioned MoE. qwen2-moe-a2.7b at full width on phase
+# 19's mesh (data 2, model 4) of cuda:0, 16 experts a model shard
+# (MESH_HINT): (a) the block alone against the region path `moe_apply` (out,
+# aux and z bitwise, gradients within 2^-5 of their largest entry); (b) the
+# AdamW step cut to phase 19's depth against the global-view mesh step; (c)
+# prefill and decode at full depth against the global view (phase 17's
+# rule: SERVE_BOUND on the tokens routed alike at every layer); (d) two
+# ranks of their own, qwen2-moe cut to 1 layer.
+PMOE_BLOCK_RTOL = 2.0 ** -5
+PMOE_LAYERS = MESH_LAYERS         # (b)'s depth: the whole state of 4 layers fits 80 GB
+PMOE_STEPS = 3                    # (b)'s timed steps after one warm-up
+PMOE_RTOL = 2e-3                  # (b)'s first loss against the mesh step's
+PMOE_SERVE_BATCH = 4              # (c): 4 x 2048, the cache padded to 4096
+PMOE_SERVE_PROMPT, PMOE_SERVE_CACHE = 2048, 4096
+PMOE_SERVE_STEPS = 16             # (c)'s timed decode steps after one warm-up
+PMOE_PROCS, PMOE_PROC_LAYERS, PMOE_PROC_STEPS = 2, 1, 2
+PMOE_PROC_PROMPT, PMOE_PROC_CACHE, PMOE_PROC_DECODE = 512, 1024, 4
 U_F32 = 2.0 ** -24                # f32 unit roundoff
 # The refresh residual's bound: c·n·u·κ, the first-order bound on an
 # inverse's residual by elimination, with c = 4 over the 1.3 measured at
@@ -3658,10 +3709,16 @@ def _rank_case(torch, case: str, keep: str) -> dict:
     """What one rank of a phase-22 spawn runs: "four" (4 ranks: (a) with a
     coordinate a rank, (b), (c), (d)) or "two" (2 ranks: (a) with two
     coordinates a rank, then (e)); of phase 23's: "partition" (2 ranks,
-    the partitioned steps, (b)); or of phase 24's: "serve" (2 ranks,
-    partitioned prefill and decode, (b))."""
+    the partitioned steps, (b)); of phase 24's: "serve" (2 ranks,
+    partitioned prefill and decode, (b)); or of phase 25's: "moe" (2
+    ranks, the partitioned MoE step, prefill and decode, (d))."""
     t0 = time.perf_counter()
-    if case == "serve":                       # phase 24 (b)
+    if case == "moe":                         # phase 25 (d)
+        from repro_torch.launch.mesh import make_worker_mesh
+
+        n = MESH_SHAPE[0] * MESH_SHAPE[1] // PMOE_PROCS
+        out = _pmoe_digests(torch, make_worker_mesh(MESH_SHAPE, devices=["cuda:0"] * n))
+    elif case == "serve":                     # phase 24 (b)
         from repro_torch.launch.mesh import make_worker_mesh
 
         n = SERVE_SHAPE[0] * SERVE_SHAPE[1] // SERVE_PROCS
@@ -3922,12 +3979,30 @@ def _held_gib(torch, state) -> float:
     return sum(seen.values()) / 2 ** 30
 
 
-def _partition_steps(torch, cfg, mesh, steps: int) -> dict:
+def _own_gib(tree) -> float:
+    """GiB of this process's coordinates' regions of every laid-out leaf of
+    `tree`, each distinct region of a place once."""
+    from repro_torch.tree import leaves
+
+    total = 0
+    for x in leaves(tree):
+        local = x.mesh.local_coords()
+        for _, r in {(x.mesh.place(c), x.region(c)) for c in local}:
+            n = x.shards[local[0]].element_size()
+            for lo, hi in r:
+                n *= hi - lo
+            total += n
+    return total / 2 ** 30
+
+
+def _partition_steps(torch, cfg, mesh, steps: int, model_size_hint: int = 16,
+                     keep_state: bool = False) -> dict:
     """`steps` AdamW steps of `cfg` on phase 18's seeded state laid out by
     the reference's specs over `mesh` (in one process, or this process's
     part of a mesh that spans processes), 8 x 2048 tokens in 2
     microbatches: losses, each step's wall and exchange ms, the state's
-    GiB, peak GiB, and a digest of every parameter gathered whole."""
+    GiB, peak GiB, and a digest of every parameter gathered whole; the
+    final state too with `keep_state`."""
     from repro_torch import kernels
     from repro_torch.data.synthetic import TokenStream
     from repro_torch.parallel import transport
@@ -3941,8 +4016,9 @@ def _partition_steps(torch, cfg, mesh, steps: int) -> dict:
     tcfg = TrainConfig(microbatches=TRAIN_MICRO, optimizer="adamw", warmup=1)
     gc.collect()
     torch.cuda.empty_cache()
-    whole = init_state(cfg, tcfg, torch.Generator(device=dev).manual_seed(SEED), dev)
-    state = lay_out(whole, state_shardings(cfg, tcfg, mesh))
+    whole = init_state(cfg, tcfg, torch.Generator(device=dev).manual_seed(SEED), dev,
+                       model_size_hint)
+    state = lay_out(whole, state_shardings(cfg, tcfg, mesh, model_size_hint=model_size_hint))
     del whole
     gc.collect()
     torch.cuda.empty_cache()
@@ -3966,6 +4042,8 @@ def _partition_steps(torch, cfg, mesh, steps: int) -> dict:
     out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     out["state_gib"] = held
     out["digests"] = [_digest(torch, gather(p)) for p in leaves(state.params)]
+    if keep_state:
+        out["state"] = state
     del state
     gc.collect()
     torch.cuda.empty_cache()
@@ -4169,9 +4247,10 @@ def _laid_out_params(torch, cfg, mesh):
     return whole, lay_out(whole, _shardings(T.param_specs(cfg, mesh=mesh), mesh))
 
 
-def _serve_laid_out(torch, cfg, params, prompts, fed=None, steps: int = 0) -> dict:
+def _serve_laid_out(torch, cfg, params, prompts, fed=None, steps: int = 0,
+                    cache_len: int = SERVE_CACHE) -> dict:
     """On laid-out `params`: a prefill of `prompts` (its logits, launches,
-    bytes and calls by kind, wall ms), the cache padded to SERVE_CACHE,
+    bytes and calls by kind, wall ms), the cache padded to `cache_len`,
     then one decode step a token of `fed` (or `steps` steps fed their own
     argmax), each step's logits, bytes, calls and wall ms; the cache's
     GiB held after each phase, its leaves' specs and shard shapes, and the
@@ -4197,7 +4276,7 @@ def _serve_laid_out(torch, cfg, params, prompts, fed=None, steps: int = 0) -> di
     (logits, _, _, cache), prefill = counted(lambda: T.prefill(params, {"tokens": prompts},
                                                                 cfg))
     out = {"prefill": prefill, "prefill_logits": logits, "held_gib": [_held_gib(torch, cache)]}
-    cache = T.pad_cache(cache, cfg, SERVE_CACHE)
+    cache = T.pad_cache(cache, cfg, cache_len)
     out["held_gib"].append(_held_gib(torch, cache))
     tok = torch.argmax(logits[:, -1], -1)
     del logits
@@ -4493,6 +4572,514 @@ def run_serve_partition(torch, keep: str) -> dict:
     return {"serve": a, "ranks": b}
 
 
+# ---------------------------------------------------------------------------
+# Phase 25: the partitioned MoE (laid-out experts, per coordinate)
+# ---------------------------------------------------------------------------
+
+
+def _pmoe_cfg(layers: int | None = None):
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch(MESH_ARCH)
+    return dataclasses.replace(cfg, n_layers=layers or cfg.n_layers)
+
+
+def _whole_grad(torch, laid, parts: dict):
+    """A laid-out leaf's whole gradient from its coordinates' parts: each
+    region the sum of its holders' parts, in coordinate order (plain
+    PyTorch on the card, not a collective)."""
+    whole = torch.zeros(laid.shape, dtype=torch.float32, device="cuda")
+    for c, g in parts.items():
+        if g is not None:
+            whole[tuple(slice(lo, hi) for lo, hi in laid.region(c))] += g.float()
+    return whole
+
+
+def check_moe_block_laid_out(torch, mesh) -> dict:
+    """Phase 25 (a): `moe_apply_laid_out` at full width (phase 19's block,
+    B 4 x S 2048) against the region path `moe_apply` under the same mesh
+    (phase 22's `_moe_fwd_bwd`) on the same bits: out, aux and z bitwise,
+    the gradients of x and of every weight within PMOE_BLOCK_RTOL of their
+    largest entry, the bytes and calls of the forward and backward equal
+    to `moe_block_collectives`; both timed."""
+    from repro_torch.launch.dryrun import moe_block_collectives
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.layers import spec_tree
+    from repro_torch.parallel import collectives as col
+    from repro_torch.parallel.sharding import DEFAULT_RULES, Program, lay_out
+    from repro_torch.tree import leaves_with_path
+
+    dev = torch.device("cuda")
+    cfg, params, x, ct = _moe_block(torch, dev)
+    _moe_fwd_bwd(torch, mesh, cfg, params, x, ct)                  # warm-up
+    t0 = time.perf_counter()
+    ref = _moe_fwd_bwd(torch, mesh, cfg, params, x, ct)
+    torch.cuda.synchronize()
+    region_ms = (time.perf_counter() - t0) * 1e3
+    laid = lay_out(params, _shardings(spec_tree(moe_mod.moe_params(cfg, MESH_HINT),
+                                                DEFAULT_RULES, mesh), mesh))
+    xs = col.distribute(x, ("data", None, None), mesh)
+    prog = Program(mesh, DEFAULT_RULES, x.shape[0], x.shape[1])
+
+    def run():
+        (out, aux, z), entered = col.laid_out_region(
+            lambda p, xx: moe_mod.moe_apply_laid_out(p, col.per_coord(xx), cfg, prog))(
+                laid, xs)
+        y = col.join(out, ("data", None, None), mesh)
+        aux, z = col.join(aux, (), mesh), col.join(z, (), mesh)
+        flat = leaves_with_path({"p": entered[0], "x": entered[1]})
+        inputs = [t for _, leaf in flat for t in col.per_coord(leaf).values()]
+        with col.backward_context(mesh):
+            gs = iter(torch.autograd.grad((y.float() * ct).sum() + aux + z, inputs,
+                                          allow_unused=True))
+        grads = {k: _whole_grad(torch, leaf, {c: next(gs) for c in mesh.coords()})
+                 for k, leaf in flat}
+        return y.detach(), aux.detach(), z.detach(), grads
+
+    col.reset_collective_bytes()
+    y, aux, z, grads = run()
+    moved, calls = col.collective_bytes(), col.collective_calls()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    laid_ms = (time.perf_counter() - t0) * 1e3
+    names = {"x": "x", "p|router": "router", "p|wi": "wi", "p|wg": "wg", "p|wo": "wo",
+             "p|shared|wi": "shared_wi", "p|shared|wg": "shared_wg",
+             "p|shared|wo": "shared_wo"}
+    errs = {}
+    for key, g in grads.items():
+        w = ref["grads"][names[key]].float()
+        errs[names[key]] = float((g - w).abs().max()) / float(w.abs().max())
+    want_moved, want_calls = moe_block_collectives(cfg, MESH_SHAPE, "default", x.shape[0],
+                                                   x.shape[1], MESH_HINT, backward=True)
+    out = {"bitwise": {"out": bool(torch.equal(y, ref["y"])),
+                       "aux": bool(torch.equal(aux, ref["aux"])),
+                       "z": bool(torch.equal(z, ref["z"]))},
+           "grad_rel_err": errs, "bound": PMOE_BLOCK_RTOL, "ms": laid_ms,
+           "region_ms": region_ms, "bytes": {k: v for k, v in moved.items() if v},
+           "calls": {k: v for k, v in calls.items() if v}}
+    print(f"path partition_moe_block: {json.dumps(out)}", flush=True)
+    require(all(out["bitwise"].values()),
+            f"partition moe block: not the region path's bits {out['bitwise']}")
+    require(len(errs) == len(ref["grads"]) and all(e <= PMOE_BLOCK_RTOL for e in errs.values()),
+            f"partition moe block: gradients {errs}")
+    require({k: moved[k] for k in want_moved} == want_moved
+            and all(v == 0 for k, v in moved.items() if k not in want_moved)
+            and {k: calls[k] for k in want_calls} == want_calls,
+            f"partition moe block: bytes {moved} calls {calls}, want {want_moved} "
+            f"{want_calls}")
+    del ref, laid, xs, params, x, ct, y, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_partition_moe_train(torch, mesh) -> dict:
+    """Phase 25 (b): qwen2-moe's partitioned AdamW step at full width (cut
+    to PMOE_LAYERS) on (data 2, model 4) of cuda:0, against phase 19's
+    global-view mesh step on the same weights and first batch (that step
+    runs first, on the whole state, and is freed before the laid-out one
+    is built)."""
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.launch.dryrun import partitioned_step_collectives
+    from repro_torch.launch.mesh import set_mesh
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.optim import adamw_init
+    from repro_torch.parallel import (DEFAULT_RULES, collective_bytes, collective_calls,
+                                      reset_collective_bytes)
+    from repro_torch.parallel.collectives import DistArray
+    from repro_torch.parallel.sharding import lay_out
+    from repro_torch.runtime.trainer import (TrainConfig, TrainState, init_state,
+                                             make_train_step, state_shardings)
+    from repro_torch.tree import leaves, tree_map
+
+    dev = torch.device("cuda")
+    cfg = _pmoe_cfg(PMOE_LAYERS)
+    print(f"partition_moe: {cfg.name} cut to {cfg.n_layers} of 24 layers for the step "
+          f"(phases 18b and 19: the whole state, AdamW's included, of 4 layers fits 80 GB "
+          f"beside a step's activations)", flush=True)
+    tcfg = TrainConfig(microbatches=TRAIN_MICRO, optimizer="adamw", warmup=1)
+    n_coords = MESH_SHAPE[0] * MESH_SHAPE[1]
+    gc.collect()
+    torch.cuda.empty_cache()
+    whole = init_state(cfg, tcfg, torch.Generator(device=dev).manual_seed(SEED), dev,
+                       MESH_HINT)
+    host = tree_map(lambda t: t.to("cpu"), whole.params)
+    stream = TokenStream(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=SEED, device=str(dev))
+    first = stream.next()
+
+    # the yardstick: the global-view step under the ambient mesh (the same
+    # EP capacities, so the same drops), its first step's routes recorded,
+    # then a step to time it beside
+    routes, uninstall = _route_recorder(moe_mod)
+    torch.cuda.reset_peak_memory_stats()
+    mesh_step = make_train_step(cfg, tcfg, DEFAULT_RULES)
+    try:
+        with set_mesh(mesh):
+            whole, ref, ref_first_ms = _timed_step(torch, mesh_step, whole, first)
+            ref_routes = routes[:cfg.n_layers * n_coords]
+            routes.clear()
+            whole, _, ref_ms = _timed_step(torch, mesh_step, whole, stream.next())
+    finally:
+        uninstall()
+    ref_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del whole, mesh_step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the laid-out state: the same parameters, laid out region by region
+    # from the host, AdamW's state made shard by shard
+    shardings = state_shardings(cfg, tcfg, mesh, DEFAULT_RULES, MESH_HINT)
+    params = lay_out(host, shardings.params)
+    del host
+    opt = adamw_init(params)
+    opt = opt._replace(step=lay_out(opt.step, shardings.opt.step))
+    state = TrainState(params, opt, lay_out(torch.zeros((), dtype=torch.int32),
+                                            shardings.step))
+    del params, opt
+    step = make_train_step(cfg, tcfg)
+    routes, uninstall = _route_recorder(moe_mod)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    reset_collective_bytes()
+    try:
+        state, m1, ms1 = _timed_step(torch, step, state, first)
+    finally:
+        uninstall()
+    launches = kernels.launch_counts()
+    moved, calls = collective_bytes(), collective_calls()
+    agree, _ = _token_agreement(torch, routes[:cfg.n_layers * n_coords], ref_routes,
+                                cfg.n_layers, mesh, TRAIN_BATCH // TRAIN_MICRO, TRAIN_SEQ)
+    del routes, ref_routes
+    print(f"path partition_moe_first_step: loss={m1['loss']!r} mesh_loss={ref['loss']!r} "
+          f"grad_norm={m1['grad_norm']!r} mesh_grad_norm={ref['grad_norm']!r} "
+          f"grad_norm_gap={abs(m1['grad_norm'] - ref['grad_norm'])!r} aux={m1['aux']!r} "
+          f"mesh_aux={ref['aux']!r} z={m1['z']!r} mesh_z={ref['z']!r} "
+          f"route_agree_by_layer={agree!r} ms={ms1!r} mesh_ms={ref_first_ms!r} "
+          f"launches={launches} bytes={moved} calls={calls}", flush=True)
+    require(np.isfinite(m1["loss"]) and abs(m1["loss"] - ref["loss"])
+            <= PMOE_RTOL * abs(ref["loss"]),
+            f"partition moe: loss {m1['loss']} against the mesh step's {ref['loss']}")
+    per_step = {"flash_attention": 2 * cfg.n_layers * TRAIN_MICRO * n_coords,
+                "flash_attention_bwd": cfg.n_layers * TRAIN_MICRO * n_coords}
+    for kern, n in launches.items():
+        require(n == per_step.get(kern, 0),
+                f"partition moe: {kern} launched {n} times, want {per_step.get(kern, 0)}")
+    want_moved, want_calls = partitioned_step_collectives(
+        cfg, MESH_SHAPE, "default", TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, MESH_HINT)
+    require({k: moved[k] for k in want_moved} == want_moved
+            and all(v == 0 for k, v in moved.items() if k not in want_moved),
+            f"partition moe: bytes {moved}, want {want_moved}")
+    require({k: calls[k] for k in want_calls} == want_calls,
+            f"partition moe: calls {calls}, want {want_calls}")
+
+    state, _, warm_ms = _timed_step(torch, step, state, stream.next())
+    steps = []
+    for _ in range(PMOE_STEPS):
+        retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+        state, m, ms = _timed_step(torch, step, state, stream.next())
+        steps.append({"ms": ms, "loss": m["loss"], "aux": m["aux"],
+                      "grad_norm": m["grad_norm"],
+                      "alloc_retries": torch.cuda.memory_stats().get("num_alloc_retries", 0)
+                      - retries})
+        require(np.isfinite(m["loss"]), f"partition moe: loss {m['loss']}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for x, sh in zip(leaves(state), leaves(shardings)):
+        require(isinstance(x, DistArray) and x.spec == tuple(sh.spec) and x.mesh is mesh,
+                "partition moe: a state leaf is no longer laid out by its spec")
+    held = _held_gib(torch, state)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    ms = [st["ms"] for st in steps]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    return {"arch": cfg.name, "layers": cfg.n_layers, "mesh": mesh.descriptor(),
+            "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "microbatches": TRAIN_MICRO,
+            "first_step": {"loss": m1["loss"], "grad_norm": m1["grad_norm"], "aux": m1["aux"],
+                           "z": m1["z"], "ms": ms1, "mesh_loss": ref["loss"],
+                           "mesh_grad_norm": ref["grad_norm"], "mesh_aux": ref["aux"],
+                           "mesh_z": ref["z"], "mesh_ms": ref_first_ms,
+                           "route_agree_by_layer": agree},
+           "warmup_ms": warm_ms, "ms": ms, "tokens_per_s": tokens / (min(ms) / 1e3),
+           "mesh_ms": ref_ms, "mesh_tokens_per_s": tokens / (ref_ms / 1e3),
+           "steps": steps, "peak_gib": peak, "mesh_peak_gib": ref_peak, "state_gib": held,
+           "launches": launches, "collective_bytes": moved, "collective_calls": calls}
+
+
+def _token_agreement(torch, got: list, want: list, n_layers: int, mesh, batch: int,
+                     seq: int):
+    """(each layer's share, (batch, seq) bool at every layer) of the
+    tokens whose top-k set is the same in both runs' routes (call by
+    call, layer-major and coordinate-minor, each coordinate routing its
+    region of the (batch, seq) tokens: its rows, and its slice of the
+    sequence where `model` divides seq, else the whole sequence)."""
+    from repro_torch.parallel.collectives import region_of
+
+    spec = ("data", "model" if seq % mesh.shape["model"] == 0 else None)
+    coords = mesh.coords()
+    every = torch.ones((batch, seq), dtype=torch.bool, device=got[0].device)
+    shares = []
+    for layer in range(n_layers):
+        same = torch.ones((batch, seq), dtype=torch.bool, device=got[0].device)
+        for j, c in enumerate(coords):
+            i = layer * len(coords) + j
+            (b0, b1), (s0, s1) = region_of((batch, seq), spec, mesh, c)
+            eq = (got[i].sort(-1).values == want[i].sort(-1).values).all(-1)
+            same[b0:b1, s0:s1] &= eq.reshape(b1 - b0, s1 - s0)
+        shares.append(float(same.float().mean()))
+        every &= same
+    return shares, every
+
+
+def run_partition_moe_serve(torch, mesh) -> dict:
+    """Phase 25 (c): qwen2-moe's partitioned prefill and decode at full
+    width and depth, its parameters laid out by `param_specs` on (data 2,
+    model 4) of cuda:0, against the global-view path under the same mesh
+    on the same weights (run first, its logits and routes kept on the
+    host, then freed): the prefill of PMOE_SERVE_BATCH x
+    PMOE_SERVE_PROMPT, `pad_cache` to PMOE_SERVE_CACHE, a warm-up and
+    PMOE_SERVE_STEPS decode steps fed the reference run's tokens; the
+    logits within SERVE_BOUND on the tokens routed alike at every layer
+    (phase 17's rule: the first layer's share at least
+    MOE_ROUTE_AGREE_MIN, decode's pooled over its steps, and a token kept
+    in the prefill and in decode), the argmax equal there where the top-2
+    margin exceeds it; B6 8 x L times a prefill and never in decode; bytes and
+    calls equal to `partitioned_serve_collectives`."""
+    import numpy as np
+    import torch.nn.functional as F
+    from repro_torch.launch.dryrun import partitioned_serve_collectives
+    from repro_torch.launch.mesh import set_mesh
+    from repro_torch.models import moe as moe_mod, transformer as T
+    from repro_torch.parallel.sharding import lay_out
+
+    dev = torch.device("cuda")
+    cfg = _pmoe_cfg()
+    n_coords = MESH_SHAPE[0] * MESH_SHAPE[1]
+    b, s, n = PMOE_SERVE_BATCH, PMOE_SERVE_PROMPT, PMOE_SERVE_CACHE
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    whole = T.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), dev, MESH_HINT)
+    prompts = torch.from_numpy(np.random.default_rng([SEED, 25]).integers(
+        0, cfg.vocab, (b, s))).cuda()
+
+    # the global-view reference under the mesh: routes and logits to the host
+    routes, uninstall = _route_recorder(moe_mod)
+    try:
+        with set_mesh(mesh):
+            (logits, _, _, cache), ref_prefill_ms = timed(
+                torch, lambda: T.prefill(whole, {"tokens": prompts}, cfg))
+            ref_prefill_routes = [r.cpu() for r in routes]
+            routes.clear()
+            ref_logits = logits.cpu()
+            tok = torch.argmax(logits[:, -1], -1)
+            del logits
+            pad = (0, 0, 0, 0, 0, n - s)
+            cache = {"k": F.pad(cache["k"], pad), "v": F.pad(cache["v"], pad),
+                     "pos": cache["pos"]}
+            fed, ref_steps, ref_step_routes, ref_ms = [], [], [], []
+            for _ in range(1 + PMOE_SERVE_STEPS):
+                fed.append(tok)
+                (lg, cache), ms = timed(torch, lambda: T.decode_step(whole, cache, tok, cfg))
+                ref_steps.append(lg.cpu())
+                ref_step_routes.append([r.cpu() for r in routes])
+                routes.clear()
+                ref_ms.append(ms)
+                tok = torch.argmax(lg, -1)
+    finally:
+        uninstall()
+    ref_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del cache, lg
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = lay_out(whole, _shardings(T.param_specs(cfg, mesh=mesh, model_size_hint=MESH_HINT),
+                                       mesh))
+    del whole
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the partitioned run, counted and timed, its routes recorded
+    torch.cuda.reset_peak_memory_stats()
+    routes, uninstall = _route_recorder(moe_mod)
+    try:
+        run = _serve_laid_out(torch, cfg, params, prompts, fed, cache_len=n)
+    finally:
+        uninstall()
+    calls_a_prefill = cfg.n_layers * n_coords
+    got_prefill, got_steps = routes[:calls_a_prefill], routes[calls_a_prefill:]
+    shares, keep = _token_agreement(torch, got_prefill,
+                                    [r.cuda() for r in ref_prefill_routes], cfg.n_layers,
+                                    mesh, b, s)
+    first = shares[0]
+    errs, agree, kept = [], [], []
+    logits = run.pop("prefill_logits")
+    for row in range(b):
+        got, want = logits[row], ref_logits[row].cuda()
+        d = (got.float() - want.float()).abs().amax(-1)
+        errs.append(float(d[keep[row]].max()) if bool(keep[row].any()) else 0.0)
+        a, c = _clear_agree(got[keep[row]], want[keep[row]])
+        agree.append((a, c))
+    kept.append(int(keep.sum()))
+    prefill_err = max(errs)
+    prefill_agree = (sum(a for a, _ in agree), sum(c for _, c in agree))
+    del logits, ref_logits
+    step_errs, step_agree, step_first = [], [], []
+    per_step = cfg.n_layers * n_coords
+    for i, (lg, want) in enumerate(zip(run.pop("step_logits"), ref_steps)):
+        want = want.cuda()
+        f, k = _token_agreement(torch, got_steps[i * per_step:(i + 1) * per_step],
+                                [r.cuda() for r in ref_step_routes[i]], cfg.n_layers, mesh, b, 1)
+        k = k[:, 0]
+        step_first.append(f[0])
+        kept.append(int(k.sum()))
+        d = (lg.float() - want.float()).abs().amax(-1)
+        step_errs.append(float(d[k].max()) if bool(k.any()) else 0.0)
+        step_agree.append(_clear_agree(lg[k], want[k]))
+    pre = run["prefill"]
+    ms = [st["ms"] for st in run["steps"][1:]]
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "mesh": mesh.descriptor(), "batch": b,
+           "prompt": s, "cache_len": n,
+           "prefill": {"ms": pre["ms"], "mesh_ms": ref_prefill_ms, "err": prefill_err,
+                       "agree_by_layer": shares, "tokens_kept": kept[0],
+                       "clear_agree": prefill_agree, "launches": pre["launches"],
+                       "bytes": pre["bytes"], "calls": pre["calls"]},
+           "decode": {"ms": ms, "warmup_ms": run["steps"][0]["ms"], "mesh_ms": ref_ms[1:],
+                      "mesh_warmup_ms": ref_ms[0], "errs": step_errs,
+                      "first_layer_agree": step_first, "tokens_kept": kept[1:],
+                      "clear_agree": step_agree, "bytes": run["steps"][1]["bytes"],
+                      "calls": run["steps"][1]["calls"]},
+           "bound": SERVE_BOUND, "peak_gib": run["peak_gib"], "mesh_peak_gib": ref_peak,
+           "cache_gib": run["held_gib"]}
+    print(f"path partition_moe_serve: {json.dumps(out)}", flush=True)
+    # decode checks B tokens a step: pooled over the steps, as phase 17 pools
+    step_share = sum(step_first) / len(step_first)
+    out["decode"]["first_layer_agree_pooled"] = step_share
+    require(first >= MOE_ROUTE_AGREE_MIN and step_share >= MOE_ROUTE_AGREE_MIN
+            and kept[0] > 0 and sum(kept[1:]) > 0,
+            f"partition moe serve: first layer's route agreement {first} {step_share} "
+            f"(< {MOE_ROUTE_AGREE_MIN}) or no token routed alike at every layer {kept}")
+    require(prefill_err <= SERVE_BOUND and all(e <= SERVE_BOUND for e in step_errs),
+            f"partition moe serve: logits {prefill_err} {step_errs} on the tokens routed "
+            f"alike (bound {SERVE_BOUND})")
+    require(prefill_agree[0] == prefill_agree[1] and all(a == c for a, c in step_agree),
+            f"partition moe serve: a token differs where the top-2 margin exceeds "
+            f"{SERVE_BOUND}: {prefill_agree} {step_agree}")
+    want = partitioned_serve_collectives(cfg, MESH_SHAPE, "default", b, s, n, MESH_HINT)
+    for phase, got in [("prefill", pre)] + [("decode", st) for st in run["steps"]]:
+        want_moved, want_calls = want[phase]
+        require({k: got["bytes"][k] for k in want_moved} == want_moved
+                and all(v == 0 for k, v in got["bytes"].items() if k not in want_moved),
+                f"partition moe serve {phase}: bytes {got['bytes']}, want {want_moved}")
+        require({k: got["calls"][k] for k in want_calls} == want_calls,
+                f"partition moe serve {phase}: calls {got['calls']}, want {want_calls}")
+        n_b6 = calls_a_prefill if phase == "prefill" else 0
+        for kern, cnt in got["launches"].items():
+            require(cnt == (n_b6 if kern == "flash_attention" else 0),
+                    f"partition moe serve {phase}: {kern} launched {cnt} times")
+    out["launches"] = pre["launches"]
+    del params, run
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _pmoe_digests(torch, mesh) -> dict:
+    """Phase 25 (d)'s run of qwen2-moe cut to PMOE_PROC_LAYERS on `mesh`
+    (one process's, or this rank's part of one that spans processes):
+    PMOE_PROC_STEPS AdamW steps of 8 x 2048 tokens on a laid-out state,
+    then on its parameters a prefill of PMOE_SERVE_BATCH x
+    PMOE_PROC_PROMPT and PMOE_PROC_DECODE decode steps fed their argmax
+    over a PMOE_PROC_CACHE-slot cache: losses, digests, state and cache
+    GiB held."""
+    import numpy as np
+
+    cfg = _pmoe_cfg(PMOE_PROC_LAYERS)
+    out = _partition_steps(torch, cfg, mesh, PMOE_PROC_STEPS, MESH_HINT, keep_state=True)
+    state = out.pop("state")
+    # after a step the f32 router's parameter is its AdamW master (the
+    # update's cast to its own dtype returns the master itself): held once
+    out["held_gib"], out["own_gib"] = _held_gib(torch, state), _own_gib(state)
+    router = state.params["layers"]["moe"]["router"]
+    out["aliased_gib"] = sum(t.numel() * t.element_size() for t in
+                             {id(t): t for t in router.shards.values()}.values()) / 2 ** 30
+    params = state.params
+    del state
+    prompts = torch.from_numpy(np.random.default_rng([SEED, 25]).integers(
+        0, cfg.vocab, (PMOE_SERVE_BATCH, PMOE_PROC_PROMPT))).cuda()
+    torch.cuda.reset_peak_memory_stats()
+    serve = _serve_laid_out(torch, cfg, params, prompts, steps=PMOE_PROC_DECODE,
+                            cache_len=PMOE_PROC_CACHE)
+    out["logit_digests"] = [_digest(torch, t) for t in
+                            [serve.pop("prefill_logits")] + serve.pop("step_logits")]
+    out["cache_digests"] = serve["cache_digests"]
+    out["cache_gib"] = serve["held_gib"]
+    out["serve_peak_gib"] = serve["peak_gib"]
+    out["prefill_ms"] = serve["prefill"]["ms"]
+    out["decode_ms"] = [st["ms"] for st in serve["steps"]]
+    del params, serve
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_partition_moe(torch, keep: str) -> dict:
+    """Phase 25: the partitioned MoE on (data 2, model 4) of cuda:0: (a)
+    the block alone against the region path, (b) the AdamW step against
+    the global-view mesh step, (c) prefill and decode against the global
+    view; (d) two ranks on the card against the single process (module
+    docstring)."""
+    from repro_torch.launch.mesh import make_worker_mesh
+    from repro_torch.launch.procs import free_port, run_ranks
+
+    mesh = make_worker_mesh(MESH_SHAPE, devices=["cuda:0"] * (MESH_SHAPE[0] * MESH_SHAPE[1]))
+    out = {"block": check_moe_block_laid_out(torch, mesh)}
+    out["train"] = run_partition_moe_train(torch, mesh)
+    print(f"path partition_moe_train: {json.dumps(out['train'])}", flush=True)
+    out["serve"] = run_partition_moe_serve(torch, mesh)
+
+    # (d) two ranks on the card against the single process at 1 layer
+    single = _pmoe_digests(torch, mesh)
+    t0 = time.perf_counter()
+    env = {**os.environ, "PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}
+    ranks = run_ranks([sys.executable, str(Path(__file__).resolve()), "--rank-case", "moe",
+                       keep], PMOE_PROCS, timeout_s=PROC_SPAWN_S,
+                      coordinator=f"127.0.0.1:{free_port()}", env=env)
+    wall_s = time.perf_counter() - t0
+    for r in ranks:
+        require(r["losses"] == single["losses"] and r["digests"] == single["digests"]
+                and r["logit_digests"] == single["logit_digests"]
+                and r["cache_digests"] == single["cache_digests"],
+                f"partition moe ranks: losses {r['losses']} against the single process's "
+                f"{single['losses']}, or the parameters, logits or cache differ")
+        # a rank's state is its coordinates' regions: its half of the experts
+        # and the rest split over `data`, the leaves whole along `data`
+        # (shared experts, router, norms, counters) once a process
+        require(abs(r["held_gib"] - (r["own_gib"] - r["aliased_gib"])) <= 1e-9
+                and r["state_gib"] < single["state_gib"]
+                and all(abs(g * PMOE_PROCS - w) <= 1e-6
+                        for g, w in zip(r["cache_gib"], single["cache_gib"])),
+                f"partition moe ranks: a rank holds {r['held_gib']} GiB of state (its "
+                f"regions {r['own_gib']}) and {r['cache_gib']} of cache, the single process "
+                f"{single['state_gib']} and {single['cache_gib']}")
+
+    def summary(r):
+        return {k: r[k] for k in ("losses", "wall_ms", "exchange_ms", "state_gib", "own_gib",
+                                  "peak_gib", "cache_gib", "serve_peak_gib", "prefill_ms",
+                                  "decode_ms", "rank_s") if k in r}
+
+    out["ranks"] = {"processes": PMOE_PROCS, "layers": PMOE_PROC_LAYERS, "spawn_s": wall_s,
+                    "single": summary(single), "ranks": [summary(r) for r in ranks]}
+    print(f"path partition_moe_ranks: {json.dumps(out['ranks'])}", flush=True)
+    cfg = _pmoe_cfg()
+    out["kernels"] = check_flash_partitioned(
+        torch, TRAIN_BATCH // TRAIN_MICRO // MESH_SHAPE[0], cfg.n_heads // MESH_SHAPE[1],
+        TRAIN_SEQ, cfg.head_dim, what="the partitioned MoE step")
+    return out
+
+
 def main(proc_dir: str) -> int:
     import numpy as np
     import torch
@@ -4514,6 +5101,7 @@ def main(proc_dir: str) -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import kernel as fa
 
+    start_s = time.perf_counter()
     # 1. card
     card = card_line()
     print(card, flush=True)
@@ -4794,6 +5382,16 @@ def main(proc_dir: str) -> int:
     phase_s["24"] = time.perf_counter() - t0
     print(f"phase_s {json.dumps(phase_s)}", flush=True)
 
+    # 25. the partitioned MoE: laid-out experts in the step, prefill and
+    # decode; and two ranks of their own
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    partition_moe = run_partition_moe(torch, proc_dir)
+    phase_s["25"] = time.perf_counter() - t0
+    print(f"phase_s {json.dumps(phase_s)}", flush=True)
+    print(f"chip_smoke total_s {time.perf_counter() - start_s!r}", flush=True)
+
     print(json.dumps({"paths": {
         "spin": {"n": n, "block_size": bs, "ms": spin["ms"], "residual": spin["residual"]},
         "lu": {"n": n, "block_size": bs, "ms": lu["ms"], "residual": lu["residual"],
@@ -4830,10 +5428,11 @@ def main(proc_dir: str) -> int:
         "train_adamw": train_adamw, "train_shampoo": train_shampoo,
         "train_families": train_families, "mesh": mesh, "dry_run": dry_run,
         "examples": examples, "processes": _processes_summary(processes),
-        "partition": partition, "serve_partition": serve_partition, "phase_s": phase_s},
+        "partition": partition, "serve_partition": serve_partition,
+        "partition_moe": partition_moe, "phase_s": phase_s},
         "card": card}), flush=True)
 
-    # 25. the kernels line
+    # 26. the kernels line
     rows = []
     gemm_body = "gemm_tc: pack pre-pass, then 3xTF32 wgmma on a TMA ring (f32)"
     report["schur_update"]["body"] = report["matmul"]["body"] = gemm_body
@@ -4884,9 +5483,12 @@ def main(proc_dir: str) -> int:
                    for arch, run in train_families.items()},
                 "train_mesh_step": mesh["train"]["launches"][name],
                 "train_partitioned_step": partition["train"]["launches"][name],
-                "partitioned_prefill": serve_partition["serve"]["launches"][name]}
+                "partitioned_prefill": serve_partition["serve"]["launches"][name],
+                "train_partitioned_moe_step": partition_moe["train"]["launches"][name],
+                "partitioned_moe_prefill": partition_moe["serve"]["launches"][name]}
             r["partitioned_coordinate"] = partition["train"]["kernels"][name]
             r["partitioned_prefill_coordinate"] = serve_partition["serve"]["kernels"][name]
+            r["partitioned_moe_coordinate"] = partition_moe["kernels"][name]
         if name in ("matmul", "schur_update", "blocked_gauss_jordan"):
             r["launches_by_path"]["train_shampoo_refresh"] = \
                 train_shampoo["refresh_launches"][name]
@@ -4896,8 +5498,10 @@ def main(proc_dir: str) -> int:
                 **{f"train_{arch}_step": run["launches"][name]
                    for arch, run in train_families.items()},
                 "train_mesh_step": mesh["train"]["launches"][name],
-                "train_partitioned_step": partition["train"]["launches"][name]}
+                "train_partitioned_step": partition["train"]["launches"][name],
+                "train_partitioned_moe_step": partition_moe["train"]["launches"][name]}
             r["partitioned_coordinate"] = partition["train"]["kernels"][name]
+            r["partitioned_moe_coordinate"] = partition_moe["kernels"][name]
             r["kernels_by_dtype"] = {
                 "bf16, f16": ["flash_bwd_delta",
                               *fa.flash_attention_bwd_kernels(torch.bfloat16).values()],
@@ -4916,7 +5520,7 @@ def main(proc_dir: str) -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--rank-case"]:      # one rank of phase 22, 23 or 24
+    if sys.argv[1:2] == ["--rank-case"]:      # one rank of phase 22, 23, 24 or 25
         sys.exit(_rank_child(sys.argv[2], sys.argv[3]))
     # The planner's plan file lies in a directory of this run's own, so that
     # no plan of an earlier run is recalled; phase 22's files (phase 4's

@@ -101,7 +101,8 @@ from ..runtime.trainer import TrainConfig, TrainState, abstract_state, make_trai
 from .mesh import make_production_mesh, set_mesh
 
 __all__ = ["RULES_VARIANTS", "CFG_VARIANTS", "collective_stats",
-           "partitioned_step_collectives", "partitioned_serve_collectives", "build_train",
+           "partitioned_step_collectives", "partitioned_serve_collectives",
+           "moe_block_collectives", "build_train",
            "build_prefill", "build_decode", "run_cell", "run_solver_cell", "main"]
 
 # Named sharding-rule variants (the reference's hillclimb knobs).
@@ -196,7 +197,8 @@ class _Tally:
     coordinates (and as many gradient pieces in its reduce-scatter) or
     (size - 1) chunks of an all_to_all; a psum or pmax over `size` brings
     (size - 1) inputs to the group's first coordinate and hands the
-    result back to the other size - 1."""
+    result back to the other size - 1. A collective over one coordinate
+    moves nothing and is not counted."""
 
     def __init__(self, n: int, kinds: tuple[str, ...]):
         self.n = n
@@ -208,29 +210,102 @@ class _Tally:
         self.calls[kind] += calls
 
     def gather(self, shard: int, size: int, passes: int = 1, back: bool = False) -> None:
-        self._add("all_gather", passes * self.n * (size - 1) * shard, passes)
-        if back:
-            self._add("reduce_scatter", self.n * (size - 1) * shard, 1)
+        if size > 1:
+            self._add("all_gather", passes * self.n * (size - 1) * shard, passes)
+            if back:
+                self._add("reduce_scatter", self.n * (size - 1) * shard, 1)
 
     def all_to_all(self, chunk: int, size: int) -> None:
-        self._add("all_to_all", self.n * (size - 1) * chunk, 1)
+        if size > 1:
+            self._add("all_to_all", self.n * (size - 1) * chunk, 1)
 
     def psum(self, nbytes: int, size: int, passes: int = 1, back: bool = False,
              kind: str = "psum") -> None:
         calls = passes + back
-        self._add(kind, calls * (self.n // size) * 2 * (size - 1) * nbytes, calls)
+        if size > 1:
+            self._add(kind, calls * (self.n // size) * 2 * (size - 1) * nbytes, calls)
+
+
+# Replicated parameter leaves a norm adds (their gradients are summed over
+# every coordinate): rmsnorm's scale, layernorm's scale and bias.
+_NORM_LEAVES = {"rmsnorm": 1, "layernorm": 2, "nonparam_ln": 0}
+
+
+def _moe_layer(t: _Tally, cfg: ArchConfig, shape: tuple[int, int], rules: str, rows: int,
+               seq: int, hint: int, passes: int, back: bool) -> None:
+    """One MoE layer's collectives on `rows` x `seq` tokens a coordinate
+    (`models.moe.moe_apply_laid_out`), `passes` forwards (2 under remat)
+    and with `back` the backward. Under `dp_only` each expert weight first
+    moves its `model` part of the width to the expert axis (all_to_all).
+    The experts are all-gathered over `data` (FSDP), the shared experts
+    over `model` (the whole shared FFN at every coordinate). Where
+    `model` divides the sequence (prefill, training) each coordinate
+    routes rows x seq/M tokens, else (decode) rows x seq. Each forward
+    sends its (M, cap, d) tokens and (M, cap) int64 expert indices and
+    returns the rows (three all_to_all), cap = max(8, int(cf·t·k/M));
+    the backward transposes the two bf16 ones. aux and z are pmean'd over
+    `data` and the sequence's axis; the output is all-gathered over
+    `model` along the sequence. The recompute stops at the layer's last
+    saved tensor (the losses), so the pmeans and the output gather run
+    once. With `model` 1 every coordinate gathers the batch and the
+    experts whole over `data` and keeps its rows of the output."""
+    d_n, m_n = shape
+    n = d_n * m_n
+    moe, d, bf = cfg.moe, cfg.d_model, 2
+    e_loc = -(-moe.num_experts // hint) * hint // m_n
+    f, fs = moe.d_ff_expert, moe.shared_d_ff if moe.num_shared_experts else 0
+    if m_n == 1:
+        t.gather(rows * seq * d * bf, d_n, passes, back)         # the batch
+        for _ in range(3):                                         # wi, wg, wo
+            t.gather(e_loc * (d // d_n) * f * bf, d_n, passes, back)
+        return
+    split = seq % m_n == 0
+    tokens = rows * (seq // m_n if split else seq)
+    cap = max(8, int(moe.capacity_factor * tokens * moe.top_k / m_n))
+    for _ in range(3):                                         # wi, wg, wo
+        if rules == "dp_only":
+            for _ in range(passes + back):
+                t.all_to_all(e_loc * (d // n) * f * bf, m_n)
+        if d_n > 1:
+            t.gather(e_loc * (d // d_n) * f * bf, d_n, passes, back)
+        if fs:
+            t.gather(d * (fs // m_n) * bf, m_n, passes, back)
+    for chunk in (cap * d * bf, cap * 8, cap * d * bf):       # send_x, send_le, return
+        for _ in range(passes):
+            t.all_to_all(chunk, m_n)
+    if back:
+        for _ in range(2):
+            t.all_to_all(cap * d * bf, m_n)
+    for _ in range(2):                                         # aux, z
+        t.psum(4, d_n * (m_n if split else 1), 1, back, kind="pmean")
+    if split:
+        t.gather(rows * (seq // m_n) * d * bf, m_n, 1, back)
+
+
+def moe_block_collectives(cfg: ArchConfig, shape: tuple[int, int], rules: str, batch: int,
+                          seq: int, model_size_hint: int = 16,
+                          backward: bool = False) -> tuple[dict, dict]:
+    """Bytes and calls of each collective kind (all_gather, all_to_all,
+    reduce_scatter, pmean) of one `models.moe.moe_apply_laid_out` of an
+    MoE `cfg` on `batch` x `seq` tokens on a (data, model) mesh of
+    `shape`, its forward, and with `backward` its backward too
+    (`_moe_layer`'s terms)."""
+    t = _Tally(shape[0] * shape[1], ("all_gather", "all_to_all", "reduce_scatter", "pmean"))
+    _moe_layer(t, cfg, shape, rules, batch // shape[0], seq, model_size_hint, 1, backward)
+    return t.moved, t.calls
 
 
 def partitioned_step_collectives(cfg: ArchConfig, shape: tuple[int, int], rules: str,
-                                 batch: int, seq: int, microbatches: int
-                                 ) -> tuple[dict, dict]:
+                                 batch: int, seq: int, microbatches: int,
+                                 model_size_hint: int = 16) -> tuple[dict, dict]:
     """Bytes and calls of each collective kind (all_gather,
-    reduce_scatter, psum, pmax) in one partitioned step of a dense
-    `cfg` on a (data, model) mesh of `shape` under the `default` or
-    `dp_only` rules, from the shapes: what `collective_bytes()` and
-    `collective_calls()` count for `runtime.trainer.make_train_step` on a
-    laid-out state with full remat (`_Tally` says what each collective
-    moves).
+    reduce_scatter, psum, pmax; all_to_all and pmean with MoE) in one
+    partitioned step of a dense or MoE `cfg` (experts padded to a multiple
+    of `model_size_hint`) on a (data, model) mesh of `shape` under the
+    `default` or `dp_only` rules, from the shapes: what
+    `collective_bytes()` and `collective_calls()` count for
+    `runtime.trainer.make_train_step` on a laid-out state with full remat
+    (`_Tally` says what each collective moves).
 
     A microbatch runs the lookup and the head once; each layer's weight
     gathers and its attention psum twice (the forward, and the remat's
@@ -238,9 +313,11 @@ def partitioned_step_collectives(cfg: ArchConfig, shape: tuple[int, int], rules:
     the layer saves, the `wo` product's operands); every gather's
     reduce-scatter and every psum's transpose once, the loss's too:
     autograd hands an output that no loss reads a zero cotangent, so
-    every group's transpose moves its bytes. The token count carries no
-    gradient. A region held by every coordinate (rmsnorm scales) sums its
-    n gradients ("psum").
+    every group's transpose moves its bytes. An MoE layer adds
+    `_moe_layer`'s terms. The token count carries no gradient. A region
+    held by every coordinate (the norms' scales and biases, the MoE
+    router; the shared experts, whole under `dp_only`, else whole along
+    `data`) sums its holders' gradients ("psum").
     """
     if rules not in ("default", "dp_only"):
         raise ValueError(f"no count for the rules {rules!r}: default or dp_only")
@@ -252,7 +329,8 @@ def partitioned_step_collectives(cfg: ArchConfig, shape: tuple[int, int], rules:
     rows = batch // microbatches // d_n           # a coordinate's rows of a microbatch
     x = rows * seq * d * bf                       # an activation (B_loc, S, d)
     row = rows * seq * f32                        # an f32 value a position
-    t = _Tally(n, ("all_gather", "reduce_scatter", "psum", "pmax"))
+    kinds = ("all_gather", "reduce_scatter", "psum", "pmax")
+    t = _Tally(n, kinds + (("all_to_all", "pmean") if cfg.moe else ()))
     if rules == "default":
         t.gather(v // m_n * d // d_n * bf, d_n, 1, True)           # the lookup's table
         t.psum(x, m_n, 1, True)                                    # the lookup's sum
@@ -264,9 +342,12 @@ def partitioned_step_collectives(cfg: ArchConfig, shape: tuple[int, int], rules:
                     t.gather(d * kv * hd // m_n * bf, m_n, 2, True)
             t.gather(h * hd // m_n * d // d_n * bf, d_n, 2, True)  # attention's wo
             t.psum(x, m_n, 2, True)
-            for _ in range(3):                                     # wi, wg, wo
-                t.gather(d // d_n * f // m_n * bf, d_n, 2, True)
-            t.psum(x, m_n, 1, True)
+            if f:
+                for _ in range(3):                                 # wi, wg, wo
+                    t.gather(d // d_n * f // m_n * bf, d_n, 2, True)
+                t.psum(x, m_n, 1, True)
+            if cfg.moe:
+                _moe_layer(t, cfg, shape, rules, rows, seq, model_size_hint, 2, True)
         t.gather(v // m_n * d // d_n * bf, d_n, 1, True)           # the head (tied or lm_head)
         t.psum(row, m_n, kind="pmax")
         t.psum(row, m_n, 1, True)                                  # the sum of exponentials
@@ -274,32 +355,45 @@ def partitioned_step_collectives(cfg: ArchConfig, shape: tuple[int, int], rules:
     else:                                                          # dp_only: FSDP over both
         t.gather(v * d // n * bf, n, 1, True)
         for _ in range(L):
-            for cols in (h * hd, kv * hd, kv * hd, h * hd, f, f, f):
+            for cols in (h * hd, kv * hd, kv * hd, h * hd) + ((f, f, f) if f else ()):
                 t.gather(d // n * cols * bf, n, 2, True)
+            if cfg.moe:
+                _moe_layer(t, cfg, shape, rules, rows, seq, model_size_hint, 2, True)
         t.gather(v * d // n * bf, n, 1, True)
     t.psum(f32, d_n, 1, True)                                      # the loss sum
     t.psum(f32, d_n, 1)                                            # the token count
-    if cfg.norm == "rmsnorm":                                      # replicated: sum the gradients
-        for size in (L * d, L * d, d):
-            t.moved["psum"] += 2 * (n - 1) * size * bf
+    # replicated leaves (bytes, holders of each region): the norms, the f32
+    # router, the shared experts (whole under dp_only, columns over model)
+    held = [(L * d * bf, n), (L * d * bf, n), (d * bf, n)] * _NORM_LEAVES[cfg.norm]
+    if cfg.moe:
+        e_pad = -(-cfg.moe.num_experts // model_size_hint) * model_size_hint
+        held.append((L * d * e_pad * f32, n))
+        if cfg.moe.num_shared_experts:
+            held += [(L * d * cfg.moe.shared_d_ff * bf, n if rules == "dp_only" else d_n)] * 3
+    for nbytes, holders in held:                                   # their gradients summed
+        if holders > 1:
+            t.moved["psum"] += 2 * (holders - 1) * nbytes
             t.calls["psum"] += 1
     return ({k: microbatches * val for k, val in t.moved.items()},
             {k: microbatches * val for k, val in t.calls.items()})
 
 
 def partitioned_serve_collectives(cfg: ArchConfig, shape: tuple[int, int], rules: str,
-                                  batch: int, prompt: int, cache_len: int) -> dict:
+                                  batch: int, prompt: int, cache_len: int,
+                                  model_size_hint: int = 16) -> dict:
     """Bytes and calls of each collective kind (all_gather, all_to_all,
-    psum, pmax) in one partitioned `prefill` of `batch` x `prompt` tokens
-    and in one `decode_step` over a cache of `cache_len` slots, of a dense
-    `cfg` on a (data, model) mesh of `shape` under the `default` or
-    `dp_only` rules, from the shapes: {"prefill": (bytes, calls),
-    "decode": (bytes, calls)}, what `collective_bytes()` and
+    psum, pmax; pmean with MoE) in one partitioned `prefill` of `batch` x
+    `prompt` tokens and in one `decode_step` over a cache of `cache_len`
+    slots, of a dense or MoE `cfg` (experts padded to a multiple of
+    `model_size_hint`) on a (data, model) mesh of `shape` under the
+    `default` or `dp_only` rules, from the shapes: {"prefill": (bytes,
+    calls), "decode": (bytes, calls)}, what `collective_bytes()` and
     `collective_calls()` count for each on laid-out parameters (`_Tally`
     says what each collective moves; no remat, no backward).
 
     Both run the lookup, each layer's weight gathers and its two output
-    psums, and the head once, as the step's forward does. Where the KV
+    psums (an MoE layer: the attention's, and `_moe_layer`'s terms once),
+    and the head once, as the step's forward does. Where the KV
     heads split over `model` and `model` divides the prompt, the prefill
     moves each layer's k and v from the heads' axis to the cache's
     sequence (`kv_seq`) by one all_to_all each. Where `model` divides
@@ -317,9 +411,10 @@ def partitioned_serve_collectives(cfg: ArchConfig, shape: tuple[int, int], rules
                              cfg.head_dim, cfg.d_ff, cfg.vocab)
     bf, f32 = 2, 4
     rows = batch // d_n                           # a coordinate's rows
+    kinds = ("all_gather", "all_to_all", "psum", "pmax") + (("pmean",) if cfg.moe else ())
     out = {}
     for phase, seq in (("prefill", prompt), ("decode", 1)):
-        t = _Tally(n, ("all_gather", "all_to_all", "psum", "pmax"))
+        t = _Tally(n, kinds)
         x = rows * seq * d * bf                   # an activation (B_loc, S, d)
         if rules == "default":
             t.gather(v // m_n * d // d_n * bf, d_n)                # the lookup's table
@@ -342,18 +437,23 @@ def partitioned_serve_collectives(cfg: ArchConfig, shape: tuple[int, int], rules
                     t.psum(rows * h * (hd + 1) * f32, m_n)
                 t.gather(h * hd // m_n * d // d_n * bf, d_n)      # attention's wo
                 t.psum(x, m_n)
-                for _ in range(3):                                 # wi, wg, wo
-                    t.gather(d // d_n * f // m_n * bf, d_n)
-                t.psum(x, m_n)
+                if f:
+                    for _ in range(3):                             # wi, wg, wo
+                        t.gather(d // d_n * f // m_n * bf, d_n)
+                    t.psum(x, m_n)
+                if cfg.moe:
+                    _moe_layer(t, cfg, shape, rules, rows, seq, model_size_hint, 1, False)
             t.gather(v // m_n * d // d_n * bf, d_n)                # the head
         else:                                                      # dp_only: FSDP over both
             t.gather(v * d // n * bf, n)
             for _ in range(L):
-                for cols in (h * hd, kv * hd, kv * hd, h * hd, f, f, f):
+                for cols in (h * hd, kv * hd, kv * hd, h * hd) + ((f, f, f) if f else ()):
                     t.gather(d // n * cols * bf, n)
                 if phase == "decode" and not cache_len % m_n:
                     t.psum(rows * h * f32, m_n, kind="pmax")
                     t.psum(rows * h * (hd + 1) * f32, m_n)
+                if cfg.moe:
+                    _moe_layer(t, cfg, shape, rules, rows, seq, model_size_hint, 1, False)
             t.gather(v * d // n * bf, n)
         out[phase] = (t.moved, t.calls)
     return out

@@ -46,6 +46,13 @@ which adds partial sums of different tokens once the sequence is split
 over `model` (ROADMAP §C, reference caveats). The EP phases run inside
 profiler ranges "moe:fsdp_gather", "moe:dispatch", "moe:experts" and
 "moe:combine" (`profile_lm --train --mesh`).
+
+`moe_apply_laid_out` is the MoE of the partitioned program
+(`parallel.sharding.Program`: laid-out parameters, each coordinate's
+rows): the same region and the same `_moe_ep`, its inputs moved from the
+program's layout to the region's and its output back (see its
+docstring); on a mesh whose `model` axis is 1, `_moe_local` on the batch
+gathered whole, as `moe_apply` runs it there.
 """
 
 from __future__ import annotations
@@ -59,10 +66,10 @@ from torch.autograd.profiler import record_function
 from ..configs.registry import ArchConfig, MoEConfig
 from ..launch.mesh import current_mesh
 from ..parallel import collectives as col
-from ..parallel.sharding import DEFAULT_RULES, PartitionSpec as P, ShardingRules
-from .layers import ParamDef
+from ..parallel.sharding import DEFAULT_RULES, PartitionSpec as P, Program, ShardingRules
+from .layers import ParamDef, gathered
 
-__all__ = ["moe_params", "moe_apply"]
+__all__ = ["moe_params", "moe_apply", "moe_apply_laid_out"]
 
 
 def _padded_experts(moe: MoEConfig, model_size: int) -> int:
@@ -270,6 +277,30 @@ def _moe_ep(mesh, x, router_w, wi, wg, wo, shared, *, cfg: ArchConfig,
     return out, aux, z
 
 
+def _region(mesh, b: int, s: int) -> dict:
+    """The reference's shard_map layout for (b, s, d) tokens on `mesh`: the
+    batch axes among ("pod", "data") that divide b (the whole tuple only
+    if it divides), the sequence over `model` where `model` divides s
+    (decode, s = 1, keeps it whole, so that every model coordinate routes
+    the same rows), the experts over `model` and their width over `data`
+    (FSDP), the shared experts' columns over `model`; aux and z are
+    pmean'd over the batch axes and the sequence's."""
+    axes = dict(mesh.shape)
+    batch_axes = tuple(a for a in ("pod", "data") if a in axes and b % axes[a] == 0)
+    # keep batch sharding only if the full tuple divides evenly
+    if batch_axes and b % math.prod(axes[a] for a in batch_axes):
+        batch_axes = batch_axes[:1]
+    data_axis = "data" if axes.get("data", 1) > 1 else None
+    seq_axis = "model" if s % axes["model"] == 0 else None
+    x = P(batch_axes if batch_axes else None, seq_axis, None)
+    return {"x": x, "data_axis": data_axis,
+            "reduce_axes": batch_axes + ((seq_axis,) if seq_axis else ()),
+            "router": P(None, None), "wi": P("model", data_axis, None),
+            "wg": P("model", data_axis, None), "wo": P("model", None, data_axis),
+            "shared": {"wi": P(None, "model"), "wg": P(None, "model"),
+                       "wo": P("model", None)}}
+
+
 def moe_apply(params: dict, x: torch.Tensor, cfg: ArchConfig,
               rules: ShardingRules = DEFAULT_RULES
               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -283,31 +314,70 @@ def moe_apply(params: dict, x: torch.Tensor, cfg: ArchConfig,
     if mesh is None or not mesh.shape or mesh.shape.get("model", 1) == 1:
         return _moe_local(x, params["router"], params["wi"], params["wg"], params["wo"],
                           shared, cfg=cfg)
-
-    axes = dict(mesh.shape)
-    batch_axes = tuple(a for a in ("pod", "data") if a in axes
-                       and x.shape[0] % axes[a] == 0)
-    # keep batch sharding only if the full tuple divides evenly
-    if batch_axes and x.shape[0] % math.prod(axes[a] for a in batch_axes):
-        batch_axes = batch_axes[:1]
-    data_axis = "data" if axes.get("data", 1) > 1 else None
-    bspec = batch_axes if batch_axes else None
-    # The sequence splits over `model` for dispatch, so that every
-    # coordinate routes its own tokens (decode, S = 1, keeps it whole).
-    seq_axis = "model" if x.shape[1] % axes["model"] == 0 else None
-    reduce_axes = batch_axes + ((seq_axis,) if seq_axis else ())
-    shared_specs = None
-    if shared is not None:
-        shared_specs = {"wi": P(None, "model"), "wg": P(None, "model"),
-                        "wo": P("model", None)}
+    lay = _region(mesh, x.shape[0], x.shape[1])
 
     def body(x, router, wi, wg, wo, shared):
         return _moe_ep(mesh, x, router, wi, wg, wo, shared, cfg=cfg,
-                       data_axis=data_axis, reduce_axes=reduce_axes)
+                       data_axis=lay["data_axis"], reduce_axes=lay["reduce_axes"])
 
     return col.region(
         body, mesh,
-        (P(bspec, seq_axis, None), P(None, None), P("model", data_axis, None),
-         P("model", data_axis, None), P("model", None, data_axis), shared_specs),
-        (P(bspec, seq_axis, None), P(), P()),
+        (lay["x"], lay["router"], lay["wi"], lay["wg"], lay["wo"],
+         lay["shared"] if shared is not None else None),
+        (lay["x"], P(), P()),
     )(x, params["router"], params["wi"], params["wg"], params["wo"], shared)
+
+
+def moe_apply_laid_out(params: dict, x: dict, cfg: ArchConfig, prog: Program):
+    """`moe_apply` in the partitioned program: `params` laid out
+    (DistArrays), `x` each coordinate's rows (B_loc, S, d), whole along
+    `model`. The region is `moe_apply`'s: each coordinate's rows are cut
+    to its slice of the sequence (a narrow: x is whole along `model`),
+    each weight moves from its `param_specs` layout to the region's
+    (`layers.gathered`: under the default rules the experts already lie
+    so; under `dp_only` their `model` part of the width moves to the
+    expert axis by one all_to_all, and the shared experts are cut to
+    their columns), `_moe_ep` runs as under a mesh, and its output is
+    all-gathered over `model` along the sequence, back to the program's
+    layout. Returns (out, aux, z) as dicts coordinate -> tensor; aux and
+    z are pmean'd (0-dim f32, the same at every coordinate).
+
+    Without a `model` axis longer than 1 `moe_apply` runs `_moe_local` on
+    the whole batch (its capacities and losses over every token, as the
+    reference's placed program computes them): each coordinate gathers
+    the batch and every weight whole, runs it, and keeps its own rows."""
+    mesh = prog.mesh
+    have = prog.spec((prog.batch, prog.seq, cfg.d_model), ("batch", "seq", "embed"))
+    if col.axis_size("model", mesh) == 1:
+        return _moe_whole_batch(params, x, cfg, mesh, have)
+    lay = _region(mesh, prog.batch, prog.seq)
+    xs = col.to_spec(x, have, lay["x"], mesh)
+    w = {k: gathered(params[k], lay[k]) for k in ("router", "wi", "wg", "wo")}
+    shared = None
+    if "shared" in params:
+        shared = {k: gathered(v, lay["shared"][k]) for k, v in params["shared"].items()}
+    out, aux, z = _moe_ep(mesh, xs, w["router"], w["wi"], w["wg"], w["wo"], shared,
+                          cfg=cfg, data_axis=lay["data_axis"],
+                          reduce_axes=lay["reduce_axes"])
+    return col.to_spec(out, lay["x"], have, mesh), aux, z
+
+
+def _moe_whole_batch(params: dict, x: dict, cfg: ArchConfig, mesh, have) -> tuple:
+    """`moe_apply_laid_out` on a mesh whose `model` axis is 1: `_moe_local`
+    at every coordinate on the batch and weights gathered whole, each
+    coordinate's rows cut from its output (the gathers' backward, the
+    reduce-scatter, sums the coordinates' cotangents)."""
+    whole = (None,) * 3
+    xs = col.to_spec(x, have, whole, mesh)
+
+    def w(t):
+        return gathered(t, (None,) * len(t.shape))
+
+    router, wi, wg, wo = (w(params[k]) for k in ("router", "wi", "wg", "wo"))
+    shared = {k: w(t) for k, t in params["shared"].items()} if "shared" in params else None
+    out, aux, z = {}, {}, {}
+    for c in mesh.coords():
+        out[c], aux[c], z[c] = _moe_local(
+            xs[c], router[c], wi[c], wg[c], wo[c],
+            None if shared is None else {k: t[c] for k, t in shared.items()}, cfg=cfg)
+    return col.to_spec(out, whole, have, mesh), aux, z

@@ -55,9 +55,13 @@ to the decode length, region by region, as the reference's caller does.
 `decode_step` on laid-out parameters and that cache (`build_decode`)
 runs the lookup, each layer (`attention.attn_decode_laid_out`: the
 cache written in place, a softmax split over the `kv_seq` slices) and
-the head per coordinate. Nothing is made whole but the joined results:
-the loss, and the logits. The dense family only; the other bodies and a
-sliding window's cache raise NotImplementedError (ROADMAP A item 6).
+the head per coordinate. An MoE layer runs `moe.moe_apply_laid_out` (the
+expert-parallel region on laid-out experts) where the dense one runs its
+MLP, and its aux and z are summed over the layers into the loss, as the
+reference's scan sums them. Nothing is made whole but the joined
+results: the loss, its metrics, and the logits. The dense and MoE
+families only; the other bodies and a sliding window's cache raise
+NotImplementedError (ROADMAP A item 6).
 
 Entry points:
   param_defs / init_params / abstract_params / param_specs
@@ -334,10 +338,10 @@ def forward(params: dict, batch: dict, cfg: ArchConfig,
         train = _tracks_grad(params)
         with torch.set_grad_enabled(train):
             prog, parts = _program(params, batch, cfg, rules)
-            logits, spec = _forward_laid_out(params, parts["tokens"], cfg, prog,
-                                             remat and train, remat_policy)
-            zero = _zero(prog.mesh.local_device())
-            return col.join(logits, spec, prog.mesh), zero, zero, None
+            logits, spec, aux, z = _forward_laid_out(params, parts["tokens"], cfg, prog,
+                                                     remat and train, remat_policy)
+            return (col.join(logits, spec, prog.mesh), *_joined_losses(aux, z, prog.mesh),
+                    None)
     if _tracks_grad(params):
         return _train_forward(params, batch, cfg, rules, remat, remat_policy)
     with torch.inference_mode():
@@ -401,8 +405,8 @@ def prefill(params: dict, batch: dict, cfg: ArchConfig,
     decode length first (a cache no longer than the window rolls; a longer
     one attends without the window, as in the reference).
 
-    On laid-out parameters (a dense config without a window) the logits
-    come back joined and the cache laid out by `cache_specs(cfg, B, S,
+    On laid-out parameters (a dense or MoE config without a window) the
+    logits come back joined and the cache laid out by `cache_specs(cfg, B, S,
     rules)`, DistArrays each coordinate of which holds only its region;
     `pad_cache` takes it to the decode length, laid out by `cache_specs`
     at that length, which `decode_step` then runs over."""
@@ -543,7 +547,8 @@ def _ssm_decode(lp: dict, h: torch.Tensor, cache: dict, i: int,
 # The partitioned program: a laid-out state, per coordinate
 # ---------------------------------------------------------------------------
 
-_BODIES_NEXT = "ROADMAP A item 6 (the MoE, SSM, hybrid, audio and VLM bodies)"
+_BODIES_NEXT = "ROADMAP A item 6 (the SSM, hybrid, audio and VLM bodies)"
+_LAID_OUT_FAMILIES = ("dense", "moe")
 
 
 def is_laid_out(params) -> bool:
@@ -555,7 +560,7 @@ def _program(params: dict, batch: dict, cfg: ArchConfig, rules: ShardingRules):
     """The program's frame, and each batch entry's rows at every
     coordinate: laid out by the batch specs (a whole tensor is cut where
     it lies; a laid-out one keeps its layout, or moves to it)."""
-    if cfg.family != "dense":
+    if cfg.family not in _LAID_OUT_FAMILIES:
         raise NotImplementedError(f"the {cfg.family} body on a laid-out state: {_BODIES_NEXT}")
     mesh = next(t for t in leaves(params) if isinstance(t, DistArray)).mesh
     parts = {}
@@ -601,19 +606,31 @@ def _norm_laid_out(cfg: ArchConfig, params: dict, name: str, x: dict) -> dict:
 
 
 def _layer_laid_out(cfg: ArchConfig, prog: Program, lp: dict, x: dict,
-                    attend=None) -> dict:
-    """One dense layer of the partitioned program; every phase runs over
-    every coordinate before the next. `attend(params, h)` is the
-    attention (default: `attn_apply_laid_out`)."""
+                    attend=None) -> tuple[dict, dict, dict]:
+    """One dense or MoE layer of the partitioned program: (x, aux, z),
+    dicts coordinate -> tensor, aux and z the layer's MoE losses (0-dim
+    f32; None without MoE). Every phase runs over every coordinate before
+    the next. `attend(params, h)` is the attention (default:
+    `attn_apply_laid_out`)."""
     h = _norm_laid_out(cfg, lp, "attn_norm", x)
     a = (attend(lp["attn"], h) if attend is not None
          else attention.attn_apply_laid_out(lp["attn"], h, cfg, prog))
     x = {c: t + a[c] for c, t in x.items()}
     del a, h
-    h = _norm_laid_out(cfg, lp, "mlp_norm", x)
-    m = mlp_apply_laid_out(lp["mlp"], h, cfg.activation, prog)
-    x = {c: t + m[c] for c, t in x.items()}
-    return prog.shard(x, (prog.batch, prog.seq, cfg.d_model), "batch", "seq", "embed")
+    if cfg.d_ff:
+        h = _norm_laid_out(cfg, lp, "mlp_norm", x)
+        m = mlp_apply_laid_out(lp["mlp"], h, cfg.activation, prog)
+        x = {c: t + m[c] for c, t in x.items()}
+        del m, h
+    if cfg.moe is not None:
+        h = _norm_laid_out(cfg, lp, "moe_norm", x)
+        m, aux, z = moe_mod.moe_apply_laid_out(lp["moe"], h, cfg, prog)
+        x = {c: t + m[c] for c, t in x.items()}
+        del m, h
+    else:
+        aux = z = None
+    x = prog.shard(x, (prog.batch, prog.seq, cfg.d_model), "batch", "seq", "embed")
+    return x, aux, z
 
 
 def _embed_laid_out(params: dict, tokens: dict, cfg: ArchConfig, prog: Program) -> dict:
@@ -639,11 +656,13 @@ def _head_laid_out(params: dict, x: dict, cfg: ArchConfig, prog: Program):
 
 def _forward_laid_out(params: dict, tokens: dict, cfg: ArchConfig, prog: Program,
                       remat: bool, remat_policy: str, cache: dict | None = None):
-    """Each coordinate's f32 logits (B_loc, S, V_loc) and their spec. With
-    remat each layer runs under `torch.utils.checkpoint`: the recompute
-    gathers its weights again, as the reference's remat does. Given the
-    laid-out arrays of a prefill `cache`, each layer writes its k and v
-    into them (`_attend_and_cache`)."""
+    """Each coordinate's f32 logits (B_loc, S, V_loc), their spec, and its
+    aux and z summed over the layers, as the reference's scan sums them
+    (None without MoE).
+    With remat each layer runs under `torch.utils.checkpoint`: the
+    recompute gathers its weights again, as the reference's remat does.
+    Given the laid-out arrays of a prefill `cache`, each layer writes its
+    k and v into them (`_attend_and_cache`)."""
     if remat_policy not in REMAT_POLICIES:
         raise ValueError(f"unknown remat_policy {remat_policy!r}; want one of "
                          f"{REMAT_POLICIES}")
@@ -652,15 +671,29 @@ def _forward_laid_out(params: dict, tokens: dict, cfg: ArchConfig, prog: Program
     if remat_policy == "dots":
         context_fn = functools.partial(
             torch_checkpoint.create_selective_checkpoint_contexts, _dots_policy)
+    aux = z = None
     for i, lp in enumerate(_unstack_laid_out(params["layers"], cfg.n_layers)):
         attend = (None if cache is None
                   else functools.partial(_attend_and_cache, cfg, prog, cache, i))
         if remat:
-            x = torch_checkpoint.checkpoint(_layer_laid_out, cfg, prog, lp, x, attend,
-                                            use_reentrant=False, context_fn=context_fn)
+            x, a, zz = torch_checkpoint.checkpoint(_layer_laid_out, cfg, prog, lp, x, attend,
+                                                   use_reentrant=False,
+                                                   context_fn=context_fn)
         else:
-            x = _layer_laid_out(cfg, prog, lp, x, attend)
-    return _head_laid_out(params, x, cfg, prog)
+            x, a, zz = _layer_laid_out(cfg, prog, lp, x, attend)
+        if a is not None:
+            aux = a if aux is None else {c: t + a[c] for c, t in aux.items()}
+            z = zz if z is None else {c: t + zz[c] for c, t in z.items()}
+    return (*_head_laid_out(params, x, cfg, prog), aux, z)
+
+
+def _joined_losses(aux: dict | None, z: dict | None, mesh) -> tuple:
+    """The MoE losses joined (0-dim, in every process), or zeros on this
+    process's device without MoE."""
+    if aux is None:
+        zero = _zero(mesh.local_device())
+        return zero, zero
+    return col.join(aux, (), mesh), col.join(z, (), mesh)
 
 
 def _cache_layout(kv: dict, kv_ax, spec, prog: Program) -> dict:
@@ -711,10 +744,10 @@ def _prefill_laid_out(params: dict, batch: dict, cfg: ArchConfig, rules: Shardin
                  for k, t in abstract_cache(cfg, prog.batch, prog.seq).items()}
         for t in cache["pos"].shards.values():
             t.fill_(prog.seq)
-        logits, spec = _forward_laid_out(params, parts["tokens"], cfg, prog, False, "full",
-                                         cache)
-        zero = _zero(prog.mesh.local_device())
-        return col.join(logits, spec, prog.mesh), zero, zero, cache
+        logits, spec, aux, z = _forward_laid_out(params, parts["tokens"], cfg, prog, False,
+                                                 "full", cache)
+        return (col.join(logits, spec, prog.mesh), *_joined_losses(aux, z, prog.mesh),
+                cache)
 
 
 def _decode_laid_out(params: dict, cache: dict, tokens, cfg: ArchConfig,
@@ -740,7 +773,7 @@ def _decode_laid_out(params: dict, cache: dict, tokens, cfg: ArchConfig,
         for lp, kv in layers:
             x = _layer_laid_out(cfg, prog, lp, x, functools.partial(
                 attention.attn_decode_laid_out, cache_k=kv["k"], cache_v=kv["v"], pos=pos,
-                cfg=cfg, prog=prog))
+                cfg=cfg, prog=prog))[0]
         logits, spec = _head_laid_out(params, x, cfg, prog)
         new_cache = {**cache, "pos": col.zip_map(lambda p: p + 1, cache["pos"])}
         return col.join(logits, spec, mesh)[:, 0], new_cache
@@ -756,8 +789,8 @@ def _loss_laid_out(params: dict, batch: dict, cfg: ArchConfig, rules: ShardingRu
     (a psum's psum, an all-gather's reduce-scatter) sum."""
     prog, parts = _program(params, batch, cfg, rules)
     mesh = prog.mesh
-    logits, spec = _forward_laid_out(params, parts["tokens"], cfg, prog,
-                                     remat and _tracks_grad(params), remat_policy)
+    logits, spec, aux, z = _forward_laid_out(params, parts["tokens"], cfg, prog,
+                                             remat and _tracks_grad(params), remat_policy)
     b_ax, v_ax = spec[0], spec[2]
     with torch.no_grad():
         top = {c: t.amax(-1) for c, t in logits.items()}
@@ -785,10 +818,8 @@ def _loss_laid_out(params: dict, batch: dict, cfg: ArchConfig, rules: ShardingRu
     if b_ax:
         sums, counts = col.psum(sums, b_ax, mesh), col.psum(counts, b_ax, mesh)
     ce = {c: t / counts[c].clamp(min=1) for c, t in sums.items()}
-    total = {}
-    for c, t in ce.items():
-        zero = _zero(t)
-        total[c] = t + aux_weight * zero + z_weight * zero
-    zero = _zero(mesh.local_device())
-    return col.join(total, (), mesh), {"ce": col.join(ce, (), mesh), "aux": zero, "z": zero,
+    total = ce if aux is None else {c: t + aux_weight * aux[c] + z_weight * z[c]
+                                    for c, t in ce.items()}
+    aux, z = _joined_losses(aux, z, mesh)
+    return col.join(total, (), mesh), {"ce": col.join(ce, (), mesh), "aux": aux, "z": z,
                                        "tokens": col.join(counts, (), mesh)}

@@ -1484,16 +1484,23 @@ def _sum_holders(x: DistArray, g: dict) -> DistArray:
 
 def to_spec(xs: dict, have: Sequence, want: Sequence, mesh: Mesh) -> dict:
     """Per-coordinate tensors laid out by the spec `have`, laid out by
-    `want`, dim by dim: a dim that `have` splits over other axes than
-    `want` is all-gathered over them (its backward the reduce-scatter),
-    then a dim that `want` splits is cut to the coordinate's part."""
+    `want`: an axis that `have` splits one dim by last and `want` splits
+    another dim by last instead moves there by one all_to_all over it;
+    then every other dim that `have` splits over other axes than `want`
+    is all-gathered over them (its backward the reduce-scatter), and last
+    each dim that `want` splits is cut to the coordinate's part."""
+    have, want = [_names(h) for h in have], [_names(w) for w in want]
+    for i, h in enumerate(have):
+        if h and h[:-1] == want[i]:
+            j = next((j for j, w in enumerate(want) if w == have[j] + h[-1:]), None)
+            if j is not None:
+                xs = all_to_all(xs, h[-1], j, i, mesh)
+                have[i], have[j] = want[i], want[j]
     for dim, (h, w) in enumerate(zip(have, want)):
-        h, w = _names(h), _names(w)
-        if h == w:
-            continue
-        if h:
+        if h and h != w:
             xs = all_gather(xs, h, dim, mesh)
-        if w:
+    for dim, (h, w) in enumerate(zip(have, want)):
+        if w and h != w:
             n = _extent(mesh, w)
             xs = {c: t.narrow(dim, _position(mesh, w, c) * (t.shape[dim] // n),
                               t.shape[dim] // n) for c, t in xs.items()}

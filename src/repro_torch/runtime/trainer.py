@@ -22,9 +22,12 @@ partitioned program, the counterpart of the reference's
 microbatch (rows [i·B/nm, (i+1)·B/nm) of the global batch, laid out by
 the batch specs) runs `loss_fn` per coordinate inside
 `collectives.laid_out_region`, the gradients come back laid out
-(`collectives.grads`), the f32 sums are kept shard by shard, and AdamW
-updates shard by shard. Across processes a process then holds only its
-own coordinates' shards. The metrics come back as 0-dim tensors, the
+(`collectives.grads`; a region several coordinates hold, such as the
+norms' scales and the MoE router, gets the sum of their gradients, and
+`global_norm` counts it once), the f32 sums are kept shard by shard, and
+AdamW updates shard by shard; an MoE body's aux and z enter each
+microbatch's loss as in the reference's step. Across processes a
+process then holds only its own coordinates' shards. The metrics come back as 0-dim tensors, the
 same in every process. SPIN-Shampoo on a laid-out state raises
 NotImplementedError: its Gram factors need the whole gradient.
 

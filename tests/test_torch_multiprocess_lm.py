@@ -279,3 +279,62 @@ def test_a_rank_holds_only_its_cache_regions(serve_run):
         assert rank["held"] == rank["own"] and rank["params_held"] == rank["params_own"]
         assert all(h * SERVE_PROCS == r for h, r in zip(rank["held"], ref["held"]))
         assert rank["params_held"] * SERVE_PROCS < 1.01 * ref["params_held"]
+
+
+@pytest.fixture(scope="module")
+def moe_run():
+    total = SERVE_SHAPE[0] * SERVE_SHAPE[1]
+    return (spawn("moe", SERVE_PROCS, shape=list(SERVE_SHAPE), devices=total // SERVE_PROCS),
+            ranks.run_here("moe", shape=list(SERVE_SHAPE), devices=total))
+
+
+def test_partitioned_moe_across_processes_is_the_single_process_bits(moe_run):
+    """Two AdamW steps, a prefill and 3 decode steps of reduced qwen2-moe
+    on a state laid out over (2, 4), process p holding data row p: the
+    expert-parallel dispatch runs its all_to_alls within a process and
+    the experts' FSDP gathers across them; every rank's losses,
+    parameters, logits and final cache the single process's bits, the
+    bytes and calls of each part summed over the ranks its counts."""
+    got, ref = moe_run
+    assert all(np.isfinite(ref["step"]["losses"]))
+    for part in ("step", "serve"):
+        assert sorted(c for rank in got for c in rank[part]["local"]) == \
+            sorted(ref[part]["local"])
+        _assert_sums([rank[part] for rank in got], ref[part])
+        assert _summed([rank[part] for rank in got], "bytes")["all_to_all"] > 0
+        assert _summed([rank[part] for rank in got], "bytes")["pmean"] > 0
+    for rank in got:
+        assert rank["step"]["losses"] == ref["step"]["losses"]
+        assert rank["step"]["grad_norms"] == ref["step"]["grad_norms"]
+        assert all(torch.equal(p, q) for p, q in zip(rank["step"]["params"],
+                                                     ref["step"]["params"]))
+        assert len(rank["serve"]["logits"]) == len(ref["serve"]["logits"]) == 4
+        assert all(torch.equal(a, b) for a, b in zip(rank["serve"]["logits"],
+                                                     ref["serve"]["logits"]))
+        assert all(torch.equal(rank["serve"]["cache"][k], ref["serve"]["cache"][k])
+                   for k in ref["serve"]["cache"])
+
+
+def test_a_rank_holds_only_its_moe_state_and_cache_regions(moe_run):
+    """A rank's state bytes are its own coordinates' regions, fewer than
+    the single process's (the experts split over both axes; the shared
+    experts, router, norm scales and step counters, whole along `data`,
+    once a process), the f32 router's parameter held once with its AdamW
+    master (the update's cast to its own dtype is the master itself); its
+    cache bytes after the prefill, the move to the decode length and every
+    step are its own regions too: half."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as T
+
+    router = T.abstract_params(get_arch("qwen2-moe-a2.7b").reduced(), 4)["layers"]["moe"][
+        "router"]
+    aliased = router.numel() * router.element_size()
+    got, ref = moe_run
+    assert ref["step"]["held"] == ref["step"]["own"] - aliased
+    assert ref["serve"]["held"] == ref["serve"]["own"]
+    for rank in got:
+        assert rank["step"]["held"] == rank["step"]["own"] - aliased
+        assert rank["step"]["held"] < ref["step"]["held"]
+        assert rank["serve"]["held"] == rank["serve"]["own"]
+        assert all(h * SERVE_PROCS == r for h, r in zip(rank["serve"]["held"],
+                                                         ref["serve"]["held"]))

@@ -349,10 +349,11 @@ def test_spin_shampoo_on_a_laid_out_state_raises():
 
 
 def test_other_bodies_prefill_and_decode_on_a_laid_out_state_raise():
-    """The other families' bodies, their prefill and decode too, and a
-    dense config's sliding window (a rolling cache) are item 6's."""
+    """The bodies still to come (SSM, hybrid, audio, VLM), their prefill
+    and decode too, and a dense config's sliding window (a rolling cache)
+    are item 6's."""
     mesh = _mesh((2, 4))
-    cfg = get_arch("qwen2-moe-a2.7b").reduced()
+    cfg = get_arch("mamba2-130m").reduced()
     params = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu", HINT)
     specs = T.param_specs(cfg, RULES_VARIANTS["default"], mesh, HINT)
     laid = lay_out(params, _named(specs, mesh))
@@ -429,12 +430,13 @@ def _holds_only_its_regions(state) -> bool:
             and _held_bytes(state) == _own_bytes(state))
 
 
-def test_checkpoint_of_a_laid_out_state_resumes_the_run(tmp_path):
+@pytest.mark.parametrize("name", ["granite-8b", "qwen2-moe-a2.7b"])
+def test_checkpoint_of_a_laid_out_state_resumes_the_run(tmp_path, name):
     """`Trainer` saves a laid-out state (gathered to the host),
     `restore(shardings=)` lays it out again bit for bit, holding only its
     coordinates' regions (no whole leaf alive behind them), and a run
     resumed from it repeats the uninterrupted run's next loss."""
-    cfg = get_arch("granite-8b").reduced()
+    cfg = get_arch(name).reduced()
     mesh = _mesh((2, 4))
     shardings = state_shardings(cfg, _tcfg(), mesh, RULES_VARIANTS["default"], HINT)
 
@@ -442,29 +444,30 @@ def test_checkpoint_of_a_laid_out_state_resumes_the_run(tmp_path):
         return Trainer(cfg, _tcfg(), TokenStream(cfg, B, S, seed=0, device="cpu"),
                        ckpt_dir=ckpt_dir, ckpt_every=2)
 
-    _, logs = trainer(str(tmp_path)).run(_state("granite-8b", mesh), 3, log_every=0)
-    at2, _ = trainer().run(_state("granite-8b", mesh), 2, log_every=0)
-    got, extra = restore(str(tmp_path), 2, _state("granite-8b", mesh), shardings=shardings)
+    _, logs = trainer(str(tmp_path)).run(_state(name, mesh), 3, log_every=0)
+    at2, _ = trainer().run(_state(name, mesh), 2, log_every=0)
+    got, extra = restore(str(tmp_path), 2, _state(name, mesh), shardings=shardings)
     assert "stream" in extra
     for a, b in zip(tree.leaves(got), tree.leaves(at2)):
         assert isinstance(a, DistArray) and a.spec == b.spec
         assert torch.equal(col.gather(a), col.gather(b))
     assert _holds_only_its_regions(got)
     resumed = trainer(str(tmp_path))
-    state = resumed.maybe_restore(_state("granite-8b", mesh))
+    state = resumed.maybe_restore(_state(name, mesh))
     assert all(isinstance(x, DistArray) for x in tree.leaves(state))
     assert _holds_only_its_regions(state)
     _, more = resumed.run(state, 1, log_every=0)
     assert more[0]["step"] == 3 and more[0]["loss"] == logs[2]["loss"]
 
 
-def test_the_bridge_lays_out_the_references_state():
+@pytest.mark.parametrize("name", ["granite-8b", "qwen2-moe-a2.7b"])
+def test_the_bridge_lays_out_the_references_state(name):
     """`train_state_from_numpy(..., shardings=)`: every leaf a DistArray
     whose whole is the reference's leaf, bit for bit; the step counters
     whole (P())."""
     mesh = _mesh((4, 2))
-    raw = _jax_state("granite-8b")
-    state = _state("granite-8b", mesh)
+    raw = _jax_state(name)
+    state = _state(name, mesh)
     assert state.step.spec == P() and state.opt.step.spec == P()
     for x, want in zip(tree.leaves(state), jax.tree.leaves(raw)):
         assert torch.equal(col.gather(x), bridge.to_torch(want, "cpu"))

@@ -24,9 +24,12 @@ query heads, so the prefill moves k and v from the heads' axis to the
 cache's sequence by an all_to_all) and granite-8b (one KV head, whole at
 every coordinate) on (2, 4) and (4, 2) under `default` and `dp_only`; one
 case whose rows stand at positions 28..35 (so that in one step rows write
-into two of the sequence's slices), and a decode length of 50, which
-`model` 4 does not divide: `kv_seq` is dropped, and the cache lies as k
-(olmo: split by KV heads; granite: whole at every coordinate). The bytes
+into two of the sequence's slices), one whose rows stand at positions
+44..51 (half of them at or past the cache's 48 slots, where the
+reference writes nothing and counts every slot valid), and a decode
+length of 50, which `model` 4 does not divide: `kv_seq` is dropped, and
+the cache lies as k (olmo: split by KV heads; granite: whole at every
+coordinate). The bytes
 and calls of each collective kind equal
 `launch.dryrun.partitioned_serve_collectives`.
 """
@@ -55,10 +58,13 @@ B, S, CACHE, STEPS = 8, 32, 48, 3
 LOGIT_TOL = 2e-2          # tests/test_torch_models.py:30
 CACHE_RTOL = 2e-2         # tests/test_torch_families.py:43
 RAGGED = list(range(28, 36))                 # the rows' positions at the first step
+PAST = list(range(44, 52))                   # ... half of them at or past CACHE
+POSITIONS = {"ragged": RAGGED, "past": PAST}
 ARCHS = ["olmo-1b", "granite-8b"]
 CASES = ([(a, s, r, CACHE, False) for a in ARCHS for s in [(2, 4), (4, 2)]
           for r in ["default", "dp_only"]]
-         + [("olmo-1b", (2, 4), "default", CACHE, True),
+         + [("olmo-1b", (2, 4), "default", CACHE, "ragged"),
+            ("olmo-1b", (2, 4), "default", CACHE, "past"),
             ("olmo-1b", (2, 4), "default", 50, False),
             ("granite-8b", (2, 4), "default", 50, False)])
 KINDS = ("all_gather", "all_to_all", "psum", "pmax")
@@ -74,7 +80,7 @@ def _one_thread():
 
 def _id(case) -> str:
     name, shape, rules, cache_len, ragged = case
-    return f"{name}-{shape[0]}x{shape[1]}-{rules}-{cache_len}" + ("-ragged" if ragged else "")
+    return f"{name}-{shape[0]}x{shape[1]}-{rules}-{cache_len}" + (f"-{ragged}" if ragged else "")
 
 
 def _tokens(cfg) -> np.ndarray:
@@ -117,7 +123,7 @@ for name, shape, rname, cache_len, ragged in CASES:
         full = T.init_cache(cfg, b, cache_len)
         full["k"] = full["k"].at[:, :, :s].set(cache["k"])
         full["v"] = full["v"].at[:, :, :s].set(cache["v"])
-        full["pos"] = jnp.asarray(RAGGED, jnp.int32) if ragged else cache["pos"]
+        full["pos"] = jnp.asarray(POSITIONS[ragged], jnp.int32) if ragged else cache["pos"]
         cspecs = T.cache_specs(cfg, b, cache_len, rules, mesh)
         placed = jax.tree.map(lambda sp: NamedSharding(mesh, sp), cspecs,
                               is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))
@@ -133,7 +139,7 @@ for name, shape, rname, cache_len, ragged in CASES:
                           f"v{i}": full["v"], f"pos{i}": full["pos"]})
             tok = jnp.argmax(lg, -1).astype(jnp.int32)
     key = "%s-%dx%d-%s-%d" % (name, shape[0], shape[1], rname, cache_len) + \\
-        ("-ragged" if ragged else "")
+        ("-" + ragged if ragged else "")
     np.savez(os.path.join(out, key + ".npz"),
              **{k: np.asarray(v).astype(np.float32) if v.dtype == jnp.bfloat16 else np.asarray(v)
                 for k, v in saved.items()})
@@ -149,7 +155,7 @@ def reference(tmp_path_factory):
         np.save(out / f"{name}.npy", _tokens(get_arch(name).reduced()))
     code = (_CHILD.replace("OUT", repr(str(out)))
             .replace("CASES", repr([(a, list(s), r, n, g) for a, s, r, n, g in CASES]))
-            .replace("RAGGED", repr(RAGGED)).replace("STEPS", str(STEPS)))
+            .replace("POSITIONS", repr(POSITIONS)).replace("STEPS", str(STEPS)))
     got = {}
     for r in run_mesh(code, devices=8, timeout=900):
         r["arrays"] = dict(np.load(out / f"{r['case']}.npz"))
@@ -196,7 +202,7 @@ def _serve(case, ref) -> dict:
                                              for t in x.shards.values()]
     cache = T.pad_cache(cache, cfg, cache_len, rules)
     if ragged:
-        pos = torch.tensor(RAGGED, dtype=torch.int32)
+        pos = torch.tensor(POSITIONS[ragged], dtype=torch.int32)
         cache["pos"] = lay_out(pos, NamedSharding(mesh, cache["pos"].spec))
     out["layout"].append(_layout_ok(cache, cfg, rules, mesh))
 
@@ -204,7 +210,7 @@ def _serve(case, ref) -> dict:
     out["free_prefill"] = (free_logits, {k: free[k] for k in ("k", "v")})
     pad = (0, 0, 0, 0, 0, cache_len - S)
     free = {"k": F.pad(free["k"], pad), "v": F.pad(free["v"], pad),
-            "pos": torch.tensor(RAGGED, dtype=torch.int32) if ragged else free["pos"]}
+            "pos": torch.tensor(POSITIONS[ragged], dtype=torch.int32) if ragged else free["pos"]}
     for tok in fed:
         col.reset_collective_bytes()
         lg, new = T.decode_step(laid, cache, tok, cfg, rules)
@@ -300,6 +306,27 @@ def test_collective_bytes_and_calls_equal_the_analytic_count(runs, case):
         assert {k: calls[k] for k in KINDS} == want_calls, phase
         # nothing else moves: no leaf is made whole, the tokens are cut where they lie
         assert all(moved[k] == 0 for k in moved if k not in KINDS), (phase, moved)
+
+
+def test_a_row_at_or_past_the_decode_length_writes_nothing(reference, runs):
+    """Rows at positions 48..51 of a 48-slot cache (split along its
+    sequence over `model`): the reference writes nothing there and counts
+    every slot valid (`_write_row` and `_partial_softmax`); the rows'
+    cache stays the prefill's, padded, at every step, in the port and in
+    the reference, while the rows below 48 write theirs."""
+    case = ("olmo-1b", (2, 4), "default", CACHE, "past")
+    want, run = reference[_id(case)]["arrays"], runs(case)
+    past = np.asarray(PAST) >= CACHE
+    assert past.any() and not past.all()
+    for key in ("k", "v"):
+        prompt = run["prefill"][1][key].float().numpy()
+        for i, (_, got) in enumerate(run["steps"]):
+            got = got[key].float().numpy()
+            assert np.array_equal(got[:, past, :S], prompt[:, past])
+            assert not got[:, past, S:].any() and not want[f"{key}{i}"][:, past, S:].any()
+            # a row below the cache's end writes its slot
+            row = int(np.flatnonzero(~past)[0])
+            assert got[:, row, PAST[row] + i].any()
 
 
 def test_a_wholly_masked_slice_adds_exactly_zero():

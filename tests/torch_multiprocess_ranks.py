@@ -293,6 +293,14 @@ def serve(shape, devices: int, name: str = "olmo-1b", cache_len: int = 48, steps
     return out
 
 
+def moe(shape, devices: int, name: str = "qwen2-moe-a2.7b", seed: int = 3) -> dict:
+    """The partitioned MoE body: `partition`'s two AdamW steps and `serve`'s
+    prefill and decode of reduced `name` (expert-parallel dispatch on
+    laid-out experts in each), each with its own counts."""
+    return {"step": partition(shape, devices, name=name, seed=seed),
+            "serve": serve(shape, devices, name=name, seed=seed)}
+
+
 def fail_early() -> dict:
     """Rank 1 raises before any collective."""
     from repro_torch.launch.mesh import worker_info
@@ -328,7 +336,7 @@ def skip_collective() -> dict:
 
 
 CASES = {"spin": spin, "regions": regions, "lm": lm, "train": train, "partition": partition,
-         "serve": serve, "fail_early": fail_early, "fail_mid_collective": fail_mid_collective,
+         "serve": serve, "moe": moe, "fail_early": fail_early, "fail_mid_collective": fail_mid_collective,
          "skip_collective": skip_collective}
 
 
