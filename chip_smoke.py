@@ -356,16 +356,47 @@ Phases, each of which fails the run (non-zero exit) on any fault:
      logit and cache digests equal the single process's, each rank holding
      its own regions of the state and half the cache; B6 and B6-bwd against
      their plain versions at a coordinate's shape (2, 4, 2048, 128);
-     `phase_s["25"]` and the script's total seconds printed;
- 26. one JSON line with every path's times and residual (the examples'
+     `phase_s["25"]` printed;
+ 26. the partitioned SSM and hybrid bodies on phase 19's mesh (data 2,
+     model 4) of cuda:0: hymba-1.5b (its 50 SSD heads and 25 query heads
+     whole at every coordinate, wq, wz and wo gathered whole from their
+     mid-head split) and mamba2-130m (6 SSD heads a coordinate, the gated
+     norm's squares and the output psum'd over `model`): (a) the SSM block
+     alone (B 4 x S 2048) against `ssm_apply` on the same bits: out, state
+     and every gradient within 2^-5 of their largest entry, the forward's
+     and backward's bytes and calls equal to
+     `launch.dryrun.ssm_block_collectives`; (b) AdamW steps of 8 x 2048
+     tokens in 2 microbatches, full remat, mamba2 at full depth (no kernel
+     launched) and hymba cut to 4 layers (B6 32 x L and B6-bwd 16 x L a
+     step, window 1024), each against a mesh-free step on the same
+     weights and first batch: the loss within 2e-3, the grad norm's gap
+     printed, bytes and calls equal to `partitioned_step_collectives`, 3
+     timed steps after that first one, the warm-up (ms, tokens/s, peak
+     GiB, beside the mesh-free step's second, warm), every state leaf
+     still a DistArray of its spec; (c) prefill and decode at full depth
+     against the mesh-free path on the same weights: hymba a prefill of
+     4 x 1024 filling its rolling cache of 1024 slots (256 a coordinate),
+     mamba2 one of 8 x 2048, then a warm-up and 16 decode steps fed the
+     mesh-free run's tokens; the logits within phase 17's 0.5 and the
+     argmax equal where the mesh-free top-2 margin exceeds it, the
+     prefill's dp_only logits error beside, the prompt's state error layer
+     by layer under both rules; every hymba step writes slot pos % 1024 in
+     the first `model` coordinate's slice and no other slot moves; B6
+     8 x L launches a prefill and none in decode; bytes and calls equal to
+     `partitioned_serve_collectives`; prefill ms, decode ms a step and
+     peak GiB beside mesh-free; B6 and B6-bwd against their plain versions
+     at hymba's coordinate shape (2, 25, 2048, 64, KV 5, window 1024)
+     beside SDPA given the window's mask; `phase_s["26"]` and the script's
+     total seconds printed;
+ 27. one JSON line with every path's times and residual (the examples'
      wall, launches and peak memory under "examples", phase 22's ranks
      under "processes", phase 23's under "partition", phase 24's under
-     "serve_partition", phase 25's under "partition_moe"), and one with
-     every kernel's launches, error and times (the GEMM's, blocked
-     Gauss-Jordan's and triangular solve's launches on every path beside
-     them, the examples' runs and phase 22's ranks, each rank's and their
-     sum, included, and B6's and B6-bwd's at a coordinate of phases 23, 24
-     and 25).
+     "serve_partition", phase 25's under "partition_moe", phase 26's under
+     "partition_ssm"), and one with every kernel's launches, error and
+     times (the GEMM's, blocked Gauss-Jordan's and triangular solve's
+     launches on every path beside them, the examples' runs and phase 22's
+     ranks, each rank's and their sum, included, and B6's and B6-bwd's at
+     a coordinate of phases 23, 24, 25 and 26).
 
 The last line is {"ok": true, "device": {...}}. The script imports only
 the PyTorch port; it exits non-zero without a result when CUDA is missing
@@ -571,6 +602,25 @@ PMOE_SERVE_PROMPT, PMOE_SERVE_CACHE = 2048, 4096
 PMOE_SERVE_STEPS = 16             # (c)'s timed decode steps after one warm-up
 PMOE_PROCS, PMOE_PROC_LAYERS, PMOE_PROC_STEPS = 2, 1, 2
 PMOE_PROC_PROMPT, PMOE_PROC_CACHE, PMOE_PROC_DECODE = 512, 1024, 4
+# Phase 26: the partitioned SSM and hybrid bodies on phase 19's mesh (data
+# 2, model 4) of cuda:0: hymba-1.5b (50 SSD heads and 25 query heads, whole
+# at every coordinate: `model` 4 divides neither, while wq, wz and wo split
+# their columns mid-head and are gathered whole) and mamba2-130m (24 SSD
+# heads: 6 a coordinate). (a) The SSM block alone at full width against
+# `ssm_apply`; (b) AdamW steps against a mesh-free step (hymba cut to
+# PSSM_LAYERS); (c) prefill and decode at full depth against the mesh-free
+# path, hymba's prompt filling its rolling cache of the window's 1024 slots.
+# The gloo ranks of this slice run on the CPU only
+# (tests/test_torch_multiprocess_lm.py).
+PSSM_ARCHS = ("hymba-1.5b", "mamba2-130m")
+PSSM_BLOCK_BATCH, PSSM_BLOCK_SEQ = 4, 2048
+PSSM_BLOCK_RTOL = 2.0 ** -5
+PSSM_LAYERS = 4                   # (b)'s depth for hymba (phase 18b trains all 32)
+PSSM_STEPS = 3                    # (b)'s timed steps after one warm-up
+PSSM_RTOL = 2e-3                  # (b)'s first loss against the mesh-free step's
+PSSM_SERVE = {"hymba-1.5b": (4, 1024, 1024),     # (c): batch, prompt, decode length
+              "mamba2-130m": (8, 2048, 2048)}
+PSSM_SERVE_STEPS = 16             # (c)'s timed decode steps after one warm-up
 U_F32 = 2.0 ** -24                # f32 unit roundoff
 # The refresh residual's bound: c·n·u·κ, the first-order bound on an
 # inverse's residual by elimination, with c = 4 over the 1.3 measured at
@@ -4052,12 +4102,13 @@ def _partition_steps(torch, cfg, mesh, steps: int, model_size_hint: int = 16,
 
 def check_flash_partitioned(torch, b: int, h: int, s: int, hd: int,
                             what: str = "the partitioned step",
-                            backward: bool = True) -> dict:
-    """Phases 23 and 24: B6 (and B6-bwd with `backward`) against their
+                            backward: bool = True, kv: int = 0, window: int = 0) -> dict:
+    """Phases 23 to 26: B6 (and B6-bwd with `backward`) against their
     plain versions at a coordinate's shape of `what` (B_loc, H_loc, S,
-    hd), bf16, causal, made in the model's (B, S, H, hd) layout; each
-    timed beside its bound, its plain version and SDPA (forward,
-    backward)."""
+    hd; `kv` KV heads, H_loc by default; a sliding `window`), bf16,
+    causal, made in the model's (B, S, H, hd) layout; each timed beside
+    its bound, its plain version and SDPA (forward, backward; given the
+    window's boolean mask)."""
     from repro_torch.kernels.flash_attention import kernel as fa, ref as fa_ref
     import numpy as np
     import torch.nn.functional as F
@@ -4065,30 +4116,36 @@ def check_flash_partitioned(torch, b: int, h: int, s: int, hd: int,
     dev = torch.device("cuda")
     rng = np.random.default_rng([SEED, 23])
 
-    def one():
-        x = rng.standard_normal((b, s, h, hd), dtype=np.float32)
+    kv = kv or h
+
+    def one(heads):
+        x = rng.standard_normal((b, s, heads, hd), dtype=np.float32)
         return torch.from_numpy(x).to(dev, torch.bfloat16).transpose(1, 2)
 
-    q, k, v, do = one(), one(), one(), one()
-    got = fa.flash_attention_cuda(q, k, v, causal=True)
-    err = max_abs(got, fa_ref.attention_ref(q, k, v, causal=True))
+    q, k, v, do = one(h), one(kv), one(kv), one(h)
+    w = {"causal": True, "window": window}
+    got = fa.flash_attention_cuda(q, k, v, **w)
+    err = max_abs(got, fa_ref.attention_ref(q, k, v, **w))
     require(bool(torch.isfinite(got.float()).all()) and err <= FLASH_TOL["bfloat16"],
             f"partition flash_attention: max_abs_err {err}")
-    bound, by = flash_bound_ms(b, h, h, s, s, hd, True, 2, PEAK_BF16_FLOPS)
-    fwd = {"ms": time_ms(lambda: fa.flash_attention_cuda(q, k, v, causal=True), 10),
-           "plain_ms": time_ms(lambda: fa_ref.attention_ref(q, k, v, causal=True), 2),
+    bound, by = flash_bound_ms(b, h, kv, s, s, hd, True, 2, PEAK_BF16_FLOPS, window=window)
+    # SDPA takes a boolean mask only for the window (check_flash_families)
+    mask = fa_ref.attention_mask(s, s, True, window, dev) if window else None
+    fwd = {"ms": time_ms(lambda: fa.flash_attention_cuda(q, k, v, **w), 10),
+           "plain_ms": time_ms(lambda: fa_ref.attention_ref(q, k, v, **w), 2),
            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-               q, k, v, is_causal=True), 10),
+               q, k, v, attn_mask=mask, is_causal=not window, enable_gqa=kv != h), 10),
            "bound_ms": bound, "bound_by": by, "max_abs_err": err}
-    shape = f"B={b} H={h} KV={h} S={s} hd={hd} causal bf16 (a coordinate of {what})"
+    shape = (f"B={b} H={h} KV={kv} S={s} hd={hd} causal"
+             + (f" window={window}" if window else "") + f" bf16 (a coordinate of {what})")
     print(f"time flash_attention {what}: {fwd} {shape}", flush=True)
     if not backward:
-        del q, k, v, do
+        del q, k, v, do, mask
         torch.cuda.empty_cache()
         return {"flash_attention": {**fwd, "shape": shape}}
-    out, lse = fa._forward(q, k, v, True, want_lse=True)
-    grads = fa.flash_attention_bwd_cuda(q, k, v, out, do, lse, causal=True)
-    want = fa_ref.attention_bwd_ref(q, k, v, do, causal=True)
+    out, lse = fa._forward(q, k, v, True, want_lse=True, window=window)
+    grads = fa.flash_attention_bwd_cuda(q, k, v, out, do, lse, **w)
+    want = fa_ref.attention_bwd_ref(q, k, v, do, **w)
     errs = [max_abs(g, w) for g, w in zip(grads, want)]
     rel = max(e / float(w.float().abs().max()) for e, w in zip(errs, want))
     require(all(bool(torch.isfinite(g.float()).all()) for g in grads)
@@ -4096,16 +4153,16 @@ def check_flash_partitioned(torch, b: int, h: int, s: int, hd: int,
             f"partition flash_attention_bwd: rel err {rel}")
     del grads, want
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-    lib_out = F.scaled_dot_product_attention(*leaves, is_causal=True)
-    bound, by = flash_bwd_bound_ms(b, h, h, s, hd, True, 2, PEAK_BF16_FLOPS)
-    bwd = {"ms": time_ms(lambda: fa.flash_attention_bwd_cuda(q, k, v, out, do, lse,
-                                                             causal=True), 20),
-           "plain_ms": time_ms(lambda: fa_ref.attention_bwd_ref(q, k, v, do, causal=True), 1),
+    lib_out = F.scaled_dot_product_attention(*leaves, attn_mask=mask, is_causal=not window,
+                                             enable_gqa=kv != h)
+    bound, by = flash_bwd_bound_ms(b, h, kv, s, hd, True, 2, PEAK_BF16_FLOPS, window=window)
+    bwd = {"ms": time_ms(lambda: fa.flash_attention_bwd_cuda(q, k, v, out, do, lse, **w), 20),
+           "plain_ms": time_ms(lambda: fa_ref.attention_bwd_ref(q, k, v, do, **w), 1),
            "library_ms": time_ms(lambda: torch.autograd.grad(lib_out, leaves, do,
                                                              retain_graph=True), 20),
            "bound_ms": bound, "bound_by": by, "max_abs_err": max(errs), "rel_err": rel}
     print(f"time flash_attention_bwd {what}: {bwd} {shape}", flush=True)
-    del q, k, v, do, out, lse, lib_out, leaves
+    del q, k, v, do, out, lse, lib_out, leaves, mask
     torch.cuda.empty_cache()
     return {"flash_attention": {**fwd, "shape": shape},
             "flash_attention_bwd": {**bwd, "shape": shape}}
@@ -4248,13 +4305,15 @@ def _laid_out_params(torch, cfg, mesh):
 
 
 def _serve_laid_out(torch, cfg, params, prompts, fed=None, steps: int = 0,
-                    cache_len: int = SERVE_CACHE) -> dict:
+                    cache_len: int = SERVE_CACHE, probe=None) -> dict:
     """On laid-out `params`: a prefill of `prompts` (its logits, launches,
     bytes and calls by kind, wall ms), the cache padded to `cache_len`,
     then one decode step a token of `fed` (or `steps` steps fed their own
     argmax), each step's logits, bytes, calls and wall ms; the cache's
     GiB held after each phase, its leaves' specs and shard shapes, and the
-    final cache's digests."""
+    final cache's digests. `probe(cache)` is called on the padded cache
+    before the first step and on the last step's: its two results under
+    "probe"."""
     from repro_torch import kernels
     from repro_torch.models import transformer as T
     from repro_torch.parallel import collective_bytes, collective_calls, reset_collective_bytes
@@ -4278,6 +4337,7 @@ def _serve_laid_out(torch, cfg, params, prompts, fed=None, steps: int = 0,
     out = {"prefill": prefill, "prefill_logits": logits, "held_gib": [_held_gib(torch, cache)]}
     cache = T.pad_cache(cache, cfg, cache_len)
     out["held_gib"].append(_held_gib(torch, cache))
+    out["probe"] = [probe(cache)] if probe is not None else []
     tok = torch.argmax(logits[:, -1], -1)
     del logits
     out["steps"], out["step_logits"] = [], []
@@ -4288,6 +4348,8 @@ def _serve_laid_out(torch, cfg, params, prompts, fed=None, steps: int = 0,
         out["step_logits"].append(lg)
         tok = torch.argmax(lg, -1)
     out["held_gib"].append(_held_gib(torch, cache))
+    if probe is not None:
+        out["probe"].append(probe(cache))
     out["cache"] = {k: (x.spec, {c: tuple(t.shape) for c, t in x.shards.items()})
                     for k, x in cache.items()}
     out["cache_digests"] = {k: _digest(torch, gather(x)) for k, x in cache.items()}
@@ -5080,6 +5142,389 @@ def run_partition_moe(torch, keep: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 26: the partitioned SSM and hybrid bodies (SSD heads per coordinate)
+# ---------------------------------------------------------------------------
+
+
+def _pssm_cfg(name: str, layers: int | None = None):
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch(name)
+    return dataclasses.replace(cfg, n_layers=layers or cfg.n_layers)
+
+
+def check_ssm_block_laid_out(torch, mesh, cfg) -> dict:
+    """Phase 26 (a): `ssm_apply_laid_out` at full width (B 4 x S 2048)
+    against `ssm_apply` on the same bits (seeded weights, input and output
+    cotangent): the output, the state (h on each coordinate's SSD heads,
+    the conv state) and the gradients of x and of every weight within
+    PSSM_BLOCK_RTOL of their largest entry, the forward's and backward's
+    bytes and calls equal to `ssm_block_collectives`; both timed (a
+    forward and backward, after one warm-up)."""
+    from repro_torch.launch.dryrun import ssm_block_collectives
+    from repro_torch.models import ssm as ssm_mod, transformer as T
+    from repro_torch.models.layers import init_tree, spec_tree
+    from repro_torch.parallel import collectives as col
+    from repro_torch.parallel.sharding import DEFAULT_RULES, Program, lay_out
+    from repro_torch.tree import leaves, leaves_with_path, unflatten
+
+    dev = torch.device("cuda")
+    b, s = PSSM_BLOCK_BATCH, PSSM_BLOCK_SEQ
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    defs = ssm_mod.ssm_params(cfg)
+    params = init_tree(defs, gen, dev)
+    x = torch.randn(b, s, cfg.d_model, generator=gen, device=dev).to(torch.bfloat16)
+    ct = torch.randn(b, s, cfg.d_model, generator=gen, device=dev)
+
+    def free():
+        flat = [t.detach().requires_grad_() for t in leaves(params)] + [
+            x.detach().requires_grad_()]
+        y, st = ssm_mod.ssm_apply(unflatten(params, flat[:-1]), flat[-1], cfg)
+        grads = torch.autograd.grad((y.float() * ct).sum(), flat)
+        return y.detach(), st.h.detach(), st.conv.detach(), grads
+
+    free()                                                       # warm-up
+    (y_ref, h_ref, conv_ref, g_ref), free_ms = timed(torch, free)
+    names = [k for k, _ in leaves_with_path(params)] + ["x"]
+    g_ref = dict(zip(names, g_ref))
+    laid = lay_out(params, _shardings(spec_tree(defs, DEFAULT_RULES, mesh), mesh))
+    xs = col.distribute(x, ("data", None, None), mesh)
+    prog = Program(mesh, DEFAULT_RULES, b, s)
+    h_spec = T.cache_specs(cfg, b, s, DEFAULT_RULES, mesh)["ssm_h"][1:]
+
+    def run():
+        (out, st), entered = col.laid_out_region(
+            lambda p, xx: ssm_mod.ssm_apply_laid_out(p, col.per_coord(xx), cfg, prog))(
+                laid, xs)
+        y = col.join(out, ("data", None, None), mesh)
+        h, conv = col.join(st.h, h_spec, mesh), col.join(st.conv, ("data", None, None), mesh)
+        flat = leaves_with_path({"p": entered[0], "x": entered[1]})
+        inputs = [t for _, leaf in flat for t in col.per_coord(leaf).values()]
+        with col.backward_context(mesh):
+            gs = iter(torch.autograd.grad((y.float() * ct).sum(), inputs, allow_unused=True))
+        grads = {k.removeprefix("p|"): _whole_grad(torch, leaf, {c: next(gs)
+                                                                  for c in mesh.coords()})
+                 for k, leaf in flat}
+        return y.detach(), h.detach(), conv.detach(), grads
+
+    col.reset_collective_bytes()
+    y, h, conv, grads = run()
+    moved, calls = col.collective_bytes(), col.collective_calls()
+    _, laid_ms = timed(torch, run)
+
+    def rel(got, want):
+        return float((got.float() - want.float()).abs().max()) / float(
+            want.float().abs().max())
+
+    errs = {"out": rel(y, y_ref), "ssm_h": rel(h, h_ref), "ssm_conv": rel(conv, conv_ref),
+            **{f"grad_{k}": rel(g, g_ref[k]) for k, g in grads.items()}}
+    _, n_h, _, _, _ = ssm_mod._dims(cfg)
+    h_loc = n_h // MESH_SHAPE[1] if h_spec[1] else n_h
+    want_moved, want_calls = ssm_block_collectives(cfg, MESH_SHAPE, "default", b, s,
+                                                   backward=True)
+    out = {"arch": cfg.name, "batch": b, "seq": s, "ssd_heads": n_h,
+           "heads_a_coordinate": h_loc,
+           "rel_err": errs, "bound": PSSM_BLOCK_RTOL, "ms": laid_ms, "mesh_free_ms": free_ms,
+           "bytes": {k: v for k, v in moved.items() if v},
+           "calls": {k: v for k, v in calls.items() if v}}
+    print(f"path partition_ssm_block {cfg.name}: {json.dumps(out)}", flush=True)
+    require(len(grads) == len(g_ref) and all(e <= PSSM_BLOCK_RTOL for e in errs.values()),
+            f"partition ssm block {cfg.name}: {errs}")
+    require({k: moved[k] for k in want_moved} == want_moved
+            and all(v == 0 for k, v in moved.items() if k not in want_moved)
+            and {k: calls[k] for k in want_calls} == want_calls,
+            f"partition ssm block {cfg.name}: bytes {moved} calls {calls}, want "
+            f"{want_moved} {want_calls}")
+    del laid, xs, params, x, ct, y, h, conv, grads, g_ref, y_ref, h_ref, conv_ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_partition_ssm_train(torch, mesh, cfg, cut_from: int) -> dict:
+    """Phase 26 (b): the partitioned AdamW step of `cfg` (mamba2-130m at
+    full depth, hymba-1.5b cut to PSSM_LAYERS) on (data 2, model 4) of
+    cuda:0 against a mesh-free step on the same weights and first batch:
+    the loss within PSSM_RTOL, the grad norm's gap printed, B6 32 x L and
+    B6-bwd 16 x L launches a step with attention (none without), bytes and
+    calls equal to `partitioned_step_collectives`, PSSM_STEPS timed steps
+    after that first one (their warm-up), every state leaf still a
+    DistArray of its spec; the mesh-free yardstick's second step is its
+    warm time."""
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.launch.dryrun import partitioned_step_collectives
+    from repro_torch.parallel import collective_bytes, collective_calls, reset_collective_bytes
+    from repro_torch.parallel.collectives import DistArray
+    from repro_torch.parallel.sharding import lay_out
+    from repro_torch.runtime.trainer import (TrainConfig, init_state, make_train_step,
+                                             state_shardings)
+    from repro_torch.tree import leaves
+
+    dev = torch.device("cuda")
+    n_coords = MESH_SHAPE[0] * MESH_SHAPE[1]
+    if cfg.n_layers < cut_from:
+        print(f"partition_ssm: {cfg.name} cut to {cfg.n_layers} of {cut_from} layers for "
+              f"the step (the phase's time: its 8 coordinates each run all 50 SSD heads "
+              f"and 25 query heads, which model 4 does not divide)", flush=True)
+    tcfg = TrainConfig(microbatches=TRAIN_MICRO, optimizer="adamw", warmup=1)
+    gc.collect()
+    torch.cuda.empty_cache()
+    whole = init_state(cfg, tcfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    shardings = state_shardings(cfg, tcfg, mesh)
+    state = lay_out(whole, shardings)
+    stream = TokenStream(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=SEED, device=str(dev))
+    first = stream.next()
+    torch.cuda.reset_peak_memory_stats()
+    # the mesh-free step on the same weights and batch (it consumes `whole`),
+    # then one more on the next batch, timed warm
+    free_step = make_train_step(cfg, tcfg)
+    whole, free, free_first_ms = _timed_step(torch, free_step, whole, first)
+    whole, _, free_ms = _timed_step(torch, free_step, whole, stream.next())
+    free_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del whole, free_step
+    gc.collect()
+    torch.cuda.empty_cache()
+    step = make_train_step(cfg, tcfg)
+    kernels.reset_launch_counts()
+    reset_collective_bytes()
+    torch.cuda.reset_peak_memory_stats()
+    state, m1, ms1 = _timed_step(torch, step, state, first)
+    launches = kernels.launch_counts()
+    moved, calls = collective_bytes(), collective_calls()
+    gap = abs(m1["grad_norm"] - free["grad_norm"])
+    print(f"path partition_ssm_first_step {cfg.name}: loss={m1['loss']!r} "
+          f"mesh_free_loss={free['loss']!r} grad_norm={m1['grad_norm']!r} "
+          f"mesh_free_grad_norm={free['grad_norm']!r} grad_norm_gap={gap!r} ms={ms1!r} "
+          f"mesh_free_first_ms={free_first_ms!r} mesh_free_ms={free_ms!r} "
+          f"launches={launches} bytes={moved} calls={calls}",
+          flush=True)
+    require(np.isfinite(m1["loss"]) and abs(m1["loss"] - free["loss"])
+            <= PSSM_RTOL * abs(free["loss"]),
+            f"partition ssm {cfg.name}: loss {m1['loss']} against mesh-free {free['loss']}")
+    per_step = ({} if cfg.attn_free else
+                {"flash_attention": 2 * cfg.n_layers * TRAIN_MICRO * n_coords,
+                 "flash_attention_bwd": cfg.n_layers * TRAIN_MICRO * n_coords})
+    for kern, n in launches.items():
+        require(n == per_step.get(kern, 0),
+                f"partition ssm {cfg.name}: {kern} launched {n} times, want "
+                f"{per_step.get(kern, 0)}")
+    want_moved, want_calls = partitioned_step_collectives(cfg, MESH_SHAPE, "default",
+                                                          TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO)
+    require({k: moved[k] for k in want_moved} == want_moved
+            and all(v == 0 for k, v in moved.items() if k not in want_moved)
+            and {k: calls[k] for k in want_calls} == want_calls,
+            f"partition ssm {cfg.name}: bytes {moved} calls {calls}, want {want_moved} "
+            f"{want_calls}")
+    # the first step is the warm-up of the timed ones (the mesh-free yardstick
+    # read the first batch; these read the batches after the second)
+    steps = []
+    for _ in range(PSSM_STEPS):
+        retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+        state, m, ms = _timed_step(torch, step, state, stream.next())
+        steps.append({"ms": ms, "loss": m["loss"], "grad_norm": m["grad_norm"],
+                      "alloc_retries": torch.cuda.memory_stats().get("num_alloc_retries", 0)
+                      - retries})
+        require(np.isfinite(m["loss"]), f"partition ssm {cfg.name}: loss {m['loss']}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for x, sh in zip(leaves(state), leaves(shardings)):
+        require(isinstance(x, DistArray) and x.spec == tuple(sh.spec) and x.mesh is mesh,
+                f"partition ssm {cfg.name}: a state leaf is no longer laid out by its spec")
+    held = _held_gib(torch, state)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    ms = [st["ms"] for st in steps]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    return {"arch": cfg.name, "layers": cfg.n_layers, "mesh": mesh.descriptor(),
+            "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "microbatches": TRAIN_MICRO,
+            "first_step": {"loss": m1["loss"], "grad_norm": m1["grad_norm"], "ms": ms1,
+                           "mesh_free_loss": free["loss"],
+                           "mesh_free_grad_norm": free["grad_norm"], "grad_norm_gap": gap,
+                           "mesh_free_ms": free_first_ms},
+            "ms": ms, "tokens_per_s": tokens / (min(ms) / 1e3), "mesh_free_ms": free_ms,
+            "mesh_free_tokens_per_s": tokens / (free_ms / 1e3), "steps": steps,
+            "peak_gib": peak, "mesh_free_peak_gib": free_peak, "state_gib": held,
+            "launches": launches, "collective_bytes": moved, "collective_calls": calls}
+
+
+def _layer0_k(cache: dict) -> dict:
+    """Phase 26 (c)'s probe of the rolling cache: layer 0's k at each of
+    this process's coordinates, cloned (none without attention)."""
+    return {c: t[0].clone() for c, t in cache["k"].shards.items()} if "k" in cache else {}
+
+
+def run_partition_ssm_serve(torch, mesh, cfg) -> dict:
+    """Phase 26 (c): the partitioned prefill and decode of `cfg` at full
+    width and depth, its parameters laid out by `param_specs` on (data 2,
+    model 4) of cuda:0, against the mesh-free path on the same weights
+    (run first): a prefill of PSSM_SERVE's batch x prompt, `pad_cache` to
+    its cache length, a warm-up and PSSM_SERVE_STEPS decode steps fed the
+    mesh-free run's tokens; the logits within SERVE_BOUND and the argmax
+    equal where the mesh-free top-2 margin exceeds it; the prefill's
+    logits under dp_only beside, and the prompt's state (k, v, ssm_h,
+    ssm_conv) layer by layer under both rules; B6 8 x L launches a
+    prefill with attention and none in decode; bytes and calls equal to
+    `partitioned_serve_collectives`. hymba's cache is the window's 1024
+    slots, filled by the prompt: every step writes slot pos % 1024, in the
+    first `model` coordinate's slice, which no other step touches."""
+    import numpy as np
+    import torch.nn.functional as F
+    from repro_torch.launch.dryrun import RULES_VARIANTS, partitioned_serve_collectives
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel.collectives import gather
+    from repro_torch.parallel.sharding import lay_out
+
+    b, s, n = PSSM_SERVE[cfg.name]
+    n_coords = MESH_SHAPE[0] * MESH_SHAPE[1]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    whole, params = _laid_out_params(torch, cfg, mesh)
+    prompts = torch.from_numpy(np.random.default_rng([SEED, 26]).integers(
+        0, cfg.vocab, (b, s))).cuda()
+    batch = {"tokens": prompts}
+    state_keys = [k for k in ("k", "v", "ssm_h", "ssm_conv") if k in T.cache_specs(cfg, b, n)]
+
+    # the mesh-free path: prefill (a warm-up, then timed), its prompt state
+    # kept, the cache padded, a warm-up step and PSSM_SERVE_STEPS steps
+    T.prefill(whole, batch, cfg)
+    (free_logits, _, _, cache), free_prefill_ms = timed(torch, lambda: T.prefill(whole, batch,
+                                                                                cfg))
+    prompt_state = {k: cache[k].clone() for k in state_keys}
+    if "k" in cache:
+        slots = T.abstract_cache(cfg, b, n)["k"].shape[2]
+        pad = (0, 0, 0, 0, 0, slots - s)
+        cache = {**cache, "k": F.pad(cache["k"], pad), "v": F.pad(cache["v"], pad)}
+    tok = torch.argmax(free_logits[:, -1], -1)
+    fed, free_steps, free_ms = [], [], []
+    for _ in range(1 + PSSM_SERVE_STEPS):
+        fed.append(tok)
+        (lg, cache), ms = timed(torch, lambda: T.decode_step(whole, cache, tok, cfg))
+        free_steps.append(lg)
+        free_ms.append(ms)
+        tok = torch.argmax(lg, -1)
+    free_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del cache
+
+    # the prompt's state layer by layer under the default rules (the
+    # warm-up of the counted run) and under dp_only, with dp_only's logits
+    layer_errs = {}
+    for rname, laid in (("default", params), ("dp_only", None)):
+        rules = RULES_VARIANTS[rname]
+        if laid is None:
+            laid = lay_out(whole, _shardings(T.param_specs(cfg, rules, mesh), mesh))
+        logits, _, _, got = T.prefill(laid, batch, cfg, rules)
+        if rname == "dp_only":
+            dp_only_err = _logit_errs(logits, free_logits)
+        del logits, laid
+        layer_errs[rname] = {
+            k: [max_abs(t, w) / float(w.float().abs().max())
+                for t, w in zip(gather(got[k]), prompt_state[k])] for k in state_keys}
+        del got
+        gc.collect()
+        torch.cuda.empty_cache()
+    del whole, prompt_state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the partitioned path: the counted and timed run
+    torch.cuda.reset_peak_memory_stats()
+    run = _serve_laid_out(torch, cfg, params, prompts, fed, cache_len=n,
+                          probe=_layer0_k)
+    pairs = [(run.pop("prefill_logits"), free_logits)] + list(zip(run.pop("step_logits"),
+                                                                   free_steps))
+    errs = [_logit_errs(got, want) for got, want in pairs]
+    agree = [_clear_agree(got, want) for got, want in pairs]
+    del pairs, free_logits, free_steps
+    pre = run["prefill"]
+    ms = [st["ms"] for st in run["steps"][1:]]
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "mesh": mesh.descriptor(), "batch": b,
+           "prompt": s, "cache_len": n,
+           "prefill": {"ms": pre["ms"], "mesh_free_ms": free_prefill_ms, "err": errs[0],
+                       "dp_only_err": dp_only_err, "clear_agree": agree[0],
+                       "launches": pre["launches"], "bytes": pre["bytes"],
+                       "calls": pre["calls"]},
+           "decode": {"ms": ms, "warmup_ms": run["steps"][0]["ms"],
+                      "mesh_free_ms": free_ms[1:], "mesh_free_warmup_ms": free_ms[0],
+                      "errs": errs[1:], "clear_agree": agree[1:],
+                      "tokens_per_s": b / (sum(ms) / len(ms) / 1e3),
+                      "mesh_free_tokens_per_s": b / (sum(free_ms[1:]) / len(ms) / 1e3),
+                      "bytes": run["steps"][1]["bytes"], "calls": run["steps"][1]["calls"]},
+           "state_layer_rel_err": layer_errs, "bound": SERVE_BOUND,
+           "peak_gib": run["peak_gib"], "mesh_free_peak_gib": free_peak,
+           "cache_gib": run["held_gib"]}
+    before, after = run.pop("probe")
+    if before:
+        # the rolling cache: slot (s + i) % n of step i, in the first slice
+        written = [(s + i) % n for i in range(1 + PSSM_SERVE_STEPS)]
+        s_loc = n // MESH_SHAPE[1]
+        first_slice = [c for c in before if c[1] == 0]
+        out["rolling"] = {"slots_written": written, "slice_slots": s_loc}
+        require(max(written) < s_loc and all(
+            not torch.equal(after[c][:, j], before[c][:, j]) for c in first_slice
+            for j in written) and all(
+            torch.equal(after[c][:, j], before[c][:, j]) for c in first_slice
+            for j in range(s_loc) if j not in written) and all(
+            torch.equal(after[c], before[c]) for c in before if c[1] != 0),
+            f"partition ssm serve {cfg.name}: the rolling cache's rows did not land in "
+            f"slots {written} of the first slice alone")
+    del before, after
+    print(f"path partition_ssm_serve {cfg.name}: {json.dumps(out)}", flush=True)
+    require(all(e[0] <= SERVE_BOUND for e in errs) and dp_only_err[0] <= SERVE_BOUND,
+            f"partition ssm serve {cfg.name}: logits {errs}, dp_only {dp_only_err} "
+            f"against mesh-free (bound {SERVE_BOUND})")
+    require(all(a == c for a, c in agree),
+            f"partition ssm serve {cfg.name}: a token differs where the top-2 margin "
+            f"exceeds {SERVE_BOUND}: {agree}")
+    want = partitioned_serve_collectives(cfg, MESH_SHAPE, "default", b, s, n)
+    n_b6 = 0 if cfg.attn_free else cfg.n_layers * n_coords
+    for phase, got in [("prefill", pre)] + [("decode", st) for st in run["steps"]]:
+        want_moved, want_calls = want[phase]
+        require({k: got["bytes"][k] for k in want_moved} == want_moved
+                and all(v == 0 for k, v in got["bytes"].items() if k not in want_moved)
+                and {k: got["calls"][k] for k in want_calls} == want_calls,
+                f"partition ssm serve {cfg.name} {phase}: bytes {got['bytes']} calls "
+                f"{got['calls']}, want {want_moved} {want_calls}")
+        for kern, cnt in got["launches"].items():
+            want_n = n_b6 if phase == "prefill" and kern == "flash_attention" else 0
+            require(cnt == want_n, f"partition ssm serve {cfg.name} {phase}: {kern} "
+                                   f"launched {cnt} times, want {want_n}")
+    out["launches"] = pre["launches"]
+    del params, run
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_partition_ssm(torch) -> dict:
+    """Phase 26: the partitioned SSM and hybrid bodies on (data 2, model 4)
+    of cuda:0 (module docstring): (a) the block alone, (b) the AdamW
+    steps, (c) prefill and decode, of hymba-1.5b and mamba2-130m; B6 and
+    B6-bwd at hymba's coordinate shape."""
+    from repro_torch.launch.mesh import make_worker_mesh
+
+    mesh = make_worker_mesh(MESH_SHAPE, devices=["cuda:0"] * (MESH_SHAPE[0] * MESH_SHAPE[1]))
+    out = {"block": {}, "train": {}, "serve": {}}
+    for name in PSSM_ARCHS:
+        out["block"][name] = check_ssm_block_laid_out(torch, mesh, _pssm_cfg(name))
+    for name in PSSM_ARCHS:
+        full = _pssm_cfg(name)
+        cfg = _pssm_cfg(name, None if full.attn_free else PSSM_LAYERS)
+        out["train"][name] = run_partition_ssm_train(torch, mesh, cfg, full.n_layers)
+        print(f"path partition_ssm_train {name}: {json.dumps(out['train'][name])}", flush=True)
+    for name in PSSM_ARCHS:
+        out["serve"][name] = run_partition_ssm_serve(torch, mesh, _pssm_cfg(name))
+    cfg = _pssm_cfg("hymba-1.5b")
+    out["kernels"] = check_flash_partitioned(
+        torch, TRAIN_BATCH // TRAIN_MICRO // MESH_SHAPE[0], cfg.n_heads, TRAIN_SEQ,
+        cfg.head_dim, what="the partitioned hybrid step", kv=cfg.n_kv_heads,
+        window=cfg.sliding_window)
+    return out
+
+
 def main(proc_dir: str) -> int:
     import numpy as np
     import torch
@@ -5390,6 +5835,15 @@ def main(proc_dir: str) -> int:
     partition_moe = run_partition_moe(torch, proc_dir)
     phase_s["25"] = time.perf_counter() - t0
     print(f"phase_s {json.dumps(phase_s)}", flush=True)
+
+    # 26. the partitioned SSM and hybrid bodies: the SSD heads per
+    # coordinate in the step, prefill and decode, hymba's rolling cache
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    partition_ssm = run_partition_ssm(torch)
+    phase_s["26"] = time.perf_counter() - t0
+    print(f"phase_s {json.dumps(phase_s)}", flush=True)
     print(f"chip_smoke total_s {time.perf_counter() - start_s!r}", flush=True)
 
     print(json.dumps({"paths": {
@@ -5429,10 +5883,11 @@ def main(proc_dir: str) -> int:
         "train_families": train_families, "mesh": mesh, "dry_run": dry_run,
         "examples": examples, "processes": _processes_summary(processes),
         "partition": partition, "serve_partition": serve_partition,
-        "partition_moe": partition_moe, "phase_s": phase_s},
+        "partition_moe": partition_moe, "partition_ssm": partition_ssm,
+        "phase_s": phase_s},
         "card": card}), flush=True)
 
-    # 26. the kernels line
+    # 27. the kernels line
     rows = []
     gemm_body = "gemm_tc: pack pre-pass, then 3xTF32 wgmma on a TMA ring (f32)"
     report["schur_update"]["body"] = report["matmul"]["body"] = gemm_body
@@ -5485,10 +5940,15 @@ def main(proc_dir: str) -> int:
                 "train_partitioned_step": partition["train"]["launches"][name],
                 "partitioned_prefill": serve_partition["serve"]["launches"][name],
                 "train_partitioned_moe_step": partition_moe["train"]["launches"][name],
-                "partitioned_moe_prefill": partition_moe["serve"]["launches"][name]}
+                "partitioned_moe_prefill": partition_moe["serve"]["launches"][name],
+                **{f"train_partitioned_{arch}_step": run["launches"].get(name, 0)
+                   for arch, run in partition_ssm["train"].items()},
+                **{f"partitioned_{arch}_prefill": run["launches"].get(name, 0)
+                   for arch, run in partition_ssm["serve"].items()}}
             r["partitioned_coordinate"] = partition["train"]["kernels"][name]
             r["partitioned_prefill_coordinate"] = serve_partition["serve"]["kernels"][name]
             r["partitioned_moe_coordinate"] = partition_moe["kernels"][name]
+            r["partitioned_hybrid_coordinate"] = partition_ssm["kernels"][name]
         if name in ("matmul", "schur_update", "blocked_gauss_jordan"):
             r["launches_by_path"]["train_shampoo_refresh"] = \
                 train_shampoo["refresh_launches"][name]
@@ -5499,9 +5959,12 @@ def main(proc_dir: str) -> int:
                    for arch, run in train_families.items()},
                 "train_mesh_step": mesh["train"]["launches"][name],
                 "train_partitioned_step": partition["train"]["launches"][name],
-                "train_partitioned_moe_step": partition_moe["train"]["launches"][name]}
+                "train_partitioned_moe_step": partition_moe["train"]["launches"][name],
+                **{f"train_partitioned_{arch}_step": run["launches"].get(name, 0)
+                   for arch, run in partition_ssm["train"].items()}}
             r["partitioned_coordinate"] = partition["train"]["kernels"][name]
             r["partitioned_moe_coordinate"] = partition_moe["kernels"][name]
+            r["partitioned_hybrid_coordinate"] = partition_ssm["kernels"][name]
             r["kernels_by_dtype"] = {
                 "bf16, f16": ["flash_bwd_delta",
                               *fa.flash_attention_bwd_kernels(torch.bfloat16).values()],

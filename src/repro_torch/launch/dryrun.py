@@ -75,9 +75,11 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import os
 import time
 import traceback
+import types
 import weakref
 
 import torch
@@ -89,7 +91,8 @@ from ..configs import SHAPES, cell_status, get_arch, list_archs
 from ..configs.registry import ArchConfig
 from ..configs.shapes import ShapeConfig
 from ..data.synthetic import input_specs
-from ..models import transformer as T
+from ..models import ssm as ssm_mod, transformer as T
+from ..models.layers import PARAM_DTYPE
 from ..models.scan_util import unroll_scans
 from ..optim.adamw import AdamWState
 from ..parallel.collectives import (collective_bytes, collective_calls,
@@ -98,11 +101,12 @@ from ..parallel.sharded_blockmatrix import record_specs
 from ..parallel.sharding import (DEFAULT_RULES, PartitionSpec as P, ShardingRules,
                                  logical_spec)
 from ..runtime.trainer import TrainConfig, TrainState, abstract_state, make_train_step
+from ..tree import leaves
 from .mesh import make_production_mesh, set_mesh
 
 __all__ = ["RULES_VARIANTS", "CFG_VARIANTS", "collective_stats",
            "partitioned_step_collectives", "partitioned_serve_collectives",
-           "moe_block_collectives", "build_train",
+           "moe_block_collectives", "ssm_block_collectives", "build_train",
            "build_prefill", "build_decode", "run_cell", "run_solver_cell", "main"]
 
 # Named sharding-rule variants (the reference's hillclimb knobs).
@@ -226,11 +230,6 @@ class _Tally:
             self._add(kind, calls * (self.n // size) * 2 * (size - 1) * nbytes, calls)
 
 
-# Replicated parameter leaves a norm adds (their gradients are summed over
-# every coordinate): rmsnorm's scale, layernorm's scale and bias.
-_NORM_LEAVES = {"rmsnorm": 1, "layernorm": 2, "nonparam_ln": 0}
-
-
 def _moe_layer(t: _Tally, cfg: ArchConfig, shape: tuple[int, int], rules: str, rows: int,
                seq: int, hint: int, passes: int, back: bool) -> None:
     """One MoE layer's collectives on `rows` x `seq` tokens a coordinate
@@ -295,84 +294,188 @@ def moe_block_collectives(cfg: ArchConfig, shape: tuple[int, int], rules: str, b
     return t.moved, t.calls
 
 
+class _Layout:
+    """The resolved layouts of a config's weights and activations on a
+    (data, model) mesh of `shape` under a rules set of `RULES_VARIANTS`,
+    and the collectives that realise them: `gather` counts what
+    `models.layers.gathered` moves to bring a weight from its own spec
+    to the spec a product wants (`collectives.to_spec`, dim by dim)."""
+
+    def __init__(self, shape: tuple[int, int], rules: str):
+        self.sizes = {"data": shape[0], "model": shape[1]}
+        self.rules = RULES_VARIANTS[rules]
+        self._mesh = types.SimpleNamespace(shape=self.sizes)   # what logical_spec reads
+
+    def spec(self, shape, logical) -> P:
+        return logical_spec(tuple(shape), tuple(logical), self.rules, self._mesh)
+
+    def size(self, entry) -> int:
+        names = (entry,) if isinstance(entry, str) else tuple(entry or ())
+        return math.prod(self.sizes[a] for a in names)
+
+    def gather(self, t: _Tally, w, want, passes: int = 1, back: bool = False) -> None:
+        """A layer's weight (its stacked ParamDef `w`) gathered to `want`."""
+        shape, have = w.shape[1:], self.spec(w.shape[1:], w.logical[1:])
+        cur = [n // self.size(a) for n, a in zip(shape, have)]
+        for dim, (h, wnt) in enumerate(zip(have, want)):
+            if h and h != wnt:
+                t.gather(math.prod(cur) * _dtype_bytes(w), self.size(h), passes, back)
+                cur[dim] = shape[dim]
+
+
+def _dtype_bytes(w) -> int:
+    return (w.dtype or PARAM_DTYPE).itemsize
+
+
+def _lm_body(t: _Tally, cfg: ArchConfig, lay: _Layout, defs: dict, rows: int, seq: int,
+             passes: int, back: bool, decode_slots: int = 0) -> None:
+    """One layer's collectives on `rows` x `seq` tokens a coordinate:
+    attention, the SSM block and the MLP (the MoE block is `_moe_layer`'s),
+    `passes` forwards (2 under remat: a product's weight gathers run again
+    in the recompute) and with `back` the backward. An output psum that no
+    later product of the layer follows runs once (the recompute stops at
+    the layer's last saved tensor). With `decode_slots` the attention is a
+    decode step over a cache of that many slots."""
+    bf, f32 = 2, 4
+    x = rows * seq * cfg.d_model * bf             # an activation (B_loc, S, d)
+    b, s = rows * lay.sizes["data"], seq
+    follows = bool(cfg.d_ff or cfg.moe)           # a product after the mixers
+    if not cfg.attn_free:
+        a, h, kv, hd = defs["attn"], cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        q_ax = lay.spec((b, s, h, hd), ("batch", "seq", "heads", None))[2]
+        kv_ax = lay.spec((b, s, kv, hd), ("batch", "seq", "kv_heads", None))[2]
+        for name, ax in (("wq", q_ax), ("wk", kv_ax), ("wv", kv_ax)):
+            lay.gather(t, a[name], (None, ax), passes, back)
+        if decode_slots:
+            slots = T._kv_len(cfg, decode_slots)
+            s_ax = lay.spec((b, slots), ("batch", "kv_seq"))[1]
+            if s_ax:                              # a softmax split over the cache's slices
+                if q_ax:                          # q to every coordinate
+                    t.gather(rows * (h // lay.size(q_ax)) * hd * bf, lay.size(q_ax))
+                if kv_ax:                         # the new k and v
+                    for _ in range(2):
+                        t.gather(rows * (kv // lay.size(kv_ax)) * hd * bf, lay.size(kv_ax))
+                t.psum(rows * h * f32, lay.size(s_ax), kind="pmax")
+                t.psum(rows * h * (hd + 1) * f32, lay.size(s_ax))
+        lay.gather(t, a["wo"], (q_ax, None), passes, back)
+        if q_ax:
+            t.psum(x, lay.size(q_ax), passes if (follows or cfg.ssm) else 1, back)
+    if cfg.ssm is not None:
+        _ssm_layer(t, cfg, lay, defs["ssm"], rows, seq, passes, back, follows)
+    if cfg.d_ff:
+        m, f = defs["mlp"], cfg.d_ff
+        f_ax = lay.spec((b, s, f), ("batch", "seq", "ffn"))[2]
+        for name in ("wi", "wg"):
+            if name in m:
+                lay.gather(t, m[name], (None, f_ax), passes, back)
+        lay.gather(t, m["wo"], (f_ax, None), passes, back)
+        if f_ax:
+            t.psum(x, lay.size(f_ax), 1, back)
+
+
+def _ssm_layer(t: _Tally, cfg: ArchConfig, lay: _Layout, defs: dict, rows: int, seq: int,
+               passes: int, back: bool, follows: bool) -> None:
+    """The SSM block's collectives (`models.ssm.ssm_apply_laid_out`): `wz`
+    gathered to the SSD heads' axis, `wxbc` and `wdt` whole, and where
+    `model` splits the heads the gated norm's f32 sum of squares and the
+    output psum'd over it; `wo` gathered to (heads' axis, None). Its output
+    psum runs once a layer unless a product `follows` it in the layer."""
+    _, n_h, p, _, _ = ssm_mod._dims(cfg)
+    ax = lay.spec((rows * lay.sizes["data"], seq, n_h, p),
+                  ("batch", "seq", "ssm_inner", None))[2]
+    lay.gather(t, defs["wz"], (None, ax), passes, back)
+    for name in ("wxbc", "wdt"):
+        lay.gather(t, defs[name], (None, None), passes, back)
+    if ax:                                        # the gated norm's sum of squares
+        t.psum(rows * seq * 4, lay.size(ax), passes, back)
+    lay.gather(t, defs["wo"], (ax, None), passes, back)
+    if ax:
+        t.psum(rows * seq * cfg.d_model * 2, lay.size(ax), passes if follows else 1, back)
+
+
+def ssm_block_collectives(cfg: ArchConfig, shape: tuple[int, int], rules: str, batch: int,
+                          seq: int, backward: bool = False) -> tuple[dict, dict]:
+    """Bytes and calls of each collective kind (all_gather,
+    reduce_scatter, psum) of one `models.ssm.ssm_apply_laid_out` of an SSM
+    or hybrid `cfg` on `batch` x `seq` tokens on a (data, model) mesh of
+    `shape`, its forward, and with `backward` its backward too
+    (`_ssm_layer`'s terms)."""
+    t = _Tally(shape[0] * shape[1], ("all_gather", "reduce_scatter", "psum"))
+    _ssm_layer(t, cfg, _Layout(shape, rules), T.param_defs(cfg)["layers"]["ssm"],
+               batch // shape[0], seq, 1, backward, False)
+    return t.moved, t.calls
+
+
+def _lookup_and_head(t: _Tally, cfg: ArchConfig, lay: _Layout, defs: dict, x: int,
+                     back: bool) -> tuple:
+    """The lookup (the table's width gathered, the partial rows summed
+    over the vocabulary's axis) and the head's table gather, once each;
+    the vocabulary's axis."""
+    v_ax, w_ax = lay.spec(defs["embed"].shape, defs["embed"].logical)
+    table = cfg.vocab // lay.size(v_ax) * cfg.d_model // lay.size(w_ax) * 2
+    t.gather(table, lay.size(w_ax), 1, back)
+    if v_ax:
+        t.psum(x, lay.size(v_ax), 1, back)
+    t.gather(table, lay.size(w_ax), 1, back)      # the head (tied, or lm_head alike)
+    return v_ax
+
+
 def partitioned_step_collectives(cfg: ArchConfig, shape: tuple[int, int], rules: str,
                                  batch: int, seq: int, microbatches: int,
                                  model_size_hint: int = 16) -> tuple[dict, dict]:
     """Bytes and calls of each collective kind (all_gather,
     reduce_scatter, psum, pmax; all_to_all and pmean with MoE) in one
-    partitioned step of a dense or MoE `cfg` (experts padded to a multiple
-    of `model_size_hint`) on a (data, model) mesh of `shape` under the
-    `default` or `dp_only` rules, from the shapes: what
+    partitioned step of a dense, MoE, SSM or hybrid `cfg` (experts padded
+    to a multiple of `model_size_hint`) on a (data, model) mesh of `shape`
+    under the `default` or `dp_only` rules, from the shapes: what
     `collective_bytes()` and `collective_calls()` count for
     `runtime.trainer.make_train_step` on a laid-out state with full remat
     (`_Tally` says what each collective moves).
 
     A microbatch runs the lookup and the head once; each layer's weight
-    gathers and its attention psum twice (the forward, and the remat's
-    recompute), its MLP psum once (the recompute stops at the last tensor
-    the layer saves, the `wo` product's operands); every gather's
-    reduce-scatter and every psum's transpose once, the loss's too:
-    autograd hands an output that no loss reads a zero cotangent, so
-    every group's transpose moves its bytes. An MoE layer adds
-    `_moe_layer`'s terms. The token count carries no gradient. A region
-    held by every coordinate (the norms' scales and biases, the MoE
-    router; the shared experts, whole under `dp_only`, else whole along
-    `data`) sums its holders' gradients ("psum").
+    gathers (`_Layout.gather`: FSDP's over `data`, and over `model` where
+    the weight splits its columns mid-head while the heads stay whole),
+    the attention's and the SSM's psums twice (the forward, and the
+    remat's recompute; with heads that `model` divides), the SSM's gated
+    norm psum twice, the last psum of a layer once (the recompute stops at
+    the last tensor the layer saves: the MLP's, or mamba2's SSM output);
+    every gather's reduce-scatter and every psum's transpose once, the
+    loss's too: autograd hands an output that no loss reads a zero
+    cotangent, so every group's transpose moves its bytes. An MoE layer
+    adds `_moe_layer`'s terms. A vocabulary that `model` divides runs the
+    vocabulary-parallel lookup sum and the loss's pmax and two psums. The
+    token count carries no gradient. A region several coordinates hold
+    (the norms' scales and biases, the MoE router and shared experts, the
+    SSM's wxbc, wdt, conv_w and per-head leaves, a weight whose columns
+    `model` does not divide) sums its holders' gradients ("psum", one call
+    a leaf).
     """
     if rules not in ("default", "dp_only"):
         raise ValueError(f"no count for the rules {rules!r}: default or dp_only")
     d_n, m_n = shape
     n = d_n * m_n
-    L, d, h, kv, hd, f, v = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                             cfg.head_dim, cfg.d_ff, cfg.vocab)
-    bf, f32 = 2, 4
+    lay = _Layout(shape, rules)
+    defs = T.param_defs(cfg, model_size_hint)
+    f32 = 4
     rows = batch // microbatches // d_n           # a coordinate's rows of a microbatch
-    x = rows * seq * d * bf                       # an activation (B_loc, S, d)
     row = rows * seq * f32                        # an f32 value a position
     kinds = ("all_gather", "reduce_scatter", "psum", "pmax")
     t = _Tally(n, kinds + (("all_to_all", "pmean") if cfg.moe else ()))
-    if rules == "default":
-        t.gather(v // m_n * d // d_n * bf, d_n, 1, True)           # the lookup's table
-        t.psum(x, m_n, 1, True)                                    # the lookup's sum
-        for _ in range(L):
-            for cols in (h * hd, kv * hd, kv * hd):                # wq, wk, wv: FSDP
-                t.gather(d // d_n * cols // m_n * bf, d_n, 2, True)
-            if kv % m_n:                                           # the KV heads stay whole
-                for _ in range(2):
-                    t.gather(d * kv * hd // m_n * bf, m_n, 2, True)
-            t.gather(h * hd // m_n * d // d_n * bf, d_n, 2, True)  # attention's wo
-            t.psum(x, m_n, 2, True)
-            if f:
-                for _ in range(3):                                 # wi, wg, wo
-                    t.gather(d // d_n * f // m_n * bf, d_n, 2, True)
-                t.psum(x, m_n, 1, True)
-            if cfg.moe:
-                _moe_layer(t, cfg, shape, rules, rows, seq, model_size_hint, 2, True)
-        t.gather(v // m_n * d // d_n * bf, d_n, 1, True)           # the head (tied or lm_head)
+    v_ax = _lookup_and_head(t, cfg, lay, defs, rows * seq * cfg.d_model * 2, True)
+    for _ in range(cfg.n_layers):
+        _lm_body(t, cfg, lay, defs["layers"], rows, seq, 2, True)
+        if cfg.moe:
+            _moe_layer(t, cfg, shape, rules, rows, seq, model_size_hint, 2, True)
+    if v_ax:
         t.psum(row, m_n, kind="pmax")
         t.psum(row, m_n, 1, True)                                  # the sum of exponentials
         t.psum(row, m_n, 1, True)                                  # the label's logit
-    else:                                                          # dp_only: FSDP over both
-        t.gather(v * d // n * bf, n, 1, True)
-        for _ in range(L):
-            for cols in (h * hd, kv * hd, kv * hd, h * hd) + ((f, f, f) if f else ()):
-                t.gather(d // n * cols * bf, n, 2, True)
-            if cfg.moe:
-                _moe_layer(t, cfg, shape, rules, rows, seq, model_size_hint, 2, True)
-        t.gather(v * d // n * bf, n, 1, True)
     t.psum(f32, d_n, 1, True)                                      # the loss sum
     t.psum(f32, d_n, 1)                                            # the token count
-    # replicated leaves (bytes, holders of each region): the norms, the f32
-    # router, the shared experts (whole under dp_only, columns over model)
-    held = [(L * d * bf, n), (L * d * bf, n), (d * bf, n)] * _NORM_LEAVES[cfg.norm]
-    if cfg.moe:
-        e_pad = -(-cfg.moe.num_experts // model_size_hint) * model_size_hint
-        held.append((L * d * e_pad * f32, n))
-        if cfg.moe.num_shared_experts:
-            held += [(L * d * cfg.moe.shared_d_ff * bf, n if rules == "dp_only" else d_n)] * 3
-    for nbytes, holders in held:                                   # their gradients summed
+    for w in leaves(defs):                                         # held regions' gradients
+        holders = n // math.prod(lay.size(a) for a in lay.spec(w.shape, w.logical))
         if holders > 1:
-            t.moved["psum"] += 2 * (holders - 1) * nbytes
+            t.moved["psum"] += 2 * (holders - 1) * math.prod(w.shape) * _dtype_bytes(w)
             t.calls["psum"] += 1
     return ({k: microbatches * val for k, val in t.moved.items()},
             {k: microbatches * val for k, val in t.calls.items()})
@@ -383,78 +486,50 @@ def partitioned_serve_collectives(cfg: ArchConfig, shape: tuple[int, int], rules
                                   model_size_hint: int = 16) -> dict:
     """Bytes and calls of each collective kind (all_gather, all_to_all,
     psum, pmax; pmean with MoE) in one partitioned `prefill` of `batch` x
-    `prompt` tokens and in one `decode_step` over a cache of `cache_len`
-    slots, of a dense or MoE `cfg` (experts padded to a multiple of
+    `prompt` tokens and in one `decode_step` at the decode length
+    `cache_len` (min(cache_len, window) slots under a sliding window), of
+    a dense, MoE, SSM or hybrid `cfg` (experts padded to a multiple of
     `model_size_hint`) on a (data, model) mesh of `shape` under the
     `default` or `dp_only` rules, from the shapes: {"prefill": (bytes,
     calls), "decode": (bytes, calls)}, what `collective_bytes()` and
     `collective_calls()` count for each on laid-out parameters (`_Tally`
     says what each collective moves; no remat, no backward).
 
-    Both run the lookup, each layer's weight gathers and its two output
-    psums (an MoE layer: the attention's, and `_moe_layer`'s terms once),
-    and the head once, as the step's forward does. Where the KV
-    heads split over `model` and `model` divides the prompt, the prefill
-    moves each layer's k and v from the heads' axis to the cache's
-    sequence (`kv_seq`) by one all_to_all each. Where `model` divides
-    `cache_len` the decode cache is split along its sequence: each layer
-    all-gathers q over the heads' axis (and the new k and v where the KV
+    Both run the lookup, each layer's weight gathers and its psums
+    (`_lm_body`; an MoE layer adds `_moe_layer`'s terms once), and the
+    head once, as the step's forward does. Where the KV heads split over
+    `model` and `model` divides the prompt, the prefill moves each layer's
+    k and v from the heads' axis to the cache's sequence (`kv_seq`) by one
+    all_to_all each. Where `model` divides the decode cache's slots the
+    cache is split along its sequence: each layer all-gathers q over the
+    heads' axis (where the heads split; and the new k and v where the KV
     heads split), then combines the slices' softmax by a pmax of the
     running max (B_loc, H) and one psum of the weighted (o, l) (B_loc, H,
-    hd + 1), both f32.
+    hd + 1), both f32. The SSM state stays where it is made.
     """
     if rules not in ("default", "dp_only"):
         raise ValueError(f"no count for the rules {rules!r}: default or dp_only")
     d_n, m_n = shape
-    n = d_n * m_n
-    L, d, h, kv, hd, f, v = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                             cfg.head_dim, cfg.d_ff, cfg.vocab)
-    bf, f32 = 2, 4
+    lay = _Layout(shape, rules)
+    defs = T.param_defs(cfg, model_size_hint)
     rows = batch // d_n                           # a coordinate's rows
     kinds = ("all_gather", "all_to_all", "psum", "pmax") + (("pmean",) if cfg.moe else ())
     out = {}
     for phase, seq in (("prefill", prompt), ("decode", 1)):
-        t = _Tally(n, kinds)
-        x = rows * seq * d * bf                   # an activation (B_loc, S, d)
-        if rules == "default":
-            t.gather(v // m_n * d // d_n * bf, d_n)                # the lookup's table
-            t.psum(x, m_n)                                         # the lookup's sum
-            for _ in range(L):
-                for cols in (h * hd, kv * hd, kv * hd):            # wq, wk, wv: FSDP
-                    t.gather(d // d_n * cols // m_n * bf, d_n)
-                if kv % m_n:                                       # the KV heads stay whole
+        t = _Tally(d_n * m_n, kinds)
+        _lookup_and_head(t, cfg, lay, defs, rows * seq * cfg.d_model * 2, False)
+        for _ in range(cfg.n_layers):
+            _lm_body(t, cfg, lay, defs["layers"], rows, seq, 1, False,
+                     cache_len if phase == "decode" else 0)
+            if phase == "prefill" and not cfg.attn_free:
+                kv, hd = cfg.n_kv_heads, cfg.head_dim
+                kv_ax = lay.spec((batch, prompt, kv, hd), ("batch", "seq", "kv_heads", None))[2]
+                s_ax = lay.spec((batch, prompt), ("batch", "kv_seq"))[1]
+                if kv_ax and s_ax:                 # k, v to kv_seq
                     for _ in range(2):
-                        t.gather(d * kv * hd // m_n * bf, m_n)
-                if phase == "prefill" and not (kv % m_n or prompt % m_n):
-                    for _ in range(2):                             # k, v to kv_seq
-                        t.all_to_all(rows * (prompt // m_n) * (kv // m_n) * hd * bf, m_n)
-                if phase == "decode" and not cache_len % m_n:
-                    t.gather(rows * (h // m_n) * hd * bf, m_n)     # q to every coordinate
-                    if not kv % m_n:                               # the new k and v
-                        for _ in range(2):
-                            t.gather(rows * (kv // m_n) * hd * bf, m_n)
-                    t.psum(rows * h * f32, m_n, kind="pmax")
-                    t.psum(rows * h * (hd + 1) * f32, m_n)
-                t.gather(h * hd // m_n * d // d_n * bf, d_n)      # attention's wo
-                t.psum(x, m_n)
-                if f:
-                    for _ in range(3):                             # wi, wg, wo
-                        t.gather(d // d_n * f // m_n * bf, d_n)
-                    t.psum(x, m_n)
-                if cfg.moe:
-                    _moe_layer(t, cfg, shape, rules, rows, seq, model_size_hint, 1, False)
-            t.gather(v // m_n * d // d_n * bf, d_n)                # the head
-        else:                                                      # dp_only: FSDP over both
-            t.gather(v * d // n * bf, n)
-            for _ in range(L):
-                for cols in (h * hd, kv * hd, kv * hd, h * hd) + ((f, f, f) if f else ()):
-                    t.gather(d // n * cols * bf, n)
-                if phase == "decode" and not cache_len % m_n:
-                    t.psum(rows * h * f32, m_n, kind="pmax")
-                    t.psum(rows * h * (hd + 1) * f32, m_n)
-                if cfg.moe:
-                    _moe_layer(t, cfg, shape, rules, rows, seq, model_size_hint, 1, False)
-            t.gather(v * d // n * bf, n)
+                        t.all_to_all(rows * (prompt // m_n) * (kv // m_n) * hd * 2, m_n)
+            if cfg.moe:
+                _moe_layer(t, cfg, shape, rules, rows, seq, model_size_hint, 1, False)
         out[phase] = (t.moved, t.calls)
     return out
 

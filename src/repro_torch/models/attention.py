@@ -18,7 +18,8 @@ which rolls (slot pos % S) when it is no longer than the window.
 own heads, attends over them (B6 and B6-bwd on the card at B_loc x
 H_loc) and sums its part of the output projection over the heads' axis.
 `attn_decode_laid_out` is its decode, plain PyTorch as `attn_decode`,
-over a cache laid out by `transformer.cache_specs`: where the cache is
+over a cache laid out by `transformer.cache_specs` (rolling, as
+`attn_decode`'s, under a sliding window): where the cache is
 split along its sequence, each coordinate scores every query head against
 its slice and the slices' softmax combines over that axis (a pmax of the
 running max, one psum of the weighted sums).
@@ -180,16 +181,17 @@ def attn_apply_laid_out(params: dict, x: dict, cfg: ArchConfig, prog: Program, *
     return (y, k, v) if want_kv else y
 
 
-def _write_row(cache: torch.Tensor, new: torch.Tensor, pos: torch.Tensor, lo: int) -> None:
+def _write_row(cache: torch.Tensor, new: torch.Tensor, slot: torch.Tensor, lo: int) -> None:
     """Write each row's new entry `new` (B, 1, KV, hd) into `cache` (B,
     S_loc, KV, hd), the slots lo .. lo + S_loc - 1 of the sequence, at slot
-    pos - lo of the rows whose pos lies among them; the others keep theirs."""
+    `slot` - lo of the rows whose slot lies among them; the others keep
+    theirs."""
     s_loc = cache.shape[1]
     rows = torch.arange(cache.shape[0], device=cache.device)
-    rel = pos.long() - lo
-    slot = rel.clamp(0, s_loc - 1)
+    rel = slot.long() - lo
+    at = rel.clamp(0, s_loc - 1)
     fits = ((rel >= 0) & (rel < s_loc))[:, None, None]
-    cache[rows, slot] = torch.where(fits, new[:, 0], cache[rows, slot])
+    cache[rows, at] = torch.where(fits, new[:, 0], cache[rows, at])
 
 
 def _partial_softmax(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos: torch.Tensor,
@@ -232,13 +234,19 @@ def attn_decode_laid_out(params: dict, x: dict, cache_k: col.DistArray,
     o / l. Where the cache is whole along the sequence (its KV heads laid
     out as k's), the coordinate attends its own heads as `attn_decode`
     does. Each coordinate then takes its own query heads of o and its rows
-    of wo, and the partial products are summed over the heads' axis."""
-    if cfg.sliding_window:
-        raise NotImplementedError("decode with a sliding window on a laid-out state: "
-                                  "ROADMAP A item 6")
+    of wo, and the partial products are summed over the heads' axis.
+    Under a sliding window a cache no longer than the window rolls, as
+    `attn_decode`'s: the row goes to slot pos % S_dec, which the
+    coordinate whose slice holds that slot writes, and the mask stays the
+    reference's on global slot indices; a longer cache decodes without the
+    window, as the reference's does."""
     mesh = prog.mesh
     n_h, hd = cfg.n_heads, cfg.head_dim
     s_max = cache_k.shape[1]
+    if cfg.sliding_window and s_max <= cfg.sliding_window:
+        slot = {c: p.long() % s_max for c, p in pos.items()}      # rolling cache
+    else:
+        slot = pos
     _, s_ax, kvh_ax, _ = cache_k.spec
     q, k, v, h_ax, kv_ax = _project_laid_out(params, x, cfg, prog,
                                              {c: p[:, None] for c, p in pos.items()})
@@ -263,8 +271,8 @@ def attn_decode_laid_out(params: dict, x: dict, cache_k: col.DistArray,
     parts = {}
     for c in x:
         if mesh.is_local(c):
-            _write_row(ck[c], k[c], pos[c], lo[c])
-            _write_row(cv[c], v[c], pos[c], lo[c])
+            _write_row(ck[c], k[c], slot[c], lo[c])
+            _write_row(cv[c], v[c], slot[c], lo[c])
         kc, vc = ck[c], cv[c]
         if s_ax is None and h_ax and not kv_ax:
             kc, vc = _kv_for_heads(kc, vc, first[c] * h_loc, h_loc, group)

@@ -14,6 +14,20 @@ reference; the conv state stays in the activation dtype. The reference's
 products are XLA einsums outside any Pallas kernel, so they stay
 `torch.matmul` here. Its `shard` constraints resolve and record the
 reference's layouts (`parallel.sharding.shard`); nothing moves.
+
+`ssm_apply_laid_out` and `ssm_decode_laid_out` are the block in the
+partitioned program (`parallel.sharding.Program`). The SSD runs head by
+head, so a coordinate runs it as it is on the heads its layout gives it
+(the resolved spec of the reference's `shard` site on x: `ssm_inner` over
+`model` where it divides the heads). `wxbc`, `wdt`, `conv_w` and the
+per-head leaves lie whole along `model`, so every coordinate computes the
+whole xBC, conv and dt of its rows, as the reference's placed program
+does. Only two things couple the heads: the gated RMSNorm's mean over all
+of d_inner (its f32 sum of squares `psum`'d over the heads' axis) and the
+output projection (partial products `psum`'d, Megatron's row-parallel
+sum). Where `model` keeps the heads whole but splits `wz` and `wo`
+mid-head (hymba's 50 heads on 4), both are gathered whole and nothing is
+summed.
 """
 
 from __future__ import annotations
@@ -24,11 +38,13 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.registry import ArchConfig, SSMConfig
-from ..parallel.sharding import DEFAULT_RULES, ShardingRules, shard
+from ..parallel import collectives as col
+from ..parallel.sharding import DEFAULT_RULES, REALISED, Program, ShardingRules, shard
 from . import scan_util
-from .layers import ParamDef
+from .layers import ParamDef, gathered
 
-__all__ = ["ssm_params", "ssm_apply", "ssm_decode", "SSMState"]
+__all__ = ["ssm_params", "ssm_apply", "ssm_decode", "ssm_apply_laid_out",
+           "ssm_decode_laid_out", "SSMState"]
 
 
 class SSMState(NamedTuple):
@@ -215,3 +231,143 @@ def ssm_decode(params: dict, x: torch.Tensor, state: SSMState, cfg: ArchConfig
     y = _gated_norm(y.reshape(bsz, di).to(x.dtype), z, params["norm_scale"])
     out = torch.matmul(y, params["wo"])[:, None, :]
     return out, SSMState(h=hnew, conv=window[:, 1:, :])
+
+
+# ---------------------------------------------------------------------------
+# The partitioned program
+# ---------------------------------------------------------------------------
+
+
+def _heads_laid_out(cfg: ArchConfig, prog: Program):
+    """The SSD heads' mesh axis (the resolved spec of the reference's
+    `shard` site on x (B, S, H, P)), and a function that cuts a
+    coordinate's tensor to its heads along a dim (itself where the heads
+    are whole)."""
+    _, h, p, _, _ = _dims(cfg)
+    ax = prog.spec((prog.batch, prog.seq, h, p), ("batch", "seq", "ssm_inner", None))[2]
+    if not ax:
+        return None, lambda c, t, dim, width=1: t
+    h_loc = h // col.axis_size(ax, prog.mesh)
+    first = col.axis_index(ax, prog.mesh)
+
+    def heads(c, t, dim, width=1):
+        return t.narrow(dim, first[c] * h_loc * width, h_loc * width)
+
+    return ax, heads
+
+
+def _leaves(params: dict) -> dict:
+    """Every coordinate's tensor of the leaves that lie whole along
+    `model` and d (conv_w and the per-head and per-channel vectors)."""
+    return {k: col.per_coord(params[k])
+            for k in ("conv_w", "dt_bias", "a_log", "d_skip", "norm_scale")}
+
+
+def _in_laid_out(params: dict, x: dict, ax) -> tuple[dict, dict, dict]:
+    """Each coordinate's z on its heads' columns, and its whole pre-conv
+    xBC and dt, from its rows x (..., d): `wz` gathered to (None, ax),
+    `wxbc` and `wdt` gathered whole (FSDP's gathers)."""
+    out = []
+    for name, want in (("wz", (None, ax)), ("wxbc", (None, None)), ("wdt", (None, None))):
+        w = gathered(params[name], want)
+        out.append({c: torch.matmul(t, w[c]) for c, t in x.items()})
+        del w
+    return tuple(out)
+
+
+def _out_laid_out(params: dict, y: dict, z: dict, leaves: dict, cfg: ArchConfig,
+                  prog: Program, ax, heads) -> dict:
+    """The gated RMSNorm over all of d_inner and the output projection, from
+    each coordinate's y and z (..., di_loc): the f32 sum of squares
+    `psum`'d over the heads' axis before the mean, `wo` gathered to (ax,
+    None), the partial products `psum`'d over it."""
+    di, p = _dims(cfg)[0], cfg.ssm.head_dim
+    yf = {c: t.float() * F.silu(z[c].float()) for c, t in y.items()}
+    ss = {c: torch.sum(t * t, dim=-1, keepdim=True) for c, t in yf.items()}
+    if ax:
+        ss = col.psum(ss, ax, prog.mesh)
+    scale = leaves["norm_scale"]
+    normed = {c: (t / torch.sqrt(ss[c] / di + 1e-6)
+                  * heads(c, scale[c], 0, p).float()).to(y[c].dtype)
+              for c, t in yf.items()}
+    del yf, ss
+    wo = gathered(params["wo"], (ax, None))
+    out = {c: torch.matmul(t, wo[c]) for c, t in normed.items()}
+    return col.psum(out, ax, prog.mesh) if ax else out
+
+
+def ssm_apply_laid_out(params: dict, x: dict, cfg: ArchConfig, prog: Program
+                       ) -> tuple[dict, SSMState]:
+    """`ssm_apply` in the partitioned program: `params` laid out
+    (DistArrays), `x` each coordinate's rows (B_loc, S, d). Returns each
+    coordinate's output (B_loc, S, d) and its state: h (B_loc, H_loc, N, P)
+    f32 on its heads and the conv state (B_loc, k - 1, conv_dim) whole,
+    the regions `transformer.cache_specs` gives it of `ssm_h` and
+    `ssm_conv` (module docstring). Each phase runs over every coordinate
+    before the next."""
+    di, h, p, n, conv_dim = _dims(cfg)
+    b, s = prog.batch, prog.seq
+    q = min(cfg.ssm.chunk, s)
+    cut = prog.spec((b, s // q, q, h, p), ("batch", "ssm_chunk", None, None, None))[1]
+    if cut is not None:
+        raise ValueError(f"the partitioned program does not realise the logical axis "
+                         f"'ssm_chunk' over {cut!r}: it splits only {REALISED}")
+    ax, heads = _heads_laid_out(cfg, prog)
+    leaves = _leaves(params)
+    z, xbc_in, dt = _in_laid_out(params, x, ax)
+    xs, bc = {}, {}
+    for c, t in xbc_in.items():
+        xbc = _causal_conv(t, leaves["conv_w"][c])
+        xc, b_in, c_in = torch.split(xbc, [di, n, n], dim=-1)
+        xs[c] = heads(c, xc.reshape(t.shape[0], s, h, p), 2)
+        bc[c] = (b_in, c_in)
+    xs = prog.shard(xs, (b, s, h, p), "batch", "seq", "ssm_inner", None)
+    y, hlast = {}, {}
+    for c, xc in xs.items():
+        a = -torch.exp(heads(c, leaves["a_log"][c], 0).float())
+        yc, hlast[c] = _ssd_chunked(xc, heads(c, dt[c] + leaves["dt_bias"][c].float(), 2),
+                                    a, *bc[c], cfg.ssm.chunk)
+        yc = yc + heads(c, leaves["d_skip"][c], 0).to(yc.dtype)[None, None, :, None] * xc
+        y[c] = yc.reshape(yc.shape[0], s, -1)
+    del xs, bc, dt
+    out = _out_laid_out(params, y, z, leaves, cfg, prog, ax, heads)
+    k = cfg.ssm.d_conv
+    conv = {c: t[:, s - (k - 1):, :] if s >= k - 1 else
+            torch.zeros((t.shape[0], k - 1, conv_dim), dtype=t.dtype, device=t.device)
+            for c, t in xbc_in.items()}
+    return out, SSMState(h=hlast, conv=conv)
+
+
+def ssm_decode_laid_out(params: dict, x: dict, state: SSMState, cfg: ArchConfig,
+                        prog: Program) -> tuple[dict, SSMState]:
+    """`ssm_decode` in the partitioned program: `params` laid out, `x` each
+    coordinate's rows (B_loc, 1, d), `state` each coordinate's h (B_loc,
+    H_loc, N, P) and conv state (B_loc, k - 1, conv_dim) (dicts coordinate
+    -> tensor, the regions `ssm_apply_laid_out` returns). Returns each
+    coordinate's output (B_loc, 1, d) and its new state; `state` is not
+    written, and every coordinate's new state is made before any returns,
+    so a caller may write them into tensors that coordinates share."""
+    di, h, p, n, conv_dim = _dims(cfg)
+    ax, heads = _heads_laid_out(cfg, prog)
+    leaves = _leaves(params)
+    z, xbc_new, dt = _in_laid_out(params, {c: t[:, 0] for c, t in x.items()}, ax)
+    y, h_new, conv_new = {}, {}, {}
+    for c, t in xbc_new.items():
+        bsz = t.shape[0]
+        window = torch.cat([state.conv[c], t[:, None, :]], dim=1)
+        conv_out = torch.sum(window * leaves["conv_w"][c][None], dim=1)
+        xbc = F.silu(conv_out.float()).to(t.dtype)
+        xc, b_in, c_in = torch.split(xbc, [di, n, n], dim=-1)
+        xc = heads(c, xc.reshape(bsz, h, p), 1).float()
+        dtc = F.softplus(heads(c, dt[c] + leaves["dt_bias"][c].float(), 1).float())
+        a = -torch.exp(heads(c, leaves["a_log"][c], 0).float())
+        da = torch.exp(dtc * a[None])
+        h_new[c] = state.h[c] * da[..., None, None] \
+            + b_in.float()[:, None, :, None] * (xc * dtc[..., None])[:, :, None, :]
+        yc = torch.matmul(c_in.float()[:, None, None, :], h_new[c])[:, :, 0]
+        yc = yc + heads(c, leaves["d_skip"][c], 0).float()[None, :, None] * xc
+        y[c] = yc.reshape(bsz, -1).to(t.dtype)
+        conv_new[c] = window[:, 1:, :]
+    del xbc_new, dt
+    out = _out_laid_out(params, y, z, leaves, cfg, prog, ax, heads)
+    return {c: t[:, None, :] for c, t in out.items()}, SSMState(h=h_new, conv=conv_new)

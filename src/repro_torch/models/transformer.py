@@ -58,10 +58,15 @@ cache written in place, a softmax split over the `kv_seq` slices) and
 the head per coordinate. An MoE layer runs `moe.moe_apply_laid_out` (the
 expert-parallel region on laid-out experts) where the dense one runs its
 MLP, and its aux and z are summed over the layers into the loss, as the
-reference's scan sums them. Nothing is made whole but the joined
-results: the loss, its metrics, and the logits. The dense and MoE
-families only; the other bodies and a sliding window's cache raise
-NotImplementedError (ROADMAP A item 6).
+reference's scan sums them. An SSM layer (mamba2) runs
+`ssm.ssm_apply_laid_out` on `ssm_norm`, a hybrid one (hymba) attention
+and the SSD heads in parallel on `attn_norm`, mean-combined; the prefill
+writes each coordinate's `ssm_h` (its SSD heads) and `ssm_conv` regions,
+and the decode updates them in place (`ssm.ssm_decode_laid_out`) beside a
+rolling k and v cache under the sliding window. Nothing is made whole but
+the joined results: the loss, its metrics, and the logits. The dense,
+MoE, SSM and hybrid families; the audio and VLM bodies raise
+NotImplementedError (ROADMAP A item 6(c)).
 
 Entry points:
   param_defs / init_params / abstract_params / param_specs
@@ -405,7 +410,7 @@ def prefill(params: dict, batch: dict, cfg: ArchConfig,
     decode length first (a cache no longer than the window rolls; a longer
     one attends without the window, as in the reference).
 
-    On laid-out parameters (a dense or MoE config without a window) the
+    On laid-out parameters (a dense, MoE, SSM or hybrid config) the
     logits come back joined and the cache laid out by `cache_specs(cfg, B, S,
     rules)`, DistArrays each coordinate of which holds only its region;
     `pad_cache` takes it to the decode length, laid out by `cache_specs`
@@ -469,8 +474,12 @@ def cache_specs(cfg: ArchConfig, batch: int, seq_len: int,
                 rules: ShardingRules = DEFAULT_RULES, mesh=None) -> dict:
     """The decode cache's PartitionSpecs on `mesh` (default: the ambient
     one), the reference's logical layout."""
+    return _specs_of(abstract_cache(cfg, batch, seq_len), rules, mesh)
+
+
+def _specs_of(cache: dict, rules: ShardingRules, mesh) -> dict:
     return {k: logical_spec(tuple(v.shape), _CACHE_LOGICAL[k], rules, mesh)
-            for k, v in abstract_cache(cfg, batch, seq_len).items()}
+            for k, v in cache.items()}
 
 
 def pad_cache(cache: dict, cfg: ArchConfig, seq_len: int,
@@ -482,16 +491,23 @@ def pad_cache(cache: dict, cfg: ArchConfig, seq_len: int,
     placement by `cache_specs`. Each coordinate makes only its own region,
     zero past the prompt, the prompt's entries copied in from the
     coordinates that hold them (`col.assemble`, counted as "reshard"); pos
-    is kept."""
-    mesh = cache["k"].mesh
-    b, s = cache["k"].shape[1:3]
-    if seq_len < s:
-        raise ValueError(f"a decode length {seq_len} below the prompt's {s}")
+    and the SSM state, whose layouts do not depend on the length, are kept.
+    Under a sliding window the k and v cache has min(seq_len, window)
+    slots (a rolling cache): a prompt longer than that raises ValueError,
+    as the reference's caller cannot set one into `init_cache` either."""
+    pos = cache["pos"]
+    b, mesh = pos.shape[0], pos.mesh
     specs = cache_specs(cfg, b, seq_len, rules, mesh)
     shapes = abstract_cache(cfg, b, seq_len)
-    return {k: col.relayout(x, specs[k]) if k == "pos" else
-            col.assemble([((0,) * len(x.shape), x)], shapes[k].shape, specs[k], mesh,
-                         zero_fill=True)
+    if "k" in cache:
+        s, slots = cache["k"].shape[2], shapes["k"].shape[2]
+        if slots < seq_len and s > slots:
+            raise ValueError(f"a prompt of {s} positions is longer than the rolling "
+                             f"cache's {slots} slots (sliding window {cfg.sliding_window})")
+        if seq_len < s:
+            raise ValueError(f"a decode length {seq_len} below the prompt's {s}")
+    return {k: col.assemble([((0,) * len(x.shape), x)], shapes[k].shape, specs[k], mesh,
+                            zero_fill=True) if k in ("k", "v") else col.relayout(x, specs[k])
             for k, x in cache.items()}
 
 
@@ -547,8 +563,8 @@ def _ssm_decode(lp: dict, h: torch.Tensor, cache: dict, i: int,
 # The partitioned program: a laid-out state, per coordinate
 # ---------------------------------------------------------------------------
 
-_BODIES_NEXT = "ROADMAP A item 6 (the SSM, hybrid, audio and VLM bodies)"
-_LAID_OUT_FAMILIES = ("dense", "moe")
+_BODIES_NEXT = "ROADMAP A item 6(c) (the audio and VLM bodies)"
+_LAID_OUT_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def is_laid_out(params) -> bool:
@@ -606,17 +622,32 @@ def _norm_laid_out(cfg: ArchConfig, params: dict, name: str, x: dict) -> dict:
 
 
 def _layer_laid_out(cfg: ArchConfig, prog: Program, lp: dict, x: dict,
-                    attend=None) -> tuple[dict, dict, dict]:
-    """One dense or MoE layer of the partitioned program: (x, aux, z),
-    dicts coordinate -> tensor, aux and z the layer's MoE losses (0-dim
-    f32; None without MoE). Every phase runs over every coordinate before
-    the next. `attend(params, h)` is the attention (default:
-    `attn_apply_laid_out`)."""
-    h = _norm_laid_out(cfg, lp, "attn_norm", x)
-    a = (attend(lp["attn"], h) if attend is not None
-         else attention.attn_apply_laid_out(lp["attn"], h, cfg, prog))
-    x = {c: t + a[c] for c, t in x.items()}
-    del a, h
+                    attend=None, mix=None) -> tuple[dict, dict, dict]:
+    """One layer of the partitioned program, `_layer_fwd`'s branches:
+    (x, aux, z), dicts coordinate -> tensor, aux and z the layer's MoE
+    losses (0-dim f32; None without MoE). Every phase runs over every
+    coordinate before the next. `attend(params, h)` is the attention
+    (default: `attn_apply_laid_out`), `mix(params, h)` the SSM block's
+    output (default: `ssm_apply_laid_out`'s)."""
+    if mix is None:
+        mix = functools.partial(_ssm_out, cfg, prog)
+    if not cfg.attn_free:
+        h = _norm_laid_out(cfg, lp, "attn_norm", x)
+        a = (attend(lp["attn"], h) if attend is not None
+             else attention.attn_apply_laid_out(lp["attn"], h, cfg, prog))
+        if cfg.family == "hybrid":
+            # attention and SSD heads in parallel on the same norm, mean-combined
+            m = mix(lp["ssm"], h)
+            x = {c: t + 0.5 * (a[c] + m[c]) for c, t in x.items()}
+            del m
+        else:
+            x = {c: t + a[c] for c, t in x.items()}
+        del a, h
+    if cfg.ssm is not None and cfg.family != "hybrid":
+        h = _norm_laid_out(cfg, lp, "ssm_norm", x)
+        m = mix(lp["ssm"], h)
+        x = {c: t + m[c] for c, t in x.items()}
+        del m, h
     if cfg.d_ff:
         h = _norm_laid_out(cfg, lp, "mlp_norm", x)
         m = mlp_apply_laid_out(lp["mlp"], h, cfg.activation, prog)
@@ -631,6 +662,10 @@ def _layer_laid_out(cfg: ArchConfig, prog: Program, lp: dict, x: dict,
         aux = z = None
     x = prog.shard(x, (prog.batch, prog.seq, cfg.d_model), "batch", "seq", "embed")
     return x, aux, z
+
+
+def _ssm_out(cfg: ArchConfig, prog: Program, params: dict, h: dict) -> dict:
+    return ssm_mod.ssm_apply_laid_out(params, h, cfg, prog)[0]
 
 
 def _embed_laid_out(params: dict, tokens: dict, cfg: ArchConfig, prog: Program) -> dict:
@@ -662,7 +697,8 @@ def _forward_laid_out(params: dict, tokens: dict, cfg: ArchConfig, prog: Program
     With remat each layer runs under `torch.utils.checkpoint`: the
     recompute gathers its weights again, as the reference's remat does.
     Given the laid-out arrays of a prefill `cache`, each layer writes its
-    k and v into them (`_attend_and_cache`)."""
+    k and v (`_attend_and_cache`) and its SSM state (`_ssm_and_cache`)
+    into them."""
     if remat_policy not in REMAT_POLICIES:
         raise ValueError(f"unknown remat_policy {remat_policy!r}; want one of "
                          f"{REMAT_POLICIES}")
@@ -673,14 +709,16 @@ def _forward_laid_out(params: dict, tokens: dict, cfg: ArchConfig, prog: Program
             torch_checkpoint.create_selective_checkpoint_contexts, _dots_policy)
     aux = z = None
     for i, lp in enumerate(_unstack_laid_out(params["layers"], cfg.n_layers)):
-        attend = (None if cache is None
-                  else functools.partial(_attend_and_cache, cfg, prog, cache, i))
+        attend = mix = None
+        if cache is not None:
+            attend = functools.partial(_attend_and_cache, cfg, prog, cache, i)
+            mix = functools.partial(_ssm_and_cache, cfg, prog, cache, i)
         if remat:
             x, a, zz = torch_checkpoint.checkpoint(_layer_laid_out, cfg, prog, lp, x, attend,
-                                                   use_reentrant=False,
+                                                   mix, use_reentrant=False,
                                                    context_fn=context_fn)
         else:
-            x, a, zz = _layer_laid_out(cfg, prog, lp, x, attend)
+            x, a, zz = _layer_laid_out(cfg, prog, lp, x, attend, mix)
         if a is not None:
             aux = a if aux is None else {c: t + a[c] for c, t in aux.items()}
             z = zz if z is None else {c: t + zz[c] for c, t in z.items()}
@@ -731,17 +769,44 @@ def _attend_and_cache(cfg: ArchConfig, prog: Program, cache: dict, i: int, param
     return y
 
 
+def _ssm_and_cache(cfg: ArchConfig, prog: Program, cache: dict, i: int, params: dict,
+                   h: dict) -> dict:
+    """Layer i's SSM block, its state written into the prefill cache's
+    layer i at each of this process's coordinates: h on the coordinate's
+    SSD heads, the conv state whole."""
+    y, st = ssm_mod.ssm_apply_laid_out(params, h, cfg, prog)
+    _, n_h, p, n, _ = ssm_mod._dims(cfg)
+    prog.shard(st.h, (prog.batch, n_h, n, p), "batch", "ssm_inner", None, None)
+    for key, parts in (("ssm_h", st.h), ("ssm_conv", st.conv)):
+        for c in prog.mesh.local_coords():
+            cache[key].shards[c][i] = parts[c]
+    return y
+
+
+def _ssm_step(cfg: ArchConfig, prog: Program, layer_cache: dict, params: dict,
+              h: dict) -> dict:
+    """One decode step of a layer's SSM block, its state (`layer_cache`'s
+    ssm_h and ssm_conv, one layer of the laid-out cache) written in place
+    at each of this process's coordinates."""
+    h_in, conv_in = col.per_coord(layer_cache["ssm_h"]), col.per_coord(layer_cache["ssm_conv"])
+    y, st = ssm_mod.ssm_decode_laid_out(params, h, ssm_mod.SSMState(h_in, conv_in), cfg, prog)
+    for c in prog.mesh.local_coords():
+        h_in[c].copy_(st.h[c])
+        conv_in[c].copy_(st.conv[c])
+    return y
+
+
 def _prefill_laid_out(params: dict, batch: dict, cfg: ArchConfig, rules: ShardingRules):
     """`prefill` on laid-out parameters, under `torch.inference_mode()`:
-    the joined logits and the cache laid out by `cache_specs(cfg, B, S)`."""
+    the joined logits and the cache laid out by `cache_specs(cfg, B, S)`
+    (a prompt longer than a sliding window keeps its whole k and v, as the
+    mesh-free prefill's; `pad_cache` refuses it)."""
     with torch.inference_mode():
         prog, parts = _program(params, batch, cfg, rules)
-        if cfg.sliding_window:
-            raise NotImplementedError(f"a sliding window's cache on a laid-out state: "
-                                      f"{_BODIES_NEXT}")
-        specs = cache_specs(cfg, prog.batch, prog.seq, rules, prog.mesh)
+        shapes = _empty_cache(cfg, prog.batch, prog.seq, torch.device("meta"), torch.empty)
+        specs = _specs_of(shapes, rules, prog.mesh)
         cache = {k: col.empty(t.shape, specs[k], prog.mesh, t.dtype)
-                 for k, t in abstract_cache(cfg, prog.batch, prog.seq).items()}
+                 for k, t in shapes.items()}
         for t in cache["pos"].shards.values():
             t.fill_(prog.seq)
         logits, spec, aux, z = _forward_laid_out(params, parts["tokens"], cfg, prog, False,
@@ -760,7 +825,8 @@ def _decode_laid_out(params: dict, cache: dict, tokens, cfg: ArchConfig,
     with torch.inference_mode():
         prog, parts = _program(params, {"tokens": tokens}, cfg, rules)
         mesh = prog.mesh
-        specs = cache_specs(cfg, prog.batch, cache["k"].shape[2], rules, mesh)
+        kv_len = cache["k"].shape[2] if "k" in cache else 1   # an SSM's state has no length
+        specs = cache_specs(cfg, prog.batch, kv_len, rules, mesh)
         for key, x in cache.items():
             if not isinstance(x, DistArray) or x.spec != tuple(specs[key]):
                 raise ValueError(f"the cache's {key!r} is not laid out by cache_specs: "
@@ -769,11 +835,16 @@ def _decode_laid_out(params: dict, cache: dict, tokens, cfg: ArchConfig,
         x = _embed_laid_out(params, {c: t[:, None] for c, t in parts["tokens"].items()},
                             cfg, prog)
         layers = zip(_unstack_laid_out(params["layers"], cfg.n_layers),
-                     _unstack_laid_out({"k": cache["k"], "v": cache["v"]}, cfg.n_layers))
-        for lp, kv in layers:
-            x = _layer_laid_out(cfg, prog, lp, x, functools.partial(
-                attention.attn_decode_laid_out, cache_k=kv["k"], cache_v=kv["v"], pos=pos,
-                cfg=cfg, prog=prog))[0]
+                     _unstack_laid_out({k: v for k, v in cache.items() if k != "pos"},
+                                       cfg.n_layers))
+        for lp, lc in layers:
+            attend = mix = None
+            if "k" in lc:
+                attend = functools.partial(attention.attn_decode_laid_out, cache_k=lc["k"],
+                                           cache_v=lc["v"], pos=pos, cfg=cfg, prog=prog)
+            if "ssm_h" in lc:
+                mix = functools.partial(_ssm_step, cfg, prog, lc)
+            x = _layer_laid_out(cfg, prog, lp, x, attend, mix)[0]
         logits, spec = _head_laid_out(params, x, cfg, prog)
         new_cache = {**cache, "pos": col.zip_map(lambda p: p + 1, cache["pos"])}
         return col.join(logits, spec, mesh)[:, 0], new_cache

@@ -137,9 +137,11 @@ def logical_spec(shape: tuple[int, ...], logical: tuple[Optional[str], ...],
 
 
 # The logical axes the partitioned program splits: the batch rows, the
-# heads, the ffn and vocab columns, the MoE experts, the weights' FSDP
-# dimension, and the decode cache's sequence.
-REALISED = ("batch", "heads", "kv_heads", "ffn", "vocab", "experts", "embed_w", "kv_seq")
+# heads, the ffn and vocab columns, the MoE experts, the SSD heads and
+# their inner width, the weights' FSDP dimension, and the decode cache's
+# sequence.
+REALISED = ("batch", "heads", "kv_heads", "ffn", "vocab", "experts", "ssm_inner", "embed_w",
+            "kv_seq")
 
 
 def shard(x: torch.Tensor, *logical: Optional[str],

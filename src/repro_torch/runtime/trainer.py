@@ -23,7 +23,8 @@ microbatch (rows [i·B/nm, (i+1)·B/nm) of the global batch, laid out by
 the batch specs) runs `loss_fn` per coordinate inside
 `collectives.laid_out_region`, the gradients come back laid out
 (`collectives.grads`; a region several coordinates hold, such as the
-norms' scales and the MoE router, gets the sum of their gradients, and
+norms' scales, the MoE router and the SSM's wxbc, wdt, conv_w and
+per-head leaves, gets the sum of their gradients, and
 `global_norm` counts it once), the f32 sums are kept shard by shard, and
 AdamW updates shard by shard; an MoE body's aux and z enter each
 microbatch's loss as in the reference's step. Across processes a

@@ -338,3 +338,58 @@ def test_a_rank_holds_only_its_moe_state_and_cache_regions(moe_run):
         assert rank["serve"]["held"] == rank["serve"]["own"]
         assert all(h * SERVE_PROCS == r for h, r in zip(rank["serve"]["held"],
                                                          ref["serve"]["held"]))
+
+
+@pytest.fixture(scope="module")
+def hybrid_run():
+    total = SERVE_SHAPE[0] * SERVE_SHAPE[1]
+    return (spawn("hybrid", SERVE_PROCS, shape=list(SERVE_SHAPE), devices=total // SERVE_PROCS),
+            ranks.run_here("hybrid", shape=list(SERVE_SHAPE), devices=total))
+
+
+def test_partitioned_hybrid_across_processes_is_the_single_process_bits(hybrid_run):
+    """Two AdamW steps, a prefill and 3 decode steps of reduced hymba on a
+    state laid out over (2, 4), process p holding data row p: the SSD heads
+    split over `model` (their gated norm's and output's psums within a
+    process), the decode on the rolling cache across its wrap; every
+    rank's losses, parameters, logits and final cache (k, v, ssm_h,
+    ssm_conv) the single process's bits, the bytes and calls of each part
+    summed over the ranks its counts."""
+    got, ref = hybrid_run
+    assert all(np.isfinite(ref["step"]["losses"]))
+    assert set(ref["serve"]["cache"]) == {"pos", "k", "v", "ssm_h", "ssm_conv"}
+    assert ref["serve"]["cache"]["k"].shape[2] == 32          # the window's slots
+    for part in ("step", "serve"):
+        assert sorted(c for rank in got for c in rank[part]["local"]) == \
+            sorted(ref[part]["local"])
+        _assert_sums([rank[part] for rank in got], ref[part])
+        assert _summed([rank[part] for rank in got], "bytes")["psum"] > 0
+    assert _summed([rank["serve"] for rank in got], "bytes")["pmax"] > 0
+    for rank in got:
+        assert rank["step"]["losses"] == ref["step"]["losses"]
+        assert rank["step"]["grad_norms"] == ref["step"]["grad_norms"]
+        assert all(torch.equal(p, q) for p, q in zip(rank["step"]["params"],
+                                                     ref["step"]["params"]))
+        assert len(rank["serve"]["logits"]) == len(ref["serve"]["logits"]) == 4
+        assert all(torch.equal(a, b) for a, b in zip(rank["serve"]["logits"],
+                                                     ref["serve"]["logits"]))
+        assert all(torch.equal(rank["serve"]["cache"][k], ref["serve"]["cache"][k])
+                   for k in ref["serve"]["cache"])
+
+
+def test_a_rank_holds_only_its_hybrid_state_and_cache_regions(hybrid_run):
+    """A rank's state bytes are its own coordinates' regions, fewer than
+    the single process's (the SSM's wxbc, wdt, conv_w and per-head leaves
+    and the norm scales, whole along `model`, once a process); its cache
+    bytes after the prefill, the move to the decode length and every step
+    are its own regions too: half (k and v by rows and slots, ssm_h by
+    rows and SSD heads, ssm_conv by rows)."""
+    got, ref = hybrid_run
+    assert ref["step"]["held"] == ref["step"]["own"]
+    assert ref["serve"]["held"] == ref["serve"]["own"]
+    for rank in got:
+        assert rank["step"]["held"] == rank["step"]["own"]
+        assert rank["step"]["held"] < ref["step"]["held"]
+        assert rank["serve"]["held"] == rank["serve"]["own"]
+        assert all(h * SERVE_PROCS == r for h, r in zip(rank["serve"]["held"],
+                                                         ref["serve"]["held"]))

@@ -301,6 +301,14 @@ def moe(shape, devices: int, name: str = "qwen2-moe-a2.7b", seed: int = 3) -> di
             "serve": serve(shape, devices, name=name, seed=seed)}
 
 
+def hybrid(shape, devices: int, name: str = "hymba-1.5b", seed: int = 3) -> dict:
+    """The partitioned hybrid body, as `moe` runs the MoE one: attention
+    and the SSD heads on a laid-out state, the decode on the rolling cache
+    (reduced hymba's window of 32 slots: the prompt fills it, and every
+    step writes across its wrap into the first slice)."""
+    return moe(shape, devices, name=name, seed=seed)
+
+
 def fail_early() -> dict:
     """Rank 1 raises before any collective."""
     from repro_torch.launch.mesh import worker_info
@@ -336,8 +344,8 @@ def skip_collective() -> dict:
 
 
 CASES = {"spin": spin, "regions": regions, "lm": lm, "train": train, "partition": partition,
-         "serve": serve, "moe": moe, "fail_early": fail_early, "fail_mid_collective": fail_mid_collective,
-         "skip_collective": skip_collective}
+         "serve": serve, "moe": moe, "hybrid": hybrid, "fail_early": fail_early,
+         "fail_mid_collective": fail_mid_collective, "skip_collective": skip_collective}
 
 
 def run_here(case: str, **kwargs) -> dict:
