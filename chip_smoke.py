@@ -339,8 +339,9 @@ Phases, each of which fails the run (non-zero exit) on any fault:
      and B6-bwd 16 x L launches a step and no other kernel, bytes and calls
      equal to `partitioned_step_collectives`, a warm-up and 3 timed steps
      (ms, tokens/s, peak GiB) beside the mesh step's, every state leaf
-     still a DistArray of its spec; (c) prefill and decode at full depth
-     (24 layers), its parameters laid out by `param_specs`, against the
+     still a DistArray of its spec; (c) prefill and decode cut to 8 of
+     24 layers (the script's time), its parameters laid out by
+     `param_specs`, against the
      global view under the same mesh (run first, its logits and routes kept
      on the host, then freed): a prefill of 4 x 2048, `pad_cache` to 4096,
      a warm-up and 16 decode steps fed the reference run's tokens, the
@@ -366,15 +367,17 @@ Phases, each of which fails the run (non-zero exit) on any fault:
      and every gradient within 2^-5 of their largest entry, the forward's
      and backward's bytes and calls equal to
      `launch.dryrun.ssm_block_collectives`; (b) AdamW steps of 8 x 2048
-     tokens in 2 microbatches, full remat, mamba2 at full depth (no kernel
-     launched) and hymba cut to 4 layers (B6 32 x L and B6-bwd 16 x L a
-     step, window 1024), each against a mesh-free step on the same
+     tokens in 2 microbatches, full remat, mamba2 cut to 8 of 24 layers
+     (no kernel launched) and hymba to 4 of 32 (B6 32 x L and B6-bwd 16 x
+     L a step, window 1024), each cut printed, against a mesh-free step on
+     the same
      weights and first batch: the loss within 2e-3, the grad norm's gap
      printed, bytes and calls equal to `partitioned_step_collectives`, 3
      timed steps after that first one, the warm-up (ms, tokens/s, peak
      GiB, beside the mesh-free step's second, warm), every state leaf
-     still a DistArray of its spec; (c) prefill and decode at full depth
-     against the mesh-free path on the same weights: hymba a prefill of
+     still a DistArray of its spec; (c) prefill and decode against the
+     mesh-free path on the same weights, mamba2 at full depth and hymba
+     cut to 8 of 32 layers (printed): hymba a prefill of
      4 x 1024 filling its rolling cache of 1024 slots (256 a coordinate),
      mamba2 one of 8 x 2048, then a warm-up and 16 decode steps fed the
      mesh-free run's tokens; the logits within phase 17's 0.5 and the
@@ -386,17 +389,46 @@ Phases, each of which fails the run (non-zero exit) on any fault:
      `partitioned_serve_collectives`; prefill ms, decode ms a step and
      peak GiB beside mesh-free; B6 and B6-bwd against their plain versions
      at hymba's coordinate shape (2, 25, 2048, 64, KV 5, window 1024)
-     beside SDPA given the window's mask; `phase_s["26"]` and the script's
-     total seconds printed;
- 27. one JSON line with every path's times and residual (the examples'
+     beside SDPA given the window's mask; `phase_s["26"]` printed;
+ 27. the partitioned audio and VLM bodies on phase 19's mesh (data 2,
+     model 4) of cuda:0: hubert-xlarge (4 of its 16 heads of 80 a
+     coordinate, bidirectional; frames with `mask_embed` where masked,
+     the loss on the masked frames alone, its token table read by
+     nothing) and phi-3-vision-4.2b (8 of its 32 heads of 96 a coordinate;
+     576 patch stubs before the text, the vocabulary-parallel lookup on
+     the text alone): (a) AdamW steps of 8 x 2048 positions in 2
+     microbatches, full remat, hubert cut to 8 of 48 layers and
+     phi-3-vision to 4 of 32 (printed), each against a mesh-free step on
+     the same weights and first batch: the loss within 2e-3, the grad
+     norm's gap printed, hubert's token table's gradient zero at every
+     coordinate and its masters after the second step the mesh-free
+     step's bits (the weight decay alone), B6 32 x L and B6-bwd 16 x L
+     launches a step (hubert's unmasked), bytes and calls equal to
+     `partitioned_step_collectives`, a warm-up and 3 timed steps (ms,
+     tokens/s, peak GiB), every state leaf still a DistArray of its spec;
+     (b) at full depth a prefill of 4 x 2048 positions (phi-3-vision: 576
+     patches and 1472 tokens) against the mesh-free path (hubert's
+     `forward`), its cache laid out by `cache_specs` (GiB a coordinate
+     printed); phi-3-vision's cache then padded to 4096, a warm-up and 8
+     decode steps fed the mesh-free run's tokens; the logits within phase
+     17's 0.5 and the argmax equal where the mesh-free top-2 margin
+     exceeds it, phi-3-vision's dp_only prefill error beside; B6 8 x L
+     launches a prefill and none in decode; bytes and calls equal to
+     `partitioned_serve_collectives`; prefill ms, decode ms a step and
+     peak GiB beside mesh-free; (c) B6 and B6-bwd against their plain
+     versions at hubert's coordinate (2, 4, 2048, 80, bidirectional) and
+     phi-3-vision's (2, 8, 2048, 96, causal), beside their bounds and
+     SDPA; `phase_s["27"]` and the script's total seconds printed;
+ 28. one JSON line with every path's times and residual (the examples'
      wall, launches and peak memory under "examples", phase 22's ranks
      under "processes", phase 23's under "partition", phase 24's under
      "serve_partition", phase 25's under "partition_moe", phase 26's under
-     "partition_ssm"), and one with every kernel's launches, error and
-     times (the GEMM's, blocked Gauss-Jordan's and triangular solve's
-     launches on every path beside them, the examples' runs and phase 22's
-     ranks, each rank's and their sum, included, and B6's and B6-bwd's at
-     a coordinate of phases 23, 24, 25 and 26).
+     "partition_ssm", phase 27's under "partition_frontend"), and one with
+     every kernel's launches, error and times (the GEMM's, blocked
+     Gauss-Jordan's and triangular solve's launches on every path beside
+     them, the examples' runs and phase 22's ranks, each rank's and their
+     sum, included, and B6's and B6-bwd's at a coordinate of phases 23 to
+     27).
 
 The last line is {"ok": true, "device": {...}}. The script imports only
 the PyTorch port; it exits non-zero without a result when CUDA is missing
@@ -411,6 +443,7 @@ import dataclasses
 import gc
 import importlib
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -600,6 +633,8 @@ PMOE_RTOL = 2e-3                  # (b)'s first loss against the mesh step's
 PMOE_SERVE_BATCH = 4              # (c): 4 x 2048, the cache padded to 4096
 PMOE_SERVE_PROMPT, PMOE_SERVE_CACHE = 2048, 4096
 PMOE_SERVE_STEPS = 16             # (c)'s timed decode steps after one warm-up
+# (c)'s depth, cut from 24 to make room for phase 27 in the script's time
+PMOE_SERVE_LAYERS = 8
 PMOE_PROCS, PMOE_PROC_LAYERS, PMOE_PROC_STEPS = 2, 1, 2
 PMOE_PROC_PROMPT, PMOE_PROC_CACHE, PMOE_PROC_DECODE = 512, 1024, 4
 # Phase 26: the partitioned SSM and hybrid bodies on phase 19's mesh (data
@@ -607,20 +642,46 @@ PMOE_PROC_PROMPT, PMOE_PROC_CACHE, PMOE_PROC_DECODE = 512, 1024, 4
 # at every coordinate: `model` 4 divides neither, while wq, wz and wo split
 # their columns mid-head and are gathered whole) and mamba2-130m (24 SSD
 # heads: 6 a coordinate). (a) The SSM block alone at full width against
-# `ssm_apply`; (b) AdamW steps against a mesh-free step (hymba cut to
-# PSSM_LAYERS); (c) prefill and decode at full depth against the mesh-free
-# path, hymba's prompt filling its rolling cache of the window's 1024 slots.
-# The gloo ranks of this slice run on the CPU only
+# `ssm_apply`; (b) AdamW steps against a mesh-free step (cut to
+# PSSM_LAYERS); (c) prefill and decode against the mesh-free path (hymba
+# cut to PSSM_SERVE_LAYERS), hymba's prompt filling its rolling cache of the
+# window's 1024 slots. The gloo ranks of this slice run on the CPU only
 # (tests/test_torch_multiprocess_lm.py).
 PSSM_ARCHS = ("hymba-1.5b", "mamba2-130m")
 PSSM_BLOCK_BATCH, PSSM_BLOCK_SEQ = 4, 2048
 PSSM_BLOCK_RTOL = 2.0 ** -5
-PSSM_LAYERS = 4                   # (b)'s depth for hymba (phase 18b trains all 32)
+# (b)'s depths (whole: 32 and 24; phase 18b trains both whole), and why
+PSSM_LAYERS = {"hymba-1.5b": 4, "mamba2-130m": 8}
+PSSM_CUT_WHY = {
+    "hymba-1.5b": "the phase's time: its 8 coordinates each run all 50 SSD heads and 25 "
+                  "query heads, which model 4 does not divide",
+    "mamba2-130m": "the script's time, to make room for phase 27: about 6 s a step at 24"}
 PSSM_STEPS = 3                    # (b)'s timed steps after one warm-up
 PSSM_RTOL = 2e-3                  # (b)'s first loss against the mesh-free step's
 PSSM_SERVE = {"hymba-1.5b": (4, 1024, 1024),     # (c): batch, prompt, decode length
               "mamba2-130m": (8, 2048, 2048)}
+# (c)'s depths (None: whole), hymba's cut from 32 to make room for phase 27
+PSSM_SERVE_LAYERS = {"hymba-1.5b": 8, "mamba2-130m": None}
 PSSM_SERVE_STEPS = 16             # (c)'s timed decode steps after one warm-up
+# Phase 27: the partitioned audio and VLM bodies on phase 19's mesh (data 2,
+# model 4) of cuda:0: hubert-xlarge (16 heads of 80, 4 a coordinate,
+# bidirectional; the frames and mask of data/synthetic.py, the loss on the
+# masked frames) and phi-3-vision-4.2b (32 heads of 96, 8 a coordinate; 576
+# patch stubs before 1472 tokens a sequence). (a) AdamW steps of 8 x 2048
+# positions against a mesh-free step, cut to PFRONT_LAYERS; (b) a prefill
+# of 4 x 2048 at full depth against the mesh-free path, and for
+# phi-3-vision the cache padded to 4096, a warm-up and PFRONT_SERVE_STEPS
+# decode steps (hubert, an encoder, decodes nothing: the reference builds
+# no decode cell for it); (c) B6 and B6-bwd at each one's coordinate shape.
+PFRONT_ARCHS = ("hubert-xlarge", "phi-3-vision-4.2b")
+PFRONT_LAYERS = {"hubert-xlarge": 8, "phi-3-vision-4.2b": 4}   # (a)'s depths
+PFRONT_CUT_WHY = {
+    "hubert-xlarge": "the script's time",
+    "phi-3-vision-4.2b": "its laid-out AdamW state, about 9.1 GB at 4 layers, and the "
+                         "mesh-free yardstick's must fit 80 GB side by side, in the "
+                         "script's time"}
+PFRONT_SERVE_BATCH, PFRONT_SERVE_SEQ, PFRONT_SERVE_CACHE = 4, 2048, 4096
+PFRONT_SERVE_STEPS = 8            # (b)'s timed decode steps after one warm-up
 U_F32 = 2.0 ** -24                # f32 unit roundoff
 # The refresh residual's bound: c·n·u·κ, the first-order bound on an
 # inverse's residual by elimination, with c = 4 over the 1.3 measured at
@@ -4102,13 +4163,14 @@ def _partition_steps(torch, cfg, mesh, steps: int, model_size_hint: int = 16,
 
 def check_flash_partitioned(torch, b: int, h: int, s: int, hd: int,
                             what: str = "the partitioned step",
-                            backward: bool = True, kv: int = 0, window: int = 0) -> dict:
-    """Phases 23 to 26: B6 (and B6-bwd with `backward`) against their
+                            backward: bool = True, kv: int = 0, window: int = 0,
+                            causal: bool = True) -> dict:
+    """Phases 23 to 27: B6 (and B6-bwd with `backward`) against their
     plain versions at a coordinate's shape of `what` (B_loc, H_loc, S,
     hd; `kv` KV heads, H_loc by default; a sliding `window`), bf16,
-    causal, made in the model's (B, S, H, hd) layout; each timed beside
-    its bound, its plain version and SDPA (forward, backward; given the
-    window's boolean mask)."""
+    causal or (hubert's) bidirectional, made in the model's (B, S, H, hd)
+    layout; each timed beside its bound, its plain version and SDPA
+    (forward, backward; given the window's boolean mask)."""
     from repro_torch.kernels.flash_attention import kernel as fa, ref as fa_ref
     import numpy as np
     import torch.nn.functional as F
@@ -4123,27 +4185,28 @@ def check_flash_partitioned(torch, b: int, h: int, s: int, hd: int,
         return torch.from_numpy(x).to(dev, torch.bfloat16).transpose(1, 2)
 
     q, k, v, do = one(h), one(kv), one(kv), one(h)
-    w = {"causal": True, "window": window}
+    w = {"causal": causal, "window": window}
     got = fa.flash_attention_cuda(q, k, v, **w)
     err = max_abs(got, fa_ref.attention_ref(q, k, v, **w))
     require(bool(torch.isfinite(got.float()).all()) and err <= FLASH_TOL["bfloat16"],
             f"partition flash_attention: max_abs_err {err}")
-    bound, by = flash_bound_ms(b, h, kv, s, s, hd, True, 2, PEAK_BF16_FLOPS, window=window)
+    bound, by = flash_bound_ms(b, h, kv, s, s, hd, causal, 2, PEAK_BF16_FLOPS, window=window)
     # SDPA takes a boolean mask only for the window (check_flash_families)
     mask = fa_ref.attention_mask(s, s, True, window, dev) if window else None
+    sdpa_causal = causal and not window
     fwd = {"ms": time_ms(lambda: fa.flash_attention_cuda(q, k, v, **w), 10),
            "plain_ms": time_ms(lambda: fa_ref.attention_ref(q, k, v, **w), 2),
            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-               q, k, v, attn_mask=mask, is_causal=not window, enable_gqa=kv != h), 10),
+               q, k, v, attn_mask=mask, is_causal=sdpa_causal, enable_gqa=kv != h), 10),
            "bound_ms": bound, "bound_by": by, "max_abs_err": err}
-    shape = (f"B={b} H={h} KV={kv} S={s} hd={hd} causal"
+    shape = (f"B={b} H={h} KV={kv} S={s} hd={hd} " + ("causal" if causal else "bidirectional")
              + (f" window={window}" if window else "") + f" bf16 (a coordinate of {what})")
     print(f"time flash_attention {what}: {fwd} {shape}", flush=True)
     if not backward:
         del q, k, v, do, mask
         torch.cuda.empty_cache()
         return {"flash_attention": {**fwd, "shape": shape}}
-    out, lse = fa._forward(q, k, v, True, want_lse=True, window=window)
+    out, lse = fa._forward(q, k, v, causal, want_lse=True, window=window)
     grads = fa.flash_attention_bwd_cuda(q, k, v, out, do, lse, **w)
     want = fa_ref.attention_bwd_ref(q, k, v, do, **w)
     errs = [max_abs(g, w) for g, w in zip(grads, want)]
@@ -4153,9 +4216,9 @@ def check_flash_partitioned(torch, b: int, h: int, s: int, hd: int,
             f"partition flash_attention_bwd: rel err {rel}")
     del grads, want
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-    lib_out = F.scaled_dot_product_attention(*leaves, attn_mask=mask, is_causal=not window,
+    lib_out = F.scaled_dot_product_attention(*leaves, attn_mask=mask, is_causal=sdpa_causal,
                                              enable_gqa=kv != h)
-    bound, by = flash_bwd_bound_ms(b, h, kv, s, hd, True, 2, PEAK_BF16_FLOPS, window=window)
+    bound, by = flash_bwd_bound_ms(b, h, kv, s, hd, causal, 2, PEAK_BF16_FLOPS, window=window)
     bwd = {"ms": time_ms(lambda: fa.flash_attention_bwd_cuda(q, k, v, out, do, lse, **w), 20),
            "plain_ms": time_ms(lambda: fa_ref.attention_bwd_ref(q, k, v, do, **w), 1),
            "library_ms": time_ms(lambda: torch.autograd.grad(lib_out, leaves, do,
@@ -4305,15 +4368,16 @@ def _laid_out_params(torch, cfg, mesh):
 
 
 def _serve_laid_out(torch, cfg, params, prompts, fed=None, steps: int = 0,
-                    cache_len: int = SERVE_CACHE, probe=None) -> dict:
-    """On laid-out `params`: a prefill of `prompts` (its logits, launches,
-    bytes and calls by kind, wall ms), the cache padded to `cache_len`,
-    then one decode step a token of `fed` (or `steps` steps fed their own
-    argmax), each step's logits, bytes, calls and wall ms; the cache's
-    GiB held after each phase, its leaves' specs and shard shapes, and the
-    final cache's digests. `probe(cache)` is called on the padded cache
-    before the first step and on the last step's: its two results under
-    "probe"."""
+                    cache_len: int | None = SERVE_CACHE, probe=None) -> dict:
+    """On laid-out `params`: a prefill of `prompts` (tokens, or a batch of
+    model inputs; its logits, launches, bytes and calls by kind, wall ms),
+    the cache padded to `cache_len`, then one decode step a token of `fed`
+    (or `steps` steps fed their own argmax), each step's logits, bytes,
+    calls and wall ms; the cache's GiB held after each phase, its leaves'
+    specs and shard shapes, and the final cache's digests. `probe(cache)`
+    is called on the padded cache before the first step and on the last
+    step's: its two results under "probe". With `cache_len` None (an
+    encoder) nothing decodes: the prefill's cache is the final one."""
     from repro_torch import kernels
     from repro_torch.models import transformer as T
     from repro_torch.parallel import collective_bytes, collective_calls, reset_collective_bytes
@@ -4332,24 +4396,28 @@ def _serve_laid_out(torch, cfg, params, prompts, fed=None, steps: int = 0,
                      "launches": kernels.launch_counts(), "bytes": collective_bytes(),
                      "calls": collective_calls()}
 
-    (logits, _, _, cache), prefill = counted(lambda: T.prefill(params, {"tokens": prompts},
-                                                                cfg))
+    batch = prompts if isinstance(prompts, dict) else {"tokens": prompts}
+    (logits, _, _, cache), prefill = counted(lambda: T.prefill(params, batch, cfg))
     out = {"prefill": prefill, "prefill_logits": logits, "held_gib": [_held_gib(torch, cache)]}
-    cache = T.pad_cache(cache, cfg, cache_len)
-    out["held_gib"].append(_held_gib(torch, cache))
-    out["probe"] = [probe(cache)] if probe is not None else []
+    out["steps"], out["step_logits"], out["probe"] = [], [], []
+    if cache_len is None:
+        fed = []
+    else:
+        cache = T.pad_cache(cache, cfg, cache_len)
+        out["held_gib"].append(_held_gib(torch, cache))
+        out["probe"] = [probe(cache)] if probe is not None else []
     tok = torch.argmax(logits[:, -1], -1)
     del logits
-    out["steps"], out["step_logits"] = [], []
     for i in range(len(fed) if fed is not None else steps):
         tok = fed[i] if fed is not None else tok
         (lg, cache), step = counted(lambda: T.decode_step(params, cache, tok, cfg))
         out["steps"].append(step)
         out["step_logits"].append(lg)
         tok = torch.argmax(lg, -1)
-    out["held_gib"].append(_held_gib(torch, cache))
-    if probe is not None:
-        out["probe"].append(probe(cache))
+    if cache_len is not None:
+        out["held_gib"].append(_held_gib(torch, cache))
+        if probe is not None:
+            out["probe"].append(probe(cache))
     out["cache"] = {k: (x.spec, {c: tuple(t.shape) for c, t in x.shards.items()})
                     for k, x in cache.items()}
     out["cache_digests"] = {k: _digest(torch, gather(x)) for k, x in cache.items()}
@@ -4898,8 +4966,9 @@ def _token_agreement(torch, got: list, want: list, n_layers: int, mesh, batch: i
 
 def run_partition_moe_serve(torch, mesh) -> dict:
     """Phase 25 (c): qwen2-moe's partitioned prefill and decode at full
-    width and depth, its parameters laid out by `param_specs` on (data 2,
-    model 4) of cuda:0, against the global-view path under the same mesh
+    width, cut to PMOE_SERVE_LAYERS, its parameters laid out by
+    `param_specs` on (data 2, model 4) of cuda:0, against the global-view
+    path under the same mesh
     on the same weights (run first, its logits and routes kept on the
     host, then freed): the prefill of PMOE_SERVE_BATCH x
     PMOE_SERVE_PROMPT, `pad_cache` to PMOE_SERVE_CACHE, a warm-up and
@@ -4918,7 +4987,10 @@ def run_partition_moe_serve(torch, mesh) -> dict:
     from repro_torch.parallel.sharding import lay_out
 
     dev = torch.device("cuda")
-    cfg = _pmoe_cfg()
+    cfg = _pmoe_cfg(PMOE_SERVE_LAYERS)
+    print(f"partition_moe_serve: {cfg.name} cut to {cfg.n_layers} of "
+          f"{_pmoe_cfg().n_layers} layers for prefill and decode (the script's time, to "
+          f"make room for phase 27)", flush=True)
     n_coords = MESH_SHAPE[0] * MESH_SHAPE[1]
     b, s, n = PMOE_SERVE_BATCH, PMOE_SERVE_PROMPT, PMOE_SERVE_CACHE
     gc.collect()
@@ -5242,22 +5314,27 @@ def check_ssm_block_laid_out(torch, mesh, cfg) -> dict:
     return out
 
 
-def run_partition_ssm_train(torch, mesh, cfg, cut_from: int) -> dict:
-    """Phase 26 (b): the partitioned AdamW step of `cfg` (mamba2-130m at
-    full depth, hymba-1.5b cut to PSSM_LAYERS) on (data 2, model 4) of
-    cuda:0 against a mesh-free step on the same weights and first batch:
-    the loss within PSSM_RTOL, the grad norm's gap printed, B6 32 x L and
-    B6-bwd 16 x L launches a step with attention (none without), bytes and
-    calls equal to `partitioned_step_collectives`, PSSM_STEPS timed steps
-    after that first one (their warm-up), every state leaf still a
-    DistArray of its spec; the mesh-free yardstick's second step is its
-    warm time."""
+def run_partitioned_step(torch, mesh, cfg, cut_from: int, tag: str, why: str) -> dict:
+    """Phases 26 (b) and 27 (a): the partitioned AdamW step of `cfg` (cut
+    from `cut_from` layers, for the reason `why`, printed) on (data 2,
+    model 4) of cuda:0 against a mesh-free step on the same weights and
+    first batch (`TokenStream`'s: tokens, audio's frames and mask, the
+    VLM's patch stubs and text): the loss within PSSM_RTOL, the grad
+    norm's gap printed, B6 32 x L and B6-bwd 16 x L launches a step with
+    attention (none without), bytes and calls equal to
+    `partitioned_step_collectives`, PSSM_STEPS timed steps after that
+    first one (their warm-up), every state leaf still a DistArray of its
+    spec; the mesh-free yardstick's second step is its warm time. Audio's
+    token table, which no loss reads, gets a zero gradient at every
+    coordinate, and its masters after the second step are the mesh-free
+    step's bits: the weight decay alone moves them. `tag` names the
+    printed lines and failures."""
     import numpy as np
     from repro_torch import kernels
     from repro_torch.data.synthetic import TokenStream
     from repro_torch.launch.dryrun import partitioned_step_collectives
     from repro_torch.parallel import collective_bytes, collective_calls, reset_collective_bytes
-    from repro_torch.parallel.collectives import DistArray
+    from repro_torch.parallel.collectives import DistArray, gather
     from repro_torch.parallel.sharding import lay_out
     from repro_torch.runtime.trainer import (TrainConfig, init_state, make_train_step,
                                              state_shardings)
@@ -5266,9 +5343,8 @@ def run_partition_ssm_train(torch, mesh, cfg, cut_from: int) -> dict:
     dev = torch.device("cuda")
     n_coords = MESH_SHAPE[0] * MESH_SHAPE[1]
     if cfg.n_layers < cut_from:
-        print(f"partition_ssm: {cfg.name} cut to {cfg.n_layers} of {cut_from} layers for "
-              f"the step (the phase's time: its 8 coordinates each run all 50 SSD heads "
-              f"and 25 query heads, which model 4 does not divide)", flush=True)
+        print(f"{tag}: {cfg.name} cut to {cfg.n_layers} of {cut_from} layers for the step "
+              f"({why})", flush=True)
     tcfg = TrainConfig(microbatches=TRAIN_MICRO, optimizer="adamw", warmup=1)
     gc.collect()
     torch.cuda.empty_cache()
@@ -5284,6 +5360,10 @@ def run_partition_ssm_train(torch, mesh, cfg, cut_from: int) -> dict:
     whole, free, free_first_ms = _timed_step(torch, free_step, whole, first)
     whole, _, free_ms = _timed_step(torch, free_step, whole, stream.next())
     free_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    audio = cfg.family == "audio"
+    if audio:       # the token table no loss reads: its masters after two steps
+        free_embed = whole.opt.master["embed"].clone()
+        init_embed = gather(state.opt.master["embed"])
     del whole, free_step
     gc.collect()
     torch.cuda.empty_cache()
@@ -5295,7 +5375,10 @@ def run_partition_ssm_train(torch, mesh, cfg, cut_from: int) -> dict:
     launches = kernels.launch_counts()
     moved, calls = collective_bytes(), collective_calls()
     gap = abs(m1["grad_norm"] - free["grad_norm"])
-    print(f"path partition_ssm_first_step {cfg.name}: loss={m1['loss']!r} "
+    if audio:
+        require(all(not bool(t.any()) for t in state.opt.m["embed"].shards.values()),
+                f"{tag} {cfg.name}: the token table, which no loss reads, has a gradient")
+    print(f"path {tag}_first_step {cfg.name}: loss={m1['loss']!r} "
           f"mesh_free_loss={free['loss']!r} grad_norm={m1['grad_norm']!r} "
           f"mesh_free_grad_norm={free['grad_norm']!r} grad_norm_gap={gap!r} ms={ms1!r} "
           f"mesh_free_first_ms={free_first_ms!r} mesh_free_ms={free_ms!r} "
@@ -5303,35 +5386,40 @@ def run_partition_ssm_train(torch, mesh, cfg, cut_from: int) -> dict:
           flush=True)
     require(np.isfinite(m1["loss"]) and abs(m1["loss"] - free["loss"])
             <= PSSM_RTOL * abs(free["loss"]),
-            f"partition ssm {cfg.name}: loss {m1['loss']} against mesh-free {free['loss']}")
+            f"{tag} {cfg.name}: loss {m1['loss']} against mesh-free {free['loss']}")
     per_step = ({} if cfg.attn_free else
                 {"flash_attention": 2 * cfg.n_layers * TRAIN_MICRO * n_coords,
                  "flash_attention_bwd": cfg.n_layers * TRAIN_MICRO * n_coords})
     for kern, n in launches.items():
         require(n == per_step.get(kern, 0),
-                f"partition ssm {cfg.name}: {kern} launched {n} times, want "
-                f"{per_step.get(kern, 0)}")
+                f"{tag} {cfg.name}: {kern} launched {n} times, want {per_step.get(kern, 0)}")
     want_moved, want_calls = partitioned_step_collectives(cfg, MESH_SHAPE, "default",
                                                           TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO)
     require({k: moved[k] for k in want_moved} == want_moved
             and all(v == 0 for k, v in moved.items() if k not in want_moved)
             and {k: calls[k] for k in want_calls} == want_calls,
-            f"partition ssm {cfg.name}: bytes {moved} calls {calls}, want {want_moved} "
-            f"{want_calls}")
+            f"{tag} {cfg.name}: bytes {moved} calls {calls}, want {want_moved} {want_calls}")
     # the first step is the warm-up of the timed ones (the mesh-free yardstick
     # read the first batch; these read the batches after the second)
     steps = []
-    for _ in range(PSSM_STEPS):
+    for i in range(PSSM_STEPS):
         retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
         state, m, ms = _timed_step(torch, step, state, stream.next())
         steps.append({"ms": ms, "loss": m["loss"], "grad_norm": m["grad_norm"],
                       "alloc_retries": torch.cuda.memory_stats().get("num_alloc_retries", 0)
                       - retries})
-        require(np.isfinite(m["loss"]), f"partition ssm {cfg.name}: loss {m['loss']}")
+        require(np.isfinite(m["loss"]), f"{tag} {cfg.name}: loss {m['loss']}")
+        if audio and i == 0:      # the second step: the weight decay's first move
+            laid_embed = gather(state.opt.master["embed"])
+            require(torch.equal(laid_embed, free_embed)
+                    and not torch.equal(laid_embed, init_embed),
+                    f"{tag} {cfg.name}: the token table's masters after two steps are not "
+                    f"the mesh-free step's (the weight decay alone)")
+            del laid_embed, free_embed, init_embed
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     for x, sh in zip(leaves(state), leaves(shardings)):
         require(isinstance(x, DistArray) and x.spec == tuple(sh.spec) and x.mesh is mesh,
-                f"partition ssm {cfg.name}: a state leaf is no longer laid out by its spec")
+                f"{tag} {cfg.name}: a state leaf is no longer laid out by its spec")
     held = _held_gib(torch, state)
     del state
     gc.collect()
@@ -5512,16 +5600,188 @@ def run_partition_ssm(torch) -> dict:
         out["block"][name] = check_ssm_block_laid_out(torch, mesh, _pssm_cfg(name))
     for name in PSSM_ARCHS:
         full = _pssm_cfg(name)
-        cfg = _pssm_cfg(name, None if full.attn_free else PSSM_LAYERS)
-        out["train"][name] = run_partition_ssm_train(torch, mesh, cfg, full.n_layers)
+        cfg = _pssm_cfg(name, PSSM_LAYERS[name])
+        out["train"][name] = run_partitioned_step(torch, mesh, cfg, full.n_layers,
+                                                  "partition_ssm", PSSM_CUT_WHY[name])
         print(f"path partition_ssm_train {name}: {json.dumps(out['train'][name])}", flush=True)
     for name in PSSM_ARCHS:
-        out["serve"][name] = run_partition_ssm_serve(torch, mesh, _pssm_cfg(name))
+        cfg = _pssm_cfg(name, PSSM_SERVE_LAYERS[name])
+        full = _pssm_cfg(name)
+        if cfg.n_layers < full.n_layers:
+            print(f"partition_ssm_serve: {name} cut to {cfg.n_layers} of {full.n_layers} "
+                  f"layers for prefill and decode (the script's time, to make room for "
+                  f"phase 27)", flush=True)
+        out["serve"][name] = run_partition_ssm_serve(torch, mesh, cfg)
     cfg = _pssm_cfg("hymba-1.5b")
     out["kernels"] = check_flash_partitioned(
         torch, TRAIN_BATCH // TRAIN_MICRO // MESH_SHAPE[0], cfg.n_heads, TRAIN_SEQ,
         cfg.head_dim, what="the partitioned hybrid step", kv=cfg.n_kv_heads,
         window=cfg.sliding_window)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 27: the partitioned audio and VLM bodies (hubert's frames, phi-3-vision's patches)
+# ---------------------------------------------------------------------------
+
+
+def _pfront_cfg(name: str, layers: int | None = None):
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch(name)
+    return dataclasses.replace(cfg, n_layers=layers or cfg.n_layers)
+
+
+def run_partition_frontend_serve(torch, mesh, cfg) -> dict:
+    """Phase 27 (b): the partitioned prefill of `cfg` at full width and
+    depth, its parameters laid out by `param_specs` on (data 2, model 4)
+    of cuda:0, against the mesh-free path on the same weights and batch
+    (run first; hubert's the `forward` of phase 17b's lm_forward_audio): a
+    `make_batch` prompt of PFRONT_SERVE_BATCH x PFRONT_SERVE_SEQ model
+    positions; for phi-3-vision then `pad_cache` to PFRONT_SERVE_CACHE, a
+    warm-up and PFRONT_SERVE_STEPS decode steps fed the mesh-free run's
+    tokens, the positions going on after the patches. The logits within
+    SERVE_BOUND and the argmax equal where the mesh-free top-2 margin
+    exceeds it; phi-3-vision's dp_only prefill error beside; the cache laid
+    out by `cache_specs` (its GiB a coordinate); B6 8 x L launches a
+    prefill and none in decode; bytes and calls equal to
+    `partitioned_serve_collectives`; prefill ms, decode ms a step and peak
+    GiB beside mesh-free."""
+    import numpy as np
+    import torch.nn.functional as F
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.launch.dryrun import RULES_VARIANTS, partitioned_serve_collectives
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel.sharding import lay_out
+
+    b, s, n = PFRONT_SERVE_BATCH, PFRONT_SERVE_SEQ, PFRONT_SERVE_CACHE
+    decodes = cfg.decode_capable
+    n_coords = MESH_SHAPE[0] * MESH_SHAPE[1]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    whole, params = _laid_out_params(torch, cfg, mesh)
+    batch = make_batch(cfg, b, s, np.random.default_rng([SEED, 27]), "prefill", "cuda")
+
+    # the mesh-free path: the prefill (the forward for an encoder; a
+    # warm-up, then timed), then the padded cache, a warm-up step and
+    # PFRONT_SERVE_STEPS steps
+    def free_prefill():
+        return (T.prefill if decodes else T.forward)(whole, batch, cfg)
+
+    free_prefill()
+    (free_logits, _, _, cache), free_prefill_ms = timed(torch, free_prefill)
+    fed, free_steps, free_ms = [], [], []
+    if decodes:
+        pad = (0, 0, 0, 0, 0, n - s)
+        cache = {**cache, "k": F.pad(cache["k"], pad), "v": F.pad(cache["v"], pad)}
+        tok = torch.argmax(free_logits[:, -1], -1)
+        for _ in range(1 + PFRONT_SERVE_STEPS):
+            fed.append(tok)
+            (lg, cache), ms = timed(torch, lambda: T.decode_step(whole, cache, tok, cfg))
+            free_steps.append(lg)
+            free_ms.append(ms)
+            tok = torch.argmax(lg, -1)
+    free_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del cache
+
+    # the warm-up of the counted run: phi-3-vision's under dp_only, whose
+    # logits' error is printed beside the default's; hubert's under default
+    rname = "dp_only" if decodes else "default"
+    rules = RULES_VARIANTS[rname]
+    laid = lay_out(whole, _shardings(T.param_specs(cfg, rules, mesh), mesh)) if decodes \
+        else params
+    warm_logits = T.prefill(laid, batch, cfg, rules)[0]
+    dp_only_err = _logit_errs(warm_logits, free_logits) if decodes else None
+    del warm_logits, laid, whole
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the partitioned path: the counted and timed run
+    torch.cuda.reset_peak_memory_stats()
+    run = _serve_laid_out(torch, cfg, params, batch, fed, cache_len=n if decodes else None)
+    pairs = [(run.pop("prefill_logits"), free_logits)] + list(zip(run.pop("step_logits"),
+                                                                   free_steps))
+    errs = [_logit_errs(got, want) for got, want in pairs]
+    agree = [_clear_agree(got, want) for got, want in pairs]
+    del pairs, free_logits, free_steps
+    pre = run["prefill"]
+    specs = T.cache_specs(cfg, b, n if decodes else s, RULES_VARIANTS["default"], mesh)
+    first = mesh.coords()[0]
+    coord_gib = sum(math.prod(shards[first]) * 2 for k, (_, shards) in run["cache"].items()
+                    if k in ("k", "v")) / 2 ** 30
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "mesh": mesh.descriptor(), "batch": b,
+           "seq": s, "cache_len": n if decodes else s,
+           "prefill": {"ms": pre["ms"], "mesh_free_ms": free_prefill_ms, "err": errs[0],
+                       "dp_only_err": dp_only_err, "clear_agree": agree[0],
+                       "launches": pre["launches"], "bytes": pre["bytes"],
+                       "calls": pre["calls"]},
+           "bound": SERVE_BOUND, "peak_gib": run["peak_gib"], "mesh_free_peak_gib": free_peak,
+           "cache_gib": run["held_gib"], "cache_gib_a_coordinate": coord_gib,
+           "cache_specs": {k: list(spec) for k, (spec, _) in run["cache"].items()}}
+    if decodes:
+        ms = [st["ms"] for st in run["steps"][1:]]
+        out["decode"] = {"ms": ms, "warmup_ms": run["steps"][0]["ms"],
+                         "mesh_free_ms": free_ms[1:], "mesh_free_warmup_ms": free_ms[0],
+                         "errs": errs[1:], "clear_agree": agree[1:],
+                         "tokens_per_s": b / (sum(ms) / len(ms) / 1e3),
+                         "mesh_free_tokens_per_s": b / (sum(free_ms[1:]) / len(ms) / 1e3),
+                         "bytes": run["steps"][1]["bytes"], "calls": run["steps"][1]["calls"]}
+    print(f"path partition_frontend_serve {cfg.name}: {json.dumps(out)}", flush=True)
+    require(all(np.isfinite(e[0]) and e[0] <= SERVE_BOUND for e in errs)
+            and (dp_only_err is None or dp_only_err[0] <= SERVE_BOUND),
+            f"partition frontend serve {cfg.name}: logits {errs}, dp_only {dp_only_err} "
+            f"against mesh-free (bound {SERVE_BOUND})")
+    require(all(a == c for a, c in agree),
+            f"partition frontend serve {cfg.name}: a token differs where the top-2 margin "
+            f"exceeds {SERVE_BOUND}: {agree}")
+    require(all(tuple(spec) == tuple(specs[k]) for k, (spec, _) in run["cache"].items())
+            and len(run["steps"]) == (1 + PFRONT_SERVE_STEPS if decodes else 0),
+            f"partition frontend serve {cfg.name}: the cache is not laid out by cache_specs "
+            f"{specs}: {run['cache']}")
+    want = partitioned_serve_collectives(cfg, MESH_SHAPE, "default", b, s, n)
+    for phase, got in [("prefill", pre)] + [("decode", st) for st in run["steps"]]:
+        want_moved, want_calls = want[phase]
+        require({k: got["bytes"][k] for k in want_moved} == want_moved
+                and all(v == 0 for k, v in got["bytes"].items() if k not in want_moved)
+                and {k: got["calls"][k] for k in want_calls} == want_calls,
+                f"partition frontend serve {cfg.name} {phase}: bytes {got['bytes']} calls "
+                f"{got['calls']}, want {want_moved} {want_calls}")
+        for kern, cnt in got["launches"].items():
+            want_n = cfg.n_layers * n_coords if (phase == "prefill"
+                                                 and kern == "flash_attention") else 0
+            require(cnt == want_n, f"partition frontend serve {cfg.name} {phase}: {kern} "
+                                   f"launched {cnt} times, want {want_n}")
+    out["launches"] = pre["launches"]
+    del params, run
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_partition_frontend(torch) -> dict:
+    """Phase 27: the partitioned audio and VLM bodies on (data 2, model 4)
+    of cuda:0 (module docstring): (a) the AdamW steps, (b) prefill and
+    decode, of hubert-xlarge and phi-3-vision-4.2b; (c) B6 and B6-bwd at
+    each one's coordinate shape (hubert's bidirectional)."""
+    from repro_torch.launch.mesh import make_worker_mesh
+
+    mesh = make_worker_mesh(MESH_SHAPE, devices=["cuda:0"] * (MESH_SHAPE[0] * MESH_SHAPE[1]))
+    out = {"train": {}, "serve": {}, "kernels": {}}
+    for name in PFRONT_ARCHS:
+        out["train"][name] = run_partitioned_step(
+            torch, mesh, _pfront_cfg(name, PFRONT_LAYERS[name]), _pfront_cfg(name).n_layers,
+            "partition_frontend", PFRONT_CUT_WHY[name])
+        print(f"path partition_frontend_train {name}: {json.dumps(out['train'][name])}",
+              flush=True)
+    for name in PFRONT_ARCHS:
+        out["serve"][name] = run_partition_frontend_serve(torch, mesh, _pfront_cfg(name))
+    for name in PFRONT_ARCHS:
+        cfg = _pfront_cfg(name)
+        out["kernels"][name] = check_flash_partitioned(
+            torch, TRAIN_BATCH // TRAIN_MICRO // MESH_SHAPE[0], cfg.n_heads // MESH_SHAPE[1],
+            TRAIN_SEQ, cfg.head_dim, what=f"the partitioned {cfg.family} step",
+            causal=cfg.causal)
     return out
 
 
@@ -5844,6 +6104,15 @@ def main(proc_dir: str) -> int:
     partition_ssm = run_partition_ssm(torch)
     phase_s["26"] = time.perf_counter() - t0
     print(f"phase_s {json.dumps(phase_s)}", flush=True)
+
+    # 27. the partitioned audio and VLM bodies: hubert's bidirectional
+    # frames and masked-frame loss, phi-3-vision's patch prefix
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    partition_frontend = run_partition_frontend(torch)
+    phase_s["27"] = time.perf_counter() - t0
+    print(f"phase_s {json.dumps(phase_s)}", flush=True)
     print(f"chip_smoke total_s {time.perf_counter() - start_s!r}", flush=True)
 
     print(json.dumps({"paths": {
@@ -5884,10 +6153,10 @@ def main(proc_dir: str) -> int:
         "examples": examples, "processes": _processes_summary(processes),
         "partition": partition, "serve_partition": serve_partition,
         "partition_moe": partition_moe, "partition_ssm": partition_ssm,
-        "phase_s": phase_s},
+        "partition_frontend": partition_frontend, "phase_s": phase_s},
         "card": card}), flush=True)
 
-    # 27. the kernels line
+    # 28. the kernels line
     rows = []
     gemm_body = "gemm_tc: pack pre-pass, then 3xTF32 wgmma on a TMA ring (f32)"
     report["schur_update"]["body"] = report["matmul"]["body"] = gemm_body
@@ -5944,11 +6213,19 @@ def main(proc_dir: str) -> int:
                 **{f"train_partitioned_{arch}_step": run["launches"].get(name, 0)
                    for arch, run in partition_ssm["train"].items()},
                 **{f"partitioned_{arch}_prefill": run["launches"].get(name, 0)
-                   for arch, run in partition_ssm["serve"].items()}}
+                   for arch, run in partition_ssm["serve"].items()},
+                **{f"train_partitioned_{arch}_step": run["launches"][name]
+                   for arch, run in partition_frontend["train"].items()},
+                **{f"partitioned_{arch}_prefill": run["launches"][name]
+                   for arch, run in partition_frontend["serve"].items()}}
             r["partitioned_coordinate"] = partition["train"]["kernels"][name]
             r["partitioned_prefill_coordinate"] = serve_partition["serve"]["kernels"][name]
             r["partitioned_moe_coordinate"] = partition_moe["kernels"][name]
             r["partitioned_hybrid_coordinate"] = partition_ssm["kernels"][name]
+            r["partitioned_audio_coordinate"] = \
+                partition_frontend["kernels"]["hubert-xlarge"][name]
+            r["partitioned_vlm_coordinate"] = \
+                partition_frontend["kernels"]["phi-3-vision-4.2b"][name]
         if name in ("matmul", "schur_update", "blocked_gauss_jordan"):
             r["launches_by_path"]["train_shampoo_refresh"] = \
                 train_shampoo["refresh_launches"][name]
@@ -5961,10 +6238,16 @@ def main(proc_dir: str) -> int:
                 "train_partitioned_step": partition["train"]["launches"][name],
                 "train_partitioned_moe_step": partition_moe["train"]["launches"][name],
                 **{f"train_partitioned_{arch}_step": run["launches"].get(name, 0)
-                   for arch, run in partition_ssm["train"].items()}}
+                   for arch, run in partition_ssm["train"].items()},
+                **{f"train_partitioned_{arch}_step": run["launches"][name]
+                   for arch, run in partition_frontend["train"].items()}}
             r["partitioned_coordinate"] = partition["train"]["kernels"][name]
             r["partitioned_moe_coordinate"] = partition_moe["kernels"][name]
             r["partitioned_hybrid_coordinate"] = partition_ssm["kernels"][name]
+            r["partitioned_audio_coordinate"] = \
+                partition_frontend["kernels"]["hubert-xlarge"][name]
+            r["partitioned_vlm_coordinate"] = \
+                partition_frontend["kernels"]["phi-3-vision-4.2b"][name]
             r["kernels_by_dtype"] = {
                 "bf16, f16": ["flash_bwd_delta",
                               *fa.flash_attention_bwd_kernels(torch.bfloat16).values()],

@@ -406,16 +406,25 @@ def ssm_block_collectives(cfg: ArchConfig, shape: tuple[int, int], rules: str, b
     return t.moved, t.calls
 
 
-def _lookup_and_head(t: _Tally, cfg: ArchConfig, lay: _Layout, defs: dict, x: int,
-                     back: bool) -> tuple:
-    """The lookup (the table's width gathered, the partial rows summed
-    over the vocabulary's axis) and the head's table gather, once each;
-    the vocabulary's axis."""
+def _text(cfg: ArchConfig, seq: int) -> int:
+    """The positions of a model sequence of `seq` that the lookup embeds:
+    none of audio's frames, the VLM's text after its patch stubs."""
+    if cfg.family == "audio":
+        return 0
+    return seq - cfg.n_frontend_tokens if cfg.family == "vlm" else seq
+
+
+def _lookup_and_head(t: _Tally, cfg: ArchConfig, lay: _Layout, defs: dict, rows: int,
+                     text: int, back: bool) -> tuple:
+    """The lookup of `text` positions a row (the table's width gathered,
+    the partial rows summed over the vocabulary's axis; none without text)
+    and the head's table gather, once each; the vocabulary's axis."""
     v_ax, w_ax = lay.spec(defs["embed"].shape, defs["embed"].logical)
     table = cfg.vocab // lay.size(v_ax) * cfg.d_model // lay.size(w_ax) * 2
-    t.gather(table, lay.size(w_ax), 1, back)
-    if v_ax:
-        t.psum(x, lay.size(v_ax), 1, back)
+    if text:
+        t.gather(table, lay.size(w_ax), 1, back)
+        if v_ax:
+            t.psum(rows * text * cfg.d_model * 2, lay.size(v_ax), 1, back)
     t.gather(table, lay.size(w_ax), 1, back)      # the head (tied, or lm_head alike)
     return v_ax
 
@@ -425,16 +434,19 @@ def partitioned_step_collectives(cfg: ArchConfig, shape: tuple[int, int], rules:
                                  model_size_hint: int = 16) -> tuple[dict, dict]:
     """Bytes and calls of each collective kind (all_gather,
     reduce_scatter, psum, pmax; all_to_all and pmean with MoE) in one
-    partitioned step of a dense, MoE, SSM or hybrid `cfg` (experts padded
-    to a multiple of `model_size_hint`) on a (data, model) mesh of `shape`
-    under the `default` or `dp_only` rules, from the shapes: what
+    partitioned step of `cfg`, of any family (experts padded to a multiple
+    of `model_size_hint`), on `batch` x `seq` positions (`seq` the model's
+    sequence, a VLM's patch stubs included) on a (data, model) mesh of
+    `shape` under the `default` or `dp_only` rules, from the shapes: what
     `collective_bytes()` and `collective_calls()` count for
     `runtime.trainer.make_train_step` on a laid-out state with full remat
     (`_Tally` says what each collective moves).
 
-    A microbatch runs the lookup and the head once; each layer's weight
-    gathers (`_Layout.gather`: FSDP's over `data`, and over `model` where
-    the weight splits its columns mid-head while the heads stay whole),
+    A microbatch runs the lookup (of the text alone: none of audio's
+    frames, a VLM's tokens after its patches) and the head once; each
+    layer's weight gathers (`_Layout.gather`: FSDP's over `data`, and over
+    `model` where the weight splits its columns mid-head while the heads
+    stay whole),
     the attention's and the SSM's psums twice (the forward, and the
     remat's recompute; with heads that `model` divides), the SSM's gated
     norm psum twice, the last psum of a layer once (the recompute stops at
@@ -446,9 +458,10 @@ def partitioned_step_collectives(cfg: ArchConfig, shape: tuple[int, int], rules:
     vocabulary-parallel lookup sum and the loss's pmax and two psums. The
     token count carries no gradient. A region several coordinates hold
     (the norms' scales and biases, the MoE router and shared experts, the
-    SSM's wxbc, wdt, conv_w and per-head leaves, a weight whose columns
-    `model` does not divide) sums its holders' gradients ("psum", one call
-    a leaf).
+    SSM's wxbc, wdt, conv_w and per-head leaves, audio's `mask_embed`, a
+    weight whose columns `model` does not divide) sums its holders'
+    gradients ("psum", one call a leaf), also a leaf that no loss reads
+    (audio's token table, where several coordinates hold its regions).
     """
     if rules not in ("default", "dp_only"):
         raise ValueError(f"no count for the rules {rules!r}: default or dp_only")
@@ -461,7 +474,7 @@ def partitioned_step_collectives(cfg: ArchConfig, shape: tuple[int, int], rules:
     row = rows * seq * f32                        # an f32 value a position
     kinds = ("all_gather", "reduce_scatter", "psum", "pmax")
     t = _Tally(n, kinds + (("all_to_all", "pmean") if cfg.moe else ()))
-    v_ax = _lookup_and_head(t, cfg, lay, defs, rows * seq * cfg.d_model * 2, True)
+    v_ax = _lookup_and_head(t, cfg, lay, defs, rows, _text(cfg, seq), True)
     for _ in range(cfg.n_layers):
         _lm_body(t, cfg, lay, defs["layers"], rows, seq, 2, True)
         if cfg.moe:
@@ -488,15 +501,18 @@ def partitioned_serve_collectives(cfg: ArchConfig, shape: tuple[int, int], rules
     psum, pmax; pmean with MoE) in one partitioned `prefill` of `batch` x
     `prompt` tokens and in one `decode_step` at the decode length
     `cache_len` (min(cache_len, window) slots under a sliding window), of
-    a dense, MoE, SSM or hybrid `cfg` (experts padded to a multiple of
-    `model_size_hint`) on a (data, model) mesh of `shape` under the
+    `cfg`, of any family (experts padded to a multiple of
+    `model_size_hint`; `prompt` the model's sequence, a VLM's patch stubs
+    included), on a (data, model) mesh of `shape` under the
     `default` or `dp_only` rules, from the shapes: {"prefill": (bytes,
     calls), "decode": (bytes, calls)}, what `collective_bytes()` and
     `collective_calls()` count for each on laid-out parameters (`_Tally`
     says what each collective moves; no remat, no backward).
 
-    Both run the lookup, each layer's weight gathers and its psums
-    (`_lm_body`; an MoE layer adds `_moe_layer`'s terms once), and the
+    Both run the lookup (the prefill's of the text alone: none of audio's
+    frames, a VLM's tokens after its patches; a decode step's of its
+    token), each layer's weight gathers and its psums (`_lm_body`; an MoE
+    layer adds `_moe_layer`'s terms once), and the
     head once, as the step's forward does. Where the KV heads split over
     `model` and `model` divides the prompt, the prefill moves each layer's
     k and v from the heads' axis to the cache's sequence (`kv_seq`) by one
@@ -517,7 +533,8 @@ def partitioned_serve_collectives(cfg: ArchConfig, shape: tuple[int, int], rules
     out = {}
     for phase, seq in (("prefill", prompt), ("decode", 1)):
         t = _Tally(d_n * m_n, kinds)
-        _lookup_and_head(t, cfg, lay, defs, rows * seq * cfg.d_model * 2, False)
+        _lookup_and_head(t, cfg, lay, defs, rows,
+                         _text(cfg, seq) if phase == "prefill" else 1, False)
         for _ in range(cfg.n_layers):
             _lm_body(t, cfg, lay, defs["layers"], rows, seq, 1, False,
                      cache_len if phase == "decode" else 0)

@@ -63,10 +63,15 @@ reference's scan sums them. An SSM layer (mamba2) runs
 and the SSD heads in parallel on `attn_norm`, mean-combined; the prefill
 writes each coordinate's `ssm_h` (its SSD heads) and `ssm_conv` regions,
 and the decode updates them in place (`ssm.ssm_decode_laid_out`) beside a
-rolling k and v cache under the sliding window. Nothing is made whole but
-the joined results: the loss, its metrics, and the logits. The dense,
-MoE, SSM and hybrid families; the audio and VLM bodies raise
-NotImplementedError (ROADMAP A item 6(c)).
+rolling k and v cache under the sliding window. The audio body (hubert)
+takes each coordinate's frame embeddings, `mask_embed` (held by every
+coordinate) where its frames are masked, attends bidirectionally and
+scores the masked frames alone; the VLM body (phi-3-vision) puts each
+coordinate's patch stubs before its text's vocabulary-parallel lookup,
+so the program's sequence, its prefill cache and the decode's positions
+count the patches, whose positions carry no label. A decode step of any
+family looks up its one token. Nothing is made whole but the joined
+results: the loss, its metrics, and the logits. All six families.
 
 Entry points:
   param_defs / init_params / abstract_params / param_specs
@@ -343,7 +348,7 @@ def forward(params: dict, batch: dict, cfg: ArchConfig,
         train = _tracks_grad(params)
         with torch.set_grad_enabled(train):
             prog, parts = _program(params, batch, cfg, rules)
-            logits, spec, aux, z = _forward_laid_out(params, parts["tokens"], cfg, prog,
+            logits, spec, aux, z = _forward_laid_out(params, parts, cfg, prog,
                                                      remat and train, remat_policy)
             return (col.join(logits, spec, prog.mesh), *_joined_losses(aux, z, prog.mesh),
                     None)
@@ -410,8 +415,8 @@ def prefill(params: dict, batch: dict, cfg: ArchConfig,
     decode length first (a cache no longer than the window rolls; a longer
     one attends without the window, as in the reference).
 
-    On laid-out parameters (a dense, MoE, SSM or hybrid config) the
-    logits come back joined and the cache laid out by `cache_specs(cfg, B, S,
+    On laid-out parameters (a config of any family) the logits come back
+    joined and the cache laid out by `cache_specs(cfg, B, S,
     rules)`, DistArrays each coordinate of which holds only its region;
     `pad_cache` takes it to the decode length, laid out by `cache_specs`
     at that length, which `decode_step` then runs over."""
@@ -506,9 +511,20 @@ def pad_cache(cache: dict, cfg: ArchConfig, seq_len: int,
                              f"cache's {slots} slots (sliding window {cfg.sliding_window})")
         if seq_len < s:
             raise ValueError(f"a decode length {seq_len} below the prompt's {s}")
-    return {k: col.assemble([((0,) * len(x.shape), x)], shapes[k].shape, specs[k], mesh,
-                            zero_fill=True) if k in ("k", "v") else col.relayout(x, specs[k])
-            for k, x in cache.items()}
+    return {k: _own_copy(col.assemble([((0,) * len(x.shape), x)], shapes[k].shape, specs[k],
+                                      mesh, zero_fill=True), x)
+            if k in ("k", "v") else col.relayout(x, specs[k]) for k, x in cache.items()}
+
+
+def _own_copy(x: DistArray, source: DistArray) -> DistArray:
+    """`x` with every shard that `assemble` kept as a view of one of
+    `source`'s (a region that lies within one of the prompt's, where the
+    prompt's cache lies whole along its sequence) copied to memory of its
+    own: the decode writes the cache in place, and neither the prompt's
+    cache nor the other regions of its tensor may move with it."""
+    held = {t.untyped_storage().data_ptr() for t in source.shards.values()}
+    return col.zip_map(lambda t: t.clone(memory_format=torch.contiguous_format)
+                       if t.untyped_storage().data_ptr() in held else t, x)
 
 
 def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
@@ -563,21 +579,28 @@ def _ssm_decode(lp: dict, h: torch.Tensor, cache: dict, i: int,
 # The partitioned program: a laid-out state, per coordinate
 # ---------------------------------------------------------------------------
 
-_BODIES_NEXT = "ROADMAP A item 6(c) (the audio and VLM bodies)"
-_LAID_OUT_FAMILIES = ("dense", "moe", "ssm", "hybrid")
-
-
 def is_laid_out(params) -> bool:
     """True when the parameters are laid out over a mesh (DistArray leaves)."""
     return any(isinstance(t, DistArray) for t in leaves(params))
+
+
+def _extent(batch: dict) -> tuple[int, int]:
+    """The program's global (B, S) from the batch's model inputs: audio's
+    frames, the tokens (decode's (B,) one position), the VLM's patch stubs
+    before its text."""
+    if "frame_embeds" in batch:
+        return tuple(batch["frame_embeds"].shape[:2])
+    shape = tuple(batch["tokens"].shape)
+    if len(shape) == 1:
+        return shape[0], 1
+    patches = batch["patch_embeds"].shape[1] if "patch_embeds" in batch else 0
+    return shape[0], patches + shape[1]
 
 
 def _program(params: dict, batch: dict, cfg: ArchConfig, rules: ShardingRules):
     """The program's frame, and each batch entry's rows at every
     coordinate: laid out by the batch specs (a whole tensor is cut where
     it lies; a laid-out one keeps its layout, or moves to it)."""
-    if cfg.family not in _LAID_OUT_FAMILIES:
-        raise NotImplementedError(f"the {cfg.family} body on a laid-out state: {_BODIES_NEXT}")
     mesh = next(t for t in leaves(params) if isinstance(t, DistArray)).mesh
     parts = {}
     for key, v in batch.items():
@@ -588,8 +611,7 @@ def _program(params: dict, batch: dict, cfg: ArchConfig, rules: ShardingRules):
         else:
             v = col.distribute(v.to(mesh.local_device()), spec, mesh)
         parts[key] = col.per_coord(v)
-    shape = tuple(batch["tokens"].shape)        # (B, S), or decode's (B,)
-    return Program(mesh, rules, shape[0], shape[1] if len(shape) > 1 else 1), parts
+    return Program(mesh, rules, *_extent(batch)), parts
 
 
 def _unstack_laid_out(tree: dict, n: int) -> list[dict]:
@@ -668,9 +690,22 @@ def _ssm_out(cfg: ArchConfig, prog: Program, params: dict, h: dict) -> dict:
     return ssm_mod.ssm_apply_laid_out(params, h, cfg, prog)[0]
 
 
-def _embed_laid_out(params: dict, tokens: dict, cfg: ArchConfig, prog: Program) -> dict:
-    """Each coordinate's token embeddings (B_loc, S, d) in DTYPE."""
-    x = {c: t.to(DTYPE) for c, t in embed_lookup_laid_out(params["embed"], tokens).items()}
+def _embed_laid_out(params: dict, parts: dict, cfg: ArchConfig, prog: Program) -> dict:
+    """Each coordinate's input embeddings (B_loc, S, d) in DTYPE from its
+    batch `parts`, `_embed_inputs` per coordinate: audio's frames with
+    `mask_embed` where masked (no lookup), the VLM's patch stubs before
+    the lookup of its text, else the lookup of the tokens (a decode
+    step's one token, of every family)."""
+    if "frame_embeds" in parts:
+        fill = col.per_coord(params["mask_embed"])
+        x = {c: torch.where(parts["mask"][c][..., None], fill[c].to(DTYPE), t.to(DTYPE))
+             for c, t in parts["frame_embeds"].items()}
+    else:
+        x = {c: t.to(DTYPE) for c, t in embed_lookup_laid_out(params["embed"],
+                                                               parts["tokens"]).items()}
+        if "patch_embeds" in parts:
+            x = {c: torch.cat([parts["patch_embeds"][c].to(DTYPE), t], dim=1)
+                 for c, t in x.items()}
     return prog.shard(x, (prog.batch, prog.seq, cfg.d_model), "batch", "seq", "embed")
 
 
@@ -689,9 +724,10 @@ def _head_laid_out(params: dict, x: dict, cfg: ArchConfig, prog: Program):
     return prog.shard(logits, lshape, "batch", "seq", "vocab"), spec
 
 
-def _forward_laid_out(params: dict, tokens: dict, cfg: ArchConfig, prog: Program,
+def _forward_laid_out(params: dict, parts: dict, cfg: ArchConfig, prog: Program,
                       remat: bool, remat_policy: str, cache: dict | None = None):
-    """Each coordinate's f32 logits (B_loc, S, V_loc), their spec, and its
+    """Each coordinate's f32 logits (B_loc, S, V_loc) of its batch
+    `parts` (`_embed_laid_out`), their spec, and its
     aux and z summed over the layers, as the reference's scan sums them
     (None without MoE).
     With remat each layer runs under `torch.utils.checkpoint`: the
@@ -702,7 +738,7 @@ def _forward_laid_out(params: dict, tokens: dict, cfg: ArchConfig, prog: Program
     if remat_policy not in REMAT_POLICIES:
         raise ValueError(f"unknown remat_policy {remat_policy!r}; want one of "
                          f"{REMAT_POLICIES}")
-    x = _embed_laid_out(params, tokens, cfg, prog)
+    x = _embed_laid_out(params, parts, cfg, prog)
     context_fn = torch_checkpoint.noop_context_fn
     if remat_policy == "dots":
         context_fn = functools.partial(
@@ -809,8 +845,8 @@ def _prefill_laid_out(params: dict, batch: dict, cfg: ArchConfig, rules: Shardin
                  for k, t in shapes.items()}
         for t in cache["pos"].shards.values():
             t.fill_(prog.seq)
-        logits, spec, aux, z = _forward_laid_out(params, parts["tokens"], cfg, prog, False,
-                                                 "full", cache)
+        logits, spec, aux, z = _forward_laid_out(params, parts, cfg, prog, False, "full",
+                                                 cache)
         return (col.join(logits, spec, prog.mesh), *_joined_losses(aux, z, prog.mesh),
                 cache)
 
@@ -832,7 +868,8 @@ def _decode_laid_out(params: dict, cache: dict, tokens, cfg: ArchConfig,
                 raise ValueError(f"the cache's {key!r} is not laid out by cache_specs: "
                                  f"want {tuple(specs[key])}")
         pos = col.per_coord(cache["pos"])
-        x = _embed_laid_out(params, {c: t[:, None] for c, t in parts["tokens"].items()},
+        x = _embed_laid_out(params, {"tokens": {c: t[:, None]
+                                                for c, t in parts["tokens"].items()}},
                             cfg, prog)
         layers = zip(_unstack_laid_out(params["layers"], cfg.n_layers),
                      _unstack_laid_out({k: v for k, v in cache.items() if k != "pos"},
@@ -860,7 +897,7 @@ def _loss_laid_out(params: dict, batch: dict, cfg: ArchConfig, rules: ShardingRu
     (a psum's psum, an all-gather's reduce-scatter) sum."""
     prog, parts = _program(params, batch, cfg, rules)
     mesh = prog.mesh
-    logits, spec, aux, z = _forward_laid_out(params, parts["tokens"], cfg, prog,
+    logits, spec, aux, z = _forward_laid_out(params, parts, cfg, prog,
                                              remat and _tracks_grad(params), remat_policy)
     b_ax, v_ax = spec[0], spec[2]
     with torch.no_grad():
@@ -871,6 +908,10 @@ def _loss_laid_out(params: dict, batch: dict, cfg: ArchConfig, rules: ShardingRu
     v_loc = cfg.vocab // col.axis_size(v_ax, mesh) if v_ax else cfg.vocab
     first = col.axis_index(v_ax, mesh) if v_ax else None
     labels = parts["labels"]
+    if cfg.family == "vlm":             # the patch positions carry no label
+        labels = {c: torch.cat([torch.full(parts["patch_embeds"][c].shape[:2], -1,
+                                           dtype=t.dtype, device=t.device), t], dim=1)
+                  for c, t in labels.items()}
     picked = {}
     for c, t in logits.items():
         rel = labels[c].long() - (first[c] * v_loc if first else 0)
@@ -883,6 +924,8 @@ def _loss_laid_out(params: dict, batch: dict, cfg: ArchConfig, rules: ShardingRu
     sums, counts = {}, {}
     for c, lab in labels.items():
         mask = lab >= 0
+        if cfg.family == "audio":       # the masked frames alone carry a loss
+            mask = mask & parts["mask"][c]
         token_ll = picked[c] - (top[c] + torch.log(sumexp[c]))
         sums[c] = -torch.where(mask, token_ll, 0.0).sum()
         counts[c] = mask.sum().to(torch.float32)

@@ -23,9 +23,11 @@ microbatch (rows [i·B/nm, (i+1)·B/nm) of the global batch, laid out by
 the batch specs) runs `loss_fn` per coordinate inside
 `collectives.laid_out_region`, the gradients come back laid out
 (`collectives.grads`; a region several coordinates hold, such as the
-norms' scales, the MoE router and the SSM's wxbc, wdt, conv_w and
-per-head leaves, gets the sum of their gradients, and
-`global_norm` counts it once), the f32 sums are kept shard by shard, and
+norms' scales, the MoE router, the SSM's wxbc, wdt, conv_w and
+per-head leaves and audio's `mask_embed`, gets the sum of their
+gradients, and `global_norm` counts it once; a leaf no loss reads, audio's
+token table, gets zeros, so AdamW's weight decay alone moves it, as the
+reference's zero gradient does), the f32 sums are kept shard by shard, and
 AdamW updates shard by shard; an MoE body's aux and z enter each
 microbatch's loss as in the reference's step. Across processes a
 process then holds only its own coordinates' shards. The metrics come back as 0-dim tensors, the

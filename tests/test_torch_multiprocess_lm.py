@@ -33,6 +33,8 @@ coordinates' regions. Partitioned serving (a prefill of reduced olmo-1b
 on parameters laid out over (2, 4), the cache padded, 3 decode steps)
 over 2 processes: every rank's logits and final cache the single
 process's bits, and a rank's cache and parameter bytes its own regions'.
+The MoE, hybrid and VLM bodies (reduced qwen2-moe, hymba, phi-3-vision:
+its patch stubs before the text) run both over 2 processes likewise.
 """
 
 import dataclasses
@@ -390,6 +392,42 @@ def test_a_rank_holds_only_its_hybrid_state_and_cache_regions(hybrid_run):
     for rank in got:
         assert rank["step"]["held"] == rank["step"]["own"]
         assert rank["step"]["held"] < ref["step"]["held"]
+        assert rank["serve"]["held"] == rank["serve"]["own"]
+        assert all(h * SERVE_PROCS == r for h, r in zip(rank["serve"]["held"],
+                                                         ref["serve"]["held"]))
+
+
+def test_partitioned_vlm_across_processes_is_the_single_process_bits():
+    """Two AdamW steps, a prefill and 3 decode steps of reduced
+    phi-3-vision (8 patch stubs before 24 tokens a row) on a state laid
+    out over (2, 4), process p holding data row p: every rank's losses,
+    parameters, logits and final cache the single process's bits, the
+    bytes and calls of each part summed over the ranks its counts; a
+    rank's state bytes its own regions', fewer than the single process's,
+    and its cache bytes after every phase half the single process's."""
+    total = SERVE_SHAPE[0] * SERVE_SHAPE[1]
+    got = spawn("vlm", SERVE_PROCS, shape=list(SERVE_SHAPE), devices=total // SERVE_PROCS)
+    ref = ranks.run_here("vlm", shape=list(SERVE_SHAPE), devices=total)
+    assert all(np.isfinite(ref["step"]["losses"]))
+    assert int(ref["serve"]["cache"]["pos"][0]) == 32 + 3         # patches counted
+    for part in ("step", "serve"):
+        assert sorted(c for rank in got for c in rank[part]["local"]) == \
+            sorted(ref[part]["local"])
+        _assert_sums([rank[part] for rank in got], ref[part])
+        assert _summed([rank[part] for rank in got], "bytes")["psum"] > 0
+    assert ref["step"]["held"] == ref["step"]["own"]
+    assert ref["serve"]["held"] == ref["serve"]["own"]
+    for rank in got:
+        assert rank["step"]["losses"] == ref["step"]["losses"]
+        assert rank["step"]["grad_norms"] == ref["step"]["grad_norms"]
+        assert all(torch.equal(p, q) for p, q in zip(rank["step"]["params"],
+                                                     ref["step"]["params"]))
+        assert len(rank["serve"]["logits"]) == len(ref["serve"]["logits"]) == 4
+        assert all(torch.equal(a, b) for a, b in zip(rank["serve"]["logits"],
+                                                     ref["serve"]["logits"]))
+        assert all(torch.equal(rank["serve"]["cache"][k], ref["serve"]["cache"][k])
+                   for k in ref["serve"]["cache"])
+        assert rank["step"]["held"] == rank["step"]["own"] < ref["step"]["held"]
         assert rank["serve"]["held"] == rank["serve"]["own"]
         assert all(h * SERVE_PROCS == r for h, r in zip(rank["serve"]["held"],
                                                          ref["serve"]["held"]))

@@ -349,22 +349,51 @@ def test_spin_shampoo_on_a_laid_out_state_raises():
         make_train_step(cfg, _tcfg("spin_shampoo"))(_state("olmo-1b", mesh), _batch(cfg))
 
 
-def test_other_bodies_prefill_and_decode_on_a_laid_out_state_raise():
-    """The bodies still to come (audio: hubert; VLM: phi-3-vision), their
-    prefill and decode too, are item 6(c)'s."""
+def test_audio_and_vlm_bodies_on_a_laid_out_state_meet_the_mesh_free_port():
+    """The audio body (hubert: frames, `mask_embed` where masked, the loss
+    on the masked frames) and the VLM body (phi-3-vision: 8 patch stubs
+    before the text), laid out on (2, 4): `loss_fn` within LOSS_RTOL of
+    the mesh-free loss and its token count equal, `prefill`'s logits and
+    a `decode_step` from its cache (`pad_cache` to S + 8) within 2e-2 of
+    the mesh-free path's. hubert decodes too: the reference's
+    `decode_step` makes no exception for an encoder."""
+    import torch.nn.functional as F
+
     mesh = _mesh((2, 4))
+    rng = np.random.default_rng(3)
     for name in ("hubert-xlarge", "phi-3-vision-4.2b"):
         cfg = get_arch(name).reduced()
         params = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu", HINT)
         specs = T.param_specs(cfg, RULES_VARIANTS["default"], mesh, HINT)
         laid = lay_out(params, _named(specs, mesh))
-        with pytest.raises(NotImplementedError, match="item 6"):
-            T.loss_fn(laid, _batch(cfg), cfg)
-        with pytest.raises(NotImplementedError, match="item 6"):
-            T.prefill(laid, _batch(cfg), cfg)
-        with pytest.raises(NotImplementedError, match="item 6"):
-            T.decode_step(laid, T.init_cache(cfg, B, S, "cpu"),
-                          torch.zeros(B, dtype=torch.long), cfg)
+        if cfg.family == "audio":
+            batch = {"frame_embeds": torch.from_numpy(rng.standard_normal(
+                         (B, S, cfg.d_model), dtype=np.float32)),
+                     "mask": torch.from_numpy(rng.random((B, S)) < 0.15)}
+            text = S
+        else:
+            text = S - cfg.n_frontend_tokens
+            batch = {"patch_embeds": torch.from_numpy(rng.standard_normal(
+                         (B, cfg.n_frontend_tokens, cfg.d_model), dtype=np.float32)),
+                     "tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (B, text)))}
+        batch["labels"] = torch.from_numpy(rng.integers(-1, cfg.vocab, (B, text)))
+        want, want_m = T.loss_fn(params, batch, cfg)
+        got, got_m = T.loss_fn(laid, batch, cfg)
+        assert abs(float(got) - float(want)) <= LOSS_RTOL * abs(float(want)), name
+        assert float(got_m["tokens"]) == float(want_m["tokens"]) > 0, name
+        prompt = {k: v for k, v in batch.items() if k != "labels"}
+        free_logits, _, _, free = T.prefill(params, prompt, cfg)
+        logits, _, _, cache = T.prefill(laid, prompt, cfg)
+        assert tuple(logits.shape) == (B, S, cfg.vocab)
+        assert float((logits - free_logits).abs().max()) < 2e-2, name
+        cache = T.pad_cache(cache, cfg, S + 8)
+        pad = (0, 0, 0, 0, 0, 8)
+        free["k"], free["v"] = F.pad(free["k"], pad), F.pad(free["v"], pad)
+        tok = torch.argmax(free_logits[:, -1], -1)
+        got, cache = T.decode_step(laid, cache, tok, cfg)
+        want, free = T.decode_step(params, free, tok, cfg)
+        assert float((got - want).abs().max()) < 2e-2, name
+        assert torch.equal(col.gather(cache["pos"]), free["pos"]) and int(free["pos"][0]) == S + 1
 
 
 def test_pad_cache_refuses_a_prompt_longer_than_the_rolling_cache():

@@ -213,11 +213,23 @@ def _own_bytes(tree) -> int:
     return total
 
 
+def _inputs(cfg, rng, labels: bool) -> dict:
+    """8 rows of 32 model positions: tokens (labelled by themselves with
+    `labels`), and for a VLM 8 patch stubs before 24 of them."""
+    patches = cfg.n_frontend_tokens if cfg.family == "vlm" else 0
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (8, 32 - patches)))
+    out = {"tokens": tokens, "labels": tokens} if labels else {"tokens": tokens}
+    if patches:
+        out["patch_embeds"] = torch.from_numpy(rng.standard_normal(
+            (8, patches, cfg.d_model), dtype=np.float32)).to(torch.bfloat16)
+    return out
+
+
 def partition(shape, devices: int, name: str = "olmo-1b", steps: int = 2,
               seed: int = 3) -> dict:
     """Two AdamW steps of reduced `name` on a state laid out by the default
     rules' specs over `shape` (the partitioned step: a process holds and
-    computes only its own coordinates' shards), 8 x 32 tokens in 2
+    computes only its own coordinates' shards), 8 x 32 positions in 2
     microbatches: the losses and grad norms, the bytes and calls by kind
     of the steps, the state bytes held beside its coordinates' regions,
     and every parameter gathered whole."""
@@ -233,9 +245,7 @@ def partition(shape, devices: int, name: str = "olmo-1b", steps: int = 2,
     whole = init_state(cfg, tcfg, torch.Generator().manual_seed(seed), "cpu", 4)
     state = lay_out(whole, state_shardings(cfg, tcfg, mesh, model_size_hint=4))
     del whole
-    rng = np.random.default_rng(seed)
-    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (8, 32)))
-    batch = {"tokens": tokens, "labels": tokens}
+    batch = _inputs(cfg, np.random.default_rng(seed), labels=True)
     step = make_train_step(cfg, tcfg)
     col.reset_collective_bytes()
     losses, norms = [], []
@@ -253,7 +263,7 @@ def partition(shape, devices: int, name: str = "olmo-1b", steps: int = 2,
 def serve(shape, devices: int, name: str = "olmo-1b", cache_len: int = 48, steps: int = 3,
           seed: int = 3) -> dict:
     """The partitioned serving path of reduced `name` on parameters laid out
-    by the default rules' specs over `shape`: a prefill of 8 x 32 tokens
+    by the default rules' specs over `shape`: a prefill of 8 x 32 positions
     (its cache laid out by `cache_specs`), the cache padded to `cache_len`
     (`pad_cache`), then `steps` decode steps fed their argmax. Every
     logits tensor, the final cache gathered whole, the bytes and calls by
@@ -272,9 +282,9 @@ def serve(shape, devices: int, name: str = "olmo-1b", cache_len: int = 48, steps
     whole = T.init_params(cfg, torch.Generator().manual_seed(seed), "cpu")
     params = lay_out(whole, named(T.param_specs(cfg, mesh=mesh)))
     del whole
-    tokens = torch.from_numpy(np.random.default_rng(seed).integers(0, cfg.vocab, (8, 32)))
+    prompt = _inputs(cfg, np.random.default_rng(seed), labels=False)
     col.reset_collective_bytes()
-    logits, _, _, cache = T.prefill(params, {"tokens": tokens}, cfg)
+    logits, _, _, cache = T.prefill(params, prompt, cfg)
     out = {"logits": [logits], "held": [_held_bytes(cache)], "own": [_own_bytes(cache)]}
     cache = T.pad_cache(cache, cfg, cache_len)
     tok = torch.argmax(logits[:, -1], -1)
@@ -306,6 +316,13 @@ def hybrid(shape, devices: int, name: str = "hymba-1.5b", seed: int = 3) -> dict
     and the SSD heads on a laid-out state, the decode on the rolling cache
     (reduced hymba's window of 32 slots: the prompt fills it, and every
     step writes across its wrap into the first slice)."""
+    return moe(shape, devices, name=name, seed=seed)
+
+
+def vlm(shape, devices: int, name: str = "phi-3-vision-4.2b", seed: int = 3) -> dict:
+    """The partitioned VLM body, as `moe` runs the MoE one: 8 patch stubs
+    before each row's text in the step and the prefill, the decode going
+    on after them."""
     return moe(shape, devices, name=name, seed=seed)
 
 
@@ -344,7 +361,7 @@ def skip_collective() -> dict:
 
 
 CASES = {"spin": spin, "regions": regions, "lm": lm, "train": train, "partition": partition,
-         "serve": serve, "moe": moe, "hybrid": hybrid, "fail_early": fail_early,
+         "serve": serve, "moe": moe, "hybrid": hybrid, "vlm": vlm, "fail_early": fail_early,
          "fail_mid_collective": fail_mid_collective, "skip_collective": skip_collective}
 
 
