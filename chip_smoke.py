@@ -10,7 +10,8 @@
 
 Phases, each of which fails the run (non-zero exit) on any fault:
 
-  1. the card's name and power limit, from nvidia-smi;
+  1. the card's name and power limit, from nvidia-smi, and each size cut
+     to free the script's time (`TIME_CUTS`) with its reason;
   2. build every CUDA kernel of the port from src/repro_torch/kernels/csrc,
      and print the registers, shared memory and spills of the tensor-core
      GEMM body (f32, bf16, f16; 64- and 128-row tiles), of the tensor-core
@@ -248,7 +249,7 @@ Phases, each of which fails the run (non-zero exit) on any fault:
      allgather, and `--sharded` under cuda; serve_inverse of 32768 x 8192,
      32 requests, dense and `--sharded` (its 4 x 2 mesh); serve on reduced
      olmo-1b and hymba-1.5b; train_lm on olmo-1b at full width and depth
-     (3 steps of 8 x 256), on the 100m scale (50 steps; the final loss
+     (3 steps of 8 x 256), on the 100m scale (20 steps; the final loss
      below the first) and on the 10m scale with SPIN-Shampoo (20 steps).
      Each run's own lines, its wall time, kernel launches and peak memory
      are printed; the twins' asserts hold, B1 and B2 launch in the SPIN
@@ -261,7 +262,7 @@ Phases, each of which fails the run (non-zero exit) on any fault:
      every wait of a group bounded and every spawn killed at its deadline.
      Four ranks: (a) the 2×2 inversion of phase 4's matrix
      (`spin_inverse_sharded(engine="cuda", leaf_solver="cuda")`, a
-     coordinate a rank; a warm-up, 2 timed calls and one traced) bitwise
+     coordinate a rank; a warm-up, 1 timed call and one traced) bitwise
      phase 14's result on every rank, the residual ≤ 1e-3, B2 / B1 / B3
      launched on every rank and summed to phase 14's 144 / 72 / 16, the
      bytes by kind summed to phase 14's ("to_dense" once a rank,
@@ -276,7 +277,7 @@ Phases, each of which fails the run (non-zero exit) on any fault:
      coordinate a rank bitwise the single process's, bytes summed to phase
      19's. Two ranks: (a) with two coordinates a rank; (e) two AdamW steps
      of qwen2-moe through `launch.train`'s multi-process entry (`--mesh
-     2x4 --backend gloo`, 4 microbatches of 2 x 2048), cut to one layer
+     2x4 --backend gloo`, 2 microbatches of 2 x 2048), cut to one layer
      (a rank holds the whole state,
      `abstract_state`'s bytes printed: four ranks fit one card at no
      depth), the same losses and parameter digests on both ranks, B6 and
@@ -337,7 +338,7 @@ Phases, each of which fails the run (non-zero exit) on any fault:
      first on the whole state and freed): the loss within 2e-3, the grad
      norm's gap and each layer's share of routes alike printed, B6 32 x L
      and B6-bwd 16 x L launches a step and no other kernel, bytes and calls
-     equal to `partitioned_step_collectives`, a warm-up and 3 timed steps
+     equal to `partitioned_step_collectives`, a warm-up and 2 timed steps
      (ms, tokens/s, peak GiB) beside the mesh step's, every state leaf
      still a DistArray of its spec; (c) prefill and decode cut to 8 of
      24 layers (the script's time), its parameters laid out by
@@ -352,7 +353,8 @@ Phases, each of which fails the run (non-zero exit) on any fault:
      equal to `partitioned_serve_collectives`, prefill ms, decode ms a step
      and peak GiB beside the reference's; (d) two ranks of their own
      (`python3 chip_smoke.py --rank-case moe <dir>`, process p holding data
-     row p) run 2 steps of qwen2-moe cut to 1 layer, then a prefill of
+     row p) run 2 steps of 4 x 2048 tokens of qwen2-moe cut to 1 layer,
+     then a prefill of
      4 x 512 and 4 decode steps over a 1024-slot cache: losses, parameter,
      logit and cache digests equal the single process's, each rank holding
      its own regions of the state and half the cache; B6 and B6-bwd against
@@ -418,17 +420,41 @@ Phases, each of which fails the run (non-zero exit) on any fault:
      peak GiB beside mesh-free; (c) B6 and B6-bwd against their plain
      versions at hubert's coordinate (2, 4, 2048, 80, bidirectional) and
      phi-3-vision's (2, 8, 2048, 96, causal), beside their bounds and
-     SDPA; `phase_s["27"]` and the script's total seconds printed;
- 28. one JSON line with every path's times and residual (the examples'
+     SDPA; `phase_s["27"]` printed;
+ 28. SPIN-Shampoo on a laid-out state: olmo-1b at full width cut to 4 of
+     16 layers (printed; phase 18 runs it mesh-free at full depth) on phase
+     19's mesh (data 2, model 4) of cuda:0, `TokenStream` batches of 8 x
+     2048 in 2 microbatches, full remat, warmup 1, damping 0.1, the state
+     laid out by `state_shardings` (each Gram factor and its inverse by
+     `factor_spec`: rows over `data`, columns over `model`), beside the
+     same initial state mesh-free, two steps each: step 1 refreshes (the
+     refresh timed apart, its B1, B2 and B3 launches the sum over the
+     factors' layers of `sharded_spin_launches` at each factor's planned
+     grid; the mesh-free refresh's `refresh_launches`), step 2 launches
+     none of them; B6 and B6-bwd a layer, coordinate and microbatch as in
+     phase 23; step 1's loss within 2e-3 of mesh-free; the second step's
+     update of every master leaf within 3 % in norm and at a cosine
+     ≥ 0.9 of mesh-free's; layer 0's largest inverse (8192²) after the
+     refresh against 4·n·2^-24·κ, beside the mesh-free inverse's
+     residual, and that leaf's L⁻¹ and R⁻¹ entry by entry within 1e-2
+     of the largest entry of mesh-free's (the factors' gaps beside);
+     step 2's bytes and calls by kind equal to
+     `partitioned_step_collectives(..., optimizer="spin_shampoo")`,
+     nothing made whole ("to_dense" 0), every leaf still laid out by its
+     spec and a coordinate holding 1/8 of each factor that both axes
+     divide; step and refresh ms beside mesh-free's and peak GiB, with
+     the card's name and power limit; `phase_s["28"]` and the script's
+     total seconds printed;
+ 29. one JSON line with every path's times and residual (the examples'
      wall, launches and peak memory under "examples", phase 22's ranks
      under "processes", phase 23's under "partition", phase 24's under
      "serve_partition", phase 25's under "partition_moe", phase 26's under
-     "partition_ssm", phase 27's under "partition_frontend"), and one with
-     every kernel's launches, error and times (the GEMM's, blocked
-     Gauss-Jordan's and triangular solve's launches on every path beside
-     them, the examples' runs and phase 22's ranks, each rank's and their
-     sum, included, and B6's and B6-bwd's at a coordinate of phases 23 to
-     27).
+     "partition_ssm", phase 27's under "partition_frontend", phase 28's
+     under "partition_shampoo"), and one with every kernel's launches,
+     error and times (the GEMM's, blocked Gauss-Jordan's and triangular
+     solve's launches on every path beside them, the examples' runs and
+     phase 22's ranks, each rank's and their sum, included, and B6's and
+     B6-bwd's at a coordinate of phases 23 to 27).
 
 The last line is {"ok": true, "device": {...}}. The script imports only
 the PyTorch port; it exits non-zero without a result when CUDA is missing
@@ -439,6 +465,7 @@ plan file lies in a temporary directory of the run's own
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import importlib
@@ -581,14 +608,14 @@ MESH_PSUM_RTOL = 0.05             # compressed_psum (tests/test_distributed.py:1
 # Phase 22: a mesh that spans processes, every rank on cuda:0 under gloo.
 PROC_GROUP_TIMEOUT_S = 300.0      # every wait of a rank's process group
 PROC_SPAWN_S = 600.0              # a spawn's ranks, start to finish (then all killed)
-PROC_TIMED_CALLS = 2              # timed 2x2 inversions a rank, after one warm-up
+PROC_TIMED_CALLS = 1              # timed 2x2 inversions a rank, after one warm-up (TIME_CUTS)
 # (e): a rank holds qwen2-moe's whole AdamW state (16.0 GiB at one layer
 # before gradients and activations, 23.9 at two: `abstract_state`), so
 # four ranks fit one 80 GB card at no depth; two ranks at one layer do.
 PROC_TRAIN_PROCS, PROC_TRAIN_LAYERS, PROC_TRAIN_STEPS = 2, 1, 2
-# and 4 microbatches of 2 x 2048 (the f32 logits of 4 x 2048, 4.6 GiB,
+# and microbatches of 2 x 2048 (the f32 logits of 4 x 2048, 4.6 GiB,
 # did not fit beside two ranks' state)
-PROC_TRAIN_MICRO = 4
+PROC_TRAIN_BATCH, PROC_TRAIN_MICRO = 4, 2        # TIME_CUTS
 # Phase 23: the partitioned dense step. olmo-1b at full width and depth on
 # a laid-out AdamW state under (data 2, model 4) of cuda:0, each coordinate
 # holding and computing its own shards; then two ranks of their own on the
@@ -628,7 +655,7 @@ SERVE_PROCS, SERVE_PROC_LAYERS, SERVE_PROC_STEPS = 2, 2, 4
 # ranks of their own, qwen2-moe cut to 1 layer.
 PMOE_BLOCK_RTOL = 2.0 ** -5
 PMOE_LAYERS = MESH_LAYERS         # (b)'s depth: the whole state of 4 layers fits 80 GB
-PMOE_STEPS = 3                    # (b)'s timed steps after one warm-up
+PMOE_STEPS = 2                    # (b)'s timed steps after one warm-up (TIME_CUTS)
 PMOE_RTOL = 2e-3                  # (b)'s first loss against the mesh step's
 PMOE_SERVE_BATCH = 4              # (c): 4 x 2048, the cache padded to 4096
 PMOE_SERVE_PROMPT, PMOE_SERVE_CACHE = 2048, 4096
@@ -636,6 +663,7 @@ PMOE_SERVE_STEPS = 16             # (c)'s timed decode steps after one warm-up
 # (c)'s depth, cut from 24 to make room for phase 27 in the script's time
 PMOE_SERVE_LAYERS = 8
 PMOE_PROCS, PMOE_PROC_LAYERS, PMOE_PROC_STEPS = 2, 1, 2
+PMOE_PROC_BATCH = 4               # (d)'s steps: one microbatch of 4 x 2048 (TIME_CUTS)
 PMOE_PROC_PROMPT, PMOE_PROC_CACHE, PMOE_PROC_DECODE = 512, 1024, 4
 # Phase 26: the partitioned SSM and hybrid bodies on phase 19's mesh (data
 # 2, model 4) of cuda:0: hymba-1.5b (50 SSD heads and 25 query heads, whole
@@ -682,6 +710,52 @@ PFRONT_CUT_WHY = {
                          "script's time"}
 PFRONT_SERVE_BATCH, PFRONT_SERVE_SEQ, PFRONT_SERVE_CACHE = 4, 2048, 4096
 PFRONT_SERVE_STEPS = 8            # (b)'s timed decode steps after one warm-up
+# Phase 28: SPIN-Shampoo on a laid-out state. olmo-1b at full width on
+# phase 19's mesh (data 2, model 4) of cuda:0, its Gram factors and their
+# inverses laid out by `optim.spin_shampoo.factor_spec`, the refresh the
+# mesh-resident SPIN inversion; the same initial state mesh-free beside it.
+PSHAMPOO_LAYERS = 4
+PSHAMPOO_CUT_WHY = ("the script's time: a laid-out refresh runs 14 sharded inversions a "
+                    "layer (11 of 2048², 3 of 8192²) over 8 coordinates of one card, beside "
+                    "a mesh-free run of the same state; phase 18 refreshes all 16 layers "
+                    "mesh-free")
+# At the default 1e-3 the rank-deficient factors reach a condition where two
+# f32 inversions differ by up to 9 % (tests/test_torch_optim.py), so the
+# comparisons below would measure noise.
+PSHAMPOO_DAMPING = 0.1
+PSHAMPOO_RTOL = PART_RTOL         # the first step's loss against mesh-free
+PSHAMPOO_UPDATE_COS = 0.9         # the second step's update of each master leaf:
+PSHAMPOO_UPDATE_RTOL = 0.03       # its cosine and norm against mesh-free's
+# Step 1's L⁻¹ and R⁻¹ of layer 0's largest leaf against mesh-free's, entry
+# by entry relative to the largest entry: the residual's bound 4·n·2^-24·κ
+# exceeds 1 at κ 4112, so it cannot tell a wrong inverse from a right one
+# there. Measured 1.38e-3 and 1.11e-3 (the factors themselves 1.1e-3 and
+# 1.09e-2 apart: the step's bf16 gradients summed in another order) on an
+# H100 80GB HBM3 at 700 W; the bound is about 7 times the larger.
+PSHAMPOO_INV_RTOL = 1e-2
+# Sizes cut to make room for phase 28 (20.1 s alone, 7-8 s warm in the
+# script, on an H100 80GB HBM3 at 700 W) in the phases that took longest
+# before it (22: 168.8-174.4 s, 21: 102.1-126.0, 25: 94.1-101.9): the first
+# three, about 21 s, left the command at 1195.7 s on a slow host, so the two
+# cross-process training runs take half the tokens too; each keeps every
+# check, count, bound, step and path: (constant, before, after, why),
+# printed at the start.
+TIME_CUTS = (
+    ("PROC_TIMED_CALLS", 2, 1, "phase 22 (a): one timed 2x2 inversion a rank after the "
+     "warm-up, then the traced one (the second timed call took 7.6-8.6 s over four ranks "
+     "and 4.6 s over two); the timed call's result, launches and bytes are held as the "
+     "last one's were"),
+    ("train_100m --steps", 50, 20, "phase 21: train_lm on the 100m scale (9.4 s at 50 "
+     "steps, 4.2 at 20); its final loss is still held below the first"),
+    ("PMOE_STEPS", 3, 2, "phase 25 (b): two timed laid-out qwen2-moe steps after the "
+     "warm-up (2.0-2.4 s a step), so a spread is still recorded"),
+    ("PROC_TRAIN_BATCH", 8, 4, "phase 22 (e): both AdamW steps on 4 x 2048 tokens in 2 "
+     "microbatches of 2 x 2048 (8 x 2048 took 16.6-20.8 s a step over two ranks); the "
+     "losses, digests and launches held as before"),
+    ("PMOE_PROC_BATCH", 8, 4, "phase 25 (d): both AdamW steps on 4 x 2048 tokens in one "
+     "microbatch (8 x 2048 took 10.3-18.3 s a step over two ranks); the losses, "
+     "parameter, logit and cache digests held as before"),
+)
 U_F32 = 2.0 ** -24                # f32 unit roundoff
 # The refresh residual's bound: c·n·u·κ, the first-order bound on an
 # inverse's residual by elimination, with c = 4 over the 1.3 measured at
@@ -717,7 +791,7 @@ EXAMPLE_RUNS = (
     ("serve_hymba", "serve", ["--arch", "hymba-1.5b"], None, ()),
     ("train_olmo", "train_lm", ["--arch", "olmo-1b", "--steps", "3"], None,
      ("flash_attention", "flash_attention_bwd")),
-    ("train_100m", "train_lm", ["--scale", "100m", "--steps", "50"], None, ()),
+    ("train_100m", "train_lm", ["--scale", "100m", "--steps", "20"], None, ()),   # TIME_CUTS
     ("train_10m_shampoo", "train_lm",
      ["--scale", "10m", "--optimizer", "spin_shampoo", "--steps", "20"], None, ()),
 )
@@ -2942,9 +3016,7 @@ def first_depth_that_fits(torch, cfg, depths, run, dev) -> dict:
 def _shampoo_run(torch, cfg, dev) -> dict:
     import numpy as np
     from repro_torch import kernels
-    from repro_torch.core import verify
     from repro_torch.data.synthetic import TokenStream
-    from repro_torch.optim import spin_shampoo as shampoo
     from repro_torch.runtime.trainer import TrainConfig, init_state, make_train_step
 
     tcfg = TrainConfig(microbatches=TRAIN_MICRO, optimizer="spin_shampoo", warmup=1)
@@ -2966,6 +3038,47 @@ def _shampoo_run(torch, cfg, dev) -> dict:
           f"want {want}", flush=True)
 
     # the refresh timed apart inside step 1, with its own launch counts
+    with _timing_refreshes(torch, want) as refreshes:
+        kernels.reset_launch_counts()
+        state, m1, ms1 = _timed_step(torch, step, state, stream.next())
+        launches1 = kernels.launch_counts()
+        res = _largest_factor_residual(torch, state.opt, tcfg.shampoo.damping)
+        kernels.reset_launch_counts()
+        state, m2, ms2 = _timed_step(torch, step, state, stream.next())
+        launches2 = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    require(len(refreshes) == 1, f"train_shampoo: {len(refreshes)} refreshes in two steps")
+    print(f"path train_shampoo: {cfg.name} layers={cfg.n_layers} step1_ms={ms1!r} "
+          f"step2_ms={ms2!r} refresh_ms={refreshes[0]['ms']!r} "
+          f"refresh_launches={refreshes[0]['launches']} loss={m1['loss']!r} {m2['loss']!r} "
+          f"grad_norm={m1['grad_norm']!r} {m2['grad_norm']!r} peak_gib={peak!r}", flush=True)
+    print(f"path train_shampoo: layer 0 factor n={res['n']} residual={res['residual']!r} "
+          f"condition={res['condition']!r} bound={res['bound']!r} (4·n·2^-24·κ) "
+          f"pivoted_lu_residual={res['pivoted_lu_residual']!r}", flush=True)
+    require(all(np.isfinite([m1["loss"], m2["loss"], m1["grad_norm"], m2["grad_norm"]])),
+            "train_shampoo: non-finite metrics")
+    require(refreshes[0]["launches"] == want,
+            f"train_shampoo: refresh launched {refreshes[0]['launches']}, want {want}")
+    _check_step_launches("train_shampoo step 1", launches1, cfg.n_layers, want)
+    _check_step_launches("train_shampoo step 2", launches2, cfg.n_layers, {})
+    require(res["residual"] <= res["bound"],
+            f"train_shampoo: residual {res['residual']} > {res['bound']}")
+    del state
+    return {"arch": cfg.name, "layers": cfg.n_layers, "step1_ms": ms1, "step2_ms": ms2,
+            "refresh_ms": refreshes[0]["ms"], "refresh_launches": refreshes[0]["launches"],
+            "inversions": n_inversions, "losses": [m1["loss"], m2["loss"]],
+            "grad_norms": [m1["grad_norm"], m2["grad_norm"]], "peak_gib": peak,
+            **{f"factor_{k}": v for k, v in res.items()},
+            "launches_step1": launches1, "launches_step2": launches2}
+
+
+@contextlib.contextmanager
+def _timing_refreshes(torch, kinds):
+    """While open, each SPIN-Shampoo refresh is timed by CUDA events and
+    appends {"ms", "launches" of `kinds`} to the list it yields."""
+    from repro_torch import kernels
+    from repro_torch.optim import spin_shampoo as shampoo
+
     refreshes = []
     original = shampoo.refresh_inverses
 
@@ -2979,58 +3092,41 @@ def _shampoo_run(torch, cfg, dev) -> dict:
         end.synchronize()
         after = kernels.launch_counts()
         refreshes.append({"ms": start.elapsed_time(end),
-                          "launches": {k: after[k] - before[k] for k in want}})
+                          "launches": {k: after[k] - before[k] for k in kinds}})
 
     shampoo.refresh_inverses = timed_refresh
     try:
-        kernels.reset_launch_counts()
-        state, m1, ms1 = _timed_step(torch, step, state, stream.next())
-        launches1 = kernels.launch_counts()
-        # layer 0's largest factor, against the damping invert_spd applied
-        fac = max((f for f in factors if f.l.ndim == 3),
-                  key=lambda f: max(f.l.shape[-1], f.r.shape[-1]))
-        f, inv = (fac.r, fac.rinv) if fac.r.shape[-1] >= fac.l.shape[-1] else (fac.l, fac.linv)
-        f0, x0 = f[0], inv[0]
-        n = f0.shape[-1]
-        damped = f0 + tcfg.shampoo.damping * (torch.trace(f0) / n + 1e-12) * torch.eye(
-            n, device=dev)
-        residual = verify.inverse_residual(damped, x0)
-        eig = torch.linalg.eigvalsh(damped)
-        kappa = float(eig.max() / eig.min())
-        bound = REFRESH_RESIDUAL_C * n * U_F32 * kappa
-        # the yardstick: cuSOLVER's pivoted LU inverse of the same matrix in
-        # f32, which the port never calls here
-        lu_residual = verify.inverse_residual(damped, torch.linalg.inv(damped))
-        del damped, eig
-        kernels.reset_launch_counts()
-        state, m2, ms2 = _timed_step(torch, step, state, stream.next())
-        launches2 = kernels.launch_counts()
+        yield refreshes
     finally:
         shampoo.refresh_inverses = original
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    require(len(refreshes) == 1, f"train_shampoo: {len(refreshes)} refreshes in two steps")
-    print(f"path train_shampoo: {cfg.name} layers={cfg.n_layers} step1_ms={ms1!r} "
-          f"step2_ms={ms2!r} refresh_ms={refreshes[0]['ms']!r} "
-          f"refresh_launches={refreshes[0]['launches']} loss={m1['loss']!r} {m2['loss']!r} "
-          f"grad_norm={m1['grad_norm']!r} {m2['grad_norm']!r} peak_gib={peak!r}", flush=True)
-    print(f"path train_shampoo: layer 0 factor n={n} residual={residual!r} "
-          f"condition={kappa!r} bound={bound!r} (4·n·2^-24·κ) "
-          f"pivoted_lu_residual={lu_residual!r}", flush=True)
-    require(all(np.isfinite([m1["loss"], m2["loss"], m1["grad_norm"], m2["grad_norm"]])),
-            "train_shampoo: non-finite metrics")
-    require(refreshes[0]["launches"] == want,
-            f"train_shampoo: refresh launched {refreshes[0]['launches']}, want {want}")
-    _check_step_launches("train_shampoo step 1", launches1, cfg.n_layers, want)
-    _check_step_launches("train_shampoo step 2", launches2, cfg.n_layers, {})
-    require(residual <= bound, f"train_shampoo: residual {residual} > {bound}")
-    del state, fac, f, inv, f0, x0
-    return {"arch": cfg.name, "layers": cfg.n_layers, "step1_ms": ms1, "step2_ms": ms2,
-            "refresh_ms": refreshes[0]["ms"], "refresh_launches": refreshes[0]["launches"],
-            "inversions": n_inversions, "losses": [m1["loss"], m2["loss"]],
-            "grad_norms": [m1["grad_norm"], m2["grad_norm"]], "peak_gib": peak,
-            "factor_n": n, "factor_residual": residual, "factor_condition": kappa,
-            "factor_bound": bound, "factor_pivoted_lu_residual": lu_residual,
-            "launches_step1": launches1, "launches_step2": launches2}
+
+
+def _largest_factor(opt):
+    """The stacked factored leaf of `opt` with the largest factor."""
+    return max((f for f in opt.factors if f is not None and len(f.l.shape) == 3),
+               key=lambda f: max(f.l.shape[-1], f.r.shape[-1]))
+
+
+def _largest_factor_residual(torch, opt, damping: float, whole=lambda t: t) -> dict:
+    """Layer 0 of the largest factor of `opt` after a refresh: the residual
+    of its inverse against (F + λI), λ as `invert_spd` damps it, its
+    condition, the bound 4·n·2^-24·κ, and the yardstick: cuSOLVER's pivoted
+    LU inverse of the same matrix in f32, which the port never calls here;
+    `whole` reads a leaf whole on the card."""
+    from repro_torch.core import verify
+
+    fac = _largest_factor(opt)
+    f, inv = (fac.r, fac.rinv) if fac.r.shape[-1] >= fac.l.shape[-1] else (fac.l, fac.linv)
+    f0, x0 = whole(f)[0], whole(inv)[0]
+    n = f0.shape[-1]
+    damped = f0 + damping * (torch.trace(f0) / n + 1e-12) * torch.eye(n, device=f0.device)
+    residual = verify.inverse_residual(damped, x0)
+    eig = torch.linalg.eigvalsh(damped)
+    kappa = float(eig.max() / eig.min())
+    lu_residual = verify.inverse_residual(damped, torch.linalg.inv(damped))
+    del damped, eig, f0, x0
+    return {"n": n, "residual": residual, "condition": kappa,
+            "bound": REFRESH_RESIDUAL_C * n * U_F32 * kappa, "pivoted_lu_residual": lu_residual}
 
 
 def run_train_shampoo(torch, cfg, dev) -> dict:
@@ -3799,7 +3895,7 @@ def _rank_train(torch) -> dict:
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     res = train_mod.main(["--arch", MESH_ARCH, "--layers", str(PROC_TRAIN_LAYERS),
-                          "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+                          "--batch", str(PROC_TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
                           "--steps", str(PROC_TRAIN_STEPS), "--microbatches",
                           str(PROC_TRAIN_MICRO), "--mesh", f"{MESH_SHAPE[0]}x{MESH_SHAPE[1]}",
                           "--backend", "gloo"])
@@ -4107,13 +4203,13 @@ def _own_gib(tree) -> float:
 
 
 def _partition_steps(torch, cfg, mesh, steps: int, model_size_hint: int = 16,
-                     keep_state: bool = False) -> dict:
+                     keep_state: bool = False, batch: int = TRAIN_BATCH) -> dict:
     """`steps` AdamW steps of `cfg` on phase 18's seeded state laid out by
     the reference's specs over `mesh` (in one process, or this process's
-    part of a mesh that spans processes), 8 x 2048 tokens in 2
-    microbatches: losses, each step's wall and exchange ms, the state's
-    GiB, peak GiB, and a digest of every parameter gathered whole; the
-    final state too with `keep_state`."""
+    part of a mesh that spans processes), `batch` x 2048 tokens in
+    microbatches of 4 x 2048: losses, each step's wall and exchange ms,
+    the state's GiB, peak GiB, and a digest of every parameter gathered
+    whole; the final state too with `keep_state`."""
     from repro_torch import kernels
     from repro_torch.data.synthetic import TokenStream
     from repro_torch.parallel import transport
@@ -4124,7 +4220,8 @@ def _partition_steps(torch, cfg, mesh, steps: int, model_size_hint: int = 16,
     from repro_torch.tree import leaves
 
     dev = torch.device("cuda")
-    tcfg = TrainConfig(microbatches=TRAIN_MICRO, optimizer="adamw", warmup=1)
+    tcfg = TrainConfig(microbatches=batch * TRAIN_MICRO // TRAIN_BATCH, optimizer="adamw",
+                       warmup=1)
     gc.collect()
     torch.cuda.empty_cache()
     whole = init_state(cfg, tcfg, torch.Generator(device=dev).manual_seed(SEED), dev,
@@ -4135,7 +4232,7 @@ def _partition_steps(torch, cfg, mesh, steps: int, model_size_hint: int = 16,
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     held = _held_gib(torch, state)
-    stream = TokenStream(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=SEED, device=str(dev))
+    stream = TokenStream(cfg, batch, TRAIN_SEQ, seed=SEED, device=str(dev))
     step = make_train_step(cfg, tcfg)
     kernels.reset_launch_counts()
     out = {"losses": [], "grad_norms": [], "wall_ms": [], "exchange_ms": []}
@@ -5123,7 +5220,7 @@ def run_partition_moe_serve(torch, mesh) -> dict:
 def _pmoe_digests(torch, mesh) -> dict:
     """Phase 25 (d)'s run of qwen2-moe cut to PMOE_PROC_LAYERS on `mesh`
     (one process's, or this rank's part of one that spans processes):
-    PMOE_PROC_STEPS AdamW steps of 8 x 2048 tokens on a laid-out state,
+    PMOE_PROC_STEPS AdamW steps of PMOE_PROC_BATCH x 2048 tokens on a laid-out state,
     then on its parameters a prefill of PMOE_SERVE_BATCH x
     PMOE_PROC_PROMPT and PMOE_PROC_DECODE decode steps fed their argmax
     over a PMOE_PROC_CACHE-slot cache: losses, digests, state and cache
@@ -5131,7 +5228,8 @@ def _pmoe_digests(torch, mesh) -> dict:
     import numpy as np
 
     cfg = _pmoe_cfg(PMOE_PROC_LAYERS)
-    out = _partition_steps(torch, cfg, mesh, PMOE_PROC_STEPS, MESH_HINT, keep_state=True)
+    out = _partition_steps(torch, cfg, mesh, PMOE_PROC_STEPS, MESH_HINT, keep_state=True,
+                           batch=PMOE_PROC_BATCH)
     state = out.pop("state")
     # after a step the f32 router's parameter is its AdamW master (the
     # update's cast to its own dtype returns the master itself): held once
@@ -5785,6 +5883,195 @@ def run_partition_frontend(torch) -> dict:
     return out
 
 
+def run_partition_shampoo(torch) -> dict:
+    """Phase 28: SPIN-Shampoo on a laid-out state (module docstring): two
+    steps of olmo-1b cut to PSHAMPOO_LAYERS on (data 2, model 4) of cuda:0
+    beside two mesh-free steps of the same initial state; the refresh of
+    step 1 timed apart, its B1, B2 and B3 launches the sharded inversions'
+    of the factors' planned grids; step 2's bytes the analytic count."""
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.launch.dryrun import partitioned_step_collectives
+    from repro_torch.launch.mesh import make_worker_mesh
+    from repro_torch.optim import SpinShampooConfig
+    from repro_torch.parallel import collective_bytes, collective_calls, reset_collective_bytes
+    from repro_torch.parallel.collectives import DistArray, gather
+    from repro_torch.parallel.sharding import lay_out
+    from repro_torch.planner import get_plan
+    from repro_torch.runtime.trainer import (TrainConfig, init_state, make_train_step,
+                                             state_shardings)
+    from repro_torch.tree import leaves
+
+    dev = torch.device("cuda")
+    card = card_line()
+    cfg = _partition_cfg(PSHAMPOO_LAYERS)
+    print(f"partition_shampoo: {cfg.name} cut to {cfg.n_layers} of "
+          f"{_partition_cfg().n_layers} layers ({PSHAMPOO_CUT_WHY})", flush=True)
+    n_coords = MESH_SHAPE[0] * MESH_SHAPE[1]
+    mesh = make_worker_mesh(MESH_SHAPE, devices=["cuda:0"] * n_coords)
+    tcfg = TrainConfig(microbatches=TRAIN_MICRO, optimizer="spin_shampoo", warmup=1,
+                       shampoo=SpinShampooConfig(damping=PSHAMPOO_DAMPING))
+    gc.collect()
+    torch.cuda.empty_cache()
+    whole = init_state(cfg, tcfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    shardings = state_shardings(cfg, tcfg, mesh)
+    state = lay_out(whole, shardings)
+    stream = TokenStream(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=SEED, device=str(dev))
+    batches = [stream.next(), stream.next()]
+
+    # a refresh on the mesh: each factor layer's sharded inversion on its plan's grid
+    want_refresh = {"matmul": 0, "schur_update": 0, "blocked_gauss_jordan": 0}
+    grids = {}
+    for fac in state.opt.factors:
+        if fac is None:
+            continue
+        for f in (fac.l, fac.r):
+            n, count = f.shape[-1], (f.shape[0] if len(f.shape) == 3 else 1)
+            plan = get_plan("inverse", n, torch.float32, measure=False, placement="sharded",
+                            backend="cuda")
+            require(plan.leaf_solver == "cuda" and plan.multiply_engine == "cuda",
+                    f"partition_shampoo: the sharded plan for n={n} is {plan.to_dict()}")
+            grids[n] = n // plan.block_size
+            for k, v in sharded_spin_launches(grids[n], MESH_SHAPE).items():
+                if k in want_refresh:
+                    want_refresh[k] += count * v
+    want_free = refresh_launches(whole.opt)
+    step = make_train_step(cfg, tcfg)
+    with _timing_refreshes(torch, want_refresh) as refreshes:
+        # mesh-free: two steps of the same state and batches (consumes `whole`)
+        init = [m.clone() for m in whole.opt.master]
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        whole, f1, free_ms1 = _timed_step(torch, step, whole, batches[0])
+        free_launches1 = kernels.launch_counts()
+        # step 1's inverse against step 1's factor (step 2 moves the factor only)
+        free_res = _largest_factor_residual(torch, whole.opt, PSHAMPOO_DAMPING)
+        free_fac = [t[0].clone() for t in _largest_factor(whole.opt)]    # L, R, L⁻¹, R⁻¹
+        kernels.reset_launch_counts()
+        whole, f2, free_ms2 = _timed_step(torch, step, whole, batches[1])
+        free_launches2 = kernels.launch_counts()
+        free_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        free_update = [m - i for m, i in zip(whole.opt.master, init)]
+        del whole
+        gc.collect()
+        torch.cuda.empty_cache()
+        # laid out
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        reset_collective_bytes()
+        state, m1, ms1 = _timed_step(torch, step, state, batches[0])
+        launches1 = kernels.launch_counts()
+        moved1, calls1 = collective_bytes(), collective_calls()
+        res = _largest_factor_residual(torch, state.opt, PSHAMPOO_DAMPING, gather)
+        # layer 0 of the same leaf's factors and inverses, entry by entry
+        gaps = {}
+        for name, t, free in zip(("l", "r", "linv", "rinv"), _largest_factor(state.opt),
+                                 free_fac):
+            gaps[name] = float((gather(t)[0] - free).abs().max() / free.abs().max())
+        del free_fac
+        kernels.reset_launch_counts()
+        reset_collective_bytes()
+        state, m2, ms2 = _timed_step(torch, step, state, batches[1])
+        launches2 = kernels.launch_counts()
+        moved2, calls2 = collective_bytes(), collective_calls()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    require(len(refreshes) == 2, f"partition_shampoo: {len(refreshes)} refreshes in 4 steps")
+    free_refresh, refresh = refreshes
+    print(f"path partition_shampoo_steps: loss={m1['loss']!r} {m2['loss']!r} "
+          f"mesh_free_loss={f1['loss']!r} {f2['loss']!r} grad_norm={m1['grad_norm']!r} "
+          f"mesh_free_grad_norm={f1['grad_norm']!r} step_ms={ms1!r} {ms2!r} "
+          f"refresh_ms={refresh['ms']!r} mesh_free_step_ms={free_ms1!r} {free_ms2!r} "
+          f"mesh_free_refresh_ms={free_refresh['ms']!r} peak_gib={peak!r} "
+          f"mesh_free_peak_gib={free_peak!r} launches={launches1} {launches2} "
+          f"refresh_launches={refresh['launches']} want={want_refresh} grids={grids} "
+          f"bytes={moved1} {moved2} calls={calls2} ({card})", flush=True)
+
+    require(np.isfinite([m1["loss"], m2["loss"], m1["grad_norm"], m2["grad_norm"]]).all(),
+            "partition_shampoo: non-finite metrics")
+    require(abs(m1["loss"] - f1["loss"]) <= PSHAMPOO_RTOL * abs(f1["loss"]),
+            f"partition_shampoo: loss {m1['loss']} against mesh-free {f1['loss']}")
+    require(refresh["launches"] == want_refresh,
+            f"partition_shampoo: refresh launched {refresh['launches']}, want {want_refresh}")
+    require(free_refresh["launches"] == want_free,
+            f"partition_shampoo: the mesh-free refresh launched {free_refresh['launches']}, "
+            f"want {want_free}")
+    # B6 and B6-bwd a layer, microbatch and coordinate
+    _check_step_launches("partition_shampoo step 1", launches1, cfg.n_layers * n_coords,
+                         want_refresh)
+    _check_step_launches("partition_shampoo step 2", launches2, cfg.n_layers * n_coords, {})
+    _check_step_launches("partition_shampoo mesh-free step 1", free_launches1, cfg.n_layers,
+                         want_free)
+    _check_step_launches("partition_shampoo mesh-free step 2", free_launches2, cfg.n_layers,
+                         {})
+    require(moved1["to_dense"] == moved2["to_dense"] == 0,
+            f"partition_shampoo: a factor was made whole: {moved1} {moved2}")
+    want_moved, want_calls = partitioned_step_collectives(
+        cfg, MESH_SHAPE, "default", TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO,
+        optimizer="spin_shampoo")
+    require({k: moved2[k] for k in want_moved} == want_moved
+            and all(v == 0 for k, v in moved2.items() if k not in want_moved),
+            f"partition_shampoo: step 2 bytes {moved2}, want {want_moved}")
+    require({k: calls2[k] for k in want_calls} == want_calls,
+            f"partition_shampoo: step 2 calls {calls2}, want {want_calls}")
+
+    # every leaf still laid out by its spec, a factor both axes divide 1/8 a coordinate
+    for x, sh in zip(leaves(state), leaves(shardings)):
+        require(isinstance(x, DistArray) and x.spec == tuple(sh.spec) and x.mesh is mesh,
+                "partition_shampoo: a state leaf is no longer laid out by its spec")
+    shares = set()
+    for fac in state.opt.factors:
+        for t in fac or ():
+            if t.spec[-2:] == ("data", "model"):
+                shares |= {t.shards[c].numel() * n_coords / math.prod(t.shape)
+                           for c in mesh.coords()}
+    require(shares == {1.0}, f"partition_shampoo: a coordinate holds {shares} of a factor")
+
+    # the second step's update of every master leaf against mesh-free's
+    updates = []
+    for i, (ma, ini, fu) in enumerate(zip(state.opt.master, init, free_update)):
+        du = (gather(ma) - ini).double()
+        fu = fu.double()
+        nu, nf = float(du.norm()), float(fu.norm())
+        cos = float((du * fu).sum()) / max(nu * nf, 1e-300)
+        updates.append({"norm": nu, "mesh_free_norm": nf, "cosine": cos})
+        require(nf > 0 and abs(nu - nf) <= PSHAMPOO_UPDATE_RTOL * nf
+                and cos >= PSHAMPOO_UPDATE_COS,
+                f"partition_shampoo: master leaf {i}'s update norm {nu} (mesh-free {nf}), "
+                f"cosine {cos}")
+    del init, free_update
+    print(f"path partition_shampoo: layer 0 factor n={res['n']} residual={res['residual']!r} "
+          f"condition={res['condition']!r} bound={res['bound']!r} (4·n·2^-24·κ) "
+          f"mesh_free_residual={free_res['residual']!r} "
+          f"mesh_free_condition={free_res['condition']!r} ({card})", flush=True)
+    require(res["residual"] <= res["bound"],
+            f"partition_shampoo: residual {res['residual']} > {res['bound']}")
+    print(f"path partition_shampoo: layer 0 of that leaf, max |laid out - mesh-free| / "
+          f"max |mesh-free|: L {gaps['l']!r} R {gaps['r']!r} L^-1 {gaps['linv']!r} "
+          f"R^-1 {gaps['rinv']!r} (bound {PSHAMPOO_INV_RTOL!r} on the inverses; {card})",
+          flush=True)
+    require(max(gaps["linv"], gaps["rinv"]) <= PSHAMPOO_INV_RTOL,
+            f"partition_shampoo: the inverses lie {gaps} from mesh-free's")
+    held = _held_gib(torch, state)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "mesh": mesh.descriptor(),
+           "damping": PSHAMPOO_DAMPING, "grids": grids,
+           "losses": [m1["loss"], m2["loss"]], "mesh_free_losses": [f1["loss"], f2["loss"]],
+           "grad_norms": [m1["grad_norm"], m2["grad_norm"]],
+           "mesh_free_grad_norms": [f1["grad_norm"], f2["grad_norm"]],
+           "step_ms": [ms1, ms2], "mesh_free_step_ms": [free_ms1, free_ms2],
+           "refresh_ms": refresh["ms"], "mesh_free_refresh_ms": free_refresh["ms"],
+           "refresh_launches": refresh["launches"], "launches": launches1,
+           "launches_step2": launches2, "peak_gib": peak, "mesh_free_peak_gib": free_peak,
+           "state_gib": held, "collective_bytes": [moved1, moved2],
+           "collective_calls": [calls1, calls2], "updates": updates,
+           "factor": res, "mesh_free_factor": free_res, "factor_gaps": gaps, "card": card}
+    print(f"path partition_shampoo_train: {json.dumps(out)}", flush=True)
+    return out
+
+
 def main(proc_dir: str) -> int:
     import numpy as np
     import torch
@@ -5810,6 +6097,8 @@ def main(proc_dir: str) -> int:
     # 1. card
     card = card_line()
     print(card, flush=True)
+    for name, before, after, why in TIME_CUTS:
+        print(f"cut: {name} {before} -> {after} ({why})", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
 
@@ -6113,7 +6402,16 @@ def main(proc_dir: str) -> int:
     partition_frontend = run_partition_frontend(torch)
     phase_s["27"] = time.perf_counter() - t0
     print(f"phase_s {json.dumps(phase_s)}", flush=True)
-    print(f"chip_smoke total_s {time.perf_counter() - start_s!r}", flush=True)
+
+    # 28. SPIN-Shampoo on a laid-out state: the Gram factors over data x
+    # model, the refresh through the mesh-resident SPIN inversion
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    partition_shampoo = run_partition_shampoo(torch)
+    phase_s["28"] = time.perf_counter() - t0
+    print(f"phase_s {json.dumps(phase_s)} ({card})", flush=True)
+    print(f"chip_smoke total_s {time.perf_counter() - start_s!r} ({card})", flush=True)
 
     print(json.dumps({"paths": {
         "spin": {"n": n, "block_size": bs, "ms": spin["ms"], "residual": spin["residual"]},
@@ -6153,10 +6451,11 @@ def main(proc_dir: str) -> int:
         "examples": examples, "processes": _processes_summary(processes),
         "partition": partition, "serve_partition": serve_partition,
         "partition_moe": partition_moe, "partition_ssm": partition_ssm,
-        "partition_frontend": partition_frontend, "phase_s": phase_s},
+        "partition_frontend": partition_frontend, "partition_shampoo": partition_shampoo,
+        "phase_s": phase_s},
         "card": card}), flush=True)
 
-    # 28. the kernels line
+    # 29. the kernels line
     rows = []
     gemm_body = "gemm_tc: pack pre-pass, then 3xTF32 wgmma on a TMA ring (f32)"
     report["schur_update"]["body"] = report["matmul"]["body"] = gemm_body
@@ -6217,7 +6516,8 @@ def main(proc_dir: str) -> int:
                 **{f"train_partitioned_{arch}_step": run["launches"][name]
                    for arch, run in partition_frontend["train"].items()},
                 **{f"partitioned_{arch}_prefill": run["launches"][name]
-                   for arch, run in partition_frontend["serve"].items()}}
+                   for arch, run in partition_frontend["serve"].items()},
+                "train_partitioned_shampoo_step": partition_shampoo["launches"][name]}
             r["partitioned_coordinate"] = partition["train"]["kernels"][name]
             r["partitioned_prefill_coordinate"] = serve_partition["serve"]["kernels"][name]
             r["partitioned_moe_coordinate"] = partition_moe["kernels"][name]
@@ -6229,6 +6529,8 @@ def main(proc_dir: str) -> int:
         if name in ("matmul", "schur_update", "blocked_gauss_jordan"):
             r["launches_by_path"]["train_shampoo_refresh"] = \
                 train_shampoo["refresh_launches"][name]
+            r["launches_by_path"]["partitioned_shampoo_refresh"] = \
+                partition_shampoo["refresh_launches"][name]
         if name == "flash_attention_bwd":
             r["launches_by_path"] = {
                 "train_adamw_step": train_adamw["launches"][name],
@@ -6240,7 +6542,8 @@ def main(proc_dir: str) -> int:
                 **{f"train_partitioned_{arch}_step": run["launches"].get(name, 0)
                    for arch, run in partition_ssm["train"].items()},
                 **{f"train_partitioned_{arch}_step": run["launches"][name]
-                   for arch, run in partition_frontend["train"].items()}}
+                   for arch, run in partition_frontend["train"].items()},
+                "train_partitioned_shampoo_step": partition_shampoo["launches"][name]}
             r["partitioned_coordinate"] = partition["train"]["kernels"][name]
             r["partitioned_moe_coordinate"] = partition_moe["kernels"][name]
             r["partitioned_hybrid_coordinate"] = partition_ssm["kernels"][name]

@@ -79,7 +79,6 @@ import math
 import os
 import time
 import traceback
-import types
 import weakref
 
 import torch
@@ -95,17 +94,19 @@ from ..models import ssm as ssm_mod, transformer as T
 from ..models.layers import PARAM_DTYPE
 from ..models.scan_util import unroll_scans
 from ..optim.adamw import AdamWState
-from ..parallel.collectives import (collective_bytes, collective_calls,
-                                    reset_collective_bytes)
+from ..optim.spin_shampoo import SpinShampooConfig, _is_matrix, factor_spec
+from ..parallel.collectives import (DistArray, collective_bytes, collective_calls, grid_spec,
+                                    region_of, reset_collective_bytes)
 from ..parallel.sharded_blockmatrix import record_specs
 from ..parallel.sharding import (DEFAULT_RULES, PartitionSpec as P, ShardingRules,
                                  logical_spec)
 from ..runtime.trainer import TrainConfig, TrainState, abstract_state, make_train_step
 from ..tree import leaves
-from .mesh import make_production_mesh, set_mesh
+from .mesh import Mesh, make_production_mesh, set_mesh
 
 __all__ = ["RULES_VARIANTS", "CFG_VARIANTS", "collective_stats",
            "partitioned_step_collectives", "partitioned_serve_collectives",
+           "shampoo_refresh_moves",
            "moe_block_collectives", "ssm_block_collectives", "build_train",
            "build_prefill", "build_decode", "run_cell", "run_solver_cell", "main"]
 
@@ -304,10 +305,31 @@ class _Layout:
     def __init__(self, shape: tuple[int, int], rules: str):
         self.sizes = {"data": shape[0], "model": shape[1]}
         self.rules = RULES_VARIANTS[rules]
-        self._mesh = types.SimpleNamespace(shape=self.sizes)   # what logical_spec reads
+        self.mesh = Mesh([["meta"] * shape[1]] * shape[0])
 
     def spec(self, shape, logical) -> P:
-        return logical_spec(tuple(shape), tuple(logical), self.rules, self._mesh)
+        return logical_spec(tuple(shape), tuple(logical), self.rules, self.mesh)
+
+    def made(self, shape, spec) -> dict:
+        """Each distinct region of an array laid out by `spec`, with the
+        first coordinate holding it (where a laid-out op makes it)."""
+        tiles = DistArray(shape, spec, self.mesh, {}).tiles()
+        return {r: holders[0] for r, holders in tiles.items()}
+
+    def fetch(self, shape, spec, want, at, itemsize: int = 4) -> int:
+        """Bytes `collectives.fetch` copies to coordinate `at` for the region
+        `want` of an array laid out by `spec`: nothing where `at`'s own
+        region contains it, else each piece that another region holds."""
+        own = region_of(shape, spec, self.mesh, at)
+        if all(o0 <= w0 and w1 <= o1 for (o0, o1), (w0, w1) in zip(own, want)):
+            return 0
+        total = 0
+        for tile in self.made(shape, spec):
+            if tile != own:
+                piece = [(max(a0, b0), min(a1, b1)) for (a0, a1), (b0, b1) in zip(tile, want)]
+                if all(lo < hi for lo, hi in piece):
+                    total += math.prod(hi - lo for lo, hi in piece)
+        return total * itemsize
 
     def size(self, entry) -> int:
         names = (entry,) if isinstance(entry, str) else tuple(entry or ())
@@ -429,9 +451,89 @@ def _lookup_and_head(t: _Tally, cfg: ArchConfig, lay: _Layout, defs: dict, rows:
     return v_ax
 
 
+def _factored(shape) -> bool:
+    """Whether the default SPIN-Shampoo gives a leaf of `shape` factors."""
+    return _is_matrix(shape, SpinShampooConfig.max_factor_dim)
+
+
+def _panel_fetches(t: _Tally, lay: _Layout, out, panels) -> None:
+    """At each distinct region r of the array `out` = (shape, spec), its
+    first holder fetches the panels `panels(r)` ((shape, spec) of an
+    operand, region) as "gather", a panel asked for twice once."""
+    for r, c in lay.made(*out).items():
+        for x, want in dict.fromkeys(panels(r)):
+            nbytes = lay.fetch(*x, want, c)
+            if nbytes:
+                t._add("gather", nbytes, 1)
+
+
+def _shampoo_gathers(t: _Tally, lay: _Layout, defs: dict) -> None:
+    """SPIN-Shampoo's "gather" in one laid-out update
+    (`optim.spin_shampoo._laid_out_update`): for each factored leaf G
+    (…, d_in, d_out) laid out by its spec, every distinct region of L (rows
+    R, columns C; `factor_spec`) fetches G's row panels R and C, R's its
+    column panels; then the products X = L⁻¹·m and X·R⁻¹, laid out as m,
+    fetch at each distinct region of m the first operand's row panel and
+    the second's column panel. All f32."""
+    for w in leaves(defs):
+        shape = tuple(w.shape)
+        if not _factored(shape):
+            continue
+        g = (shape, lay.spec(shape, w.logical))
+        *lead, din, dout = shape
+        ends = tuple((0, n) for n in lead)
+        fl = ((*lead, din, din), factor_spec((*lead, din, din), lay.mesh))
+        fr = ((*lead, dout, dout), factor_spec((*lead, dout, dout), lay.mesh))
+
+        def rows(x, r):
+            return r[:-1] + ((0, x[0][-1]),)
+
+        def cols(x, r):
+            return r[:-2] + ((0, x[0][-2]), r[-1])
+
+        _panel_fetches(t, lay, fl, lambda r: [(g, ends + (r[-2], (0, dout))),
+                                              (g, ends + (r[-1], (0, dout)))])
+        _panel_fetches(t, lay, fr, lambda r: [(g, ends + ((0, din), r[-2])),
+                                              (g, ends + ((0, din), r[-1]))])
+        _panel_fetches(t, lay, g, lambda r: [(fl, rows(fl, r)), (g, cols(g, r))])
+        _panel_fetches(t, lay, g, lambda r: [(g, rows(g, r)), (fr, cols(fr, r))])
+
+
+def shampoo_refresh_moves(cfg: ArchConfig, shape: tuple[int, int], block_size,
+                          model_size_hint: int = 16) -> tuple[int, int]:
+    """Bytes and calls of "reshard" a SPIN-Shampoo refresh adds to its
+    inversions on a (data, model) mesh of `shape`: each factor layer (n, n),
+    laid out by `factor_spec`, is fetched region by region into the block
+    grid of `block_size(n)` (its plan's) laid out by `grid_spec`, and the
+    inverse grid back into the inverse's regions (`grid_to_panel`), at each
+    distinct region's first holder. The layouts alone decide it: the rules
+    do not."""
+    lay = _Layout(shape, "default")
+    moved = calls = 0
+    for w in leaves(T.param_defs(cfg, model_size_hint)):
+        if not _factored(tuple(w.shape)):
+            continue
+        layers = w.shape[0] if len(w.shape) == 3 else 1
+        for n in w.shape[-2:]:
+            bs = block_size(n)
+            g = n // bs
+            fspec = factor_spec((n, n), lay.mesh)
+            gspec = grid_spec(g, g, lay.mesh)
+            for r, c in lay.made((g, g, bs, bs), gspec).items():
+                want = tuple((lo * bs, hi * bs) for lo, hi in r[:2])
+                nbytes = lay.fetch((n, n), fspec, want, c)
+                moved, calls = moved + layers * nbytes, calls + layers * bool(nbytes)
+            for r, c in lay.made((n, n), fspec).items():
+                want = tuple((lo // bs, -(-hi // bs)) for lo, hi in r) + ((0, bs), (0, bs))
+                nbytes = lay.fetch((g, g, bs, bs), gspec, want, c)
+                moved, calls = moved + layers * nbytes, calls + layers * bool(nbytes)
+    return moved, calls
+
+
 def partitioned_step_collectives(cfg: ArchConfig, shape: tuple[int, int], rules: str,
                                  batch: int, seq: int, microbatches: int,
-                                 model_size_hint: int = 16) -> tuple[dict, dict]:
+                                 model_size_hint: int = 16,
+                                 optimizer: str = "adamw") -> tuple[dict, dict]:
     """Bytes and calls of each collective kind (all_gather,
     reduce_scatter, psum, pmax; all_to_all and pmean with MoE) in one
     partitioned step of `cfg`, of any family (experts padded to a multiple
@@ -462,6 +564,9 @@ def partitioned_step_collectives(cfg: ArchConfig, shape: tuple[int, int], rules:
     weight whose columns `model` does not divide) sums its holders'
     gradients ("psum", one call a leaf), also a leaf that no loss reads
     (audio's token table, where several coordinates hold its regions).
+    optimizer="spin_shampoo" adds its update's "gather" (`_shampoo_gathers`:
+    the Gram updates' and the preconditioner's panels), once a step; a
+    refresh step adds its inversions and `shampoo_refresh_moves` besides.
     """
     if rules not in ("default", "dp_only"):
         raise ValueError(f"no count for the rules {rules!r}: default or dp_only")
@@ -490,8 +595,16 @@ def partitioned_step_collectives(cfg: ArchConfig, shape: tuple[int, int], rules:
         if holders > 1:
             t.moved["psum"] += 2 * (holders - 1) * math.prod(w.shape) * _dtype_bytes(w)
             t.calls["psum"] += 1
-    return ({k: microbatches * val for k, val in t.moved.items()},
-            {k: microbatches * val for k, val in t.calls.items()})
+    moved = {k: microbatches * val for k, val in t.moved.items()}
+    calls = {k: microbatches * val for k, val in t.calls.items()}
+    if optimizer == "spin_shampoo":
+        u = _Tally(n, ("gather",))
+        _shampoo_gathers(u, lay, defs)
+        moved.update(u.moved)
+        calls.update(u.calls)
+    elif optimizer != "adamw":
+        raise ValueError(f"no count for the optimizer {optimizer!r}: adamw or spin_shampoo")
+    return moved, calls
 
 
 def partitioned_serve_collectives(cfg: ArchConfig, shape: tuple[int, int], rules: str,

@@ -83,7 +83,7 @@ def global_norm(tree) -> torch.Tensor:
     each distinct region of a laid-out leaf, in plan order."""
     flat = leaves(tree)
     laid = [leaf for leaf in flat if isinstance(leaf, DistArray)]
-    parts = col.region_values(laid, lambda t: torch.sum(t.float() ** 2)) if laid else []
+    parts = col.region_values(laid, lambda t, _: torch.sum(t.float() ** 2)) if laid else []
     parts += [torch.sum(leaf.float() ** 2) for leaf in flat
               if not isinstance(leaf, DistArray)]
     return torch.sqrt(sum(parts))

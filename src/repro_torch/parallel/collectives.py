@@ -1508,21 +1508,21 @@ def to_spec(xs: dict, have: Sequence, want: Sequence, mesh: Mesh) -> dict:
 
 
 @_exchanging
-def region_values(xs: Sequence[DistArray], fn: Callable[[torch.Tensor], torch.Tensor]
+def region_values(xs: Sequence[DistArray], fn: Callable[[torch.Tensor, Region], torch.Tensor]
                   ) -> list[torch.Tensor]:
-    """`fn(shard)`, a 0-dim f32 tensor, of each distinct region of each
-    array, in plan order (array by array, region by region in `tiles()`
-    order), made once, at the region's first holder, and known to every
-    process: each process sends the values its coordinates made to every
-    other in one exchange ("replicate"). The values lie on this process's
-    first device."""
+    """`fn(shard, region)`, a 0-dim f32 tensor, of each distinct region
+    (global) of each array, in plan order (array by array, region by
+    region in `tiles()` order), made once, at the region's first holder,
+    and known to every process: each process sends the values its
+    coordinates made to every other in one exchange ("replicate"). The
+    values lie on this process's first device."""
     mesh = xs[0].mesh
     device = mesh.local_device()
-    plan = [(x, holders[0]) for x in xs for holders in x.tiles().values()]
-    mine = [_on(fn(x.shards[h]), device) for x, h in plan if mesh.is_local(h)]
+    plan = [(x, r, holders[0]) for x in xs for r, holders in x.tiles().items()]
+    mine = [_on(fn(x.shards[h], r), device) for x, r, h in plan if mesh.is_local(h)]
     if not mesh.spans_processes:
         return mine
-    made = {p: [i for i, (_, h) in enumerate(plan) if mesh.process(h) == p]
+    made = {p: [i for i, (_, _, h) in enumerate(plan) if mesh.process(h) == p]
             for p in mesh.processes}
     got = {mesh.rank: torch.stack(mine) if mine else None}
     for p in mesh.processes:

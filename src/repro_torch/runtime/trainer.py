@@ -28,11 +28,13 @@ per-head leaves and audio's `mask_embed`, gets the sum of their
 gradients, and `global_norm` counts it once; a leaf no loss reads, audio's
 token table, gets zeros, so AdamW's weight decay alone moves it, as the
 reference's zero gradient does), the f32 sums are kept shard by shard, and
-AdamW updates shard by shard; an MoE body's aux and z enter each
-microbatch's loss as in the reference's step. Across processes a
-process then holds only its own coordinates' shards. The metrics come back as 0-dim tensors, the
-same in every process. SPIN-Shampoo on a laid-out state raises
-NotImplementedError: its Gram factors need the whole gradient.
+AdamW or SPIN-Shampoo updates shard by shard (Shampoo's Gram factors
+and their inverses laid out by `optim.spin_shampoo.factor_spec`, the
+refresh the mesh-resident SPIN inversion on the state's mesh); an MoE
+body's aux and z enter each microbatch's loss as in the reference's
+step. Across processes a process then holds only its own coordinates'
+shards. The metrics come back as 0-dim tensors, the same in every
+process.
 
 Across processes with a whole state (a mesh that spans them) every
 process runs the step on the same batch and holds the whole state; the
@@ -59,9 +61,11 @@ from ..configs.registry import ArchConfig
 from ..device import DEFAULT_DEVICE
 from ..launch.mesh import worker_info
 from ..models import transformer as T
-from ..optim import (AdamWConfig, AdamWState, SpinShampooConfig, adamw_init,
-                     adamw_update, schedule, spin_shampoo_init, spin_shampoo_update)
+from ..optim import (AdamWConfig, AdamWState, SpinShampooConfig, SpinShampooState,
+                     adamw_init, adamw_update, schedule, spin_shampoo_init,
+                     spin_shampoo_update)
 from ..optim.adamw import next_step, step_count
+from ..optim.spin_shampoo import _Factor, factor_spec
 from ..parallel import collectives as col
 from ..parallel.collectives import DistArray
 from ..parallel.sharding import (DEFAULT_RULES, NamedSharding, PartitionSpec, ShardingRules,
@@ -70,9 +74,6 @@ from ..tree import leaves, tree_map, unflatten
 
 __all__ = ["TrainConfig", "TrainState", "make_train_step", "init_state",
            "abstract_state", "state_shardings", "Trainer"]
-
-_SHAMPOO_NEXT = ("SPIN-Shampoo on a laid-out state: its Gram factors need the whole "
-                 "gradient (ROADMAP A item 7)")
 
 OPTIMIZERS = ("adamw", "spin_shampoo")
 
@@ -131,12 +132,14 @@ def abstract_state(cfg: ArchConfig, tcfg: TrainConfig,
 def state_shardings(cfg: ArchConfig, tcfg: TrainConfig, mesh,
                     rules: ShardingRules = DEFAULT_RULES,
                     model_size_hint: int = 16) -> TrainState:
-    """The AdamW training state's layouts on `mesh`, the reference's
-    `_param_state_specs`: the parameters and AdamW's master, m and v by
-    `param_specs`, the step counters whole; a TrainState of
-    `NamedSharding`s (for `parallel.sharding.lay_out`, `restore`)."""
-    if tcfg.optimizer != "adamw":
-        raise NotImplementedError(_SHAMPOO_NEXT)
+    """The training state's layouts on `mesh`, a TrainState of
+    `NamedSharding`s (for `parallel.sharding.lay_out`, `restore`): the
+    parameters by `param_specs` and the step counters whole. AdamW's
+    master, m and v by `param_specs`, the reference's
+    `_param_state_specs`; SPIN-Shampoo's master, m and v (lists in leaf
+    order) by their parameters' specs, and each factor's L, R, L⁻¹ and R⁻¹
+    by `factor_spec` (None where the leaf is not a matrix)."""
+    _check_optimizer(tcfg)
     specs = T.param_specs(cfg, rules, mesh, model_size_hint)
 
     def named(tree):
@@ -144,8 +147,15 @@ def state_shardings(cfg: ArchConfig, tcfg: TrainConfig, mesh,
                 for k, v in tree.items()}
 
     whole = NamedSharding(mesh, PartitionSpec())
-    return TrainState(named(specs), AdamWState(whole, named(specs), named(specs),
-                                               named(specs)), whole)
+    if tcfg.optimizer == "adamw":
+        return TrainState(named(specs), AdamWState(whole, named(specs), named(specs),
+                                                   named(specs)), whole)
+    flat = leaves(named(specs))
+    factors = [None if f is None else _Factor(*(
+        NamedSharding(mesh, PartitionSpec(*factor_spec(t.shape, mesh))) for t in f))
+        for f in abstract_state(cfg, tcfg, model_size_hint).opt.factors]
+    return TrainState(named(specs), SpinShampooState(whole, flat, factors, flat, flat),
+                      whole)
 
 
 def _microbatch(v, i: int, nm: int, rules: ShardingRules, mesh):
@@ -169,10 +179,10 @@ def make_train_step(cfg: ArchConfig, tcfg: TrainConfig,
     state)."""
     _check_optimizer(tcfg)
     nm = tcfg.microbatches
+    update = adamw_update if tcfg.optimizer == "adamw" else spin_shampoo_update
+    opt_cfg = tcfg.adamw if tcfg.optimizer == "adamw" else tcfg.shampoo
 
     def laid_out_step(state: TrainState, batch: dict):
-        if tcfg.optimizer != "adamw":
-            raise NotImplementedError(_SHAMPOO_NEXT)
         flat = leaves(state.params)
         mesh = flat[0].mesh
         zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)  # noqa: E731
@@ -195,7 +205,7 @@ def make_train_step(cfg: ArchConfig, tcfg: TrainConfig,
         del acc
         lr_scale = schedule.cosine_with_warmup(
             step_count(state.step), warmup=tcfg.warmup, total=tcfg.total_steps)
-        new_params, new_opt, gnorm = adamw_update(tcfg.adamw, grads, state.opt, lr_scale)
+        new_params, new_opt, gnorm = update(opt_cfg, grads, state.opt, lr_scale)
         new_state = TrainState(new_params, new_opt,
                                next_step(state.step, step_count(state.step) + 1))
         return new_state, {"loss": sums["loss"] / nm, "aux": sums["aux"] / nm,
@@ -229,8 +239,6 @@ def make_train_step(cfg: ArchConfig, tcfg: TrainConfig,
         del acc
         lr_scale = schedule.cosine_with_warmup(
             state.step, warmup=tcfg.warmup, total=tcfg.total_steps)
-        update = adamw_update if tcfg.optimizer == "adamw" else spin_shampoo_update
-        opt_cfg = tcfg.adamw if tcfg.optimizer == "adamw" else tcfg.shampoo
         new_params, new_opt, gnorm = update(opt_cfg, grads, state.opt, lr_scale)
         new_state = TrainState(new_params, new_opt,
                                torch.tensor(int(state.step) + 1, dtype=torch.int32))

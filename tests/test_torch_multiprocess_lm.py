@@ -244,6 +244,31 @@ def test_a_rank_holds_only_its_coordinates_shards(partition_run):
     assert sum(rank["held"] for rank in got) >= ref["held"]
 
 
+@pytest.fixture(scope="module")
+def shampoo_run():
+    kw = dict(shape=[2, 4], name="olmo-1b", optimizer="spin_shampoo")
+    return (spawn("partition", 2, devices=4, **kw), ranks.run_here("partition", devices=8, **kw))
+
+
+def test_partitioned_shampoo_across_processes_is_the_single_process_bits(shampoo_run):
+    """Two laid-out SPIN-Shampoo steps of reduced olmo-1b on (2, 4) over 2
+    processes (the first refreshes: the sharded inversions run across
+    them): every rank's losses, grad norms, parameters and optimizer
+    leaves (Gram factors and inverses included) the single process's
+    bits, the bytes and calls summed over the ranks its counts, and a
+    rank holding only its own coordinates' regions of every factor."""
+    got, ref = shampoo_run
+    assert all(np.isfinite(ref["losses"])) and ref["bytes"]["reshard"] > 0
+    for rank in got:
+        assert rank["losses"] == ref["losses"] and rank["grad_norms"] == ref["grad_norms"]
+        assert len(rank["opt"]) == len(ref["opt"]) > len(ref["params"])
+        assert all(torch.equal(p, q) for p, q in zip(rank["params"], ref["params"]))
+        assert all(torch.equal(p, q) for p, q in zip(rank["opt"], ref["opt"]))
+        assert rank["held"] == rank["own"] and rank["held"] * 2 < 1.01 * ref["held"]
+    _assert_sums(got, ref)
+    assert ref["held"] == ref["own"] and ref["bytes"]["to_dense"] == 0
+
+
 SERVE_SHAPE, SERVE_PROCS = (2, 4), 2
 
 

@@ -87,8 +87,8 @@ def _id(case) -> str:
     return f"{name}-{shape[0]}x{shape[1]}-{rules}"
 
 
-def _tcfg(optimizer: str = "adamw") -> TrainConfig:
-    return TrainConfig(microbatches=MICRO, warmup=1, total_steps=100, optimizer=optimizer)
+def _tcfg() -> TrainConfig:
+    return TrainConfig(microbatches=MICRO, warmup=1, total_steps=100)
 
 
 def _mesh(shape):
@@ -338,15 +338,6 @@ def test_a_sequence_split_raises_naming_the_axis(variant):
                                                                 HINT))
     with pytest.raises(ValueError, match="'seq'"):
         make_train_step(cfg, _tcfg(), rules)(state, _batch(cfg))
-
-
-def test_spin_shampoo_on_a_laid_out_state_raises():
-    cfg = get_arch("olmo-1b").reduced()
-    mesh = _mesh((2, 4))
-    with pytest.raises(NotImplementedError, match="SPIN-Shampoo"):
-        state_shardings(cfg, _tcfg("spin_shampoo"), mesh)
-    with pytest.raises(NotImplementedError, match="SPIN-Shampoo"):
-        make_train_step(cfg, _tcfg("spin_shampoo"))(_state("olmo-1b", mesh), _batch(cfg))
 
 
 def test_audio_and_vlm_bodies_on_a_laid_out_state_meet_the_mesh_free_port():

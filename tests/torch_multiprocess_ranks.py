@@ -226,14 +226,17 @@ def _inputs(cfg, rng, labels: bool) -> dict:
 
 
 def partition(shape, devices: int, name: str = "olmo-1b", steps: int = 2,
-              seed: int = 3) -> dict:
-    """Two AdamW steps of reduced `name` on a state laid out by the default
-    rules' specs over `shape` (the partitioned step: a process holds and
-    computes only its own coordinates' shards), 8 x 32 positions in 2
-    microbatches: the losses and grad norms, the bytes and calls by kind
-    of the steps, the state bytes held beside its coordinates' regions,
-    and every parameter gathered whole."""
+              seed: int = 3, optimizer: str = "adamw") -> dict:
+    """Two steps of reduced `name` (AdamW, or SPIN-Shampoo at damping 0.1)
+    on a state laid out by the default rules' specs over `shape` (the
+    partitioned step: a process holds and computes only its own
+    coordinates' shards, Shampoo's factor regions included), 8 x 32
+    positions in 2 microbatches: the losses and grad norms, the bytes and
+    calls by kind of the steps, the state bytes held beside its
+    coordinates' regions, and every parameter gathered whole (with
+    Shampoo every optimizer leaf too)."""
     from repro_torch.configs import get_arch
+    from repro_torch.optim import SpinShampooConfig
     from repro_torch.parallel.sharding import lay_out
     from repro_torch.runtime.trainer import (TrainConfig, init_state, make_train_step,
                                              state_shardings)
@@ -241,7 +244,8 @@ def partition(shape, devices: int, name: str = "olmo-1b", steps: int = 2,
 
     mesh = make_worker_mesh(tuple(shape), devices=["cpu"] * devices)
     cfg = get_arch(name).reduced()
-    tcfg = TrainConfig(microbatches=2, warmup=1, total_steps=100)
+    tcfg = TrainConfig(microbatches=2, warmup=1, total_steps=100, optimizer=optimizer,
+                       shampoo=SpinShampooConfig(damping=0.1))
     whole = init_state(cfg, tcfg, torch.Generator().manual_seed(seed), "cpu", 4)
     state = lay_out(whole, state_shardings(cfg, tcfg, mesh, model_size_hint=4))
     del whole
@@ -257,6 +261,8 @@ def partition(shape, devices: int, name: str = "olmo-1b", steps: int = 2,
            "held": _held_bytes(state), "own": _own_bytes(state),
            "local": mesh.local_coords()}
     out["params"] = [col.gather(p) for p in leaves(state.params)]
+    if optimizer != "adamw":
+        out["opt"] = [col.gather(x) for x in leaves(state.opt)]
     return out
 
 
