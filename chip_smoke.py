@@ -237,8 +237,9 @@ Phases, each of which fails the run (non-zero exit) on any fault:
      launches times one launch's work, and the meta run's peak live bytes
      plus its arguments printed beside `max_memory_allocated`; (d) one
      production cell, `run_cell("olmo-1b", "train_4k")` on the 16 x 16
-     mesh, its record and trace seconds; no kernel launches in the
-     phase; `phase_s["20"]` printed;
+     mesh (the global view's full run, and the partitioned program's
+     probes at 1 and 2 layers), its record and trace seconds; no kernel
+     launches in the phase; `phase_s["20"]` printed;
  21. the examples' twins (examples_torch/), each `main(argv)` called in
      this process on the card at the main path's sizes, with a plan file
      of the phase's own and the cache freed between runs: quickstart at
@@ -308,7 +309,7 @@ Phases, each of which fails the run (non-zero exit) on any fault:
      cuda:0: a prefill of 8 x 2048 (its cache laid out by `cache_specs`,
      B6 launched 128 times: a layer and coordinate, at (4, 4, 2048, 128)),
      the cache padded to 4096 (`pad_cache`: a coordinate holds 1024
-     positions of 4 rows, 1/8 of it), a warm-up and 16 timed decode
+     positions of 4 rows, 1/8 of it), a warm-up and 8 timed decode
      steps, each fed the mesh-free run's token; the prefill's and every
      step's logits within phase 17's bound (0.5) of a mesh-free prefill
      and decode on the same weights, the argmax equal where the mesh-free
@@ -345,7 +346,7 @@ Phases, each of which fails the run (non-zero exit) on any fault:
      `param_specs`, against the
      global view under the same mesh (run first, its logits and routes kept
      on the host, then freed): a prefill of 4 x 2048, `pad_cache` to 4096,
-     a warm-up and 16 decode steps fed the reference run's tokens, the
+     a warm-up and 8 decode steps fed the reference run's tokens, the
      logits within phase 17's bound (0.5) on the tokens routed alike at
      every layer (the first layer's share at least 0.9, decode's pooled
      over its steps), the argmax equal there where the top-2 margin exceeds
@@ -381,7 +382,7 @@ Phases, each of which fails the run (non-zero exit) on any fault:
      mesh-free path on the same weights, mamba2 at full depth and hymba
      cut to 8 of 32 layers (printed): hymba a prefill of
      4 x 1024 filling its rolling cache of 1024 slots (256 a coordinate),
-     mamba2 one of 8 x 2048, then a warm-up and 16 decode steps fed the
+     mamba2 one of 8 x 2048, then a warm-up and 8 decode steps fed the
      mesh-free run's tokens; the logits within phase 17's 0.5 and the
      argmax equal where the mesh-free top-2 margin exceeds it, the
      prefill's dp_only logits error beside, the prompt's state error layer
@@ -443,14 +444,28 @@ Phases, each of which fails the run (non-zero exit) on any fault:
      nothing made whole ("to_dense" 0), every leaf still laid out by its
      spec and a coordinate holding 1/8 of each factor that both axes
      divide; step and refresh ms beside mesh-free's and peak GiB, with
-     the card's name and power limit; `phase_s["28"]` and the script's
-     total seconds printed;
- 29. one JSON line with every path's times and residual (the examples'
+     the card's name and power limit; `phase_s["28"]` printed;
+ 29. the partitioned dry run against the card
+     (`launch.dryrun.trace_partitioned`): the programs of phases 23 and
+     24 run once more on meta tensors, their arguments laid out by their
+     specs on a (data 2, model 4) mesh of meta devices, the model inputs
+     whole as the card's runs take them: (a) phase 23's olmo-1b step (full
+     width and depth, 8 x 2048 in 2 microbatches), (b) phase 24's prefill
+     of 8 x 2048 and one decode step at 4096; the bytes and calls of
+     each collective kind equal to those the card counted and to
+     `partitioned_step_collectives` / `partitioned_serve_collectives`,
+     B6's and B6-bwd's booked calls equal to the card's launches; (c)
+     phase 20 (d)'s record with its partitioned keys (`coll_scope`,
+     `analytic`, `cost_partitioned`), its partitioned counts equal to the
+     analytic ones; no kernel built or launched in the phase;
+     `phase_s["29"]` and the script's total seconds printed;
+ 30. one JSON line with every path's times and residual (the examples'
      wall, launches and peak memory under "examples", phase 22's ranks
      under "processes", phase 23's under "partition", phase 24's under
      "serve_partition", phase 25's under "partition_moe", phase 26's under
      "partition_ssm", phase 27's under "partition_frontend", phase 28's
-     under "partition_shampoo"), and one with every kernel's launches,
+     under "partition_shampoo", phase 29's under "dry_run_partitioned"),
+     and one with every kernel's launches,
      error and times (the GEMM's, blocked Gauss-Jordan's and triangular
      solve's launches on every path beside them, the examples' runs and
      phase 22's ranks, each rank's and their sum, included, and B6's and
@@ -634,7 +649,7 @@ PART_PROCS, PART_PROC_LAYERS, PART_PROC_STEPS = 2, 2, 2
 # ranks of their own, process p holding data row p, olmo cut to 2 layers.
 SERVE_SHAPE = (2, 4)                 # the model is phase 23's (`_partition_cfg`)
 SERVE_BATCH, SERVE_PROMPT, SERVE_CACHE = 8, 2048, 4096
-SERVE_STEPS = 16                  # timed decode steps after one warm-up
+SERVE_STEPS = 8                   # timed decode steps after one warm-up (TIME_CUTS)
 # The logits against mesh-free: the bound of two orders of the same
 # full-width bf16 logits (phase 17's LM_CONSISTENCY_BOUND): the default
 # layout sums the output projections' bf16 partial products over `model`,
@@ -659,7 +674,7 @@ PMOE_STEPS = 2                    # (b)'s timed steps after one warm-up (TIME_CU
 PMOE_RTOL = 2e-3                  # (b)'s first loss against the mesh step's
 PMOE_SERVE_BATCH = 4              # (c): 4 x 2048, the cache padded to 4096
 PMOE_SERVE_PROMPT, PMOE_SERVE_CACHE = 2048, 4096
-PMOE_SERVE_STEPS = 16             # (c)'s timed decode steps after one warm-up
+PMOE_SERVE_STEPS = 8              # (c)'s timed decode steps after one warm-up (TIME_CUTS)
 # (c)'s depth, cut from 24 to make room for phase 27 in the script's time
 PMOE_SERVE_LAYERS = 8
 PMOE_PROCS, PMOE_PROC_LAYERS, PMOE_PROC_STEPS = 2, 1, 2
@@ -690,7 +705,7 @@ PSSM_SERVE = {"hymba-1.5b": (4, 1024, 1024),     # (c): batch, prompt, decode le
               "mamba2-130m": (8, 2048, 2048)}
 # (c)'s depths (None: whole), hymba's cut from 32 to make room for phase 27
 PSSM_SERVE_LAYERS = {"hymba-1.5b": 8, "mamba2-130m": None}
-PSSM_SERVE_STEPS = 16             # (c)'s timed decode steps after one warm-up
+PSSM_SERVE_STEPS = 8              # (c)'s timed decode steps after one warm-up (TIME_CUTS)
 # Phase 27: the partitioned audio and VLM bodies on phase 19's mesh (data 2,
 # model 4) of cuda:0: hubert-xlarge (16 heads of 80, 4 a coordinate,
 # bidirectional; the frames and mask of data/synthetic.py, the loss on the
@@ -738,8 +753,10 @@ PSHAMPOO_INV_RTOL = 1e-2
 # before it (22: 168.8-174.4 s, 21: 102.1-126.0, 25: 94.1-101.9): the first
 # three, about 21 s, left the command at 1195.7 s on a slow host, so the two
 # cross-process training runs take half the tokens too; each keeps every
-# check, count, bound, step and path: (constant, before, after, why),
-# printed at the start.
+# check, count, bound, step and path. Phase 29 and the partitioned probes of
+# phase 20 (d) add about 30 s of host time (7 s and 25 s on a CPU host), so
+# the three 16-step decode runs of phases 24-26 take 8 timed steps: (constant,
+# before, after, why), printed at the start.
 TIME_CUTS = (
     ("PROC_TIMED_CALLS", 2, 1, "phase 22 (a): one timed 2x2 inversion a rank after the "
      "warm-up, then the traced one (the second timed call took 7.6-8.6 s over four ranks "
@@ -755,6 +772,15 @@ TIME_CUTS = (
     ("PMOE_PROC_BATCH", 8, 4, "phase 25 (d): both AdamW steps on 4 x 2048 tokens in one "
      "microbatch (8 x 2048 took 10.3-18.3 s a step over two ranks); the losses, "
      "parameter, logit and cache digests held as before"),
+    ("SERVE_STEPS", 16, 8, "phase 24 (a): 8 timed laid-out olmo-1b decode steps after the "
+     "warm-up (316-409 ms a step on an H100 80GB HBM3 at 700 W), each still held to the "
+     "mesh-free step's logits, counts and launches"),
+    ("PMOE_SERVE_STEPS", 16, 8, "phase 25 (c): 8 timed qwen2-moe decode steps after the "
+     "warm-up, laid out (777-1349 ms a step) and in the global view (629-884), each still "
+     "held on the tokens routed alike"),
+    ("PSSM_SERVE_STEPS", 16, 8, "phase 26 (c): 8 timed hymba and mamba2 decode steps after "
+     "the warm-up (hymba 570-996 ms a step laid out); hymba's rows still write across its "
+     "rolling cache's wrap"),
 )
 U_F32 = 2.0 ** -24                # f32 unit roundoff
 # The refresh residual's bound: c·n·u·κ, the first-order bound on an
@@ -3572,8 +3598,9 @@ def run_dryrun(torch, sharded: dict, mesh: dict, train_adamw: dict) -> dict:
     print(f"dry_run cell: {json.dumps(rec)}", flush=True)
     require(rec["runnable"] and not rec["launches_moved"],
             "dry_run cell: not runnable, or a kernel launched")
-    out["cell_olmo_train_4k"] = {k: rec[k] for k in ("trace_s", "per_device", "cost",
-                                                     "collectives_once")}
+    out["cell_olmo_train_4k"] = {k: rec[k] for k in (
+        "trace_s", "per_device", "cost", "collectives_once", "coll_scope", "analytic",
+        "analytic_match", "cost_partitioned")}
     require(kernels.launch_counts() == launches0, "dry_run: a kernel launched")
     return out
 
@@ -6072,6 +6099,87 @@ def run_partition_shampoo(torch) -> dict:
     return out
 
 
+
+# ---------------------------------------------------------------------------
+# Phase 29: the partitioned dry run against the card
+# ---------------------------------------------------------------------------
+
+
+def _counted(d: dict) -> dict:
+    return {k: v for k, v in d.items() if v}
+
+
+def run_dryrun_partitioned(torch, partition: dict, serve_partition: dict,
+                           dry_run: dict) -> dict:
+    """Phase 29: the partitioned program traced on meta tensors
+    (`dryrun.trace_partitioned`: the arguments laid out by their specs on
+    a (data 2, model 4) mesh of meta devices) held against what phases 23
+    and 24 counted on the card in this process, and phase 20 (d)'s
+    production record against the analytic count. Builds and launches
+    nothing."""
+    from repro_torch import kernels
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_worker_mesh
+    from repro_torch.parallel import DEFAULT_RULES
+
+    launches0 = kernels.launch_counts()
+    cfg = _partition_cfg()
+    meta = make_worker_mesh(PART_SHAPE, devices=["meta"] * (PART_SHAPE[0] * PART_SHAPE[1]))
+    train, serve = partition["train"], serve_partition["serve"]
+    # (a) phase 23's step, (b) phase 24's prefill and one decode step: the
+    # model inputs whole, as the stream and the last step hand them
+    runs = (("step", ShapeConfig("phase23_step", TRAIN_SEQ, TRAIN_BATCH, "train"), TRAIN_MICRO,
+             train["collective_bytes"], train["collective_calls"], train["launches"],
+             dryrun.partitioned_step_collectives(cfg, PART_SHAPE, "default", TRAIN_BATCH,
+                                                 TRAIN_SEQ, TRAIN_MICRO)),
+            ("prefill", ShapeConfig("phase24_prefill", SERVE_PROMPT, SERVE_BATCH, "prefill"), 1,
+             serve["prefill"]["bytes"], serve["prefill"]["calls"],
+             serve["prefill"]["launches"], None),
+            ("decode", ShapeConfig("phase24_decode", SERVE_CACHE, SERVE_BATCH, "decode"), 1,
+             serve["decode"]["bytes"], serve["decode"]["calls"], {}, None))
+    want_serve = dryrun.partitioned_serve_collectives(cfg, SERVE_SHAPE, "default", SERVE_BATCH,
+                                                      SERVE_PROMPT, SERVE_CACHE)
+    out = {}
+    for what, shape, micro, card_bytes, card_calls, card_launches, analytic in runs:
+        analytic = analytic or want_serve[what]
+        t0 = time.perf_counter()
+        traced = dryrun.trace_partitioned(cfg, shape, meta, DEFAULT_RULES, micro,
+                                          model_size_hint=16, lay_batch=False)
+        trace_s = time.perf_counter() - t0
+        got = (_counted(traced["moved"]), _counted(traced["calls"]))
+        booked = {name: b["calls"] for name, b in traced["booked"].items()}
+        del traced
+        card = (_counted(card_bytes), _counted(card_calls))
+        print(f"dry_run_partitioned {what}: meta bytes={got[0]} calls={got[1]} "
+              f"card bytes={card[0]} calls={card[1]} booked={booked} "
+              f"card_launches={card_launches} trace_s={trace_s!r}", flush=True)
+        require(got == card, f"dry_run_partitioned {what}: meta {got}, card {card}")
+        require(got == (_counted(analytic[0]), _counted(analytic[1])),
+                f"dry_run_partitioned {what}: meta {got}, analytic {analytic}")
+        for name, n in booked.items():
+            require(n == card_launches.get(name, 0),
+                    f"dry_run_partitioned {what}: {name} booked {n} times, launched "
+                    f"{card_launches.get(name, 0)} on the card")
+        out[what] = {"bytes": got[0], "calls": got[1], "booked": booked,
+                     "card_launches": card_launches, "trace_s": trace_s}
+
+    # (c) phase 20 (d)'s production record, with its partitioned keys
+    rec = dry_run["cell_olmo_train_4k"]
+    keys = {k: rec[k] for k in ("coll_scope", "analytic", "analytic_match", "cost",
+                                "collectives_once")}
+    keys["cost_partitioned"] = {k: v for k, v in rec["cost_partitioned"].items()
+                                if k != "probes"}
+    print(f"dry_run_partitioned cell olmo-1b x train_4k x 16x16: {json.dumps(keys)}",
+          flush=True)
+    require(rec["coll_scope"] == "partitioned" and rec["analytic_match"] is True,
+            f"dry_run_partitioned cell: scope {rec['coll_scope']}, analytic match "
+            f"{rec['analytic_match']}")
+    out["cell_olmo_train_4k"] = keys
+    require(kernels.launch_counts() == launches0, "dry_run_partitioned: a kernel launched")
+    return out
+
+
 def main(proc_dir: str) -> int:
     import numpy as np
     import torch
@@ -6410,6 +6518,15 @@ def main(proc_dir: str) -> int:
     torch.cuda.empty_cache()
     partition_shampoo = run_partition_shampoo(torch)
     phase_s["28"] = time.perf_counter() - t0
+    print(f"phase_s {json.dumps(phase_s)}", flush=True)
+
+    # 29. the partitioned dry run: phases 23's and 24's programs on meta
+    # tensors against what the card counted; phase 20 (d)'s analytic match
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    dry_run_partitioned = run_dryrun_partitioned(torch, partition, serve_partition, dry_run)
+    phase_s["29"] = time.perf_counter() - t0
     print(f"phase_s {json.dumps(phase_s)} ({card})", flush=True)
     print(f"chip_smoke total_s {time.perf_counter() - start_s!r} ({card})", flush=True)
 
@@ -6452,10 +6569,10 @@ def main(proc_dir: str) -> int:
         "partition": partition, "serve_partition": serve_partition,
         "partition_moe": partition_moe, "partition_ssm": partition_ssm,
         "partition_frontend": partition_frontend, "partition_shampoo": partition_shampoo,
-        "phase_s": phase_s},
+        "dry_run_partitioned": dry_run_partitioned, "phase_s": phase_s},
         "card": card}), flush=True)
 
-    # 29. the kernels line
+    # 30. the kernels line
     rows = []
     gemm_body = "gemm_tc: pack pre-pass, then 3xTF32 wgmma on a TMA ring (f32)"
     report["schur_update"]["body"] = report["matmul"]["body"] = gemm_body

@@ -16,8 +16,12 @@ The names and record keys are the reference's, so each has its
 counterpart: `build_train` / `build_prefill` / `build_decode` return (fn,
 args, in_specs, out_specs, donate); `_trace_cell` is `_compile_cell`'s
 counterpart, `_measure`, `_extrapolate`, `collective_stats`, `run_cell`,
-`run_solver_cell` and `main()` keep their roles and flags. Records land in
-`experiments/dryrun_torch/` by default.
+`run_solver_cell` and `main()` keep their roles and flags; `lay_out_args`
+is the counterpart of the jit's ``in_shardings``. Records land in
+`experiments/dryrun_torch/` by default. The counts of the partitioned
+program from the shapes (`partitioned_step_collectives`,
+`partitioned_serve_collectives`, `shampoo_refresh_moves`) take a
+(data, model) or a (pod, data, model) mesh shape.
 
 What each record key means in the port:
 
@@ -44,27 +48,55 @@ What each record key means in the port:
 * ``cost.bytes_accessed``: the tensor inputs plus outputs of each aten op
   that is not a view (an unfused count), plus the kernels' booked bytes,
   ÷ chips.
-* ``cost.coll_bytes`` and ``collectives_once``: the port's own
-  collectives (`parallel.collective_bytes()` and `collective_calls()`),
-  bytes ÷ chips, mapped onto the reference's five names: all_gather,
-  gather, to_dense and replicate (0 in one process) -> all-gather; psum, pmean and pmax -> all-reduce;
-  all_to_all and reshard -> all-to-all; ring -> collective-permute; the
-  all_gather's backward (reduce_scatter) -> reduce-scatter. The port runs
-  one global-view program: the collectives its compiler-free layout
-  implies for FSDP gathers, gradient all-reduces and tensor-parallel
-  reductions are not run, only those of its per-coordinate regions (the
-  embedding, MoE's expert parallelism, the sharded solver). So
-  ``coll_scope`` is "port regions", and a dense cell's ``coll_bytes`` is
-  not the reference's number.
+* ``cost.coll_bytes``, ``collectives_once`` and ``collectives_port``:
+  the collectives of the partitioned program, the reference's placed
+  jit's counterpart (``coll_scope`` "partitioned"): the cell's arguments
+  laid out on the mesh as the reference's ``in_shardings`` lay them
+  (`lay_out_args`: a DistArray a leaf, each coordinate computing on its
+  own regions: FSDP's gathers and their reduce-scatters, tensor
+  parallelism's psums, the held regions' gradient sums), run by the
+  reference's method: probes at L = 1 and 2 with one microbatch (B/M rows
+  of a train cell), `_extrapolate`d in depth and times M. They are the
+  port's own counts (`parallel.collective_bytes()` and
+  `collective_calls()`: bytes a coordinate receives, every layer), bytes
+  ÷ chips, mapped onto the reference's five names: all_gather, gather,
+  to_dense and replicate (0 in one process) -> all-gather; psum, pmean
+  and pmax -> all-reduce; all_to_all and reshard -> all-to-all; ring ->
+  collective-permute; the all_gather's backward (reduce_scatter) ->
+  reduce-scatter. The reference counts HLO operand bytes, a loop body
+  once, so the two compare only through a formula for each side.
+* ``cost_partitioned``: the partitioned program's own flops,
+  flops_global, bytes_accessed and coll_bytes a device, its booked
+  kernels (B6 and B6-bwd a coordinate), its laid-out arguments' bytes a
+  device (equal to ``per_device.argument_bytes``), the microbatch scale,
+  its probes and their host seconds (``trace_s``). Its bytes_accessed
+  counts the probe's optimizer update M times.
+* ``analytic``: the bytes and calls by kind that
+  `partitioned_step_collectives` or `partitioned_serve_collectives`
+  count from the shapes, and ``analytic_match`` whether the partitioned
+  program's equal them; both null for a rules set the counts do not
+  cover.
+* A rules set that the partitioned program refuses (`sp`, `fsdp_both`,
+  `ssd_cp`, `sp_ssd_cp`: they split an axis it does not realise) keeps
+  the global view's collectives, ``coll_scope`` "port regions" (only its
+  per-coordinate regions: the embedding, MoE's expert parallelism), and
+  records the refusal in ``partitioned_error``.
 * ``cost`` equals ``cost_raw``: an eager run counts every loop iteration.
-  ``cost_extrapolated`` is `_extrapolate` of probes at L = 1 and 2 (one
-  microbatch, under `scan_util.unroll_scans()`), a cross-check; on a dense
-  cell its FLOPs equal the full run's exactly.
-* ``trace_s``: the host seconds of the full run (the counterpart of
-  ``lower_s``); every per-coordinate region runs once a coordinate, so it
-  grows with the mesh. ``variant_effect`` says what a config variant
-  changes in the port: the attention-chunk variants change nothing, as
-  the kernel tiles itself.
+  Their flops and bytes_accessed are the global view's full run (the
+  whole program ÷ chips), their coll_bytes the partitioned program's.
+  ``cost_extrapolated`` is `_extrapolate` of the global view's probes at
+  L = 1 and 2 (one microbatch, under `scan_util.unroll_scans()`), a
+  cross-check; on a dense cell its FLOPs equal the full run's exactly.
+* ``trace_s``: the host seconds of the global view's full run (the
+  counterpart of ``lower_s``); every per-coordinate region runs once a
+  coordinate, so it grows with the mesh, and so do the partitioned
+  probes' (``cost_partitioned.trace_s``). ``method`` says how each number
+  was taken. ``variant_effect`` says what a config variant changes in the
+  port: the attention-chunk variants change nothing, as the kernel tiles
+  itself.
+
+The solver cell runs the laid-out `ShardedBlockMatrix` program, so its
+``coll_scope`` is "partitioned" too.
 
 The kernel launch counters do not move: the meta branches build and
 launch nothing.
@@ -94,21 +126,23 @@ from ..models import ssm as ssm_mod, transformer as T
 from ..models.layers import PARAM_DTYPE
 from ..models.scan_util import unroll_scans
 from ..optim.adamw import AdamWState
-from ..optim.spin_shampoo import SpinShampooConfig, _is_matrix, factor_spec
+from ..optim.spin_shampoo import SpinShampooConfig, SpinShampooState, _is_matrix, factor_spec
 from ..parallel.collectives import (DistArray, collective_bytes, collective_calls, grid_spec,
                                     region_of, reset_collective_bytes)
 from ..parallel.sharded_blockmatrix import record_specs
-from ..parallel.sharding import (DEFAULT_RULES, PartitionSpec as P, ShardingRules,
-                                 logical_spec)
-from ..runtime.trainer import TrainConfig, TrainState, abstract_state, make_train_step
-from ..tree import leaves
+from ..parallel.sharding import (DEFAULT_RULES, NamedSharding, PartitionSpec as P,
+                                 ShardingRules, lay_out, logical_spec)
+from ..runtime.trainer import (TrainConfig, TrainState, abstract_state, make_train_step,
+                               state_shardings)
+from ..tree import leaves, tree_map
 from .mesh import Mesh, make_production_mesh, set_mesh
 
 __all__ = ["RULES_VARIANTS", "CFG_VARIANTS", "collective_stats",
            "partitioned_step_collectives", "partitioned_serve_collectives",
            "shampoo_refresh_moves",
            "moe_block_collectives", "ssm_block_collectives", "build_train",
-           "build_prefill", "build_decode", "run_cell", "run_solver_cell", "main"]
+           "build_prefill", "build_decode", "lay_out_args", "trace_partitioned",
+           "analytic_collectives", "run_cell", "run_solver_cell", "main"]
 
 # Named sharding-rule variants (the reference's hillclimb knobs).
 RULES_VARIANTS: dict[str, ShardingRules] = {
@@ -179,6 +213,27 @@ METHOD = ("one eager run of the cell's step on meta tensors under the production
           "and alias bytes: each leaf's local shard under its spec; temp_bytes_global: "
           "peak live bytes of non-view op outputs")
 
+METHOD_PARTITIONED = (
+    "the partitioned program: the cell's arguments laid out on the mesh of meta devices "
+    "by their in-specs (lay_out_args, the reference's in_shardings), each coordinate "
+    "computing on its own regions, run eagerly in the counting mode at L = 1 and 2 with "
+    "one microbatch (B/M rows of a train cell), _extrapolate'd in depth and times M: "
+    "collectives (collective_bytes / collective_calls, every layer, bytes a coordinate "
+    "receives), FLOPs and booked kernels exact; bytes_accessed counts the probe's "
+    "optimizer update M times")
+
+
+def _method(scope: str) -> dict:
+    """How each number of a cell's record was taken."""
+    if scope != "partitioned":
+        return {"global_view": METHOD, "collectives": "the global view's port regions: the "
+                "partitioned program refuses this rules set (partitioned_error)"}
+    return {"global_view": METHOD, "partitioned": METHOD_PARTITIONED,
+            "collectives": "cost.coll_bytes, collectives_once and collectives_port: the "
+            "partitioned program's; per_device, cost.flops, cost.bytes_accessed, "
+            "temp_bytes_global, kernels_booked and probes: the global view's; "
+            "cost_partitioned: the partitioned program's own per-device counts"}
+
 
 def collective_stats(moved: dict, calls: dict, chips: int = 1) -> dict:
     """The port's collectives by kind (bytes and calls, as
@@ -231,10 +286,10 @@ class _Tally:
             self._add(kind, calls * (self.n // size) * 2 * (size - 1) * nbytes, calls)
 
 
-def _moe_layer(t: _Tally, cfg: ArchConfig, shape: tuple[int, int], rules: str, rows: int,
+def _moe_layer(t: _Tally, cfg: ArchConfig, lay: "_Layout", rules: str, b: int,
                seq: int, hint: int, passes: int, back: bool) -> None:
-    """One MoE layer's collectives on `rows` x `seq` tokens a coordinate
-    (`models.moe.moe_apply_laid_out`), `passes` forwards (2 under remat)
+    """One MoE layer's collectives on `b` x `seq` tokens, a coordinate's
+    rows of them (`models.moe.moe_apply_laid_out`), `passes` forwards (2 under remat)
     and with `back` the backward. Under `dp_only` each expert weight first
     moves its `model` part of the width to the expert axis (all_to_all).
     The experts are all-gathered over `data` (FSDP), the shared experts
@@ -248,14 +303,16 @@ def _moe_layer(t: _Tally, cfg: ArchConfig, shape: tuple[int, int], rules: str, r
     `model` along the sequence. The recompute stops at the layer's last
     saved tensor (the losses), so the pmeans and the output gather run
     once. With `model` 1 every coordinate gathers the batch and the
-    experts whole over `data` and keeps its rows of the output."""
-    d_n, m_n = shape
-    n = d_n * m_n
+    experts whole over `data` and keeps its rows of the output. A `pod`
+    axis splits the batch (and the pmeans' groups) with `data`."""
+    d_n, m_n = lay.sizes["data"], lay.sizes["model"]
+    ways = lay.ways(b)
+    rows = b // ways
     moe, d, bf = cfg.moe, cfg.d_model, 2
     e_loc = -(-moe.num_experts // hint) * hint // m_n
     f, fs = moe.d_ff_expert, moe.shared_d_ff if moe.num_shared_experts else 0
     if m_n == 1:
-        t.gather(rows * seq * d * bf, d_n, passes, back)         # the batch
+        t.gather(rows * seq * d * bf, ways, passes, back)        # the batch
         for _ in range(3):                                         # wi, wg, wo
             t.gather(e_loc * (d // d_n) * f * bf, d_n, passes, back)
         return
@@ -265,7 +322,7 @@ def _moe_layer(t: _Tally, cfg: ArchConfig, shape: tuple[int, int], rules: str, r
     for _ in range(3):                                         # wi, wg, wo
         if rules == "dp_only":
             for _ in range(passes + back):
-                t.all_to_all(e_loc * (d // n) * f * bf, m_n)
+                t.all_to_all(e_loc * (d // (d_n * m_n)) * f * bf, m_n)
         if d_n > 1:
             t.gather(e_loc * (d // d_n) * f * bf, d_n, passes, back)
         if fs:
@@ -277,35 +334,45 @@ def _moe_layer(t: _Tally, cfg: ArchConfig, shape: tuple[int, int], rules: str, r
         for _ in range(2):
             t.all_to_all(cap * d * bf, m_n)
     for _ in range(2):                                         # aux, z
-        t.psum(4, d_n * (m_n if split else 1), 1, back, kind="pmean")
+        t.psum(4, ways * (m_n if split else 1), 1, back, kind="pmean")
     if split:
         t.gather(rows * (seq // m_n) * d * bf, m_n, 1, back)
 
 
-def moe_block_collectives(cfg: ArchConfig, shape: tuple[int, int], rules: str, batch: int,
+def moe_block_collectives(cfg: ArchConfig, shape: tuple[int, ...], rules: str, batch: int,
                           seq: int, model_size_hint: int = 16,
                           backward: bool = False) -> tuple[dict, dict]:
     """Bytes and calls of each collective kind (all_gather, all_to_all,
     reduce_scatter, pmean) of one `models.moe.moe_apply_laid_out` of an
-    MoE `cfg` on `batch` x `seq` tokens on a (data, model) mesh of
-    `shape`, its forward, and with `backward` its backward too
-    (`_moe_layer`'s terms)."""
-    t = _Tally(shape[0] * shape[1], ("all_gather", "all_to_all", "reduce_scatter", "pmean"))
-    _moe_layer(t, cfg, shape, rules, batch // shape[0], seq, model_size_hint, 1, backward)
+    MoE `cfg` on `batch` x `seq` tokens on a (data, model) or (pod, data,
+    model) mesh of `shape`, its forward, and with `backward` its backward
+    too (`_moe_layer`'s terms)."""
+    t = _Tally(math.prod(shape), ("all_gather", "all_to_all", "reduce_scatter", "pmean"))
+    _moe_layer(t, cfg, _Layout(shape, rules), rules, batch, seq, model_size_hint, 1, backward)
     return t.moved, t.calls
 
 
 class _Layout:
     """The resolved layouts of a config's weights and activations on a
-    (data, model) mesh of `shape` under a rules set of `RULES_VARIANTS`,
-    and the collectives that realise them: `gather` counts what
-    `models.layers.gathered` moves to bring a weight from its own spec
-    to the spec a product wants (`collectives.to_spec`, dim by dim)."""
+    (data, model) or (pod, data, model) mesh of `shape` under a rules set
+    of `RULES_VARIANTS`, and the collectives that realise them: `gather`
+    counts what `models.layers.gathered` moves to bring a weight from its
+    own spec to the spec a product wants (`collectives.to_spec`, dim by
+    dim). `pod` splits the batch with `data` and no weight: every region
+    it does not split has twice the holders."""
 
-    def __init__(self, shape: tuple[int, int], rules: str):
-        self.sizes = {"data": shape[0], "model": shape[1]}
+    def __init__(self, shape: tuple[int, ...], rules: str):
+        if len(shape) not in (2, 3):
+            raise ValueError(f"mesh shape {tuple(shape)}: (data, model) or (pod, data, model)")
+        axes = ("data", "model") if len(shape) == 2 else ("pod", "data", "model")
+        self.sizes = dict(zip(axes, shape))
+        self.n = math.prod(shape)
         self.rules = RULES_VARIANTS[rules]
-        self.mesh = Mesh([["meta"] * shape[1]] * shape[0])
+        self.mesh = Mesh(_meta_grid(shape), axes)
+
+    def ways(self, batch: int) -> int:
+        """How many ways the resolved `batch` spec splits `batch` rows."""
+        return self.size(self.spec((batch,), ("batch",))[0])
 
     def spec(self, shape, logical) -> P:
         return logical_spec(tuple(shape), tuple(logical), self.rules, self.mesh)
@@ -345,13 +412,19 @@ class _Layout:
                 cur[dim] = shape[dim]
 
 
+def _meta_grid(shape: tuple[int, ...]):
+    """Nested lists of the meta device, one a coordinate of `shape`."""
+    return "meta" if not shape else [_meta_grid(shape[1:]) for _ in range(shape[0])]
+
+
 def _dtype_bytes(w) -> int:
     return (w.dtype or PARAM_DTYPE).itemsize
 
 
-def _lm_body(t: _Tally, cfg: ArchConfig, lay: _Layout, defs: dict, rows: int, seq: int,
+def _lm_body(t: _Tally, cfg: ArchConfig, lay: _Layout, defs: dict, b: int, seq: int,
              passes: int, back: bool, decode_slots: int = 0) -> None:
-    """One layer's collectives on `rows` x `seq` tokens a coordinate:
+    """One layer's collectives on `b` x `seq` tokens, a coordinate's rows
+    of them:
     attention, the SSM block and the MLP (the MoE block is `_moe_layer`'s),
     `passes` forwards (2 under remat: a product's weight gathers run again
     in the recompute) and with `back` the backward. An output psum that no
@@ -359,8 +432,8 @@ def _lm_body(t: _Tally, cfg: ArchConfig, lay: _Layout, defs: dict, rows: int, se
     the layer's last saved tensor). With `decode_slots` the attention is a
     decode step over a cache of that many slots."""
     bf, f32 = 2, 4
+    rows, s = b // lay.ways(b), seq
     x = rows * seq * cfg.d_model * bf             # an activation (B_loc, S, d)
-    b, s = rows * lay.sizes["data"], seq
     follows = bool(cfg.d_ff or cfg.moe)           # a product after the mixers
     if not cfg.attn_free:
         a, h, kv, hd = defs["attn"], cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -383,7 +456,7 @@ def _lm_body(t: _Tally, cfg: ArchConfig, lay: _Layout, defs: dict, rows: int, se
         if q_ax:
             t.psum(x, lay.size(q_ax), passes if (follows or cfg.ssm) else 1, back)
     if cfg.ssm is not None:
-        _ssm_layer(t, cfg, lay, defs["ssm"], rows, seq, passes, back, follows)
+        _ssm_layer(t, cfg, lay, defs["ssm"], b, seq, passes, back, follows)
     if cfg.d_ff:
         m, f = defs["mlp"], cfg.d_ff
         f_ax = lay.spec((b, s, f), ("batch", "seq", "ffn"))[2]
@@ -395,7 +468,7 @@ def _lm_body(t: _Tally, cfg: ArchConfig, lay: _Layout, defs: dict, rows: int, se
             t.psum(x, lay.size(f_ax), 1, back)
 
 
-def _ssm_layer(t: _Tally, cfg: ArchConfig, lay: _Layout, defs: dict, rows: int, seq: int,
+def _ssm_layer(t: _Tally, cfg: ArchConfig, lay: _Layout, defs: dict, b: int, seq: int,
                passes: int, back: bool, follows: bool) -> None:
     """The SSM block's collectives (`models.ssm.ssm_apply_laid_out`): `wz`
     gathered to the SSD heads' axis, `wxbc` and `wdt` whole, and where
@@ -403,8 +476,8 @@ def _ssm_layer(t: _Tally, cfg: ArchConfig, lay: _Layout, defs: dict, rows: int, 
     output psum'd over it; `wo` gathered to (heads' axis, None). Its output
     psum runs once a layer unless a product `follows` it in the layer."""
     _, n_h, p, _, _ = ssm_mod._dims(cfg)
-    ax = lay.spec((rows * lay.sizes["data"], seq, n_h, p),
-                  ("batch", "seq", "ssm_inner", None))[2]
+    rows = b // lay.ways(b)
+    ax = lay.spec((b, seq, n_h, p), ("batch", "seq", "ssm_inner", None))[2]
     lay.gather(t, defs["wz"], (None, ax), passes, back)
     for name in ("wxbc", "wdt"):
         lay.gather(t, defs[name], (None, None), passes, back)
@@ -415,16 +488,16 @@ def _ssm_layer(t: _Tally, cfg: ArchConfig, lay: _Layout, defs: dict, rows: int, 
         t.psum(rows * seq * cfg.d_model * 2, lay.size(ax), passes if follows else 1, back)
 
 
-def ssm_block_collectives(cfg: ArchConfig, shape: tuple[int, int], rules: str, batch: int,
+def ssm_block_collectives(cfg: ArchConfig, shape: tuple[int, ...], rules: str, batch: int,
                           seq: int, backward: bool = False) -> tuple[dict, dict]:
     """Bytes and calls of each collective kind (all_gather,
     reduce_scatter, psum) of one `models.ssm.ssm_apply_laid_out` of an SSM
-    or hybrid `cfg` on `batch` x `seq` tokens on a (data, model) mesh of
-    `shape`, its forward, and with `backward` its backward too
-    (`_ssm_layer`'s terms)."""
-    t = _Tally(shape[0] * shape[1], ("all_gather", "reduce_scatter", "psum"))
+    or hybrid `cfg` on `batch` x `seq` tokens on a (data, model) or (pod,
+    data, model) mesh of `shape`, its forward, and with `backward` its
+    backward too (`_ssm_layer`'s terms)."""
+    t = _Tally(math.prod(shape), ("all_gather", "reduce_scatter", "psum"))
     _ssm_layer(t, cfg, _Layout(shape, rules), T.param_defs(cfg)["layers"]["ssm"],
-               batch // shape[0], seq, 1, backward, False)
+               batch, seq, 1, backward, False)
     return t.moved, t.calls
 
 
@@ -499,7 +572,7 @@ def _shampoo_gathers(t: _Tally, lay: _Layout, defs: dict) -> None:
         _panel_fetches(t, lay, g, lambda r: [(g, rows(g, r)), (fr, cols(fr, r))])
 
 
-def shampoo_refresh_moves(cfg: ArchConfig, shape: tuple[int, int], block_size,
+def shampoo_refresh_moves(cfg: ArchConfig, shape: tuple[int, ...], block_size,
                           model_size_hint: int = 16) -> tuple[int, int]:
     """Bytes and calls of "reshard" a SPIN-Shampoo refresh adds to its
     inversions on a (data, model) mesh of `shape`: each factor layer (n, n),
@@ -530,7 +603,7 @@ def shampoo_refresh_moves(cfg: ArchConfig, shape: tuple[int, int], block_size,
     return moved, calls
 
 
-def partitioned_step_collectives(cfg: ArchConfig, shape: tuple[int, int], rules: str,
+def partitioned_step_collectives(cfg: ArchConfig, shape: tuple[int, ...], rules: str,
                                  batch: int, seq: int, microbatches: int,
                                  model_size_hint: int = 16,
                                  optimizer: str = "adamw") -> tuple[dict, dict]:
@@ -538,11 +611,12 @@ def partitioned_step_collectives(cfg: ArchConfig, shape: tuple[int, int], rules:
     reduce_scatter, psum, pmax; all_to_all and pmean with MoE) in one
     partitioned step of `cfg`, of any family (experts padded to a multiple
     of `model_size_hint`), on `batch` x `seq` positions (`seq` the model's
-    sequence, a VLM's patch stubs included) on a (data, model) mesh of
-    `shape` under the `default` or `dp_only` rules, from the shapes: what
-    `collective_bytes()` and `collective_calls()` count for
-    `runtime.trainer.make_train_step` on a laid-out state with full remat
-    (`_Tally` says what each collective moves).
+    sequence, a VLM's patch stubs included) on a (data, model) or (pod,
+    data, model) mesh of `shape` under the `default` or `dp_only` rules,
+    from the shapes: what `collective_bytes()` and `collective_calls()`
+    count for `runtime.trainer.make_train_step` on a laid-out state with
+    full remat (`_Tally` says what each collective moves). `pod` splits
+    the batch with `data` (the loss's sums run over both) and no weight.
 
     A microbatch runs the lookup (of the text alone: none of audio's
     frames, a VLM's tokens after its patches) and the head once; each
@@ -570,26 +644,26 @@ def partitioned_step_collectives(cfg: ArchConfig, shape: tuple[int, int], rules:
     """
     if rules not in ("default", "dp_only"):
         raise ValueError(f"no count for the rules {rules!r}: default or dp_only")
-    d_n, m_n = shape
-    n = d_n * m_n
     lay = _Layout(shape, rules)
+    n, m_n = lay.n, lay.sizes["model"]
     defs = T.param_defs(cfg, model_size_hint)
     f32 = 4
-    rows = batch // microbatches // d_n           # a coordinate's rows of a microbatch
-    row = rows * seq * f32                        # an f32 value a position
+    b = batch // microbatches                     # a microbatch's rows
+    ways = lay.ways(b)
+    row = b // ways * seq * f32                   # an f32 value a position, a coordinate's rows
     kinds = ("all_gather", "reduce_scatter", "psum", "pmax")
     t = _Tally(n, kinds + (("all_to_all", "pmean") if cfg.moe else ()))
-    v_ax = _lookup_and_head(t, cfg, lay, defs, rows, _text(cfg, seq), True)
+    v_ax = _lookup_and_head(t, cfg, lay, defs, b // ways, _text(cfg, seq), True)
     for _ in range(cfg.n_layers):
-        _lm_body(t, cfg, lay, defs["layers"], rows, seq, 2, True)
+        _lm_body(t, cfg, lay, defs["layers"], b, seq, 2, True)
         if cfg.moe:
-            _moe_layer(t, cfg, shape, rules, rows, seq, model_size_hint, 2, True)
+            _moe_layer(t, cfg, lay, rules, b, seq, model_size_hint, 2, True)
     if v_ax:
         t.psum(row, m_n, kind="pmax")
         t.psum(row, m_n, 1, True)                                  # the sum of exponentials
         t.psum(row, m_n, 1, True)                                  # the label's logit
-    t.psum(f32, d_n, 1, True)                                      # the loss sum
-    t.psum(f32, d_n, 1)                                            # the token count
+    t.psum(f32, ways, 1, True)                                     # the loss sum
+    t.psum(f32, ways, 1)                                           # the token count
     for w in leaves(defs):                                         # held regions' gradients
         holders = n // math.prod(lay.size(a) for a in lay.spec(w.shape, w.logical))
         if holders > 1:
@@ -607,7 +681,7 @@ def partitioned_step_collectives(cfg: ArchConfig, shape: tuple[int, int], rules:
     return moved, calls
 
 
-def partitioned_serve_collectives(cfg: ArchConfig, shape: tuple[int, int], rules: str,
+def partitioned_serve_collectives(cfg: ArchConfig, shape: tuple[int, ...], rules: str,
                                   batch: int, prompt: int, cache_len: int,
                                   model_size_hint: int = 16) -> dict:
     """Bytes and calls of each collective kind (all_gather, all_to_all,
@@ -616,8 +690,8 @@ def partitioned_serve_collectives(cfg: ArchConfig, shape: tuple[int, int], rules
     `cache_len` (min(cache_len, window) slots under a sliding window), of
     `cfg`, of any family (experts padded to a multiple of
     `model_size_hint`; `prompt` the model's sequence, a VLM's patch stubs
-    included), on a (data, model) mesh of `shape` under the
-    `default` or `dp_only` rules, from the shapes: {"prefill": (bytes,
+    included), on a (data, model) or (pod, data, model) mesh of `shape`
+    under the `default` or `dp_only` rules, from the shapes: {"prefill": (bytes,
     calls), "decode": (bytes, calls)}, what `collective_bytes()` and
     `collective_calls()` count for each on laid-out parameters (`_Tally`
     says what each collective moves; no remat, no backward).
@@ -638,18 +712,18 @@ def partitioned_serve_collectives(cfg: ArchConfig, shape: tuple[int, int], rules
     """
     if rules not in ("default", "dp_only"):
         raise ValueError(f"no count for the rules {rules!r}: default or dp_only")
-    d_n, m_n = shape
     lay = _Layout(shape, rules)
+    m_n = lay.sizes["model"]
     defs = T.param_defs(cfg, model_size_hint)
-    rows = batch // d_n                           # a coordinate's rows
+    rows = batch // lay.ways(batch)               # a coordinate's rows
     kinds = ("all_gather", "all_to_all", "psum", "pmax") + (("pmean",) if cfg.moe else ())
     out = {}
     for phase, seq in (("prefill", prompt), ("decode", 1)):
-        t = _Tally(d_n * m_n, kinds)
+        t = _Tally(lay.n, kinds)
         _lookup_and_head(t, cfg, lay, defs, rows,
                          _text(cfg, seq) if phase == "prefill" else 1, False)
         for _ in range(cfg.n_layers):
-            _lm_body(t, cfg, lay, defs["layers"], rows, seq, 1, False,
+            _lm_body(t, cfg, lay, defs["layers"], batch, seq, 1, False,
                      cache_len if phase == "decode" else 0)
             if phase == "prefill" and not cfg.attn_free:
                 kv, hd = cfg.n_kv_heads, cfg.head_dim
@@ -659,7 +733,7 @@ def partitioned_serve_collectives(cfg: ArchConfig, shape: tuple[int, int], rules
                     for _ in range(2):
                         t.all_to_all(rows * (prompt // m_n) * (kv // m_n) * hd * 2, m_n)
             if cfg.moe:
-                _moe_layer(t, cfg, shape, rules, rows, seq, model_size_hint, 1, False)
+                _moe_layer(t, cfg, lay, rules, batch, seq, model_size_hint, 1, False)
         out[phase] = (t.moved, t.calls)
     return out
 
@@ -799,11 +873,19 @@ def _extent(spec, mesh) -> int:
     return n
 
 
+def _local_bytes(x: DistArray) -> int:
+    """A laid-out leaf's bytes at its first coordinate."""
+    return _nbytes(x.shards[x.mesh.coords()[0]])
+
+
 def _shard_bytes(tree, specs, mesh) -> int:
     """Σ over the leaves of `tree` of their local shard bytes under the
-    matching leaf of `specs` (a PartitionSpec a tensor)."""
+    matching leaf of `specs` (a PartitionSpec a tensor; a DistArray's own
+    shard, whatever `specs` says)."""
     if tree is None:
         return 0
+    if isinstance(tree, DistArray):
+        return _local_bytes(tree)
     if isinstance(tree, torch.Tensor):
         return _nbytes(tree) // _extent(specs, mesh)
     if isinstance(tree, dict):
@@ -814,7 +896,7 @@ def _shard_bytes(tree, specs, mesh) -> int:
 
 
 def _tensors(tree) -> list:
-    if isinstance(tree, torch.Tensor):
+    if isinstance(tree, (torch.Tensor, DistArray)):
         return [tree]
     if isinstance(tree, dict):
         return [t for k in sorted(tree) for t in _tensors(tree[k])]
@@ -841,6 +923,9 @@ def _recorded_bytes(outs, records, mesh):
     """Bytes a device holds of `outs` under the recorded specs, or None."""
     total = 0
     for t in _tensors(outs):
+        if isinstance(t, DistArray):
+            total += _local_bytes(t)
+            continue
         spec = () if t.ndim == 0 else _recorded_spec(records, tuple(t.shape))
         if spec is None:
             return None
@@ -875,18 +960,18 @@ _REMAT_POLICY = "full"      # set by --remat-policy
 
 
 def build_train(cfg: ArchConfig, shape: ShapeConfig, mesh, rules: ShardingRules,
-                microbatches: int, model_size_hint: int | None = None):
-    """The AdamW train step. The state is `abstract_state`'s (on meta),
-    with host 0-dim step counters in place of its meta ones: their value
-    changes neither shapes nor work, and the schedule reads them."""
+                microbatches: int, model_size_hint: int | None = None,
+                optimizer: str = "adamw"):
+    """The train step (AdamW, or SPIN-Shampoo on a mesh: its factors take
+    `factor_spec`). The state is `abstract_state`'s (on meta), with host
+    0-dim step counters in place of its meta ones (`_host_counters`)."""
     hint = _hint(mesh, model_size_hint)
-    tcfg = TrainConfig(microbatches=microbatches, remat_policy=_REMAT_POLICY)
-    state_abs = abstract_state(cfg, tcfg, model_size_hint=hint)
-    state_abs = state_abs._replace(
-        step=torch.zeros((), dtype=torch.int32),
-        opt=state_abs.opt._replace(step=torch.zeros((), dtype=torch.int32)))
+    tcfg = TrainConfig(microbatches=microbatches, optimizer=optimizer,
+                       remat_policy=_REMAT_POLICY)
+    state_abs = _host_counters(abstract_state(cfg, tcfg, model_size_hint=hint))
     batch_abs = input_specs(cfg, shape)
-    state_specs = _param_state_specs(cfg, rules, mesh, hint)
+    state_specs = (_param_state_specs(cfg, rules, mesh, hint) if optimizer == "adamw" else
+                   tree_map(lambda sh: sh.spec, state_shardings(cfg, tcfg, mesh, rules, hint)))
     batch_specs = _batch_specs(batch_abs, rules, mesh)
     fn = make_train_step(cfg, tcfg, rules)
     return (fn, (state_abs, batch_abs), (state_specs, batch_specs),
@@ -922,6 +1007,56 @@ def build_decode(cfg: ArchConfig, shape: ShapeConfig, mesh, rules: ShardingRules
         return T.decode_step(params, cache, tokens, cfg, rules)
 
     return (fn, (params_abs, cache_abs, tokens_abs), (pspecs, cspecs, tspec), None, (1,))
+
+
+def _build(cfg: ArchConfig, shape: ShapeConfig, mesh, rules: ShardingRules,
+           microbatches: int, model_size_hint: int | None = None) -> tuple:
+    if shape.kind == "train":
+        return build_train(cfg, shape, mesh, rules, microbatches, model_size_hint)
+    if shape.kind == "prefill":
+        return build_prefill(cfg, shape, mesh, rules, model_size_hint)
+    return build_decode(cfg, shape, mesh, rules, model_size_hint)
+
+
+def _host_counters(state: TrainState) -> TrainState:
+    """`state` with host 0-dim int32 step counters (the state's and its
+    optimizer's) in place of its meta or laid-out ones: the schedule reads
+    them (`optim.adamw.step_count` would read a meta counter's value), and
+    their value changes neither shapes nor work, but for SPIN-Shampoo's
+    refresh: its counters stand at 1, so the step traced is one that does
+    not refresh (a refresh asks the planner, which plans no meta device)."""
+    start = 1 if isinstance(state.opt, SpinShampooState) else 0
+    return state._replace(step=torch.tensor(start, dtype=torch.int32),
+                          opt=state.opt._replace(step=torch.tensor(start, dtype=torch.int32)))
+
+
+def _shardings(specs, mesh):
+    """A tree of PartitionSpecs (dicts, lists, NamedTuples, None) as the
+    same tree of `NamedSharding`s on `mesh`."""
+    if specs is None:
+        return None
+    if isinstance(specs, P):
+        return NamedSharding(mesh, specs)
+    if isinstance(specs, dict):
+        return {k: _shardings(v, mesh) for k, v in specs.items()}
+    items = [_shardings(v, mesh) for v in specs]
+    return type(specs)(*items) if hasattr(specs, "_fields") else type(specs)(items)
+
+
+def lay_out_args(built: tuple, mesh) -> tuple:
+    """The counterpart of the reference's `in_shardings`: the arguments of
+    a `build_*` cell laid out on `mesh` by its in-specs, each leaf a
+    DistArray whose coordinates hold their regions (on a meta mesh, shapes
+    only): the train state by `_param_state_specs` (SPIN-Shampoo's by
+    `runtime.trainer.state_shardings`, its factors by `factor_spec`), the
+    batch by `_batch_specs`, the parameters by `param_specs`, the decode
+    cache by `cache_specs` and its tokens by their `batch` spec. A train
+    state keeps its step counters on the host (`_host_counters`)."""
+    out = []
+    for arg, specs in zip(built[1], built[2]):
+        laid = lay_out(arg, _shardings(specs, mesh))
+        out.append(_host_counters(laid) if isinstance(laid, TrainState) else laid)
+    return tuple(out)
 
 
 # ---------------------------------------------------------------------------
@@ -975,12 +1110,7 @@ def _trace_cell(cfg: ArchConfig, shape: ShapeConfig, mesh, rules: ShardingRules,
                 microbatches: int, *, model_size_hint: int | None = None) -> dict:
     """Build one configuration and run it once on meta tensors (the
     counterpart of `_compile_cell`): `_trace`'s dict plus "built"."""
-    if shape.kind == "train":
-        built = build_train(cfg, shape, mesh, rules, microbatches, model_size_hint)
-    elif shape.kind == "prefill":
-        built = build_prefill(cfg, shape, mesh, rules, model_size_hint)
-    else:
-        built = build_decode(cfg, shape, mesh, rules, model_size_hint)
+    built = _build(cfg, shape, mesh, rules, microbatches, model_size_hint)
     fn, args = built[0], built[1]
     traced = _trace(fn, args, mesh)
     traced["built"] = built
@@ -1006,6 +1136,80 @@ def _extrapolate(f1: float, f2: float, n_layers: int) -> float:
     cross-check. The delta is clamped at 0 as the reference's is."""
     c = max(f2 - f1, 0.0)
     return f1 + (n_layers - 1) * c
+
+
+def trace_partitioned(cfg: ArchConfig, shape: ShapeConfig, mesh, rules: ShardingRules,
+                      microbatches: int, *, model_size_hint: int | None = None,
+                      lay_batch: bool = True) -> dict:
+    """Run one configuration once on meta tensors as the partitioned
+    program: the cell's arguments laid out on `mesh` (`lay_out_args`),
+    each coordinate computing on its own regions, no ambient mesh.
+    `_trace`'s dict plus "built". With `lay_batch` False the model inputs
+    (the batch, decode's tokens) stay whole, as a stream or the last step
+    hands them to the program; a laid-out train batch cut into
+    microbatches moves rows between coordinates ("reshard"). A rules
+    set that splits an axis the program does not realise raises
+    ValueError (`parallel.sharding.Program.shard`)."""
+    built = _build(cfg, shape, mesh, rules, microbatches, model_size_hint)
+    args = lay_out_args(built, mesh)
+    if not lay_batch:
+        args = args[:-1] + built[1][-1:]
+    traced = _trace(built[0], args, None)
+    traced["built"] = built
+    return traced
+
+
+def _partitioned_probes(cfg: ArchConfig, shape: ShapeConfig, mesh, rules: ShardingRules,
+                        microbatches: int) -> dict:
+    """The partitioned program by the reference's method: probes at L ∈
+    {1, 2} of the laid-out cell, one microbatch (B/M rows of a train
+    cell, its batch laid out), `_extrapolate`d in depth and, for a train
+    cell, times M. Exact for the collectives, FLOPs and booked kernels,
+    which a microbatch repeats; the probe's optimizer update and gradient
+    averaging count M times in bytes_accessed."""
+    m = microbatches if shape.kind == "train" else 1
+    one = dataclasses.replace(shape, global_batch=shape.global_batch // m)
+    probes = {}
+    with unroll_scans():
+        for n_layers in (1, 2):
+            probes[n_layers] = _measure(trace_partitioned(
+                dataclasses.replace(cfg, n_layers=n_layers), one, mesh, rules, 1))
+
+    def extrap(v1, v2):
+        if isinstance(v1, dict):                  # by kind, by kernel
+            return {k: extrap(v, v2.get(k, 0)) for k, v in v1.items()}
+        got = m * _extrapolate(v1, v2, cfg.n_layers)
+        return int(got) if isinstance(v1, int) and isinstance(v2, int) else got
+
+    out = {key: extrap(probes[1][key], probes[2][key])
+           for key in ("flops", "flops_aten", "flops_kernels", "bytes_accessed", "coll_bytes",
+                       "moved", "calls", "booked")}
+    out["probes"] = {f"L{n}": {key: p[key] for key in ("flops", "bytes_accessed", "coll_bytes",
+                                                          "moved", "calls", "trace_s")}
+                     for n, p in probes.items()}
+    out["trace_s"] = sum(p["trace_s"] for p in probes.values())
+    out["microbatch_scale"] = m
+    return out
+
+
+def analytic_collectives(cfg: ArchConfig, shape: ShapeConfig, mesh_shape: tuple[int, ...],
+                         rules_name: str, microbatches: int,
+                         model_size_hint: int = 16) -> tuple[dict, dict] | None:
+    """The partitioned cell's bytes and calls by kind from the shapes
+    (`partitioned_step_collectives`, or `partitioned_serve_collectives`'
+    prefill or decode), or None for a rules set they do not count."""
+    if rules_name not in ("default", "dp_only"):
+        return None
+    seq = T._extent(input_specs(cfg, shape))[1] if shape.kind != "decode" else 1
+    if shape.kind == "train":
+        return partitioned_step_collectives(cfg, mesh_shape, rules_name, shape.global_batch,
+                                            seq, microbatches, model_size_hint)
+    return partitioned_serve_collectives(cfg, mesh_shape, rules_name, shape.global_batch,
+                                         seq, shape.seq_len, model_size_hint)[shape.kind]
+
+
+def _nonzero(d: dict) -> dict:
+    return {k: v for k, v in d.items() if v}
 
 
 def _per_device(m: dict, chips: int) -> dict:
@@ -1071,7 +1275,40 @@ def run_cell(arch_name: str, shape_name: str, *, multi_pod: bool,
     def extrap(key):
         return _extrapolate(probes["L1"][key], probes["L2"][key], cfg.n_layers)
 
+    # 3) the partitioned program: the arguments laid out as in_shardings lay
+    # them, probes at L ∈ {1, 2}, one microbatch
+    analytic = analytic_collectives(cfg, shape, tuple(mesh.shape.values()), rules_name,
+                                    microbatches, _hint(mesh, None))
+    try:
+        part = _partitioned_probes(cfg, shape, mesh, rules, microbatches)
+    except ValueError as e:
+        if "does not realise" not in str(e):
+            raise
+        part, error = None, str(e)
+
     raw = _per_device(full, chips)
+    if part is not None:
+        raw["coll_bytes"] = part["coll_bytes"] / chips
+        moved, calls = part["moved"], part["calls"]
+        built = _build(cfg, shape, mesh, rules, microbatches)
+        laid = lay_out_args(built, mesh)
+        rec.update(
+            coll_scope="partitioned",
+            cost_partitioned=dict(
+                _per_device(part, chips), kernels_booked=part["booked"],
+                argument_bytes=sum(_shard_bytes(a, sp, mesh) for a, sp in zip(laid, built[2])),
+                microbatch_scale=part["microbatch_scale"],
+                trace_s=round(part["trace_s"], 2), probes=part["probes"]),
+            analytic=None if analytic is None else dict(bytes=_nonzero(analytic[0]),
+                                                        calls=_nonzero(analytic[1])),
+            analytic_match=None if analytic is None else (
+                (_nonzero(moved), _nonzero(calls))
+                == (_nonzero(analytic[0]), _nonzero(analytic[1]))))
+        del built, laid
+    else:
+        moved, calls = full["moved"], full["calls"]
+        rec.update(coll_scope="port regions", partitioned_error=error, analytic=None,
+                   analytic_match=None)
     rec.update(
         trace_s=round(full["trace_s"], 2),
         per_device=dict(argument_bytes=arg_bytes, output_bytes=out_bytes,
@@ -1087,9 +1324,8 @@ def run_cell(arch_name: str, shape_name: str, *, multi_pod: bool,
                 for k, v in probes.items()},
         flops_aten_global=full["flops_aten"], flops_kernels_global=full["flops_kernels"],
         kernels_booked=full["booked"],
-        collectives_once=collective_stats(full["moved"], full["calls"], chips),
-        collectives_port=dict(bytes=full["moved"], calls=full["calls"]),
-        coll_scope="port regions", method=METHOD,
+        collectives_once=collective_stats(moved, calls, chips),
+        collectives_port=dict(bytes=moved, calls=calls), method=_method(rec["coll_scope"]),
         variant_effect=_variant_effect(base, cfg),
         launches_moved=kernels.launch_counts() != launches_before,
         aten_ops=full["aten_ops"],
@@ -1098,8 +1334,10 @@ def run_cell(arch_name: str, shape_name: str, *, multi_pod: bool,
         print(f"[{arch_name} × {shape_name} × {mesh_label} × {rules_name} × {variant}] "
               f"trace {rec['trace_s']}s  arg/dev {arg_bytes / 2**30:.2f}GiB  "
               f"temp(global) {rec['temp_bytes_global'] / 2**30:.1f}GiB  "
-              f"flops/dev {raw['flops']:.3e}  coll/dev {raw['coll_bytes'] / 2**20:.1f}MiB  "
-              f"bytes_accessed/dev {raw['bytes_accessed'] / 2**30:.1f}GiB", flush=True)
+              f"flops/dev {raw['flops']:.3e}  coll/dev {raw['coll_bytes'] / 2**20:.1f}MiB "
+              f"({rec['coll_scope']})  bytes_accessed/dev {raw['bytes_accessed'] / 2**30:.1f}GiB"
+              + (f"  partitioned trace {rec['cost_partitioned']['trace_s']}s, analytic count "
+                 f"{rec['analytic_match']}" if part is not None else ""), flush=True)
     return rec
 
 
@@ -1164,7 +1402,7 @@ def run_solver_cell(n: int, block_size: int, *, multi_pod: bool,
         flops_aten_global=m["flops_aten"], flops_kernels_global=m["flops_kernels"],
         collectives_once=collective_stats(m["moved"], m["calls"], chips),
         collectives_port=dict(bytes=m["moved"], calls=m["calls"]),
-        coll_scope="port regions" if algo == "spin" else "none: the global grid",
+        coll_scope="partitioned" if algo == "spin" else "none: the global grid",
         method=METHOD, launches_moved=kernels.launch_counts() != launches_before,
         aten_ops=m["aten_ops"],
     )

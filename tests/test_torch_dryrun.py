@@ -33,6 +33,22 @@ while this process runs the port's on the meta device. What must agree:
   from the other M - 1, in bf16 with an int64 index. Each side equals its
   formula, and the port's count is at most L times the reference's.
 
+* the partitioned program's collectives a device, kind by kind, by a
+  formula for each side where one can be written. The reference counts
+  the operand bytes of each collective of its partitioned HLO, a loop
+  body (one layer) once, bf16 carried in f32 by its CPU compiler: an
+  all-gather's operand is a coordinate's shard, an all-reduce's the whole
+  local tensor. The port counts the bytes a coordinate receives, every
+  layer, in bf16: (size - 1) shards of an all_gather, 2·(size - 1)/size
+  of a psum's tensor. On olmo-1b × decode_32k both sides follow from the
+  shapes. On × train_4k the reference's partitioner picks its own
+  collectives (four collective-permutes, one reduce-scatter, the remat's
+  gathers folded), which no formula here follows: both numbers are pinned,
+  the port's to its own count (`partitioned_step_collectives`), and their
+  ratio, port ÷ reference, is 294.84 (all-gather), 52.858 (all-reduce)
+  and 46.584 (reduce-scatter); the reference's 103,120,896 B of
+  collective-permute have no counterpart in the port (ROADMAP §C).
+
 The solver cell's FLOPs are not compared: the reference's partitioner
 computes the replicated lower levels on every device and counts them on
 each, while the port's mesh of one meta device computes a replicated
@@ -272,7 +288,7 @@ def test_solver_cell_matches_the_reference_layout(ref, port):
     assert got["per_device"]["argument_bytes"] == want["per_device"]["argument_bytes"]
     assert got["per_device"]["output_bytes"] == want["per_device"]["output_bytes"]
     assert got["shape"] == want["shape"] and got["chips"] == want["chips"] == 256
-    assert got["cost"]["flops"] > 0 and got["coll_scope"] == "port regions"
+    assert got["cost"]["flops"] > 0 and got["coll_scope"] == "partitioned"
     lu = D.run_solver_cell(1024, 64, multi_pod=False, algo="lu", verbose=False)
     assert lu["cost"]["coll_bytes"] == 0 and lu["cost"]["flops"] > 0
 
@@ -293,6 +309,61 @@ def test_moe_all_to_all_bytes_against_the_reference(ref, port):
     assert got <= cfg.n_layers * ref_once["operand_bytes"]
 
 
+# the reference's train_4k collectives (jax 0.9.0's CPU partitioner), pinned
+REF_TRAIN_COLLECTIVES = {"all-gather": (20, 7_483_392), "all-reduce": (17, 780_861_512),
+                         "reduce-scatter": (1, 25_755_648),
+                         "collective-permute": (4, 103_120_896)}
+TRAIN_COLL_RATIO = {"all-gather": 294.84, "all-reduce": 52.858, "reduce-scatter": 46.584}
+
+
+def test_partitioned_collective_bytes_by_kind_against_the_reference(ref, port):
+    cfg = get_arch("olmo-1b")
+    d, v, f, hd, L = cfg.d_model, cfg.vocab, cfg.d_ff, cfg.head_dim, cfg.n_layers
+    data = model = 16
+    # decode_32k: B 128, rows a coordinate; a coordinate's shards of the
+    # table (vocab over model, width over data), of a layer's four
+    # attention and three MLP weights, and of q, k, v (a head a coordinate)
+    rows, heads = SHAPES["decode_32k"].global_batch // data, cfg.n_heads // model
+    table = (v // model) * (d // data)
+    layer = 4 * (d // data) * heads * hd + 3 * (d // data) * (f // model)
+    qkv = 3 * rows * heads * hd
+    # all-reduce: the lookup's partial rows, the attention's and the MLP's
+    # outputs (rows, d), and the split softmax's max (rows, H) and (o, l)
+    # (rows, H, hd + 1), f32
+    sums = rows * d + L * (2 * rows * d)
+    softmax = L * rows * cfg.n_heads * (hd + 1) * 4
+    pmax = L * rows * cfg.n_heads * 4
+    want_ref = {"all-gather": (12, 4 * (2 * table + layer + qkv)),
+                "all-reduce": (6, 4 * (rows * d + 2 * rows * d) + (softmax + pmax) // L)}
+    want_port = {"all-gather": (2 + 7 * L + 3 * L,
+                                (model - 1) * 2 * (2 * table + L * (layer + qkv))),
+                 "all-reduce": (1 + 3 * L + L,
+                                2 * (model - 1) * (2 * sums + softmax + pmax) // model)}
+    got_ref, got = ref()["decode_32k"]["collectives_once"], port["decode_32k"]
+    assert got["coll_scope"] == "partitioned" and got["analytic_match"] is True
+    for kind in want_ref:
+        assert (got_ref[kind]["count"], got_ref[kind]["operand_bytes"]) == want_ref[kind], kind
+        ours = got["collectives_once"][kind]
+        assert (ours["count"], ours["operand_bytes"]) == want_port[kind], kind
+    assert want_port["all-gather"][1] == 151_449_600 and want_ref["all-gather"][1] == 4_280_320
+    assert got["cost"]["coll_bytes"] == sum(want_port[k][1] for k in want_port)
+    # train_4k: pinned, each side to its own count, and their ratio
+    got_ref, got = ref()["train_4k"]["collectives_once"], port["train_4k"]
+    assert got["coll_scope"] == "partitioned" and got["analytic_match"] is True
+    moved, calls = D.partitioned_step_collectives(cfg, (data, model), "default",
+                                                  SHAPES["train_4k"].global_batch,
+                                                  SHAPES["train_4k"].seq_len, 8)
+    assert got["collectives_once"] == D.collective_stats(moved, calls, data * model)
+    for kind, pinned in REF_TRAIN_COLLECTIVES.items():
+        assert (got_ref[kind]["count"], got_ref[kind]["operand_bytes"]) == pinned, kind
+        ours = got["collectives_once"][kind]["operand_bytes"]
+        if kind in TRAIN_COLL_RATIO:
+            assert round(ours / pinned[1], 3) == pytest.approx(TRAIN_COLL_RATIO[kind],
+                                                               abs=5e-3), kind
+        else:
+            assert ours == 0, kind
+
+
 # ---------------------------------------------------------------------------
 # Self-consistency
 # ---------------------------------------------------------------------------
@@ -305,7 +376,7 @@ def test_full_depth_flops_equal_the_extrapolated_probes(port):
                                                          get_arch("olmo-1b").n_layers)
     assert rec["cost"] == rec["cost_raw"]
     assert rec["cost_extrapolated"]["flops_global"] == rec["cost"]["flops_global"]
-    assert rec["coll_scope"] == "port regions" and not rec["launches_moved"]
+    assert rec["coll_scope"] == "partitioned" and not rec["launches_moved"]
     booked = rec["kernels_booked"]
     assert booked["flash_attention"]["calls"] == 2 * 16 * 8      # forward + recompute
     assert booked["flash_attention_bwd"]["calls"] == 16 * 8
